@@ -6,17 +6,29 @@ CUDA card and ``nvcc``; it exits non-zero without a card, outside a
 checkout, or when any phase fails. Phases:
 
 1. card and build: the card's name and power limit, then ``nvcc`` builds
-   every CUDA kernel of the port from ``tsasr_torch/csrc``;
+   every CUDA source of the port from ``tsasr_torch/csrc``, all at once;
 2. each kernel against its plain PyTorch version on the card, at the
-   shapes the serving path gives it, with its time, the plain version's
-   time, one PyTorch library call's time and the card's bound;
+   shapes the serving and training paths give it, with its time, the
+   plain version's time, one PyTorch library call's time where one
+   computes the same function, and the card's bound: the attention
+   forward (dropout 0 and 0.1, Philox masks bit-identical), the
+   attention backward, and the RNN-T lattice kernels (resident and slab);
 3. the serving path at the scratch recipe's full width (random weights
    from a seed): ``TSASRTranscriber(device="cuda")`` answers 3 requests
    (8 mixtures of 4 s, 8 s and 12 s, 5 s enrollments); every request
    must launch the attention kernel once per Conformer layer (18), and
    the encoder output must match the same model with attention forced
    to the plain version;
-4. a small model on the card against the same model on the CPU.
+4. one training step of the scratch recipe at full width through
+   ``TSASRBrain.fit_batch``: 8 micro-batches (6 x 8 s and 3 x 16 s in
+   turn, 5 s enrollments, dropout 0.1 with 8-bit masks, accumulation 4,
+   so 2 optimizer steps), with every kernel's launches counted per
+   micro-batch; at dropout 0 one micro-batch's loss and gradients
+   against the same model with every kernel forced to its plain
+   version; then one VALID batch through ``evaluate_batch``;
+5. a small model on the card against the same model on the CPU:
+   serving encoder output, and 2 optimizer steps of training at
+   dropout 0.
 
 The line before the last is one JSON object with each kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -35,6 +47,9 @@ B, H, DH = 8, 4, 64
 # encoder frames of a 4 s, 5 s, 8 s and 12 s input (serving path), and
 # a 60 s one beyond the JAX kernel's 128-frame gate
 ATTN_T = (101, 126, 201, 301, 1501)
+# encoder frames of the training batches: 4 s at pad_feats_to 32 (104),
+# the 128-frame JAX gate, 8 s (208) and 16 s (408)
+BWD_T = (101, 128, 208, 408)
 ATTN_ATOL = 1e-4     # f32 on both sides, sums in another order
 ENC_ATOL = 2e-4      # the same, compounded over 18 layers
 SMALL_ATOL = 1e-4
@@ -42,10 +57,29 @@ REQUEST_SECONDS = (4, 8, 12)
 ENROLL_SECONDS = 5
 SAMPLE_RATE = 16000
 LAYERS_PER_REQUEST = 18
+# (name, B, T, U+1): bench.py's step, the 8 s and 16 s training batches,
+# reports/rnnt_slab_tpu_r5.json's long lattice, and a ~55 s utterance
+LATTICES = (("resident", 6, 208, 129), ("resident", 96, 104, 61),
+            ("slab", 3, 408, 241), ("slab", 8, 832, 298),
+            ("slab", 1, 1375, 801))
+# training micro-batches: (utterances, seconds); 48 s of audio each,
+# under the recipe's train_max_batch_length of 50 s
+TRAIN_BATCHES = ((6, 8), (3, 16))
+MICRO_BATCHES = 8
+CHARS_PER_SECOND = 15
+# per leaf, of its max |g|: f32 with sums in other orders, and the
+# speaker encoder's gradients come back through all 12 mixture layers,
+# the pooled embedding and its own 6 layers (random weights, |g| ~ 1e4)
+GRAD_ATOL_REL = 1e-2
 # H100 SXM peaks (NVIDIA data sheet), used for the bound
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
 PIECES = ["<unk>", "▁"] + list("abcdefghijklmnopqrstuvwxyz'")
+HPARAMS = {"sample_rate": 16000, "n_fft": 512, "n_mels": 80,
+           "win_length": 32, "augment": False, "blank_index": 0,
+           "pad_feats_to": 32, "fused_joint_loss": True,
+           "fused_loss_chunk": 8, "valid_search_freq": 1,
+           "grad_accumulation_factor": 4, "max_grad_norm": 5.0, "seed": 0}
 
 
 def log(msg):
@@ -79,16 +113,41 @@ def cuda_ms(fn, reps=30, rounds=5):
     return statistics.median(times)
 
 
-def attention_bound(b, h, t, dh):
-    """Least time (ms) for the fused attention, and what bounds it: each
-    input read once and the output written once at the memory rate, or
-    the three (T x T x Dh) products plus ~6 f32 ops per score at the f32
-    rate (the kernel uses no tensor cores)."""
-    n_bytes = 4 * (5 * b * h * t * dh + h * (2 * t - 1) * dh + b * t + t * t)
-    flops = 6 * b * h * t * t * dh + 6 * b * h * t * t
+def bound(n_bytes, flops):
+    """Least time (ms) and what bounds it: bytes at the memory rate or
+    f32 operations at the f32 rate (the kernels use no tensor cores)."""
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_F32_FLOP_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def attention_bound(b, h, t, dh):
+    """Forward: each input read once, the output written once; the three
+    (T x T x Dh) products plus ~6 f32 ops per score."""
+    n_bytes = 4 * (5 * b * h * t * dh + h * (2 * t - 1) * dh + b * t + t * t)
+    return bound(n_bytes, 6 * b * h * t * t * dh + 6 * b * h * t * t)
+
+
+def attention_bwd_bound(b, h, t, dh):
+    """Backward: read q_u, q_v, k, v, out, do, p, the row statistics and
+    the masks,
+    write dq_u, dq_v, dk, dv and dp; the scores' two products, do.v, and
+    the four gradient products (2 T^2 Dh each), ~10 ops per score."""
+    n_bytes = 4 * (10 * b * h * t * dh + 2 * h * (2 * t - 1) * dh
+                   + 2 * b * h * t + b * t + t * t)
+    return bound(n_bytes, 16 * b * h * t * t * dh + 10 * b * h * t * t)
+
+
+def lattice_bound(kind, valid_cells, all_cells):
+    """Bytes: read both lattices over the cells the lengths cover, write
+    both gradients everywhere; the slab alpha kernel writes alpha (4 B a
+    cell) that the beta kernel reads back. ~30 f32 ops per cell and pass
+    (scans, logaddexp, exp). The T-long serial chain is not counted."""
+    if kind == "resident":
+        return bound(8 * valid_cells + 8 * all_cells, 60 * valid_cells)
+    if kind == "alpha":
+        return bound(12 * valid_cells, 30 * valid_cells)
+    return bound(12 * valid_cells + 8 * all_cells, 30 * valid_cells)
 
 
 def attention_case(t, band, gen, device):
@@ -106,7 +165,7 @@ def attention_case(t, band, gen, device):
     return [x.to(device) for x in (qu, qv, k, v, p, kp, am)]
 
 
-def phase_kernels(device):
+def phase_attention_fwd(device):
     import torch
     import torch.nn.functional as F
     from tsasr_torch.kernels import relpos_attention as ra
@@ -135,9 +194,6 @@ def phase_kernels(device):
             # the masks; computing that bias is outside its time
             bias = (ra.rel_shift(torch.einsum("bhtd,hsd->bhts", qv, p), t)
                     * scale + am + kp[:, None, None, :])
-            sdpa = F.scaled_dot_product_attention(qu, k, v, attn_mask=bias,
-                                                  scale=scale)
-            sdpa_err = (sdpa - want).abs().max().item()
             ms = cuda_ms(lambda: ra.fused_relpos_attention(
                 *args, seed=0, scale=scale, rate=0.0))
             plain_ms = cuda_ms(lambda: ra.relpos_attention_reference(
@@ -152,9 +208,206 @@ def phase_kernels(device):
                 f"padding: max_abs_err {err:.3g} (atol {ATTN_ATOL}: f32 on "
                 f"both sides, sums in another order); kernel {ms:.4f} ms, "
                 f"plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms (excluding "
-                f"the bias computation; its err {sdpa_err:.3g}), bound "
-                f"{bound_ms:.4f} ms by {bound_by}")
+                f"the bias computation), bound {bound_ms:.4f} ms by "
+                f"{bound_by}")
+
+    # dropout 0.1 at the 8 s training shape: the same Philox mask on both
+    # sides, and the kernels' mask bit-identical to the plain one
+    t, rate = 208, 0.1
+    args = attention_case(t, False, gen, device)
+    seed = torch.tensor([12345], device=device)
+    got = ra.fused_relpos_attention(*args, seed=seed, scale=scale, rate=rate)
+    want = ra.relpos_attention_reference(*args, scale, seed, rate)
+    err = (got - want).abs().max().item()
+    masks_equal = torch.equal(ra.dropout_mask_cuda(seed, B, H, t, rate,
+                                                   device),
+                              ra.philox_keep_mask(seed, B, H, t, rate,
+                                                  device))
+    keep = ra.philox_keep_mask(seed, B, H, t, rate, device).float().mean()
+    ms = cuda_ms(lambda: ra.fused_relpos_attention(
+        *args, seed=seed, scale=scale, rate=rate))
+    log(f"kernel relpos_attention_fwd B{B} H{H} T{t} Dh{DH} dropout {rate}: "
+        f"max_abs_err {err:.3g} (atol {ATTN_ATOL}), masks bit-identical "
+        f"{masks_equal}, keep fraction {keep.item():.5f}; kernel {ms:.4f} ms")
+    if not (err <= ATTN_ATOL and masks_equal):
+        raise RuntimeError("relpos_attention_fwd with dropout disagrees with "
+                           "its plain version")
+    return rows, max(max_err, err)
+
+
+def phase_attention_bwd(device):
+    import torch
+    import torch.nn.functional as F
+    from tsasr_torch.kernels import relpos_attention as ra
+
+    scale = 1.0 / math.sqrt(H * DH)
+    gen = torch.Generator().manual_seed(SEED + 7)
+    rows, max_err = [], 0.0
+    for t in BWD_T:
+        args = attention_case(t, False, gen, device)
+        do = torch.randn(B, H, t, DH, generator=gen).to(device)
+        grads = {}
+        for name, fn in (("kernel", ra.fused_relpos_attention),
+                         ("plain", ra.relpos_attention_reference)):
+            leaves = [x.clone().requires_grad_(i < 5)
+                      for i, x in enumerate(args)]
+            out = fn(*leaves, seed=0, scale=scale, rate=0.0)
+            grads[name] = torch.autograd.grad(out, leaves[:5], do)
+        torch.cuda.synchronize()
+        err = max(((a - b).abs().max() / b.abs().max().clamp(min=1.0)).item()
+                  for a, b in zip(grads["kernel"], grads["plain"]))
+        if not err <= ATTN_ATOL:
+            raise RuntimeError(f"relpos_attention_bwd T={t}: max err {err}")
+        max_err = max(max_err, err)
+
+        # kernel: the backward launch alone, from the forward's out and
+        # row statistics
+        out, stats, _ = ra._launch_fwd(*args, 0, scale, 0.0, want_stats=True)
+        ms = cuda_ms(lambda: ra._launch_bwd(*args, out, stats, do, None,
+                                            scale, 0.0))
+        leaves = [x.clone().requires_grad_(i < 5) for i, x in enumerate(args)]
+        plain_out = ra.relpos_attention_reference(*leaves, scale)
+        plain_ms = cuda_ms(lambda: torch.autograd.grad(
+            plain_out, leaves[:5], do, retain_graph=True), reps=10)
+        # yardstick: SDPA forward + backward given the pre-shifted bias,
+        # minus its forward
+        qu, qv, k, v, p, kp, am = args
+        bias = (ra.rel_shift(torch.einsum("bhtd,hsd->bhts", qv, p), t)
+                * scale + am + kp[:, None, None, :])
+        sq, sk, sv = (x.clone().requires_grad_() for x in (qu, k, v))
+
+        def sdpa_fwd_bwd():
+            o = F.scaled_dot_product_attention(sq, sk, sv, attn_mask=bias,
+                                               scale=scale)
+            torch.autograd.grad(o, (sq, sk, sv), do)
+
+        with torch.no_grad():
+            fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                sq, sk, sv, attn_mask=bias, scale=scale))
+        lib_ms = cuda_ms(sdpa_fwd_bwd, reps=10) - fwd_ms
+        bound_ms, bound_by = attention_bwd_bound(B, H, t, DH)
+        rows.append(dict(T=t, err=err, ms=ms, plain_ms=plain_ms,
+                         library_ms=lib_ms, bound_ms=bound_ms,
+                         bound_by=bound_by))
+        log(f"kernel relpos_attention_bwd B{B} H{H} T{t} Dh{DH}: max err "
+            f"{err:.3g} (of each gradient's max |g|, tol {ATTN_ATOL}: f32, "
+            f"sums in other orders, dp summed over the batch in a second "
+            f"pass); kernel {ms:.4f} ms, plain (autograd) {plain_ms:.4f} ms, "
+            f"SDPA backward {lib_ms:.4f} ms (fwd+bwd minus fwd, given the "
+            f"bias), bound {bound_ms:.4f} ms by {bound_by}")
     return rows, max_err
+
+
+def lattice_rtol(loss, t, u1):
+    """A gradient is exp(alpha + lp + beta - logZ): its exponent is a
+    difference of f32 sums of magnitude ~|logZ| = loss, whose rounding
+    errors add up like a random walk over a path's T + U steps."""
+    return max(1e-4, 2 * math.sqrt(t + u1) * loss.abs().max().item()
+               * 2.0 ** -24)
+
+
+def lattice_case(b, t, u1, gen, device):
+    """Log-prob lattices of random logits over the recipe's 29 tokens,
+    lengths 0.6-1.0 of the padded ones, the first utterance full."""
+    import torch
+    from tsasr_torch.ops.rnnt_loss import _gather_label_blank_logprobs
+    V = 29
+    lpb, lpl = [], []
+    for _ in range(b):   # one utterance at a time bounds the logits' size
+        logits = torch.randn(1, t, u1, V, generator=gen).to(device)
+        labels = torch.randint(1, V, (1, u1 - 1), generator=gen).to(device)
+        x, y = _gather_label_blank_logprobs(torch.log_softmax(logits, -1),
+                                            labels, 0)
+        lpb.append(x)
+        lpl.append(y)
+    frac = 0.6 + 0.4 * torch.rand(b, generator=gen)
+    frac[0] = 1.0
+    t_lens = torch.clamp(torch.round(frac * t), 1, t).int()
+    u_lens = torch.clamp(torch.round(frac * (u1 - 1)), 0, u1 - 1).int()
+    return (torch.cat(lpb), torch.cat(lpl), t_lens.to(device),
+            u_lens.to(device))
+
+
+def phase_lattice(device):
+    import torch
+    from tsasr_torch.kernels import rnnt_lattice as rl
+
+    gen = torch.Generator().manual_seed(SEED + 11)
+    rows, max_err = {}, 0.0
+    for kind, b, t, u1 in LATTICES:
+        lpb, lpl, t_lens, u_lens = lattice_case(b, t, u1, gen, device)
+        got = rl.rnnt_lattice(lpb, lpl, t_lens, u_lens, variant=kind)
+        torch.cuda.synchronize()
+        want = rl.rnnt_lattice_reference(lpb, lpl, t_lens, u_lens)
+        rtol = lattice_rtol(want[0], t, u1)
+        errs = [((g - w).abs() / (1e-4 + rtol * w.abs())).max().item()
+                for g, w in zip(got, want)]
+        abs_err = max((g - w).abs().max().item() for g, w in zip(got, want))
+        finite = all(torch.isfinite(g).all() for g in got)
+        if not (max(errs) <= 1.0 and finite):
+            raise RuntimeError(f"rnnt_lattice {kind} B{b} T{t} U1 {u1}: "
+                               f"err/tol {max(errs)}")
+        max_err = max(max_err, abs_err)
+        valid = int(((t_lens.long()) * (u_lens.long() + 1)).sum())
+        cells = b * t * u1
+        plain_ms = cuda_ms(lambda: rl.rnnt_lattice_reference(
+            lpb, lpl, t_lens, u_lens), reps=1, rounds=3)
+        line = (f"kernel rnnt_lattice {kind} B{b} T{t} U+1 {u1}: max_abs_err "
+                f"{abs_err:.3g} (rtol {rtol:.2g} + atol 1e-4: f32 row scans "
+                f"in another order, see lattice_rtol), loss {got[0][0].item():.2f}; plain "
+                f"{plain_ms:.3f} ms")
+        if kind == "resident":
+            ms = cuda_ms(lambda: rl.rnnt_lattice(lpb, lpl, t_lens, u_lens,
+                                                 variant="resident"),
+                         reps=10, rounds=3)
+            bound_ms, bound_by = lattice_bound("resident", valid, cells)
+            rows.setdefault("resident", dict(
+                shape=f"B{b} T{t} U+1 {u1}", ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, err=abs_err))
+            line += (f", kernel {ms:.4f} ms, bound {bound_ms:.4f} ms by "
+                     f"{bound_by}")
+        else:
+            fns = rl._kernels()
+            alpha = torch.empty_like(lpb)
+            logz = torch.empty(b, device=device)
+            loss = torch.empty(b, device=device)
+            dlpb, dlpl = torch.empty_like(lpb), torch.empty_like(lpl)
+            ptrs = (lpb.data_ptr(), lpl.data_ptr(), t_lens.data_ptr(),
+                    u_lens.data_ptr())
+            stream = torch.cuda.current_stream().cuda_stream
+            a_ms = cuda_ms(lambda: fns["alpha"](
+                *ptrs, alpha.data_ptr(), logz.data_ptr(), loss.data_ptr(),
+                b, t, u1, stream), reps=10, rounds=3)
+            b_ms = cuda_ms(lambda: fns["beta"](
+                *ptrs, alpha.data_ptr(), logz.data_ptr(), dlpb.data_ptr(),
+                dlpl.data_ptr(), b, t, u1, stream), reps=10, rounds=3)
+            a_bound = lattice_bound("alpha", valid, cells)
+            b_bound = lattice_bound("beta", valid, cells)
+            shape = f"B{b} T{t} U+1 {u1}"
+            rows.setdefault("alpha", dict(
+                shape=shape, ms=a_ms, plain_ms=plain_ms, bound_ms=a_bound[0],
+                bound_by=a_bound[1], err=abs_err))
+            rows.setdefault("beta", dict(
+                shape=shape, ms=b_ms, plain_ms=plain_ms, bound_ms=b_bound[0],
+                bound_by=b_bound[1], err=abs_err))
+            line += (f", alpha kernel {a_ms:.4f} ms (bound {a_bound[0]:.4f} "
+                     f"ms by {a_bound[1]}), beta kernel {b_ms:.4f} ms (bound "
+                     f"{b_bound[0]:.4f} ms by {b_bound[1]})")
+        log(line)
+
+    # both variants forced at a shape both admit
+    lpb, lpl, t_lens, u_lens = lattice_case(6, 208, 129, gen, device)
+    res = rl.rnnt_lattice(lpb, lpl, t_lens, u_lens, variant="resident")
+    slab = rl.rnnt_lattice(lpb, lpl, t_lens, u_lens, variant="slab")
+    agree = max((a - b).abs().max().item() for a, b in zip(res, slab))
+    log(f"rnnt_lattice resident vs slab at B6 T208 U+1 129: max_abs_diff "
+        f"{agree:.3g} (atol 1e-5: the same arithmetic, alpha stored in "
+        f"shared vs device memory)")
+    if agree > 1e-5:
+        raise RuntimeError("the lattice variants disagree")
+    for row in rows.values():
+        row["err"] = max_err
+    return rows
 
 
 def make_requests(rng):
@@ -175,12 +428,29 @@ def set_fused(model, fused):
             module.fused = fused
 
 
+def reset_counts():
+    from tsasr_torch.kernels import relpos_attention as ra
+    from tsasr_torch.kernels import rnnt_lattice as rl
+    ra.launches = ra.bwd_launches = 0
+    rl.resident_launches = rl.alpha_slab_launches = 0
+    rl.beta_slab_launches = 0
+
+
+def read_counts():
+    from tsasr_torch.kernels import relpos_attention as ra
+    from tsasr_torch.kernels import rnnt_lattice as rl
+    return {"relpos_attention_fwd": ra.launches,
+            "relpos_attention_bwd": ra.bwd_launches,
+            "rnnt_lattice_resident": rl.resident_launches,
+            "rnnt_lattice_alpha_slab": rl.alpha_slab_launches,
+            "rnnt_lattice_beta_slab": rl.beta_slab_launches}
+
+
 def phase_serving(device, card):
     import numpy as np
     import torch
     from tsasr_torch.data.tokenizer import CharTokenizer
     from tsasr_torch.inference import TSASRTranscriber
-    from tsasr_torch.kernels import relpos_attention as ra
     from tsasr_torch.models.frontend import ConvolutionFrontEnd
     from tsasr_torch.models.transducer import TSTransducer, scratch_config
 
@@ -197,16 +467,17 @@ def phase_serving(device, card):
     tr.transcribe_batch(*requests[0])          # warm-up, not counted
     torch.cuda.synchronize()
 
-    ra.launches = 0
+    reset_counts()
     results = []
     for (wavs, enrolls), seconds in zip(requests, REQUEST_SECONDS):
-        before = ra.launches
+        before = read_counts()["relpos_attention_fwd"]
         t0 = time.perf_counter()
         texts = tr.transcribe_batch(wavs, enrolls)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        results.append((ra.launches - before, dt, texts))
-    launches = ra.launches
+        results.append((read_counts()["relpos_attention_fwd"] - before, dt,
+                        texts))
+    counts = read_counts()
 
     for (n, dt, texts), (wavs, _), seconds in zip(results, requests,
                                                   REQUEST_SECONDS):
@@ -249,20 +520,266 @@ def phase_serving(device, card):
         if err > ENC_ATOL:
             raise RuntimeError(f"encoder differs from the plain path by "
                                f"{err} > {ENC_ATOL}")
-    return launches
+    return counts
+
+
+def make_train_batch(rng, n, seconds, ids=None):
+    """A PaddedBatch in the JAX recipe's form: n mixtures of up to
+    ``seconds`` (lengths 0.6-1.0, the first full), 5 s enrollments, random
+    character transcripts at ~15 chars/s with tokens padded to 16."""
+    import numpy as np
+    from tsasr_torch.data.batch import PaddedBatch, PaddedData
+
+    fracs = np.concatenate([[1.0], rng.uniform(0.6, 1.0, n - 1)])
+    examples = []
+    for i, frac in enumerate(fracs):
+        m = int(seconds * SAMPLE_RATE * frac)
+        e = int(ENROLL_SECONDS * SAMPLE_RATE * rng.uniform(0.6, 1.0))
+        n_tok = max(1, int(round(CHARS_PER_SECOND * seconds * frac)))
+        tokens = rng.integers(1, len(PIECES), size=n_tok)
+        words = "".join(PIECES[t] for t in tokens).split("▁")
+        examples.append({
+            "id": (ids or "utt") + f"{i}",
+            "mixed_sig": (rng.normal(size=m) * 0.1).astype(np.float32),
+            "enroll_sig": (rng.normal(size=e) * 0.1).astype(np.float32),
+            "tokens": tokens.astype(np.int64),
+            "target_words": [w for w in words if w] or [""]})
+    batch = PaddedBatch(examples, pad_to_multiple={"tokens": 16},
+                        padded_keys=["mixed_sig", "enroll_sig", "tokens"])
+    tok = batch.tokens
+    batch.tokens_bos = PaddedData(np.concatenate(
+        [np.zeros((len(examples), 1), np.int64), tok.data], 1), tok.lengths)
+    return batch
+
+
+def make_brain(config, device, hparams=None):
+    from tsasr_torch.data.tokenizer import CharTokenizer
+    from tsasr_torch.models.transducer import TSTransducer
+    from tsasr_torch.recipes.librispeechmix import TSASRBrain
+    from tsasr_torch.training import NoamScheduler, make_adamw
+
+    hp = dict(HPARAMS, **(hparams or {}))
+    hp.setdefault("noam_scheduler", NoamScheduler(1e-3, 10000))
+    model = TSTransducer(config).init_weights(seed=SEED)
+    return TSASRBrain(modules={"model": model},
+                      opt_class=make_adamw(1e-3, (0.9, 0.98), 1e-8, 0.01),
+                      hparams=hp, run_opts={"device": str(device)},
+                      tokenizer=CharTokenizer(PIECES))
+
+
+def plain_kernels():
+    """Context: the model's attention and lattice calls take their plain
+    versions on the card (for the comparison run only)."""
+    import contextlib
+    from tsasr_torch.kernels import relpos_attention as ra
+    from tsasr_torch.kernels import rnnt_lattice as rl
+    from tsasr_torch.models import attention as attention_mod
+    from tsasr_torch.ops import rnnt_loss_fused as fused_mod
+
+    @contextlib.contextmanager
+    def ctx():
+        saved = (attention_mod.fused_relpos_attention, fused_mod.rnnt_lattice)
+        attention_mod.fused_relpos_attention = \
+            lambda *a, seed, scale, rate: ra.relpos_attention_reference(
+                *a, scale, seed, rate)
+        fused_mod.rnnt_lattice = \
+            lambda lpb, lpl, t, u, variant: rl.rnnt_lattice_reference(
+                lpb, lpl, t, u)
+        try:
+            yield
+        finally:
+            attention_mod.fused_relpos_attention, fused_mod.rnnt_lattice = \
+                saved
+    return ctx()
+
+
+def loss_and_grads(brain, batch):
+    import torch
+    from tsasr_torch.utils.stage import Stage
+    arrays = brain._put_batch(brain.batch_to_arrays(batch))
+    params = [p for p in brain.model.parameters()]
+    loss = brain.compute_objectives(
+        brain.compute_forward(arrays, Stage.TRAIN, None), arrays, Stage.TRAIN)
+    return loss.detach(), torch.autograd.grad(loss, params)
+
+
+def profile_micro_batch(brain, batch, card):
+    """Where the time of one 6 x 8 s forward + backward goes: device time
+    by kernel from ``torch.profiler`` (CUPTI), and the device's busy share
+    of the wall time (the profiler's own overhead included)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        loss_and_grads(brain, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+
+    # kernels only: a CPU op's own device time repeats its kernels'
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and device_us(e) > 0]
+    if not events:
+        log("profile: the profiler saw no device time (not measured)")
+        return
+    busy_ms = sum(device_us(e) for e in events) / 1e3
+    ours = ("relpos", "dq_kernel", "dkv_kernel", "dp_kernel", "rows_kernel",
+            "dp_sum", "rnnt_")
+    ours_ms = sum(device_us(e) for e in events
+                  if any(k in e.key for k in ours)) / 1e3
+    log(f"profile 6 x 8 s forward + backward (dropout 0): wall {wall_ms:.1f} "
+        f"ms with the profiler on, device busy {busy_ms:.1f} ms "
+        f"({100 * busy_ms / wall_ms:.0f} %), {sum(e.count for e in events)} "
+        f"kernel launches, the port's own kernels {ours_ms:.1f} ms "
+        f"[{card}]")
+    for e in sorted(events, key=device_us, reverse=True)[:12]:
+        log(f"  {device_us(e) / 1e3:8.2f} ms  x{e.count:<5d} {e.key[:90]}")
+
+
+def phase_training(device, card):
+    import numpy as np
+    import torch
+    from tsasr_torch.models.transducer import scratch_config
+    from tsasr_torch.utils.stage import Stage
+
+    config = scratch_config()
+    brain = make_brain(config, device)
+    brain.init_optimizers()
+    rng = np.random.default_rng(SEED + 3)
+    batches = [make_train_batch(rng, *TRAIN_BATCHES[i % 2], ids=f"m{i}-")
+               for i in range(MICRO_BATCHES)]
+    log(f"training: scratch config, dropout {config.dropout} at "
+        f"{config.dropout_bits} bits, accumulation "
+        f"{brain.grad_accumulation_factor}, fused joint loss chunk "
+        f"{HPARAMS['fused_loss_chunk']}; micro-batches "
+        + ", ".join(f"{b.mixed_sig.data.shape[0]} x "
+                    f"{b.mixed_sig.data.shape[1] / SAMPLE_RATE:.0f} s "
+                    f"(U+1 {b.tokens_bos.data.shape[1]})"
+                    for b in batches[:2]))
+    start = [p.detach().clone() for p in brain.model.parameters()]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    total, times, per_batch = {}, [], []
+    for i, batch in enumerate(batches):
+        before = read_counts()
+        t0 = time.perf_counter()
+        loss = brain.fit_batch(batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        after = read_counts()
+        n = {k: after[k] - before[k] for k in after}
+        per_batch.append(n)
+        slab = i % 2 == 1
+        want = {"relpos_attention_fwd": LAYERS_PER_REQUEST,
+                "relpos_attention_bwd": LAYERS_PER_REQUEST,
+                "rnnt_lattice_resident": 0 if slab else 1,
+                "rnnt_lattice_alpha_slab": 1 if slab else 0,
+                "rnnt_lattice_beta_slab": 1 if slab else 0}
+        changed = any(not torch.equal(p, s) for p, s in
+                      zip(brain.model.parameters(), start))
+        log(f"micro-batch {i + 1}: loss {loss:.4f}, grad norm "
+            f"{brain.last_grad_norm:.4f}, {times[-1] * 1e3:.1f} ms, "
+            f"optimizer steps {brain.optimizer_step}, params changed "
+            f"{changed}, launches {n}")
+        if not (math.isfinite(loss) and math.isfinite(brain.last_grad_norm)):
+            raise RuntimeError(f"micro-batch {i + 1} is not finite")
+        if n != want:
+            raise RuntimeError(f"micro-batch {i + 1} launched {n}, expected "
+                               f"{want}")
+        if changed != (i + 1 >= brain.grad_accumulation_factor):
+            raise RuntimeError(f"parameters changed={changed} after "
+                               f"micro-batch {i + 1}")
+    counts = read_counts()
+    if brain.optimizer_step != MICRO_BATCHES // brain.grad_accumulation_factor:
+        raise RuntimeError(f"{brain.optimizer_step} optimizer steps")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    audio = [b.mixed_sig.data.shape[0] * b.mixed_sig.data.shape[1]
+             / SAMPLE_RATE for b in batches]
+    warm = times[2:]                    # the first of each shape warms up
+    step_ms = [sum(times[k:k + 4]) * 1e3 for k in range(0, MICRO_BATCHES, 4)]
+    for (n, s), k in zip(TRAIN_BATCHES, (0, 1)):
+        shape_ms = [t * 1e3 for j, t in enumerate(times)
+                    if j % 2 == k and j >= 2]
+        log(f"train micro-batch {n} x {s} s (fwd+bwd+accumulate, warm): "
+            f"median {statistics.median(shape_ms):.1f} ms, "
+            f"{n * s / statistics.median(shape_ms) * 1e3:.1f} "
+            f"padded audio-s/s [{card}]")
+    log(f"train: ms per optimizer step (4 micro-batches) "
+        f"{', '.join(f'{x:.1f}' for x in step_ms)} (the first includes "
+        f"warm-up); training {sum(audio[2:]) / sum(warm):.1f} padded "
+        f"audio-s/s over the warm micro-batches; max_memory_allocated "
+        f"{peak:.2f} GiB [{card}]")
+
+    # dropout 0: kernels against every kernel forced to its plain version
+    det = make_brain(scratch_config(dropout=0.0), device)
+    batch = make_train_batch(rng, *TRAIN_BATCHES[0], ids="d-")
+    reset_counts()
+    loss_k, grads_k = loss_and_grads(det, batch)
+    used = read_counts()
+    with plain_kernels():
+        reset_counts()
+        loss_p, grads_p = loss_and_grads(det, batch)
+        if any(read_counts().values()):
+            raise RuntimeError("the plain run launched a kernel")
+    torch.cuda.synchronize()
+    loss_err = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    names = [n for n, _ in det.model.named_parameters()]
+    errs = [((gk - gp).abs().max() / gp.abs().max().clamp(min=1e-12)).item()
+            for gk, gp in zip(grads_k, grads_p)]
+    worst = max(errs)
+    worst_name = names[errs.index(worst)]
+    log(f"dropout 0, 6 x 8 s: kernels {used} vs plain: loss "
+        f"{loss_k.item():.5f} vs {loss_p.item():.5f} (rel err "
+        f"{loss_err:.3g}, tol 1e-4), worst gradient leaf {worst_name} "
+        f"err {worst:.3g} of its max |g| (tol {GRAD_ATOL_REL}: f32, 18 "
+        f"layers of reordered sums), median leaf "
+        f"{statistics.median(errs):.3g}, {len(names)} leaves")
+    if loss_err > 1e-4 or worst > GRAD_ATOL_REL:
+        raise RuntimeError("the training step with kernels differs from "
+                           "the plain version")
+
+    profile_micro_batch(det, batch, card)
+
+    # VALID: one batch of 6 x 8 s, loss and greedy hypotheses
+    valid = make_train_batch(rng, *TRAIN_BATCHES[0], ids="v-")
+    brain.on_stage_start(Stage.VALID)
+    t0 = time.perf_counter()
+    vloss = brain.evaluate_batch(valid, Stage.VALID)
+    torch.cuda.synchronize()
+    vdt = time.perf_counter() - t0
+    wer = brain.valid_wer()
+    hyps = brain.last_hyps
+    log(f"VALID 6 x 8 s: loss {vloss:.4f}, {vdt * 1e3:.1f} ms with greedy "
+        f"search, WER {wer['WER']:.1f} over {wer['num_scored_sents']} "
+        f"utterances (random weights), first hypothesis "
+        f"{' '.join(hyps[0])[:60]!r} [{card}]")
+    if not (math.isfinite(vloss) and len(hyps) == 6
+            and wer["num_scored_sents"] == 6):
+        raise RuntimeError("VALID failed")
+    return counts
 
 
 def phase_small(device):
-    """A small model on the card (kernel) against the CPU (plain)."""
+    """A small model on the card (kernels) against the CPU (plain):
+    serving encoder output, then 2 optimizer steps of training."""
     import numpy as np
     import torch
     from tsasr_torch.data.tokenizer import CharTokenizer
     from tsasr_torch.inference import TSASRTranscriber
     from tsasr_torch.models.transducer import TSTransducer, scratch_config
+    from tsasr_torch.training import NoamScheduler
 
     config = scratch_config(d_model=64, encoder_num_layers=2, d_ffn=128,
                             speaker_encoder_layers=1, decoder_neurons=64,
-                            joint_dim=64, frontend_channels=(16, 16))
+                            joint_dim=64, frontend_channels=(16, 16),
+                            dropout=0.0)
     rng = np.random.default_rng(SEED + 1)
     wavs = [(rng.normal(size=n) * 0.1).astype(np.float32)
             for n in (16000, 12000)]
@@ -281,6 +798,44 @@ def phase_small(device):
     if err > SMALL_ATOL:
         raise RuntimeError(f"card and CPU differ by {err} > {SMALL_ATOL}")
 
+    batches = [make_train_batch(np.random.default_rng(SEED + 5 + i), 2, 1,
+                                ids=f"s{i}-") for i in range(4)]
+    runs = {}
+    for dev in ("cpu", str(device)):
+        brain = make_brain(config, dev, {
+            "grad_accumulation_factor": 2,
+            "noam_scheduler": NoamScheduler(1e-3, 4)})
+        losses = [brain.fit_batch(b) for b in batches]
+        runs[dev] = (losses, [p.detach().cpu() for p in
+                              brain.model.parameters()], brain.optimizer_step)
+    (l_cpu, p_cpu, s_cpu), (l_gpu, p_gpu, s_gpu) = runs.values()
+    loss_err = max(abs(a - b) / abs(a) for a, b in zip(l_cpu, l_gpu))
+    param_err = max((a - b).abs().max().item() for a, b in zip(p_cpu, p_gpu))
+    moved = max((a - b).abs().max().item() for a, b in zip(
+        p_cpu, TSTransducer(config).init_weights(seed=SEED).parameters()))
+    # Adam scales each element by its own history: an element whose two
+    # micro-batch gradients nearly cancel turns a 1e-6 relative gradient
+    # difference into a visible update difference, so a tenth of lr(1)
+    param_tol = 0.1 * NoamScheduler(1e-3, 4).as_schedule_fn()(1)
+    log(f"small model training, 4 micro-batches of 2 x 1 s, accumulation "
+        f"2, {s_gpu} optimizer steps: card vs CPU losses rel err "
+        f"{loss_err:.3g} (tol 1e-4), params max_abs_err {param_err:.3g} "
+        f"(tol {param_tol:.3g}, a tenth of one update; params moved up to "
+        f"{moved:.3g})")
+    if loss_err > 1e-4 or param_err > param_tol or not s_cpu == s_gpu == 2:
+        raise RuntimeError("small-model training differs between the card "
+                           "and the CPU")
+
+
+def kernel_entry(name, source, replaces, launches, by_path, row, shape,
+                 max_err):
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "launches_by_path": by_path, "max_abs_err": max_err,
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row.get("library_ms"), "shape": shape}
+
 
 def main():
     import torch
@@ -295,35 +850,63 @@ def main():
     sys.path.insert(0, str(root))
     from tsasr_torch.kernels import _build
     from tsasr_torch.kernels import relpos_attention as ra
+    from tsasr_torch.kernels import rnnt_lattice as rl
 
     device = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     log(card)
-    t0 = time.perf_counter()
-    _build.build([ra.SOURCE])
+    t_start = t0 = time.perf_counter()
+    _build.build([ra.SOURCE, ra.BWD_SOURCE, rl.SOURCE])
     log(f"build: {time.perf_counter() - t0:.1f} s")
     for name, entry in _build.build_log.items():
         for line in entry["log"].splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"  {name}: {line.strip()}")
 
-    rows, max_err = phase_kernels(device)
-    launches = phase_serving(device, card)
+    fwd_rows, fwd_err = phase_attention_fwd(device)
+    bwd_rows, bwd_err = phase_attention_bwd(device)
+    lattice_rows = phase_lattice(device)
+    log(f"kernel phases done at {time.perf_counter() - t_start:.1f} s")
+    serving = phase_serving(device, card)
+    training = phase_training(device, card)
     phase_small(device)
+    log(f"all phases done at {time.perf_counter() - t_start:.1f} s")
 
-    first = rows[0]
-    kernels = [{
-        "name": "relpos_attention_fwd", "route": "cuda",
-        "source": "tsasr_torch/csrc/relpos_attention_fwd.cu",
-        "replaces": "tsasr_tpu/ops/attention_pallas.py:128",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": first["ms"], "plain_ms": first["plain_ms"],
-        "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
-        "library_ms": first["library_ms"],
-        "shape": f"B{B} H{H} T{first['T']} Dh{DH} f32",
-    }]
+    def paths(name):
+        return {"serving": serving[name], "training": training[name]}
+
+    fwd, bwd = fwd_rows[0], next(r for r in bwd_rows if r["T"] == 208)
+    kernels = [
+        kernel_entry("relpos_attention_fwd",
+                     "tsasr_torch/csrc/relpos_attention_fwd.cu",
+                     "tsasr_tpu/ops/attention_pallas.py:128",
+                     serving["relpos_attention_fwd"]
+                     + training["relpos_attention_fwd"],
+                     paths("relpos_attention_fwd"), fwd,
+                     f"B{B} H{H} T{fwd['T']} Dh{DH} f32", fwd_err),
+        kernel_entry("relpos_attention_bwd",
+                     "tsasr_torch/csrc/relpos_attention_bwd.cu",
+                     "tsasr_tpu/ops/attention_pallas.py:143",
+                     training["relpos_attention_bwd"],
+                     paths("relpos_attention_bwd"), bwd,
+                     f"B{B} H{H} T{bwd['T']} Dh{DH} f32", bwd_err),
+    ]
+    for name, key, line in (
+            ("rnnt_lattice_resident", "resident", 112),
+            ("rnnt_lattice_alpha_slab", "alpha", 195),
+            ("rnnt_lattice_beta_slab", "beta", 256)):
+        row = lattice_rows[key]
+        kernels.append(kernel_entry(
+            name, "tsasr_torch/csrc/rnnt_lattice.cu",
+            f"tsasr_tpu/ops/rnnt_loss_pallas.py:{line}",
+            training[name], paths(name), row, row["shape"] + " f32",
+            row["err"]))
+    for entry in kernels:
+        if entry["launches"] < 1:
+            raise RuntimeError(f"{entry['name']} was not launched on the "
+                               "main path")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,12 @@
 """The port's rel-pos attention against the JAX package: the plain
-version of the CUDA kernel against JAX's fused Pallas kernel (interpret
-mode) and its jnp oracle, and ``RelPosMHAXL`` on both sides of the JAX
-module's 128-frame gate. f32 on both sides: 2e-5 for the op, as the
-JAX package's own kernel test uses, 3e-5 after the projections."""
+version of the CUDA kernels against JAX's fused Pallas kernels
+(interpret mode) and its jnp oracle, forward and gradients, and
+``RelPosMHAXL`` on both sides of the JAX module's 128-frame gate. f32 on
+both sides: 2e-5 for the op, as the JAX package's own kernel test uses,
+3e-5 after the projections, 1e-4 for gradients. The dropout mask is the
+port's own Philox draw (the TPU's bits cannot be reproduced), so its
+tests check determinism, independence and the keep rate, and that the
+forward and the backward apply one mask."""
 
 import jax
 import jax.numpy as jnp
@@ -55,15 +59,87 @@ def test_plain_version_matches_jax_kernel_and_oracle(rng, shape, masked):
 
 def test_wrapper_takes_plain_version_on_cpu(rng):
     args = tuple(map(torch.from_numpy, make_case(rng)))
-    before = relpos_attention.launches
-    got = relpos_attention.fused_relpos_attention(*args, seed=0,
+    before = (relpos_attention.launches, relpos_attention.bwd_launches)
+    for rate in (0.0, 0.1):
+        got = relpos_attention.fused_relpos_attention(*args, seed=3,
+                                                      scale=SCALE, rate=rate)
+        want = relpos_attention.relpos_attention_reference(*args, SCALE, 3,
+                                                           rate)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert (relpos_attention.launches,
+            relpos_attention.bwd_launches) == before   # no kernel on the CPU
+
+
+def test_plain_gradients_match_jax_kernel(rng):
+    """Gradients of q_u, q_v, k, v and p at rate 0 against ``jax.grad``
+    of the JAX fused kernel (its Pallas backward in interpret mode)."""
+    args = make_case(rng)
+    cot = rng.normal(size=args[0].shape).astype(np.float32)
+
+    def jax_loss(*xs):
+        out = jax_fused(*xs, *map(jnp.asarray, args[5:]),
+                        jnp.zeros((), jnp.float32), SCALE, 0.0, True)
+        return jnp.sum(out * cot)
+
+    want = jax.grad(jax_loss, argnums=(0, 1, 2, 3, 4))(
+        *map(jnp.asarray, args[:5]))
+    leaves = [torch.from_numpy(x).requires_grad_(i < 5)
+              for i, x in enumerate(args)]
+    out = relpos_attention.fused_relpos_attention(*leaves, seed=0,
                                                   scale=SCALE, rate=0.0)
-    want = relpos_attention.relpos_attention_reference(*args, SCALE)
-    torch.testing.assert_close(got, want, rtol=0, atol=0)
-    assert relpos_attention.launches == before      # no kernel on the CPU
-    with pytest.raises(NotImplementedError, match="dropout"):
-        relpos_attention.fused_relpos_attention(*args, seed=0, scale=SCALE,
-                                                rate=0.1)
+    out.backward(torch.from_numpy(cot))
+    for leaf, w in zip(leaves, want):
+        np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(w),
+                                   atol=1e-4)
+
+
+def test_philox_mask_is_deterministic_independent_and_at_rate():
+    B, H, T, rate = 2, 3, 60, 0.1
+    mask = relpos_attention.philox_keep_mask(7, B, H, T, rate)
+    assert torch.equal(mask, relpos_attention.philox_keep_mask(7, B, H, T,
+                                                               rate))
+    assert not torch.equal(mask, relpos_attention.philox_keep_mask(
+        8, B, H, T, rate))
+    slices = mask.reshape(B * H, T * T)
+    for a in range(B * H):
+        for b in range(a):
+            assert not torch.equal(slices[a], slices[b])
+    n = mask.numel()
+    sigma = (rate * (1 - rate) / n) ** 0.5
+    assert abs(mask.float().mean().item() - (1 - rate)) < 4 * sigma
+    # a tensor seed (as the model draws it) gives the same mask
+    assert torch.equal(mask, relpos_attention.philox_keep_mask(
+        torch.tensor([7]), B, H, T, rate))
+    assert relpos_attention.dropout_threshold(rate) == int(0.1 * 2 ** 32)
+
+
+def test_forward_and_backward_apply_one_mask(rng):
+    """Autograd through the plain version at rate 0.2 equals the same
+    function with the Philox mask applied by hand."""
+    args = [torch.from_numpy(x) for x in make_case(rng)]
+    B, H, T, _ = args[0].shape
+    rate, seed = 0.2, 11
+    cot = torch.from_numpy(rng.normal(size=args[0].shape).astype(np.float32))
+    keep = relpos_attention.philox_keep_mask(seed, B, H, T, rate)
+    grads = []
+    for by_hand in (False, True):
+        leaves = [x.clone().requires_grad_(i < 5) for i, x in enumerate(args)]
+        if by_hand:
+            qu, qv, k, v, p, kp, am = leaves
+            ac = torch.einsum("bhtd,bhsd->bhts", qu, k)
+            bd = relpos_attention.rel_shift(
+                torch.einsum("bhtd,hsd->bhts", qv, p), T)
+            probs = torch.softmax((ac + bd) * SCALE + am + kp[:, None, None],
+                                  dim=-1)
+            out = torch.einsum("bhts,bhsd->bhtd",
+                               probs * keep / (1 - rate), v)
+        else:
+            out = relpos_attention.fused_relpos_attention(
+                *leaves, seed=seed, scale=SCALE, rate=rate)
+        out.backward(cot)
+        grads.append([out.detach()] + [x.grad for x in leaves[:5]])
+    for a, b in zip(*grads):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5)
 
 
 @pytest.mark.parametrize("T", [1, 9, 40])

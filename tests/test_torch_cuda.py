@@ -1,13 +1,14 @@
 """The CUDA kernels of tsasr_torch on the card, against their plain
 PyTorch versions. Marked ``cuda``: they skip on hosts without a GPU and
-run on one with ``python -m pytest tests/test_torch_cuda.py -m cuda``
-(``nvcc`` builds the kernels on first use)."""
+run on one with ``python -m pytest tests/test_torch_cuda.py --noconftest
+-m cuda`` (``nvcc`` builds the kernels on first use)."""
 
 import numpy as np
 import pytest
 import torch
 
-from tsasr_torch.kernels import relpos_attention
+from tsasr_torch.kernels import relpos_attention, rnnt_lattice
+from tsasr_torch.ops.rnnt_loss import _gather_label_blank_logprobs
 
 pytestmark = pytest.mark.cuda
 
@@ -20,20 +21,24 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("B,H,T,Dh", [(2, 3, 10, 5), (1, 2, 37, 12),
-                                      (8, 4, 101, 64), (2, 4, 300, 64),
-                                      (1, 1, 65, 128)])
-def test_relpos_attention_kernel_matches_plain(cuda, B, H, T, Dh):
-    """f32 on both sides; the kernel sums in another order (online
-    softmax over key tiles), hence 1e-4 rather than bitwise."""
-    g = torch.Generator().manual_seed(T)
+def attention_case(B, H, T, Dh, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
     qu, qv, k, v = (torch.randn(B, H, T, Dh, generator=g) for _ in range(4))
     p = torch.randn(H, 2 * T - 1, Dh, generator=g)
     lens = torch.randint(1, T + 1, (B,), generator=g)
     kp = torch.where(torch.arange(T)[None] < lens[:, None], 0.0, -1e9)
     band = (torch.arange(T)[:, None] - torch.arange(T)[None]).abs() > 7
     am = torch.where(band, -1e9, 0.0)
-    args = [t.to(cuda) for t in (qu, qv, k, v, p, kp, am)]
+    return [t.to(device) for t in (qu, qv, k, v, p, kp, am)]
+
+
+@pytest.mark.parametrize("B,H,T,Dh", [(2, 3, 10, 5), (1, 2, 37, 12),
+                                      (8, 4, 101, 64), (2, 4, 300, 64),
+                                      (1, 1, 65, 128)])
+def test_relpos_attention_kernel_matches_plain(cuda, B, H, T, Dh):
+    """f32 on both sides; the kernel sums in another order (online
+    softmax over key tiles), hence 1e-4 rather than bitwise."""
+    args = attention_case(B, H, T, Dh, cuda, seed=T)
     before = relpos_attention.launches
     got = relpos_attention.fused_relpos_attention(*args, seed=0, scale=0.0625,
                                                   rate=0.0)
@@ -42,6 +47,96 @@ def test_relpos_attention_kernel_matches_plain(cuda, B, H, T, Dh):
     want = relpos_attention.relpos_attention_reference(*args, 0.0625)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                atol=1e-4)
+
+
+@pytest.mark.parametrize("B,H,T", [(2, 3, 45), (3, 4, 200)])
+def test_dropout_mask_bit_identical(cuda, B, H, T):
+    want = relpos_attention.philox_keep_mask(1234567, B, H, T, 0.1, cuda)
+    got = relpos_attention.dropout_mask_cuda(1234567, B, H, T, 0.1, cuda)
+    assert torch.equal(got, want)
+    assert abs(got.float().mean().item() - 0.9) < 0.01
+
+
+@pytest.mark.parametrize("B,H,T,Dh", [(2, 3, 45, 16), (3, 4, 130, 64)])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_relpos_attention_forward_and_backward_match_plain(cuda, B, H, T,
+                                                           Dh, rate):
+    """Forward and every gradient of the kernels against autograd through
+    the plain version with the same Philox mask. f32; the kernels sum in
+    other orders and dp sums its per-batch partials in batch order, so
+    1e-4 of each output's largest magnitude (at least 1) rather than
+    bitwise: dp sums over every batch element and position."""
+    args = attention_case(B, H, T, Dh, cuda, seed=B * T)
+    seed = torch.tensor([777], device=cuda)
+    outs = {}
+    for name, fn in (("kernel", relpos_attention.fused_relpos_attention),
+                     ("plain", relpos_attention.relpos_attention_reference)):
+        leaves = [t.clone().requires_grad_(i < 5) for i, t in enumerate(args)]
+        out = fn(*leaves, seed=seed, scale=0.0625, rate=rate)
+        g = torch.Generator(device=cuda).manual_seed(5)
+        out.backward(torch.randn(out.shape, generator=g, device=cuda))
+        outs[name] = [out] + [t.grad for t in leaves[:5]]
+    torch.cuda.synchronize()
+    for got, want in zip(outs["kernel"], outs["plain"]):
+        scale = max(1.0, want.abs().max().item())
+        np.testing.assert_allclose(got.detach().cpu().numpy(),
+                                   want.detach().cpu().numpy(),
+                                   atol=1e-4 * scale, rtol=0)
+
+
+def lattice_case(B, T, U1, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    V = 7
+    logits = torch.randn(B, T, U1, V, generator=g)
+    labels = torch.randint(1, V, (B, U1 - 1), generator=g)
+    lpb, lpl = _gather_label_blank_logprobs(torch.log_softmax(logits, -1),
+                                            labels, 0)
+    t_lens = torch.randint(max(1, T // 2), T + 1, (B,), generator=g)
+    u_lens = torch.randint(0, U1, (B,), generator=g)
+    t_lens[0], u_lens[0] = T, U1 - 1
+    return [x.to(device) for x in (lpb, lpl, t_lens.int(), u_lens.int())]
+
+
+@pytest.mark.parametrize("variant,B,T,U1", [
+    ("resident", 3, 40, 8), ("resident", 2, 17, 1500),
+    ("slab", 3, 70, 13), ("slab", 2, 150, 1100), ("auto", 4, 33, 61)])
+def test_rnnt_lattice_kernels_match_plain(cuda, variant, B, T, U1):
+    """Loss and both gradient lattices against the plain row scan on the
+    card. U1 1100 and 1500 are wider than a block's 1024 threads, so the
+    rows are walked in rounds. f32 sums in another order: atol 1e-4 and
+    rtol 1e-4, or more on long lattices: a gradient is
+    exp(alpha + lp + beta - logZ), whose exponent is a difference of sums
+    of magnitude ~|logZ| = loss, and their rounding errors add up like a
+    random walk over a path's T + U steps: 2 sqrt(T + U) roundings of
+    the largest loss."""
+    args = lattice_case(B, T, U1, cuda, seed=T + U1)
+    counts = (rnnt_lattice.resident_launches,
+              rnnt_lattice.alpha_slab_launches,
+              rnnt_lattice.beta_slab_launches)
+    got = rnnt_lattice.rnnt_lattice(*args, variant=variant)
+    torch.cuda.synchronize()
+    want = rnnt_lattice.rnnt_lattice_reference(*args)
+    rtol = max(1e-4, 2 * (T + U1) ** 0.5 * want[0].abs().max().item()
+               * 2.0 ** -24)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                   atol=1e-4, rtol=rtol)
+    slab = variant == "slab" or (
+        variant == "auto" and not rnnt_lattice.resident_fits(T, U1))
+    assert (rnnt_lattice.resident_launches - counts[0],
+            rnnt_lattice.alpha_slab_launches - counts[1],
+            rnnt_lattice.beta_slab_launches - counts[2]) == \
+        ((0, 1, 1) if slab else (1, 0, 0))
+
+
+def test_rnnt_lattice_variants_agree(cuda):
+    args = lattice_case(5, 60, 40, cuda, seed=3)
+    res = rnnt_lattice.rnnt_lattice(*args, variant="resident")
+    slab = rnnt_lattice.rnnt_lattice(*args, variant="slab")
+    for r, s in zip(res, slab):
+        np.testing.assert_allclose(r.cpu().numpy(), s.cpu().numpy(),
+                                   atol=1e-6, rtol=1e-6)
 
 
 def test_relpos_attention_wrapper_rejects_bad_inputs(cuda):
@@ -61,3 +156,28 @@ def test_relpos_attention_wrapper_rejects_bad_inputs(cuda):
     bad[2] = args[2].transpose(2, 3).contiguous().transpose(2, 3)
     with pytest.raises(ValueError, match="contiguous"):
         relpos_attention.fused_relpos_attention(*bad, 0, 0.1, 0.0)
+    bad = list(args)
+    bad[1] = args[1].cpu()
+    with pytest.raises(ValueError, match="is on"):
+        relpos_attention.fused_relpos_attention(*bad, 0, 0.1, 0.0)
+    with pytest.raises(ValueError, match="rate"):
+        relpos_attention.fused_relpos_attention(*args, 0, 0.1, 1.0)
+
+
+def test_rnnt_lattice_wrapper_rejects_bad_inputs(cuda):
+    lpb, lpl, t_lens, u_lens = lattice_case(2, 9, 5, cuda)
+    with pytest.raises(TypeError):
+        rnnt_lattice.rnnt_lattice(lpb.double(), lpl, t_lens, u_lens)
+    with pytest.raises(TypeError):
+        rnnt_lattice.rnnt_lattice(lpb, lpl, t_lens.long(), u_lens)
+    with pytest.raises(ValueError, match="shape"):
+        rnnt_lattice.rnnt_lattice(lpb, lpl[:, :-1], t_lens, u_lens)
+    with pytest.raises(ValueError, match="contiguous"):
+        rnnt_lattice.rnnt_lattice(lpb.transpose(0, 1).contiguous()
+                                  .transpose(0, 1), lpl, t_lens, u_lens)
+    with pytest.raises(ValueError, match="is on"):
+        rnnt_lattice.rnnt_lattice(lpb, lpl, t_lens.cpu(), u_lens)
+    big = torch.zeros(1, 400, 200, device=cuda)
+    lens = torch.ones(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="does not fit"):
+        rnnt_lattice.rnnt_lattice(big, big, lens, lens, variant="resident")

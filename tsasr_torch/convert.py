@@ -1,8 +1,11 @@
-"""Flax ``TSTransducer`` params -> the port's ``state_dict``.
+"""Flax ``TSTransducer`` params <-> the port's ``state_dict``.
 
 ``params_from_flax`` takes the flax parameter tree as a nested dict of
 numpy arrays (``{"params": ...}`` or the inner dict) and returns a
-``state_dict`` for ``tsasr_torch.models.TSTransducer``. Layout changes:
+``state_dict`` for ``tsasr_torch.models.TSTransducer``;
+``params_to_flax`` is its inverse (a ``state_dict``, or any dict of
+tensors under the same names such as gradients, to the inner flax tree
+of numpy arrays). Layout changes:
 
 - a Dense kernel (in, out) becomes a Linear weight (out, in);
 - a Conv2d kernel (kh, kw, in, out) becomes (out, in, kh, kw);
@@ -109,3 +112,72 @@ def params_from_flax(tree):
             _dense(out, name, tree[name])
     _predictor(out, "predictor", tree["predictor"])
     return out
+
+
+# torch module names -> flax module names, per path segment
+_SEGMENTS = {
+    "norm_ffn1": "LayerNorm_0", "norm_ffn2": "LayerNorm_1",
+    "norm_in": "LayerNorm_0", "norm_mid": "LayerNorm_1",
+    "w1": "Dense_0", "w2": "Dense_1",
+}
+
+
+def _flax_path(key):
+    """('frontend', 'blocks', '0', 'conv', 'weight') -> flax path and leaf
+    kind (dense, norm, conv2d, depthwise, lstm_w, plain)."""
+    parts = key.split(".")
+    leaf = parts.pop()
+    path, i = [], 0
+    while i < len(parts):
+        part = parts[i]
+        if part in ("blocks", "layers") and i + 1 < len(parts):
+            path.append(("block_" if part == "blocks" else "layer_")
+                        + parts[i + 1])
+            i += 2
+            continue
+        path.append(_SEGMENTS.get(part, part))
+        i += 1
+    in_frontend = path[0] in ("frontend", "speaker_frontend")
+    if in_frontend and path[-1] in ("conv", "norm"):
+        path[-1] += "_0"
+    if leaf in ("pos_bias_u", "pos_bias_v"):
+        return path + [leaf], "plain"
+    if path[-1] == "decoder":                        # LSTM
+        kind, n = leaf.rsplit("_l", 1)
+        name = {"weight_ih": "w_ih", "weight_hh": "w_hh", "bias": "b"}[kind]
+        return path + [f"l{n}_{name}"], "lstm_w" if name != "b" else "plain"
+    is_norm = "norm" in path[-1] or path[-1].startswith("LayerNorm")
+    if is_norm:
+        return path + ["scale" if leaf == "weight" else "bias"], "plain"
+    if leaf == "bias":
+        return path + ["bias"], "plain"
+    if path[-1] == "depthwise":
+        return path + ["kernel"], "depthwise"
+    if in_frontend:
+        return path + ["kernel"], "conv2d"
+    return path + ["kernel"], "dense"
+
+
+_TO_FLAX = {
+    "plain": lambda x: x,
+    "dense": lambda x: x.T,
+    "lstm_w": lambda x: x.T,
+    "conv2d": lambda x: x.transpose(2, 3, 1, 0),
+    "depthwise": lambda x: x.transpose(2, 1, 0),
+}
+
+
+def params_to_flax(state_dict):
+    """The port's ``state_dict`` (or gradients under the same names) ->
+    the inner flax parameter tree, nested dicts of f32 numpy arrays."""
+    tree = {}
+    for key, value in state_dict.items():
+        path, kind = _flax_path(key)
+        node = tree
+        for name in path[:-1]:
+            node = node.setdefault(name, {})
+        array = np.asarray(value.detach().cpu().numpy()
+                           if isinstance(value, torch.Tensor) else value,
+                           dtype=np.float32)
+        node[path[-1]] = np.ascontiguousarray(_TO_FLAX[kind](array))
+    return tree

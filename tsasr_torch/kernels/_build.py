@@ -3,8 +3,9 @@
 Each ``tsasr_torch/csrc/<name>.cu`` has a plain C interface and is
 compiled on first use for ``sm_90a`` into ``build/tsasr_torch/`` at the
 root of the checkout (listed in ``.gitignore``). The library's file name
-carries a hash of the source and the flags, so an edited source is
-rebuilt and an unchanged one is loaded as it is. ``build`` starts one
+carries a hash of the source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited source is rebuilt and an unchanged one is loaded as
+it is. ``build`` starts one
 ``nvcc`` per missing source, all at once, and waits for all of them.
 Nothing here runs at import time: the CPU tests import every module on
 hosts without ``nvcc``.
@@ -46,8 +47,9 @@ def _nvcc():
 def library_path(name):
     """Path of the built library for ``csrc/<name>.cu`` (may not exist)."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
@@ -79,6 +81,12 @@ def build(names):
         os.replace(tmp, out)
     if failed:
         raise RuntimeError("CUDA build failed:\n" + "\n".join(failed))
+
+
+def check_launch(err, name):
+    """Raise if a launcher returned a CUDA error code other than 0."""
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed with CUDA error {err}")
 
 
 def load(name):

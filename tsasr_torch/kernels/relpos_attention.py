@@ -1,16 +1,36 @@
-"""Fused relative-position attention: CUDA kernel, plain version, wrapper.
+"""Fused relative-position attention: CUDA kernels, plain version, wrapper.
 
-Counterpart of the JAX package's ``ops/attention_pallas.py``. The CUDA kernel
-(``csrc/relpos_attention_fwd.cu``) replaces ``_fwd_kernel`` at dropout
-rate 0 and computes, in the JAX (B, H, T, Dh) layout,
+Counterpart of the JAX package's ``ops/attention_pallas.py``. Two CUDA
+sources replace its two Pallas kernels:
 
-    softmax((q_u k^T + rel_shift(q_v p^T)) * scale + am_add + kp_add) @ v
+- ``csrc/relpos_attention_fwd.cu`` (``_fwd_kernel``) computes, in the JAX
+  (B, H, T, Dh) layout,
 
-``relpos_attention_reference`` is the plain PyTorch version of the same
-function (the Transformer-XL rel-shift trick). The wrapper
-``fused_relpos_attention`` takes the plain version only for tensors on
-the CPU; on CUDA it launches the kernel or raises. ``launches`` counts
-the kernel's launches.
+      softmax((q_u k^T + rel_shift(q_v p^T)) * scale + am_add + kp_add)
+          -> dropout -> @ v
+
+  and, when a gradient will be asked for, each row's softmax statistics
+  (B, H, T, 2): the row max and 1 / row sum of the scaled scores;
+- ``csrc/relpos_attention_bwd.cu`` (``_bwd_kernel``) recomputes the
+  probabilities from those statistics and emits dq_u, dq_v, dk, dv and dp.
+  dp sums over the batch: one pass writes a partial per batch element,
+  a second pass adds them in batch order, so the result is deterministic.
+
+Dropout is a counter-based Philox4x32-10 draw keyed by the seed and
+counted by (b, h, i, j): word 0 of ``philox(ctr=(j, i, h, b), key=(seed
+low, seed high))``; an element is kept iff that u32 is at least
+``floor(rate * 2**32)``, and kept probabilities are scaled by
+``1 / (1 - rate)``, as the JAX kernel does with the TPU's own bits. The
+forward and the backward regenerate one mask bit for bit, and
+``philox_keep_mask`` computes the same bits in int64 tensor arithmetic,
+so the plain version and the kernels drop the same elements.
+
+``relpos_attention_reference`` is the plain PyTorch version of the whole
+function (autograd gives its backward). ``fused_relpos_attention`` takes
+the plain version only for tensors on the CPU; on CUDA it launches the
+kernels (through a ``torch.autograd.Function`` when a gradient is needed)
+or raises. ``launches`` and ``bwd_launches`` count the launches of the
+forward and the backward.
 """
 
 import ctypes
@@ -22,8 +42,16 @@ from tsasr_torch.kernels import _build
 
 MAX_HEAD_DIM = 128
 SOURCE = "relpos_attention_fwd"
+BWD_SOURCE = "relpos_attention_bwd"
+
+PHILOX_M0 = 0xD2511F53
+PHILOX_M1 = 0xCD9E8D57
+PHILOX_W0 = 0x9E3779B9
+PHILOX_W1 = 0xBB67AE85
+MASK32 = 0xFFFFFFFF
 
 launches = 0
+bwd_launches = 0
 
 
 def rel_shift(x, klen):
@@ -37,37 +65,111 @@ def rel_shift(x, klen):
     return x[..., :pos_len // 2 + 1][..., :klen]
 
 
-def relpos_attention_reference(q_u, q_v, k, v, p, kp_add, am_add, scale):
-    """Plain PyTorch version of the kernel (no dropout).
+# ------------------------------------------------------------- dropout bits
+def _mulhilo(a, m):
+    """(hi, lo) 32-bit words of ``a * m`` for int64 ``a`` < 2**32 and a
+    constant ``m`` < 2**32, without overflowing int64."""
+    x = a * (m & 0xFFFF)                         # < 2**48
+    y = a * (m >> 16) + (x >> 16)                # < 2**48 + 2**32
+    return y >> 16, ((y & 0xFFFF) << 16) | (x & 0xFFFF)
+
+
+def philox4x32(c0, c1, c2, c3, k0, k1, rounds=10):
+    """Philox4x32-10 on int64 tensors holding u32 words."""
+    for _ in range(rounds):
+        hi0, lo0 = _mulhilo(c0, PHILOX_M0)
+        hi1, lo1 = _mulhilo(c2, PHILOX_M1)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0 = (k0 + PHILOX_W0) & MASK32
+        k1 = (k1 + PHILOX_W1) & MASK32
+    return c0, c1, c2, c3
+
+
+def dropout_threshold(rate):
+    """u32 threshold: an element is kept iff its draw is >= this."""
+    return int(rate * float(2 ** 32)) & MASK32
+
+
+def philox_keep_mask(seed, B, H, T, rate, device=None):
+    """(B, H, T, T) bool keep mask of the fused attention's dropout."""
+    seed = _seed_tensor(seed, device or "cpu")
+    ar = functools.partial(torch.arange, dtype=torch.int64, device=seed.device)
+    shape = (B, H, T, T)
+    j = ar(T).view(1, 1, 1, T).expand(shape)
+    i = ar(T).view(1, 1, T, 1).expand(shape)
+    h = ar(H).view(1, H, 1, 1).expand(shape)
+    b = ar(B).view(B, 1, 1, 1).expand(shape)
+    word, *_ = philox4x32(j, i, h, b, seed & MASK32, (seed >> 32) & MASK32)
+    return word >= dropout_threshold(rate)
+
+
+def _seed_tensor(seed, device):
+    if isinstance(seed, torch.Tensor):
+        return seed.to(device=device, dtype=torch.int64).reshape(1)
+    return torch.tensor([int(seed)], dtype=torch.int64, device=device)
+
+
+# ------------------------------------------------------------ plain version
+def relpos_attention_reference(q_u, q_v, k, v, p, kp_add, am_add, scale,
+                               seed=0, rate=0.0):
+    """Plain PyTorch version of the kernels, dropout included.
 
     q_u, q_v, k, v: (B, H, T, Dh); p: (H, 2T-1, Dh); kp_add: (B, T) and
-    am_add: (T, T) additive f32 masks (0 or -1e9).
+    am_add: (T, T) additive f32 masks (0 or -1e9); seed: int or integer
+    tensor; rate: dropout rate on the probabilities.
     """
-    T = q_u.shape[2]
+    B, H, T, _ = q_u.shape
     ac = torch.einsum("bhtd,bhsd->bhts", q_u, k)
     bd = rel_shift(torch.einsum("bhtd,hsd->bhts", q_v, p), klen=T)
     scores = ((ac + bd) * scale + am_add[None, None]
               + kp_add[:, None, None, :])
     probs = torch.softmax(scores.float(), dim=-1)
+    if rate > 0.0:
+        keep = philox_keep_mask(seed, B, H, T, rate, q_u.device)
+        probs = torch.where(keep, probs * (1.0 / (1.0 - rate)), 0.0)
     return torch.einsum("bhts,bhsd->bhtd", probs.to(v.dtype), v)
 
 
+# ------------------------------------------------------------------ kernels
 @functools.cache
-def _kernel():
+def _fwd_kernel():
     fn = _build.load(SOURCE).relpos_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
-        ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_uint, ctypes.c_float,
+                                           ctypes.c_void_p] + \
+        [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _check(q_u, q_v, k, v, p, kp_add, am_add):
+@functools.cache
+def _mask_kernel():
+    fn = _build.load(SOURCE).relpos_dropout_mask
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_uint, ctypes.c_void_p] + \
+        [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _bwd_kernel():
+    fn = _build.load(BWD_SOURCE).relpos_attention_bwd
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_uint, ctypes.c_float] + \
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_float,
+                                                       ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(q_u, q_v, k, v, p, kp_add, am_add, do=None):
     B, H, T, Dh = q_u.shape
     expected = {"q_u": (B, H, T, Dh), "q_v": (B, H, T, Dh),
                 "k": (B, H, T, Dh), "v": (B, H, T, Dh),
-                "p": (H, 2 * T - 1, Dh), "kp_add": (B, T), "am_add": (T, T)}
+                "p": (H, 2 * T - 1, Dh), "kp_add": (B, T), "am_add": (T, T),
+                "grad_out": (B, H, T, Dh)}
     tensors = {"q_u": q_u, "q_v": q_v, "k": k, "v": v, "p": p,
                "kp_add": kp_add, "am_add": am_add}
+    if do is not None:
+        tensors["grad_out"] = do
     for name, t in tensors.items():
         if t.device != q_u.device:
             raise ValueError(f"{name} is on {t.device}, q_u on {q_u.device}")
@@ -82,36 +184,114 @@ def _check(q_u, q_v, k, v, p, kp_add, am_add):
         raise ValueError(f"head dim {Dh} outside 1..{MAX_HEAD_DIM}")
 
 
-def fused_relpos_attention(q_u, q_v, k, v, p, kp_add, am_add, seed, scale,
-                           rate):
-    """Fused rel-pos attention forward, mirroring the JAX signature.
+def _stream(device):
+    return torch.cuda.current_stream(device).cuda_stream
 
-    ``seed`` is unused until dropout is ported: ``rate`` must be 0, and
-    dropout comes with the backward kernel, because forward and backward
-    must regenerate one mask. Returns (B, H, T, Dh).
-    """
-    del seed
-    if rate > 0.0:
-        raise NotImplementedError(
-            "fused attention dropout (rate > 0) comes with the backward "
-            "kernel in the training slice")
-    if q_u.device.type == "cpu":
-        return relpos_attention_reference(q_u, q_v, k, v, p, kp_add, am_add,
-                                          scale)
-    if q_u.device.type != "cuda":
-        raise ValueError(f"unsupported device {q_u.device}")
+
+def _dropout_args(rate):
+    """(u32 threshold, keep scale) of the kernels' dropout."""
+    if rate <= 0.0:
+        return 0, 1.0
+    if rate >= 1.0:
+        raise ValueError(f"dropout rate {rate} must be below 1")
+    return dropout_threshold(rate), 1.0 / (1.0 - rate)
+
+
+def _launch_fwd(q_u, q_v, k, v, p, kp_add, am_add, seed, scale, rate,
+                want_stats):
     _check(q_u, q_v, k, v, p, kp_add, am_add)
     B, H, T, Dh = q_u.shape
+    thresh, keep_scale = _dropout_args(rate)
+    seed_t = _seed_tensor(seed, q_u.device) if rate > 0.0 else None
     out = torch.empty_like(q_u)
-    fn = _kernel()
+    stats = torch.empty(B, H, T, 2, device=q_u.device) if want_stats \
+        else None
     with torch.cuda.device(q_u.device):
-        stream = torch.cuda.current_stream(q_u.device).cuda_stream
-        err = fn(q_u.data_ptr(), q_v.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 p.data_ptr(), kp_add.data_ptr(), am_add.data_ptr(),
-                 out.data_ptr(), B, H, T, Dh, float(scale), stream)
-    if err != 0:
-        raise RuntimeError(f"relpos_attention_fwd launch failed with CUDA "
-                           f"error {err}")
+        err = _fwd_kernel()(
+            q_u.data_ptr(), q_v.data_ptr(), k.data_ptr(), v.data_ptr(),
+            p.data_ptr(), kp_add.data_ptr(), am_add.data_ptr(),
+            out.data_ptr(), 0 if stats is None else stats.data_ptr(),
+            thresh, keep_scale, 0 if seed_t is None else seed_t.data_ptr(),
+            B, H, T, Dh, float(scale), _stream(q_u.device))
+    _build.check_launch(err, "relpos_attention_fwd")
     global launches
     launches += 1
+    return out, stats, seed_t
+
+
+def _launch_bwd(q_u, q_v, k, v, p, kp_add, am_add, out, stats, do, seed_t,
+                scale, rate):
+    _check(q_u, q_v, k, v, p, kp_add, am_add, do)
+    B, H, T, Dh = q_u.shape
+    thresh, keep_scale = _dropout_args(rate)
+    dqu, dqv, dk, dv = (torch.empty_like(q_u) for _ in range(4))
+    dp = torch.empty_like(p)
+    dp_part = torch.empty(B, *p.shape, device=p.device)
+    delta = torch.empty(B, H, T, device=q_u.device)
+    with torch.cuda.device(q_u.device):
+        err = _bwd_kernel()(
+            q_u.data_ptr(), q_v.data_ptr(), k.data_ptr(), v.data_ptr(),
+            p.data_ptr(), kp_add.data_ptr(), am_add.data_ptr(),
+            out.data_ptr(), stats.data_ptr(), do.data_ptr(),
+            0 if seed_t is None else seed_t.data_ptr(), thresh, keep_scale,
+            delta.data_ptr(), dqu.data_ptr(), dqv.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), dp_part.data_ptr(), dp.data_ptr(),
+            B, H, T, Dh, float(scale), _stream(q_u.device))
+    _build.check_launch(err, "relpos_attention_bwd")
+    global bwd_launches
+    bwd_launches += 1
+    return dqu, dqv, dk, dv, dp
+
+
+def dropout_mask_cuda(seed, B, H, T, rate, device):
+    """(B, H, T, T) bool keep mask as the CUDA kernels draw it (a test
+    hook: it compares the kernels' Philox with ``philox_keep_mask``)."""
+    seed_t = _seed_tensor(seed, device)
+    mask = torch.empty(B, H, T, T, dtype=torch.uint8, device=device)
+    with torch.cuda.device(device):
+        err = _mask_kernel()(seed_t.data_ptr(), dropout_threshold(rate),
+                             mask.data_ptr(), B, H, T, _stream(device))
+    _build.check_launch(err, "relpos_dropout_mask")
+    return mask.bool()
+
+
+class _FusedRelPosAttention(torch.autograd.Function):
+    """The forward and backward kernels as one differentiable op; the
+    masks, the seed, ``scale`` and ``rate`` get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q_u, q_v, k, v, p, kp_add, am_add, seed, scale, rate):
+        out, stats, seed_t = _launch_fwd(q_u, q_v, k, v, p, kp_add, am_add,
+                                         seed, scale, rate, want_stats=True)
+        ctx.save_for_backward(q_u, q_v, k, v, p, kp_add, am_add, out, stats)
+        ctx.seed_t, ctx.scale, ctx.rate = seed_t, scale, rate
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        grads = _launch_bwd(*ctx.saved_tensors, do.contiguous(), ctx.seed_t,
+                            ctx.scale, ctx.rate)
+        return (*grads, None, None, None, None, None)
+
+
+def fused_relpos_attention(q_u, q_v, k, v, p, kp_add, am_add, seed, scale,
+                           rate):
+    """Fused rel-pos attention, mirroring the JAX signature.
+
+    ``seed`` (int or integer tensor) keys the dropout mask, which the
+    backward regenerates; ``rate`` is the dropout rate on the
+    probabilities (0 in eval). Returns (B, H, T, Dh).
+    """
+    if q_u.device.type == "cpu":
+        return relpos_attention_reference(q_u, q_v, k, v, p, kp_add, am_add,
+                                          scale, seed, rate)
+    if q_u.device.type != "cuda":
+        raise ValueError(f"unsupported device {q_u.device}")
+    needs_grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q_u, q_v, k, v, p))
+    if needs_grad:
+        return _FusedRelPosAttention.apply(q_u, q_v, k, v, p, kp_add, am_add,
+                                           seed, scale, rate)
+    out, _, _ = _launch_fwd(q_u, q_v, k, v, p, kp_add, am_add, seed, scale,
+                            rate, want_stats=False)
     return out

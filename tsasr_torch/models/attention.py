@@ -13,7 +13,11 @@ from the reference:
 ``kernels.relpos_attention.fused_relpos_attention``: on CUDA that is the
 hand-written kernel for every T (the JAX module's 128-frame gate is a
 TPU memory bound that does not apply here), on the CPU its plain
-version.
+version. In training (``deterministic=False``) the probabilities are
+dropped out: the unfused path draws a ``dropout_bits``-wide mask from
+the step's generator, the fused path draws one seed per call from it
+(as the JAX module draws ``randint(0, 2**23)`` from its rng stream) and
+the kernels' Philox mask follows from that seed.
 """
 
 import math
@@ -23,6 +27,7 @@ from torch import nn
 
 from tsasr_torch.kernels.relpos_attention import fused_relpos_attention
 from tsasr_torch.kernels.relpos_attention import rel_shift as _rel_shift
+from tsasr_torch.ops.dropout import Dropout
 
 ATTN_FILL = -1e9
 
@@ -44,7 +49,8 @@ def rel_pos_encoding(seq_len, emb_dim, device=None):
 class RelPosMHAXL(nn.Module):
     """Relative-position multi-head self-attention (non-streaming)."""
 
-    def __init__(self, embed_dim, num_heads, fused=False):
+    def __init__(self, embed_dim, num_heads, dropout=0.0, dropout_bits=32,
+                 fused=False):
         super().__init__()
         if embed_dim % num_heads:
             raise ValueError(f"embed_dim {embed_dim} is not divisible by "
@@ -52,6 +58,7 @@ class RelPosMHAXL(nn.Module):
         self.embed_dim = embed_dim
         self.num_heads = num_heads
         self.fused = fused
+        self.dropout = Dropout(dropout, dropout_bits)
         head_dim = embed_dim // num_heads
         self.qkv_proj = nn.Linear(embed_dim, 3 * embed_dim, bias=False)
         self.pos_proj = nn.Linear(embed_dim, embed_dim, bias=False)
@@ -59,9 +66,11 @@ class RelPosMHAXL(nn.Module):
         self.pos_bias_v = nn.Parameter(torch.zeros(num_heads, head_dim))
         self.out_proj = nn.Linear(embed_dim, embed_dim)
 
-    def forward(self, x, pos_emb, key_padding_mask=None, attn_mask=None):
+    def forward(self, x, pos_emb, key_padding_mask=None, attn_mask=None,
+                deterministic=True, generator=None):
         """x: (B, T, D); pos_emb: (1, 2T-1, D); key_padding_mask: (B, T)
-        bool, True = padding; attn_mask: (T, T) bool, True = masked.
+        bool, True = padding; attn_mask: (T, T) bool, True = masked;
+        ``generator`` draws the dropout when ``deterministic`` is False.
 
         Returns (out (B, T, D), attention probs or None when fused).
         """
@@ -75,8 +84,17 @@ class RelPosMHAXL(nn.Module):
         scale = 1.0 / math.sqrt(self.embed_dim)
 
         if self.fused:
+            rate = 0.0 if deterministic else self.dropout.rate
+            seed = 0
+            if rate > 0.0:
+                if generator is None:
+                    raise ValueError("train-mode dropout needs a "
+                                     "torch.Generator")
+                seed = torch.randint(0, 1 << 23, (1,), generator=generator,
+                                     device=generator.device)
             out = self._fused_attention(q_u, q_v, k, v, p_k,
-                                        key_padding_mask, attn_mask, scale)
+                                        key_padding_mask, attn_mask, scale,
+                                        seed, rate)
             return self.out_proj(out), None
 
         ac = torch.einsum("bthd,bshd->bhts", q_u, k)
@@ -88,12 +106,13 @@ class RelPosMHAXL(nn.Module):
             scores = scores.masked_fill(key_padding_mask[:, None, None, :],
                                         ATTN_FILL)
         attn = torch.softmax(scores.float(), dim=-1)
+        attn = self.dropout(attn, deterministic, generator)
         out = torch.einsum("bhts,bshd->bthd", attn, v).reshape(B, T, D)
         return self.out_proj(out), attn
 
     @staticmethod
     def _fused_attention(q_u, q_v, k, v, p_k, key_padding_mask, attn_mask,
-                         scale):
+                         scale, seed, rate):
         B, T, H, Dh = q_u.shape
         zero = torch.zeros((), device=q_u.device)
         fill = torch.full((), ATTN_FILL, device=q_u.device)
@@ -104,6 +123,6 @@ class RelPosMHAXL(nn.Module):
             else torch.where(attn_mask, fill, zero)
         out = fused_relpos_attention(
             *(t.transpose(1, 2).contiguous() for t in (q_u, q_v, k, v)),
-            p_k.transpose(0, 1).contiguous(), kp_add, am_add, seed=0,
-            scale=scale, rate=0.0)
+            p_k.transpose(0, 1).contiguous(), kp_add, am_add, seed=seed,
+            scale=scale, rate=rate)
         return out.transpose(1, 2).reshape(B, T, H * Dh)

@@ -2,8 +2,12 @@
 
 Counterpart of the JAX package's ``models/conformer.py`` (``FeedForward``,
 ``ConvolutionModule``, ``ConformerEncoderLayer``, ``TSConformerEncoder``)
-for the non-causal, non-streaming inference path with injection modes
-``cat`` and ``None``. Traps kept from the reference:
+for the non-causal, non-streaming path with injection modes ``cat`` and
+``None``. Dropout sits where the JAX modules put it: inside each FFN,
+after each half-FFN, after the conv module, on the attention
+probabilities and after ``input_proj``; every ``forward`` takes the JAX
+``deterministic`` switch and the step's ``generator``. Traps kept from
+the reference:
 
 - the FFNs and the conv module use leaky_relu (slope 0.01): the encoder
   overrides the layer's swish default;
@@ -20,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tsasr_torch.models.attention import RelPosMHAXL, rel_pos_encoding
+from tsasr_torch.ops.dropout import Dropout
 from tsasr_torch.ops.masks import length_to_mask, relative_to_absolute_lengths
 
 LN_EPS = 1e-6
@@ -30,21 +35,24 @@ def _act(x):
 
 
 class FeedForward(nn.Module):
-    """Linear(d_ffn) -> leaky_relu -> Linear(d_model)."""
+    """Linear(d_ffn) -> leaky_relu -> dropout -> Linear(d_model)."""
 
-    def __init__(self, d_model, d_ffn):
+    def __init__(self, d_model, d_ffn, dropout=0.0, dropout_bits=32):
         super().__init__()
         self.w1 = nn.Linear(d_model, d_ffn)
         self.w2 = nn.Linear(d_ffn, d_model)
+        self.dropout = Dropout(dropout, dropout_bits)
 
-    def forward(self, x):
-        return self.w2(_act(self.w1(x)))
+    def forward(self, x, deterministic=True, generator=None):
+        return self.w2(self.dropout(_act(self.w1(x)), deterministic,
+                                    generator))
 
 
 class ConvolutionModule(nn.Module):
-    """LN -> pointwise(2D) -> GLU -> depthwise -> LN -> act -> pointwise."""
+    """LN -> pointwise(2D) -> GLU -> depthwise -> LN -> act -> pointwise
+    -> dropout."""
 
-    def __init__(self, d_model, kernel_size=31):
+    def __init__(self, d_model, kernel_size=31, dropout=0.0, dropout_bits=32):
         super().__init__()
         self.norm_in = nn.LayerNorm(d_model, eps=LN_EPS)
         self.pointwise_in = nn.Linear(d_model, 2 * d_model)
@@ -53,13 +61,15 @@ class ConvolutionModule(nn.Module):
                                    groups=d_model)
         self.norm_mid = nn.LayerNorm(d_model, eps=LN_EPS)
         self.pointwise_out = nn.Linear(d_model, d_model)
+        self.dropout = Dropout(dropout, dropout_bits)
 
-    def forward(self, x, pad_mask=None):
+    def forward(self, x, pad_mask=None, deterministic=True, generator=None):
         """x: (B, T, D); pad_mask: (B, T) bool, True = padding."""
         a, b = self.pointwise_in(self.norm_in(x)).chunk(2, dim=-1)
         out = a * torch.sigmoid(b)
         out = self.depthwise(out.transpose(1, 2)).transpose(1, 2)
         out = self.pointwise_out(_act(self.norm_mid(out)))
+        out = self.dropout(out, deterministic, generator)
         if pad_mask is not None:
             out = out.masked_fill(pad_mask[..., None], 0.0)
         return out
@@ -68,25 +78,32 @@ class ConvolutionModule(nn.Module):
 class ConformerEncoderLayer(nn.Module):
     """Macaron half-FFN -> rel-pos MHSA -> conv module -> half-FFN -> LN."""
 
-    def __init__(self, d_model, d_ffn, nhead, kernel_size=31,
-                 fused_attention=False):
+    def __init__(self, d_model, d_ffn, nhead, kernel_size=31, dropout=0.0,
+                 dropout_bits=32, fused_attention=False):
         super().__init__()
         self.norm_ffn1 = nn.LayerNorm(d_model, eps=LN_EPS)
-        self.ffn1 = FeedForward(d_model, d_ffn)
+        self.ffn1 = FeedForward(d_model, d_ffn, dropout, dropout_bits)
         self.norm_mha = nn.LayerNorm(d_model, eps=LN_EPS)
-        self.mha = RelPosMHAXL(d_model, nhead, fused=fused_attention)
-        self.conv = ConvolutionModule(d_model, kernel_size)
+        self.mha = RelPosMHAXL(d_model, nhead, dropout, dropout_bits,
+                               fused=fused_attention)
+        self.conv = ConvolutionModule(d_model, kernel_size, dropout,
+                                      dropout_bits)
         self.norm_ffn2 = nn.LayerNorm(d_model, eps=LN_EPS)
-        self.ffn2 = FeedForward(d_model, d_ffn)
+        self.ffn2 = FeedForward(d_model, d_ffn, dropout, dropout_bits)
         self.norm_out = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.dropout = Dropout(dropout, dropout_bits)
 
-    def forward(self, x, pos_emb, key_padding_mask=None, attn_mask=None):
-        x = x + 0.5 * self.ffn1(self.norm_ffn1(x))
+    def forward(self, x, pos_emb, key_padding_mask=None, attn_mask=None,
+                deterministic=True, generator=None):
+        drop = (deterministic, generator)
+        ff1 = self.ffn1(self.norm_ffn1(x), *drop)
+        x = x + 0.5 * self.dropout(ff1, *drop)
         attn_out, attn = self.mha(self.norm_mha(x), pos_emb,
-                                  key_padding_mask, attn_mask)
+                                  key_padding_mask, attn_mask, *drop)
         x = x + attn_out
-        x = x + self.conv(x, key_padding_mask)
-        x = self.norm_out(x + 0.5 * self.ffn2(self.norm_ffn2(x)))
+        x = x + self.conv(x, key_padding_mask, *drop)
+        ff2 = self.ffn2(self.norm_ffn2(x), *drop)
+        x = self.norm_out(x + 0.5 * self.dropout(ff2, *drop))
         return x, attn
 
 
@@ -95,8 +112,9 @@ class TSConformerEncoder(nn.Module):
     layers listed in ``injection_after`` (-1: before layer 0)."""
 
     def __init__(self, input_size, d_model=256, nhead=4, num_layers=12,
-                 d_ffn=2048, kernel_size=31, injection_mode=None,
-                 injection_after=(0,), fused_attention=False):
+                 d_ffn=2048, kernel_size=31, dropout=0.0, dropout_bits=32,
+                 injection_mode=None, injection_after=(0,),
+                 fused_attention=False):
         super().__init__()
         if injection_mode not in (None, "cat"):
             raise NotImplementedError(
@@ -108,11 +126,12 @@ class TSConformerEncoder(nn.Module):
         self.input_proj = nn.Linear(input_size, d_model)
         self.layers = nn.ModuleList(
             ConformerEncoderLayer(d_model, d_ffn, nhead, kernel_size,
-                                  fused_attention)
+                                  dropout, dropout_bits, fused_attention)
             for _ in range(num_layers))
         self.cat_proj = nn.Linear(2 * d_model, d_model) \
             if injection_mode == "cat" else None
         self.norm = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.dropout = Dropout(dropout, dropout_bits)
 
     def _inject(self, x, speaker_embs):
         if self.injection_mode is None:
@@ -120,7 +139,8 @@ class TSConformerEncoder(nn.Module):
         expanded = speaker_embs.expand(x.shape[0], x.shape[1], -1)
         return self.cat_proj(torch.cat([x, expanded], dim=-1))
 
-    def forward(self, src, rel_lengths=None, speaker_embs=None):
+    def forward(self, src, rel_lengths=None, speaker_embs=None,
+                deterministic=True, generator=None):
         """src: (B, T, F) or (B, T, F1, F2) (flattened to F1*F2);
         rel_lengths: (B,) in (0, 1]; speaker_embs: (B, 1, D)."""
         if src.dim() == 4:
@@ -131,13 +151,14 @@ class TSConformerEncoder(nn.Module):
             abs_len = relative_to_absolute_lengths(rel_lengths, T)
             key_padding_mask = ~length_to_mask(abs_len, T)
 
-        x = self.input_proj(src)
+        x = self.dropout(self.input_proj(src), deterministic, generator)
         inject = speaker_embs is not None
         if inject and -1 in self.injection_after:
             x = self._inject(x, speaker_embs)
         pos_emb = rel_pos_encoding(T, self.d_model, device=x.device)
         for i, layer in enumerate(self.layers):
-            x, _ = layer(x, pos_emb, key_padding_mask)
+            x, _ = layer(x, pos_emb, key_padding_mask, None, deterministic,
+                         generator)
             if inject and i in self.injection_after:
                 x = self._inject(x, speaker_embs)
         return self.norm(x)

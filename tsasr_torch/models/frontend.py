@@ -11,24 +11,30 @@ kept:
 - the LayerNorm normalizes (F, C) jointly with a per-(F, C) affine and
   eps 1e-5;
 - the 1x1 residual conv has the block's stride;
-- the activation is leaky_relu with slope 0.01.
+- the activation is leaky_relu with slope 0.01;
+- dropout follows the activation and the residual sum, as in the JAX
+  ``ConvBlock``; ``forward`` takes the JAX ``deterministic`` switch and
+  the step's ``generator``.
 """
 
 import torch.nn.functional as F
 from torch import nn
+
+from tsasr_torch.ops.dropout import Dropout
 
 
 class ConvBlock(nn.Module):
     """conv -> LN(F, C) -> leaky_relu, plus a strided 1x1 residual."""
 
     def __init__(self, in_channels, out_channels, freq_in, kernel_size=3,
-                 stride=1, residual=True):
+                 stride=1, residual=True, dropout=0.0, dropout_bits=32):
         super().__init__()
         self.pad = kernel_size // 2 if stride > 1 else (kernel_size - 1) // 2
         freq_out = -(-freq_in // stride)
         self.conv = nn.Conv2d(in_channels, out_channels, kernel_size,
                               stride=stride)
         self.norm = nn.LayerNorm((freq_out, out_channels), eps=1e-5)
+        self.dropout = Dropout(dropout, dropout_bits)
         self.residual_conv = self.residual_norm = None
         if residual:
             self.residual_conv = nn.Conv2d(in_channels, out_channels, 1,
@@ -36,15 +42,17 @@ class ConvBlock(nn.Module):
             self.residual_norm = nn.LayerNorm((freq_out, out_channels),
                                               eps=1e-5)
 
-    def forward(self, x):
+    def forward(self, x, deterministic=True, generator=None):
         """x: (B, T, F, C) -> (B, ceil(T/s), ceil(F/s), C_out)."""
         x_nchw = x.permute(0, 3, 1, 2)
         y = F.pad(x_nchw, (self.pad,) * 4, mode="reflect")
         y = self.conv(y).permute(0, 2, 3, 1)
-        out = F.leaky_relu(self.norm(y), 0.01)
+        out = self.dropout(F.leaky_relu(self.norm(y), 0.01), deterministic,
+                           generator)
         if self.residual_conv is not None:
             res = self.residual_conv(x_nchw).permute(0, 2, 3, 1)
-            out = out + self.residual_norm(res)
+            out = self.dropout(out + self.residual_norm(res), deterministic,
+                               generator)
         return out
 
 
@@ -53,21 +61,22 @@ class ConvolutionFrontEnd(nn.Module):
 
     def __init__(self, n_mels=80, out_channels=(128, 128),
                  kernel_sizes=(3, 3), strides=(2, 2),
-                 residuals=(True, True)):
+                 residuals=(True, True), dropout=0.0, dropout_bits=32):
         super().__init__()
         blocks = []
         ch, freq = 1, n_mels
         for out_ch, k, s, r in zip(out_channels, kernel_sizes, strides,
                                    residuals):
-            blocks.append(ConvBlock(ch, out_ch, freq, k, s, r))
+            blocks.append(ConvBlock(ch, out_ch, freq, k, s, r, dropout,
+                                    dropout_bits))
             ch, freq = out_ch, -(-freq // s)
         self.blocks = nn.ModuleList(blocks)
 
-    def forward(self, x):
+    def forward(self, x, deterministic=True, generator=None):
         if x.dim() == 3:
             x = x[..., None]
         for block in self.blocks:
-            x = block(x)
+            x = block(x, deterministic, generator)
         return x
 
     @staticmethod

@@ -1,13 +1,17 @@
 """Transducer model assembly: TS-Conformer encoder + LSTM predictor + joint.
 
-Counterpart of the JAX package's ``models/transducer.py`` for the serving path:
+Counterpart of the JAX package's ``models/transducer.py`` for the serving
+path and the training forward of the scratch speaker branch:
 
     mixture feats -> ConvFrontEnd -> TSConformer(+cat inject) -> encoder_proj
     enroll feats  -> ConvFrontEnd -> TSConformer -> ceil-length mean pool
                   -> speaker_proj
-    token         -> one-hot (V -> V-1, blank row zero) -> LSTM step
+    tokens_bos    -> one-hot (V -> V-1, blank row zero) -> LSTM
                   -> decoder_proj
     logits = transducer_head(leaky_relu(enc + dec))
+
+Methods take the JAX ``deterministic`` switch; with
+``deterministic=False`` dropout draws from the step's ``generator``.
 
 The machine that runs the port has no JAX to make weights with, so
 ``TSTransducer.init_weights`` draws them from a seeded
@@ -42,6 +46,9 @@ class TSTransducerConfig:
     encoder_num_layers: int = 12
     d_ffn: int = 2048
     kernel_size: int = 31
+    dropout: float = 0.1
+    # random-bit width per dropout mask element (ops/dropout.py)
+    dropout_bits: int = 32
     frontend_channels: Sequence[int] = (128, 128)
     frontend_strides: Sequence[int] = (2, 2)
     injection_mode: Optional[str] = "cat"
@@ -60,7 +67,8 @@ def scratch_config(**overrides):
     with the fused attention kernel on."""
     values = dict(
         vocab_size=29, blank_index=0, n_mels=80, d_model=256, nhead=4,
-        encoder_num_layers=12, d_ffn=2048, kernel_size=31,
+        encoder_num_layers=12, d_ffn=2048, kernel_size=31, dropout=0.1,
+        dropout_bits=8,
         frontend_channels=(128, 128), frontend_strides=(2, 2),
         injection_mode="cat", injection_after=0, use_speaker_encoder=True,
         speaker_encoder_layers=6, decoder_neurons=512, decoder_num_layers=1,
@@ -96,6 +104,11 @@ class Predictor(nn.Module):
         self.decoder = LSTM(vocab_size - 1, hidden_size, num_layers)
         self.decoder_proj = nn.Linear(hidden_size, joint_dim)
 
+    def forward(self, tokens_bos, initial_state=None):
+        """tokens_bos (B, U+1) int -> (dec_proj (B, U+1, J), state)."""
+        out, state = self.decoder(self.embedding(tokens_bos), initial_state)
+        return self.decoder_proj(out), state
+
     def step(self, token, state):
         """token (B,) int -> (dec_proj (B, J), state)."""
         out, state = self.decoder.step(self.embedding(token), state)
@@ -103,7 +116,8 @@ class Predictor(nn.Module):
 
 
 class TSTransducer(nn.Module):
-    """Target-speaker transducer (inference methods of the JAX model)."""
+    """Target-speaker transducer: the JAX model's inference methods and
+    its training forward (``encode_predict``, ``forward``)."""
 
     def __init__(self, config=None):
         super().__init__()
@@ -120,12 +134,14 @@ class TSTransducer(nn.Module):
         def frontend():
             return ConvolutionFrontEnd(
                 c.n_mels, tuple(c.frontend_channels),
-                strides=tuple(c.frontend_strides))
+                strides=tuple(c.frontend_strides), dropout=c.dropout,
+                dropout_bits=c.dropout_bits)
 
         self.frontend = frontend()
         self.encoder = TSConformerEncoder(
             enc_in, c.d_model, c.nhead, c.encoder_num_layers, c.d_ffn,
-            c.kernel_size, c.injection_mode, after, c.fused_attention)
+            c.kernel_size, c.dropout, c.dropout_bits, c.injection_mode, after,
+            c.fused_attention)
         self.encoder_proj = nn.Linear(c.d_model, c.joint_dim)
         self.predictor = Predictor(c.vocab_size, c.blank_index,
                                    c.decoder_neurons, c.decoder_num_layers,
@@ -138,16 +154,18 @@ class TSTransducer(nn.Module):
                 self.speaker_frontend = frontend()
                 self.speaker_encoder = TSConformerEncoder(
                     enc_in, c.d_model, c.nhead, c.speaker_encoder_layers,
-                    c.d_ffn, c.kernel_size, None,
+                    c.d_ffn, c.kernel_size, c.dropout, c.dropout_bits, None,
                     fused_attention=c.fused_attention)
             self.speaker_proj = nn.Linear(c.d_model, c.d_model)
 
     # ----------------------------------------------------------- speaker
-    def extract_speaker(self, enroll_feats, enroll_rel_lens):
+    def extract_speaker(self, enroll_feats, enroll_rel_lens,
+                        deterministic=True, generator=None):
         """Enrollment features (B, T, n_mels) -> speaker embedding
         (B, 1, d_model)."""
-        x = self.speaker_frontend(enroll_feats)
-        x = self.speaker_encoder(x, enroll_rel_lens)
+        x = self.speaker_frontend(enroll_feats, deterministic, generator)
+        x = self.speaker_encoder(x, enroll_rel_lens, None, deterministic,
+                                 generator)
         return self.speaker_proj(self.pool_speaker(x, enroll_rel_lens))
 
     @staticmethod
@@ -160,13 +178,17 @@ class TSTransducer(nn.Module):
             / mask.sum(dim=-2, keepdim=True)
 
     # ----------------------------------------------------------- encoder
-    def encode(self, feats, rel_lens, speaker_embs=None):
+    def encode(self, feats, rel_lens, speaker_embs=None, deterministic=True,
+               generator=None):
         """Mixture features (B, T, n_mels) -> (B, T', joint_dim)."""
-        x = self.frontend(feats)
-        x = self.encoder(x, rel_lens, speaker_embs)
+        x = self.frontend(feats, deterministic, generator)
+        x = self.encoder(x, rel_lens, speaker_embs, deterministic, generator)
         return self.encoder_proj(x)
 
     # --------------------------------------------------------- predictor
+    def predict(self, tokens_bos, initial_state=None):
+        return self.predictor(tokens_bos, initial_state)
+
     def predict_step(self, token, state):
         return self.predictor.step(token, state)
 
@@ -177,6 +199,32 @@ class TSTransducer(nn.Module):
     def joint_logits(self, enc, dec):
         """enc (..., 1, J), dec (..., U, J) -> logits (..., U, V)."""
         return self.transducer_head(F.leaky_relu(enc + dec, 0.01))
+
+    # ---------------------------------------------------------- training
+    def encode_predict(self, feats, rel_lens, tokens_bos, enroll_feats=None,
+                       enroll_rel_lens=None, deterministic=True,
+                       generator=None):
+        """Forward up to (excluding) the joint: (enc_out (B, T', J),
+        dec_out (B, U+1, J)). The fused loss takes these plus the head's
+        parameters, so the (B, T', U+1, J) joint is never stored."""
+        speaker_embs = None
+        if self.config.injection_mode is not None and enroll_feats is not None:
+            speaker_embs = self.extract_speaker(
+                enroll_feats, enroll_rel_lens, deterministic, generator)
+        enc_out = self.encode(feats, rel_lens, speaker_embs, deterministic,
+                              generator)
+        dec_out, _ = self.predict(tokens_bos)
+        return enc_out, dec_out
+
+    def forward(self, feats, rel_lens, tokens_bos, enroll_feats=None,
+                enroll_rel_lens=None, deterministic=True, generator=None):
+        """Training/eval forward -> (logits (B, T', U+1, V), enc_out)."""
+        enc_out, dec_out = self.encode_predict(
+            feats, rel_lens, tokens_bos, enroll_feats, enroll_rel_lens,
+            deterministic, generator)
+        logits = self.joint_logits(enc_out[:, :, None, :],
+                                   dec_out[:, None, :, :])
+        return logits, enc_out
 
     # ------------------------------------------------------------- init
     @torch.no_grad()

@@ -1,6 +1,10 @@
-"""Feature and mask ops of the serving path."""
+"""Feature, mask, dropout and RNN-T loss ops."""
 
-from tsasr_torch.ops.features import Fbank, input_normalization  # noqa: F401
+from tsasr_torch.ops.features import (  # noqa: F401
+    Fbank,
+    input_normalization,
+    pad_audio_to_frame_multiple,
+)
 from tsasr_torch.ops.masks import (  # noqa: F401
     length_to_mask,
     lookahead_mask,

@@ -1,0 +1,57 @@
+"""Dropout with reduced-width random bits.
+
+Counterpart of the JAX package's ``ops/dropout.py`` (``keep_mask``,
+``Dropout``). ``bits`` is the width of the random draw per mask element:
+
+- ``bits=32`` is a Bernoulli draw with keep probability ``1 - rate``;
+- ``bits=8`` / ``bits=16`` draw raw uint bits and keep an element iff its
+  draw is below ``min(round(keep * 2**bits), 2**bits - 1)``, so the keep
+  probability is quantized (keep 0.9 at bits 8 is 230/256).
+
+Kept elements are scaled by ``1 / (1 - rate)``; rate 0 or eval is the
+identity. The draws come from an explicit ``torch.Generator`` on the
+tensor's device (the JAX package's ``'dropout'`` rng stream): the two
+frameworks give different bits from one seed, so tests compare rates
+and feed both sides the same masks where they need equal numbers.
+"""
+
+import torch
+from torch import nn
+
+
+def keep_mask(gen, keep_prob, shape, bits=32, device=None):
+    """Boolean keep-mask of ``shape`` drawn from ``gen``."""
+    device = gen.device if device is None else device
+    if bits == 32:
+        return torch.rand(shape, generator=gen, device=device) < keep_prob
+    if bits not in (8, 16):
+        raise ValueError(f"dropout bits must be 8, 16 or 32, got {bits}")
+    thr = min(int(round(keep_prob * (1 << bits))), (1 << bits) - 1)
+    dtype = torch.uint8 if bits == 8 else torch.int32
+    draw = torch.randint(0, 1 << bits, shape, generator=gen, device=device,
+                         dtype=dtype)
+    return draw < thr
+
+
+def dropout(x, gen, rate, bits=32):
+    """Zero elements of ``x`` with probability ``rate`` and scale the rest
+    by ``1 / (1 - rate)``."""
+    keep = keep_mask(gen, 1.0 - rate, x.shape, bits, x.device)
+    return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
+
+
+class Dropout(nn.Module):
+    """``Dropout(rate, bits)``; called as ``(x, deterministic, generator)``
+    like the JAX module's ``(x, deterministic)`` with its rng stream."""
+
+    def __init__(self, rate, bits=32):
+        super().__init__()
+        self.rate = float(rate)
+        self.bits = bits
+
+    def forward(self, x, deterministic=True, generator=None):
+        if deterministic or self.rate == 0.0:
+            return x
+        if generator is None:
+            raise ValueError("train-mode dropout needs a torch.Generator")
+        return dropout(x, generator, self.rate, self.bits)

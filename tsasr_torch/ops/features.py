@@ -1,8 +1,8 @@
 """Log-mel features and sentence normalization.
 
 Counterpart of the JAX package's ``ops/features.py`` (``Fbank``, ``stft``,
-``mel_filterbank_matrix``, ``amplitude_to_db``, ``input_normalization``)
-for the settings the serving path uses: periodic Hamming window,
+``mel_filterbank_matrix``, ``amplitude_to_db``, ``input_normalization``,
+``pad_audio_to_frame_multiple``) for the settings the recipe uses: periodic Hamming window,
 center zero padding, power spectrum, triangular mel filters, dB with a
 per-utterance ``top_db`` clamp. The windowed DFT is one strided
 ``conv1d`` against the (window x DFT basis) rows, as in the JAX package;
@@ -80,6 +80,8 @@ class Fbank(nn.Module):
                  win_length=25.0, hop_length=10.0):
         super().__init__()
         self.n_fft = n_fft
+        self.sample_rate = sample_rate
+        self.hop_length = hop_length
         self.hop = _ms_to_samples(sample_rate, hop_length)
         win = _ms_to_samples(sample_rate, win_length)
         self.register_buffer("dft_filters", torch.from_numpy(
@@ -110,3 +112,19 @@ def input_normalization(x, rel_lengths, eps=1e-10):
     std = torch.sqrt(sq / torch.clamp(n - 1.0, min=1.0))
     std = torch.clamp(std, min=eps)
     return (x - mean) / std
+
+
+def pad_audio_to_frame_multiple(wav, rel_lengths, multiple,
+                                sample_rate=16000, hop_length=10.0):
+    """Zero-pad waveforms (B, L) so the center-STFT frame count
+    ``1 + L // hop`` is a multiple of ``multiple``, rescaling relative
+    lengths so ``round(rel * T)`` still covers the same samples. A no-op
+    when already aligned. (The recipe's ``pad_feats_to``.)"""
+    hop = _ms_to_samples(sample_rate, hop_length)
+    L = wav.shape[-1]
+    T = 1 + L // hop
+    T_new = -(-T // multiple) * multiple
+    L_new = (T_new - 1) * hop
+    if L_new <= L:
+        return wav, rel_lengths
+    return F.pad(wav, (0, L_new - L)), rel_lengths * (L / L_new)
