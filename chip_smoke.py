@@ -34,6 +34,7 @@ The line before the last is one JSON object with each kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import json
 import math
 import statistics
@@ -50,6 +51,9 @@ ATTN_T = (101, 126, 201, 301, 1501)
 # encoder frames of the training batches: 4 s at pad_feats_to 32 (104),
 # the 128-frame JAX gate, 8 s (208) and 16 s (408)
 BWD_T = (101, 128, 208, 408)
+# the backward at the training path's dropout rate, at the 8 s and 16 s
+# training shapes
+BWD_DROPOUT_T = (208, 408)
 ATTN_ATOL = 1e-4     # f32 on both sides, sums in another order
 ENC_ATOL = 2e-4      # the same, compounded over 18 layers
 SMALL_ATOL = 1e-4
@@ -67,9 +71,13 @@ LATTICES = (("resident", 6, 208, 129), ("resident", 96, 104, 61),
 TRAIN_BATCHES = ((6, 8), (3, 16))
 MICRO_BATCHES = 8
 CHARS_PER_SECOND = 15
-# per leaf, of its max |g|: f32 with sums in other orders, and the
-# speaker encoder's gradients come back through all 12 mixture layers,
-# the pooled embedding and its own 6 layers (random weights, |g| ~ 1e4)
+# per leaf, of its max |g|: the dropout-0 micro-batch with kernels
+# against the same model on the plain versions. It sits between the f32
+# noise floor (the plain model in f32 against itself in f64) and a
+# planted fault (dp not summed over the batch), both read in every run.
+# The worst leaf on either side of the floor is one FFN element whose
+# pre-activation rounds to the other side of leaky_relu's kink, which
+# moves its gradient 100-fold (chip_gradient_witness.py shows which).
 GRAD_ATOL_REL = 1e-2
 # H100 SXM peaks (NVIDIA data sheet), used for the bound
 PEAK_BYTES_PER_S = 3.35e12
@@ -172,7 +180,7 @@ def phase_attention_fwd(device):
 
     scale = 1.0 / math.sqrt(H * DH)
     gen = torch.Generator().manual_seed(SEED)
-    rows, max_err = [], 0.0
+    rows = []
     for t in ATTN_T:
         for band in (False, True):
             args = attention_case(t, band, gen, device)
@@ -184,7 +192,6 @@ def phase_attention_fwd(device):
             if not (err <= ATTN_ATOL and torch.isfinite(got).all()):
                 raise RuntimeError(f"relpos_attention_fwd T={t} band={band}:"
                                    f" max abs err {err} > {ATTN_ATOL}")
-            max_err = max(max_err, err)
             if band:
                 log(f"kernel relpos_attention_fwd B{B} H{H} T{t} Dh{DH} "
                     f"banded mask: max_abs_err {err:.3g} (atol {ATTN_ATOL})")
@@ -232,7 +239,7 @@ def phase_attention_fwd(device):
     if not (err <= ATTN_ATOL and masks_equal):
         raise RuntimeError("relpos_attention_fwd with dropout disagrees with "
                            "its plain version")
-    return rows, max(max_err, err)
+    return rows
 
 
 def phase_attention_bwd(device):
@@ -242,23 +249,40 @@ def phase_attention_bwd(device):
 
     scale = 1.0 / math.sqrt(H * DH)
     gen = torch.Generator().manual_seed(SEED + 7)
-    rows, max_err = [], 0.0
+
+    def errors(args, do, seed, rate):
+        """The kernels' five gradients against autograd through the
+        plain version: (max abs err, max err of each gradient's max |g|
+        clamped at 1, and a line with the kernels' and the plain f32
+        version's errors against the plain version in f64)."""
+        grads = {}
+        for name, fn, dtype in (
+                ("kernel", ra.fused_relpos_attention, torch.float32),
+                ("plain", ra.relpos_attention_reference, torch.float32),
+                ("f64", ra.relpos_attention_reference, torch.float64)):
+            leaves = [x.to(dtype).requires_grad_(i < 5)
+                      for i, x in enumerate(args)]
+            out = fn(*leaves, seed=seed, scale=scale, rate=rate)
+            grads[name] = torch.autograd.grad(out, leaves[:5], do.to(dtype))
+        torch.cuda.synchronize()
+        pairs = list(zip(grads["kernel"], grads["plain"]))
+        abs_err = max((a - b).abs().max().item() for a, b in pairs)
+        rel_err = max(((a - b).abs().max() / b.abs().max().clamp(min=1.0))
+                      .item() for a, b in pairs)
+        if not rel_err <= ATTN_ATOL:
+            raise RuntimeError(f"relpos_attention_bwd T={t} rate {rate}: "
+                               f"err {rel_err} of max |g| > {ATTN_ATOL}")
+        wide = (f"against f64, of each gradient's max |g|: kernels "
+                f"{max(leaf_errors(grads['kernel'], grads['f64'])):.3g}, "
+                f"plain f32 "
+                f"{max(leaf_errors(grads['plain'], grads['f64'])):.3g}")
+        return abs_err, rel_err, wide
+
+    rows = []
     for t in BWD_T:
         args = attention_case(t, False, gen, device)
         do = torch.randn(B, H, t, DH, generator=gen).to(device)
-        grads = {}
-        for name, fn in (("kernel", ra.fused_relpos_attention),
-                         ("plain", ra.relpos_attention_reference)):
-            leaves = [x.clone().requires_grad_(i < 5)
-                      for i, x in enumerate(args)]
-            out = fn(*leaves, seed=0, scale=scale, rate=0.0)
-            grads[name] = torch.autograd.grad(out, leaves[:5], do)
-        torch.cuda.synchronize()
-        err = max(((a - b).abs().max() / b.abs().max().clamp(min=1.0)).item()
-                  for a, b in zip(grads["kernel"], grads["plain"]))
-        if not err <= ATTN_ATOL:
-            raise RuntimeError(f"relpos_attention_bwd T={t}: max err {err}")
-        max_err = max(max_err, err)
+        err, rel_err, wide = errors(args, do, 0, 0.0)
 
         # kernel: the backward launch alone, from the forward's out and
         # row statistics
@@ -289,13 +313,26 @@ def phase_attention_bwd(device):
         rows.append(dict(T=t, err=err, ms=ms, plain_ms=plain_ms,
                          library_ms=lib_ms, bound_ms=bound_ms,
                          bound_by=bound_by))
-        log(f"kernel relpos_attention_bwd B{B} H{H} T{t} Dh{DH}: max err "
-            f"{err:.3g} (of each gradient's max |g|, tol {ATTN_ATOL}: f32, "
-            f"sums in other orders, dp summed over the batch in a second "
-            f"pass); kernel {ms:.4f} ms, plain (autograd) {plain_ms:.4f} ms, "
-            f"SDPA backward {lib_ms:.4f} ms (fwd+bwd minus fwd, given the "
-            f"bias), bound {bound_ms:.4f} ms by {bound_by}")
-    return rows, max_err
+        log(f"kernel relpos_attention_bwd B{B} H{H} T{t} Dh{DH}: max_abs_err "
+            f"{err:.3g}, err {rel_err:.3g} of each gradient's max |g| (tol "
+            f"{ATTN_ATOL}: f32, sums in other orders, dp summed over the "
+            f"batch in a second pass); kernel {ms:.4f} ms, plain (autograd) "
+            f"{plain_ms:.4f} ms, SDPA backward {lib_ms:.4f} ms (fwd+bwd "
+            f"minus fwd, given the bias), bound {bound_ms:.4f} ms by "
+            f"{bound_by}; {wide}")
+
+    # the training path's dropout: the mask regenerated in the backward
+    rate = 0.1
+    seed = torch.tensor([4242], device=device)
+    for t in BWD_DROPOUT_T:
+        args = attention_case(t, False, gen, device)
+        do = torch.randn(B, H, t, DH, generator=gen).to(device)
+        err, rel_err, wide = errors(args, do, seed, rate)
+        log(f"kernel relpos_attention_bwd B{B} H{H} T{t} Dh{DH} dropout "
+            f"{rate}: max_abs_err {err:.3g}, err {rel_err:.3g} of each "
+            f"gradient's max |g| (tol {ATTN_ATOL}, the same Philox mask on "
+            f"both sides); {wide}")
+    return rows
 
 
 def lattice_rtol(loss, t, u1):
@@ -333,7 +370,7 @@ def phase_lattice(device):
     from tsasr_torch.kernels import rnnt_lattice as rl
 
     gen = torch.Generator().manual_seed(SEED + 11)
-    rows, max_err = {}, 0.0
+    rows = {}
     for kind, b, t, u1 in LATTICES:
         lpb, lpl, t_lens, u_lens = lattice_case(b, t, u1, gen, device)
         got = rl.rnnt_lattice(lpb, lpl, t_lens, u_lens, variant=kind)
@@ -347,15 +384,14 @@ def phase_lattice(device):
         if not (max(errs) <= 1.0 and finite):
             raise RuntimeError(f"rnnt_lattice {kind} B{b} T{t} U1 {u1}: "
                                f"err/tol {max(errs)}")
-        max_err = max(max_err, abs_err)
         valid = int(((t_lens.long()) * (u_lens.long() + 1)).sum())
         cells = b * t * u1
         plain_ms = cuda_ms(lambda: rl.rnnt_lattice_reference(
             lpb, lpl, t_lens, u_lens), reps=1, rounds=3)
         line = (f"kernel rnnt_lattice {kind} B{b} T{t} U+1 {u1}: max_abs_err "
                 f"{abs_err:.3g} (rtol {rtol:.2g} + atol 1e-4: f32 row scans "
-                f"in another order, see lattice_rtol), loss {got[0][0].item():.2f}; plain "
-                f"{plain_ms:.3f} ms")
+                f"in another order, see lattice_rtol), loss "
+                f"{got[0][0].item():.2f}; plain {plain_ms:.3f} ms")
         if kind == "resident":
             ms = cuda_ms(lambda: rl.rnnt_lattice(lpb, lpl, t_lens, u_lens,
                                                  variant="resident"),
@@ -405,8 +441,6 @@ def phase_lattice(device):
         f"shared vs device memory)")
     if agree > 1e-5:
         raise RuntimeError("the lattice variants disagree")
-    for row in rows.values():
-        row["err"] = max_err
     return rows
 
 
@@ -552,6 +586,18 @@ def make_train_batch(rng, n, seconds, ids=None):
     return batch
 
 
+def training_batches():
+    """The training phase's batches: the main path's micro-batches, the
+    dropout-0 gradient check's and the VALID one."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 3)
+    train = [make_train_batch(rng, *TRAIN_BATCHES[i % 2], ids=f"m{i}-")
+             for i in range(MICRO_BATCHES)]
+    check = make_train_batch(rng, *TRAIN_BATCHES[0], ids="d-")
+    valid = make_train_batch(rng, *TRAIN_BATCHES[0], ids="v-")
+    return train, check, valid
+
+
 def make_brain(config, device, hparams=None):
     from tsasr_torch.data.tokenizer import CharTokenizer
     from tsasr_torch.models.transducer import TSTransducer
@@ -567,40 +613,156 @@ def make_brain(config, device, hparams=None):
                       tokenizer=CharTokenizer(PIECES))
 
 
+@contextlib.contextmanager
 def plain_kernels():
     """Context: the model's attention and lattice calls take their plain
-    versions on the card (for the comparison run only)."""
-    import contextlib
+    versions on the card (for the comparison runs only)."""
     from tsasr_torch.kernels import relpos_attention as ra
     from tsasr_torch.kernels import rnnt_lattice as rl
     from tsasr_torch.models import attention as attention_mod
     from tsasr_torch.ops import rnnt_loss_fused as fused_mod
 
-    @contextlib.contextmanager
-    def ctx():
-        saved = (attention_mod.fused_relpos_attention, fused_mod.rnnt_lattice)
-        attention_mod.fused_relpos_attention = \
-            lambda *a, seed, scale, rate: ra.relpos_attention_reference(
-                *a, scale, seed, rate)
-        fused_mod.rnnt_lattice = \
-            lambda lpb, lpl, t, u, variant: rl.rnnt_lattice_reference(
-                lpb, lpl, t, u)
-        try:
-            yield
-        finally:
-            attention_mod.fused_relpos_attention, fused_mod.rnnt_lattice = \
-                saved
-    return ctx()
+    saved = (attention_mod.fused_relpos_attention, fused_mod.rnnt_lattice)
+    attention_mod.fused_relpos_attention = \
+        lambda *a, seed, scale, rate: ra.relpos_attention_reference(
+            *a, scale, seed, rate)
+    fused_mod.rnnt_lattice = rl.rnnt_lattice_reference
+    try:
+        yield
+    finally:
+        attention_mod.fused_relpos_attention, fused_mod.rnnt_lattice = saved
 
 
-def loss_and_grads(brain, batch):
+@contextlib.contextmanager
+def planted_fault():
+    """Context: the attention backward's dp is not summed over the batch
+    (it is the first utterance's share alone), a fault the gradient check
+    must catch."""
+    from tsasr_torch.kernels import relpos_attention as ra
+
+    real = ra._launch_bwd
+
+    def faulty(q_u, q_v, k, v, p, kp_add, am_add, out, stats, do, seed_t,
+               scale, rate):
+        *grads, _ = real(q_u, q_v, k, v, p, kp_add, am_add, out, stats, do,
+                         seed_t, scale, rate)
+        *_, dp = real(q_u[:1], q_v[:1], k[:1], v[:1], p, kp_add[:1],
+                      am_add, out[:1], stats[:1], do[:1], seed_t, scale, rate)
+        return (*grads, dp)
+
+    ra._launch_bwd = faulty
+    try:
+        yield
+    finally:
+        ra._launch_bwd = real
+
+
+def wide_brain(device):
+    """The dropout-0 full-width brain with its weights (the same as
+    ``make_brain``'s) and its features in f64, for the plain versions."""
+    from tsasr_torch.models.transducer import scratch_config
+    brain = make_brain(scratch_config(dropout=0.0), device)
+    brain.model.double()
+    brain.fbank.double()
+    return brain
+
+
+def loss_and_grads(brain, batch, dtype=None):
+    """Loss and every parameter's gradient of one TRAIN micro-batch. With
+    ``dtype``, the float inputs are cast to it and it is the default
+    dtype for the run (an f64 run of ``wide_brain``)."""
     import torch
+    from tsasr_torch.training.brain import onednn_off_on_cpu
     from tsasr_torch.utils.stage import Stage
     arrays = brain._put_batch(brain.batch_to_arrays(batch))
+    if dtype is not None:
+        arrays = {k: v.to(dtype) if v.is_floating_point() else v
+                  for k, v in arrays.items()}
     params = [p for p in brain.model.parameters()]
-    loss = brain.compute_objectives(
-        brain.compute_forward(arrays, Stage.TRAIN, None), arrays, Stage.TRAIN)
-    return loss.detach(), torch.autograd.grad(loss, params)
+    saved = torch.get_default_dtype()
+    torch.set_default_dtype(dtype or saved)
+    try:
+        with onednn_off_on_cpu(brain.device):
+            loss = brain.compute_objectives(
+                brain.compute_forward(arrays, Stage.TRAIN, None), arrays,
+                Stage.TRAIN)
+            return loss.detach(), torch.autograd.grad(loss, params)
+    finally:
+        torch.set_default_dtype(saved)
+
+
+def leaf_errors(got, want):
+    """Per gradient leaf: max |got - want| over max |want|, in f64."""
+    return [((g.double() - w.double()).abs().max()
+             / w.double().abs().max().clamp(min=1e-30)).item()
+            for g, w in zip(got, want)]
+
+
+def check_gradients(device, batch):
+    """At dropout 0, one micro-batch's loss and gradients with every
+    kernel against the same model with every kernel forced to its plain
+    version. Two more readings place the tolerance: the f32 noise floor
+    (the plain model in f32 against the same model, weights and batch in
+    f64) and a planted fault (dp not summed over the batch). Returns the
+    f32 brain, for the profile."""
+    import torch
+    from tsasr_torch.models.transducer import scratch_config
+
+    det = make_brain(scratch_config(dropout=0.0), device)
+    reset_counts()
+    loss_k, grads_k = loss_and_grads(det, batch)
+    used = read_counts()
+    with planted_fault():
+        _, grads_f = loss_and_grads(det, batch)
+    with plain_kernels():
+        reset_counts()
+        loss_p, grads_p = loss_and_grads(det, batch)
+        if any(read_counts().values()):
+            raise RuntimeError("the plain run launched a kernel")
+        wide = wide_brain(device)
+        loss_w, grads_w = loss_and_grads(wide, batch, torch.float64)
+        if any(read_counts().values()):
+            raise RuntimeError("the f64 run launched a kernel")
+    torch.cuda.synchronize()
+    names = [n for n, _ in det.model.named_parameters()]
+    if any(not torch.equal(a.double(), b) for a, b in zip(
+            det.model.parameters(), wide.model.parameters())):
+        raise RuntimeError("the f64 model's weights are not the f32 ones")
+
+    def summary(errs):
+        worst = max(errs)
+        return worst, (f"worst leaf {names[errs.index(worst)]} {worst:.3g}, "
+                       f"median {statistics.median(errs):.3g}")
+
+    loss_err = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    check, check_line = summary(leaf_errors(grads_k, grads_p))
+    plain_wide = leaf_errors(grads_p, grads_w)
+    kernel_wide = leaf_errors(grads_k, grads_w)
+    floor, floor_line = summary(plain_wide)
+    _, kernel_line = summary(kernel_wide)
+    fault, fault_line = summary(leaf_errors(grads_f, grads_p))
+    ratios = [k / max(p, 1e-30) for k, p in zip(kernel_wide, plain_wide)]
+    worst_leaf = kernel_wide.index(max(kernel_wide))
+    kernel_line += (f" (plain f32 on that leaf {plain_wide[worst_leaf]:.3g}"
+                    f"); per leaf, kernels' error / plain f32's: median "
+                    f"{statistics.median(ratios):.3g}, max {max(ratios):.3g}")
+    log(f"dropout 0, 6 x 8 s, {len(names)} gradient leaves, each error of "
+        f"the leaf's max |g|: kernels {used} vs plain: loss "
+        f"{loss_k.item():.5f} vs {loss_p.item():.5f} (rel err "
+        f"{loss_err:.3g}, tol 1e-4), {check_line} (tol {GRAD_ATOL_REL})")
+    log(f"  f32 noise floor, plain f32 vs plain f64 (loss "
+        f"{loss_w.item():.5f}): {floor_line}")
+    log(f"  kernels f32 vs plain f64: {kernel_line}")
+    log(f"  planted fault (dp not summed over the batch) vs plain: "
+        f"{fault_line}")
+    if loss_err > 1e-4 or check > GRAD_ATOL_REL:
+        raise RuntimeError("the training step with kernels differs from "
+                           "the plain version")
+    if not floor < GRAD_ATOL_REL < fault:
+        raise RuntimeError(f"the gradient tolerance {GRAD_ATOL_REL} is not "
+                           f"between the f32 noise floor {floor:.3g} and "
+                           f"the planted fault {fault:.3g}")
+    return det
 
 
 def profile_micro_batch(brain, batch, card):
@@ -643,7 +805,6 @@ def profile_micro_batch(brain, batch, card):
 
 
 def phase_training(device, card):
-    import numpy as np
     import torch
     from tsasr_torch.models.transducer import scratch_config
     from tsasr_torch.utils.stage import Stage
@@ -651,9 +812,7 @@ def phase_training(device, card):
     config = scratch_config()
     brain = make_brain(config, device)
     brain.init_optimizers()
-    rng = np.random.default_rng(SEED + 3)
-    batches = [make_train_batch(rng, *TRAIN_BATCHES[i % 2], ids=f"m{i}-")
-               for i in range(MICRO_BATCHES)]
+    batches, check_batch, valid = training_batches()
     log(f"training: scratch config, dropout {config.dropout} at "
         f"{config.dropout_bits} bits, accumulation "
         f"{brain.grad_accumulation_factor}, fused joint loss chunk "
@@ -718,37 +877,10 @@ def phase_training(device, card):
         f"{peak:.2f} GiB [{card}]")
 
     # dropout 0: kernels against every kernel forced to its plain version
-    det = make_brain(scratch_config(dropout=0.0), device)
-    batch = make_train_batch(rng, *TRAIN_BATCHES[0], ids="d-")
-    reset_counts()
-    loss_k, grads_k = loss_and_grads(det, batch)
-    used = read_counts()
-    with plain_kernels():
-        reset_counts()
-        loss_p, grads_p = loss_and_grads(det, batch)
-        if any(read_counts().values()):
-            raise RuntimeError("the plain run launched a kernel")
-    torch.cuda.synchronize()
-    loss_err = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
-    names = [n for n, _ in det.model.named_parameters()]
-    errs = [((gk - gp).abs().max() / gp.abs().max().clamp(min=1e-12)).item()
-            for gk, gp in zip(grads_k, grads_p)]
-    worst = max(errs)
-    worst_name = names[errs.index(worst)]
-    log(f"dropout 0, 6 x 8 s: kernels {used} vs plain: loss "
-        f"{loss_k.item():.5f} vs {loss_p.item():.5f} (rel err "
-        f"{loss_err:.3g}, tol 1e-4), worst gradient leaf {worst_name} "
-        f"err {worst:.3g} of its max |g| (tol {GRAD_ATOL_REL}: f32, 18 "
-        f"layers of reordered sums), median leaf "
-        f"{statistics.median(errs):.3g}, {len(names)} leaves")
-    if loss_err > 1e-4 or worst > GRAD_ATOL_REL:
-        raise RuntimeError("the training step with kernels differs from "
-                           "the plain version")
-
-    profile_micro_batch(det, batch, card)
+    det = check_gradients(device, check_batch)
+    profile_micro_batch(det, check_batch, card)
 
     # VALID: one batch of 6 x 8 s, loss and greedy hypotheses
-    valid = make_train_batch(rng, *TRAIN_BATCHES[0], ids="v-")
     brain.on_stage_start(Stage.VALID)
     t0 = time.perf_counter()
     vloss = brain.evaluate_batch(valid, Stage.VALID)
@@ -827,11 +959,12 @@ def phase_small(device):
                            "and the CPU")
 
 
-def kernel_entry(name, source, replaces, launches, by_path, row, shape,
-                 max_err):
+def kernel_entry(name, source, replaces, launches, by_path, row, shape):
+    """One kernel's entry; every number is from this run's row at
+    ``shape``."""
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
-            "launches_by_path": by_path, "max_abs_err": max_err,
+            "launches_by_path": by_path, "max_abs_err": row["err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row.get("library_ms"), "shape": shape}
@@ -865,8 +998,8 @@ def main():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"  {name}: {line.strip()}")
 
-    fwd_rows, fwd_err = phase_attention_fwd(device)
-    bwd_rows, bwd_err = phase_attention_bwd(device)
+    fwd_rows = phase_attention_fwd(device)
+    bwd_rows = phase_attention_bwd(device)
     lattice_rows = phase_lattice(device)
     log(f"kernel phases done at {time.perf_counter() - t_start:.1f} s")
     serving = phase_serving(device, card)
@@ -885,13 +1018,13 @@ def main():
                      serving["relpos_attention_fwd"]
                      + training["relpos_attention_fwd"],
                      paths("relpos_attention_fwd"), fwd,
-                     f"B{B} H{H} T{fwd['T']} Dh{DH} f32", fwd_err),
+                     f"B{B} H{H} T{fwd['T']} Dh{DH} f32"),
         kernel_entry("relpos_attention_bwd",
                      "tsasr_torch/csrc/relpos_attention_bwd.cu",
                      "tsasr_tpu/ops/attention_pallas.py:143",
                      training["relpos_attention_bwd"],
                      paths("relpos_attention_bwd"), bwd,
-                     f"B{B} H{H} T{bwd['T']} Dh{DH} f32", bwd_err),
+                     f"B{B} H{H} T{bwd['T']} Dh{DH} f32"),
     ]
     for name, key, line in (
             ("rnnt_lattice_resident", "resident", 112),
@@ -901,8 +1034,7 @@ def main():
         kernels.append(kernel_entry(
             name, "tsasr_torch/csrc/rnnt_lattice.cu",
             f"tsasr_tpu/ops/rnnt_loss_pallas.py:{line}",
-            training[name], paths(name), row, row["shape"] + " f32",
-            row["err"]))
+            training[name], paths(name), row, row["shape"] + " f32"))
     for entry in kernels:
         if entry["launches"] < 1:
             raise RuntimeError(f"{entry['name']} was not launched on the "

@@ -19,6 +19,7 @@ from tsasr_torch.device import resolve_device
 from tsasr_torch.inference import TSASRTranscriber
 from tsasr_torch.kernels import _build, relpos_attention
 from tsasr_torch.models.transducer import TSTransducer, TSTransducerConfig
+from tsasr_torch.training.brain import onednn_off_on_cpu
 
 REPO = Path(__file__).resolve().parents[1]
 PACKAGE = REPO / "tsasr_torch"
@@ -56,6 +57,19 @@ def test_no_source_names_jax_or_the_jax_package():
                  if path.suffix in (".py", ".cu")
                  and pattern.search(path.read_text(encoding="utf-8"))]
     assert offenders == []
+
+
+def test_onednn_is_off_only_inside_a_cpu_training_step():
+    """Resolving the CPU leaves oneDNN alone; the training step's context
+    turns it off on the CPU only, and restores it."""
+    before = torch.backends.mkldnn.enabled
+    resolve_device("cpu")
+    assert torch.backends.mkldnn.enabled == before
+    with onednn_off_on_cpu("cpu"):
+        assert not torch.backends.mkldnn.enabled
+    assert torch.backends.mkldnn.enabled == before
+    with onednn_off_on_cpu("cuda"):
+        assert torch.backends.mkldnn.enabled == before
 
 
 def test_default_device_is_cuda_and_raises_without_it(monkeypatch):

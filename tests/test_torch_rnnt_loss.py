@@ -166,6 +166,37 @@ def test_fused_loss_matches_jax_and_oracle(chunk):
         np.testing.assert_allclose(_np(g), _np(o), **TOL)
 
 
+@pytest.mark.parametrize("fused", [False, True])
+def test_losses_stay_f64_in_f64(fused):
+    """In f64 (the card's noise-floor run) the loss, the lattice and the
+    gradients stay f64 and agree with the per-cell oracle to f64
+    rounding: 1e-9 abs and rel."""
+    rng = np.random.default_rng(7)
+    B, T, U, J, V = 3, 9, 4, 6, 7
+    enc, dec = (torch.from_numpy(rng.normal(size=s)).requires_grad_()
+                for s in ((B, T, J), (B, U + 1, J)))
+    w = torch.from_numpy(rng.normal(size=(J, V)) * 0.3).requires_grad_()
+    b = torch.from_numpy(rng.normal(size=V) * 0.1).requires_grad_()
+    labels = torch.from_numpy(rng.integers(1, V, size=(B, U)))
+    t_lens = torch.tensor([T, 5, 1], dtype=torch.int32)
+    u_lens = torch.tensor([U, 0, 2], dtype=torch.int32)
+    logits = torch.nn.functional.leaky_relu(
+        enc[:, :, None] + dec[:, None], 0.01) @ w + b
+    if fused:
+        got = rnnt_loss_fused(enc, dec, w, b, labels, t_lens, u_lens,
+                              chunk=4)
+    else:
+        got = rnnt_loss(logits, labels, t_lens, u_lens, reduction="none")
+    got_grads = torch.autograd.grad(got.sum(), (enc, dec, w, b),
+                                    retain_graph=True)
+    want = rnnt_loss_reference(logits, labels, t_lens, u_lens)
+    want_grads = torch.autograd.grad(want.sum(), (enc, dec, w, b))
+    assert got.dtype == torch.float64
+    for g, w_ in zip((got, *got_grads), (want, *want_grads)):
+        assert g.dtype == torch.float64
+        np.testing.assert_allclose(_np(g), _np(w_), atol=1e-9, rtol=1e-9)
+
+
 def test_lattice_wrapper_rules():
     assert rnnt_lattice.resident_fits(208, 129)       # 8 s batches
     assert rnnt_lattice.resident_fits(104, 61)        # bench.py's step

@@ -13,10 +13,7 @@ def resolve_device(device="cuda"):
 
     On CUDA this also turns TF32 off for matmuls and cuDNN convolutions:
     the slice runs in full f32 like the reference, and a TF32 STFT
-    visibly moves the log-mel features. On the CPU it turns oneDNN off:
-    in PyTorch 2.13's CPU build its convolution backward corrupts the
-    heap on the frontend's strided convolutions (a training step aborts
-    about every other run), and PyTorch's own CPU convolutions do not.
+    visibly moves the log-mel features.
     """
     device = torch.device(device)
     if device.type == "cuda":
@@ -26,8 +23,6 @@ def resolve_device(device="cuda"):
                 "available; pass device='cpu' to run on the CPU")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    elif device.type == "cpu":
-        torch.backends.mkldnn.enabled = False
-    else:
+    elif device.type != "cpu":
         raise ValueError(f"unsupported device {str(device)!r}")
     return device

@@ -39,6 +39,7 @@ import functools
 import torch
 
 from tsasr_torch.kernels import _build
+from tsasr_torch.utils.precision import f32_or_wider
 
 MAX_HEAD_DIM = 128
 SOURCE = "relpos_attention_fwd"
@@ -123,7 +124,7 @@ def relpos_attention_reference(q_u, q_v, k, v, p, kp_add, am_add, scale,
     bd = rel_shift(torch.einsum("bhtd,hsd->bhts", q_v, p), klen=T)
     scores = ((ac + bd) * scale + am_add[None, None]
               + kp_add[:, None, None, :])
-    probs = torch.softmax(scores.float(), dim=-1)
+    probs = torch.softmax(scores, dim=-1, dtype=f32_or_wider(scores))
     if rate > 0.0:
         keep = philox_keep_mask(seed, B, H, T, rate, q_u.device)
         probs = torch.where(keep, probs * (1.0 / (1.0 - rate)), 0.0)

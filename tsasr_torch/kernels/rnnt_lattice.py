@@ -63,14 +63,14 @@ def rnnt_lattice_reference(lpb, lpl, t_lens, u_lens):
     col = torch.arange(U1, device=lpb.device)[None]
     Tl = t_lens.long()[:, None]
     Ul = u_lens.long()[:, None]
-    neg = torch.full((B, U1), NEG, device=lpb.device)
+    neg = torch.full((B, U1), NEG, dtype=lpb.dtype, device=lpb.device)
 
-    alphas, logz = [], torch.full((B, 1), NEG, device=lpb.device)
+    alphas, logz = [], neg[:, :1]
     row = neg
     for t in range(T):
         p = torch.where(col < Ul, lpl[:, t], 0.0)
         cum_p = torch.cumsum(p, dim=-1) - p
-        c = torch.where(col == 0, 0.0, NEG) if t == 0 else row + lpb[:, t - 1]
+        c = torch.where(col == 0, 0.0, neg) if t == 0 else row + lpb[:, t - 1]
         c = torch.where(col <= Ul, c, NEG)
         row = cum_p + _logcumsumexp(c - cum_p)
         alphas.append(row)

@@ -28,6 +28,7 @@ from torch import nn
 from tsasr_torch.kernels.relpos_attention import fused_relpos_attention
 from tsasr_torch.kernels.relpos_attention import rel_shift as _rel_shift
 from tsasr_torch.ops.dropout import Dropout
+from tsasr_torch.utils.precision import f32_or_wider
 
 ATTN_FILL = -1e9
 
@@ -105,7 +106,7 @@ class RelPosMHAXL(nn.Module):
         if key_padding_mask is not None:
             scores = scores.masked_fill(key_padding_mask[:, None, None, :],
                                         ATTN_FILL)
-        attn = torch.softmax(scores.float(), dim=-1)
+        attn = torch.softmax(scores, dim=-1, dtype=f32_or_wider(scores))
         attn = self.dropout(attn, deterministic, generator)
         out = torch.einsum("bhts,bshd->bthd", attn, v).reshape(B, T, D)
         return self.out_proj(out), attn

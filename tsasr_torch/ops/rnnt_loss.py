@@ -19,6 +19,7 @@ in ``transducer_loss`` are turned into counts with ``round(rel * size)``;
 import torch
 
 from tsasr_torch.kernels.rnnt_lattice import NEG, rnnt_lattice
+from tsasr_torch.utils.precision import f32_or_wider
 
 
 def _gather_label_blank_logprobs(log_probs, labels, blank):
@@ -46,12 +47,12 @@ def _logprob_grads(log_probs, dlpb, dlpl, labels, blank):
 
 class _RNNTLoss(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, logits, labels, logit_lengths, label_lengths, blank,
-                variant):
-        log_probs = torch.log_softmax(logits.float(), dim=-1)
+    def forward(ctx, logits, labels, logit_lengths, label_lengths, blank):
+        log_probs = torch.log_softmax(logits, dim=-1,
+                                      dtype=f32_or_wider(logits))
         lpb, lpl = _gather_label_blank_logprobs(log_probs, labels, blank)
         loss, dlpb, dlpl = rnnt_lattice(lpb, lpl, logit_lengths,
-                                        label_lengths, variant)
+                                        label_lengths)
         ctx.save_for_backward(log_probs, dlpb, dlpl, labels)
         ctx.blank = blank
         return loss
@@ -60,7 +61,7 @@ class _RNNTLoss(torch.autograd.Function):
     def backward(ctx, g):
         log_probs, dlpb, dlpl, labels = ctx.saved_tensors
         dlogits = _logprob_grads(log_probs, dlpb, dlpl, labels, ctx.blank)
-        return dlogits * g[:, None, None, None], None, None, None, None, None
+        return dlogits * g[:, None, None, None], None, None, None, None
 
 
 def reduce_losses(losses, reduction):
@@ -76,17 +77,15 @@ def reduce_losses(losses, reduction):
 
 
 def rnnt_loss(logits, labels, logit_lengths, label_lengths, blank=0,
-              reduction="mean", variant="auto"):
+              reduction="mean"):
     """RNN-T loss over absolute lengths, as torchaudio's ``rnnt_loss``.
 
     logits: (B, T, U+1, V); labels: (B, U) int; lengths: (B,) int.
-    ``variant`` picks the lattice kernel on CUDA (see
-    ``kernels.rnnt_lattice``).
     """
     losses = _RNNTLoss.apply(logits, labels,
                              logit_lengths.to(torch.int32).contiguous(),
                              label_lengths.to(torch.int32).contiguous(),
-                             blank, variant)
+                             blank)
     return reduce_losses(losses, reduction)
 
 
@@ -110,7 +109,7 @@ def rnnt_loss_reference(logits, labels, logit_lengths, label_lengths,
         loss = -(alpha[T_b-1, U_b] + blank[T_b-1, U_b]),
 
     differentiable by autograd. Slow: it is the tests' oracle."""
-    log_probs = torch.log_softmax(logits.float(), dim=-1)
+    log_probs = torch.log_softmax(logits, dim=-1, dtype=f32_or_wider(logits))
     losses = []
     for b in range(logits.shape[0]):
         T_b, U_b = int(logit_lengths[b]), int(label_lengths[b])

@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from tsasr_torch.kernels.rnnt_lattice import rnnt_lattice
 from tsasr_torch.ops.rnnt_loss import (_gather_label_blank_logprobs,
                                        _logprob_grads, reduce_losses)
+from tsasr_torch.utils.precision import f32_or_wider
 
 
 def _chunk_joint(enc_c, dec, w, b, slope):
@@ -28,20 +29,21 @@ def _chunk_joint(enc_c, dec, w, b, slope):
     pre = enc_c[:, :, None, :] + dec[:, None, :, :]
     joint = F.leaky_relu(pre, slope)
     logits = joint @ w + b
-    return pre, joint, torch.log_softmax(logits.float(), dim=-1)
+    return pre, joint, torch.log_softmax(logits, dim=-1,
+                                         dtype=f32_or_wider(logits))
 
 
 class _FusedRNNTLoss(torch.autograd.Function):
     @staticmethod
     def forward(ctx, enc, dec, w, b, labels, t_lens, u_lens, blank, chunk,
-                slope, variant):
+                slope):
         T = enc.shape[1]
         lattices = [_gather_label_blank_logprobs(
             _chunk_joint(enc[:, c0:c0 + chunk], dec, w, b, slope)[2],
             labels, blank) for c0 in range(0, T, chunk)]
         lpb = torch.cat([x[0] for x in lattices], dim=1)
         lpl = torch.cat([x[1] for x in lattices], dim=1)
-        loss, dlpb, dlpl = rnnt_lattice(lpb, lpl, t_lens, u_lens, variant)
+        loss, dlpb, dlpl = rnnt_lattice(lpb, lpl, t_lens, u_lens)
         ctx.save_for_backward(enc, dec, w, b, labels, dlpb, dlpl)
         ctx.blank, ctx.chunk, ctx.slope = blank, chunk, slope
         return loss
@@ -68,12 +70,12 @@ class _FusedRNNTLoss(torch.autograd.Function):
             dpre = torch.where(pre > 0, djoint, slope * djoint)
             denc[:, sl] = dpre.sum(dim=2)
             ddec += dpre.sum(dim=1)
-        return denc, ddec, dw, db, None, None, None, None, None, None, None
+        return denc, ddec, dw, db, None, None, None, None, None, None
 
 
 def rnnt_loss_fused(enc, dec, head_w, head_b, labels, logit_lengths,
                     label_lengths, blank=0, reduction="none", chunk=8,
-                    negative_slope=0.01, variant="auto"):
+                    negative_slope=0.01):
     """RNN-T loss straight from the projected encoder and predictor
     outputs; equal at f32 to
 
@@ -88,5 +90,5 @@ def rnnt_loss_fused(enc, dec, head_w, head_b, labels, logit_lengths,
         enc, dec, head_w, head_b, labels,
         logit_lengths.to(torch.int32).contiguous(),
         label_lengths.to(torch.int32).contiguous(), blank, int(chunk),
-        negative_slope, variant)
+        negative_slope)
     return reduce_losses(losses, reduction)

@@ -23,6 +23,7 @@ Subclasses provide ``batch_to_arrays``, ``compute_forward`` and
 data loading yet.
 """
 
+import contextlib
 import logging
 from types import SimpleNamespace
 
@@ -40,6 +41,24 @@ DEFAULT_RUN_OPTS = {
     "max_grad_norm": 5.0,
     "nonfinite_patience": 3,
 }
+
+
+@contextlib.contextmanager
+def onednn_off_on_cpu(device):
+    """Context for a training forward + backward: on the CPU it turns
+    oneDNN off, whose convolution backward in PyTorch 2.13's CPU build
+    corrupts the heap on the frontend's strided convolutions (about every
+    other step aborts); PyTorch's own CPU convolutions do not. Elsewhere
+    it does nothing."""
+    if torch.device(device).type != "cpu":
+        yield
+        return
+    saved = torch.backends.mkldnn.enabled
+    torch.backends.mkldnn.enabled = False
+    try:
+        yield
+    finally:
+        torch.backends.mkldnn.enabled = saved
 
 
 def global_norm(tensors):
@@ -148,10 +167,12 @@ class Brain:
         self.step += 1
         self.model.train()
         params = self._params()
-        loss = self.compute_objectives(
-            self.compute_forward(arrays, Stage.TRAIN, self.step_generator()),
-            arrays, Stage.TRAIN)
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        with onednn_off_on_cpu(self.device):
+            loss = self.compute_objectives(
+                self.compute_forward(arrays, Stage.TRAIN,
+                                     self.step_generator()),
+                arrays, Stage.TRAIN)
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(params, grads)]
         grad_norm = global_norm(grads)

@@ -1,1 +1,2 @@
-"""Small host-side utilities: experiment stages and WER accounting."""
+"""Small utilities: experiment stages, WER accounting and the precision
+softmaxes run in."""
