@@ -82,6 +82,9 @@ GRAD_ATOL_REL = 1e-2
 # H100 SXM peaks (NVIDIA data sheet), used for the bound
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
+# f32-accurate products on the tensor cores: 3xTF32 runs three TF32
+# products (495 TFLOP/s dense) for each f32 one
+PEAK_TF32X3_FLOP_PER_S = 495e12 / 3
 PIECES = ["<unk>", "▁"] + list("abcdefghijklmnopqrstuvwxyz'")
 HPARAMS = {"sample_rate": 16000, "n_fft": 512, "n_mels": 80,
            "win_length": 32, "augment": False, "blank_index": 0,
@@ -121,11 +124,12 @@ def cuda_ms(fn, reps=30, rounds=5):
     return statistics.median(times)
 
 
-def bound(n_bytes, flops):
+def bound(n_bytes, flops, flop_rate=PEAK_F32_FLOP_PER_S):
     """Least time (ms) and what bounds it: bytes at the memory rate or
-    f32 operations at the f32 rate (the kernels use no tensor cores)."""
+    operations at ``flop_rate`` (by default the f32 rate outside the
+    tensor cores, where the forward and the lattice kernels compute)."""
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_F32_FLOP_PER_S * 1e3
+    t_ops = flops / flop_rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -140,10 +144,13 @@ def attention_bwd_bound(b, h, t, dh):
     """Backward: read q_u, q_v, k, v, out, do, p, the row statistics and
     the masks,
     write dq_u, dq_v, dk, dv and dp; the scores' two products, do.v, and
-    the four gradient products (2 T^2 Dh each), ~10 ops per score."""
+    the four gradient products (2 T^2 Dh each), ~10 ops per score. The
+    kernel runs every product on the tensor cores in 3xTF32, so the
+    least time for f32-accurate products is at the 3xTF32 rate."""
     n_bytes = 4 * (10 * b * h * t * dh + 2 * h * (2 * t - 1) * dh
                    + 2 * b * h * t + b * t + t * t)
-    return bound(n_bytes, 16 * b * h * t * t * dh + 10 * b * h * t * t)
+    return bound(n_bytes, 16 * b * h * t * t * dh + 10 * b * h * t * t,
+                 PEAK_TF32X3_FLOP_PER_S)
 
 
 def lattice_bound(kind, valid_cells, all_cells):
@@ -156,6 +163,31 @@ def lattice_bound(kind, valid_cells, all_cells):
     if kind == "alpha":
         return bound(12 * valid_cells, 30 * valid_cells)
     return bound(12 * valid_cells + 8 * all_cells, 30 * valid_cells)
+
+
+def tensor_core_check(name, passes):
+    """Count the TF32 tensor-core instructions (HMMA ... TF32) of each
+    kernel function of the built ``csrc/<name>.cu`` in its SASS; fail if
+    one of ``passes`` has none."""
+    from tsasr_torch.kernels import _build
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass",
+                           str(_build.library_path(name))],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = 0
+        elif fn is not None and "HMMA" in line and "TF32" in line:
+            counts[fn] += 1
+    for pas in passes:
+        found = {f: n for f, n in counts.items() if pas in f}
+        log(f"  {name} {pas}: HMMA TF32 instructions per instance "
+            f"{sorted(found.values())}")
+        if not found or min(found.values()) == 0:
+            raise RuntimeError(f"{pas} runs no TF32 tensor-core instruction")
 
 
 def attention_case(t, band, gen, device):
@@ -997,6 +1029,8 @@ def main():
         for line in entry["log"].splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"  {name}: {line.strip()}")
+    tensor_core_check(ra.BWD_SOURCE, ("dq_kernel", "dkv_kernel",
+                                      "dp_kernel"))
 
     fwd_rows = phase_attention_fwd(device)
     bwd_rows = phase_attention_bwd(device)

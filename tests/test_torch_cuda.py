@@ -49,6 +49,38 @@ def test_relpos_attention_kernel_matches_plain(cuda, B, H, T, Dh):
                                atol=1e-4)
 
 
+@pytest.mark.parametrize("M,N,K", [(16, 8, 8), (37, 29, 45), (64, 128, 64),
+                                   (208, 64, 200)])
+def test_tf32x3_mma_helper_matches_f32_matmul(cuda, M, N, K):
+    """The attention backward's 3xTF32 mma.sync helper (fragment layout,
+    split, ragged edges) as a plain product, against f64. Its error is
+    f32's: within 1e-5 of max (|A| @ |B|), a tolerance that the inputs
+    cut to TF32 (what 1xTF32 would multiply) miss."""
+    import ctypes
+
+    from tsasr_torch.kernels import _build
+    fn = _build.load(relpos_attention.BWD_SOURCE).relpos_tf32x3_matmul_test
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + \
+        [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    g = torch.Generator().manual_seed(M + N + K)
+    a = torch.randn(M, K, generator=g).to(cuda)
+    b = torch.randn(K, N, generator=g).to(cuda)
+    c = torch.full((M, N), float("nan"), device=cuda)
+    _build.check_launch(fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), M, N, K,
+                           torch.cuda.current_stream().cuda_stream),
+                        "relpos_tf32x3_matmul_test")
+    torch.cuda.synchronize()
+    want = a.double() @ b.double()
+    tol = 1e-5 * (a.double().abs() @ b.double().abs()).max().item()
+
+    def tf32(x):
+        return (x.view(torch.int32) & -8192).view(torch.float32).double()
+
+    assert (c.double() - want).abs().max().item() <= tol
+    assert (tf32(a) @ tf32(b) - want).abs().max().item() > tol
+
+
 @pytest.mark.parametrize("B,H,T", [(2, 3, 45), (3, 4, 200)])
 def test_dropout_mask_bit_identical(cuda, B, H, T):
     want = relpos_attention.philox_keep_mask(1234567, B, H, T, 0.1, cuda)
@@ -57,7 +89,10 @@ def test_dropout_mask_bit_identical(cuda, B, H, T):
     assert abs(got.float().mean().item() - 0.9) < 0.01
 
 
-@pytest.mark.parametrize("B,H,T,Dh", [(2, 3, 45, 16), (3, 4, 130, 64)])
+@pytest.mark.parametrize("B,H,T,Dh", [(2, 3, 45, 16), (3, 4, 130, 64),
+                                      (2, 2, 10, 5), (1, 3, 64, 64),
+                                      (2, 2, 97, 5), (2, 2, 75, 128),
+                                      (2, 2, 130, 36)])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_relpos_attention_forward_and_backward_match_plain(cuda, B, H, T,
                                                            Dh, rate):

@@ -18,48 +18,85 @@
 // recomputed the softmax instead); the dropout mask is regenerated from
 // the same Philox draw as the forward (philox.cuh), never stored.
 //
-// Passes (each a kernel, all on one stream):
+// Products on the tensor cores, at f32 accuracy. Every product (the
+// scores, do.v and the four gradient products) is an m16n8k8 mma.sync in
+// 3xTF32 (mma_tf32x3.cuh): each f32 operand is split into a TF32 big part
+// and a TF32 remainder, and three TF32 products are summed. Plain 1xTF32
+// keeps 10 mantissa bits, ~1e-3 of max |g|, a hundred times the 1e-4
+// tolerance the kernel is held to; 3xTF32 reads like plain f32.
+//
+// Tiling. Tiles are square, TILE queries by TILE keys: 64 with 4 warps
+// for Dh <= 64, 32 with 2 warps for Dh up to 128 (shared memory). Dh is
+// zero-padded in shared memory to DP = 32, 64 or 128, so the products'
+// register arrays have compile-time sizes. Rows in shared memory are
+// DP + 4 floats apart, so the fragment loads of 8 rows x 4 columns hit 32
+// banks. In every pass a warp owns 16 query rows of a tile pair's scores:
+//
+//   - the positional term is a product, then a skew, as the TPU kernel
+//     does it: the pair (i0, j0) reads p rows from T - TILE - i0 + j0 on
+//     (2 TILE - 1, padded to 2 TILE: the window); warp w's 16 rows need
+//     TILE + 15 of them from window row TILE - 16 - 16 w on, so the warp
+//     computes BD = q_v(16 rows) @ win(TILE + 16 rows)^T into its own
+//     shared buffer and reads the score term of (row rl, key c) at
+//     BD[rl][15 - rl + c];
+//   - S = q_u k^T and dO v^T are products; P, the dropout (one Philox per
+//     accumulator element) and dS are applied in registers.
+//
+// Passes, each a kernel, all on one stream:
 // 1. rows: D = rowsum(do * out), one warp per row;
-// 2. dq: one block per (query tile, head, batch), looping over key
-//    tiles, emits dq_u and dq_v;
-// 3. dkv: one block per (key tile, head, batch), looping over query
-//    tiles, emits dk and dv;
-// 4. dp: one block per (tile of 32 relative positions r, head, batch),
-//    looping over the query tiles whose keys j = i + r - (T-1) lie in
-//    [0, T), writes a per-batch partial of dp;
-// 5. dp sum: adds the B partials in batch order.
-// The TPU kernel carried dp across a sequential grid axis; Hopper blocks
-// run in no order, so the batch sum is a second pass over per-batch
-// partials: deterministic, no atomics. The un-shift is the forward's
-// index offset (score (i, j) <-> p row T-1-i+j), no roll network.
+// 2. dq: one block per (query tile, h, b) over the key tiles. dq_u +=
+//    dS k; dS goes into the warp's zeroed skew buffer at [rl][15 - rl + c]
+//    (dSk), and dq_v += dSk @ win;
+// 3. dkv: one block per (key tile, h, b) over the query tiles. Pd and
+//    then dS go through one shared TILE x TILE buffer, from which warp w
+//    reads them transposed for its 16 keys: dv += Pd^T do, dk += dS^T q_u;
+// 4. dp: one block per (tile diagonal d = (j0 - i0) / TILE, h, b). Every
+//    pair on a diagonal reads the same window, from p row T - TILE + d TILE,
+//    so dp_win += dSk^T q_v accumulates in registers along the diagonal
+//    (warp w owns 32 window rows; dSk is read skewed from the dS tile,
+//    zero off the band) and the block writes one partial of 2 TILE rows
+//    per (b, h, d);
+// 5. dp sum: p row r lies in the windows of d_hi = floor((r - T + TILE) /
+//    TILE) and d_hi - 1; it adds those partials, d_hi - 1 first, each
+//    over b in order. The TPU kernel carried dp across a sequential grid
+//    axis; Hopper blocks run in no order, so the sum is a second pass:
+//    deterministic, no atomics. tests/test_torch_attention_tiling.py
+//    mirrors passes 2-5 index for index on the CPU.
 //
-// Layout and tiling follow the forward: tiles of 32 x 32, 4 warps, a
-// warp owns 8 rows of the tile and a lane one column; rows in shared
-// memory are padded to Dh+1 floats. Every pair is recomputed in each of
-// passes 2-4 (three f32 dots of length Dh each), so this backward does
-// about 3x the score work of the forward, plus its four products.
+// Copies: each loop step's tiles and window are loaded with cp.async
+// (16 B a thread when Dh % 4 == 0 and the rows are aligned, else 4 B),
+// double-buffered, so the next step's copies overlap this step's mma.
+// Rows outside [0, T) and columns past Dh are zero-filled by the copy.
 //
-// What bounds it on an H100: 16 * B*H*T^2*Dh f32 operations or so
-// (the dots plus the four products) at the f32 rate against reading
-// q_u, q_v, k, v, do, out, p and writing five gradients; at B8 H4 T208
-// Dh64 that is ~0.18 ms of f32 FMAs against ~0.01 ms of bytes, so
-// operations bound it. As in the forward it is latency-bound at these
-// sizes (few waves of 4-warp blocks, scores through shared memory).
-// Tensor cores and fusing the three recomputes are later work.
+// What bounds it on an H100: ~16 B*H*T^2*Dh operations (the scores' two
+// products, do.v and the four gradient products) at the 3xTF32 rate,
+// 495 / 3 TFLOP/s, against reading q_u, q_v, k, v, do, out, p and
+// writing five gradients at 3.35 TB/s; at B8 H4 T208 Dh64 that is
+// 0.0086 ms of operations against 0.0054 ms of bytes. The kernel
+// recomputes every score in each of passes 2-4, pads T up to whole
+// tiles and the window to TILE + 16 columns, and spends ALU time on the
+// TF32 splits, so it does ~4x those operations.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_tf32x3.cuh"
 #include "philox.cuh"
 
 namespace {
 
-constexpr int kTile = 32;                  // rows and columns per tile
-constexpr int kWarps = 4;
-constexpr int kRows = kTile / kWarps;      // tile rows per warp
-constexpr int kThreads = kWarps * 32;
-constexpr int kWin = 2 * kTile - 1;        // window of p (or k, v) rows
+using tsasr::c_col;
+using tsasr::c_row;
+using tsasr::FragA;
+using tsasr::FragB;
+using tsasr::load_a;
+using tsasr::load_b;
+using tsasr::mma_tf32x3;
+
+constexpr int kRowWarps = 4;               // pass 1: one warp per row
+constexpr int kWarpRows = 16;              // query rows of a warp
+constexpr int kSmemLimit = 232448;         // bytes a block may ask for
 constexpr unsigned kFull = 0xffffffffu;
 
 struct Args {
@@ -69,55 +106,217 @@ struct Args {
   float keep_scale, scale;
   float *delta, *dqu, *dqv, *dk, *dv, *dp_part, *dp;
   int B, H, T, Dh;
+  bool vec;                                // 16-byte copies are aligned
 };
 
+template <int DP, int NW>
+struct Cfg {
+  static constexpr int kTile = kWarpRows * NW;
+  static constexpr int kWin = 2 * kTile;   // a pair's p rows (2 TILE - 1)
+  static constexpr int kBW = kTile + kWarpRows;  // a warp's (TILE + 15)
+  static constexpr int kLd = DP + 4;
+  static constexpr int kLdB = kBW + 4;
+  static constexpr int kLdX = kTile + 4;
+  static constexpr int kThreads = 32 * NW;
+  static constexpr int kND = DP / 8;       // n-tiles over the head dim
+  static constexpr int kNK = kTile / 8;    // n-tiles over a tile's keys
+  static constexpr int kTileF = kTile * kLd;
+  static constexpr int kWinF = kWin * kLd;
+  // the warps' BD / dSk buffers, or (dkv, dp) the block's dS tile
+  static constexpr int kScratchF = NW * kWarpRows * kLdB > kTile * kLdX
+                                       ? NW * kWarpRows * kLdB
+                                       : kTile * kLdX;
+  // fixed tiles + two stages + scratch, in floats
+  static constexpr int kDqStage = 2 * kTileF + kWinF;   // k, v, window
+  static constexpr int kDkvStage = 3 * kTileF + kWinF;  // q_u, q_v, do, win
+  static constexpr int kDpStage = 5 * kTileF;           // q_u, q_v, do, k, v
+  static constexpr int kDqF = 3 * kTileF + 2 * kDqStage + kScratchF;
+  static constexpr int kDkvF = 2 * kTileF + 2 * kDkvStage + kScratchF;
+  static constexpr int kDpF = kWinF + 2 * kDpStage + kScratchF;
+  static_assert(4 * kDqF <= kSmemLimit && 4 * kDkvF <= kSmemLimit &&
+                    4 * kDpF <= kSmemLimit,
+                "shared memory of a block");
+};
+
+// ------------------------------------------------------------ async copies
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool ok) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool ok) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(ok ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// dst[r * (DP + 4) + c] = src[(first + r) * Dh + c] for r < n, c < DP;
+// zeros for rows outside [0, limit) and for columns c >= Dh
+template <int DP, int NT>
 __device__ __forceinline__ void load_rows(float* dst, const float* src,
-                                          int first, int n, int limit, int Dh,
-                                          int ld) {
-  // dst[r * ld + c] = src[(first + r) * Dh + c] for rows inside [0, limit)
-  for (int e = threadIdx.x; e < n * Dh; e += kThreads) {
-    const int r = e / Dh, c = e - r * Dh, g = first + r;
-    dst[r * ld + c] = (g >= 0 && g < limit) ? src[(size_t)g * Dh + c] : 0.f;
+                                          int first, int n, int limit,
+                                          int Dh, bool vec) {
+  constexpr int ld = DP + 4;
+  if (vec) {
+    constexpr int kChunks = DP / 4;
+    for (int e = threadIdx.x; e < n * kChunks; e += NT) {
+      const int r = e / kChunks, c = (e - r * kChunks) * 4, g = first + r;
+      const bool ok = g >= 0 && g < limit && c < Dh;
+      cp_async16(dst + r * ld + c, ok ? src + (size_t)g * Dh + c : src, ok);
+    }
+  } else {
+    for (int e = threadIdx.x; e < n * DP; e += NT) {
+      const int r = e / DP, c = e - r * DP, g = first + r;
+      const bool ok = g >= 0 && g < limit && c < Dh;
+      cp_async4(dst + r * ld + c, ok ? src + (size_t)g * Dh + c : src, ok);
+    }
   }
 }
 
-// dS and Pd of one pair, or zeros when (i, j) lies outside the lattice.
-struct PairGrad {
-  float ds, pd;
+// ---------------------------------------------------------- score tile
+// (row max, 1 / row sum, D) of this lane's two accumulator rows
+struct RowStats {
+  float m[2], linv[2], delta[2];
 };
 
-__device__ __forceinline__ PairGrad pair_grad(const Args& a, int b, int h,
-                                              int i, int j, float ac,
-                                              float bd, float dpd,
-                                              float2 st_i, float delta_i,
-                                              uint64_t seed) {
-  PairGrad g{0.f, 0.f};
-  if (i < 0 || i >= a.T || j < 0 || j >= a.T) return g;
-  const float s = (ac + bd) * a.scale + a.am[(size_t)i * a.T + j] +
-                  a.kp[(size_t)b * a.T + j];
-  const float prob = expf(s - st_i.x) * st_i.y;
-  float dprob = dpd;
-  g.pd = prob;
-  if (a.seed != nullptr) {
-    const bool keep = tsasr::dropout_keep(seed, a.thresh, b, h, i, j);
-    g.pd = keep ? prob * a.keep_scale : 0.f;
-    dprob = keep ? dpd * a.keep_scale : 0.f;
+__device__ __forceinline__ RowStats row_stats(const Args& a, size_t bh,
+                                              int i_first) {
+  RowStats st;
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const size_t row = bh + min(i_first + c_row(2 * q), a.T - 1);
+    st.m[q] = a.stats[2 * row];
+    st.linv[q] = a.stats[2 * row + 1];
+    st.delta[q] = a.delta[row];
   }
-  g.ds = prob * (dprob - delta_i) * a.scale;
-  return g;
+  return st;
 }
 
-size_t smem_floats(int n_rows, int dh) { return (size_t)n_rows * (dh + 1); }
+// dS and Pd of this warp's 16 query rows (i0 + 16 w ...) against the
+// TILE keys j0 ..., in accumulator layout; zeros outside the lattice.
+// sB is the warp's 16 x (TILE + 16) buffer; it holds BD on return.
+template <int DP, int NW>
+__device__ __forceinline__ void score_tile(
+    const Args& a, const float* sQu, const float* sQv, const float* sDo,
+    const float* sK, const float* sV, const float* sP, float* sB, int i0,
+    int j0, int b, int h, const RowStats& st, uint64_t seed,
+    float (&ds)[Cfg<DP, NW>::kNK][4], float (&pd)[Cfg<DP, NW>::kNK][4]) {
+  using C = Cfg<DP, NW>;
+  const int r0 = (threadIdx.x >> 5) * kWarpRows;
+  const int first = C::kTile - kWarpRows - r0;   // the warp's window row 0
+  {
+    float bd[C::kBW / 8][4] = {};
+    for (int kk = 0; kk < C::kND; ++kk) {
+      const FragA q = load_a([&](int m, int k) {
+        return sQv[(r0 + m) * C::kLd + kk * 8 + k];
+      });
+#pragma unroll
+      for (int nb = 0; nb < C::kBW / 8; ++nb)
+        mma_tf32x3(bd[nb], q, load_b([&](int k, int n) {
+                     return sP[(first + nb * 8 + n) * C::kLd + kk * 8 + k];
+                   }));
+    }
+#pragma unroll
+    for (int nb = 0; nb < C::kBW / 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        sB[c_row(e) * C::kLdB + nb * 8 + c_col(e)] = bd[nb][e];
+  }
+  __syncwarp();
 
-// (row max, 1 / row sum) of the forward's softmax for row index `row`
-__device__ __forceinline__ float2 row_stats(const Args& a, size_t row) {
-  return make_float2(a.stats[2 * row], a.stats[2 * row + 1]);
+#pragma unroll
+  for (int nt = 0; nt < C::kNK; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) ds[nt][e] = pd[nt][e] = 0.f;
+  for (int kk = 0; kk < C::kND; ++kk) {
+    const FragA q = load_a([&](int m, int k) {
+      return sQu[(r0 + m) * C::kLd + kk * 8 + k];
+    });
+    const FragA g = load_a([&](int m, int k) {
+      return sDo[(r0 + m) * C::kLd + kk * 8 + k];
+    });
+#pragma unroll
+    for (int nt = 0; nt < C::kNK; ++nt) {
+      mma_tf32x3(ds[nt], q, load_b([&](int k, int n) {
+                   return sK[(nt * 8 + n) * C::kLd + kk * 8 + k];
+                 }));
+      mma_tf32x3(pd[nt], g, load_b([&](int k, int n) {
+                   return sV[(nt * 8 + n) * C::kLd + kk * 8 + k];
+                 }));
+    }
+  }
+
+  const int T = a.T;
+#pragma unroll
+  for (int nt = 0; nt < C::kNK; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int rl = c_row(e), c = nt * 8 + c_col(e), q = e >> 1;
+      const int i = i0 + r0 + rl, j = j0 + c;
+      float g_ds = 0.f, g_pd = 0.f;
+      if (i < T && j < T) {
+        const float s =
+            (ds[nt][e] + sB[rl * C::kLdB + kWarpRows - 1 - rl + c]) *
+                a.scale +
+            a.am[(size_t)i * T + j] + a.kp[(size_t)b * T + j];
+        const float prob = expf(s - st.m[q]) * st.linv[q];
+        float dprob = pd[nt][e];
+        g_pd = prob;
+        if (a.seed != nullptr) {
+          const bool keep = tsasr::dropout_keep(seed, a.thresh, b, h, i, j);
+          g_pd = keep ? prob * a.keep_scale : 0.f;
+          dprob = keep ? dprob * a.keep_scale : 0.f;
+        }
+        g_ds = prob * (dprob - st.delta[q]) * a.scale;
+      }
+      ds[nt][e] = g_ds;
+      pd[nt][e] = g_pd;
+    }
+}
+
+// x[nt][e] into a TILE-wide tile buffer at the warp's rows
+template <int DP, int NW>
+__device__ __forceinline__ void store_tile(float* X,
+                                           const float (&x)[Cfg<DP, NW>::kNK][4]) {
+  using C = Cfg<DP, NW>;
+  const int r0 = (threadIdx.x >> 5) * kWarpRows;
+#pragma unroll
+  for (int nt = 0; nt < C::kNK; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      X[(r0 + c_row(e)) * C::kLdX + nt * 8 + c_col(e)] = x[nt][e];
+}
+
+// acc (rows row0 + 16 m-tiles of this warp, DP columns) into dst rows
+// [0, limit) of width Dh
+template <int ND>
+__device__ __forceinline__ void store_rows(float* dst, const float (&acc)[ND][4],
+                                           int row0, int limit, int Dh) {
+#pragma unroll
+  for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = row0 + c_row(e), d = nd * 8 + c_col(e);
+      if (r < limit && d < Dh) dst[(size_t)r * Dh + d] = acc[nd][e];
+    }
 }
 
 // ---------------------------------------------------------------- pass 1
-__global__ void __launch_bounds__(kThreads) rows_kernel(Args a) {
+__global__ void __launch_bounds__(kRowWarps * 32) rows_kernel(Args a) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const size_t row = (size_t)blockIdx.x * kWarps + warp;
+  const size_t row = (size_t)blockIdx.x * kRowWarps + warp;
   if (row >= (size_t)a.B * a.H * a.T) return;
   float acc = 0.f;
   for (int d = lane; d < a.Dh; d += 32)
@@ -127,357 +326,362 @@ __global__ void __launch_bounds__(kThreads) rows_kernel(Args a) {
 }
 
 // ---------------------------------------------------------------- pass 2
-template <int DC>
-__global__ void __launch_bounds__(kThreads) dq_kernel(Args a) {
-  extern __shared__ float smem[];
-  const int Dh = a.Dh, ld = Dh + 1, T = a.T;
-  float* s_qu = smem;                       // kTile x ld (query tile)
-  float* s_qv = s_qu + kTile * ld;
-  float* s_do = s_qv + kTile * ld;
-  float* s_k = s_do + kTile * ld;           // kTile x ld (key tile)
-  float* s_v = s_k + kTile * ld;
-  float* s_p = s_v + kTile * ld;            // kWin x ld
-
-  const int i0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-  const int lane = threadIdx.x & 31, r0 = (threadIdx.x >> 5) * kRows;
+template <int DP, int NW>
+__global__ void __launch_bounds__(32 * NW, 1) dq_kernel(Args a) {
+  using C = Cfg<DP, NW>;
+  extern __shared__ __align__(16) float smem[];
+  const int T = a.T, Dh = a.Dh, nt = (T + C::kTile - 1) / C::kTile;
+  const int i0 = blockIdx.x * C::kTile, h = blockIdx.y, b = blockIdx.z;
+  const int w = threadIdx.x >> 5, r0 = w * kWarpRows;
   const size_t bh = ((size_t)b * a.H + h) * T;
   const float* p_h = a.p + (size_t)h * (2 * T - 1) * Dh;
   const uint64_t seed = a.seed ? (uint64_t)a.seed[0] : 0;
+  float* sQu = smem;
+  float* sQv = sQu + C::kTileF;
+  float* sDo = sQv + C::kTileF;
+  float* stages = sDo + C::kTileF;               // k, v, window
+  float* sB = stages + 2 * C::kDqStage + w * kWarpRows * C::kLdB;
 
-  load_rows(s_qu, a.qu + bh * Dh, i0, kTile, T, Dh, ld);
-  load_rows(s_qv, a.qv + bh * Dh, i0, kTile, T, Dh, ld);
-  load_rows(s_do, a.dout + bh * Dh, i0, kTile, T, Dh, ld);
-  float2 st_q[kRows];
-  float delta_q[kRows], gqu[kRows][DC], gqv[kRows][DC];
-#pragma unroll
-  for (int q = 0; q < kRows; ++q) {
-    const int i = min(i0 + r0 + q, T - 1);
-    st_q[q] = row_stats(a, bh + i);
-    delta_q[q] = a.delta[bh + i];
-#pragma unroll
-    for (int c = 0; c < DC; ++c) gqu[q][c] = gqv[q][c] = 0.f;
-  }
+  auto load_keys = [&](int s, int j0) {
+    float* st = stages + s * C::kDqStage;
+    load_rows<DP, C::kThreads>(st, a.k + bh * Dh, j0, C::kTile, T, Dh, a.vec);
+    load_rows<DP, C::kThreads>(st + C::kTileF, a.v + bh * Dh, j0, C::kTile,
+                               T, Dh, a.vec);
+    load_rows<DP, C::kThreads>(st + 2 * C::kTileF, p_h,
+                               T - C::kTile - i0 + j0, C::kWin, 2 * T - 1,
+                               Dh, a.vec);
+  };
+  load_rows<DP, C::kThreads>(sQu, a.qu + bh * Dh, i0, C::kTile, T, Dh, a.vec);
+  load_rows<DP, C::kThreads>(sQv, a.qv + bh * Dh, i0, C::kTile, T, Dh, a.vec);
+  load_rows<DP, C::kThreads>(sDo, a.dout + bh * Dh, i0, C::kTile, T, Dh,
+                             a.vec);
+  load_keys(0, 0);
+  cp_async_commit();
+  const RowStats st = row_stats(a, bh, i0 + r0);
+  const int first = C::kTile - kWarpRows - r0;
+  float gu[C::kND][4] = {}, gv[C::kND][4] = {};
 
-  for (int j0 = 0; j0 < T; j0 += kTile) {
+  for (int jt = 0; jt < nt; ++jt) {
+    if (jt + 1 < nt) {
+      load_keys((jt + 1) & 1, (jt + 1) * C::kTile);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
     __syncthreads();
-    load_rows(s_k, a.k + bh * Dh, j0, kTile, T, Dh, ld);
-    load_rows(s_v, a.v + bh * Dh, j0, kTile, T, Dh, ld);
-    // local p row pr is global row T - kTile - i0 + j0 + pr; query row r
-    // and key lane need local row kTile-1-r+lane
-    load_rows(s_p, p_h, T - kTile - i0 + j0, kWin, 2 * T - 1, Dh, ld);
+    const float* sK = stages + (jt & 1) * C::kDqStage;
+    const float* sV = sK + C::kTileF;
+    const float* sP = sK + 2 * C::kTileF;
+    float ds[C::kNK][4], pd[C::kNK][4];
+    score_tile<DP, NW>(a, sQu, sQv, sDo, sK, sV, sP, sB, i0, jt * C::kTile,
+                       b, h, st, seed, ds, pd);
+    // dS into the warp's zeroed skew buffer: dSk[rl][15 - rl + c]
+    __syncwarp();
+    for (int e = threadIdx.x & 31; e < kWarpRows * C::kLdB; e += 32)
+      sB[e] = 0.f;
+    __syncwarp();
+#pragma unroll
+    for (int n = 0; n < C::kNK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        sB[c_row(e) * C::kLdB + kWarpRows - 1 - c_row(e) + n * 8 + c_col(e)] =
+            ds[n][e];
+    __syncwarp();
+    for (int kk = 0; kk < C::kNK; ++kk) {        // dq_u += dS k
+      const FragA x = load_a([&](int m, int k) {
+        return sB[m * C::kLdB + kWarpRows - 1 - m + kk * 8 + k];
+      });
+#pragma unroll
+      for (int nd = 0; nd < C::kND; ++nd)
+        mma_tf32x3(gu[nd], x, load_b([&](int k, int n) {
+                     return sK[(kk * 8 + k) * C::kLd + nd * 8 + n];
+                   }));
+    }
+    for (int kk = 0; kk < C::kBW / 8; ++kk) {    // dq_v += dSk win
+      const FragA x = load_a([&](int m, int k) {
+        return sB[m * C::kLdB + kk * 8 + k];
+      });
+#pragma unroll
+      for (int nd = 0; nd < C::kND; ++nd)
+        mma_tf32x3(gv[nd], x, load_b([&](int k, int n) {
+                     return sP[(first + kk * 8 + k) * C::kLd + nd * 8 + n];
+                   }));
+    }
     __syncthreads();
-
-    float ac[kRows], bd[kRows], dpd[kRows];
-#pragma unroll
-    for (int q = 0; q < kRows; ++q) ac[q] = bd[q] = dpd[q] = 0.f;
-    const float* k_row = s_k + lane * ld;
-    const float* v_row = s_v + lane * ld;
-    const float* p_row = s_p + (kTile - 1 - r0 + lane) * ld;
-    for (int d = 0; d < Dh; ++d) {
-      const float kd = k_row[d], vd = v_row[d];
-#pragma unroll
-      for (int q = 0; q < kRows; ++q) {
-        const int r = (r0 + q) * ld + d;
-        ac[q] = fmaf(s_qu[r], kd, ac[q]);
-        bd[q] = fmaf(s_qv[r], p_row[d - q * ld], bd[q]);
-        dpd[q] = fmaf(s_do[r], vd, dpd[q]);
-      }
-    }
-    float ds[kRows];
-#pragma unroll
-    for (int q = 0; q < kRows; ++q)
-      ds[q] = pair_grad(a, b, h, i0 + r0 + q, j0 + lane, ac[q], bd[q],
-                        dpd[q], st_q[q], delta_q[q], seed).ds;
-
-    const int kmax = min(kTile, T - j0);
-    for (int jj = 0; jj < kmax; ++jj) {
-      float kj[DC];
-#pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        const int d = lane + 32 * c;
-        kj[c] = d < Dh ? s_k[jj * ld + d] : 0.f;
-      }
-#pragma unroll
-      for (int q = 0; q < kRows; ++q) {
-        const float g = __shfl_sync(kFull, ds[q], jj);
-        const float* pr = s_p + (kTile - 1 - r0 - q + jj) * ld;
-#pragma unroll
-        for (int c = 0; c < DC; ++c) {
-          const int d = lane + 32 * c;
-          gqu[q][c] = fmaf(g, kj[c], gqu[q][c]);
-          if (d < Dh) gqv[q][c] = fmaf(g, pr[d], gqv[q][c]);
-        }
-      }
-    }
   }
+  store_rows(a.dqu + bh * Dh, gu, i0 + r0, T, Dh);
+  store_rows(a.dqv + bh * Dh, gv, i0 + r0, T, Dh);
+}
 
+// dst[nd] += X^T-rows (16 keys from r0) times Y (TILE rows, DP columns)
+template <int DP, int NW>
+__device__ __forceinline__ void add_transposed_product(
+    float (&dst)[Cfg<DP, NW>::kND][4], const float* X, const float* Y) {
+  using C = Cfg<DP, NW>;
+  const int r0 = (threadIdx.x >> 5) * kWarpRows;
+  for (int kk = 0; kk < C::kNK; ++kk) {
+    const FragA x = load_a([&](int m, int k) {
+      return X[(kk * 8 + k) * C::kLdX + r0 + m];
+    });
 #pragma unroll
-  for (int q = 0; q < kRows; ++q) {
-    const int i = i0 + r0 + q;
-    if (i >= T) continue;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      const int d = lane + 32 * c;
-      if (d < Dh) {
-        a.dqu[(bh + i) * Dh + d] = gqu[q][c];
-        a.dqv[(bh + i) * Dh + d] = gqv[q][c];
-      }
-    }
+    for (int nd = 0; nd < C::kND; ++nd)
+      mma_tf32x3(dst[nd], x, load_b([&](int k, int n) {
+                   return Y[(kk * 8 + k) * C::kLd + nd * 8 + n];
+                 }));
   }
 }
 
 // ---------------------------------------------------------------- pass 3
-template <int DC>
-__global__ void __launch_bounds__(kThreads) dkv_kernel(Args a) {
-  extern __shared__ float smem[];
-  const int Dh = a.Dh, ld = Dh + 1, T = a.T;
-  float* s_k = smem;                        // kTile x ld (key tile)
-  float* s_v = s_k + kTile * ld;
-  float* s_qu = s_v + kTile * ld;           // kTile x ld (query tile)
-  float* s_qv = s_qu + kTile * ld;
-  float* s_do = s_qv + kTile * ld;
-  float* s_p = s_do + kTile * ld;           // kWin x ld
-
-  const int j0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-  const int lane = threadIdx.x & 31, r0 = (threadIdx.x >> 5) * kRows;
+template <int DP, int NW>
+__global__ void __launch_bounds__(32 * NW, 1) dkv_kernel(Args a) {
+  using C = Cfg<DP, NW>;
+  extern __shared__ __align__(16) float smem[];
+  const int T = a.T, Dh = a.Dh, nt = (T + C::kTile - 1) / C::kTile;
+  const int j0 = blockIdx.x * C::kTile, h = blockIdx.y, b = blockIdx.z;
+  const int w = threadIdx.x >> 5, r0 = w * kWarpRows;
   const size_t bh = ((size_t)b * a.H + h) * T;
   const float* p_h = a.p + (size_t)h * (2 * T - 1) * Dh;
   const uint64_t seed = a.seed ? (uint64_t)a.seed[0] : 0;
+  float* sK = smem;
+  float* sV = sK + C::kTileF;
+  float* stages = sV + C::kTileF;                // q_u, q_v, do, window
+  float* X = stages + 2 * C::kDkvStage;          // dS tile, or BD buffers
+  float* sB = X + w * kWarpRows * C::kLdB;
 
-  load_rows(s_k, a.k + bh * Dh, j0, kTile, T, Dh, ld);
-  load_rows(s_v, a.v + bh * Dh, j0, kTile, T, Dh, ld);
-  float gk[kRows][DC], gv[kRows][DC];
-#pragma unroll
-  for (int q = 0; q < kRows; ++q)
-#pragma unroll
-    for (int c = 0; c < DC; ++c) gk[q][c] = gv[q][c] = 0.f;
+  auto load_queries = [&](int s, int i0) {
+    float* st = stages + s * C::kDkvStage;
+    load_rows<DP, C::kThreads>(st, a.qu + bh * Dh, i0, C::kTile, T, Dh,
+                               a.vec);
+    load_rows<DP, C::kThreads>(st + C::kTileF, a.qv + bh * Dh, i0, C::kTile,
+                               T, Dh, a.vec);
+    load_rows<DP, C::kThreads>(st + 2 * C::kTileF, a.dout + bh * Dh, i0,
+                               C::kTile, T, Dh, a.vec);
+    load_rows<DP, C::kThreads>(st + 3 * C::kTileF, p_h,
+                               T - C::kTile - i0 + j0, C::kWin, 2 * T - 1,
+                               Dh, a.vec);
+  };
+  load_rows<DP, C::kThreads>(sK, a.k + bh * Dh, j0, C::kTile, T, Dh, a.vec);
+  load_rows<DP, C::kThreads>(sV, a.v + bh * Dh, j0, C::kTile, T, Dh, a.vec);
+  load_queries(0, 0);
+  cp_async_commit();
+  float gk[C::kND][4] = {}, gv[C::kND][4] = {};
 
-  for (int i0 = 0; i0 < T; i0 += kTile) {
+  for (int it = 0; it < nt; ++it) {
+    if (it + 1 < nt) {
+      load_queries((it + 1) & 1, (it + 1) * C::kTile);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
     __syncthreads();
-    load_rows(s_qu, a.qu + bh * Dh, i0, kTile, T, Dh, ld);
-    load_rows(s_qv, a.qv + bh * Dh, i0, kTile, T, Dh, ld);
-    load_rows(s_do, a.dout + bh * Dh, i0, kTile, T, Dh, ld);
-    load_rows(s_p, p_h, T - kTile - i0 + j0, kWin, 2 * T - 1, Dh, ld);
+    const int i0 = it * C::kTile;
+    const float* sQu = stages + (it & 1) * C::kDkvStage;
+    const float* sQv = sQu + C::kTileF;
+    const float* sDo = sQu + 2 * C::kTileF;
+    const float* sP = sQu + 3 * C::kTileF;
+    const RowStats st = row_stats(a, bh, i0 + r0);
+    float ds[C::kNK][4], pd[C::kNK][4];
+    score_tile<DP, NW>(a, sQu, sQv, sDo, sK, sV, sP, sB, i0, j0, b, h, st,
+                       seed, ds, pd);
+    __syncthreads();                             // X held the BD buffers
+    store_tile<DP, NW>(X, pd);
     __syncthreads();
-
-    // lane = query i0 + lane; warp row q = key j0 + r0 + q
-    const int i = i0 + lane;
-    const float2 st_i = row_stats(a, bh + min(i, T - 1));
-    const float delta_i = a.delta[bh + min(i, T - 1)];
-    float ac[kRows], bd[kRows], dpd[kRows];
-#pragma unroll
-    for (int q = 0; q < kRows; ++q) ac[q] = bd[q] = dpd[q] = 0.f;
-    const float* qu_row = s_qu + lane * ld;
-    const float* qv_row = s_qv + lane * ld;
-    const float* do_row = s_do + lane * ld;
-    // pair (i, j0+r0+q) reads local p row kTile-1-lane+r0+q
-    const float* p_row = s_p + (kTile - 1 - lane + r0) * ld;
-    for (int d = 0; d < Dh; ++d) {
-      const float qud = qu_row[d], qvd = qv_row[d], dod = do_row[d];
-#pragma unroll
-      for (int q = 0; q < kRows; ++q) {
-        const int r = (r0 + q) * ld + d;
-        ac[q] = fmaf(qud, s_k[r], ac[q]);
-        bd[q] = fmaf(qvd, p_row[q * ld + d], bd[q]);
-        dpd[q] = fmaf(dod, s_v[r], dpd[q]);
-      }
-    }
-    PairGrad g[kRows];
-#pragma unroll
-    for (int q = 0; q < kRows; ++q)
-      g[q] = pair_grad(a, b, h, i, j0 + r0 + q, ac[q], bd[q], dpd[q], st_i,
-                       delta_i, seed);
-
-    const int imax = min(kTile, T - i0);
-    for (int ii = 0; ii < imax; ++ii) {
-      float qi[DC], di[DC];
-#pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        const int d = lane + 32 * c;
-        qi[c] = d < Dh ? s_qu[ii * ld + d] : 0.f;
-        di[c] = d < Dh ? s_do[ii * ld + d] : 0.f;
-      }
-#pragma unroll
-      for (int q = 0; q < kRows; ++q) {
-        const float ds = __shfl_sync(kFull, g[q].ds, ii);
-        const float pd = __shfl_sync(kFull, g[q].pd, ii);
-#pragma unroll
-        for (int c = 0; c < DC; ++c) {
-          gk[q][c] = fmaf(ds, qi[c], gk[q][c]);
-          gv[q][c] = fmaf(pd, di[c], gv[q][c]);
-        }
-      }
-    }
+    add_transposed_product<DP, NW>(gv, X, sDo);  // dv += Pd^T do
+    __syncthreads();
+    store_tile<DP, NW>(X, ds);
+    __syncthreads();
+    add_transposed_product<DP, NW>(gk, X, sQu);  // dk += dS^T q_u
+    __syncthreads();
   }
-
-#pragma unroll
-  for (int q = 0; q < kRows; ++q) {
-    const int j = j0 + r0 + q;
-    if (j >= T) continue;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      const int d = lane + 32 * c;
-      if (d < Dh) {
-        a.dk[(bh + j) * Dh + d] = gk[q][c];
-        a.dv[(bh + j) * Dh + d] = gv[q][c];
-      }
-    }
-  }
+  store_rows(a.dk + bh * Dh, gk, j0 + r0, T, Dh);
+  store_rows(a.dv + bh * Dh, gv, j0 + r0, T, Dh);
 }
 
 // ---------------------------------------------------------------- pass 4
-template <int DC>
-__global__ void __launch_bounds__(kThreads) dp_kernel(Args a) {
-  extern __shared__ float smem[];
-  const int Dh = a.Dh, ld = Dh + 1, T = a.T, P = 2 * T - 1;
-  float* s_p = smem;                        // kTile x ld (positions)
-  float* s_qu = s_p + kTile * ld;           // kTile x ld (query tile)
-  float* s_qv = s_qu + kTile * ld;
-  float* s_do = s_qv + kTile * ld;
-  float* s_k = s_do + kTile * ld;           // kWin x ld (key window)
-  float* s_v = s_k + kWin * ld;
-
-  const int rb = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-  const int lane = threadIdx.x & 31, r0 = (threadIdx.x >> 5) * kRows;
+template <int DP, int NW>
+__global__ void __launch_bounds__(32 * NW, 1) dp_kernel(Args a) {
+  using C = Cfg<DP, NW>;
+  constexpr int kWarpWin = C::kWin / NW;         // window rows of a warp
+  extern __shared__ __align__(16) float smem[];
+  const int T = a.T, Dh = a.Dh, nt = (T + C::kTile - 1) / C::kTile;
+  const int d = (int)blockIdx.x - (nt - 1), h = blockIdx.y, b = blockIdx.z;
+  const int w = threadIdx.x >> 5, r0 = w * kWarpRows, wr0 = w * kWarpWin;
   const size_t bh = ((size_t)b * a.H + h) * T;
   const uint64_t seed = a.seed ? (uint64_t)a.seed[0] : 0;
+  float* sP = smem;                              // the diagonal's window
+  float* stages = sP + C::kWinF;                 // q_u, q_v, do, k, v
+  float* X = stages + 2 * C::kDpStage;
+  float* sB = X + w * kWarpRows * C::kLdB;
 
-  load_rows(s_p, a.p + (size_t)h * P * Dh, rb, kTile, P, Dh, ld);
-  float gp[kRows][DC];
+  auto load_pair = [&](int s, int it) {
+    float* st = stages + s * C::kDpStage;
+    const int i0 = it * C::kTile, j0 = i0 + d * C::kTile;
+    const float* src[5] = {a.qu, a.qv, a.dout, a.k, a.v};
 #pragma unroll
-  for (int q = 0; q < kRows; ++q)
-#pragma unroll
-    for (int c = 0; c < DC; ++c) gp[q][c] = 0.f;
+    for (int x = 0; x < 5; ++x)
+      load_rows<DP, C::kThreads>(st + x * C::kTileF, src[x] + bh * Dh,
+                                 x < 3 ? i0 : j0, C::kTile, T, Dh, a.vec);
+  };
+  load_rows<DP, C::kThreads>(sP, a.p + (size_t)h * (2 * T - 1) * Dh,
+                             T - C::kTile + d * C::kTile, C::kWin, 2 * T - 1,
+                             Dh, a.vec);
+  const int it_lo = max(0, -d), it_hi = min(nt, nt - d);
+  load_pair(0, it_lo);
+  cp_async_commit();
+  float acc[kWarpWin / 16][C::kND][4] = {};
 
-  // position r pairs query i with key j = i + r - (T-1); the tile's
-  // positions rb..rb+31 meet keys in [0, T) for i in [i_lo, i_hi)
-  const int i_lo = max(0, T - 1 - (rb + kTile - 1));
-  const int i_hi = min(T, 2 * T - 1 - rb);
-  for (int i0 = i_lo; i0 < i_hi; i0 += kTile) {
-    const int jb = i0 + rb - (T - 1);       // key of (lane 0, row 0)
+  for (int it = it_lo; it < it_hi; ++it) {
+    const int s = (it - it_lo) & 1;
+    if (it + 1 < it_hi) {
+      load_pair(s ^ 1, it + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
     __syncthreads();
-    load_rows(s_qu, a.qu + bh * Dh, i0, kTile, T, Dh, ld);
-    load_rows(s_qv, a.qv + bh * Dh, i0, kTile, T, Dh, ld);
-    load_rows(s_do, a.dout + bh * Dh, i0, kTile, T, Dh, ld);
-    load_rows(s_k, a.k + bh * Dh, jb, kWin, T, Dh, ld);
-    load_rows(s_v, a.v + bh * Dh, jb, kWin, T, Dh, ld);
+    const int i0 = it * C::kTile;
+    const float* sQu = stages + s * C::kDpStage;
+    const float* sQv = sQu + C::kTileF;
+    const RowStats st = row_stats(a, bh, i0 + r0);
+    float ds[C::kNK][4], pd[C::kNK][4];
+    score_tile<DP, NW>(a, sQu, sQv, sQu + 2 * C::kTileF, sQu + 3 * C::kTileF,
+                       sQu + 4 * C::kTileF, sP, sB, i0, i0 + d * C::kTile, b,
+                       h, st, seed, ds, pd);
     __syncthreads();
-
-    // lane = query i0 + lane; warp row q = position rb + r0 + q, whose
-    // key sits at window row lane + r0 + q
-    const int i = i0 + lane;
-    const float2 st_i = row_stats(a, bh + min(i, T - 1));
-    const float delta_i = a.delta[bh + min(i, T - 1)];
-    float ac[kRows], bd[kRows], dpd[kRows];
+    store_tile<DP, NW>(X, ds);
+    __syncthreads();
+    // dp_win += dSk^T q_v, dSk[r][col] = dS[r][col - (TILE - 1) + r]
 #pragma unroll
-    for (int q = 0; q < kRows; ++q) ac[q] = bd[q] = dpd[q] = 0.f;
-    const float* qu_row = s_qu + lane * ld;
-    const float* qv_row = s_qv + lane * ld;
-    const float* do_row = s_do + lane * ld;
-    const float* k_row = s_k + (lane + r0) * ld;
-    const float* v_row = s_v + (lane + r0) * ld;
-    for (int d = 0; d < Dh; ++d) {
-      const float qud = qu_row[d], qvd = qv_row[d], dod = do_row[d];
+    for (int mt = 0; mt < kWarpWin / 16; ++mt) {
+      const int col0 = wr0 + 16 * mt;
+      for (int kk = 0; kk < C::kNK; ++kk) {
+        // rows 8 kk.. meet columns col0..col0+15 only inside the band
+        if (8 * kk + 7 < C::kTile - 16 - col0 ||
+            8 * kk > 2 * C::kTile - 2 - col0)
+          continue;
+        const FragA x = load_a([&](int m, int k) {
+          const int r = kk * 8 + k, c = col0 + m - (C::kTile - 1) + r;
+          return (c >= 0 && c < C::kTile) ? X[r * C::kLdX + c] : 0.f;
+        });
 #pragma unroll
-      for (int q = 0; q < kRows; ++q) {
-        ac[q] = fmaf(qud, k_row[q * ld + d], ac[q]);
-        bd[q] = fmaf(qvd, s_p[(r0 + q) * ld + d], bd[q]);
-        dpd[q] = fmaf(dod, v_row[q * ld + d], dpd[q]);
+        for (int nd = 0; nd < C::kND; ++nd)
+          mma_tf32x3(acc[mt][nd], x, load_b([&](int k, int n) {
+                       return sQv[(kk * 8 + k) * C::kLd + nd * 8 + n];
+                     }));
       }
     }
-    float ds[kRows];
-#pragma unroll
-    for (int q = 0; q < kRows; ++q)
-      ds[q] = rb + r0 + q < P
-                  ? pair_grad(a, b, h, i, jb + lane + r0 + q, ac[q], bd[q],
-                              dpd[q], st_i, delta_i, seed).ds
-                  : 0.f;
-
-    const int imax = min(kTile, T - i0);
-    for (int ii = 0; ii < imax; ++ii) {
-      float qi[DC];
-#pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        const int d = lane + 32 * c;
-        qi[c] = d < Dh ? s_qv[ii * ld + d] : 0.f;
-      }
-#pragma unroll
-      for (int q = 0; q < kRows; ++q) {
-        const float g = __shfl_sync(kFull, ds[q], ii);
-#pragma unroll
-        for (int c = 0; c < DC; ++c) gp[q][c] = fmaf(g, qi[c], gp[q][c]);
-      }
-    }
+    __syncthreads();
   }
-
-  float* part = a.dp_part + ((size_t)b * a.H + h) * P * Dh;
+  float* part = a.dp_part +
+                (((size_t)b * a.H + h) * (2 * nt - 1) + blockIdx.x) *
+                    C::kWin * Dh;
 #pragma unroll
-  for (int q = 0; q < kRows; ++q) {
-    const int r = rb + r0 + q;
-    if (r >= P) continue;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      const int d = lane + 32 * c;
-      if (d < Dh) part[(size_t)r * Dh + d] = gp[q][c];
-    }
-  }
+  for (int mt = 0; mt < kWarpWin / 16; ++mt)
+    store_rows(part, acc[mt], wr0 + 16 * mt, C::kWin, Dh);
 }
 
 // ---------------------------------------------------------------- pass 5
-__global__ void dp_sum_kernel(Args a) {
-  const size_t n = (size_t)a.H * (2 * a.T - 1) * a.Dh;
+__global__ void dp_sum_kernel(Args a, int tile) {
+  const int T = a.T, P = 2 * T - 1, nt = (T + tile - 1) / tile;
+  const size_t n = (size_t)a.H * P * a.Dh;
   for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < n;
        e += (size_t)gridDim.x * blockDim.x) {
+    const int c = (int)(e % a.Dh), r = (int)((e / a.Dh) % P);
+    const int h = (int)(e / ((size_t)P * a.Dh));
+    const int u = r - (T - tile);
+    const int d_hi = u >= 0 ? u / tile : -((tile - 1 - u) / tile);
     float acc = 0.f;
-    for (int b = 0; b < a.B; ++b) acc += a.dp_part[(size_t)b * n + e];
+    for (int d = d_hi - 1; d <= d_hi; ++d) {
+      const int wr = r - (T - tile + d * tile);
+      if (d < -(nt - 1) || d > nt - 1 || wr < 0 || wr >= 2 * tile) continue;
+      for (int b = 0; b < a.B; ++b)
+        acc += a.dp_part[((((size_t)b * a.H + h) * (2 * nt - 1) + d + nt - 1) *
+                              (2 * tile) + wr) * a.Dh + c];
+    }
     a.dp[e] = acc;
   }
 }
 
-template <int DC>
+template <int DP, int NW>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  const size_t sm_dq = sizeof(float) * smem_floats(5 * kTile + kWin, a.Dh);
-  const size_t sm_dp = sizeof(float) * smem_floats(4 * kTile + 2 * kWin, a.Dh);
+  using C = Cfg<DP, NW>;
   static bool attribute_set = false;
+  cudaError_t err;
   if (!attribute_set) {
-    const int dq_max = (int)(sizeof(float) * smem_floats(5 * kTile + kWin, 32 * DC));
-    const int dp_max = (int)(sizeof(float) * smem_floats(4 * kTile + 2 * kWin, 32 * DC));
-    cudaError_t err = cudaFuncSetAttribute(
-        dq_kernel<DC>, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_max);
+    err = cudaFuncSetAttribute(dq_kernel<DP, NW>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               4 * C::kDqF);
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(
-          dkv_kernel<DC>, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_max);
+      err = cudaFuncSetAttribute(dkv_kernel<DP, NW>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 4 * C::kDkvF);
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(
-          dp_kernel<DC>, cudaFuncAttributeMaxDynamicSharedMemorySize, dp_max);
+      err = cudaFuncSetAttribute(dp_kernel<DP, NW>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 4 * C::kDpF);
     if (err != cudaSuccess) return err;
     attribute_set = true;
   }
   const size_t rows = (size_t)a.B * a.H * a.T;
-  rows_kernel<<<(unsigned)((rows + kWarps - 1) / kWarps), kThreads, 0,
-                stream>>>(a);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int tiles = (a.T + kTile - 1) / kTile;
-  dq_kernel<DC><<<dim3(tiles, a.H, a.B), kThreads, sm_dq, stream>>>(a);
+  rows_kernel<<<(unsigned)((rows + kRowWarps - 1) / kRowWarps),
+                kRowWarps * 32, 0, stream>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  dkv_kernel<DC><<<dim3(tiles, a.H, a.B), kThreads, sm_dq, stream>>>(a);
+  const int nt = (a.T + C::kTile - 1) / C::kTile;
+  dq_kernel<DP, NW><<<dim3(nt, a.H, a.B), C::kThreads, 4 * C::kDqF,
+                      stream>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const int ptiles = (2 * a.T - 1 + kTile - 1) / kTile;
-  dp_kernel<DC><<<dim3(ptiles, a.H, a.B), kThreads, sm_dp, stream>>>(a);
+  dkv_kernel<DP, NW><<<dim3(nt, a.H, a.B), C::kThreads, 4 * C::kDkvF,
+                       stream>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  dp_sum_kernel<<<264, 256, 0, stream>>>(a);
+  dp_kernel<DP, NW><<<dim3(2 * nt - 1, a.H, a.B), C::kThreads, 4 * C::kDpF,
+                      stream>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  dp_sum_kernel<<<264, 256, 0, stream>>>(a, C::kTile);
   return cudaGetLastError();
+}
+
+int tile_for(int Dh) {
+  return Dh <= 64 ? Cfg<64, 4>::kTile : Cfg<128, 2>::kTile;
+}
+
+bool aligned16(const void* x) { return ((uintptr_t)x & 15) == 0; }
+
+// C = A @ B for row-major A (M x K) and B (K x N), one warp per 16 x 8
+// tile of C, through the 3xTF32 helper (a test of its fragment layout)
+__global__ void tf32x3_matmul_kernel(const float* a, const float* b,
+                                     float* c, int M, int N, int K) {
+  const int m0 = blockIdx.x * 16, n0 = blockIdx.y * 8;
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int k0 = 0; k0 < K; k0 += 8) {
+    const FragA x = load_a([&](int m, int k) {
+      return (m0 + m < M && k0 + k < K) ? a[(size_t)(m0 + m) * K + k0 + k]
+                                        : 0.f;
+    });
+    const FragB y = load_b([&](int k, int n) {
+      return (k0 + k < K && n0 + n < N) ? b[(size_t)(k0 + k) * N + n0 + n]
+                                        : 0.f;
+    });
+    mma_tf32x3(acc, x, y);
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int r = m0 + c_row(e), col = n0 + c_col(e);
+    if (r < M && col < N) c[(size_t)r * N + col] = acc[e];
+  }
 }
 
 }  // namespace
 
 // Inputs as the forward's (q_u, q_v, k, v, out, dout: (B, H, T, Dh);
 // p: (H, 2T-1, Dh); kp: (B, T); am: (T, T); stats: (B, H, T, 2) from
-// the forward; seed: one int64 on the device or null for no dropout). Scratch:
-// delta (B, H, T), dp_part (B, H, 2T-1, Dh). Outputs: dqu, dqv, dk, dv
-// (B, H, T, Dh), dp (H, 2T-1, Dh). All f32, contiguous, on the current
-// device. Returns the CUDA error code of the launches (0 on success).
+// the forward; seed: one int64 on the device or null for no dropout).
+// Scratch: delta (B, H, T), dp_part of relpos_attention_bwd_dp_part_floats
+// floats. Outputs: dqu, dqv, dk, dv (B, H, T, Dh), dp (H, 2T-1, Dh). All
+// f32, contiguous, on the current device. Returns the CUDA error code of
+// the launches (0 on success).
 extern "C" int relpos_attention_bwd(
     const float* qu, const float* qv, const float* k, const float* v,
     const float* p, const float* kp, const float* am, const float* out,
@@ -488,15 +692,39 @@ extern "C" int relpos_attention_bwd(
   if (B < 1 || H < 1 || T < 1 || Dh < 1 || Dh > 128 || B > 65535 ||
       H > 65535)
     return (int)cudaErrorInvalidValue;
+  const bool vec = Dh % 4 == 0 && aligned16(qu) && aligned16(qv) &&
+                   aligned16(k) && aligned16(v) && aligned16(p) &&
+                   aligned16(dout);
   Args a{qu, qv, k, v, p, kp, am, out, stats, dout, seed, thresh, keep_scale,
-         scale, delta, dqu, dqv, dk, dv, dp_part, dp, B, H, T, Dh};
+         scale, delta, dqu, dqv, dk, dv, dp_part, dp, B, H, T, Dh, vec};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  switch ((Dh + 31) / 32) {
-    case 1: err = launch<1>(a, s); break;
-    case 2: err = launch<2>(a, s); break;
-    case 3: err = launch<3>(a, s); break;
-    default: err = launch<4>(a, s); break;
-  }
+  if (Dh <= 32)
+    err = launch<32, 4>(a, s);
+  else if (Dh <= 64)
+    err = launch<64, 4>(a, s);
+  else
+    err = launch<128, 2>(a, s);
   return (int)err;
+}
+
+// Floats of relpos_attention_bwd's dp_part scratch: one partial of 2 TILE
+// window rows per (b, h, tile diagonal).
+extern "C" long long relpos_attention_bwd_dp_part_floats(int B, int H, int T,
+                                                         int Dh) {
+  const long long tile = tile_for(Dh), nt = (T + tile - 1) / tile;
+  return (long long)B * H * (2 * nt - 1) * 2 * tile * Dh;
+}
+
+// c = a @ b through the 3xTF32 mma helper (a: M x K, b: K x N, row-major
+// f32 on the current device), for tests. Returns the CUDA error code.
+extern "C" int relpos_tf32x3_matmul_test(const float* a, const float* b,
+                                         float* c, int M, int N, int K,
+                                         void* stream) {
+  if (M < 1 || N < 1 || K < 1 || (N + 7) / 8 > 65535)
+    return (int)cudaErrorInvalidValue;
+  tf32x3_matmul_kernel<<<dim3((M + 15) / 16, (N + 7) / 8), 32, 0,
+                         static_cast<cudaStream_t>(stream)>>>(a, b, c, M, N,
+                                                              K);
+  return (int)cudaGetLastError();
 }

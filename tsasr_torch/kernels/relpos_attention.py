@@ -12,9 +12,11 @@ sources replace its two Pallas kernels:
   and, when a gradient will be asked for, each row's softmax statistics
   (B, H, T, 2): the row max and 1 / row sum of the scaled scores;
 - ``csrc/relpos_attention_bwd.cu`` (``_bwd_kernel``) recomputes the
-  probabilities from those statistics and emits dq_u, dq_v, dk, dv and dp.
-  dp sums over the batch: one pass writes a partial per batch element,
-  a second pass adds them in batch order, so the result is deterministic.
+  probabilities from those statistics and emits dq_u, dq_v, dk, dv and dp,
+  every product on the tensor cores in 3xTF32 (f32 accuracy). dp sums over
+  the batch: one pass writes a partial per (batch element, head, tile
+  diagonal), a second adds them in a fixed order, so the result is
+  deterministic.
 
 Dropout is a counter-based Philox4x32-10 draw keyed by the seed and
 counted by (b, h, i, j): word 0 of ``philox(ctr=(j, i, h, b), key=(seed
@@ -161,6 +163,14 @@ def _bwd_kernel():
     return fn
 
 
+@functools.cache
+def _bwd_dp_part_floats():
+    fn = _build.load(BWD_SOURCE).relpos_attention_bwd_dp_part_floats
+    fn.argtypes = [ctypes.c_int] * 4
+    fn.restype = ctypes.c_longlong
+    return fn
+
+
 def _check(q_u, q_v, k, v, p, kp_add, am_add, do=None):
     B, H, T, Dh = q_u.shape
     expected = {"q_u": (B, H, T, Dh), "q_v": (B, H, T, Dh),
@@ -227,7 +237,8 @@ def _launch_bwd(q_u, q_v, k, v, p, kp_add, am_add, out, stats, do, seed_t,
     thresh, keep_scale = _dropout_args(rate)
     dqu, dqv, dk, dv = (torch.empty_like(q_u) for _ in range(4))
     dp = torch.empty_like(p)
-    dp_part = torch.empty(B, *p.shape, device=p.device)
+    # dp's partials, one per (b, h, tile diagonal); the kernel sizes them
+    dp_part = torch.empty(_bwd_dp_part_floats()(B, H, T, Dh), device=p.device)
     delta = torch.empty(B, H, T, device=q_u.device)
     with torch.cuda.device(q_u.device):
         err = _bwd_kernel()(
