@@ -29,16 +29,17 @@ struct FragB {
   uint32_t big[2], small[2];
 };
 
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
+// x rounded to TF32 (10 mantissa bits), to nearest with ties away from
+// zero, as cvt.rna.tf32.f32 does for finite x, in two integer operations
+// (the cvt also handles NaN and infinity, which no operand here is)
+__device__ __forceinline__ uint32_t rna_bits(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
 
 __device__ __forceinline__ void split_tf32(float x, uint32_t& big,
                                            uint32_t& small) {
-  big = to_tf32(x);
-  small = to_tf32(x - __uint_as_float(big));
+  big = rna_bits(x);
+  small = rna_bits(x - __uint_as_float(big));
 }
 
 __device__ __forceinline__ int lane_g() { return (threadIdx.x & 31) >> 2; }
@@ -79,12 +80,51 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// d += a b in 3xTF32, the small terms first
+// d[n] += a b_n for a row of N n-tiles, b_n(k, c) = at(n, k, c), in
+// 3xTF32. Each k-step's three products are summed on the tensor core from
+// zero, small terms first, and only then added to d in f32: the tensor
+// core's own accumulation truncates, and over a long k loop into one
+// accumulator that bias adds up (to ~1e-5 of the sum over a few hundred
+// keys) where round-to-nearest f32 adds do not. The n-tiles go in groups:
+// all B fragments of a group are loaded first, then each of the three
+// products runs over the whole group, so no mma waits on the one before.
+template <int N, class F>
+__device__ __forceinline__ void mma_tf32x3_row(float (&d)[N][4],
+                                               const FragA& a, F at) {
+  constexpr int G = N <= 10 ? N : 8;
+  static_assert(N % G == 0, "n-tiles in whole groups");
+#pragma unroll
+  for (int n0 = 0; n0 < N; n0 += G) {
+    FragB b[G];
+    float t[G][4];
+#pragma unroll
+    for (int n = 0; n < G; ++n) {
+      b[n] = load_b([&](int k, int c) { return at(n0 + n, k, c); });
+#pragma unroll
+      for (int e = 0; e < 4; ++e) t[n][e] = 0.f;
+    }
+#pragma unroll
+    for (int n = 0; n < G; ++n) mma_tf32(t[n], a.small, b[n].big);
+#pragma unroll
+    for (int n = 0; n < G; ++n) mma_tf32(t[n], a.big, b[n].small);
+#pragma unroll
+    for (int n = 0; n < G; ++n) mma_tf32(t[n], a.big, b[n].big);
+#pragma unroll
+    for (int n = 0; n < G; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) d[n0 + n][e] += t[n][e];
+  }
+}
+
+// d += a b in 3xTF32 for one n-tile (see mma_tf32x3_row)
 __device__ __forceinline__ void mma_tf32x3(float (&d)[4], const FragA& a,
                                            const FragB& b) {
-  mma_tf32(d, a.small, b.big);
-  mma_tf32(d, a.big, b.small);
-  mma_tf32(d, a.big, b.big);
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_tf32(t, a.small, b.big);
+  mma_tf32(t, a.big, b.small);
+  mma_tf32(t, a.big, b.big);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) d[e] += t[e];
 }
 
 }  // namespace tsasr

@@ -22,40 +22,46 @@
 // scores, do.v and the four gradient products) is an m16n8k8 mma.sync in
 // 3xTF32 (mma_tf32x3.cuh): each f32 operand is split into a TF32 big part
 // and a TF32 remainder, and three TF32 products are summed. Plain 1xTF32
-// keeps 10 mantissa bits, ~1e-3 of max |g|, a hundred times the 1e-4
-// tolerance the kernel is held to; 3xTF32 reads like plain f32.
+// keeps 10 mantissa bits, ~1e-3 of max |g|, ten times the 1e-4 tolerance
+// the kernel is held to; 3xTF32, with each k-step's products added to the
+// accumulators in f32, reads closer to f64 than the plain f32 version.
 //
-// Tiling. Tiles are square, TILE queries by TILE keys: 64 with 4 warps
-// for Dh <= 64, 32 with 2 warps for Dh up to 128 (shared memory). Dh is
-// zero-padded in shared memory to DP = 32, 64 or 128, so the products'
-// register arrays have compile-time sizes. Rows in shared memory are
-// DP + 4 floats apart, so the fragment loads of 8 rows x 4 columns hit 32
-// banks. In every pass a warp owns 16 query rows of a tile pair's scores:
+// Tiling. Tiles are square, TILE queries by TILE keys: 64 for Dh <= 64,
+// 32 for Dh up to 128 (shared memory). Dh is zero-padded in shared memory
+// to DP = 32, 64 or 128, so the products' register arrays have
+// compile-time sizes. Rows in shared memory are DP + 4 floats apart, so
+// the fragment loads of 8 rows x 4 columns hit 32 banks. A block has
+// TILE / 8 warps: two per group of 16 query rows, one for each half of
+// the tile's keys (8 warps for TILE 64, two on each scheduler of the SM,
+// whose mma.sync chains are latency-bound with one). For a tile pair:
 //
 //   - the positional term is a product, then a skew, as the TPU kernel
 //     does it: the pair (i0, j0) reads p rows from T - TILE - i0 + j0 on
-//     (2 TILE - 1, padded to 2 TILE: the window); warp w's 16 rows need
-//     TILE + 15 of them from window row TILE - 16 - 16 w on, so the warp
-//     computes BD = q_v(16 rows) @ win(TILE + 16 rows)^T into its own
-//     shared buffer and reads the score term of (row rl, key c) at
-//     BD[rl][15 - rl + c];
+//     (2 TILE - 1, padded to 2 TILE: the window); row group g's 16 rows
+//     need TILE + 15 of them from window row TILE - 16 - 16 g on, so its
+//     two warps compute BD = q_v(16 rows) @ win(TILE + 16 rows)^T, half
+//     the columns each, into the group's shared buffer, and read the
+//     score term of (row rl, key c) at BD[rl][15 - rl + c];
 //   - S = q_u k^T and dO v^T are products; P, the dropout (one Philox per
 //     accumulator element) and dS are applied in registers.
 //
 // Passes, each a kernel, all on one stream:
 // 1. rows: D = rowsum(do * out), one warp per row;
-// 2. dq: one block per (query tile, h, b) over the key tiles. dq_u +=
-//    dS k; dS goes into the warp's zeroed skew buffer at [rl][15 - rl + c]
-//    (dSk), and dq_v += dSk @ win;
+// 2. dq: one block per (query tile, h, b) over the key tiles. dS goes into
+//    the row group's zeroed skew buffer at [rl][15 - rl + c] (dSk); dq_u
+//    += dS k and dq_v += dSk @ win, each warp of the group half the
+//    columns of Dh;
 // 3. dkv: one block per (key tile, h, b) over the query tiles. Pd and
-//    then dS go through one shared TILE x TILE buffer, from which warp w
-//    reads them transposed for its 16 keys: dv += Pd^T do, dk += dS^T q_u;
-// 4. dp: one block per (tile diagonal d = (j0 - i0) / TILE, h, b). Every
-//    pair on a diagonal reads the same window, from p row T - TILE + d TILE,
-//    so dp_win += dSk^T q_v accumulates in registers along the diagonal
-//    (warp w owns 32 window rows; dSk is read skewed from the dS tile,
-//    zero off the band) and the block writes one partial of 2 TILE rows
-//    per (b, h, d);
+//    then dS go through one shared TILE x TILE buffer, from which each
+//    warp reads them transposed for 16 keys and half the columns:
+//    dv += Pd^T do, dk += dS^T q_u;
+// 4. dp: per tile diagonal d = (j0 - i0) / TILE. Block (x, h, b) walks
+//    diagonal x and then x - nt (nt = ceil(T / TILE)): nt pairs in every
+//    block, one wave like dq and dkv. Every pair on a diagonal reads the
+//    same window, from p row T - TILE + d TILE, so dp_win += dSk^T q_v
+//    accumulates in registers along the diagonal (a warp owns 16 window
+//    rows; dSk is read skewed from the dS tile, zero off the band) and the
+//    block writes one partial of 2 TILE rows per (b, h, d);
 // 5. dp sum: p row r lies in the windows of d_hi = floor((r - T + TILE) /
 //    TILE) and d_hi - 1; it adds those partials, d_hi - 1 first, each
 //    over b in order. The TPU kernel carried dp across a sequential grid
@@ -67,6 +73,8 @@
 // (16 B a thread when Dh % 4 == 0 and the rows are aligned, else 4 B),
 // double-buffered, so the next step's copies overlap this step's mma.
 // Rows outside [0, T) and columns past Dh are zero-filled by the copy.
+// The masks am and kp are read from L2 into registers, all of a tile's
+// first, so the loads overlap the products.
 //
 // What bounds it on an H100: ~16 B*H*T^2*Dh operations (the scores' two
 // products, do.v and the four gradient products) at the 3xTF32 rate,
@@ -75,7 +83,9 @@
 // 0.0086 ms of operations against 0.0054 ms of bytes. The kernel
 // recomputes every score in each of passes 2-4, pads T up to whole
 // tiles and the window to TILE + 16 columns, and spends ALU time on the
-// TF32 splits, so it does ~4x those operations.
+// TF32 splits and fragment loads from shared memory (no ldmatrix, no
+// wgmma), so it runs far from that bound: at these sizes one wave of
+// blocks, latency-bound.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -89,13 +99,12 @@ namespace {
 using tsasr::c_col;
 using tsasr::c_row;
 using tsasr::FragA;
-using tsasr::FragB;
 using tsasr::load_a;
-using tsasr::load_b;
 using tsasr::mma_tf32x3;
+using tsasr::mma_tf32x3_row;
 
 constexpr int kRowWarps = 4;               // pass 1: one warp per row
-constexpr int kWarpRows = 16;              // query rows of a warp
+constexpr int kWarpRows = 16;              // query rows of a row group
 constexpr int kSmemLimit = 232448;         // bytes a block may ask for
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -109,22 +118,28 @@ struct Args {
   bool vec;                                // 16-byte copies are aligned
 };
 
-template <int DP, int NW>
+// DP: padded head dim; NR: row groups of 16 in a tile (2 NR warps)
+template <int DP, int NR>
 struct Cfg {
-  static constexpr int kTile = kWarpRows * NW;
+  static constexpr int kTile = kWarpRows * NR;
+  static constexpr int kWarps = 2 * NR;
+  static constexpr int kThreads = 32 * kWarps;
   static constexpr int kWin = 2 * kTile;   // a pair's p rows (2 TILE - 1)
-  static constexpr int kBW = kTile + kWarpRows;  // a warp's (TILE + 15)
+  static constexpr int kBW = kTile + kWarpRows;  // a row group's (TILE + 15)
+  static constexpr int kNB = kBW / 8;      // its n-tiles, half to each warp
+  static constexpr int kWK = kTile / 2;    // keys of a warp's scores
+  static constexpr int kNKW = kWK / 8;
+  static constexpr int kNK = kTile / 8;    // k-steps over a tile
+  static constexpr int kND = DP / 8;       // n-tiles over the head dim
+  static constexpr int kNDH = kND / 2;     // a warp's half of them
   static constexpr int kLd = DP + 4;
   static constexpr int kLdB = kBW + 4;
   static constexpr int kLdX = kTile + 4;
-  static constexpr int kThreads = 32 * NW;
-  static constexpr int kND = DP / 8;       // n-tiles over the head dim
-  static constexpr int kNK = kTile / 8;    // n-tiles over a tile's keys
   static constexpr int kTileF = kTile * kLd;
   static constexpr int kWinF = kWin * kLd;
-  // the warps' BD / dSk buffers, or (dkv, dp) the block's dS tile
-  static constexpr int kScratchF = NW * kWarpRows * kLdB > kTile * kLdX
-                                       ? NW * kWarpRows * kLdB
+  // the row groups' BD / dSk buffers, or (dkv, dp) the block's dS tile
+  static constexpr int kScratchF = NR * kWarpRows * kLdB > kTile * kLdX
+                                       ? NR * kWarpRows * kLdB
                                        : kTile * kLdX;
   // fixed tiles + two stages + scratch, in floats
   static constexpr int kDqStage = 2 * kTileF + kWinF;   // k, v, window
@@ -133,10 +148,26 @@ struct Cfg {
   static constexpr int kDqF = 3 * kTileF + 2 * kDqStage + kScratchF;
   static constexpr int kDkvF = 2 * kTileF + 2 * kDkvStage + kScratchF;
   static constexpr int kDpF = kWinF + 2 * kDpStage + kScratchF;
+  static_assert(kNB % 2 == 0 && kND % 2 == 0 && kWin == kWarps * 16,
+                "warp shares");
   static_assert(4 * kDqF <= kSmemLimit && 4 * kDkvF <= kSmemLimit &&
                     4 * kDpF <= kSmemLimit,
                 "shared memory of a block");
 };
+
+// This warp's row group (16 query rows of the tile) and half (of the
+// tile's keys in the scores, of Dh's columns in the products).
+__device__ __forceinline__ int warp_id() { return threadIdx.x >> 5; }
+template <int NR>
+__device__ __forceinline__ int row_group() { return warp_id() % NR; }
+template <int NR>
+__device__ __forceinline__ int warp_half() { return warp_id() / NR; }
+
+// barrier of the two warps of a row group (named barriers 1 .. NR)
+template <int NR>
+__device__ __forceinline__ void group_sync() {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(1 + row_group<NR>()));
+}
 
 // ------------------------------------------------------------ async copies
 __device__ __forceinline__ void cp_async16(float* dst, const float* src,
@@ -204,73 +235,87 @@ __device__ __forceinline__ RowStats row_stats(const Args& a, size_t bh,
   return st;
 }
 
-// dS and Pd of this warp's 16 query rows (i0 + 16 w ...) against the
-// TILE keys j0 ..., in accumulator layout; zeros outside the lattice.
-// sB is the warp's 16 x (TILE + 16) buffer; it holds BD on return.
-template <int DP, int NW>
+// dS and Pd of this warp's scores, (16 query rows i0 + 16 g ...) x (TILE
+// / 2 keys j0 + half TILE / 2 ...), in accumulator layout; zeros outside
+// the lattice. sB is the row group's 16 x (TILE + 16) buffer; it holds BD
+// on return.
+template <int DP, int NR>
 __device__ __forceinline__ void score_tile(
     const Args& a, const float* sQu, const float* sQv, const float* sDo,
     const float* sK, const float* sV, const float* sP, float* sB, int i0,
     int j0, int b, int h, const RowStats& st, uint64_t seed,
-    float (&ds)[Cfg<DP, NW>::kNK][4], float (&pd)[Cfg<DP, NW>::kNK][4]) {
-  using C = Cfg<DP, NW>;
-  const int r0 = (threadIdx.x >> 5) * kWarpRows;
-  const int first = C::kTile - kWarpRows - r0;   // the warp's window row 0
+    float (&ds)[Cfg<DP, NR>::kNKW][4], float (&pd)[Cfg<DP, NR>::kNKW][4]) {
+  using C = Cfg<DP, NR>;
+  const int T = a.T;
+  const int r0 = row_group<NR>() * kWarpRows, c0 = warp_half<NR>() * C::kWK;
+  const int first = C::kTile - kWarpRows - r0;   // the group's window row 0
+  // The masks of this lane's scores, loaded unconditionally (indices
+  // clamped into the lattice, elements outside it are dropped below)
+  // and first, so the loads from L2 overlap the products instead of
+  // waiting one by one behind the lattice test.
+  float am[C::kNKW][4], kp[C::kNKW][2];
+#pragma unroll
+  for (int nt = 0; nt < C::kNKW; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = min(i0 + r0 + c_row(e), T - 1);
+      const int j = min(j0 + c0 + nt * 8 + c_col(e), T - 1);
+      am[nt][e] = a.am[(size_t)i * T + j];
+      if (e < 2) kp[nt][e] = a.kp[(size_t)b * T + j];
+    }
   {
-    float bd[C::kBW / 8][4] = {};
+    constexpr int kHalf = C::kNB / 2;
+    const int nb0 = warp_half<NR>() * kHalf;
+    float bd[kHalf][4] = {};
     for (int kk = 0; kk < C::kND; ++kk) {
       const FragA q = load_a([&](int m, int k) {
         return sQv[(r0 + m) * C::kLd + kk * 8 + k];
       });
-#pragma unroll
-      for (int nb = 0; nb < C::kBW / 8; ++nb)
-        mma_tf32x3(bd[nb], q, load_b([&](int k, int n) {
-                     return sP[(first + nb * 8 + n) * C::kLd + kk * 8 + k];
-                   }));
+      mma_tf32x3_row(bd, q, [&](int nb, int k, int n) {
+        return sP[(first + (nb0 + nb) * 8 + n) * C::kLd + kk * 8 + k];
+      });
     }
 #pragma unroll
-    for (int nb = 0; nb < C::kBW / 8; ++nb)
+    for (int nb = 0; nb < kHalf; ++nb)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        sB[c_row(e) * C::kLdB + nb * 8 + c_col(e)] = bd[nb][e];
+        sB[c_row(e) * C::kLdB + (nb0 + nb) * 8 + c_col(e)] = bd[nb][e];
   }
-  __syncwarp();
 
 #pragma unroll
-  for (int nt = 0; nt < C::kNK; ++nt)
+  for (int nt = 0; nt < C::kNKW; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) ds[nt][e] = pd[nt][e] = 0.f;
-  for (int kk = 0; kk < C::kND; ++kk) {
+  for (int kk = 0; kk < C::kND; ++kk) {            // S = q_u k^T
     const FragA q = load_a([&](int m, int k) {
       return sQu[(r0 + m) * C::kLd + kk * 8 + k];
     });
+    mma_tf32x3_row(ds, q, [&](int nt, int k, int n) {
+      return sK[(c0 + nt * 8 + n) * C::kLd + kk * 8 + k];
+    });
+  }
+  for (int kk = 0; kk < C::kND; ++kk) {            // dO v^T
     const FragA g = load_a([&](int m, int k) {
       return sDo[(r0 + m) * C::kLd + kk * 8 + k];
     });
-#pragma unroll
-    for (int nt = 0; nt < C::kNK; ++nt) {
-      mma_tf32x3(ds[nt], q, load_b([&](int k, int n) {
-                   return sK[(nt * 8 + n) * C::kLd + kk * 8 + k];
-                 }));
-      mma_tf32x3(pd[nt], g, load_b([&](int k, int n) {
-                   return sV[(nt * 8 + n) * C::kLd + kk * 8 + k];
-                 }));
-    }
+    mma_tf32x3_row(pd, g, [&](int nt, int k, int n) {
+      return sV[(c0 + nt * 8 + n) * C::kLd + kk * 8 + k];
+    });
   }
+  group_sync<NR>();                                // BD of both halves
 
-  const int T = a.T;
 #pragma unroll
-  for (int nt = 0; nt < C::kNK; ++nt)
+  for (int nt = 0; nt < C::kNKW; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int rl = c_row(e), c = nt * 8 + c_col(e), q = e >> 1;
+      const int rl = c_row(e), c = c0 + nt * 8 + c_col(e), q = e >> 1;
       const int i = i0 + r0 + rl, j = j0 + c;
       float g_ds = 0.f, g_pd = 0.f;
       if (i < T && j < T) {
         const float s =
             (ds[nt][e] + sB[rl * C::kLdB + kWarpRows - 1 - rl + c]) *
                 a.scale +
-            a.am[(size_t)i * T + j] + a.kp[(size_t)b * T + j];
+            am[nt][e] + kp[nt][e & 1];
         const float prob = expf(s - st.m[q]) * st.linv[q];
         float dprob = pd[nt][e];
         g_pd = prob;
@@ -286,29 +331,31 @@ __device__ __forceinline__ void score_tile(
     }
 }
 
-// x[nt][e] into a TILE-wide tile buffer at the warp's rows
-template <int DP, int NW>
-__device__ __forceinline__ void store_tile(float* X,
-                                           const float (&x)[Cfg<DP, NW>::kNK][4]) {
-  using C = Cfg<DP, NW>;
-  const int r0 = (threadIdx.x >> 5) * kWarpRows;
+// x (this warp's scores) into the block's TILE x TILE buffer
+template <int DP, int NR>
+__device__ __forceinline__ void store_tile(
+    float* X, const float (&x)[Cfg<DP, NR>::kNKW][4]) {
+  using C = Cfg<DP, NR>;
+  const int r0 = row_group<NR>() * kWarpRows, c0 = warp_half<NR>() * C::kWK;
 #pragma unroll
-  for (int nt = 0; nt < C::kNK; ++nt)
+  for (int nt = 0; nt < C::kNKW; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e)
-      X[(r0 + c_row(e)) * C::kLdX + nt * 8 + c_col(e)] = x[nt][e];
+      X[(r0 + c_row(e)) * C::kLdX + c0 + nt * 8 + c_col(e)] = x[nt][e];
 }
 
-// acc (rows row0 + 16 m-tiles of this warp, DP columns) into dst rows
+// acc (16 rows from row0, ND n-tiles from column col0) into dst rows
 // [0, limit) of width Dh
 template <int ND>
-__device__ __forceinline__ void store_rows(float* dst, const float (&acc)[ND][4],
-                                           int row0, int limit, int Dh) {
+__device__ __forceinline__ void store_rows(float* dst,
+                                           const float (&acc)[ND][4],
+                                           int row0, int limit, int col0,
+                                           int Dh) {
 #pragma unroll
   for (int nd = 0; nd < ND; ++nd)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int r = row0 + c_row(e), d = nd * 8 + c_col(e);
+      const int r = row0 + c_row(e), d = col0 + nd * 8 + c_col(e);
       if (r < limit && d < Dh) dst[(size_t)r * Dh + d] = acc[nd][e];
     }
 }
@@ -326,13 +373,15 @@ __global__ void __launch_bounds__(kRowWarps * 32) rows_kernel(Args a) {
 }
 
 // ---------------------------------------------------------------- pass 2
-template <int DP, int NW>
-__global__ void __launch_bounds__(32 * NW, 1) dq_kernel(Args a) {
-  using C = Cfg<DP, NW>;
+template <int DP, int NR>
+__global__ void __launch_bounds__(Cfg<DP, NR>::kThreads, 1)
+    dq_kernel(Args a) {
+  using C = Cfg<DP, NR>;
   extern __shared__ __align__(16) float smem[];
   const int T = a.T, Dh = a.Dh, nt = (T + C::kTile - 1) / C::kTile;
   const int i0 = blockIdx.x * C::kTile, h = blockIdx.y, b = blockIdx.z;
-  const int w = threadIdx.x >> 5, r0 = w * kWarpRows;
+  const int r0 = row_group<NR>() * kWarpRows;
+  const int d0 = warp_half<NR>() * C::kNDH * 8;  // this warp's columns
   const size_t bh = ((size_t)b * a.H + h) * T;
   const float* p_h = a.p + (size_t)h * (2 * T - 1) * Dh;
   const uint64_t seed = a.seed ? (uint64_t)a.seed[0] : 0;
@@ -340,7 +389,7 @@ __global__ void __launch_bounds__(32 * NW, 1) dq_kernel(Args a) {
   float* sQv = sQu + C::kTileF;
   float* sDo = sQv + C::kTileF;
   float* stages = sDo + C::kTileF;               // k, v, window
-  float* sB = stages + 2 * C::kDqStage + w * kWarpRows * C::kLdB;
+  float* sB = stages + 2 * C::kDqStage + r0 * C::kLdB;
 
   auto load_keys = [&](int s, int j0) {
     float* st = stages + s * C::kDqStage;
@@ -359,7 +408,7 @@ __global__ void __launch_bounds__(32 * NW, 1) dq_kernel(Args a) {
   cp_async_commit();
   const RowStats st = row_stats(a, bh, i0 + r0);
   const int first = C::kTile - kWarpRows - r0;
-  float gu[C::kND][4] = {}, gv[C::kND][4] = {};
+  float gu[C::kNDH][4] = {}, gv[C::kNDH][4] = {};
 
   for (int jt = 0; jt < nt; ++jt) {
     if (jt + 1 < nt) {
@@ -373,73 +422,72 @@ __global__ void __launch_bounds__(32 * NW, 1) dq_kernel(Args a) {
     const float* sK = stages + (jt & 1) * C::kDqStage;
     const float* sV = sK + C::kTileF;
     const float* sP = sK + 2 * C::kTileF;
-    float ds[C::kNK][4], pd[C::kNK][4];
-    score_tile<DP, NW>(a, sQu, sQv, sDo, sK, sV, sP, sB, i0, jt * C::kTile,
+    float ds[C::kNKW][4], pd[C::kNKW][4];
+    score_tile<DP, NR>(a, sQu, sQv, sDo, sK, sV, sP, sB, i0, jt * C::kTile,
                        b, h, st, seed, ds, pd);
-    // dS into the warp's zeroed skew buffer: dSk[rl][15 - rl + c]
-    __syncwarp();
-    for (int e = threadIdx.x & 31; e < kWarpRows * C::kLdB; e += 32)
+    // dS into the group's zeroed skew buffer: dSk[rl][15 - rl + c]
+    group_sync<NR>();
+    for (int e = warp_half<NR>() * 32 + (threadIdx.x & 31);
+         e < kWarpRows * C::kLdB; e += 64)
       sB[e] = 0.f;
-    __syncwarp();
+    group_sync<NR>();
+    const int c0 = warp_half<NR>() * C::kWK;
 #pragma unroll
-    for (int n = 0; n < C::kNK; ++n)
+    for (int n = 0; n < C::kNKW; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        sB[c_row(e) * C::kLdB + kWarpRows - 1 - c_row(e) + n * 8 + c_col(e)] =
-            ds[n][e];
-    __syncwarp();
+        sB[c_row(e) * C::kLdB + kWarpRows - 1 - c_row(e) + c0 + n * 8 +
+           c_col(e)] = ds[n][e];
+    group_sync<NR>();
     for (int kk = 0; kk < C::kNK; ++kk) {        // dq_u += dS k
       const FragA x = load_a([&](int m, int k) {
         return sB[m * C::kLdB + kWarpRows - 1 - m + kk * 8 + k];
       });
-#pragma unroll
-      for (int nd = 0; nd < C::kND; ++nd)
-        mma_tf32x3(gu[nd], x, load_b([&](int k, int n) {
-                     return sK[(kk * 8 + k) * C::kLd + nd * 8 + n];
-                   }));
+      mma_tf32x3_row(gu, x, [&](int nd, int k, int n) {
+        return sK[(kk * 8 + k) * C::kLd + d0 + nd * 8 + n];
+      });
     }
-    for (int kk = 0; kk < C::kBW / 8; ++kk) {    // dq_v += dSk win
+    for (int kk = 0; kk < C::kNB; ++kk) {        // dq_v += dSk win
       const FragA x = load_a([&](int m, int k) {
         return sB[m * C::kLdB + kk * 8 + k];
       });
-#pragma unroll
-      for (int nd = 0; nd < C::kND; ++nd)
-        mma_tf32x3(gv[nd], x, load_b([&](int k, int n) {
-                     return sP[(first + kk * 8 + k) * C::kLd + nd * 8 + n];
-                   }));
+      mma_tf32x3_row(gv, x, [&](int nd, int k, int n) {
+        return sP[(first + kk * 8 + k) * C::kLd + d0 + nd * 8 + n];
+      });
     }
     __syncthreads();
   }
-  store_rows(a.dqu + bh * Dh, gu, i0 + r0, T, Dh);
-  store_rows(a.dqv + bh * Dh, gv, i0 + r0, T, Dh);
+  store_rows(a.dqu + bh * Dh, gu, i0 + r0, T, d0, Dh);
+  store_rows(a.dqv + bh * Dh, gv, i0 + r0, T, d0, Dh);
 }
 
-// dst[nd] += X^T-rows (16 keys from r0) times Y (TILE rows, DP columns)
-template <int DP, int NW>
+// dst += X^T Y for this warp's 16 keys (columns of X from 16 g) and half
+// of Y's columns, over the TILE rows of X and Y
+template <int DP, int NR>
 __device__ __forceinline__ void add_transposed_product(
-    float (&dst)[Cfg<DP, NW>::kND][4], const float* X, const float* Y) {
-  using C = Cfg<DP, NW>;
-  const int r0 = (threadIdx.x >> 5) * kWarpRows;
+    float (&dst)[Cfg<DP, NR>::kNDH][4], const float* X, const float* Y) {
+  using C = Cfg<DP, NR>;
+  const int r0 = row_group<NR>() * kWarpRows;
+  const int d0 = warp_half<NR>() * C::kNDH * 8;
   for (int kk = 0; kk < C::kNK; ++kk) {
     const FragA x = load_a([&](int m, int k) {
       return X[(kk * 8 + k) * C::kLdX + r0 + m];
     });
-#pragma unroll
-    for (int nd = 0; nd < C::kND; ++nd)
-      mma_tf32x3(dst[nd], x, load_b([&](int k, int n) {
-                   return Y[(kk * 8 + k) * C::kLd + nd * 8 + n];
-                 }));
+    mma_tf32x3_row(dst, x, [&](int nd, int k, int n) {
+      return Y[(kk * 8 + k) * C::kLd + d0 + nd * 8 + n];
+    });
   }
 }
 
 // ---------------------------------------------------------------- pass 3
-template <int DP, int NW>
-__global__ void __launch_bounds__(32 * NW, 1) dkv_kernel(Args a) {
-  using C = Cfg<DP, NW>;
+template <int DP, int NR>
+__global__ void __launch_bounds__(Cfg<DP, NR>::kThreads, 1)
+    dkv_kernel(Args a) {
+  using C = Cfg<DP, NR>;
   extern __shared__ __align__(16) float smem[];
   const int T = a.T, Dh = a.Dh, nt = (T + C::kTile - 1) / C::kTile;
   const int j0 = blockIdx.x * C::kTile, h = blockIdx.y, b = blockIdx.z;
-  const int w = threadIdx.x >> 5, r0 = w * kWarpRows;
+  const int r0 = row_group<NR>() * kWarpRows;
   const size_t bh = ((size_t)b * a.H + h) * T;
   const float* p_h = a.p + (size_t)h * (2 * T - 1) * Dh;
   const uint64_t seed = a.seed ? (uint64_t)a.seed[0] : 0;
@@ -447,7 +495,7 @@ __global__ void __launch_bounds__(32 * NW, 1) dkv_kernel(Args a) {
   float* sV = sK + C::kTileF;
   float* stages = sV + C::kTileF;                // q_u, q_v, do, window
   float* X = stages + 2 * C::kDkvStage;          // dS tile, or BD buffers
-  float* sB = X + w * kWarpRows * C::kLdB;
+  float* sB = X + r0 * C::kLdB;
 
   auto load_queries = [&](int s, int i0) {
     float* st = stages + s * C::kDkvStage;
@@ -465,7 +513,7 @@ __global__ void __launch_bounds__(32 * NW, 1) dkv_kernel(Args a) {
   load_rows<DP, C::kThreads>(sV, a.v + bh * Dh, j0, C::kTile, T, Dh, a.vec);
   load_queries(0, 0);
   cp_async_commit();
-  float gk[C::kND][4] = {}, gv[C::kND][4] = {};
+  float gk[C::kNDH][4] = {}, gv[C::kNDH][4] = {};
 
   for (int it = 0; it < nt; ++it) {
     if (it + 1 < nt) {
@@ -482,105 +530,102 @@ __global__ void __launch_bounds__(32 * NW, 1) dkv_kernel(Args a) {
     const float* sDo = sQu + 2 * C::kTileF;
     const float* sP = sQu + 3 * C::kTileF;
     const RowStats st = row_stats(a, bh, i0 + r0);
-    float ds[C::kNK][4], pd[C::kNK][4];
-    score_tile<DP, NW>(a, sQu, sQv, sDo, sK, sV, sP, sB, i0, j0, b, h, st,
+    float ds[C::kNKW][4], pd[C::kNKW][4];
+    score_tile<DP, NR>(a, sQu, sQv, sDo, sK, sV, sP, sB, i0, j0, b, h, st,
                        seed, ds, pd);
     __syncthreads();                             // X held the BD buffers
-    store_tile<DP, NW>(X, pd);
+    store_tile<DP, NR>(X, pd);
     __syncthreads();
-    add_transposed_product<DP, NW>(gv, X, sDo);  // dv += Pd^T do
+    add_transposed_product<DP, NR>(gv, X, sDo);  // dv += Pd^T do
     __syncthreads();
-    store_tile<DP, NW>(X, ds);
+    store_tile<DP, NR>(X, ds);
     __syncthreads();
-    add_transposed_product<DP, NW>(gk, X, sQu);  // dk += dS^T q_u
+    add_transposed_product<DP, NR>(gk, X, sQu);  // dk += dS^T q_u
     __syncthreads();
   }
-  store_rows(a.dk + bh * Dh, gk, j0 + r0, T, Dh);
-  store_rows(a.dv + bh * Dh, gv, j0 + r0, T, Dh);
+  const int d0 = warp_half<NR>() * C::kNDH * 8;
+  store_rows(a.dk + bh * Dh, gk, j0 + r0, T, d0, Dh);
+  store_rows(a.dv + bh * Dh, gv, j0 + r0, T, d0, Dh);
 }
 
 // ---------------------------------------------------------------- pass 4
-template <int DP, int NW>
-__global__ void __launch_bounds__(32 * NW, 1) dp_kernel(Args a) {
-  using C = Cfg<DP, NW>;
-  constexpr int kWarpWin = C::kWin / NW;         // window rows of a warp
+template <int DP, int NR>
+__global__ void __launch_bounds__(Cfg<DP, NR>::kThreads, 1)
+    dp_kernel(Args a) {
+  using C = Cfg<DP, NR>;
   extern __shared__ __align__(16) float smem[];
   const int T = a.T, Dh = a.Dh, nt = (T + C::kTile - 1) / C::kTile;
-  const int d = (int)blockIdx.x - (nt - 1), h = blockIdx.y, b = blockIdx.z;
-  const int w = threadIdx.x >> 5, r0 = w * kWarpRows, wr0 = w * kWarpWin;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int r0 = row_group<NR>() * kWarpRows;
+  const int wr0 = warp_id() * 16;                // this warp's window rows
   const size_t bh = ((size_t)b * a.H + h) * T;
   const uint64_t seed = a.seed ? (uint64_t)a.seed[0] : 0;
   float* sP = smem;                              // the diagonal's window
   float* stages = sP + C::kWinF;                 // q_u, q_v, do, k, v
   float* X = stages + 2 * C::kDpStage;
-  float* sB = X + w * kWarpRows * C::kLdB;
+  float* sB = X + r0 * C::kLdB;
 
-  auto load_pair = [&](int s, int it) {
+  auto load_pair = [&](int s, int i0, int j0) {
     float* st = stages + s * C::kDpStage;
-    const int i0 = it * C::kTile, j0 = i0 + d * C::kTile;
     const float* src[5] = {a.qu, a.qv, a.dout, a.k, a.v};
 #pragma unroll
     for (int x = 0; x < 5; ++x)
       load_rows<DP, C::kThreads>(st + x * C::kTileF, src[x] + bh * Dh,
                                  x < 3 ? i0 : j0, C::kTile, T, Dh, a.vec);
   };
-  load_rows<DP, C::kThreads>(sP, a.p + (size_t)h * (2 * T - 1) * Dh,
-                             T - C::kTile + d * C::kTile, C::kWin, 2 * T - 1,
-                             Dh, a.vec);
-  const int it_lo = max(0, -d), it_hi = min(nt, nt - d);
-  load_pair(0, it_lo);
-  cp_async_commit();
-  float acc[kWarpWin / 16][C::kND][4] = {};
 
-  for (int it = it_lo; it < it_hi; ++it) {
-    const int s = (it - it_lo) & 1;
-    if (it + 1 < it_hi) {
-      load_pair(s ^ 1, it + 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const int i0 = it * C::kTile;
-    const float* sQu = stages + s * C::kDpStage;
-    const float* sQv = sQu + C::kTileF;
-    const RowStats st = row_stats(a, bh, i0 + r0);
-    float ds[C::kNK][4], pd[C::kNK][4];
-    score_tile<DP, NW>(a, sQu, sQv, sQu + 2 * C::kTileF, sQu + 3 * C::kTileF,
-                       sQu + 4 * C::kTileF, sP, sB, i0, i0 + d * C::kTile, b,
-                       h, st, seed, ds, pd);
-    __syncthreads();
-    store_tile<DP, NW>(X, ds);
-    __syncthreads();
-    // dp_win += dSk^T q_v, dSk[r][col] = dS[r][col - (TILE - 1) + r]
-#pragma unroll
-    for (int mt = 0; mt < kWarpWin / 16; ++mt) {
-      const int col0 = wr0 + 16 * mt;
+  // block x walks diagonal x (nt - x pairs), then x - nt (x pairs): nt
+  // pairs in every block, one window each
+  for (int d = blockIdx.x; d > -nt; d -= nt) {
+    load_rows<DP, C::kThreads>(sP, a.p + (size_t)h * (2 * T - 1) * Dh,
+                               T - C::kTile + d * C::kTile, C::kWin,
+                               2 * T - 1, Dh, a.vec);
+    const int it_lo = max(0, -d), it_hi = min(nt, nt - d);
+    load_pair(0, it_lo * C::kTile, (it_lo + d) * C::kTile);
+    cp_async_commit();
+    float acc[C::kND][4] = {};
+
+    for (int it = it_lo; it < it_hi; ++it) {
+      const int s = (it - it_lo) & 1;
+      if (it + 1 < it_hi) {
+        load_pair(s ^ 1, (it + 1) * C::kTile, (it + 1 + d) * C::kTile);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      const int i0 = it * C::kTile;
+      const float* sQu = stages + s * C::kDpStage;
+      const float* sQv = sQu + C::kTileF;
+      const RowStats st = row_stats(a, bh, i0 + r0);
+      float ds[C::kNKW][4], pd[C::kNKW][4];
+      score_tile<DP, NR>(a, sQu, sQv, sQu + 2 * C::kTileF,
+                         sQu + 3 * C::kTileF, sQu + 4 * C::kTileF, sP, sB, i0,
+                         i0 + d * C::kTile, b, h, st, seed, ds, pd);
+      __syncthreads();
+      store_tile<DP, NR>(X, ds);
+      __syncthreads();
+      // dp_win += dSk^T q_v, dSk[r][col] = dS[r][col - (TILE - 1) + r]
       for (int kk = 0; kk < C::kNK; ++kk) {
-        // rows 8 kk.. meet columns col0..col0+15 only inside the band
-        if (8 * kk + 7 < C::kTile - 16 - col0 ||
-            8 * kk > 2 * C::kTile - 2 - col0)
+        // rows 8 kk.. meet columns wr0..wr0+15 only inside the band
+        if (8 * kk + 7 < C::kTile - 16 - wr0 || 8 * kk > 2 * C::kTile - 2 - wr0)
           continue;
         const FragA x = load_a([&](int m, int k) {
-          const int r = kk * 8 + k, c = col0 + m - (C::kTile - 1) + r;
+          const int r = kk * 8 + k, c = wr0 + m - (C::kTile - 1) + r;
           return (c >= 0 && c < C::kTile) ? X[r * C::kLdX + c] : 0.f;
         });
-#pragma unroll
-        for (int nd = 0; nd < C::kND; ++nd)
-          mma_tf32x3(acc[mt][nd], x, load_b([&](int k, int n) {
-                       return sQv[(kk * 8 + k) * C::kLd + nd * 8 + n];
-                     }));
+        mma_tf32x3_row(acc, x, [&](int nd, int k, int n) {
+          return sQv[(kk * 8 + k) * C::kLd + nd * 8 + n];
+        });
       }
+      __syncthreads();
     }
-    __syncthreads();
+    float* part = a.dp_part +
+                  (((size_t)b * a.H + h) * (2 * nt - 1) + d + nt - 1) *
+                      C::kWin * Dh;
+    store_rows(part, acc, wr0, C::kWin, 0, Dh);
   }
-  float* part = a.dp_part +
-                (((size_t)b * a.H + h) * (2 * nt - 1) + blockIdx.x) *
-                    C::kWin * Dh;
-#pragma unroll
-  for (int mt = 0; mt < kWarpWin / 16; ++mt)
-    store_rows(part, acc[mt], wr0 + 16 * mt, C::kWin, Dh);
 }
 
 // ---------------------------------------------------------------- pass 5
@@ -605,21 +650,21 @@ __global__ void dp_sum_kernel(Args a, int tile) {
   }
 }
 
-template <int DP, int NW>
+template <int DP, int NR>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  using C = Cfg<DP, NW>;
+  using C = Cfg<DP, NR>;
   static bool attribute_set = false;
   cudaError_t err;
   if (!attribute_set) {
-    err = cudaFuncSetAttribute(dq_kernel<DP, NW>,
+    err = cudaFuncSetAttribute(dq_kernel<DP, NR>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                4 * C::kDqF);
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(dkv_kernel<DP, NW>,
+      err = cudaFuncSetAttribute(dkv_kernel<DP, NR>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  4 * C::kDkvF);
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(dp_kernel<DP, NW>,
+      err = cudaFuncSetAttribute(dp_kernel<DP, NR>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  4 * C::kDpF);
     if (err != cudaSuccess) return err;
@@ -629,15 +674,12 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   rows_kernel<<<(unsigned)((rows + kRowWarps - 1) / kRowWarps),
                 kRowWarps * 32, 0, stream>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const int nt = (a.T + C::kTile - 1) / C::kTile;
-  dq_kernel<DP, NW><<<dim3(nt, a.H, a.B), C::kThreads, 4 * C::kDqF,
-                      stream>>>(a);
+  const dim3 grid((a.T + C::kTile - 1) / C::kTile, a.H, a.B);
+  dq_kernel<DP, NR><<<grid, C::kThreads, 4 * C::kDqF, stream>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  dkv_kernel<DP, NW><<<dim3(nt, a.H, a.B), C::kThreads, 4 * C::kDkvF,
-                       stream>>>(a);
+  dkv_kernel<DP, NR><<<grid, C::kThreads, 4 * C::kDkvF, stream>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  dp_kernel<DP, NW><<<dim3(2 * nt - 1, a.H, a.B), C::kThreads, 4 * C::kDpF,
-                      stream>>>(a);
+  dp_kernel<DP, NR><<<grid, C::kThreads, 4 * C::kDpF, stream>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   dp_sum_kernel<<<264, 256, 0, stream>>>(a, C::kTile);
   return cudaGetLastError();
@@ -660,11 +702,11 @@ __global__ void tf32x3_matmul_kernel(const float* a, const float* b,
       return (m0 + m < M && k0 + k < K) ? a[(size_t)(m0 + m) * K + k0 + k]
                                         : 0.f;
     });
-    const FragB y = load_b([&](int k, int n) {
-      return (k0 + k < K && n0 + n < N) ? b[(size_t)(k0 + k) * N + n0 + n]
-                                        : 0.f;
-    });
-    mma_tf32x3(acc, x, y);
+    mma_tf32x3(acc, x, tsasr::load_b([&](int k, int n) {
+                 return (k0 + k < K && n0 + n < N)
+                            ? b[(size_t)(k0 + k) * N + n0 + n]
+                            : 0.f;
+               }));
   }
 #pragma unroll
   for (int e = 0; e < 4; ++e) {
