@@ -7,6 +7,8 @@ checkout, or when any phase fails. Phases:
 
 1. card and build: the card's name and power limit, then ``nvcc`` builds
    every CUDA source of the port from ``tsasr_torch/csrc``, all at once;
+   the attention backward's dq, dkv and dp passes must hold TF32
+   tensor-core instructions (``cuobjdump -sass``);
 2. each kernel against its plain PyTorch version on the card, at the
    shapes the serving and training paths give it, with its time, the
    plain version's time, one PyTorch library call's time where one
@@ -341,6 +343,33 @@ def phase_attention_bwd(device):
             fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
                 sq, sk, sv, attn_mask=bias, scale=scale))
         lib_ms = cuda_ms(sdpa_fwd_bwd, reps=10) - fwd_ms
+
+        # the same three on the card's clock: the host's launch overhead
+        # can outlast the device work of autograd and SDPA at these sizes
+        def sdpa_fwd():
+            with torch.no_grad():
+                F.scaled_dot_product_attention(sq, sk, sv, attn_mask=bias,
+                                               scale=scale)
+
+        passes = device_ms_by_kernel(lambda: ra._launch_bwd(
+            *args, out, stats, do, None, scale, 0.0))
+        dev = {"plain": device_ms_by_kernel(lambda: torch.autograd.grad(
+                   plain_out, leaves[:5], do, retain_graph=True)),
+               "sdpa": device_ms_by_kernel(sdpa_fwd_bwd),
+               "sdpa_fwd": device_ms_by_kernel(sdpa_fwd)}
+        if passes and all(dev.values()):
+            total = {k: sum(v.values()) for k, v in dev.items()}
+            by_pass = ", ".join(
+                f"{name} {sum(ms for k, ms in passes.items() if name in k):.4f}"
+                for name in ("rows_kernel", "dq_kernel", "dkv_kernel",
+                             "dp_kernel", "dp_sum"))
+            dev_line = (
+                f"; device time (profiler): kernel "
+                f"{sum(passes.values()):.4f} ms ({by_pass}), plain "
+                f"(autograd) {total['plain']:.4f} ms, SDPA backward "
+                f"{total['sdpa'] - total['sdpa_fwd']:.4f} ms")
+        else:
+            dev_line = "; device time: the profiler saw none (not measured)"
         bound_ms, bound_by = attention_bwd_bound(B, H, t, DH)
         rows.append(dict(T=t, err=err, ms=ms, plain_ms=plain_ms,
                          library_ms=lib_ms, bound_ms=bound_ms,
@@ -351,7 +380,7 @@ def phase_attention_bwd(device):
             f"batch in a second pass); kernel {ms:.4f} ms, plain (autograd) "
             f"{plain_ms:.4f} ms, SDPA backward {lib_ms:.4f} ms (fwd+bwd "
             f"minus fwd, given the bias), bound {bound_ms:.4f} ms by "
-            f"{bound_by}; {wide}")
+            f"{bound_by}; {wide}{dev_line}")
 
     # the training path's dropout: the mask regenerated in the backward
     rate = 0.1
@@ -797,6 +826,32 @@ def check_gradients(device, batch):
     return det
 
 
+def device_us(e):
+    """A profiler event's own device time (us), across torch versions."""
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0))
+
+
+def device_ms_by_kernel(fn, reps=10):
+    """Device time (ms) per call of ``fn``, by kernel, from
+    ``torch.profiler`` (CUPTI): what the card spends, without the host's
+    launch overhead that CUDA-event timing of back-to-back calls includes
+    when the host issues them slower than the card runs them."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: device_us(e) / 1e3 / reps for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and device_us(e) > 0}
+
+
 def profile_micro_batch(brain, batch, card):
     """Where the time of one 6 x 8 s forward + backward goes: device time
     by kernel from ``torch.profiler`` (CUPTI), and the device's busy share
@@ -811,10 +866,6 @@ def profile_micro_batch(brain, batch, card):
         loss_and_grads(brain, batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-
-    def device_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0))
 
     # kernels only: a CPU op's own device time repeats its kernels'
     events = [e for e in prof.key_averages()

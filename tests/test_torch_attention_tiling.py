@@ -2,12 +2,14 @@
 
 ``tiled_backward`` is a plain torch mirror of the kernel's three
 gradient passes exactly as they are tiled: square tiles of ``tile``
-queries and keys, warps of 16 query rows, the positional term as a
-product with a window of p rows followed by a skew read (per warp:
+queries and keys, row groups of 16 query rows, the positional term as a
+product with a window of p rows followed by a skew read (per row group:
 ``BD[rl][15 - rl + c]``), dS written back into a zeroed skewed buffer
 for dq_v, the dp pass walking the tile diagonals of one shared window
 into per-(b, h, diagonal) partials, and the partials summed per p row
-in a fixed order. It runs in f64 and is held against autograd through
+in a fixed order. How the kernel splits a row group's columns between
+its two warps leaves these indices as they are. It runs in f64 and is
+held against autograd through
 ``relpos_attention_reference`` at 1e-10 of each gradient's max |g|: a
 wrong rel-shift, window start, diagonal or padding row shows up as an
 error of the order of the gradient itself.
@@ -19,7 +21,7 @@ import torch
 
 from tsasr_torch.kernels import relpos_attention
 
-WARP_ROWS = 16      # query rows of one warp's m16n8k8 row tiles
+WARP_ROWS = 16      # query rows of a row group (the m16n8k8 row tile)
 
 
 def padded_rows(x, start, n):
@@ -38,7 +40,7 @@ def window_start(T, tile, i0, j0):
 
 
 def skew_index(tile, device):
-    """(16, tile) column index of warp-local BD for (row rl, key c)."""
+    """(16, tile) column index of a row group's BD for (row rl, key c)."""
     rl = torch.arange(WARP_ROWS, device=device)[:, None]
     c = torch.arange(tile, device=device)[None]
     return WARP_ROWS - 1 - rl + c
@@ -46,17 +48,17 @@ def skew_index(tile, device):
 
 def pair_scores(x, i0, j0, tile):
     """dS and dropped P of one tile pair, (B, H, tile, tile), built as the
-    kernel builds them, warp by warp."""
+    kernel builds them, row group by row group."""
     T = x["T"]
     qu, qv, do = (padded_rows(x[n], i0, tile) for n in ("qu", "qv", "do"))
     k, v = (padded_rows(x[n], j0, tile) for n in ("k", "v"))
     win = padded_rows(x["p"], window_start(T, tile, i0, j0), 2 * tile)
-    bw = tile + WARP_ROWS                     # warp window: tile+15 rows, padded
+    bw = tile + WARP_ROWS           # a row group's window: tile+15, padded
     idx = skew_index(tile, qu.device)
     bd = []
     for w in range(tile // WARP_ROWS):
         r0 = w * WARP_ROWS
-        first = tile - WARP_ROWS - r0         # warp w's first window row
+        first = tile - WARP_ROWS - r0         # group w's first window row
         bd_w = qv[..., r0:r0 + WARP_ROWS, :] @ \
             win[:, first:first + bw].transpose(-1, -2)
         bd.append(torch.gather(bd_w, -1, idx.expand(*bd_w.shape[:2], -1, -1)))
@@ -82,7 +84,7 @@ def pair_scores(x, i0, j0, tile):
 
 def dq_pass(x, tile):
     """One block per query tile over all key tiles: dq_u += dS k, and
-    dq_v += dSk win, with dSk the warp's zeroed skewed buffer."""
+    dq_v += dSk win, with dSk the row group's zeroed skewed buffer."""
     T, nt = x["T"], -(-x["T"] // tile)
     bw = tile + WARP_ROWS
     idx = skew_index(tile, x["qu"].device)
@@ -131,10 +133,11 @@ def dkv_pass(x, tile):
 
 
 def dp_pass(x, tile):
-    """One block per (tile diagonal d = (j0 - i0) / tile, h, b): every
+    """Per (tile diagonal d = (j0 - i0) / tile, h, b; a kernel block
+    walks two diagonals, d and d - nt, to even out the pairs): every
     pair on the diagonal shares the window starting at T - tile + d tile,
-    so dp_win += dSk^T q_v accumulates over the diagonal; the block
-    writes its partial, (2 tile) rows of the window. Then the sum pass:
+    so dp_win += dSk^T q_v accumulates over the diagonal into one
+    partial, (2 tile) rows of the window. Then the sum pass:
     p row r takes the diagonals d_hi = floor((r - (T - tile)) / tile) and
     d_hi - 1 whose windows hold it, in that order, each over b in order."""
     T, nt = x["T"], -(-x["T"] // tile)

@@ -116,15 +116,4 @@ __device__ __forceinline__ void mma_tf32x3_row(float (&d)[N][4],
   }
 }
 
-// d += a b in 3xTF32 for one n-tile (see mma_tf32x3_row)
-__device__ __forceinline__ void mma_tf32x3(float (&d)[4], const FragA& a,
-                                           const FragB& b) {
-  float t[4] = {0.f, 0.f, 0.f, 0.f};
-  mma_tf32(t, a.small, b.big);
-  mma_tf32(t, a.big, b.small);
-  mma_tf32(t, a.big, b.big);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) d[e] += t[e];
-}
-
 }  // namespace tsasr

@@ -100,7 +100,6 @@ using tsasr::c_col;
 using tsasr::c_row;
 using tsasr::FragA;
 using tsasr::load_a;
-using tsasr::mma_tf32x3;
 using tsasr::mma_tf32x3_row;
 
 constexpr int kRowWarps = 4;               // pass 1: one warp per row
@@ -696,22 +695,21 @@ bool aligned16(const void* x) { return ((uintptr_t)x & 15) == 0; }
 __global__ void tf32x3_matmul_kernel(const float* a, const float* b,
                                      float* c, int M, int N, int K) {
   const int m0 = blockIdx.x * 16, n0 = blockIdx.y * 8;
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  float acc[1][4] = {};
   for (int k0 = 0; k0 < K; k0 += 8) {
     const FragA x = load_a([&](int m, int k) {
       return (m0 + m < M && k0 + k < K) ? a[(size_t)(m0 + m) * K + k0 + k]
                                         : 0.f;
     });
-    mma_tf32x3(acc, x, tsasr::load_b([&](int k, int n) {
-                 return (k0 + k < K && n0 + n < N)
-                            ? b[(size_t)(k0 + k) * N + n0 + n]
-                            : 0.f;
-               }));
+    mma_tf32x3_row(acc, x, [&](int, int k, int n) {
+      return (k0 + k < K && n0 + n < N) ? b[(size_t)(k0 + k) * N + n0 + n]
+                                        : 0.f;
+    });
   }
 #pragma unroll
   for (int e = 0; e < 4; ++e) {
     const int r = m0 + c_row(e), col = n0 + c_col(e);
-    if (r < M && col < N) c[(size_t)r * N + col] = acc[e];
+    if (r < M && col < N) c[(size_t)r * N + col] = acc[0][e];
   }
 }
 
