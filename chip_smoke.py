@@ -7,14 +7,16 @@ checkout, or when any phase fails. Phases:
 
 1. card and build: the card's name and power limit, then ``nvcc`` builds
    every CUDA source of the port from ``tsasr_torch/csrc``, all at once;
-   the attention backward's dq, dkv and dp passes must hold TF32
-   tensor-core instructions (``cuobjdump -sass``);
+   the attention forward and the backward's dq, dkv and dp passes must
+   hold TF32 tensor-core instructions (``cuobjdump -sass``);
 2. each kernel against its plain PyTorch version on the card, at the
    shapes the serving and training paths give it, with its time, the
    plain version's time, one PyTorch library call's time where one
    computes the same function, and the card's bound: the attention
-   forward (dropout 0 and 0.1, Philox masks bit-identical), the
-   attention backward, and the RNN-T lattice kernels (resident and slab);
+   forward (at the serving and the training shapes, dropout 0 and 0.1,
+   Philox masks bit-identical), the attention backward, and the RNN-T
+   lattice kernels (resident and slab); for the attention kernels also
+   device times (``torch.profiler``) beside the CUDA-event times;
 3. the serving path at the scratch recipe's full width (random weights
    from a seed): ``TSASRTranscriber(device="cuda")`` answers 3 requests
    (8 mixtures of 4 s, 8 s and 12 s, 5 s enrollments); every request
@@ -50,6 +52,8 @@ B, H, DH = 8, 4, 64
 # encoder frames of a 4 s, 5 s, 8 s and 12 s input (serving path), and
 # a 60 s one beyond the JAX kernel's 128-frame gate
 ATTN_T = (101, 126, 201, 301, 1501)
+# (B, T) of the training micro-batches, 6 x 8 s and 3 x 16 s
+FWD_TRAIN_SHAPES = ((6, 208), (3, 408))
 # encoder frames of the training batches: 4 s at pad_feats_to 32 (104),
 # the 128-frame JAX gate, 8 s (208) and 16 s (408)
 BWD_T = (101, 128, 208, 408)
@@ -129,7 +133,8 @@ def cuda_ms(fn, reps=30, rounds=5):
 def bound(n_bytes, flops, flop_rate=PEAK_F32_FLOP_PER_S):
     """Least time (ms) and what bounds it: bytes at the memory rate or
     operations at ``flop_rate`` (by default the f32 rate outside the
-    tensor cores, where the forward and the lattice kernels compute)."""
+    tensor cores, where the lattice kernels compute; the attention
+    kernels pass the 3xTF32 rate)."""
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / flop_rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -137,9 +142,12 @@ def bound(n_bytes, flops, flop_rate=PEAK_F32_FLOP_PER_S):
 
 def attention_bound(b, h, t, dh):
     """Forward: each input read once, the output written once; the three
-    (T x T x Dh) products plus ~6 f32 ops per score."""
+    (T x T x Dh) products plus ~6 ops per score. The kernel runs the
+    products on the tensor cores in 3xTF32, so the least time for
+    f32-accurate products is at the 3xTF32 rate."""
     n_bytes = 4 * (5 * b * h * t * dh + h * (2 * t - 1) * dh + b * t + t * t)
-    return bound(n_bytes, 6 * b * h * t * t * dh + 6 * b * h * t * t)
+    return bound(n_bytes, 6 * b * h * t * t * dh + 6 * b * h * t * t,
+                 PEAK_TF32X3_FLOP_PER_S)
 
 
 def attention_bwd_bound(b, h, t, dh):
@@ -192,12 +200,12 @@ def tensor_core_check(name, passes):
             raise RuntimeError(f"{pas} runs no TF32 tensor-core instruction")
 
 
-def attention_case(t, band, gen, device):
+def attention_case(t, band, gen, device, b=B):
     import torch
-    qu, qv, k, v = (torch.randn(B, H, t, DH, generator=gen)
+    qu, qv, k, v = (torch.randn(b, H, t, DH, generator=gen)
                     for _ in range(4))
     p = torch.randn(H, 2 * t - 1, DH, generator=gen)
-    lens = torch.randint(max(1, t // 2), t + 1, (B,), generator=gen)
+    lens = torch.randint(max(1, t // 2), t + 1, (b,), generator=gen)
     lens[0] = t
     kp = torch.where(torch.arange(t)[None] < lens[:, None], 0.0, -1e9)
     am = torch.zeros(t, t)
@@ -215,42 +223,56 @@ def phase_attention_fwd(device):
     scale = 1.0 / math.sqrt(H * DH)
     gen = torch.Generator().manual_seed(SEED)
     rows = []
-    for t in ATTN_T:
-        for band in (False, True):
-            args = attention_case(t, band, gen, device)
-            got = ra.fused_relpos_attention(*args, seed=0, scale=scale,
-                                            rate=0.0)
-            torch.cuda.synchronize()
-            want = ra.relpos_attention_reference(*args, scale)
-            err = (got - want).abs().max().item()
-            if not (err <= ATTN_ATOL and torch.isfinite(got).all()):
-                raise RuntimeError(f"relpos_attention_fwd T={t} band={band}:"
-                                   f" max abs err {err} > {ATTN_ATOL}")
-            if band:
-                log(f"kernel relpos_attention_fwd B{B} H{H} T{t} Dh{DH} "
-                    f"banded mask: max_abs_err {err:.3g} (atol {ATTN_ATOL})")
-                continue
-            qu, qv, k, v, p, kp, am = args
-            # yardstick: SDPA given the pre-shifted positional bias plus
-            # the masks; computing that bias is outside its time
-            bias = (ra.rel_shift(torch.einsum("bhtd,hsd->bhts", qv, p), t)
-                    * scale + am + kp[:, None, None, :])
-            ms = cuda_ms(lambda: ra.fused_relpos_attention(
-                *args, seed=0, scale=scale, rate=0.0))
-            plain_ms = cuda_ms(lambda: ra.relpos_attention_reference(
-                *args, scale))
-            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-                qu, k, v, attn_mask=bias, scale=scale))
-            bound_ms, bound_by = attention_bound(B, H, t, DH)
-            rows.append(dict(T=t, err=err, ms=ms, plain_ms=plain_ms,
-                             library_ms=lib_ms, bound_ms=bound_ms,
-                             bound_by=bound_by))
-            log(f"kernel relpos_attention_fwd B{B} H{H} T{t} Dh{DH} key "
-                f"padding: max_abs_err {err:.3g} (atol {ATTN_ATOL}: f32 on "
-                f"both sides, sums in another order); kernel {ms:.4f} ms, "
-                f"plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms (excluding "
-                f"the bias computation), bound {bound_ms:.4f} ms by "
-                f"{bound_by}")
+    shapes = [(B, t, band) for t in ATTN_T for band in (False, True)]
+    shapes += [(b, t, False) for b, t in FWD_TRAIN_SHAPES]
+    for b, t, band in shapes:
+        args = attention_case(t, band, gen, device, b)
+        got = ra.fused_relpos_attention(*args, seed=0, scale=scale, rate=0.0)
+        torch.cuda.synchronize()
+        want = ra.relpos_attention_reference(*args, scale)
+        err = (got - want).abs().max().item()
+        name = (f"kernel relpos_attention_fwd B{b} H{H} T{t} Dh{DH} "
+                f"{'banded mask' if band else 'key padding'}")
+        if not (err <= ATTN_ATOL and torch.isfinite(got).all()):
+            raise RuntimeError(f"{name}: max abs err {err} > {ATTN_ATOL}")
+        if band:
+            log(f"{name}: max_abs_err {err:.3g} (atol {ATTN_ATOL})")
+            continue
+        qu, qv, k, v, p, kp, am = args
+        # yardstick: SDPA given the pre-shifted positional bias plus
+        # the masks; computing that bias is outside its time
+        bias = (ra.rel_shift(torch.einsum("bhtd,hsd->bhts", qv, p), t)
+                * scale + am + kp[:, None, None, :])
+
+        def kernel():
+            ra.fused_relpos_attention(*args, seed=0, scale=scale, rate=0.0)
+
+        def plain():
+            ra.relpos_attention_reference(*args, scale)
+
+        def sdpa():
+            F.scaled_dot_product_attention(qu, k, v, attn_mask=bias,
+                                           scale=scale)
+
+        ms, plain_ms, lib_ms = (cuda_ms(fn) for fn in (kernel, plain, sdpa))
+        # the same on the card's clock: at these sizes the host's launches
+        # can outlast the device work
+        dev = [sum(device_ms_by_kernel(fn).values()) or None
+               for fn in (kernel, plain, sdpa)]
+        bound_ms, bound_by = attention_bound(b, H, t, DH)
+        tile = ra.forward_query_tile(b, H, t, device)
+        rows.append(dict(B=b, T=t, err=err, ms=ms, plain_ms=plain_ms,
+                         library_ms=lib_ms, device_ms=dev[0],
+                         plain_device_ms=dev[1], library_device_ms=dev[2],
+                         bound_ms=bound_ms, bound_by=bound_by, tile=tile))
+        dev_line = ("device time (profiler): kernel {:.4f} ms, plain {:.4f} "
+                    "ms, SDPA {:.4f} ms".format(*dev) if all(dev) else
+                    "device time: the profiler saw none (not measured)")
+        log(f"{name}: max_abs_err {err:.3g} (atol {ATTN_ATOL}: f32 on both "
+            f"sides, sums in another order); query tile {tile} rows; CUDA "
+            f"events: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+            f"{lib_ms:.4f} ms (excluding the bias computation); {dev_line}; "
+            f"bound {bound_ms:.4f} ms by {bound_by} (3xTF32)")
 
     # dropout 0.1 at the 8 s training shape: the same Philox mask on both
     # sides, and the kernels' mask bit-identical to the plain one
@@ -885,6 +907,13 @@ def profile_micro_batch(brain, batch, card):
         f"[{card}]")
     for e in sorted(events, key=device_us, reverse=True)[:12]:
         log(f"  {device_us(e) / 1e3:8.2f} ms  x{e.count:<5d} {e.key[:90]}")
+    by_kernel = ", ".join(
+        f"{name} {sum(device_us(e) for e in events if name in e.key) / 1e3:.2f}"
+        f" ms x{sum(e.count for e in events if name in e.key)}"
+        for name in ("relpos_attention_fwd_kernel", "rows_kernel",
+                     "dq_kernel", "dkv_kernel", "dp_kernel", "dp_sum",
+                     "rnnt_"))
+    log(f"  the port's kernels: {by_kernel}")
 
 
 def phase_training(device, card):
@@ -1015,42 +1044,88 @@ def phase_small(device):
 
     batches = [make_train_batch(np.random.default_rng(SEED + 5 + i), 2, 1,
                                 ids=f"s{i}-") for i in range(4)]
-    runs = {}
+    runs = []
     for dev in ("cpu", str(device)):
         brain = make_brain(config, dev, {
             "grad_accumulation_factor": 2,
             "noam_scheduler": NoamScheduler(1e-3, 4)})
+        grads = update_gradients(brain)
         losses = [brain.fit_batch(b) for b in batches]
-        runs[dev] = (losses, [p.detach().cpu() for p in
-                              brain.model.parameters()], brain.optimizer_step)
-    (l_cpu, p_cpu, s_cpu), (l_gpu, p_gpu, s_gpu) = runs.values()
+        runs.append((losses, [p.detach().cpu() for p in
+                              brain.model.parameters()],
+                     brain.optimizer_step, grads))
+    (l_cpu, p_cpu, s_cpu, g_cpu), (l_gpu, p_gpu, s_gpu, g_gpu) = runs
+    names = [n for n, _ in brain.model.named_parameters()]
     loss_err = max(abs(a - b) / abs(a) for a, b in zip(l_cpu, l_gpu))
-    param_err = max((a - b).abs().max().item() for a, b in zip(p_cpu, p_gpu))
+    # the gradients Adam is given, per step and leaf, of the leaf's max |g|
+    grad_err = max(leaf_errors(b, a)[i] for a, b in zip(g_cpu, g_gpu)
+                   for i in range(len(names)))
+    # Adam's first step is lr sign(g) wherever |g| >> eps: an element
+    # whose gradient at a step is no larger than the card's and the CPU's
+    # difference there takes that step in whichever direction f32
+    # rounding gives it. Such elements are counted, not compared; every
+    # other element is held to a tenth of lr(1).
+    free = [torch.zeros_like(p, dtype=torch.bool) for p in p_cpu]
+    for a, b in zip(g_cpu, g_gpu):
+        for f, x, y in zip(free, a, b):
+            f |= x.abs() < (y - x).abs()
+    diffs = [(a - b).abs() for a, b in zip(p_cpu, p_gpu)]
+    param_err = max(torch.where(f, 0.0, d).max().item()
+                    for f, d in zip(free, diffs))
     moved = max((a - b).abs().max().item() for a, b in zip(
         p_cpu, TSTransducer(config).init_weights(seed=SEED).parameters()))
-    # Adam scales each element by its own history: an element whose two
-    # micro-batch gradients nearly cancel turns a 1e-6 relative gradient
-    # difference into a visible update difference, so a tenth of lr(1)
     param_tol = 0.1 * NoamScheduler(1e-3, 4).as_schedule_fn()(1)
+    n_free = sum(int(f.sum()) for f in free)
+    leaf, i = max(((k, int((d * f).argmax())) for k, (d, f) in
+                   enumerate(zip(diffs, free)) if f.any()),
+                  key=lambda x: diffs[x[0]].flatten()[x[1]].item(),
+                  default=(None, None))
+    free_line = "none" if leaf is None else (
+        f"{n_free} of {sum(p.numel() for p in p_cpu)}, the farthest "
+        f"{names[leaf]}[{i}] {diffs[leaf].flatten()[i].item():.3g} apart, "
+        f"step gradients CPU "
+        f"{[round(g[leaf].flatten()[i].item(), 10) for g in g_cpu]} card "
+        f"{[round(g[leaf].flatten()[i].item(), 10) for g in g_gpu]}")
     log(f"small model training, 4 micro-batches of 2 x 1 s, accumulation "
         f"2, {s_gpu} optimizer steps: card vs CPU losses rel err "
-        f"{loss_err:.3g} (tol 1e-4), params max_abs_err {param_err:.3g} "
-        f"(tol {param_tol:.3g}, a tenth of one update; params moved up to "
-        f"{moved:.3g})")
-    if loss_err > 1e-4 or param_err > param_tol or not s_cpu == s_gpu == 2:
+        f"{loss_err:.3g} (tol 1e-4), step gradients {grad_err:.3g} of each "
+        f"leaf's max |g| (tol {GRAD_ATOL_REL}), params max_abs_err "
+        f"{param_err:.3g} (tol {param_tol:.3g}, a tenth of one update; "
+        f"params moved up to {moved:.3g}); elements whose step gradient "
+        f"is within the card-CPU difference (Adam's step sign left to "
+        f"rounding): {free_line}")
+    if (loss_err > 1e-4 or grad_err > GRAD_ATOL_REL or param_err > param_tol
+            or not s_cpu == s_gpu == 2):
         raise RuntimeError("small-model training differs between the card "
                            "and the CPU")
+
+
+def update_gradients(brain):
+    """A list that gets, at each optimizer step of ``brain``, the averaged
+    gradients the optimizer is given (on the CPU)."""
+    grads, update = [], brain._update
+
+    def record(params):
+        grads.append([a.detach().cpu().clone() for a in brain._acc])
+        update(params)
+
+    brain._update = record
+    return grads
 
 
 def kernel_entry(name, source, replaces, launches, by_path, row, shape):
     """One kernel's entry; every number is from this run's row at
     ``shape``."""
-    return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches,
-            "launches_by_path": by_path, "max_abs_err": row["err"],
-            "ms": row["ms"], "plain_ms": row["plain_ms"],
-            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": row.get("library_ms"), "shape": shape}
+    entry = {"name": name, "route": "cuda", "source": source,
+             "replaces": replaces, "launches": launches,
+             "launches_by_path": by_path, "max_abs_err": row["err"],
+             "ms": row["ms"], "plain_ms": row["plain_ms"],
+             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+             "library_ms": row.get("library_ms"), "shape": shape}
+    for key in ("device_ms", "library_device_ms"):
+        if key in row:
+            entry[key] = row[key]
+    return entry
 
 
 def main():
@@ -1080,6 +1155,7 @@ def main():
         for line in entry["log"].splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"  {name}: {line.strip()}")
+    tensor_core_check(ra.SOURCE, ("relpos_attention_fwd_kernel",))
     tensor_core_check(ra.BWD_SOURCE, ("dq_kernel", "dkv_kernel",
                                       "dp_kernel"))
 
@@ -1103,7 +1179,7 @@ def main():
                      serving["relpos_attention_fwd"]
                      + training["relpos_attention_fwd"],
                      paths("relpos_attention_fwd"), fwd,
-                     f"B{B} H{H} T{fwd['T']} Dh{DH} f32"),
+                     f"B{fwd['B']} H{H} T{fwd['T']} Dh{DH} f32"),
         kernel_entry("relpos_attention_bwd",
                      "tsasr_torch/csrc/relpos_attention_bwd.cu",
                      "tsasr_tpu/ops/attention_pallas.py:143",

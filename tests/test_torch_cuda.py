@@ -37,7 +37,8 @@ def attention_case(B, H, T, Dh, device, seed=0):
                                       (1, 1, 65, 128)])
 def test_relpos_attention_kernel_matches_plain(cuda, B, H, T, Dh):
     """f32 on both sides; the kernel sums in another order (online
-    softmax over key tiles), hence 1e-4 rather than bitwise."""
+    softmax over key tiles, 3xTF32 products), hence 1e-4 rather than
+    bitwise."""
     args = attention_case(B, H, T, Dh, cuda, seed=T)
     before = relpos_attention.launches
     got = relpos_attention.fused_relpos_attention(*args, seed=0, scale=0.0625,
@@ -73,12 +74,94 @@ def test_tf32x3_mma_helper_matches_f32_matmul(cuda, M, N, K):
     torch.cuda.synchronize()
     want = a.double() @ b.double()
     tol = 1e-5 * (a.double().abs() @ b.double().abs()).max().item()
-
-    def tf32(x):
-        return (x.view(torch.int32) & -8192).view(torch.float32).double()
-
     assert (c.double() - want).abs().max().item() <= tol
     assert (tf32(a) @ tf32(b) - want).abs().max().item() > tol
+
+
+def tf32(x):
+    """x cut to TF32 (what 1xTF32 multiplies), in f64."""
+    return (x.view(torch.int32) & -8192).view(torch.float32).double()
+
+
+@pytest.mark.parametrize("M,N,K,P", [(16, 8, 8, 8), (37, 29, 45, 13),
+                                     (64, 64, 64, 64), (101, 32, 64, 64)])
+def test_tf32x3_accumulator_route_matches_f64(cuda, M, N, K, P):
+    """(A @ B) @ D with A @ B taken from the accumulators into the A
+    operand as the attention forward takes P (load_a_acc, acc_key),
+    against f64 within 1e-5 of max(|A| |B| |D|); the same chain on
+    TF32-cut operands misses that."""
+    import ctypes
+
+    from tsasr_torch.kernels import _build
+    fn = _build.load(relpos_attention.SOURCE).relpos_tf32x3_chain_test
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + \
+        [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    g = torch.Generator().manual_seed(M + N + K + P)
+    a = torch.randn(M, K, generator=g).to(cuda)
+    b = torch.randn(K, N, generator=g).to(cuda)
+    d = torch.randn(N, P, generator=g).to(cuda)
+    c = torch.full((M, P), float("nan"), device=cuda)
+    _build.check_launch(fn(a.data_ptr(), b.data_ptr(), d.data_ptr(),
+                           c.data_ptr(), M, N, K, P,
+                           torch.cuda.current_stream().cuda_stream),
+                        "relpos_tf32x3_chain_test")
+    torch.cuda.synchronize()
+    want = (a.double() @ b.double()) @ d.double()
+    tol = 1e-5 * (a.double().abs() @ b.double().abs()
+                  @ d.double().abs()).max().item()
+    one = tf32((tf32(a) @ tf32(b)).float()) @ tf32(d)
+    assert (c.double() - want).abs().max().item() <= tol
+    assert (one - want).abs().max().item() > tol
+
+
+def plain_row_stats(qu, qv, k, v, p, kp, am, scale):
+    """Row max and 1 / row sum of the scores, in f32 as the plain version
+    adds them (a fully masked row's scores round to -1e9 alike)."""
+    T = qu.shape[2]
+    s = ((qu @ k.transpose(-1, -2)
+          + relpos_attention.rel_shift(torch.einsum("bhtd,hsd->bhts", qv, p),
+                                       T)) * scale
+         + am + kp[:, None, None])
+    m = s.max(-1).values
+    return m, 1.0 / torch.exp(s - m[..., None]).sum(-1)
+
+
+@pytest.mark.parametrize("B,H,T,Dh", [(2, 3, 5, 64), (3, 2, 17, 64),
+                                      (2, 2, 33, 5), (2, 2, 70, 36),
+                                      (1, 2, 45, 128), (8, 4, 101, 64),
+                                      (6, 4, 208, 64)])
+def test_relpos_attention_forward_stats_and_edges(cuda, B, H, T, Dh):
+    """The forward at T < 16 (the second warp half of every row group
+    sees no key below T), T = 17 (it sees one), ragged Dh and both query
+    tiles: out with and without stats bit for bit the same, within 1e-4
+    of the plain version, and the stats against the plain row max
+    (1e-5 of max(1, |m|)) and 1 / row sum (1e-4 relative), rows whose
+    keys are all masked included (the last utterance has one key, the
+    band half-width 7)."""
+    args = attention_case(B, H, T, Dh, cuda, seed=T + Dh)
+    args[5][-1] = torch.where(torch.arange(T, device=cuda) < 1, 0.0, -1e9)
+    out, stats, _ = relpos_attention._launch_fwd(*args, 0, 0.0625, 0.0,
+                                                 want_stats=True)
+    bare, none, _ = relpos_attention._launch_fwd(*args, 0, 0.0625, 0.0,
+                                                 want_stats=False)
+    torch.cuda.synchronize()
+    assert none is None and torch.equal(out, bare)
+    want = relpos_attention.relpos_attention_reference(*args, 0.0625)
+    assert (out - want).abs().max().item() <= 1e-4
+    m, linv = plain_row_stats(*args, 0.0625)
+    if T > 9:
+        assert m.min().item() < -1e8               # a fully masked row
+    assert ((stats[..., 0] - m).abs() <= 1e-5 * m.abs().clamp(min=1.0)).all()
+    assert ((stats[..., 1] - linv).abs() <= 1e-4 * linv).all()
+
+
+def test_relpos_attention_forward_query_tile(cuda):
+    """32-row query tiles where they give every SM a block, else 16."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for B, H, T in ((8, 4, 101), (6, 4, 208), (3, 4, 408), (1, 1, 10)):
+        want = 32 if -(-T // 32) * B * H >= sms else 16
+        assert relpos_attention.forward_query_tile(B, H, T, cuda) == want
 
 
 @pytest.mark.parametrize("B,H,T", [(2, 3, 45), (3, 4, 200)])

@@ -71,6 +71,23 @@ __device__ __forceinline__ FragB load_b(F at) {
 __device__ __forceinline__ int c_row(int e) { return lane_g() + 8 * (e >> 1); }
 __device__ __forceinline__ int c_col(int e) { return 2 * lane_t() + (e & 1); }
 
+// An accumulator n-tile X (16 x 8) as the A operand of a product X @ Y,
+// without moving data: a lane holds X columns 2t and 2t+1 where A wants
+// columns t and t+4, so the k-step takes X's columns in the order
+// acc_key(k) = 2 (k % 4) + k / 4, and the B operand reads Y's rows in
+// that same order (at(k, n) = Y[acc_key(k)][n]). The sum over k is the
+// same sum.
+__device__ __forceinline__ FragA load_a_acc(const float (&x)[4]) {
+  FragA a;
+  split_tf32(x[0], a.big[0], a.small[0]);    // (g, 2t)     as (g, t)
+  split_tf32(x[2], a.big[1], a.small[1]);    // (g+8, 2t)   as (g+8, t)
+  split_tf32(x[1], a.big[2], a.small[2]);    // (g, 2t+1)   as (g, t+4)
+  split_tf32(x[3], a.big[3], a.small[3]);    // (g+8, 2t+1) as (g+8, t+4)
+  return a;
+}
+
+__device__ __forceinline__ int acc_key(int k) { return 2 * (k & 3) + (k >> 2); }
+
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
                                          const uint32_t (&b)[2]) {
   asm volatile(

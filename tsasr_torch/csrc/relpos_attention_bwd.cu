@@ -70,7 +70,8 @@
 //    mirrors passes 2-5 index for index on the CPU.
 //
 // Copies: each loop step's tiles and window are loaded with cp.async
-// (16 B a thread when Dh % 4 == 0 and the rows are aligned, else 4 B),
+// (tile_helpers.cuh, shared with the forward; 16 B a thread when
+// Dh % 4 == 0 and the rows are aligned, else 4 B),
 // double-buffered, so the next step's copies overlap this step's mma.
 // Rows outside [0, T) and columns past Dh are zero-filled by the copy.
 // The masks am and kp are read from L2 into registers, all of a tile's
@@ -93,14 +94,22 @@
 
 #include "mma_tf32x3.cuh"
 #include "philox.cuh"
+#include "tile_helpers.cuh"
 
 namespace {
 
 using tsasr::c_col;
 using tsasr::c_row;
+using tsasr::cp_async_commit;
+using tsasr::cp_async_wait;
 using tsasr::FragA;
+using tsasr::group_sync;
 using tsasr::load_a;
+using tsasr::load_rows;
 using tsasr::mma_tf32x3_row;
+using tsasr::row_group;
+using tsasr::warp_half;
+using tsasr::warp_id;
 
 constexpr int kRowWarps = 4;               // pass 1: one warp per row
 constexpr int kWarpRows = 16;              // query rows of a row group
@@ -153,67 +162,6 @@ struct Cfg {
                     4 * kDpF <= kSmemLimit,
                 "shared memory of a block");
 };
-
-// This warp's row group (16 query rows of the tile) and half (of the
-// tile's keys in the scores, of Dh's columns in the products).
-__device__ __forceinline__ int warp_id() { return threadIdx.x >> 5; }
-template <int NR>
-__device__ __forceinline__ int row_group() { return warp_id() % NR; }
-template <int NR>
-__device__ __forceinline__ int warp_half() { return warp_id() / NR; }
-
-// barrier of the two warps of a row group (named barriers 1 .. NR)
-template <int NR>
-__device__ __forceinline__ void group_sync() {
-  asm volatile("bar.sync %0, 64;\n" ::"r"(1 + row_group<NR>()));
-}
-
-// ------------------------------------------------------------ async copies
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool ok) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(ok ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool ok) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(src), "r"(ok ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// dst[r * (DP + 4) + c] = src[(first + r) * Dh + c] for r < n, c < DP;
-// zeros for rows outside [0, limit) and for columns c >= Dh
-template <int DP, int NT>
-__device__ __forceinline__ void load_rows(float* dst, const float* src,
-                                          int first, int n, int limit,
-                                          int Dh, bool vec) {
-  constexpr int ld = DP + 4;
-  if (vec) {
-    constexpr int kChunks = DP / 4;
-    for (int e = threadIdx.x; e < n * kChunks; e += NT) {
-      const int r = e / kChunks, c = (e - r * kChunks) * 4, g = first + r;
-      const bool ok = g >= 0 && g < limit && c < Dh;
-      cp_async16(dst + r * ld + c, ok ? src + (size_t)g * Dh + c : src, ok);
-    }
-  } else {
-    for (int e = threadIdx.x; e < n * DP; e += NT) {
-      const int r = e / DP, c = e - r * DP, g = first + r;
-      const bool ok = g >= 0 && g < limit && c < Dh;
-      cp_async4(dst + r * ld + c, ok ? src + (size_t)g * Dh + c : src, ok);
-    }
-  }
-}
 
 // ---------------------------------------------------------- score tile
 // (row max, 1 / row sum, D) of this lane's two accumulator rows

@@ -8,8 +8,8 @@
 //
 // where shift is the Transformer-XL rel-shift: score (i, j) uses the
 // positional row p[T-1-i+j]. The TPU kernel realised that shift with a
-// log-depth shifter of lane rolls; here it is an index offset into a
-// window of p rows kept in shared memory.
+// log-depth shifter of lane rolls; here it is a product with a window of
+// p rows followed by a skew read (below).
 //
 // Dropout: the TPU kernel drew its mask from the TPU's own generator,
 // reseeded in the backward. Here each (b, h, i, j) draws word 0 of a
@@ -26,231 +26,354 @@
 // whose keys are all masked, m is about -1e9, where an f32 ulp is 64 and
 // log(l) is lost.
 //
-// Design (simple and right first):
-// - one block of 4 warps per (query tile of 32 rows, head, batch);
-// - a loop over key tiles of 32 keys with an online (flash-style) f32
-//   softmax, so any T works and no (T, T) score matrix touches memory;
-// - the q_u/q_v tile, the k/v tile and the 63 p rows that one
-//   (query tile, key tile) pair needs sit in shared memory; rows of
-//   q, k and p are padded to Dh+1 floats so a warp reading one column
-//   across 32 rows hits 32 different banks;
-// - a warp owns 8 query rows, a lane owns one key of the tile for the
-//   scores and Dh/32 output columns for the running P @ V sum;
-// - plain f32 FMAs, no TF32, to stay within the f32 tolerance of the
-//   plain PyTorch version (relpos_attention_reference).
-// Masked keys get the additive -1e9 exactly as the JAX kernel adds
-// kp_add and am_add; keys beyond T are left out of the softmax.
+// Products on the tensor cores, at f32 accuracy: S = q_u k^T, the
+// positional product and O += P v are m16n8k8 mma.sync in 3xTF32
+// (mma_tf32x3.cuh; each k-step's three products summed from zero, then
+// added in f32). Plain 1xTF32 would read ~1e-3 of max |out|.
 //
-// What bounds it on an H100: at the serving shapes (B=8, H=4, T=101,
-// Dh=64) it moves about 4 MB (q_u, q_v, k, v, out) and does about
-// 6*B*H*T^2*Dh = 125 MFLOP, i.e. a few microseconds at the card's memory
-// rate or f32 FMA rate. It is launch- and latency-bound there: 128 blocks
-// of 4 warps, one wave. The score loop reads shared memory more often
-// than it does FMAs. With dropout each score also costs one Philox (10
-// rounds of two 32-bit multiplies). Tensor cores (wgmma with TF32 or
-// bf16 operands), TMA loads and larger query tiles are later work.
+// Tiling. A block takes TQ = 16 NR query rows of one (b, h) and walks the
+// keys in tiles of TK = 32. It has two warps per group of 16 query rows,
+// one for each half (16 keys) of every key tile: each warp keeps its own
+// online softmax state (row max m, row sum l, O = sum P v over all of Dh)
+// over its half of the keys, so a row's max and sum stay within a quad of
+// lanes (2 shuffles) and the two halves are merged once at the end through
+// shared memory: m = max(m0, m1), w = exp(m_half - m), l = l0 w0 + l1 w1,
+// O = O0 w0 + O1 w1. A warp whose keys so far all lie past T has m = -inf
+// and weight 0 (its exp is guarded against -inf - -inf). Dh is zero-padded
+// to DP = 32, 64 or 128 in shared memory, rows DP + 4 floats apart, so
+// fragment loads of 8 rows x 4 columns hit 32 banks. Per key tile:
+//
+//   - the positional term: the pair (i0, j0) reads p rows from
+//     T - TQ - i0 + j0 on (TQ + TK - 1, padded to TQ + TK: the window);
+//     row group g's 16 rows need TK + 15 of them from window row
+//     TQ - 16 - 16 g on, so its two warps compute BD = q_v(16 rows) @
+//     win(TK + 16 rows)^T, half the columns each, into the group's shared
+//     buffer, and read the score term of (row rl, key c) at
+//     BD[rl][15 - rl + c];
+//   - S = q_u k^T for the warp's 16 keys, the masks, the online softmax
+//     and the dropout (one Philox per element) in registers;
+//   - O += P v with P straight from the accumulators: the A operand wants
+//     columns t and t + 4 where a lane holds 2t and 2t + 1, so the k-step
+//     takes the keys in the order 2 (k % 4) + k / 4 and reads v's rows in
+//     that order (load_a_acc, acc_key): no shuffle, no shared memory.
+//
+// TQ: 32 (4 warps) when ceil(T / 32) B H blocks give every SM one, else
+// 16 (2 warps): the serving shape B8 H4 T101 gives 128 blocks of 32 rows
+// for 132 SMs, 224 of 16; the training shapes B6 H4 T208 and B3 H4 T408
+// give 168 and 156 of 32. Larger query tiles load each key tile and
+// window for more rows; smaller ones fill the card at small B H T.
+//
+// Copies: the k, v and window tiles of each key tile are loaded with
+// cp.async (tile_helpers.cuh; 16 B a thread when Dh % 4 == 0 and the rows
+// are aligned, else 4 B), double-buffered, so the next tile's copies
+// overlap this tile's products. Rows outside [0, T) and columns past Dh
+// are zero-filled. The masks am and kp of a tile are read into registers,
+// indices clamped into [0, T), before the products, so their loads
+// overlap them; elements past T are dropped from the softmax.
+//
+// What bounds it on an H100: at B8 H4 T101 Dh64 it moves about 4 MB (q_u,
+// q_v, k, v, out, p, the masks) and does 6 B H T^2 Dh = 125 MFLOP of
+// products (S, the positional term, P v): 0.0013 ms of bytes at 3.35 TB/s
+// against 0.0008 ms of operations at the 3xTF32 rate, 495 / 3 TFLOP/s.
+// The kernel pads T to whole tiles and the positional product to TK + 16
+// columns, splits every operand into TF32 parts at each fragment load
+// from shared memory (no ldmatrix, no wgmma), and at these sizes runs one
+// wave of small blocks: latency-bound.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_tf32x3.cuh"
 #include "philox.cuh"
+#include "tile_helpers.cuh"
 
 namespace {
 
-constexpr int kTileQ = 32;                 // query rows per block
-constexpr int kTileK = 32;                 // keys per tile: one per lane
-constexpr int kWarps = 4;
-constexpr int kRows = kTileQ / kWarps;     // query rows per warp
-constexpr int kThreads = kWarps * 32;
-constexpr int kPRows = kTileQ + kTileK - 1;
-constexpr unsigned kFull = 0xffffffffu;
+using tsasr::acc_key;
+using tsasr::c_col;
+using tsasr::c_row;
+using tsasr::cp_async_commit;
+using tsasr::cp_async_wait;
+using tsasr::FragA;
+using tsasr::group_sync;
+using tsasr::lane_g;
+using tsasr::lane_t;
+using tsasr::load_a;
+using tsasr::load_a_acc;
+using tsasr::load_rows;
+using tsasr::mma_tf32x3_row;
+using tsasr::row_group;
+using tsasr::warp_half;
 
-__device__ __forceinline__ float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
-  return x;
-}
+constexpr int kWarpRows = 16;              // query rows of a row group
+constexpr int kTileK = 32;                 // keys of a key tile
+constexpr int kSmemLimit = 232448;         // bytes a block may ask for
 
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
-  return x;
-}
+struct Args {
+  const float *qu, *qv, *k, *v, *p, *kp, *am;
+  float *out, *stats;
+  const long long* seed;
+  uint32_t thresh;
+  float keep_scale, scale;
+  int H, T, Dh;
+  bool vec;                                // 16-byte copies are aligned
+};
 
-size_t smem_bytes(int dh) {
-  const int ld = dh + 1;
-  return sizeof(float) *
-         ((size_t)(2 * kTileQ + kTileK + kPRows) * ld + (size_t)kTileK * dh);
-}
+// DP: padded head dim; NR: row groups of 16 in a query tile (2 NR warps)
+template <int DP, int NR>
+struct Cfg {
+  static constexpr int kTileQ = kWarpRows * NR;
+  static constexpr int kWarps = 2 * NR;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kWin = kTileQ + kTileK;   // a pair's p rows
+  static constexpr int kBW = kTileK + kWarpRows; // a row group's (TK + 15)
+  static constexpr int kNB = kBW / 8;      // its n-tiles, half to each warp
+  static constexpr int kWK = kTileK / 2;   // keys of a warp
+  static constexpr int kNKW = kWK / 8;
+  static constexpr int kND = DP / 8;       // n-tiles over the head dim
+  static constexpr int kLd = DP + 4;
+  static constexpr int kLdB = kBW + 4;
+  static constexpr int kQF = kTileQ * kLd;
+  static constexpr int kKF = kTileK * kLd;
+  static constexpr int kStage = 2 * kKF + kWin * kLd;   // k, v, window
+  static constexpr int kF = 2 * kQF + 2 * kStage + NR * kWarpRows * kLdB;
+  // a warp's final state for the merge, in lane order: O, m, l
+  static constexpr int kMergeW = 32 * (4 * kND + 4);
+  static_assert(kNB % 2 == 0 && kND % 2 == 0, "warp shares");
+  static_assert(2 * NR * kMergeW <= 2 * kStage, "merge fits the stages");
+  static_assert(4 * kF <= kSmemLimit, "shared memory of a block");
+};
 
-// DC = ceil(Dh / 32): output columns per lane.
-template <int DC>
-__global__ void __launch_bounds__(kThreads)
-relpos_attention_fwd_kernel(const float* __restrict__ qu,
-                            const float* __restrict__ qv,
-                            const float* __restrict__ k,
-                            const float* __restrict__ v,
-                            const float* __restrict__ p,
-                            const float* __restrict__ kp,
-                            const float* __restrict__ am,
-                            float* __restrict__ out,
-                            float* __restrict__ stats,
-                            uint32_t thresh, float keep_scale,
-                            const long long* __restrict__ seed_ptr,
-                            int H, int T, int Dh, float scale) {
-  extern __shared__ float smem[];
-  const int ld = Dh + 1;
-  float* s_qu = smem;                      // kTileQ x ld
-  float* s_qv = s_qu + kTileQ * ld;        // kTileQ x ld
-  float* s_k = s_qv + kTileQ * ld;         // kTileK x ld
-  float* s_p = s_k + kTileK * ld;          // kPRows x ld
-  float* s_v = s_p + kPRows * ld;          // kTileK x Dh
+template <int DP, int NR>
+__global__ void __launch_bounds__(Cfg<DP, NR>::kThreads)
+    relpos_attention_fwd_kernel(Args a) {
+  using C = Cfg<DP, NR>;
+  extern __shared__ __align__(16) float smem[];
+  const int T = a.T, Dh = a.Dh, nk = (T + kTileK - 1) / kTileK;
+  const int i0 = blockIdx.x * C::kTileQ, h = blockIdx.y, b = blockIdx.z;
+  const int grp = row_group<NR>(), half = warp_half<NR>();
+  const int r0 = grp * kWarpRows, c0 = half * C::kWK;
+  const int first = C::kTileQ - kWarpRows - r0;  // the group's window row 0
+  const size_t bh = ((size_t)b * a.H + h) * T;
+  const float* p_h = a.p + (size_t)h * (2 * T - 1) * Dh;
+  const bool drop = a.seed != nullptr;
+  const uint64_t seed = drop ? (uint64_t)a.seed[0] : 0;
+  float* sQu = smem;
+  float* sQv = sQu + C::kQF;
+  float* stages = sQv + C::kQF;                  // k, v, window
+  float* sB = stages + 2 * C::kStage + r0 * C::kLdB;
 
-  const int i0 = blockIdx.x * kTileQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const size_t bh = ((size_t)b * H + h) * (size_t)T * Dh;
-  const float* p_h = p + (size_t)h * (2 * T - 1) * Dh;
-  const float* kp_b = kp + (size_t)b * T;
-  const bool drop = seed_ptr != nullptr;
-  const uint64_t seed = drop ? (uint64_t)seed_ptr[0] : 0;
+  auto load_keys = [&](int s, int j0) {
+    float* st = stages + s * C::kStage;
+    load_rows<DP, C::kThreads>(st, a.k + bh * Dh, j0, kTileK, T, Dh, a.vec);
+    load_rows<DP, C::kThreads>(st + C::kKF, a.v + bh * Dh, j0, kTileK, T,
+                               Dh, a.vec);
+    load_rows<DP, C::kThreads>(st + 2 * C::kKF, p_h,
+                               T - C::kTileQ - i0 + j0, C::kWin, 2 * T - 1,
+                               Dh, a.vec);
+  };
+  load_rows<DP, C::kThreads>(sQu, a.qu + bh * Dh, i0, C::kTileQ, T, Dh,
+                             a.vec);
+  load_rows<DP, C::kThreads>(sQv, a.qv + bh * Dh, i0, C::kTileQ, T, Dh,
+                             a.vec);
+  load_keys(0, 0);
+  cp_async_commit();
 
-  for (int e = tid; e < kTileQ * Dh; e += kThreads) {
-    const int r = e / Dh, c = e - r * Dh, i = i0 + r;
-    const size_t g = bh + (size_t)i * Dh + c;
-    s_qu[r * ld + c] = i < T ? qu[g] : 0.f;
-    s_qv[r * ld + c] = i < T ? qv[g] : 0.f;
-  }
+  // rows g and g + 8 of the group: running max, this lane's share of the
+  // running sum, and O over this warp's keys
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float o[C::kND][4] = {};
 
-  float m[kRows], l[kRows], acc[kRows][DC];
+  for (int jt = 0; jt < nk; ++jt) {
+    const int j0 = jt * kTileK;
+    // the masks of this lane's scores, indices clamped into the lattice
+    float am[C::kNKW][4], kp[C::kNKW][2];
 #pragma unroll
-  for (int q = 0; q < kRows; ++q) {
-    m[q] = -INFINITY;
-    l[q] = 0.f;
+    for (int nt = 0; nt < C::kNKW; ++nt)
 #pragma unroll
-    for (int c = 0; c < DC; ++c) acc[q][c] = 0.f;
-  }
-
-  const int r0 = warp * kRows;             // first local query row of warp
-  for (int j0 = 0; j0 < T; j0 += kTileK) {
-    __syncthreads();                       // last tile fully consumed
-    for (int e = tid; e < kTileK * Dh; e += kThreads) {
-      const int r = e / Dh, c = e - r * Dh, j = j0 + r;
-      const size_t g = bh + (size_t)j * Dh + c;
-      s_k[r * ld + c] = j < T ? k[g] : 0.f;
-      s_v[r * Dh + c] = j < T ? v[g] : 0.f;
-    }
-    // Local p row pr holds global row pbase + pr; query row r and lane
-    // (key j0 + lane) need global row T-1-(i0+r)+j0+lane = pbase +
-    // (kTileQ-1-r+lane).
-    const int pbase = T - kTileQ - i0 + j0;
-    for (int e = tid; e < kPRows * Dh; e += kThreads) {
-      const int pr = e / Dh, c = e - pr * Dh, g = pbase + pr;
-      s_p[pr * ld + c] =
-          (g >= 0 && g < 2 * T - 1) ? p_h[(size_t)g * Dh + c] : 0.f;
+      for (int e = 0; e < 4; ++e) {
+        const int i = min(i0 + r0 + c_row(e), T - 1);
+        const int j = min(j0 + c0 + nt * 8 + c_col(e), T - 1);
+        am[nt][e] = a.am[(size_t)i * T + j];
+        if (e < 2) kp[nt][e] = a.kp[(size_t)b * T + j];
+      }
+    if (jt + 1 < nk) {
+      load_keys((jt + 1) & 1, j0 + kTileK);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
+    const float* sK = stages + (jt & 1) * C::kStage;
+    const float* sV = sK + C::kKF;
+    const float* sP = sK + 2 * C::kKF;
 
-    float ac[kRows], bd[kRows];
-#pragma unroll
-    for (int q = 0; q < kRows; ++q) ac[q] = bd[q] = 0.f;
-    const float* k_row = s_k + lane * ld;
-    const float* p_row = s_p + (kTileQ - 1 - r0 + lane) * ld;
-    for (int d = 0; d < Dh; ++d) {
-      const float kd = k_row[d];
-#pragma unroll
-      for (int q = 0; q < kRows; ++q) {
-        ac[q] = fmaf(s_qu[(r0 + q) * ld + d], kd, ac[q]);
-        // row r0+q reads p row (kTileQ-1-r0-q+lane): q rows above p_row
-        bd[q] = fmaf(s_qv[(r0 + q) * ld + d], p_row[d - q * ld], bd[q]);
+    {                                            // BD, half the columns
+      constexpr int kHalf = C::kNB / 2;
+      const int nb0 = half * kHalf;
+      float bd[kHalf][4] = {};
+      for (int kk = 0; kk < C::kND; ++kk) {
+        const FragA q = load_a([&](int r, int k) {
+          return sQv[(r0 + r) * C::kLd + kk * 8 + k];
+        });
+        mma_tf32x3_row(bd, q, [&](int nb, int k, int n) {
+          return sP[(first + (nb0 + nb) * 8 + n) * C::kLd + kk * 8 + k];
+        });
       }
+#pragma unroll
+      for (int nb = 0; nb < kHalf; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sB[c_row(e) * C::kLdB + (nb0 + nb) * 8 + c_col(e)] = bd[nb][e];
     }
+    float s[C::kNKW][4] = {};
+    for (int kk = 0; kk < C::kND; ++kk) {        // S = q_u k^T
+      const FragA q = load_a([&](int r, int k) {
+        return sQu[(r0 + r) * C::kLd + kk * 8 + k];
+      });
+      mma_tf32x3_row(s, q, [&](int nt, int k, int n) {
+        return sK[(c0 + nt * 8 + n) * C::kLd + kk * 8 + k];
+      });
+    }
+    group_sync<NR>();                            // BD of both halves
 
-    const int j = j0 + lane;
-    float e_s[kRows], d_s[kRows];
+    float mx[2] = {m[0], m[1]};
 #pragma unroll
-    for (int q = 0; q < kRows; ++q) {
-      const int i = i0 + r0 + q;
-      float s = -INFINITY;
-      if (j < T) {
-        const float am_ij = i < T ? am[(size_t)i * T + j] : 0.f;
-        s = (ac[q] + bd[q]) * scale + am_ij + kp_b[j];
+    for (int nt = 0; nt < C::kNKW; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int rl = c_row(e), c = c0 + nt * 8 + c_col(e);
+        s[nt][e] = j0 + c < T
+                       ? (s[nt][e] + sB[rl * C::kLdB + kWarpRows - 1 - rl + c]) *
+                                 a.scale +
+                             am[nt][e] + kp[nt][e & 1]
+                       : -INFINITY;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
       }
-      const float m_new = fmaxf(m[q], warp_max(s));
-      const float corr = expf(m[q] - m_new);
-      e_s[q] = expf(s - m_new);
-      l[q] = l[q] * corr + warp_sum(e_s[q]);
-      // the P @ V sum takes the dropped probabilities, l the undropped
-      d_s[q] = e_s[q];
-      if (drop && j < T && i < T)
-        d_s[q] = tsasr::dropout_keep(seed, thresh, b, h, i, j)
-                     ? e_s[q] * keep_scale : 0.f;
-      m[q] = m_new;
+    float mu[2];
 #pragma unroll
-      for (int c = 0; c < DC; ++c) acc[q][c] *= corr;
+    for (int q = 0; q < 2; ++q) {
+      mx[q] = fmaxf(mx[q], __shfl_xor_sync(0xffffffffu, mx[q], 1));
+      mx[q] = fmaxf(mx[q], __shfl_xor_sync(0xffffffffu, mx[q], 2));
+      // no key below T yet: every exp below is of -inf, so 0, not NaN
+      mu[q] = mx[q] == -INFINITY ? 0.f : mx[q];
+      const float corr = expf(m[q] - mu[q]);
+      l[q] *= corr;
+#pragma unroll
+      for (int nd = 0; nd < C::kND; ++nd) {
+        o[nd][2 * q] *= corr;
+        o[nd][2 * q + 1] *= corr;
+      }
+      m[q] = mx[q];
     }
-
-    const int kmax = min(kTileK, T - j0);
-    for (int jj = 0; jj < kmax; ++jj) {
-      float vj[DC];
+    // P into s: l sums the undropped probabilities, P v the dropped ones
 #pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        const int d = lane + 32 * c;
-        vj[c] = d < Dh ? s_v[jj * Dh + d] : 0.f;
+    for (int nt = 0; nt < C::kNKW; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float pr = expf(s[nt][e] - mu[e >> 1]);
+        l[e >> 1] += pr;
+        s[nt][e] = pr;
+        const int i = i0 + r0 + c_row(e), j = j0 + c0 + nt * 8 + c_col(e);
+        if (drop && i < T && j < T)
+          s[nt][e] = tsasr::dropout_keep(seed, a.thresh, b, h, i, j)
+                         ? pr * a.keep_scale
+                         : 0.f;
       }
 #pragma unroll
-      for (int q = 0; q < kRows; ++q) {
-        const float pj = __shfl_sync(kFull, d_s[q], jj);
-#pragma unroll
-        for (int c = 0; c < DC; ++c) acc[q][c] = fmaf(pj, vj[c], acc[q][c]);
-      }
+    for (int nt = 0; nt < C::kNKW; ++nt) {       // O += P v
+      const FragA x = load_a_acc(s[nt]);
+      mma_tf32x3_row(o, x, [&](int nd, int k, int n) {
+        return sV[(c0 + nt * 8 + acc_key(k)) * C::kLd + nd * 8 + n];
+      });
     }
+    __syncthreads();                             // stage and sB consumed
   }
 
+  // merge the two halves of each row group through the (idle) stages
+  const int lane = threadIdx.x & 31;
+  float* mine = stages + (2 * grp + half) * C::kMergeW;
 #pragma unroll
-  for (int q = 0; q < kRows; ++q) {
-    const int i = i0 + r0 + q;
-    if (i >= T) continue;
-    const float inv = 1.f / l[q];
-    if (stats != nullptr && lane == 0) {
-      const size_t row = ((size_t)b * H + h) * T + i;
-      stats[2 * row] = m[q];
-      stats[2 * row + 1] = inv;
-    }
+  for (int q = 0; q < 2; ++q) {
+    l[q] += __shfl_xor_sync(0xffffffffu, l[q], 1);
+    l[q] += __shfl_xor_sync(0xffffffffu, l[q], 2);
+    mine[(4 * C::kND + q) * 32 + lane] = m[q];
+    mine[(4 * C::kND + 2 + q) * 32 + lane] = l[q];
+  }
 #pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      const int d = lane + 32 * c;
-      if (d < Dh) out[bh + (size_t)i * Dh + d] = acc[q][c] * inv;
+  for (int nd = 0; nd < C::kND; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) mine[(4 * nd + e) * 32 + lane] = o[nd][e];
+  group_sync<NR>();
+  // both warps read both states, half 0's first, so they agree bit for bit
+  const float* s0 = stages + 2 * grp * C::kMergeW;
+  const float* s1 = s0 + C::kMergeW;
+  float w0[2], w1[2], inv[2];
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const float m0 = s0[(4 * C::kND + q) * 32 + lane];
+    const float m1 = s1[(4 * C::kND + q) * 32 + lane];
+    const float mm = fmaxf(m0, m1);              // finite: key 0 is in half 0
+    w0[q] = expf(m0 - mm);
+    w1[q] = expf(m1 - mm);
+    inv[q] = 1.f / (s0[(4 * C::kND + 2 + q) * 32 + lane] * w0[q] +
+                    s1[(4 * C::kND + 2 + q) * 32 + lane] * w1[q]);
+    const int i = i0 + r0 + lane_g() + 8 * q;
+    if (a.stats != nullptr && half == 0 && lane_t() == 0 && i < T) {
+      a.stats[2 * (bh + i)] = mm;
+      a.stats[2 * (bh + i) + 1] = inv[q];
     }
   }
+  // this warp writes half of Dh's n-tiles
+  for (int nd = half * C::kND / 2; nd < (half + 1) * C::kND / 2; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int q = e >> 1, i = i0 + r0 + c_row(e), d = nd * 8 + c_col(e);
+      const int x = (4 * nd + e) * 32 + lane;
+      if (i < T && d < Dh)
+        a.out[(bh + i) * Dh + d] =
+            (s0[x] * w0[q] + s1[x] * w1[q]) * inv[q];
+    }
 }
 
-template <int DC>
-cudaError_t launch(const float* qu, const float* qv, const float* k,
-                   const float* v, const float* p, const float* kp,
-                   const float* am, float* out, float* stats,
-                   uint32_t thresh, float keep_scale, const long long* seed,
-                   int B, int H, int T, int Dh, float scale,
-                   cudaStream_t stream) {
-  // Above 48 KB a block gets dynamic shared memory only on request; ask
-  // once for the most this instantiation can need (Dh = 32 * DC).
+template <int DP, int NR>
+cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
+  using C = Cfg<DP, NR>;
+  // Above 48 KB a block gets dynamic shared memory only on request
   static bool attribute_set = false;
   if (!attribute_set) {
     cudaError_t err = cudaFuncSetAttribute(
-        relpos_attention_fwd_kernel<DC>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem_bytes(32 * DC));
+        relpos_attention_fwd_kernel<DP, NR>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, 4 * C::kF);
     if (err != cudaSuccess) return err;
     attribute_set = true;
   }
-  const dim3 grid((T + kTileQ - 1) / kTileQ, H, B);
-  relpos_attention_fwd_kernel<DC><<<grid, kThreads, smem_bytes(Dh), stream>>>(
-      qu, qv, k, v, p, kp, am, out, stats, thresh, keep_scale, seed, H, T, Dh,
-      scale);
+  const dim3 grid((a.T + C::kTileQ - 1) / C::kTileQ, a.H, B);
+  relpos_attention_fwd_kernel<DP, NR>
+      <<<grid, C::kThreads, 4 * C::kF, stream>>>(a);
   return cudaGetLastError();
 }
+
+// Query rows of a block: 32 if that gives every SM of the current device
+// a block, else 16.
+int query_tile(int B, int H, int T) {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    sms = 0;
+  return (long long)((T + 31) / 32) * H * B >= sms ? 32 : 16;
+}
+
+template <int DP>
+cudaError_t launch_dp(const Args& a, int B, cudaStream_t stream) {
+  return query_tile(B, a.H, a.T) == 32 ? launch<DP, 2>(a, B, stream)
+                                       : launch<DP, 1>(a, B, stream);
+}
+
+bool aligned16(const void* x) { return ((uintptr_t)x & 15) == 0; }
 
 // keep[b, h, i, j] = 1 iff the dropout keeps (b, h, i, j): the mask the
 // attention kernels draw, written out for tests.
@@ -266,6 +389,42 @@ __global__ void dropout_mask_kernel(const long long* __restrict__ seed_ptr,
     const int h = (int)((e / ((size_t)T * T)) % H);
     const int b = (int)(e / ((size_t)T * T * H));
     keep[e] = tsasr::dropout_keep(seed, thresh, b, h, i, j) ? 1 : 0;
+  }
+}
+
+// c = (a @ b) @ d for row-major a (M x K), b (K x N), d (N x P), N <= 64:
+// one warp per 16 rows x 8 columns of c. The intermediate a @ b goes from
+// the accumulators into the A operand as the kernel's P does (a test of
+// load_a_acc and acc_key).
+__global__ void tf32x3_chain_kernel(const float* a, const float* b,
+                                    const float* d, float* c, int M, int N,
+                                    int K, int P) {
+  constexpr int kN = 8;                          // n-tiles of a @ b
+  const int m0 = blockIdx.x * 16, p0 = blockIdx.y * 8;
+  float x[kN][4] = {};
+  for (int k0 = 0; k0 < K; k0 += 8) {
+    const FragA f = load_a([&](int r, int k) {
+      return (m0 + r < M && k0 + k < K) ? a[(size_t)(m0 + r) * K + k0 + k]
+                                        : 0.f;
+    });
+    mma_tf32x3_row(x, f, [&](int nt, int k, int n) {
+      const int col = nt * 8 + n;
+      return (k0 + k < K && col < N) ? b[(size_t)(k0 + k) * N + col] : 0.f;
+    });
+  }
+  float acc[1][4] = {};
+#pragma unroll
+  for (int nt = 0; nt < kN; ++nt) {
+    const FragA f = load_a_acc(x[nt]);
+    mma_tf32x3_row(acc, f, [&](int, int k, int n) {
+      const int r = nt * 8 + acc_key(k);
+      return (r < N && p0 + n < P) ? d[(size_t)r * P + p0 + n] : 0.f;
+    });
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int r = m0 + c_row(e), col = p0 + c_col(e);
+    if (r < M && col < P) c[(size_t)r * P + col] = acc[0][e];
   }
 }
 
@@ -287,15 +446,25 @@ extern "C" int relpos_attention_fwd(const float* qu, const float* qv,
   if (B < 1 || H < 1 || T < 1 || Dh < 1 || Dh > 128 || B > 65535 ||
       H > 65535)
     return (int)cudaErrorInvalidValue;
+  const bool vec = Dh % 4 == 0 && aligned16(qu) && aligned16(qv) &&
+                   aligned16(k) && aligned16(v) && aligned16(p);
+  Args a{qu, qv, k, v, p, kp, am, out, stats, seed, thresh, keep_scale,
+         scale, H, T, Dh, vec};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  switch ((Dh + 31) / 32) {
-    case 1: err = launch<1>(qu, qv, k, v, p, kp, am, out, stats, thresh, keep_scale, seed, B, H, T, Dh, scale, s); break;
-    case 2: err = launch<2>(qu, qv, k, v, p, kp, am, out, stats, thresh, keep_scale, seed, B, H, T, Dh, scale, s); break;
-    case 3: err = launch<3>(qu, qv, k, v, p, kp, am, out, stats, thresh, keep_scale, seed, B, H, T, Dh, scale, s); break;
-    default: err = launch<4>(qu, qv, k, v, p, kp, am, out, stats, thresh, keep_scale, seed, B, H, T, Dh, scale, s); break;
-  }
+  if (Dh <= 32)
+    err = launch_dp<32>(a, B, s);
+  else if (Dh <= 64)
+    err = launch_dp<64>(a, B, s);
+  else
+    err = launch_dp<128>(a, B, s);
   return (int)err;
+}
+
+// Query rows of relpos_attention_fwd's blocks at (B, H, T) on the current
+// device: 16 or 32.
+extern "C" int relpos_attention_fwd_query_tile(int B, int H, int T) {
+  return query_tile(B, H, T);
 }
 
 // keep: (B, H, T, T) uint8, written 1 where the dropout keeps an element.
@@ -305,5 +474,20 @@ extern "C" int relpos_dropout_mask(const long long* seed, unsigned thresh,
   if (B < 1 || H < 1 || T < 1) return (int)cudaErrorInvalidValue;
   dropout_mask_kernel<<<1024, 256, 0, static_cast<cudaStream_t>(stream)>>>(
       seed, thresh, keep, B, H, T);
+  return (int)cudaGetLastError();
+}
+
+// c = (a @ b) @ d through the 3xTF32 helper, the intermediate routed from
+// the accumulators into the A operand (a: M x K, b: K x N, d: N x P,
+// row-major f32 on the current device; N <= 64), for tests. Returns the
+// CUDA error code.
+extern "C" int relpos_tf32x3_chain_test(const float* a, const float* b,
+                                        const float* d, float* c, int M,
+                                        int N, int K, int P, void* stream) {
+  if (M < 1 || N < 1 || N > 64 || K < 1 || P < 1 || (P + 7) / 8 > 65535)
+    return (int)cudaErrorInvalidValue;
+  tf32x3_chain_kernel<<<dim3((M + 15) / 16, (P + 7) / 8), 32, 0,
+                        static_cast<cudaStream_t>(stream)>>>(a, b, d, c, M,
+                                                             N, K, P);
   return (int)cudaGetLastError();
 }

@@ -9,7 +9,8 @@ sources replace its two Pallas kernels:
       softmax((q_u k^T + rel_shift(q_v p^T)) * scale + am_add + kp_add)
           -> dropout -> @ v
 
-  and, when a gradient will be asked for, each row's softmax statistics
+  every product on the tensor cores in 3xTF32 (f32 accuracy), and, when
+  a gradient will be asked for, each row's softmax statistics
   (B, H, T, 2): the row max and 1 / row sum of the scaled scores;
 - ``csrc/relpos_attention_bwd.cu`` (``_bwd_kernel``) recomputes the
   probabilities from those statistics and emits dq_u, dq_v, dk, dv and dp,
@@ -142,6 +143,21 @@ def _fwd_kernel():
         [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _fwd_query_tile():
+    fn = _build.load(SOURCE).relpos_attention_fwd_query_tile
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def forward_query_tile(B, H, T, device):
+    """Query rows (16 or 32) of the forward kernel's blocks at (B, H, T)
+    on ``device``: 32 when that gives every SM a block."""
+    with torch.cuda.device(device):
+        return _fwd_query_tile()(B, H, T)
 
 
 @functools.cache
