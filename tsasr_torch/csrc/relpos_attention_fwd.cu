@@ -369,8 +369,13 @@ int query_tile(int B, int H, int T) {
 
 template <int DP>
 cudaError_t launch_dp(const Args& a, int B, cudaStream_t stream) {
-  return query_tile(B, a.H, a.T) == 32 ? launch<DP, 2>(a, B, stream)
-                                       : launch<DP, 1>(a, B, stream);
+#ifdef TSASR_FWD_QTILE
+  const int tile = TSASR_FWD_QTILE;
+#else
+  const int tile = query_tile(B, a.H, a.T);
+#endif
+  return tile == 32 ? launch<DP, 2>(a, B, stream)
+                    : launch<DP, 1>(a, B, stream);
 }
 
 bool aligned16(const void* x) { return ((uintptr_t)x & 15) == 0; }
