@@ -266,16 +266,15 @@ def phase_attention_fwd(device):
         dev = [sum(device_ms_by_kernel(fn).values()) or None
                for fn in (kernel, plain, sdpa)]
         bound_ms, bound_by = attention_bound(b, H, t, DH)
-        tile = ra.forward_query_tile(b, H, t, device)
         rows.append(dict(B=b, T=t, err=err, ms=ms, plain_ms=plain_ms,
                          library_ms=lib_ms, device_ms=dev[0],
                          plain_device_ms=dev[1], library_device_ms=dev[2],
-                         bound_ms=bound_ms, bound_by=bound_by, tile=tile))
+                         bound_ms=bound_ms, bound_by=bound_by))
         dev_line = ("device time (profiler): kernel {:.4f} ms, plain {:.4f} "
                     "ms, SDPA {:.4f} ms".format(*dev) if all(dev) else
                     "device time: the profiler saw none (not measured)")
         log(f"{name}: max_abs_err {err:.3g} (atol {ATTN_ATOL}: f32 on both "
-            f"sides, sums in another order); query tile {tile} rows; CUDA "
+            f"sides, sums in another order); CUDA "
             f"events: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
             f"{lib_ms:.4f} ms (excluding the bias computation); {dev_line}; "
             f"bound {bound_ms:.4f} ms by {bound_by} (3xTF32)")
@@ -1175,62 +1174,6 @@ def loosely_held(g64, gate, eps, spread):
     return masks
 
 
-def phase_fwd_tiles(device):
-    """The attention forward built twice, with its query tile forced to 16
-    and to 32 rows (``-DTSASR_FWD_QTILE``), timed at every forward shape
-    of the kernel phase in the order 16, 32, 32, 16: device time and CUDA
-    events."""
-    import ctypes
-    import torch
-    from tsasr_torch.kernels import _build
-    from tsasr_torch.kernels import relpos_attention as ra
-
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    src = _build.CSRC / f"{ra.SOURCE}.cu"
-    procs = {}
-    for tile in (16, 32):
-        path = _build.BUILD_DIR / f"lib{ra.SOURCE}-q{tile}.so"
-        procs[tile] = (path, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, f"-DTSASR_FWD_QTILE={tile}",
-             "-o", str(path), str(src)], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True))
-    fns = {}
-    for tile, (path, proc) in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc, tile {tile}:\n{out}")
-        fn = ctypes.CDLL(str(path)).relpos_attention_fwd
-        fn.argtypes = ra._fwd_kernel().argtypes
-        fn.restype = ctypes.c_int
-        fns[tile] = fn
-    scale = 1.0 / math.sqrt(H * DH)
-    gen = torch.Generator().manual_seed(SEED)
-    shapes = [(B, t) for t in ATTN_T] + list(FWD_TRAIN_SHAPES)
-    for b, t in shapes:
-        args = attention_case(t, False, gen, device, b)
-        want = ra.relpos_attention_reference(*args, scale)
-        out = torch.empty_like(args[0])
-        stream = torch.cuda.current_stream(device).cuda_stream
-
-        def call(fn):
-            err = fn(*(x.data_ptr() for x in args), out.data_ptr(), 0, 0,
-                     1.0, 0, b, H, t, DH, scale, stream)
-            _build.check_launch(err, "relpos_attention_fwd")
-
-        readings = []
-        for tile in (16, 32, 32, 16):
-            call(fns[tile])
-            torch.cuda.synchronize()
-            err = (out - want).abs().max().item()
-            if not err <= ATTN_ATOL:
-                raise RuntimeError(f"tile {tile} B{b} T{t}: err {err}")
-            dev = sum(device_ms_by_kernel(lambda: call(fns[tile])).values())
-            readings.append(f"{tile}: device {dev:.4f} ms, CUDA events "
-                            f"{cuda_ms(lambda: call(fns[tile])):.4f} ms")
-        log(f"forward query tile B{b} H{H} T{t} Dh{DH} (blocks of 32 rows: "
-            f"{-(-t // 32) * H * b}): " + "; ".join(readings))
-
-
 def kernel_entry(name, source, replaces, launches, by_path, row, shape):
     """One kernel's entry; every number is from this run's row at
     ``shape``."""
@@ -1276,10 +1219,6 @@ def main():
     tensor_core_check(ra.SOURCE, ("relpos_attention_fwd_kernel",))
     tensor_core_check(ra.BWD_SOURCE, ("dq_kernel", "dkv_kernel",
                                       "dp_kernel"))
-    if "--fwd-tiles" in sys.argv[1:]:
-        phase_fwd_tiles(device)
-        phase_small(device)
-        return 0
 
     fwd_rows = phase_attention_fwd(device)
     bwd_rows = phase_attention_bwd(device)

@@ -2,7 +2,7 @@
 the CPU.
 
 ``tiled_forward`` mirrors the forward kernel: query tiles of ``qtile``
-rows (16 or 32), key tiles of ``tile`` keys, per row group of 16 rows
+rows (the kernel's 32), key tiles of ``tile`` keys, per row group of 16 rows
 the positional term as a product with the group's window rows and a
 skew read, and each of the group's two warps keeping its own online
 softmax state (m, l, O) over its half of every key tile, merged at the
@@ -313,16 +313,16 @@ def autograd_grads(args, do, rate):
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("Dh", [5, 64])
-@pytest.mark.parametrize("qtile", [16, 32])
-@pytest.mark.parametrize("T", [10, 45, 130, 208])
-def test_tiled_forward_matches_reference(T, qtile, Dh, rate):
+@pytest.mark.parametrize("T", [10, 17, 33, 45, 64, 130, 208, 301])
+def test_tiled_forward_matches_reference(T, Dh, rate):
     """out against the plain version, m and 1 / l against the plain row
     statistics (each row's to 1e-10 of max(1, |m|): fully masked rows
-    have m ~ -1e9). Key tiles of 32: at T 10 the second warp half sees
-    no key below T; at T 130 and 208 the last query tile has rows past
-    T."""
-    args, _ = attention_case(T, Dh, T * 1000 + qtile * 10 + Dh)
-    out, m, linv = tiled_forward(args, SCALE, SEED, rate, 32, qtile)
+    have m ~ -1e9). The kernel's tiles, 32 query rows and 32 keys: at
+    T 10 the second warp half sees no key below T; T 17 leaves the
+    second row group one row, T 33 a second query and key tile of one;
+    at T 45, 130, 208 and 301 the last query tile has rows past T."""
+    args, _ = attention_case(T, Dh, T * 1000 + Dh)
+    out, m, linv = tiled_forward(args, SCALE, SEED, rate, 32, 32)
     assert_close("out", out,
                  relpos_attention.relpos_attention_reference(*args, SCALE,
                                                              SEED, rate))

@@ -156,14 +156,6 @@ def test_relpos_attention_forward_stats_and_edges(cuda, B, H, T, Dh):
     assert ((stats[..., 1] - linv).abs() <= 1e-4 * linv).all()
 
 
-def test_relpos_attention_forward_query_tile(cuda):
-    """32-row query tiles where they give every SM a block, else 16."""
-    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    for B, H, T in ((8, 4, 101), (6, 4, 208), (3, 4, 408), (1, 1, 10)):
-        want = 32 if -(-T // 32) * B * H >= sms else 16
-        assert relpos_attention.forward_query_tile(B, H, T, cuda) == want
-
-
 @pytest.mark.parametrize("B,H,T", [(2, 3, 45), (3, 4, 200)])
 def test_dropout_mask_bit_identical(cuda, B, H, T):
     want = relpos_attention.philox_keep_mask(1234567, B, H, T, 0.1, cuda)

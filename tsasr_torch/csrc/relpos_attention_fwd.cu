@@ -31,7 +31,7 @@
 // (mma_tf32x3.cuh; each k-step's three products summed from zero, then
 // added in f32). Plain 1xTF32 would read ~1e-3 of max |out|.
 //
-// Tiling. A block takes TQ = 16 NR query rows of one (b, h) and walks the
+// Tiling. A block takes TQ = 32 query rows of one (b, h) and walks the
 // keys in tiles of TK = 32. It has two warps per group of 16 query rows,
 // one for each half (16 keys) of every key tile: each warp keeps its own
 // online softmax state (row max m, row sum l, O = sum P v over all of Dh)
@@ -57,11 +57,12 @@
 //     takes the keys in the order 2 (k % 4) + k / 4 and reads v's rows in
 //     that order (load_a_acc, acc_key): no shuffle, no shared memory.
 //
-// TQ: 32 (4 warps) when ceil(T / 32) B H blocks give every SM one, else
-// 16 (2 warps): the serving shape B8 H4 T101 gives 128 blocks of 32 rows
-// for 132 SMs, 224 of 16; the training shapes B6 H4 T208 and B3 H4 T408
-// give 168 and 156 of 32. Larger query tiles load each key tile and
-// window for more rows; smaller ones fill the card at small B H T.
+// TQ = 32 (two row groups, 4 warps, 94 KB of shared memory at DP 64: two
+// blocks an SM). Timed on an H100 against 16-row blocks (2 warps, three
+// an SM) at the serving and training shapes, 32 rows were as fast or
+// faster at every shape but one, B8 H4 T301, where they lose 3-4 %; even
+// where 32 rows leave SMs idle (128 blocks at B8 H4 T101), the key tiles
+// and windows they share outweigh the SMs 16 rows would fill.
 //
 // Copies: the k, v and window tiles of each key tile are loaded with
 // cp.async (tile_helpers.cuh; 16 B a thread when Dh % 4 == 0 and the rows
@@ -120,11 +121,13 @@ struct Args {
   bool vec;                                // 16-byte copies are aligned
 };
 
-// DP: padded head dim; NR: row groups of 16 in a query tile (2 NR warps)
-template <int DP, int NR>
+constexpr int kNR = 2;                     // row groups of a query tile
+
+// DP: padded head dim
+template <int DP>
 struct Cfg {
-  static constexpr int kTileQ = kWarpRows * NR;
-  static constexpr int kWarps = 2 * NR;
+  static constexpr int kTileQ = kWarpRows * kNR;
+  static constexpr int kWarps = 2 * kNR;
   static constexpr int kThreads = 32 * kWarps;
   static constexpr int kWin = kTileQ + kTileK;   // a pair's p rows
   static constexpr int kBW = kTileK + kWarpRows; // a row group's (TK + 15)
@@ -137,22 +140,22 @@ struct Cfg {
   static constexpr int kQF = kTileQ * kLd;
   static constexpr int kKF = kTileK * kLd;
   static constexpr int kStage = 2 * kKF + kWin * kLd;   // k, v, window
-  static constexpr int kF = 2 * kQF + 2 * kStage + NR * kWarpRows * kLdB;
+  static constexpr int kF = 2 * kQF + 2 * kStage + kNR * kWarpRows * kLdB;
   // a warp's final state for the merge, in lane order: O, m, l
   static constexpr int kMergeW = 32 * (4 * kND + 4);
   static_assert(kNB % 2 == 0 && kND % 2 == 0, "warp shares");
-  static_assert(2 * NR * kMergeW <= 2 * kStage, "merge fits the stages");
+  static_assert(2 * kNR * kMergeW <= 2 * kStage, "merge fits the stages");
   static_assert(4 * kF <= kSmemLimit, "shared memory of a block");
 };
 
-template <int DP, int NR>
-__global__ void __launch_bounds__(Cfg<DP, NR>::kThreads)
+template <int DP>
+__global__ void __launch_bounds__(Cfg<DP>::kThreads)
     relpos_attention_fwd_kernel(Args a) {
-  using C = Cfg<DP, NR>;
+  using C = Cfg<DP>;
   extern __shared__ __align__(16) float smem[];
   const int T = a.T, Dh = a.Dh, nk = (T + kTileK - 1) / kTileK;
   const int i0 = blockIdx.x * C::kTileQ, h = blockIdx.y, b = blockIdx.z;
-  const int grp = row_group<NR>(), half = warp_half<NR>();
+  const int grp = row_group<kNR>(), half = warp_half<kNR>();
   const int r0 = grp * kWarpRows, c0 = half * C::kWK;
   const int first = C::kTileQ - kWarpRows - r0;  // the group's window row 0
   const size_t bh = ((size_t)b * a.H + h) * T;
@@ -237,7 +240,7 @@ __global__ void __launch_bounds__(Cfg<DP, NR>::kThreads)
         return sK[(c0 + nt * 8 + n) * C::kLd + kk * 8 + k];
       });
     }
-    group_sync<NR>();                            // BD of both halves
+    group_sync<kNR>();                           // BD of both halves
 
     float mx[2] = {m[0], m[1]};
 #pragma unroll
@@ -306,7 +309,7 @@ __global__ void __launch_bounds__(Cfg<DP, NR>::kThreads)
   for (int nd = 0; nd < C::kND; ++nd)
 #pragma unroll
     for (int e = 0; e < 4; ++e) mine[(4 * nd + e) * 32 + lane] = o[nd][e];
-  group_sync<NR>();
+  group_sync<kNR>();
   // both warps read both states, half 0's first, so they agree bit for bit
   const float* s0 = stages + 2 * grp * C::kMergeW;
   const float* s1 = s0 + C::kMergeW;
@@ -338,44 +341,22 @@ __global__ void __launch_bounds__(Cfg<DP, NR>::kThreads)
     }
 }
 
-template <int DP, int NR>
+template <int DP>
 cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
-  using C = Cfg<DP, NR>;
+  using C = Cfg<DP>;
   // Above 48 KB a block gets dynamic shared memory only on request
   static bool attribute_set = false;
   if (!attribute_set) {
     cudaError_t err = cudaFuncSetAttribute(
-        relpos_attention_fwd_kernel<DP, NR>,
+        relpos_attention_fwd_kernel<DP>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, 4 * C::kF);
     if (err != cudaSuccess) return err;
     attribute_set = true;
   }
   const dim3 grid((a.T + C::kTileQ - 1) / C::kTileQ, a.H, B);
-  relpos_attention_fwd_kernel<DP, NR>
+  relpos_attention_fwd_kernel<DP>
       <<<grid, C::kThreads, 4 * C::kF, stream>>>(a);
   return cudaGetLastError();
-}
-
-// Query rows of a block: 32 if that gives every SM of the current device
-// a block, else 16.
-int query_tile(int B, int H, int T) {
-  int dev = 0, sms = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess)
-    sms = 0;
-  return (long long)((T + 31) / 32) * H * B >= sms ? 32 : 16;
-}
-
-template <int DP>
-cudaError_t launch_dp(const Args& a, int B, cudaStream_t stream) {
-#ifdef TSASR_FWD_QTILE
-  const int tile = TSASR_FWD_QTILE;
-#else
-  const int tile = query_tile(B, a.H, a.T);
-#endif
-  return tile == 32 ? launch<DP, 2>(a, B, stream)
-                    : launch<DP, 1>(a, B, stream);
 }
 
 bool aligned16(const void* x) { return ((uintptr_t)x & 15) == 0; }
@@ -458,18 +439,12 @@ extern "C" int relpos_attention_fwd(const float* qu, const float* qv,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (Dh <= 32)
-    err = launch_dp<32>(a, B, s);
+    err = launch<32>(a, B, s);
   else if (Dh <= 64)
-    err = launch_dp<64>(a, B, s);
+    err = launch<64>(a, B, s);
   else
-    err = launch_dp<128>(a, B, s);
+    err = launch<128>(a, B, s);
   return (int)err;
-}
-
-// Query rows of relpos_attention_fwd's blocks at (B, H, T) on the current
-// device: 16 or 32.
-extern "C" int relpos_attention_fwd_query_tile(int B, int H, int T) {
-  return query_tile(B, H, T);
 }
 
 // keep: (B, H, T, T) uint8, written 1 where the dropout keeps an element.

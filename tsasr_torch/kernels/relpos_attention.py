@@ -146,21 +146,6 @@ def _fwd_kernel():
 
 
 @functools.cache
-def _fwd_query_tile():
-    fn = _build.load(SOURCE).relpos_attention_fwd_query_tile
-    fn.argtypes = [ctypes.c_int] * 3
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def forward_query_tile(B, H, T, device):
-    """Query rows (16 or 32) of the forward kernel's blocks at (B, H, T)
-    on ``device``: 32 when that gives every SM a block."""
-    with torch.cuda.device(device):
-        return _fwd_query_tile()(B, H, T)
-
-
-@functools.cache
 def _mask_kernel():
     fn = _build.load(SOURCE).relpos_dropout_mask
     fn.argtypes = [ctypes.c_void_p, ctypes.c_uint, ctypes.c_void_p] + \
