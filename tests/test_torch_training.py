@@ -205,6 +205,23 @@ def test_valid_batch_decodes_and_scores(jax_side):
         brain.evaluate_batch(make_batch(30), Stage.TEST)
 
 
+def test_joint_band_width_raises():
+    """The JAX recipe trains a banded joint with ``rnnt_loss_banded`` when
+    ``joint_band_width`` is set; the port has neither, so it raises
+    before any loss is computed, at TRAIN and at VALID."""
+    model = TSTransducer(TSTransducerConfig(**CONFIG)).init_weights(seed=0)
+    brain = TSASRBrain(modules={"model": model},
+                       opt_class=make_adamw(**OPT),
+                       hparams=dict(HPARAMS, joint_band_width=4),
+                       run_opts={"device": "cpu"},
+                       tokenizer=CharTokenizer(PIECES))
+    for run in (brain.fit_batch,
+                lambda b: brain.evaluate_batch(b, Stage.VALID)):
+        with pytest.raises(NotImplementedError, match="joint_band_width"):
+            run(make_batch(40))
+    assert brain.global_micro_step == 0
+
+
 @pytest.mark.parametrize("step", [0, 1, 2, 500, 9999, 10000, 10001, 50000])
 def test_noam_schedule_matches_jax(step):
     want = float(jax_noam(1e-3, 10000)(step))

@@ -17,9 +17,10 @@ for the scratch variant (the Conformer speaker encoder trained jointly):
 - at VALID, ``evaluate_batch_extra`` decodes greedily and accumulates
   WER against ``batch.target_words``.
 
-Speed perturbation and SpecAugment (``augment: True``), the other
-variants, beam search at TEST, the data pipeline and checkpoints are
-not ported yet and raise.
+Speed perturbation and SpecAugment (``augment: True``), the banded
+joint and loss (a set ``joint_band_width``), the other variants, beam
+search at TEST, the data pipeline and checkpoints are not ported yet
+and raise.
 """
 
 import numpy as np
@@ -98,11 +99,13 @@ class TSASRBrain(Brain):
         return {"enroll_feats": feats, "enroll_rel_lens": rel}
 
     def _fused_loss_active(self):
-        if getattr(self.hparams, "joint_band_width", None):
-            return False
         return bool(getattr(self.hparams, "fused_joint_loss", True))
 
     def compute_forward(self, batch, stage, generator):
+        if getattr(self.hparams, "joint_band_width", None):
+            raise NotImplementedError(
+                "joint_band_width trains the banded joint with "
+                "rnnt_loss_banded, which is not ported yet")
         feats, rel = self._mixture_features(batch, stage, generator)
         kwargs = self._forward_kwargs(batch)
         deterministic = stage != Stage.TRAIN
