@@ -12,7 +12,9 @@ the per-utterance loss and the gradients w.r.t. both lattices come out.
   to device memory, then a beta + gradient kernel that reads them back.
 
 ``variant="auto"`` picks resident when ``resident_fits(T, U+1)``.
-``rnnt_lattice_reference`` is the same row scan in plain PyTorch. The
+``rnnt_lattice_reference`` is the same row scans in plain PyTorch, made
+of ``rnnt_alpha_reference`` and ``rnnt_beta_reference``, the plain
+versions of the two slab kernels. The
 wrapper ``rnnt_lattice`` takes it only for tensors on the CPU; on CUDA it
 launches the kernels or raises. ``resident_launches``,
 ``alpha_slab_launches`` and ``beta_slab_launches`` count launches.
@@ -56,9 +58,11 @@ def _logcumsumexp(x):
     return torch.where(out <= NEG / 2, NEG, out)
 
 
-def rnnt_lattice_reference(lpb, lpl, t_lens, u_lens):
-    """The kernels' row scan in plain PyTorch, one row of every utterance
-    at a time: (loss (B,), dlpb, dlpl (B, T, U+1))."""
+def rnnt_alpha_reference(lpb, lpl, t_lens, u_lens):
+    """The alpha slab kernel's row scan in plain PyTorch, one row of every
+    utterance at a time: (alpha (B, T, U+1), logZ (B,)). Cells outside an
+    utterance's lattice hold what the scan carries there; no kernel
+    reads them."""
     B, T, U1 = lpb.shape
     col = torch.arange(U1, device=lpb.device)[None]
     Tl = t_lens.long()[:, None]
@@ -76,6 +80,20 @@ def rnnt_lattice_reference(lpb, lpl, t_lens, u_lens):
         alphas.append(row)
         terminal = (row + lpb[:, t]).gather(1, Ul)
         logz = torch.where(Tl - 1 == t, terminal, logz)
+    return torch.stack(alphas, dim=1), logz[:, 0]
+
+
+def rnnt_beta_reference(lpb, lpl, t_lens, u_lens, alpha, logz):
+    """The beta slab kernel's sweep in plain PyTorch: the beta rows from
+    the last frame down and the gradients (dlpb, dlpl), each (B, T, U+1),
+    from alpha and logZ; 0 outside each utterance's lattice. Only the
+    cells inside it are read from ``alpha``."""
+    B, T, U1 = lpb.shape
+    col = torch.arange(U1, device=lpb.device)[None]
+    Tl = t_lens.long()[:, None]
+    Ul = u_lens.long()[:, None]
+    neg = torch.full((B, U1), NEG, dtype=lpb.dtype, device=lpb.device)
+    logz = logz[:, None]
 
     dlpb = torch.empty_like(lpb)
     dlpl = torch.empty_like(lpl)
@@ -95,12 +113,20 @@ def rnnt_lattice_reference(lpb, lpl, t_lens, u_lens):
         beta_t1 = torch.where(last, torch.where(col == Ul, 0.0, NEG),
                               beta_next)
         dlpb[:, t] = -torch.exp(torch.where(
-            valid & (col <= Ul), alphas[t] + lpb_t + beta_t1 - logz, NEG))
+            valid & (col <= Ul), alpha[:, t] + lpb_t + beta_t1 - logz, NEG))
         beta_u1 = torch.cat([beta[:, 1:], neg[:, :1]], dim=1)
         dlpl[:, t] = -torch.exp(torch.where(
-            valid & (col < Ul), alphas[t] + lpl_t + beta_u1 - logz, NEG))
+            valid & (col < Ul), alpha[:, t] + lpl_t + beta_u1 - logz, NEG))
         beta_next = torch.where(valid, beta, beta_next)
-    return -logz[:, 0], dlpb, dlpl
+    return dlpb, dlpl
+
+
+def rnnt_lattice_reference(lpb, lpl, t_lens, u_lens):
+    """The kernels' row scans in plain PyTorch, one row of every
+    utterance at a time: (loss (B,), dlpb, dlpl (B, T, U+1))."""
+    alpha, logz = rnnt_alpha_reference(lpb, lpl, t_lens, u_lens)
+    dlpb, dlpl = rnnt_beta_reference(lpb, lpl, t_lens, u_lens, alpha, logz)
+    return -logz, dlpb, dlpl
 
 
 # ------------------------------------------------------------------ kernels
