@@ -240,13 +240,101 @@ def test_rnnt_lattice_kernels_match_plain(cuda, variant, B, T, U1):
         ((0, 1, 1) if slab else (1, 0, 0))
 
 
+def lattice_tol(loss, T, U1):
+    """atol 1e-4 and rtol from the loss, as test_rnnt_lattice_kernels_
+    match_plain and chip_smoke.py::lattice_rtol state it: 2 sqrt(T + U)
+    roundings of the largest loss."""
+    return 1e-4, max(1e-4, 2 * (T + U1) ** 0.5 * loss.abs().max().item()
+                     * 2.0 ** -24)
+
+
+def f64(args):
+    return [x.double() if x.is_floating_point() else x for x in args]
+
+
+def beta_slab(args, alpha, logz):
+    """The beta slab kernel alone, through its C entry, into outputs
+    filled with NaN so that a cell it leaves unwritten shows."""
+    lpb, lpl, t_lens, u_lens = args
+    B, T, U1 = lpb.shape
+    dlpb = torch.full_like(lpb, float("nan"))
+    dlpl = torch.full_like(lpl, float("nan"))
+    err = rnnt_lattice._kernels()["beta"](
+        lpb.data_ptr(), lpl.data_ptr(), t_lens.data_ptr(), u_lens.data_ptr(),
+        alpha.data_ptr(), logz.data_ptr(), dlpb.data_ptr(), dlpl.data_ptr(),
+        B, T, U1, torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    return dlpb, dlpl
+
+
 def test_rnnt_lattice_variants_agree(cuda):
+    """Each variant against the plain version in f64, within the lattice
+    tolerance. The slab's beta kernel runs its own arithmetic (pair scans
+    of a warp-level row chain), not the resident kernel's block scans, so
+    the two agree within twice that tolerance (each within it of f64),
+    not bitwise."""
     args = lattice_case(5, 60, 40, cuda, seed=3)
     res = rnnt_lattice.rnnt_lattice(*args, variant="resident")
     slab = rnnt_lattice.rnnt_lattice(*args, variant="slab")
-    for r, s in zip(res, slab):
+    want = rnnt_lattice.rnnt_lattice_reference(*f64(args))
+    atol, rtol = lattice_tol(want[0], 60, 40)
+    for r, s, w in zip(res, slab, want):
+        for got in (r, s):
+            np.testing.assert_allclose(got.double().cpu().numpy(),
+                                       w.cpu().numpy(), atol=atol,
+                                       rtol=rtol)
         np.testing.assert_allclose(r.cpu().numpy(), s.cpu().numpy(),
-                                   atol=1e-6, rtol=1e-6)
+                                   atol=2 * atol, rtol=2 * rtol)
+
+
+@pytest.mark.parametrize("B,T,U1", [(3, 70, 13), (2, 150, 1100),
+                                    (3, 408, 241), (2, 64, 300),
+                                    (4, 33, 257)])
+def test_rnnt_beta_slab_matches_f64(cuda, B, T, U1):
+    """The beta slab kernel given the alpha slab kernel's alpha and logZ,
+    against its plain version (rnnt_beta_reference) in f64 on the same
+    inputs, and the slab variant as a whole against the f64 lattice, at
+    the lattice tolerance. Rows of one chunk (256 columns), of two and
+    of five; U+1 257 is one column past a chunk."""
+    args = lattice_case(B, T, U1, cuda, seed=7 * T + U1)
+    lpb, lpl, t_lens, u_lens = args
+    alpha = torch.empty_like(lpb)
+    logz = torch.empty(B, device=cuda)
+    loss = torch.empty(B, device=cuda)
+    err = rnnt_lattice._kernels()["alpha"](
+        lpb.data_ptr(), lpl.data_ptr(), t_lens.data_ptr(), u_lens.data_ptr(),
+        alpha.data_ptr(), logz.data_ptr(), loss.data_ptr(), B, T, U1,
+        torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    got = beta_slab(args, alpha, logz)
+    torch.cuda.synchronize()
+    want = rnnt_lattice.rnnt_beta_reference(*f64(args), alpha.double(),
+                                            logz.double())
+    atol, rtol = lattice_tol(loss, T, U1)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        np.testing.assert_allclose(g.double().cpu().numpy(),
+                                   w.cpu().numpy(), atol=atol, rtol=rtol)
+    whole = rnnt_lattice.rnnt_lattice(*args, variant="slab")
+    want = rnnt_lattice.rnnt_lattice_reference(*f64(args))
+    for g, w in zip(whole, want):
+        np.testing.assert_allclose(g.double().cpu().numpy(),
+                                   w.cpu().numpy(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("B,T,U1", [(3, 408, 241), (2, 150, 1100)])
+def test_rnnt_beta_slab_is_deterministic(cuda, B, T, U1):
+    """No atomics and a fixed order of every sum: repeated launches on
+    the same inputs give the same bits (each into outputs filled with
+    NaN)."""
+    args = lattice_case(B, T, U1, cuda, seed=U1)
+    alpha, logz = rnnt_lattice.rnnt_alpha_reference(*args)
+    first = beta_slab(args, alpha.contiguous(), logz.contiguous())
+    for _ in range(3):
+        again = beta_slab(args, alpha.contiguous(), logz.contiguous())
+        torch.cuda.synchronize()
+        assert torch.isfinite(first[0]).all()
+        assert all(torch.equal(a, f) for a, f in zip(again, first))
 
 
 def test_relpos_attention_wrapper_rejects_bad_inputs(cuda):

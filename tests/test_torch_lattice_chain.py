@@ -5,7 +5,8 @@ pinned on the CPU.
 row of an utterance's lattice (its ``Ul + 1`` columns) is walked from the
 right in chunks of ``32 K`` columns, right-aligned, so only the leftmost
 chunk of a row holds padding; lane ``l`` of the chain warp owns the ``K``
-consecutive columns ``l K .. l K + K - 1`` of a chunk. Per chunk:
+consecutive columns ``l K .. l K + K - 1`` of a chunk (the kernel takes
+K = 8, 16 or 32, the least whose chunk holds the row). Per chunk:
 
 - the producer stages the chunk's lpb, lpl and alpha (0 where a column
   lies left of column 0) into a ring of ``slots`` chunks and writes its
@@ -44,6 +45,13 @@ K = 8           # columns per lane (kCols in csrc/rnnt_lattice.cu)
 SLOTS = 6       # staged chunks (kSlots)
 
 
+def cols_per_lane(U1):
+    """The kernel's K for a lattice U1 columns wide (``beta_slab_cols``,
+    below its shared-memory fallback): the least of 8, 16, 32 whose chunk
+    holds the row."""
+    return 8 if U1 <= 256 else 16 if U1 <= 512 else 32
+
+
 def beta_rows(slots, rounds):
     """Beta rows the ring needs (the kernel's ``beta_ring_rows``): the
     gradient warps may lag ``slots - 1`` chunks behind the chain and read
@@ -52,9 +60,11 @@ def beta_rows(slots, rounds):
 
 
 def combine(a, b):
-    """(max, scaled sum) pairs: log(sa e^ma + sb e^mb) as (m, s)."""
-    m = torch.maximum(a[0], b[0])
-    return m, a[1] * torch.exp(a[0] - m) + b[1] * torch.exp(b[0] - m)
+    """(max, scaled sum) pairs: log(sa e^ma + sb e^mb) as (m, s), with
+    one exp, of minus the distance between the maxima."""
+    q = torch.exp(-(a[0] - b[0]).abs())
+    s = torch.where(a[0] >= b[0], b[1] * q + a[1], a[1] * q + b[1])
+    return torch.maximum(a[0], b[0]), s
 
 
 def shfl_down(v, o, fill):
@@ -130,8 +140,6 @@ def chain_utterance(lpb, lpl, alpha, logz, Tl, Ul, k, slots, lag, rows,
         slot[c % slots] = (s_lpb, s_lpl, s_alpha, suf_p)
 
         # chain: x, in-lane pairs, lane scan, chunk carry, beta
-        if j == 0:
-            carry = (torch.tensor(NEG, dtype=dt), torch.zeros((), dtype=dt))
         bn = bn_reg if R == 1 else ring[(t + 1) % nb][(R - 1 - j) * C:
                                                       (R - j) * C]
         x = torch.where(ok, (bn + s_lpb) - suf_p, NEG).view(LANES, k)
@@ -143,12 +151,15 @@ def chain_utterance(lpb, lpl, alpha, logz, Tl, Ul, k, slots, lag, rows,
             m, s = combine((m, s), (x[:, kk], torch.ones_like(s)))
             pm[:, kk], ps[:, kk] = m, s
         im, is_ = lane_suffix_pairs(pm[:, 0], ps[:, 0])
-        ex = combine((shfl_down(im, 1, NEG), shfl_down(is_, 1, 0.0)), carry)
+        ex = (shfl_down(im, 1, NEG), shfl_down(is_, 1, 0.0))
+        if j > 0:
+            ex = combine(ex, carry)
         fm, fs = combine((pm, ps), (ex[0][:, None], ex[1][:, None]))
         beta = torch.where(ok.view(LANES, k) & (fm > NEG / 2),
                            suf_p.view(LANES, k) + (fm + torch.log(fs)),
                            NEG).view(C)
-        carry = combine((im[0], is_[0]), carry)
+        carry = combine((im[0], is_[0]), carry) if j > 0 else (im[0],
+                                                                is_[0])
         ring[t % nb][(R - 1 - j) * C:(R - j) * C] = beta
         if R == 1:
             bn_reg = beta
@@ -201,7 +212,8 @@ def check(args, **kw):
 
 
 # (T, U+1, t_lens, u_lens): Ul = 0, Tl = 1, Tl = 0, U+1 not a multiple of
-# 32, and rows of one, two and four chunks at K = 8 (256 columns)
+# 32, and rows of one, two and four chunks at K = 8 (256 columns), one at
+# the kernel's K (16 at U+1 300, 32 at 801)
 SHAPES = [
     (7, 45, [7, 1, 4, 6], [44, 0, 20, 31]),
     (6, 241, [6, 3, 1, 0], [240, 150, 0, 7]),
@@ -211,8 +223,12 @@ SHAPES = [
 
 
 @pytest.mark.parametrize("T,U1,t_lens,u_lens", SHAPES)
-def test_chain_matches_reference(T, U1, t_lens, u_lens):
-    check(lattice(T + U1, len(t_lens), T, U1, t_lens, u_lens))
+@pytest.mark.parametrize("rule", ["kernel", "K8"])
+def test_chain_matches_reference(T, U1, t_lens, u_lens, rule):
+    """At the kernel's K for the lattice, and at K = 8, where rows wider
+    than 256 columns take several chunks."""
+    k = cols_per_lane(U1) if rule == "kernel" else 8
+    check(lattice(T + U1, len(t_lens), T, U1, t_lens, u_lens), k=k)
 
 
 @pytest.mark.parametrize("k,slots,lag", [(1, 6, 5), (2, 3, 2), (1, 2, 1),

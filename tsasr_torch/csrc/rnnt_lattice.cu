@@ -26,13 +26,10 @@
 // so each row is a prefix sum and a log-cumsum-exp, both scans, and the
 // only serial chain is the loop over T.
 //
-// Design: one block per utterance; its row runs across the block's
-// threads (a multiple of 32, at most 1024), and rows wider than the block
-// are walked in rounds with the scans' carries, so U+1 has no limit. The
-// scans are warp shuffles plus one shared-memory step across warps. Only
-// the utterance's own lattice, T_b rows of U_b+1 columns, is visited; the
-// gradients of every other cell are written as 0 (the JAX kernels give
-// -exp(NEG) = -0 there). The TPU's T-major layout, 128-lane padding and
+// Every kernel runs one block per utterance and visits only the
+// utterance's own lattice, T_b rows of U_b+1 columns; the gradients of
+// every other cell are written as 0 (the JAX kernels give -exp(NEG) = -0
+// there). The TPU's T-major layout, 128-lane padding and
 // blocks of 8-64 utterances were TPU tiling and are not carried over.
 // NEG = -1e30 stands in for -inf; logaddexp keeps the JAX guard (both
 // operands <= NEG/2 give NEG), so padded cells stay exactly NEG-sized
@@ -43,15 +40,50 @@
 // of scratch in shared memory, so the wrapper picks it when that fits 200
 // KB; otherwise the slab pair round-trips alpha through device memory.
 //
-// What bounds it on an H100: the bytes are 16 per cell (read b and l,
+// The resident and alpha slab kernels (alpha_pass, beta_pass): a row runs
+// across the block's threads (a multiple of 32, at most 1024), and rows
+// wider than the block are walked in rounds with the scans' carries. The
+// scans are warp shuffles plus one shared-memory step across warps, a
+// few block-wide barriers per row.
+//
+// The beta slab kernel (rnnt_beta_slab_kernel) is a warp-level row chain:
+// only the log-add scan that needs beta[t+1] stays on the chain. Its
+// block has 4 warps with one role each:
+// - a producer stages chunks of 32 K columns (lpb, lpl, alpha by
+//   cp.async, a few chunks in flight, a ring of slots) and writes each
+//   chunk's suffix sums sufP, which do not depend on beta;
+// - the chain warp owns a chunk, K consecutive columns a lane, and runs
+//   the right-to-left log-sum-exp as (max, scaled sum) pairs: a scan in
+//   the lane, a 5-step shuffle scan of the lane totals, one exp per
+//   combine and one log per column. beta[t+1] stays in its registers
+//   when a row is one chunk: K = 8, 16 or 32 covers 256, 512 or 1024
+//   columns. Wider lanes were chosen over splitting a row across chain
+//   warps: they lengthen only the in-lane part of a row, where a split
+//   adds a barrier between warps to every row. Rows wider than 1024
+//   columns are walked in chunks with a carry from the right, beta[t+1]
+//   read back from the beta ring, so U+1 is bounded only by shared
+//   memory (about 17,000 columns);
+// - two gradient warps compute dlpb and dlpl from the slot and a ring of
+//   beta rows, behind the chain, and write the zeros around the lattice.
+// The roles hand chunks on through per-slot mbarriers; the only
+// block-wide barrier comes before the first row.
+//
+// What bounds them on an H100: the bytes are 16 per cell (read b and l,
 // write both gradients) plus 8 per cell on the slab path (alpha out and
 // back), microseconds at 3.35 TB/s for the training shapes. The real
-// limit is the T-long serial chain of row scans in each pass (a few
-// block-wide synchronisations per row), which no byte or FLOP count sees,
-// and one block per utterance leaves most SMs idle at B <= 8.
+// limit is the T-long serial chain of row scans, which no byte or FLOP
+// count sees: block-wide barriers in the resident and alpha slab
+// kernels; in the beta slab kernel one warp's dependent instructions
+// (~900 cycles a row at U+1 241), with the producer's copies about as
+// long. One block per utterance leaves most SMs idle at B <= 8.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include <algorithm>
+
+#include "tile_helpers.cuh"
 
 namespace {
 
@@ -253,18 +285,362 @@ __global__ void rnnt_alpha_slab_kernel(const float* lpb, const float* lpl,
   }
 }
 
-__global__ void rnnt_beta_slab_kernel(const float* lpb, const float* lpl,
-                                      const int* t_lens, const int* u_lens,
-                                      const float* alpha, const float* logz,
-                                      float* dlpb, float* dlpl, int T,
-                                      int U1) {
-  extern __shared__ float smem[];
-  float* s_beta = smem;                         // U1
-  float* s_warp = s_beta + U1;                  // 32
+// ----------------------------------------------------- beta slab: row chain
+// Chunks staged ahead of the chain (the slot ring), and how many of them
+// the producer keeps its copies in flight for (fewer than kSlots).
+constexpr int kSlots = 6;
+constexpr int kInFlight = 3;
+constexpr int kGradWarps = 2;
+constexpr int kBetaThreads = 32 * (2 + kGradWarps);
+
+// Beta rows the ring needs when a row is `rounds` chunks: the gradient
+// warps lag at most kSlots - 1 chunks behind the chain and read rows t
+// and t + 1 of a chunk of row t, so they read rows up to
+// ceil((kSlots - 1) / rounds) + 1 above the one the chain writes.
+__host__ __device__ constexpr int beta_ring_rows(int rounds) {
+  return (kSlots - 1 + rounds - 1) / rounds + 2;
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count));
+}
+
+// release: this thread's earlier writes (and its completed cp.async
+// copies) are visible to a thread whose wait sees the phase complete
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile(
+      "{\n .reg .b64 st;\n mbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::
+          "r"(smem_addr(bar))
+      : "memory");
+}
+
+// acquire: returns once the phase of the given parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done)
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+}
+
+// exp and log on the multifunction unit (ex2 / lg2, flushing denormals):
+// a few ulps of error, far inside the lattice's f32 tolerance (its
+// gradients' exponents are differences of sums ~|logZ|)
+__device__ __forceinline__ float fast_exp(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x * 1.44269504f));
+  return y;
+}
+
+__device__ __forceinline__ float fast_log(float x) {
+  float y;
+  asm("lg2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y * 0.693147181f;
+}
+
+// log(sa e^ma + sb e^mb) as the pair (max, scaled sum), into (ma, sa):
+// one exp, of minus the distance between the maxima
+__device__ __forceinline__ void pair_add(float& ma, float& sa, float mb,
+                                         float sb) {
+  const float q = fast_exp(-fabsf(ma - mb));
+  sa = ma >= mb ? fmaf(sb, q, sa) : fmaf(sa, q, sb);
+  ma = fmaxf(ma, mb);
+}
+
+template <int N>
+__device__ __forceinline__ void loadv(float (&v)[N], const float* src) {
+  #pragma unroll
+  for (int q = 0; q < N / 4; ++q) {
+    const float4 a = reinterpret_cast<const float4*>(src)[q];
+    v[4 * q] = a.x, v[4 * q + 1] = a.y, v[4 * q + 2] = a.z, v[4 * q + 3] = a.w;
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void storev(float* dst, const float (&v)[N]) {
+  #pragma unroll
+  for (int q = 0; q < N / 4; ++q)
+    reinterpret_cast<float4*>(dst)[q] =
+        make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+}
+
+// The chunks of an utterance in order, by increments (no division in the
+// loops): row t from Tl - 1 down, chunk j from the right, slot s and the
+// parity of its phase, the beta ring's rows rt = t % rows and rt1 =
+// (t + 1) % rows.
+struct ChunkWalk {
+  int t, j = 0, s = 0, parity = 0, rt, rt1;
+  __device__ ChunkWalk(int Tl, int rows)
+      : t(Tl - 1), rt(Tl > 0 ? (Tl - 1) % rows : 0), rt1(Tl % rows) {}
+  __device__ void next(int R, int rows) {
+    if (++s == kSlots) s = 0, parity ^= 1;
+    if (++j == R) {
+      j = 0;
+      --t;
+      rt1 = rt;
+      rt = rt == 0 ? rows - 1 : rt - 1;
+    }
+  }
+};
+
+// One block per utterance, 4 warps with one role each; a chunk is 32 K
+// columns, K consecutive ones a chain lane (beta_slab_cols picks K).
+// Chunk c of the utterance is row t = Tl - 1 - c / R, chunk j = c % R from the right,
+// columns u = W - (j + 1) kChunk + i (i < kChunk; u < 0 is padding), in
+// slot c % kSlots; its beta goes to the beta ring's row t % rows at
+// positions p = u + R kChunk - W. A chunk passes full[s] (producer ->
+// chain), chained[s] (chain -> gradient warps) and empty[s] (gradient
+// warps -> producer), mbarriers whose phase n is the slot's n-th chunk.
+template <int K>
+__global__ void __launch_bounds__(kBetaThreads)
+    rnnt_beta_slab_kernel(const float* lpb, const float* lpl,
+                          const int* t_lens, const int* u_lens,
+                          const float* alpha, const float* logz,
+                          float* dlpb, float* dlpl, int T, int U1) {
+  constexpr int kChunk = 32 * K;
+  constexpr int kSlotFloats = 4 * kChunk;   // lpb, lpl, alpha, sufP
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* chained = full + kSlots;
+  uint64_t* empty = chained + kSlots;
+  float* slots = smem + 8 * kSlots;          // 16-byte aligned
+  float* ring = slots + kSlots * kSlotFloats;
+
   const Utt a = utterance(lpb, lpl, t_lens, u_lens, T, U1);
   const size_t off = (size_t)blockIdx.x * T * U1;
-  beta_pass(a, alpha + off, logz[blockIdx.x], s_beta, s_warp, dlpb + off,
-            dlpl + off);
+  alpha += off;
+  dlpb += off;
+  dlpl += off;
+  const int W = a.Ul + 1, R = (W + kChunk - 1) / kChunk;
+  const int RC = R * kChunk, rows = beta_ring_rows(R);
+  const int n_chunks = a.Tl * R;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kSlots; ++s) {
+      mbar_init(&full[s], 32);
+      mbar_init(&chained[s], 32);
+      mbar_init(&empty[s], 32 * kGradWarps);
+    }
+  }
+  __syncthreads();   // the only block-wide barrier, before any row
+
+  if (warp == 1) {
+    // producer: copies of kInFlight chunks in flight; a chunk's slot is
+    // published once its copies landed and its suffix sums are written
+    float row_p = 0.f;
+    ChunkWalk in(a.Tl, rows), out(a.Tl, rows);
+    for (int c = 0; c < n_chunks + kInFlight - 1; ++c) {
+      if (c < n_chunks) {
+        // the slot's previous chunk (phase parity ^ 1) has been freed
+        if (c >= kSlots) mbar_wait(&empty[in.s], in.parity ^ 1);
+        const int u0 = W - (in.j + 1) * kChunk;
+        float* dst = slots + in.s * kSlotFloats;
+        const size_t row = (size_t)in.t * U1;
+        #pragma unroll
+        for (int m = 0; m < K; ++m) {
+          const int i = lane + 32 * m, u = u0 + i;
+          const size_t g = row + (u >= 0 ? u : 0);
+          tsasr::cp_async4(dst + i, a.lpb + g, u >= 0);
+          tsasr::cp_async4(dst + kChunk + i, a.lpl + g, u >= 0);
+          tsasr::cp_async4(dst + 2 * kChunk + i, alpha + g, u >= 0);
+        }
+        in.next(R, rows);
+      }
+      tsasr::cp_async_commit();
+      tsasr::cp_async_wait<kInFlight - 1>();
+      const int f = c - (kInFlight - 1);
+      if (f < 0) continue;
+      __syncwarp();   // the other lanes' copies of chunk f are visible
+      const int j = out.j, s = out.s;
+      out.next(R, rows);
+      const int u0 = W - (j + 1) * kChunk + lane * K;
+      float* src = slots + s * kSlotFloats;
+      float p[K];
+      loadv(p, src + kChunk + lane * K);
+      float suf[K];
+      float acc = 0.f;
+      #pragma unroll
+      for (int k = K - 1; k >= 0; --k) {
+        const int u = u0 + k;
+        acc += (u >= 0 && u < a.Ul) ? p[k] : 0.f;
+        suf[k] = acc;
+      }
+      float incl = acc;
+      #pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const float y = __shfl_down_sync(kFull, incl, o);
+        incl += lane + o < 32 ? y : 0.f;
+      }
+      float excl = __shfl_down_sync(kFull, incl, 1);
+      if (lane == 31) excl = 0.f;
+      if (j == 0) row_p = 0.f;
+      #pragma unroll
+      for (int k = 0; k < K; ++k) suf[k] = (suf[k] + excl) + row_p;
+      row_p += __shfl_sync(kFull, incl, 0);
+      storev(src + 3 * kChunk + lane * K, suf);
+      mbar_arrive(&full[s]);
+    }
+  } else if (warp == 0) {
+    // the chain: beta[t] = sufP + logcumsumexp_r2l((beta[t+1] + lpb) -
+    // sufP), as (max, scaled sum) pairs; beta[t+1] stays in registers
+    // when a row is one chunk
+    const int p0 = lane * K;
+    float bn[K];
+    {
+      float* r = ring + (size_t)(a.Tl % rows) * RC;
+      for (int j = 0; j < R; ++j) {
+        const int u0 = W - (j + 1) * kChunk + p0;
+        #pragma unroll
+        for (int k = 0; k < K; ++k) bn[k] = u0 + k == a.Ul ? 0.f : NEG;
+        storev(r + (R - 1 - j) * kChunk + p0, bn);
+      }
+    }
+    float cm, cs;   // the carry from the chunks to the right
+    ChunkWalk w(a.Tl, rows);
+    for (int c = 0; c < n_chunks; ++c, w.next(R, rows)) {
+      const int j = w.j;
+      const int u0 = W - (j + 1) * kChunk + p0;
+      const int pos = (R - 1 - j) * kChunk + p0;
+      if (R > 1) loadv(bn, ring + (size_t)w.rt1 * RC + pos);
+      mbar_wait(&full[w.s], w.parity);
+      const float* src = slots + w.s * kSlotFloats;
+      float b[K], sp[K];
+      loadv(b, src + p0);
+      loadv(sp, src + 3 * kChunk + p0);
+      float pm[K], ps[K];
+      float m = NEG, sum = 0.f;
+      #pragma unroll
+      for (int k = K - 1; k >= 0; --k) {
+        const float x = u0 + k >= 0 ? (bn[k] + b[k]) - sp[k] : NEG;
+        const float q = fast_exp(-fabsf(x - m));
+        sum = x > m ? fmaf(sum, q, 1.f) : sum + q;
+        m = fmaxf(m, x);
+        pm[k] = m;
+        ps[k] = sum;
+      }
+      float im = m, is = sum;
+      #pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        // past the last lane, the identity (NEG, 0): adds exactly 0
+        const bool in_warp = lane + o < 32;
+        const float om = __shfl_down_sync(kFull, im, o);
+        const float os = __shfl_down_sync(kFull, is, o);
+        pair_add(im, is, in_warp ? om : NEG, in_warp ? os : 0.f);
+      }
+      float em = __shfl_down_sync(kFull, im, 1);
+      float es = __shfl_down_sync(kFull, is, 1);
+      if (lane == 31) em = NEG, es = 0.f;
+      if (j > 0) pair_add(em, es, cm, cs);   // the chunks to the right
+      #pragma unroll
+      for (int k = 0; k < K; ++k) {
+        float fm = pm[k], fs = ps[k];
+        pair_add(fm, fs, em, es);
+        bn[k] = (u0 + k >= 0 && fm > NEG / 2) ? sp[k] + (fm + fast_log(fs))
+                                               : NEG;
+      }
+      if (j + 1 < R) {   // the carry of the chunk to the left
+        float nm = __shfl_sync(kFull, im, 0);
+        float ns = __shfl_sync(kFull, is, 0);
+        if (j > 0) pair_add(nm, ns, cm, cs);
+        cm = nm;
+        cs = ns;
+      }
+      storev(ring + (size_t)w.rt * RC + pos, bn);
+      mbar_arrive(&chained[w.s]);
+    }
+  } else {
+    // gradient warps: rows past the utterance, then each chunk once the
+    // chain has its beta, with the row's columns past Ul
+    const int g = threadIdx.x - 64, ng = 32 * kGradWarps;
+    for (size_t e = (size_t)a.Tl * U1 + g; e < (size_t)T * U1; e += ng)
+      dlpb[e] = dlpl[e] = 0.f;
+    const float lz = logz[blockIdx.x];
+    ChunkWalk w(a.Tl, rows);
+    for (int c = 0; c < n_chunks; ++c, w.next(R, rows)) {
+      const int j = w.j, s = w.s;
+      const int u0 = W - (j + 1) * kChunk;
+      const int base = (R - 1 - j) * kChunk;
+      const float* b1 = ring + (size_t)w.rt1 * RC + base;
+      const float* b0 = ring + (size_t)w.rt * RC + base;
+      const float* src = slots + s * kSlotFloats;
+      float* gb = dlpb + (size_t)w.t * U1;
+      float* gl = dlpl + (size_t)w.t * U1;
+      mbar_wait(&chained[s], w.parity);
+      constexpr int kPer = kChunk / (32 * kGradWarps);
+      float eb[kPer], el[kPer];
+      #pragma unroll
+      for (int q = 0; q < kPer; ++q) {
+        const int i = g + q * ng;
+        const int i1 = i + 1 < kChunk || j > 0 ? i + 1 : i;  // in the row
+        const float al = src[2 * kChunk + i];
+        eb[q] = al + src[i] + b1[i] - lz;
+        el[q] = al + src[kChunk + i] + b0[i1] - lz;
+      }
+      #pragma unroll
+      for (int q = 0; q < kPer; ++q) {
+        const int u = u0 + g + q * ng;
+        if (u < 0) continue;
+        gb[u] = -fast_exp(eb[q]);
+        gl[u] = u < a.Ul ? -fast_exp(el[q]) : 0.f;
+      }
+      if (j == 0)
+        for (int u = W + g; u < U1; u += ng) gb[u] = gl[u] = 0.f;
+      mbar_arrive(&empty[s]);
+    }
+  }
+}
+
+// Shared memory of the beta slab kernel at K columns a lane: barriers,
+// the slot ring, and the beta ring at its largest over the rounds a row
+// of at most U1 columns can take.
+size_t beta_slab_smem(int U1, int K) {
+  const int chunk = 32 * K;
+  size_t ring = 0;
+  for (int r = 1; r <= (U1 + chunk - 1) / chunk; ++r)
+    ring = std::max(ring, (size_t)beta_ring_rows(r) * r * chunk);
+  return sizeof(float) * (8 * kSlots + (size_t)kSlots * 4 * chunk + ring);
+}
+
+constexpr size_t kMaxSmem = 227 * 1024;
+
+// Columns a lane: the least K that holds a row of U1 columns in one chunk
+// (8 up to 256 columns, 16 up to 512, else 32); 8 when 32's shared memory
+// would not fit.
+int beta_slab_cols(int U1) {
+  const int K = U1 <= 256 ? 8 : U1 <= 512 ? 16 : 32;
+  return beta_slab_smem(U1, K) <= kMaxSmem ? K : 8;
+}
+
+template <int K>
+int launch_beta_slab(const float* lpb, const float* lpl, const int* t_lens,
+                     const int* u_lens, const float* alpha,
+                     const float* logz, float* dlpb, float* dlpl, int B,
+                     int T, int U1, cudaStream_t stream) {
+  static bool attribute_set = false;
+  if (!attribute_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        rnnt_beta_slab_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)kMaxSmem);
+    if (err != cudaSuccess) return (int)err;
+    attribute_set = true;
+  }
+  const size_t smem = beta_slab_smem(U1, K);
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  rnnt_beta_slab_kernel<K><<<B, kBetaThreads, smem, stream>>>(
+      lpb, lpl, t_lens, u_lens, alpha, logz, dlpb, dlpl, T, U1);
+  return (int)cudaGetLastError();
 }
 
 int threads_for(int U1) {
@@ -322,18 +698,16 @@ extern "C" int rnnt_lattice_beta_slab(const float* lpb, const float* lpl,
                                       float* dlpb, float* dlpl, int B, int T,
                                       int U1, void* stream) {
   if (!valid(B, T, U1)) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * ((size_t)U1 + 32);
-  static bool attribute_set = false;
-  if (!attribute_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        rnnt_beta_slab_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        227 * 1024);
-    if (err != cudaSuccess) return (int)err;
-    attribute_set = true;
+  const auto st = static_cast<cudaStream_t>(stream);
+  switch (beta_slab_cols(U1)) {
+    case 32:
+      return launch_beta_slab<32>(lpb, lpl, t_lens, u_lens, alpha, logz,
+                                  dlpb, dlpl, B, T, U1, st);
+    case 16:
+      return launch_beta_slab<16>(lpb, lpl, t_lens, u_lens, alpha, logz,
+                                  dlpb, dlpl, B, T, U1, st);
+    default:
+      return launch_beta_slab<8>(lpb, lpl, t_lens, u_lens, alpha, logz,
+                                 dlpb, dlpl, B, T, U1, st);
   }
-  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-  rnnt_beta_slab_kernel<<<B, threads_for(U1), smem,
-                          static_cast<cudaStream_t>(stream)>>>(
-      lpb, lpl, t_lens, u_lens, alpha, logz, dlpb, dlpl, T, U1);
-  return (int)cudaGetLastError();
 }

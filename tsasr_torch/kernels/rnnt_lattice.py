@@ -10,6 +10,10 @@ the per-utterance loss and the gradients w.r.t. both lattices come out.
 - ``variant="slab"`` (``_rnnt_alpha_slab_kernel`` +
   ``_rnnt_beta_slab_kernel``): an alpha kernel that writes alpha and logZ
   to device memory, then a beta + gradient kernel that reads them back.
+  The beta kernel is a warp-level row chain with its own arithmetic (the
+  log-sum-exp as (max, scaled sum) pairs), so the two variants agree
+  within the lattice's f32 tolerance, not bitwise;
+  ``tests/test_torch_lattice_chain.py`` mirrors its tiling on the CPU.
 
 ``variant="auto"`` picks resident when ``resident_fits(T, U+1)``.
 ``rnnt_lattice_reference`` is the same row scans in plain PyTorch, made
