@@ -15,8 +15,10 @@ checkout, or when any phase fails. Phases:
    computes the same function, and the card's bound: the attention
    forward (at the serving and the training shapes, dropout 0 and 0.1,
    Philox masks bit-identical), the attention backward, and the RNN-T
-   lattice kernels (resident and slab); for the attention kernels also
-   device times (``torch.profiler``) beside the CUDA-event times;
+   lattice kernels (resident and slab, also against the plain version
+   in f64, the beta slab kernel also alone); device times
+   (``torch.profiler``) beside the CUDA-event times, for the lattice
+   kernels also in us per row;
 3. the serving path at the scratch recipe's full width (random weights
    from a seed): ``TSASRTranscriber(device="cuda")`` answers 3 requests
    (8 mixtures of 4 s, 8 s and 12 s, 5 s enrollments); every request
@@ -453,43 +455,49 @@ def lattice_case(b, t, u1, gen, device):
             u_lens.to(device))
 
 
+def as_f64(args):
+    return [x.double() if x.is_floating_point() else x for x in args]
+
+
+def lattice_err(got, want, rtol):
+    """The worst of |got - want| / (1e-4 + rtol |want|) over the outputs
+    (1 is the tolerance), in f64."""
+    return max(((g.double() - w.double()).abs()
+                / (1e-4 + rtol * w.double().abs())).max().item()
+               for g, w in zip(got, want))
+
+
 def phase_lattice(device):
+    """Each lattice kernel against its plain version in f32 and in f64
+    (the beta slab also alone, given the alpha slab kernel's alpha and
+    logZ), then timed on CUDA events and on the profiler's device time,
+    with us per row (T rows of the chain) beside the bound."""
     import torch
     from tsasr_torch.kernels import rnnt_lattice as rl
 
     gen = torch.Generator().manual_seed(SEED + 11)
+    stream = torch.cuda.current_stream().cuda_stream
     rows = {}
     for kind, b, t, u1 in LATTICES:
-        lpb, lpl, t_lens, u_lens = lattice_case(b, t, u1, gen, device)
-        got = rl.rnnt_lattice(lpb, lpl, t_lens, u_lens, variant=kind)
+        args = lattice_case(b, t, u1, gen, device)
+        lpb, lpl, t_lens, u_lens = args
+        got = rl.rnnt_lattice(*args, variant=kind)
         torch.cuda.synchronize()
-        want = rl.rnnt_lattice_reference(lpb, lpl, t_lens, u_lens)
-        rtol = lattice_rtol(want[0], t, u1)
-        errs = [((g - w).abs() / (1e-4 + rtol * w.abs())).max().item()
-                for g, w in zip(got, want)]
+        want = rl.rnnt_lattice_reference(*args)
+        want64 = rl.rnnt_lattice_reference(*as_f64(args))
+        rtol = lattice_rtol(want64[0], t, u1)
+        errs = {"f32": lattice_err(got, want, rtol),
+                "f64": lattice_err(got, want64, rtol)}
         abs_err = max((g - w).abs().max().item() for g, w in zip(got, want))
         finite = all(torch.isfinite(g).all() for g in got)
-        if not (max(errs) <= 1.0 and finite):
-            raise RuntimeError(f"rnnt_lattice {kind} B{b} T{t} U1 {u1}: "
-                               f"err/tol {max(errs)}")
         valid = int(((t_lens.long()) * (u_lens.long() + 1)).sum())
         cells = b * t * u1
-        plain_ms = cuda_ms(lambda: rl.rnnt_lattice_reference(
-            lpb, lpl, t_lens, u_lens), reps=1, rounds=3)
-        line = (f"kernel rnnt_lattice {kind} B{b} T{t} U+1 {u1}: max_abs_err "
-                f"{abs_err:.3g} (rtol {rtol:.2g} + atol 1e-4: f32 row scans "
-                f"in another order, see lattice_rtol), loss "
-                f"{got[0][0].item():.2f}; plain {plain_ms:.3f} ms")
+        shape = f"B{b} T{t} U+1 {u1}"
+        plain_ms = cuda_ms(lambda: rl.rnnt_lattice_reference(*args),
+                           reps=1, rounds=3)
         if kind == "resident":
-            ms = cuda_ms(lambda: rl.rnnt_lattice(lpb, lpl, t_lens, u_lens,
-                                                 variant="resident"),
-                         reps=10, rounds=3)
-            bound_ms, bound_by = lattice_bound("resident", valid, cells)
-            rows.setdefault("resident", dict(
-                shape=f"B{b} T{t} U+1 {u1}", ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, err=abs_err))
-            line += (f", kernel {ms:.4f} ms, bound {bound_ms:.4f} ms by "
-                     f"{bound_by}")
+            timed = {"resident": lambda: rl.rnnt_lattice(
+                *args, variant="resident")}
         else:
             fns = rl._kernels()
             alpha = torch.empty_like(lpb)
@@ -498,36 +506,61 @@ def phase_lattice(device):
             dlpb, dlpl = torch.empty_like(lpb), torch.empty_like(lpl)
             ptrs = (lpb.data_ptr(), lpl.data_ptr(), t_lens.data_ptr(),
                     u_lens.data_ptr())
-            stream = torch.cuda.current_stream().cuda_stream
-            a_ms = cuda_ms(lambda: fns["alpha"](
-                *ptrs, alpha.data_ptr(), logz.data_ptr(), loss.data_ptr(),
-                b, t, u1, stream), reps=10, rounds=3)
-            b_ms = cuda_ms(lambda: fns["beta"](
-                *ptrs, alpha.data_ptr(), logz.data_ptr(), dlpb.data_ptr(),
-                dlpl.data_ptr(), b, t, u1, stream), reps=10, rounds=3)
-            a_bound = lattice_bound("alpha", valid, cells)
-            b_bound = lattice_bound("beta", valid, cells)
-            shape = f"B{b} T{t} U+1 {u1}"
-            rows.setdefault("alpha", dict(
-                shape=shape, ms=a_ms, plain_ms=plain_ms, bound_ms=a_bound[0],
-                bound_by=a_bound[1], err=abs_err))
-            rows.setdefault("beta", dict(
-                shape=shape, ms=b_ms, plain_ms=plain_ms, bound_ms=b_bound[0],
-                bound_by=b_bound[1], err=abs_err))
-            line += (f", alpha kernel {a_ms:.4f} ms (bound {a_bound[0]:.4f} "
-                     f"ms by {a_bound[1]}), beta kernel {b_ms:.4f} ms (bound "
-                     f"{b_bound[0]:.4f} ms by {b_bound[1]})")
-        log(line)
 
-    # both variants forced at a shape both admit
-    lpb, lpl, t_lens, u_lens = lattice_case(6, 208, 129, gen, device)
-    res = rl.rnnt_lattice(lpb, lpl, t_lens, u_lens, variant="resident")
-    slab = rl.rnnt_lattice(lpb, lpl, t_lens, u_lens, variant="slab")
-    agree = max((a - b).abs().max().item() for a, b in zip(res, slab))
-    log(f"rnnt_lattice resident vs slab at B6 T208 U+1 129: max_abs_diff "
-        f"{agree:.3g} (atol 1e-5: the same arithmetic, alpha stored in "
-        f"shared vs device memory)")
-    if agree > 1e-5:
+            timed = {"alpha": lambda: fns["alpha"](
+                         *ptrs, alpha.data_ptr(), logz.data_ptr(),
+                         loss.data_ptr(), b, t, u1, stream),
+                     "beta": lambda: fns["beta"](
+                         *ptrs, alpha.data_ptr(), logz.data_ptr(),
+                         dlpb.data_ptr(), dlpl.data_ptr(), b, t, u1,
+                         stream)}
+            timed["alpha"]()
+            timed["beta"]()
+            torch.cuda.synchronize()
+            beta64 = rl.rnnt_beta_reference(*as_f64(args), alpha.double(),
+                                            logz.double())
+            errs["beta alone, f64"] = lattice_err((dlpb, dlpl), beta64, rtol)
+        if not (max(errs.values()) <= 1.0 and finite):
+            raise RuntimeError(f"rnnt_lattice {kind} {shape}: err/tol "
+                               f"{errs}")
+        log(f"kernel rnnt_lattice {kind} {shape}: max_abs_err {abs_err:.3g} "
+            f"against f32, err/tol "
+            + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+            + f" (rtol {rtol:.2g} + atol 1e-4: f32 row scans in another "
+            f"order, see lattice_rtol), loss {got[0][0].item():.2f}; plain "
+            f"{plain_ms:.3f} ms")
+        for name, fn in timed.items():
+            ms = cuda_ms(fn, reps=10, rounds=3)
+            dev = sum(device_ms_by_kernel(fn).values()) or None
+            bound_ms, bound_by = lattice_bound(name, valid, cells)
+            rows.setdefault(name, dict(
+                shape=shape, ms=ms, device_ms=dev, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, err=abs_err))
+            dev_txt = (f"device {dev:.4f} ms ({dev * 1e3 / t:.3f} us per "
+                       f"row)" if dev else "device time: the profiler saw "
+                       "none (not measured)")
+            log(f"  {name} kernel {shape}: CUDA events {ms:.4f} ms "
+                f"({ms * 1e3 / t:.3f} us per row), {dev_txt}, bound "
+                f"{bound_ms:.4f} ms by {bound_by}")
+
+    # both variants forced at a shape both admit: each against the f64
+    # plain version; their own agreement within twice that tolerance,
+    # since the slab's beta kernel sums in its own order
+    args = lattice_case(6, 208, 129, gen, device)
+    res = rl.rnnt_lattice(*args, variant="resident")
+    slab = rl.rnnt_lattice(*args, variant="slab")
+    want64 = rl.rnnt_lattice_reference(*as_f64(args))
+    rtol = lattice_rtol(want64[0], 208, 129)
+    e_res, e_slab = (lattice_err(x, want64, rtol) for x in (res, slab))
+    agree = max(((r.double() - s.double()).abs()
+                 / (2 * (1e-4 + rtol * w.abs()))).max().item()
+                for r, s, w in zip(res, slab, want64))
+    diff = max((r - s).abs().max().item() for r, s in zip(res, slab))
+    log(f"rnnt_lattice resident vs slab at B6 T208 U+1 129: err/tol "
+        f"against f64 resident {e_res:.3g}, slab {e_slab:.3g}; max_abs_diff "
+        f"{diff:.3g}, {agree:.3g} of twice the tolerance (each variant "
+        f"within it of f64; the slab's beta pass runs its own arithmetic)")
+    if max(e_res, e_slab, agree) > 1.0:
         raise RuntimeError("the lattice variants disagree")
     return rows
 
