@@ -207,6 +207,13 @@ def lattice_case(B, T, U1, device, seed=0):
     return [x.to(device) for x in (lpb, lpl, t_lens.int(), u_lens.int())]
 
 
+def lattice_tol(loss, T, U1):
+    """atol 1e-4 and rtol from the loss, as chip_smoke.py::lattice_rtol
+    states it: 2 sqrt(T + U) roundings of the largest loss."""
+    return 1e-4, max(1e-4, 2 * (T + U1) ** 0.5 * loss.abs().max().item()
+                     * 2.0 ** -24)
+
+
 @pytest.mark.parametrize("variant,B,T,U1", [
     ("resident", 3, 40, 8), ("resident", 2, 17, 1500),
     ("slab", 3, 70, 13), ("slab", 2, 150, 1100), ("auto", 4, 33, 61)])
@@ -226,26 +233,17 @@ def test_rnnt_lattice_kernels_match_plain(cuda, variant, B, T, U1):
     got = rnnt_lattice.rnnt_lattice(*args, variant=variant)
     torch.cuda.synchronize()
     want = rnnt_lattice.rnnt_lattice_reference(*args)
-    rtol = max(1e-4, 2 * (T + U1) ** 0.5 * want[0].abs().max().item()
-               * 2.0 ** -24)
+    atol, rtol = lattice_tol(want[0], T, U1)
     for g, w in zip(got, want):
         assert torch.isfinite(g).all()
         np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
-                                   atol=1e-4, rtol=rtol)
+                                   atol=atol, rtol=rtol)
     slab = variant == "slab" or (
         variant == "auto" and not rnnt_lattice.resident_fits(T, U1))
     assert (rnnt_lattice.resident_launches - counts[0],
             rnnt_lattice.alpha_slab_launches - counts[1],
             rnnt_lattice.beta_slab_launches - counts[2]) == \
         ((0, 1, 1) if slab else (1, 0, 0))
-
-
-def lattice_tol(loss, T, U1):
-    """atol 1e-4 and rtol from the loss, as test_rnnt_lattice_kernels_
-    match_plain and chip_smoke.py::lattice_rtol state it: 2 sqrt(T + U)
-    roundings of the largest loss."""
-    return 1e-4, max(1e-4, 2 * (T + U1) ** 0.5 * loss.abs().max().item()
-                     * 2.0 ** -24)
 
 
 def f64(args):

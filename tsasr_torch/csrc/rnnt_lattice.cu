@@ -74,8 +74,9 @@
 // limit is the T-long serial chain of row scans, which no byte or FLOP
 // count sees: block-wide barriers in the resident and alpha slab
 // kernels; in the beta slab kernel one warp's dependent instructions
-// (~900 cycles a row at U+1 241), with the producer's copies about as
-// long. One block per utterance leaves most SMs idle at B <= 8.
+// (0.45 us a row at U+1 241 on an H100, PERF.md), with the producer's
+// copies about as long. One block per utterance leaves most SMs idle at
+// B <= 8.
 
 #include <cuda_runtime.h>
 #include <math.h>
