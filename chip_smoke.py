@@ -41,6 +41,7 @@ the last line is ``{"ok": true, "device": {...}}``.
 """
 
 import contextlib
+import hashlib
 import json
 import math
 import statistics
@@ -1074,9 +1075,14 @@ def phase_small(device):
         enc, _ = tr.encode_batch(wavs, enrolls)
         outs[dev] = (enc.cpu(), tr.transcribe_batch(wavs, enrolls))
     err = (outs["cpu"][0] - outs[str(device)][0]).abs().max().item()
+    # a short hash of each side's encoder output: across runs it shows
+    # which side moved when the error does
+    digest = {dev: hashlib.sha256(enc.contiguous().numpy().tobytes())
+              .hexdigest()[:12] for dev, (enc, _) in outs.items()}
     log(f"small model: card (kernel) vs CPU (plain) encoder max_abs_err "
-        f"{err:.3g} (atol {SMALL_ATOL}); transcripts identical: "
-        f"{outs['cpu'][1] == outs[str(device)][1]}")
+        f"{err:.3g} (atol {SMALL_ATOL}); encoder sha256 CPU "
+        f"{digest['cpu']}, card {digest[str(device)]}; transcripts "
+        f"identical: {outs['cpu'][1] == outs[str(device)][1]}")
     if err > SMALL_ATOL:
         raise RuntimeError(f"card and CPU differ by {err} > {SMALL_ATOL}")
 

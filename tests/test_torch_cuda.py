@@ -156,6 +156,24 @@ def test_relpos_attention_forward_stats_and_edges(cuda, B, H, T, Dh):
     assert ((stats[..., 1] - linv).abs() <= 1e-4 * linv).all()
 
 
+@pytest.mark.parametrize("B,H,T", [(8, 4, 101), (8, 4, 10), (6, 4, 208)])
+def test_relpos_attention_forward_is_deterministic(cuda, B, H, T):
+    """The forward merges its two warps' softmax through shared memory
+    and has no atomics: repeated launches on the same inputs give the
+    same bits of out and of the stats, at the serving shape, at T10 (the
+    second warp half of every row group sees no key) and at the 8 s
+    training shape."""
+    args = attention_case(B, H, T, 64, cuda, seed=3 * T)
+    first = relpos_attention._launch_fwd(*args, 0, 0.0625, 0.0,
+                                         want_stats=True)[:2]
+    for _ in range(3):
+        again = relpos_attention._launch_fwd(*args, 0, 0.0625, 0.0,
+                                             want_stats=True)[:2]
+        torch.cuda.synchronize()
+        assert torch.isfinite(first[0]).all()
+        assert all(torch.equal(a, f) for a, f in zip(again, first))
+
+
 @pytest.mark.parametrize("B,H,T", [(2, 3, 45), (3, 4, 200)])
 def test_dropout_mask_bit_identical(cuda, B, H, T):
     want = relpos_attention.philox_keep_mask(1234567, B, H, T, 0.1, cuda)
