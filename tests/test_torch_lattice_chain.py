@@ -1,5 +1,7 @@
-"""The row chain of ``csrc/rnnt_lattice.cu::rnnt_beta_slab_kernel``,
-pinned on the CPU.
+"""The row chains of ``csrc/rnnt_lattice.cu``, pinned on the CPU: the
+beta chain of ``rnnt_beta_slab_kernel`` (``chain_beta``), the alpha chain
+(``chain_alpha``) and both as ``rnnt_resident_kernel`` runs them
+(``chain_resident``).
 
 ``chain_beta`` mirrors the kernel's algebra exactly as it is tiled. A
 row of an utterance's lattice (its ``Ul + 1`` columns) is walked from the
@@ -27,9 +29,24 @@ K = 8, 16 or 32, the least whose chunk holds the row). Per chunk:
   chunks behind the chain, at most ``slots - 1``, the most the slot ring
   lets them fall behind.
 
-It runs in f64 against ``rnnt_lattice_reference`` at 1e-10 of each
-output's max: a wrong chunk offset, carry, ring index or ring size shows
-up as an error of the order of the gradient itself."""
+``chain_alpha`` mirrors the alpha chain, the same walk left to right: a
+row's chunks are left-aligned (only the rightmost holds padding); the
+producer stages lpb of row t - 1 (0 at t = 0) and lpl of row t and writes
+the exclusive prefix sums cumP (an exclusive in-lane sum, a 32-lane
+inclusive scan of the lane totals by shuffles up, the lane to the left's
+value as the carry, plus the row's carry from the chunks to its left);
+the chain forms ``x = (alpha[t-1] + lpb[t-1]) - cumP`` (``[0, NEG..]``
+at t = 0) and its left-to-right log-sum-exp as pairs, then ``alpha =
+cumP + max + log(sum)``. alpha[t-1] comes from the previous row's
+registers when a row is one chunk, else from the resident alpha itself,
+whose rows are ``U+1`` rounded up to 4 floats apart; the lane owning
+column Ul of row Tl - 1 forms logZ. ``chain_resident`` runs it, then
+``chain_beta`` on the resident alpha.
+
+Each runs in f64 against ``rnnt_lattice_reference`` (or
+``rnnt_alpha_reference``) at 1e-10 of each output's max: a wrong chunk
+offset, carry, ring index or ring size shows up as an error of the order
+of the output itself."""
 
 import math
 
@@ -88,6 +105,34 @@ def lane_suffix_pairs(m, s):
         m, s = combine((m, s), (shfl_down(m, o, NEG), shfl_down(s, o, 0.0)))
         o *= 2
     return m, s
+
+
+def shfl_up(v, o, fill):
+    """Lane l gets lane l - o's value; ``fill`` below lane 0."""
+    return torch.cat([v.new_full((o,), fill), v[:-o]])
+
+
+def lane_prefix_sum(tot):
+    incl = tot.clone()
+    o = 1
+    while o < LANES:
+        incl = incl + shfl_up(incl, o, 0.0)
+        o *= 2
+    return incl
+
+
+def lane_prefix_pairs(m, s):
+    o = 1
+    while o < LANES:
+        m, s = combine((m, s), (shfl_up(m, o, NEG), shfl_up(s, o, 0.0)))
+        o *= 2
+    return m, s
+
+
+def alpha_stride(U1):
+    """Row stride of the resident alpha: U+1 rounded up to 4 floats, so a
+    lane's K (a multiple of 4) columns go in aligned float4 stores."""
+    return -(-U1 // 4) * 4
 
 
 def chain_utterance(lpb, lpl, alpha, logz, Tl, Ul, k, slots, lag, rows,
@@ -187,6 +232,87 @@ def chain_beta(lpb, lpl, t_lens, u_lens, alpha, logz, k=K, slots=SLOTS,
     return dlpb, dlpl
 
 
+def chain_alpha_utterance(lpb, lpl, Tl, Ul, k, alpha):
+    """One block's alpha pass: rows 0 .. Tl - 1 of the resident alpha
+    ``alpha`` (T, stride) written; returns logZ."""
+    C = LANES * k
+    W = Ul + 1
+    R = -(-W // C)
+    S = alpha.shape[1]
+    dt = lpb.dtype
+    i = torch.arange(C)
+    logz = torch.tensor(NEG, dtype=dt)
+    for t in range(Tl):
+        for j in range(R):
+            # producer: stage the chunk, then its exclusive prefix sums
+            u = j * C + i
+            ok = u < W
+            uc = torch.where(ok, u, 0)
+            s_lpb = torch.where(ok & (t > 0), lpb[max(t - 1, 0), uc], 0.0)
+            s_lpl = torch.where(ok, lpl[t, uc], 0.0)
+            if j == 0:
+                row_p = torch.zeros((), dtype=dt)
+            p = torch.where(u < Ul, s_lpl, 0.0).view(LANES, k)
+            cum_in = torch.cumsum(p, 1) - p
+            incl = lane_prefix_sum(cum_in[:, -1] + p[:, -1])
+            excl = shfl_up(incl, 1, 0.0)
+            cum_p = (cum_in + excl[:, None] + row_p).view(C)
+            row_p = row_p + incl[-1]
+
+            # chain: alpha[t-1], x, in-lane pairs, lane scan, chunk carry
+            if t == 0:
+                an = torch.where(u == 0, 0.0, NEG).to(dt)
+            elif R > 1:
+                an = torch.where(u < S, alpha[t - 1, u.clamp(max=S - 1)],
+                                 NEG)
+            x = torch.where(ok, (an + s_lpb) - cum_p, NEG).view(LANES, k)
+            pm = torch.empty_like(x)
+            ps = torch.empty_like(x)
+            m = torch.full((LANES,), NEG, dtype=dt)
+            s = torch.zeros(LANES, dtype=dt)
+            for kk in range(k):
+                m, s = combine((m, s), (x[:, kk], torch.ones_like(s)))
+                pm[:, kk], ps[:, kk] = m, s
+            im, is_ = lane_prefix_pairs(pm[:, -1], ps[:, -1])
+            ex = (shfl_up(im, 1, NEG), shfl_up(is_, 1, 0.0))
+            if j > 0:
+                ex = combine(ex, carry)
+            fm, fs = combine((pm, ps), (ex[0][:, None], ex[1][:, None]))
+            an = torch.where(ok.view(LANES, k) & (fm > NEG / 2),
+                             cum_p.view(LANES, k) + (fm + torch.log(fs)),
+                             NEG).view(C)
+            carry = combine((im[-1], is_[-1]), carry) if j > 0 else (
+                im[-1], is_[-1])
+            keep = u < S
+            alpha[t, u[keep]] = an[keep]
+            if t == Tl - 1 and j * C <= Ul < (j + 1) * C:
+                logz = an[Ul - j * C] + lpb[Tl - 1, Ul]
+    return logz
+
+
+def chain_alpha(lpb, lpl, t_lens, u_lens, k=K):
+    """The alpha chain as tiled: (the resident alpha (B, T, stride),
+    filled with NaN where the chain writes nothing, logZ (B,))."""
+    B, T, U1 = lpb.shape
+    alpha = torch.full((B, T, alpha_stride(U1)), float("nan"),
+                       dtype=lpb.dtype)
+    logz = torch.full((B,), NEG, dtype=lpb.dtype)
+    for b in range(B):
+        Tl = min(max(int(t_lens[b]), 0), T)
+        Ul = min(max(int(u_lens[b]), 0), U1 - 1)
+        logz[b] = chain_alpha_utterance(lpb[b], lpl[b], Tl, Ul, k, alpha[b])
+    return alpha, logz
+
+
+def chain_resident(lpb, lpl, t_lens, u_lens, k=K, **beta_kw):
+    """The resident kernel as tiled: the alpha chain into the resident
+    alpha, then the beta chain reading it: (loss, dlpb, dlpl)."""
+    alpha, logz = chain_alpha(lpb, lpl, t_lens, u_lens, k=k)
+    dlpb, dlpl = chain_beta(lpb, lpl, t_lens, u_lens,
+                            alpha[..., :lpb.shape[2]], logz, k=k, **beta_kw)
+    return -logz, dlpb, dlpl
+
+
 def lattice(seed, B, T, U1, t_lens, u_lens):
     """f64 log-prob lattices of random logits over 7 tokens."""
     rng = np.random.default_rng(seed)
@@ -263,6 +389,59 @@ def test_chain_in_f32_within_lattice_tolerance():
     f32 = [a.float() if a.is_floating_point() else a for a in args]
     got = chain_beta(*f32, alpha.float(), logz.float())
     rtol = max(1e-4, 2 * math.sqrt(40 + 241) * loss.abs().max().item()
+               * 2.0 ** -24)
+    for g, w in zip(got, want):
+        assert ((g.double() - w).abs() <= 1e-4 + rtol * w.abs()).all()
+
+
+def in_lattice(t_lens, u_lens, T, U1):
+    """(B, T, U+1) mask of the cells inside each utterance's lattice."""
+    return ((torch.arange(T)[None, :, None] < t_lens.long()[:, None, None])
+            & (torch.arange(U1)[None, None] < u_lens.long()[:, None, None]
+               + 1))
+
+
+@pytest.mark.parametrize("T,U1,t_lens,u_lens", SHAPES)
+@pytest.mark.parametrize("rule", ["kernel", "K1", "K2"])
+def test_alpha_chain_matches_reference(T, U1, t_lens, u_lens, rule):
+    """At the kernel's K (one chunk a row) and at K = 1 and 2 (32 and 64
+    columns a chunk: several chunks a row, alpha[t-1] read back from the
+    resident alpha). Inside each lattice alpha and logZ at 1e-10; a cell
+    the chain reads before writing would be NaN."""
+    k = {"kernel": cols_per_lane(U1), "K1": 1, "K2": 2}[rule]
+    args = lattice(T + U1 + k, len(t_lens), T, U1, t_lens, u_lens)
+    alpha, logz = chain_alpha(*args, k=k)
+    want, want_z = rnnt_lattice.rnnt_alpha_reference(*args)
+    inside = in_lattice(args[2], args[3], T, U1)
+    got = alpha[..., :U1][inside]
+    assert torch.isfinite(got).all()
+    assert (got - want[inside]).abs().max() <= 1e-10 * want[inside].abs(
+    ).max()
+    assert (logz - want_z).abs().max() <= 1e-10 * want_z.abs().max()
+
+
+@pytest.mark.parametrize("T,U1,t_lens,u_lens", SHAPES)
+@pytest.mark.parametrize("rule", ["kernel", "K2"])
+def test_resident_chain_matches_reference(T, U1, t_lens, u_lens, rule):
+    """Both passes as the resident kernel runs them, the beta chain
+    reading the resident alpha: loss and both gradients at 1e-10."""
+    k = cols_per_lane(U1) if rule == "kernel" else 2
+    args = lattice(2 * T + U1, len(t_lens), T, U1, t_lens, u_lens)
+    got = chain_resident(*args, k=k)
+    want = rnnt_lattice.rnnt_lattice_reference(*args)
+    for g, w in zip(got, want):
+        assert (g - w).abs().max().item() <= 1e-10 * w.abs().max().item()
+
+
+def test_resident_chain_in_f32_within_lattice_tolerance():
+    """The resident tiling in f32 against the f64 reference, at the
+    tolerance that chip_smoke.py and the card tests hold the kernel to
+    (B6 T208 U+1 129's width, fewer rows)."""
+    args = lattice(4, 2, 40, 129, [40, 29], [128, 90])
+    want = rnnt_lattice.rnnt_lattice_reference(*args)
+    f32 = [a.float() if a.is_floating_point() else a for a in args]
+    got = chain_resident(*f32)
+    rtol = max(1e-4, 2 * math.sqrt(40 + 129) * want[0].abs().max().item()
                * 2.0 ** -24)
     for g, w in zip(got, want):
         assert ((g.double() - w).abs() <= 1e-4 + rtol * w.abs()).all()
