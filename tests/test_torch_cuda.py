@@ -237,8 +237,9 @@ def lattice_tol(loss, T, U1):
     ("slab", 3, 70, 13), ("slab", 2, 150, 1100), ("auto", 4, 33, 61)])
 def test_rnnt_lattice_kernels_match_plain(cuda, variant, B, T, U1):
     """Loss and both gradient lattices against the plain row scan on the
-    card. U1 1100 and 1500 are wider than a block's 1024 threads, so the
-    rows are walked in rounds. f32 sums in another order: atol 1e-4 and
+    card. U1 1100 and 1500 are wider than a row chain's chunk of 1024
+    columns and the alpha slab's block of 1024 threads, so the rows are
+    walked in chunks and rounds. f32 sums in another order: atol 1e-4 and
     rtol 1e-4, or more on long lattices: a gradient is
     exp(alpha + lp + beta - logZ), whose exponent is a difference of sums
     of magnitude ~|logZ| = loss, and their rounding errors add up like a
@@ -285,10 +286,10 @@ def beta_slab(args, alpha, logz):
 
 def test_rnnt_lattice_variants_agree(cuda):
     """Each variant against the plain version in f64, within the lattice
-    tolerance. The slab's beta kernel runs its own arithmetic (pair scans
-    of a warp-level row chain), not the resident kernel's block scans, so
-    the two agree within twice that tolerance (each within it of f64),
-    not bitwise."""
+    tolerance. Both run the beta pass as the same row chain, but the
+    slab's alpha kernel runs block scans where the resident kernel runs
+    the alpha row chain's pair scans, so the two agree within twice that
+    tolerance (each within it of f64), not bitwise."""
     args = lattice_case(5, 60, 40, cuda, seed=3)
     res = rnnt_lattice.rnnt_lattice(*args, variant="resident")
     slab = rnnt_lattice.rnnt_lattice(*args, variant="slab")
@@ -351,6 +352,85 @@ def test_rnnt_beta_slab_is_deterministic(cuda, B, T, U1):
         torch.cuda.synchronize()
         assert torch.isfinite(first[0]).all()
         assert all(torch.equal(a, f) for a, f in zip(again, first))
+
+
+def resident(args):
+    """The resident kernel through its C entry, into outputs filled with
+    NaN so that a cell it leaves unwritten shows."""
+    lpb, lpl, t_lens, u_lens = args
+    B, T, U1 = lpb.shape
+    loss = torch.full((B,), float("nan"), device=lpb.device)
+    dlpb = torch.full_like(lpb, float("nan"))
+    dlpl = torch.full_like(lpl, float("nan"))
+    err = rnnt_lattice._kernels()["resident"](
+        lpb.data_ptr(), lpl.data_ptr(), t_lens.data_ptr(), u_lens.data_ptr(),
+        loss.data_ptr(), dlpb.data_ptr(), dlpl.data_ptr(), B, T, U1,
+        torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    return loss, dlpb, dlpl
+
+
+@pytest.mark.parametrize("B,T,U1", [(3, 40, 8), (6, 208, 129), (4, 33, 257),
+                                    (2, 17, 1500)])
+def test_rnnt_resident_matches_f64(cuda, B, T, U1):
+    """The resident kernel (alpha and beta row chains, alpha in shared
+    memory) against the plain lattice in f64 at the lattice tolerance:
+    a narrow lattice, the 8 s training batch, U+1 257 (K = 16, one column
+    past 8's chunk) and U+1 1500 (two chunks of 1024 a row, alpha[t-1]
+    read back from shared memory)."""
+    assert rnnt_lattice.resident_fits(T, U1)
+    args = lattice_case(B, T, U1, cuda, seed=5 * T + U1)
+    got = resident(args)
+    torch.cuda.synchronize()
+    want = rnnt_lattice.rnnt_lattice_reference(*f64(args))
+    atol, rtol = lattice_tol(want[0], T, U1)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        np.testing.assert_allclose(g.double().cpu().numpy(),
+                                   w.cpu().numpy(), atol=atol, rtol=rtol)
+
+
+def test_rnnt_resident_empty_utterances(cuda):
+    """Tl = 0: loss -NEG (1e30) and every gradient 0, as the JAX kernel
+    gives; Ul = 0 (one column) and a full utterance beside it within the
+    lattice tolerance of f64."""
+    args = lattice_case(3, 12, 8, cuda, seed=1)
+    args[2][:] = torch.tensor([12, 0, 7], dtype=torch.int32)
+    args[3][:] = torch.tensor([7, 3, 0], dtype=torch.int32)
+    loss, dlpb, dlpl = resident(args)
+    torch.cuda.synchronize()
+    want = rnnt_lattice.rnnt_lattice_reference(*f64(args))
+    assert loss[1].item() == float(np.float32(-rnnt_lattice.NEG))
+    assert (dlpb[1] == 0).all() and (dlpl[1] == 0).all()
+    atol, rtol = lattice_tol(want[0][[0, 2]], 12, 8)
+    for g, w in zip((loss, dlpb, dlpl), want):
+        np.testing.assert_allclose(g[[0, 2]].double().cpu().numpy(),
+                                   w[[0, 2]].cpu().numpy(), atol=atol,
+                                   rtol=rtol)
+
+
+@pytest.mark.parametrize("B,T,U1", [(6, 208, 129), (2, 17, 1500)])
+def test_rnnt_resident_is_deterministic(cuda, B, T, U1):
+    """No atomics and a fixed order of every sum: repeated launches on
+    the same inputs give the same bits (each into outputs filled with
+    NaN)."""
+    args = lattice_case(B, T, U1, cuda, seed=U1 + 1)
+    first = resident(args)
+    for _ in range(3):
+        again = resident(args)
+        torch.cuda.synchronize()
+        assert torch.isfinite(first[1]).all()
+        assert all(torch.equal(a, f) for a, f in zip(again, first))
+
+
+def test_rnnt_resident_smem_matches_python(cuda):
+    """The resident kernel's shared memory as its C entry computes it and
+    as ``rnnt_lattice.resident_smem`` (the routing rule) does, at every
+    K and at the fallback to K = 8 (T20 U+1 1500)."""
+    fn = rnnt_lattice._kernels()["resident_smem"]
+    for T in (1, 17, 20, 40, 104, 208, 391, 392, 408):
+        for U1 in (1, 5, 8, 61, 129, 241, 256, 257, 512, 513, 1100, 1500):
+            assert fn(T, U1) == rnnt_lattice.resident_smem(T, U1), (T, U1)
 
 
 def test_relpos_attention_wrapper_rejects_bad_inputs(cuda):

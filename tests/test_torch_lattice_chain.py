@@ -445,3 +445,21 @@ def test_resident_chain_in_f32_within_lattice_tolerance():
                * 2.0 ** -24)
     for g, w in zip(got, want):
         assert ((g.double() - w).abs() <= 1e-4 + rtol * w.abs()).all()
+
+
+@pytest.mark.parametrize("T,U1,fits,K", [
+    (208, 129, True, 8), (104, 61, True, 8), (408, 241, False, 8),
+    (17, 1500, True, 32), (20, 1500, True, 8), (400, 200, False, 8)])
+def test_resident_footprint_routes_the_main_path(T, U1, fits, K):
+    """The resident kernel's shared memory (``resident_smem``, the
+    routing rule) admits the 8 s training batches (T208 U+1 129) and
+    bench.py's step (T104 U+1 61) and refuses the 16 s ones (T408 U+1
+    241), which take the slab; U+1 1500 fits at T17 in chunks of 1024
+    columns and at T20 only at K = 8. T208 U+1 129 by hand: 64 floats of
+    mbarriers and logZ, 6 slots of 3 x 256, 208 alpha rows of 132, 7 beta
+    rows of 256."""
+    assert rnnt_lattice.resident_fits(T, U1) == fits
+    assert rnnt_lattice.resident_cols(T, U1) == K
+    if (T, U1) == (208, 129):
+        assert rnnt_lattice.resident_smem(T, U1) == 4 * (
+            64 + 6 * 3 * 256 + 208 * 132 + 7 * 256)

@@ -36,47 +36,57 @@
 // and exp() gives 0, never NaN.
 //
 // Resident or slab (kernels/rnnt_lattice.py::resident_fits states the
-// rule): the resident kernel keeps T x (U+1) floats of alpha plus one row
-// of scratch in shared memory, so the wrapper picks it when that fits 200
-// KB; otherwise the slab pair round-trips alpha through device memory.
+// rule): the resident kernel keeps the utterance's alpha lattice (T rows
+// of U+1 floats rounded up to 4) in shared memory beside its rings
+// (resident_smem), so the wrapper picks it when that fits 227 KB;
+// otherwise the slab pair round-trips alpha through device memory.
 //
-// The resident and alpha slab kernels (alpha_pass, beta_pass): a row runs
-// across the block's threads (a multiple of 32, at most 1024), and rows
-// wider than the block are walked in rounds with the scans' carries. The
-// scans are warp shuffles plus one shared-memory step across warps, a
-// few block-wide barriers per row.
-//
-// The beta slab kernel (rnnt_beta_slab_kernel) is a warp-level row chain:
-// only the log-add scan that needs beta[t+1] stays on the chain. Its
-// block has 4 warps with one role each:
-// - a producer stages chunks of 32 K columns (lpb, lpl, alpha by
-//   cp.async, a few chunks in flight, a ring of slots) and writes each
-//   chunk's suffix sums sufP, which do not depend on beta;
+// The resident and beta slab kernels are warp-level row chains: only the
+// log-add scan that needs the previous row stays on the chain. A block
+// has 4 warps with one role each:
+// - a producer stages chunks of 32 K columns (by cp.async, a few chunks
+//   in flight, a ring of slots) and writes each chunk's prefix sums
+//   (cumP from the left for alpha, sufP from the right for beta), which
+//   do not depend on the chain;
 // - the chain warp owns a chunk, K consecutive columns a lane, and runs
-//   the right-to-left log-sum-exp as (max, scaled sum) pairs: a scan in
-//   the lane, a 5-step shuffle scan of the lane totals, one exp per
-//   combine and one log per column. beta[t+1] stays in its registers
-//   when a row is one chunk: K = 8, 16 or 32 covers 256, 512 or 1024
-//   columns. Wider lanes were chosen over splitting a row across chain
-//   warps: they lengthen only the in-lane part of a row, where a split
-//   adds a barrier between warps to every row. Rows wider than 1024
-//   columns are walked in chunks with a carry from the right, beta[t+1]
-//   read back from the beta ring, so U+1 is bounded only by shared
-//   memory (about 17,000 columns);
-// - two gradient warps compute dlpb and dlpl from the slot and a ring of
-//   beta rows, behind the chain, and write the zeros around the lattice.
-// The roles hand chunks on through per-slot mbarriers; the only
-// block-wide barrier comes before the first row.
+//   the log-sum-exp as (max, scaled sum) pairs: a scan in the lane, a
+//   5-step shuffle scan of the lane totals, one exp per combine and one
+//   log per column. The previous row stays in its registers when a row
+//   is one chunk: K = 8, 16 or 32 covers 256, 512 or 1024 columns. Wider
+//   lanes were chosen over splitting a row across chain warps: they
+//   lengthen only the in-lane part of a row, where a split adds a
+//   barrier between warps to every row. Wider rows are walked in chunks
+//   with a carry, the previous row read back from shared memory (the
+//   resident alpha, the beta ring), so U+1 is bounded only by shared
+//   memory;
+// - two gradient warps compute dlpb and dlpl from the slot, alpha and a
+//   ring of beta rows, behind the beta chain, and write the zeros around
+//   the lattice.
+// The roles hand chunks on through per-slot mbarriers. The beta slab
+// kernel (rnnt_beta_slab_kernel) runs the beta chain alone, its slots also
+// staging alpha from device memory; its only block-wide barrier comes
+// before the first row. The resident kernel (rnnt_resident_kernel) runs
+// the alpha chain (alpha_roles) into shared memory while the gradient
+// warps write the zeros, then the beta chain (beta_roles, a copy of the
+// beta slab's roles with alpha read from shared memory): one block-wide
+// barrier before the first row and one between the passes, each pass
+// with mbarriers of its own. The beta slab keeps its own code: calling a
+// copy shared with the resident kernel, the same source, compiled 17 %
+// slower at U+1 241 on an H100.
+//
+// The alpha slab kernel (alpha_pass) still runs a row across the block's
+// threads (a multiple of 32, at most 1024), rows wider than the block in
+// rounds with the scans' carries: warp shuffles plus one shared-memory
+// step across warps, a few block-wide barriers per row.
 //
 // What bounds them on an H100: the bytes are 16 per cell (read b and l,
 // write both gradients) plus 8 per cell on the slab path (alpha out and
 // back), microseconds at 3.35 TB/s for the training shapes. The real
 // limit is the T-long serial chain of row scans, which no byte or FLOP
-// count sees: block-wide barriers in the resident and alpha slab
-// kernels; in the beta slab kernel one warp's dependent instructions
-// (0.45 us a row at U+1 241 on an H100, PERF.md), with the producer's
-// copies about as long. One block per utterance leaves most SMs idle at
-// B <= 8.
+// count sees: block-wide barriers in the alpha slab kernel; in the row
+// chains one warp's dependent instructions (0.45 us a beta row at U+1 241
+// on an H100, PERF.md), with the producer's copies about as long. One
+// block per utterance leaves most SMs idle at B <= 8.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -191,84 +201,6 @@ __device__ void alpha_pass(const Utt& a, float* alpha, float* s_warp,
   }
 }
 
-// Beta sweep over rows Tl-1..0 and the gradients of every cell. s_beta
-// holds one row (U1 floats): beta[t+1] while row t is built, then
-// beta[t], which the label gradient reads one column to the right.
-__device__ void beta_pass(const Utt& a, const float* alpha, float logz,
-                          float* s_beta, float* s_warp, float* dlpb,
-                          float* dlpl) {
-  const int W = a.Ul + 1, nt = blockDim.x;
-  for (int t = a.Tl - 1; t >= 0; --t) {
-    const float* lpb_t = a.lpb + (size_t)t * a.U1;
-    const float* lpl_t = a.lpl + (size_t)t * a.U1;
-    const bool last = t == a.Tl - 1;
-    float carry_p = 0.f, carry_l = NEG;
-    for (int base = 0; base < W; base += nt) {
-      const int e = base + threadIdx.x, u = W - 1 - e;  // right to left
-      const bool in = e < W;
-      const float p = (in && u < a.Ul) ? lpl_t[u] : 0.f;
-      float tot;
-      const float suf_p = block_scan<Sum>(p, s_warp, &tot) + carry_p;
-      carry_p += tot;
-      float d = NEG, beta_t1 = NEG;
-      if (in) {
-        if (last) {
-          d = u == a.Ul ? lpb_t[u] : NEG;
-          beta_t1 = u == a.Ul ? 0.f : NEG;
-        } else {
-          beta_t1 = s_beta[u];
-          d = beta_t1 + lpb_t[u];
-        }
-      }
-      const float y =
-          lae(carry_l, block_scan<LogAdd>(d - suf_p, s_warp, &tot));
-      carry_l = lae(carry_l, tot);
-      const float beta = suf_p + y;
-      float g_b = 0.f;
-      if (in) {
-        const float al = alpha[(size_t)t * a.U1 + u];
-        g_b = -expf(al + lpb_t[u] + beta_t1 - logz);
-        s_beta[u] = beta;      // only this thread reads or writes s_beta[u]
-      }
-      __syncthreads();         // this round's beta[t] is visible
-      if (in) {
-        float g_l = 0.f;
-        if (u < a.Ul)
-          g_l = -expf(alpha[(size_t)t * a.U1 + u] + lpl_t[u] +
-                      s_beta[u + 1] - logz);
-        dlpb[(size_t)t * a.U1 + u] = g_b;
-        dlpl[(size_t)t * a.U1 + u] = g_l;
-      }
-    }
-    __syncthreads();           // row t is complete before row t-1 reads it
-  }
-  // cells outside the utterance's lattice
-  for (size_t e = threadIdx.x; e < (size_t)a.T * a.U1; e += nt) {
-    const int t = (int)(e / a.U1), u = (int)(e % a.U1);
-    if (t >= a.Tl || u > a.Ul) dlpb[e] = dlpl[e] = 0.f;
-  }
-}
-
-__global__ void rnnt_resident_kernel(const float* lpb, const float* lpl,
-                                     const int* t_lens, const int* u_lens,
-                                     float* loss, float* dlpb, float* dlpl,
-                                     int T, int U1) {
-  extern __shared__ float smem[];
-  float* s_alpha = smem;                        // T x U1
-  float* s_beta = s_alpha + (size_t)T * U1;     // U1
-  float* s_warp = s_beta + U1;                  // 32
-  float* s_logz = s_warp + 32;                  // 1
-  const Utt a = utterance(lpb, lpl, t_lens, u_lens, T, U1);
-  if (threadIdx.x == 0) *s_logz = NEG;
-  __syncthreads();
-  alpha_pass(a, s_alpha, s_warp, s_logz);
-  __syncthreads();
-  const float logz = *s_logz;
-  if (threadIdx.x == 0) loss[blockIdx.x] = -logz;
-  const size_t off = (size_t)blockIdx.x * T * U1;
-  beta_pass(a, s_alpha, logz, s_beta, s_warp, dlpb + off, dlpl + off);
-}
-
 __global__ void rnnt_alpha_slab_kernel(const float* lpb, const float* lpl,
                                        const int* t_lens, const int* u_lens,
                                        float* alpha, float* logz, float* loss,
@@ -286,13 +218,13 @@ __global__ void rnnt_alpha_slab_kernel(const float* lpb, const float* lpl,
   }
 }
 
-// ----------------------------------------------------- beta slab: row chain
+// ------------------------------------------------------------- row chains
 // Chunks staged ahead of the chain (the slot ring), and how many of them
 // the producer keeps its copies in flight for (fewer than kSlots).
 constexpr int kSlots = 6;
 constexpr int kInFlight = 3;
 constexpr int kGradWarps = 2;
-constexpr int kBetaThreads = 32 * (2 + kGradWarps);
+constexpr int kChainThreads = 32 * (2 + kGradWarps);
 
 // Beta rows the ring needs when a row is `rounds` chunks: the gradient
 // warps lag at most kSlots - 1 chunks behind the chain and read rows t
@@ -375,10 +307,211 @@ __device__ __forceinline__ void storev(float* dst, const float (&v)[N]) {
         make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
 }
 
-// The chunks of an utterance in order, by increments (no division in the
-// loops): row t from Tl - 1 down, chunk j from the right, slot s and the
-// parity of its phase, the beta ring's rows rt = t % rows and rt1 =
-// (t + 1) % rows.
+// A lane's K columns u0 .. u0 + K - 1 (u0 a multiple of 4) of a row
+// whose neighbours lie `stride` floats away: as float4 when kVec (stride
+// a multiple of 4, rows 16-byte aligned), else float by float. Columns
+// at or past the stride belong to no row: they are not stored, and load
+// as NEG.
+template <int K, bool kVec>
+__device__ __forceinline__ void store_cols(float* row, int u0, int stride,
+                                           const float (&v)[K]) {
+  #pragma unroll
+  for (int q = 0; q < K / 4; ++q) {
+    const int u = u0 + 4 * q;
+    if constexpr (kVec) {
+      if (u < stride)
+        *reinterpret_cast<float4*>(row + u) =
+            make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+    } else {
+      #pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (u + e < stride) row[u + e] = v[4 * q + e];
+    }
+  }
+}
+
+template <int K, bool kVec>
+__device__ __forceinline__ void load_cols(float (&v)[K], const float* row,
+                                          int u0, int stride) {
+  #pragma unroll
+  for (int q = 0; q < K / 4; ++q) {
+    const int u = u0 + 4 * q;
+    if constexpr (kVec) {
+      float4 x = make_float4(NEG, NEG, NEG, NEG);
+      if (u < stride) x = *reinterpret_cast<const float4*>(row + u);
+      v[4 * q] = x.x, v[4 * q + 1] = x.y, v[4 * q + 2] = x.z,
+      v[4 * q + 3] = x.w;
+    } else {
+      #pragma unroll
+      for (int e = 0; e < 4; ++e)
+        v[4 * q + e] = u + e < stride ? row[u + e] : NEG;
+    }
+  }
+}
+
+// The chunks of an utterance's alpha pass in order, by increments: row t
+// from 0 up, chunk j from the left, slot s and the parity of its phase.
+struct AlphaWalk {
+  int t = 0, j = 0, s = 0, parity = 0;
+  __device__ void next(int R) {
+    if (++s == kSlots) s = 0, parity ^= 1;
+    if (++j == R) j = 0, ++t;
+  }
+};
+
+// The alpha chain, run by warps 0 (the chain) and 1 (the producer) of a
+// block: rows 0 .. Tl - 1 of alpha into alpha[t * stride + u], shared or
+// device memory (kVec as for store_cols; the chain reads back only what
+// its own lane wrote), and logZ into *logz by the lane that owns column
+// Ul of row Tl - 1 (the caller sets NEG first, for Tl = 0). Chunk c of
+// the utterance is row t = c / R, chunk j = c % R from the left, columns
+// u = j kChunk + i (i < kChunk; u > Ul is padding), in slot c % kSlots:
+// lpb of row t - 1 (0 at t = 0), lpl of row t and their exclusive prefix
+// sums cumP. A chunk passes full[s] (producer -> chain) and empty[s]
+// (chain -> producer), mbarriers whose phase n is the slot's n-th chunk.
+template <int K, bool kVec>
+__device__ void alpha_roles(const Utt& a, float* alpha, int stride,
+                            float* logz, float* slots, uint64_t* full,
+                            uint64_t* empty) {
+  constexpr int kChunk = 32 * K;
+  constexpr int kSlotFloats = 3 * kChunk;   // lpb[t-1], lpl[t], cumP
+  const int W = a.Ul + 1, R = (W + kChunk - 1) / kChunk;
+  const int n_chunks = a.Tl * R;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (warp == 1) {
+    // producer: copies of kInFlight chunks in flight; a chunk's slot is
+    // published once its copies landed and its prefix sums are written
+    float row_p = 0.f;
+    AlphaWalk in, out;
+    for (int c = 0; c < n_chunks + kInFlight - 1; ++c) {
+      if (c < n_chunks) {
+        // the slot's previous chunk (phase parity ^ 1) has been freed
+        if (c >= kSlots) mbar_wait(&empty[in.s], in.parity ^ 1);
+        const int u0 = in.j * kChunk;
+        float* dst = slots + in.s * kSlotFloats;
+        const float* b = a.lpb + (size_t)(in.t > 0 ? in.t - 1 : 0) * a.U1;
+        const float* l = a.lpl + (size_t)in.t * a.U1;
+        #pragma unroll
+        for (int m = 0; m < K; ++m) {
+          const int i = lane + 32 * m, u = u0 + i;
+          const bool ok = u < W;
+          const int g = ok ? u : 0;
+          tsasr::cp_async4(dst + i, b + g, ok && in.t > 0);
+          tsasr::cp_async4(dst + kChunk + i, l + g, ok);
+        }
+        in.next(R);
+      }
+      tsasr::cp_async_commit();
+      tsasr::cp_async_wait<kInFlight - 1>();
+      const int f = c - (kInFlight - 1);
+      if (f < 0) continue;
+      __syncwarp();   // the other lanes' copies of chunk f are visible
+      const int j = out.j, s = out.s;
+      out.next(R);
+      const int u0 = j * kChunk + lane * K;
+      float* src = slots + s * kSlotFloats;
+      float p[K];
+      loadv(p, src + kChunk + lane * K);
+      float cum[K];
+      float acc = 0.f;
+      #pragma unroll
+      for (int k = 0; k < K; ++k) {
+        cum[k] = acc;
+        acc += u0 + k < a.Ul ? p[k] : 0.f;
+      }
+      float incl = acc;
+      #pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const float y = __shfl_up_sync(kFull, incl, o);
+        incl += lane >= o ? y : 0.f;
+      }
+      float excl = __shfl_up_sync(kFull, incl, 1);
+      if (lane == 0) excl = 0.f;
+      if (j == 0) row_p = 0.f;
+      #pragma unroll
+      for (int k = 0; k < K; ++k) cum[k] = (cum[k] + excl) + row_p;
+      row_p += __shfl_sync(kFull, incl, 31);
+      storev(src + 2 * kChunk + lane * K, cum);
+      mbar_arrive(&full[s]);
+    }
+  } else if (warp == 0) {
+    // the chain: alpha[t] = cumP + logcumsumexp((alpha[t-1] + lpb[t-1]) -
+    // cumP), as (max, scaled sum) pairs; alpha[t-1] stays in registers
+    // when a row is one chunk
+    const int p0 = lane * K;
+    const float lpb_end =
+        a.Tl > 0 ? a.lpb[(size_t)(a.Tl - 1) * a.U1 + a.Ul] : 0.f;
+    float an[K];
+    float cm = NEG, cs = 0.f;   // the carry from the chunks to the left
+    AlphaWalk w;
+    for (int c = 0; c < n_chunks; ++c, w.next(R)) {
+      const int j = w.j, t = w.t;
+      const int u0 = j * kChunk + p0;
+      if (t == 0) {
+        #pragma unroll
+        for (int k = 0; k < K; ++k) an[k] = u0 + k == 0 ? 0.f : NEG;
+      } else if (R > 1) {
+        load_cols<K, kVec>(an, alpha + (size_t)(t - 1) * stride, u0, stride);
+      }
+      mbar_wait(&full[w.s], w.parity);
+      const float* src = slots + w.s * kSlotFloats;
+      float b[K], cp[K];
+      loadv(b, src + p0);
+      loadv(cp, src + 2 * kChunk + p0);
+      mbar_arrive(&empty[w.s]);
+      float pm[K], ps[K];
+      float m = NEG, sum = 0.f;
+      #pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const float x = u0 + k < W ? (an[k] + b[k]) - cp[k] : NEG;
+        const float q = fast_exp(-fabsf(x - m));
+        sum = x > m ? fmaf(sum, q, 1.f) : sum + q;
+        m = fmaxf(m, x);
+        pm[k] = m;
+        ps[k] = sum;
+      }
+      float im = m, is = sum;
+      #pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        // below lane 0, the identity (NEG, 0): adds exactly 0
+        const bool in_warp = lane >= o;
+        const float om = __shfl_up_sync(kFull, im, o);
+        const float os = __shfl_up_sync(kFull, is, o);
+        pair_add(im, is, in_warp ? om : NEG, in_warp ? os : 0.f);
+      }
+      float em = __shfl_up_sync(kFull, im, 1);
+      float es = __shfl_up_sync(kFull, is, 1);
+      if (lane == 0) em = NEG, es = 0.f;
+      if (j > 0) pair_add(em, es, cm, cs);   // the chunks to the left
+      #pragma unroll
+      for (int k = 0; k < K; ++k) {
+        float fm = pm[k], fs = ps[k];
+        pair_add(fm, fs, em, es);
+        an[k] = (u0 + k < W && fm > NEG / 2) ? cp[k] + (fm + fast_log(fs))
+                                              : NEG;
+      }
+      if (j + 1 < R) {   // the carry of the chunk to the right
+        float nm = __shfl_sync(kFull, im, 31);
+        float ns = __shfl_sync(kFull, is, 31);
+        if (j > 0) pair_add(nm, ns, cm, cs);
+        cm = nm;
+        cs = ns;
+      }
+      store_cols<K, kVec>(alpha + (size_t)t * stride, u0, stride, an);
+      if (t == a.Tl - 1) {
+        #pragma unroll
+        for (int k = 0; k < K; ++k)
+          if (u0 + k == a.Ul) *logz = an[k] + lpb_end;
+      }
+    }
+  }
+}
+
+// The chunks of an utterance's beta pass in order, by increments (no
+// division in the loops): row t from Tl - 1 down, chunk j from the right,
+// slot s and the parity of its phase, the beta ring's rows rt = t % rows
+// and rt1 = (t + 1) % rows.
 struct ChunkWalk {
   int t, j = 0, s = 0, parity = 0, rt, rt1;
   __device__ ChunkWalk(int Tl, int rows)
@@ -394,16 +527,17 @@ struct ChunkWalk {
   }
 };
 
-// One block per utterance, 4 warps with one role each; a chunk is 32 K
-// columns, K consecutive ones a chain lane (beta_slab_cols picks K).
-// Chunk c of the utterance is row t = Tl - 1 - c / R, chunk j = c % R from the right,
+// The beta slab kernel: one block per utterance, 4 warps with one role
+// each; a chunk is 32 K columns, K consecutive ones a chain lane
+// (beta_slab_cols picks K). Chunk c of the utterance is row t = Tl - 1 -
+// c / R, chunk j = c % R from the right,
 // columns u = W - (j + 1) kChunk + i (i < kChunk; u < 0 is padding), in
 // slot c % kSlots; its beta goes to the beta ring's row t % rows at
 // positions p = u + R kChunk - W. A chunk passes full[s] (producer ->
 // chain), chained[s] (chain -> gradient warps) and empty[s] (gradient
 // warps -> producer), mbarriers whose phase n is the slot's n-th chunk.
 template <int K>
-__global__ void __launch_bounds__(kBetaThreads)
+__global__ void __launch_bounds__(kChainThreads)
     rnnt_beta_slab_kernel(const float* lpb, const float* lpl,
                           const int* t_lens, const int* u_lens,
                           const float* alpha, const float* logz,
@@ -603,25 +737,292 @@ __global__ void __launch_bounds__(kBetaThreads)
   }
 }
 
-// Shared memory of the beta slab kernel at K columns a lane: barriers,
-// the slot ring, and the beta ring at its largest over the rounds a row
-// of at most U1 columns can take.
-size_t beta_slab_smem(int U1, int K) {
-  const int chunk = 32 * K;
+// The resident kernel's beta pass, run by all 4 warps of a block: the beta
+// slab kernel's roles (above) with alpha read from shared memory, rows
+// `stride` apart, by the gradient warps, so a slot holds lpb, lpl and
+// sufP, 3 chunks; the kernel writes the zeros around the lattice itself.
+template <int K>
+__device__ void beta_roles(const Utt& a, const float* alpha, int stride,
+                           const float* logz, float* slots, float* ring,
+                           uint64_t* full, uint64_t* chained,
+                           uint64_t* empty, float* dlpb, float* dlpl) {
+  constexpr int kChunk = 32 * K;
+  constexpr int kSlotFloats = 3 * kChunk;   // lpb, lpl, sufP
+  const int U1 = a.U1;
+  const int W = a.Ul + 1, R = (W + kChunk - 1) / kChunk;
+  const int RC = R * kChunk, rows = beta_ring_rows(R);
+  const int n_chunks = a.Tl * R;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (warp == 1) {
+    // producer: copies of kInFlight chunks in flight; a chunk's slot is
+    // published once its copies landed and its suffix sums are written
+    float row_p = 0.f;
+    ChunkWalk in(a.Tl, rows), out(a.Tl, rows);
+    for (int c = 0; c < n_chunks + kInFlight - 1; ++c) {
+      if (c < n_chunks) {
+        // the slot's previous chunk (phase parity ^ 1) has been freed
+        if (c >= kSlots) mbar_wait(&empty[in.s], in.parity ^ 1);
+        const int u0 = W - (in.j + 1) * kChunk;
+        float* dst = slots + in.s * kSlotFloats;
+        const size_t row = (size_t)in.t * U1;
+        #pragma unroll
+        for (int m = 0; m < K; ++m) {
+          const int i = lane + 32 * m, u = u0 + i;
+          const size_t g = row + (u >= 0 ? u : 0);
+          tsasr::cp_async4(dst + i, a.lpb + g, u >= 0);
+          tsasr::cp_async4(dst + kChunk + i, a.lpl + g, u >= 0);
+        }
+        in.next(R, rows);
+      }
+      tsasr::cp_async_commit();
+      tsasr::cp_async_wait<kInFlight - 1>();
+      const int f = c - (kInFlight - 1);
+      if (f < 0) continue;
+      __syncwarp();   // the other lanes' copies of chunk f are visible
+      const int j = out.j, s = out.s;
+      out.next(R, rows);
+      const int u0 = W - (j + 1) * kChunk + lane * K;
+      float* src = slots + s * kSlotFloats;
+      float p[K];
+      loadv(p, src + kChunk + lane * K);
+      float suf[K];
+      float acc = 0.f;
+      #pragma unroll
+      for (int k = K - 1; k >= 0; --k) {
+        const int u = u0 + k;
+        acc += (u >= 0 && u < a.Ul) ? p[k] : 0.f;
+        suf[k] = acc;
+      }
+      float incl = acc;
+      #pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const float y = __shfl_down_sync(kFull, incl, o);
+        incl += lane + o < 32 ? y : 0.f;
+      }
+      float excl = __shfl_down_sync(kFull, incl, 1);
+      if (lane == 31) excl = 0.f;
+      if (j == 0) row_p = 0.f;
+      #pragma unroll
+      for (int k = 0; k < K; ++k) suf[k] = (suf[k] + excl) + row_p;
+      row_p += __shfl_sync(kFull, incl, 0);
+      storev(src + 2 * kChunk + lane * K, suf);
+      mbar_arrive(&full[s]);
+    }
+  } else if (warp == 0) {
+    // the chain: beta[t] = sufP + logcumsumexp_r2l((beta[t+1] + lpb) -
+    // sufP), as (max, scaled sum) pairs; beta[t+1] stays in registers
+    // when a row is one chunk
+    const int p0 = lane * K;
+    float bn[K];
+    {
+      float* r = ring + (size_t)(a.Tl % rows) * RC;
+      for (int j = 0; j < R; ++j) {
+        const int u0 = W - (j + 1) * kChunk + p0;
+        #pragma unroll
+        for (int k = 0; k < K; ++k) bn[k] = u0 + k == a.Ul ? 0.f : NEG;
+        storev(r + (R - 1 - j) * kChunk + p0, bn);
+      }
+    }
+    float cm, cs;   // the carry from the chunks to the right
+    ChunkWalk w(a.Tl, rows);
+    for (int c = 0; c < n_chunks; ++c, w.next(R, rows)) {
+      const int j = w.j;
+      const int u0 = W - (j + 1) * kChunk + p0;
+      const int pos = (R - 1 - j) * kChunk + p0;
+      if (R > 1) loadv(bn, ring + (size_t)w.rt1 * RC + pos);
+      mbar_wait(&full[w.s], w.parity);
+      const float* src = slots + w.s * kSlotFloats;
+      float b[K], sp[K];
+      loadv(b, src + p0);
+      loadv(sp, src + 2 * kChunk + p0);
+      float pm[K], ps[K];
+      float m = NEG, sum = 0.f;
+      #pragma unroll
+      for (int k = K - 1; k >= 0; --k) {
+        const float x = u0 + k >= 0 ? (bn[k] + b[k]) - sp[k] : NEG;
+        const float q = fast_exp(-fabsf(x - m));
+        sum = x > m ? fmaf(sum, q, 1.f) : sum + q;
+        m = fmaxf(m, x);
+        pm[k] = m;
+        ps[k] = sum;
+      }
+      float im = m, is = sum;
+      #pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        // past the last lane, the identity (NEG, 0): adds exactly 0
+        const bool in_warp = lane + o < 32;
+        const float om = __shfl_down_sync(kFull, im, o);
+        const float os = __shfl_down_sync(kFull, is, o);
+        pair_add(im, is, in_warp ? om : NEG, in_warp ? os : 0.f);
+      }
+      float em = __shfl_down_sync(kFull, im, 1);
+      float es = __shfl_down_sync(kFull, is, 1);
+      if (lane == 31) em = NEG, es = 0.f;
+      if (j > 0) pair_add(em, es, cm, cs);   // the chunks to the right
+      #pragma unroll
+      for (int k = 0; k < K; ++k) {
+        float fm = pm[k], fs = ps[k];
+        pair_add(fm, fs, em, es);
+        bn[k] = (u0 + k >= 0 && fm > NEG / 2) ? sp[k] + (fm + fast_log(fs))
+                                               : NEG;
+      }
+      if (j + 1 < R) {   // the carry of the chunk to the left
+        float nm = __shfl_sync(kFull, im, 0);
+        float ns = __shfl_sync(kFull, is, 0);
+        if (j > 0) pair_add(nm, ns, cm, cs);
+        cm = nm;
+        cs = ns;
+      }
+      storev(ring + (size_t)w.rt * RC + pos, bn);
+      mbar_arrive(&chained[w.s]);
+    }
+  } else {
+    // gradient warps: each chunk once the chain has its beta
+    const int g = threadIdx.x - 64, ng = 32 * kGradWarps;
+    const float lz = *logz;
+    ChunkWalk w(a.Tl, rows);
+    for (int c = 0; c < n_chunks; ++c, w.next(R, rows)) {
+      const int j = w.j, s = w.s;
+      const int u0 = W - (j + 1) * kChunk;
+      const int base = (R - 1 - j) * kChunk;
+      const float* b1 = ring + (size_t)w.rt1 * RC + base;
+      const float* b0 = ring + (size_t)w.rt * RC + base;
+      const float* src = slots + s * kSlotFloats;
+      float* gb = dlpb + (size_t)w.t * U1;
+      float* gl = dlpl + (size_t)w.t * U1;
+      mbar_wait(&chained[s], w.parity);
+      constexpr int kPer = kChunk / (32 * kGradWarps);
+      float eb[kPer], el[kPer];
+      #pragma unroll
+      for (int q = 0; q < kPer; ++q) {
+        const int i = g + q * ng;
+        const int i1 = i + 1 < kChunk || j > 0 ? i + 1 : i;  // in the row
+        const int u = u0 + i;
+        const float al = alpha[(size_t)w.t * stride + (u >= 0 ? u : 0)];
+        eb[q] = al + src[i] + b1[i] - lz;
+        el[q] = al + src[kChunk + i] + b0[i1] - lz;
+      }
+      #pragma unroll
+      for (int q = 0; q < kPer; ++q) {
+        const int u = u0 + g + q * ng;
+        if (u < 0) continue;
+        gb[u] = -fast_exp(eb[q]);
+        gl[u] = u < a.Ul ? -fast_exp(el[q]) : 0.f;
+      }
+      mbar_arrive(&empty[s]);
+    }
+  }
+}
+
+// The resident kernel's shared memory, in floats: a header (the alpha
+// pass's full and empty mbarriers, the beta pass's full, chained and
+// empty ones, then logZ), the slot ring (3 chunks a slot in both
+// passes), the resident alpha (T rows of alpha_stride(U1)), the beta
+// ring.
+constexpr int kResidentHeader = 64;
+static_assert(2 * 5 * kSlots + 1 <= kResidentHeader,
+              "the header holds 5 kSlots mbarriers and logZ");
+
+// Row stride of the resident alpha: U1 rounded up to 4 floats, so the
+// chain's stores of a lane's K columns are aligned float4s.
+__host__ __device__ inline int alpha_stride(int U1) { return (U1 + 3) & ~3; }
+
+// Both passes of an utterance in one block, alpha resident in shared
+// memory.
+template <int K>
+__global__ void __launch_bounds__(kChainThreads)
+    rnnt_resident_kernel(const float* lpb, const float* lpl,
+                         const int* t_lens, const int* u_lens, float* loss,
+                         float* dlpb, float* dlpl, int T, int U1) {
+  constexpr int kChunk = 32 * K;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+  float* s_logz = smem + 2 * 5 * kSlots;
+  float* slots = smem + kResidentHeader;
+  float* s_alpha = slots + kSlots * 3 * kChunk;
+  const int S = alpha_stride(U1);
+  float* ring = s_alpha + (size_t)T * S;
+
+  const Utt a = utterance(lpb, lpl, t_lens, u_lens, T, U1);
+  const size_t off = (size_t)blockIdx.x * T * U1;
+  dlpb += off;
+  dlpl += off;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kSlots; ++s) {
+      mbar_init(&bar[s], 32);                          // alpha: full
+      mbar_init(&bar[kSlots + s], 32);                 // alpha: empty
+      mbar_init(&bar[2 * kSlots + s], 32);             // beta: full
+      mbar_init(&bar[3 * kSlots + s], 32);             // beta: chained
+      mbar_init(&bar[4 * kSlots + s], 32 * kGradWarps);  // beta: empty
+    }
+    *s_logz = NEG;
+  }
+  __syncthreads();   // barriers and logZ set, before any row
+  if (threadIdx.x < 64) {
+    alpha_roles<K, true>(a, s_alpha, S, s_logz, slots, bar, bar + kSlots);
+  } else {
+    // meanwhile the gradient warps write the zeros around the lattice:
+    // rows past Tl, then the columns past Ul of the others
+    const int g = threadIdx.x - 64, ng = 32 * kGradWarps, W = a.Ul + 1;
+    for (size_t e = (size_t)a.Tl * U1 + g; e < (size_t)T * U1; e += ng)
+      dlpb[e] = dlpl[e] = 0.f;
+    for (int t = 0; W < U1 && t < a.Tl; ++t)
+      for (int u = W + g; u < U1; u += ng)
+        dlpb[(size_t)t * U1 + u] = dlpl[(size_t)t * U1 + u] = 0.f;
+  }
+  __syncthreads();   // alpha and logZ complete, every slot free
+  if (threadIdx.x == 0) loss[blockIdx.x] = -*s_logz;
+  beta_roles<K>(a, s_alpha, S, s_logz, slots, ring, bar + 2 * kSlots,
+                      bar + 3 * kSlots, bar + 4 * kSlots, dlpb, dlpl);
+}
+
+// Floats of the beta ring at its largest over the rounds a row of at most
+// U1 columns can take in chunks of `chunk` columns.
+size_t beta_ring_floats(int U1, int chunk) {
   size_t ring = 0;
   for (int r = 1; r <= (U1 + chunk - 1) / chunk; ++r)
     ring = std::max(ring, (size_t)beta_ring_rows(r) * r * chunk);
-  return sizeof(float) * (8 * kSlots + (size_t)kSlots * 4 * chunk + ring);
+  return ring;
+}
+
+// Shared memory of the beta slab kernel at K columns a lane: barriers,
+// the slot ring, and the beta ring.
+size_t beta_slab_smem(int U1, int K) {
+  const int chunk = 32 * K;
+  return sizeof(float) * (8 * kSlots + (size_t)kSlots * 4 * chunk +
+                          beta_ring_floats(U1, chunk));
+}
+
+// Shared memory of the resident kernel at K columns a lane (the layout
+// above rnnt_resident_kernel).
+size_t resident_smem_at(int T, int U1, int K) {
+  const int chunk = 32 * K;
+  return sizeof(float) * (kResidentHeader + (size_t)kSlots * 3 * chunk +
+                          (size_t)T * alpha_stride(U1) +
+                          beta_ring_floats(U1, chunk));
 }
 
 constexpr size_t kMaxSmem = 227 * 1024;
 
 // Columns a lane: the least K that holds a row of U1 columns in one chunk
-// (8 up to 256 columns, 16 up to 512, else 32); 8 when 32's shared memory
-// would not fit.
+// (8 up to 256 columns, 16 up to 512, else 32); each kernel falls back to
+// 8 when its shared memory at that K would not fit.
+int chain_cols(int U1) { return U1 <= 256 ? 8 : U1 <= 512 ? 16 : 32; }
+
 int beta_slab_cols(int U1) {
-  const int K = U1 <= 256 ? 8 : U1 <= 512 ? 16 : 32;
+  const int K = chain_cols(U1);
   return beta_slab_smem(U1, K) <= kMaxSmem ? K : 8;
+}
+
+int resident_cols(int T, int U1) {
+  const int K = chain_cols(U1);
+  return resident_smem_at(T, U1, K) <= kMaxSmem ? K : 8;
+}
+
+size_t resident_smem(int T, int U1) {
+  return resident_smem_at(T, U1, resident_cols(T, U1));
 }
 
 template <int K>
@@ -639,8 +1040,27 @@ int launch_beta_slab(const float* lpb, const float* lpl, const int* t_lens,
   }
   const size_t smem = beta_slab_smem(U1, K);
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  rnnt_beta_slab_kernel<K><<<B, kBetaThreads, smem, stream>>>(
+  rnnt_beta_slab_kernel<K><<<B, kChainThreads, smem, stream>>>(
       lpb, lpl, t_lens, u_lens, alpha, logz, dlpb, dlpl, T, U1);
+  return (int)cudaGetLastError();
+}
+
+template <int K>
+int launch_resident(const float* lpb, const float* lpl, const int* t_lens,
+                    const int* u_lens, float* loss, float* dlpb, float* dlpl,
+                    int B, int T, int U1, cudaStream_t stream) {
+  static bool attribute_set = false;
+  if (!attribute_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        rnnt_resident_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)kMaxSmem);
+    if (err != cudaSuccess) return (int)err;
+    attribute_set = true;
+  }
+  const size_t smem = resident_smem_at(T, U1, K);
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  rnnt_resident_kernel<K><<<B, kChainThreads, smem, stream>>>(
+      lpb, lpl, t_lens, u_lens, loss, dlpb, dlpl, T, U1);
   return (int)cudaGetLastError();
 }
 
@@ -657,28 +1077,33 @@ bool valid(int B, int T, int U1) {
 
 // lpb, lpl, dlpb, dlpl: (B, T, U1) f32; t_lens, u_lens: (B,) int32; loss:
 // (B,) f32; all contiguous on the current device. The resident kernel
-// needs (T*U1 + U1 + 33) floats of shared memory, at most 227 KB.
-// Each entry point returns the CUDA error code of its launch (0 on
-// success).
+// needs rnnt_lattice_resident_smem(T, U1) bytes of shared memory, at most
+// 227 KB. Each entry point returns the CUDA error code of its launch (0
+// on success).
 extern "C" int rnnt_lattice_resident(const float* lpb, const float* lpl,
                                      const int* t_lens, const int* u_lens,
                                      float* loss, float* dlpb, float* dlpl,
                                      int B, int T, int U1, void* stream) {
   if (!valid(B, T, U1)) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * ((size_t)T * U1 + U1 + 33);
-  static bool attribute_set = false;
-  if (!attribute_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        rnnt_resident_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        227 * 1024);
-    if (err != cudaSuccess) return (int)err;
-    attribute_set = true;
+  const auto st = static_cast<cudaStream_t>(stream);
+  switch (resident_cols(T, U1)) {
+    case 32:
+      return launch_resident<32>(lpb, lpl, t_lens, u_lens, loss, dlpb, dlpl,
+                                 B, T, U1, st);
+    case 16:
+      return launch_resident<16>(lpb, lpl, t_lens, u_lens, loss, dlpb, dlpl,
+                                 B, T, U1, st);
+    default:
+      return launch_resident<8>(lpb, lpl, t_lens, u_lens, loss, dlpb, dlpl,
+                                B, T, U1, st);
   }
-  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-  rnnt_resident_kernel<<<B, threads_for(U1), smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      lpb, lpl, t_lens, u_lens, loss, dlpb, dlpl, T, U1);
-  return (int)cudaGetLastError();
+}
+
+// Bytes of shared memory the resident kernel asks for at (T, U1) (-1 for
+// shapes no kernel takes); kernels/rnnt_lattice.py::resident_smem mirrors
+// it.
+extern "C" long long rnnt_lattice_resident_smem(int T, int U1) {
+  return valid(1, T, U1) ? (long long)resident_smem(T, U1) : -1;
 }
 
 // alpha: (B, T, U1) f32 scratch; logz: (B,) f32.

@@ -5,17 +5,18 @@ Counterpart of the JAX package's ``ops/rnnt_loss_pallas.py::_pallas_lattice``:
 the per-utterance loss and the gradients w.r.t. both lattices come out.
 ``csrc/rnnt_lattice.cu`` replaces its three Pallas kernels:
 
-- ``variant="resident"`` (``_rnnt_kernel``): one kernel, both passes, the
-  utterance's alpha lattice in shared memory;
+- ``variant="resident"`` (``_rnnt_kernel``): one kernel, both passes as
+  warp-level row chains (the log-sum-exp as (max, scaled sum) pairs),
+  the utterance's alpha lattice in shared memory;
 - ``variant="slab"`` (``_rnnt_alpha_slab_kernel`` +
   ``_rnnt_beta_slab_kernel``): an alpha kernel that writes alpha and logZ
-  to device memory, then a beta + gradient kernel that reads them back.
-  The beta kernel is a warp-level row chain with its own arithmetic (the
-  log-sum-exp as (max, scaled sum) pairs), so the two variants agree
-  within the lattice's f32 tolerance, not bitwise;
-  ``tests/test_torch_lattice_chain.py`` mirrors its tiling on the CPU.
+  to device memory (block-wide scans), then a beta + gradient kernel
+  that reads them back, the same beta row chain as the resident
+  kernel's. The alpha passes differ in arithmetic, so the two variants
+  agree within the lattice's f32 tolerance, not bitwise.
 
-``variant="auto"`` picks resident when ``resident_fits(T, U+1)``.
+``tests/test_torch_lattice_chain.py`` mirrors the row chains' tiling on
+the CPU. ``variant="auto"`` picks resident when ``resident_fits(T, U+1)``.
 ``rnnt_lattice_reference`` is the same row scans in plain PyTorch, made
 of ``rnnt_alpha_reference`` and ``rnnt_beta_reference``, the plain
 versions of the two slab kernels. The
@@ -33,19 +34,49 @@ from tsasr_torch.kernels import _build
 
 SOURCE = "rnnt_lattice"
 NEG = -1e30
-# Shared memory the resident kernel may ask for: the alpha lattice plus
-# one row and 33 floats of scratch (csrc/rnnt_lattice.cu).
-RESIDENT_MAX_BYTES = 200 * 1024
+# Shared memory a block may ask for on an H100, and the row chains'
+# constants (csrc/rnnt_lattice.cu: kSlots, kResidentHeader)
+MAX_SMEM_BYTES = 227 * 1024
+SLOTS = 6
+RESIDENT_HEADER_FLOATS = 64
 
 resident_launches = 0
 alpha_slab_launches = 0
 beta_slab_launches = 0
 
 
+def _beta_ring_floats(U1, chunk):
+    """The beta ring at its largest over the chunks a row can take."""
+    return max((-(-(SLOTS - 1) // r) + 2) * r * chunk
+               for r in range(1, -(-U1 // chunk) + 1))
+
+
+def _resident_smem_at(T, U1, K):
+    chunk = 32 * K
+    return 4 * (RESIDENT_HEADER_FLOATS + SLOTS * 3 * chunk
+                + T * (-(-U1 // 4) * 4) + _beta_ring_floats(U1, chunk))
+
+
+def resident_cols(T, U1):
+    """Columns a chain lane owns in the resident kernel: the least of 8,
+    16, 32 whose chunk of 32 K columns holds a row; 8 when that would not
+    fit."""
+    K = 8 if U1 <= 256 else 16 if U1 <= 512 else 32
+    return K if _resident_smem_at(T, U1, K) <= MAX_SMEM_BYTES else 8
+
+
+def resident_smem(T, U1):
+    """Bytes of shared memory the resident kernel asks for (its C entry
+    ``rnnt_lattice_resident_smem``): mbarriers and logZ, a ring of 6
+    slots of 3 chunks, alpha (T rows of U+1 rounded up to 4 floats) and
+    the beta ring."""
+    return _resident_smem_at(T, U1, resident_cols(T, U1))
+
+
 def resident_fits(T, U1):
-    """True when the resident kernel's shared memory (T*(U+1) floats of
-    alpha, one row of beta, 33 floats of scratch) fits 200 KB."""
-    return 4 * (T * U1 + U1 + 33) <= RESIDENT_MAX_BYTES
+    """True when the resident kernel's shared memory fits a block's
+    227 KB."""
+    return resident_smem(T, U1) <= MAX_SMEM_BYTES
 
 
 # ------------------------------------------------------------ plain version
@@ -146,6 +177,9 @@ def _kernels():
     fns["beta"].argtypes = [ptr] * 8 + [i32] * 3 + [ptr]
     for fn in fns.values():
         fn.restype = ctypes.c_int
+    fns["resident_smem"] = lib.rnnt_lattice_resident_smem
+    fns["resident_smem"].argtypes = [i32, i32]
+    fns["resident_smem"].restype = ctypes.c_longlong
     return fns
 
 
