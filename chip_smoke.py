@@ -16,9 +16,9 @@ checkout, or when any phase fails. Phases:
    forward (at the serving and the training shapes, dropout 0 and 0.1,
    Philox masks bit-identical), the attention backward, and the RNN-T
    lattice kernels (resident and slab, also against the plain version
-   in f64, the beta slab kernel also alone); device times
-   (``torch.profiler``) beside the CUDA-event times, for the lattice
-   kernels also in us per row;
+   in f64, the beta slab kernel also alone, the resident kernel's
+   repeats bit for bit); device times (``torch.profiler``) beside the
+   CUDA-event times, for the lattice kernels also in us per row;
 3. the serving path at the scratch recipe's full width (random weights
    from a seed): ``TSASRTranscriber(device="cuda")`` answers 3 requests
    (8 mixtures of 4 s, 8 s and 12 s, 5 s enrollments); every request
@@ -468,11 +468,13 @@ def lattice_err(got, want, rtol):
                for g, w in zip(got, want))
 
 
-def phase_lattice(device):
+def phase_lattice(device, card):
     """Each lattice kernel against its plain version in f32 and in f64
     (the beta slab also alone, given the alpha slab kernel's alpha and
     logZ), then timed on CUDA events and on the profiler's device time,
-    with us per row (T rows of the chain) beside the bound."""
+    with us per row (T rows of the chain) beside the bound and the card;
+    resident and slab against each other, and the resident kernel's
+    repeats bit for bit."""
     import torch
     from tsasr_torch.kernels import rnnt_lattice as rl
 
@@ -542,11 +544,11 @@ def phase_lattice(device):
                        "none (not measured)")
             log(f"  {name} kernel {shape}: CUDA events {ms:.4f} ms "
                 f"({ms * 1e3 / t:.3f} us per row), {dev_txt}, bound "
-                f"{bound_ms:.4f} ms by {bound_by}")
+                f"{bound_ms:.4f} ms by {bound_by} ({card})")
 
     # both variants forced at a shape both admit: each against the f64
     # plain version; their own agreement within twice that tolerance,
-    # since the slab's beta kernel sums in its own order
+    # since the slab's alpha kernel sums in its own order
     args = lattice_case(6, 208, 129, gen, device)
     res = rl.rnnt_lattice(*args, variant="resident")
     slab = rl.rnnt_lattice(*args, variant="slab")
@@ -560,9 +562,18 @@ def phase_lattice(device):
     log(f"rnnt_lattice resident vs slab at B6 T208 U+1 129: err/tol "
         f"against f64 resident {e_res:.3g}, slab {e_slab:.3g}; max_abs_diff "
         f"{diff:.3g}, {agree:.3g} of twice the tolerance (each variant "
-        f"within it of f64; the slab's beta pass runs its own arithmetic)")
+        f"within it of f64; the slab's alpha pass runs block scans, the "
+        f"resident kernel's pair scans)")
     if max(e_res, e_slab, agree) > 1.0:
         raise RuntimeError("the lattice variants disagree")
+    # no atomics and a fixed order of every sum: the same bits each time
+    repeats = [rl.rnnt_lattice(*args, variant="resident") for _ in range(3)]
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, r) for rep in repeats for a, r in zip(rep, res))
+    log(f"rnnt_lattice resident at B6 T208 U+1 129: 3 repeats bit-identical "
+        f"to the first: {same}")
+    if not same:
+        raise RuntimeError("the resident lattice kernel's repeats differ")
     return rows
 
 
@@ -1261,7 +1272,7 @@ def main():
 
     fwd_rows = phase_attention_fwd(device)
     bwd_rows = phase_attention_bwd(device)
-    lattice_rows = phase_lattice(device)
+    lattice_rows = phase_lattice(device, card)
     log(f"kernel phases done at {time.perf_counter() - t_start:.1f} s")
     serving = phase_serving(device, card)
     training = phase_training(device, card)
