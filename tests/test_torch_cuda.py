@@ -374,10 +374,10 @@ def resident(args):
                                     (2, 17, 1500)])
 def test_rnnt_resident_matches_f64(cuda, B, T, U1):
     """The resident kernel (alpha and beta row chains, alpha in shared
-    memory) against the plain lattice in f64 at the lattice tolerance:
-    a narrow lattice, the 8 s training batch, U+1 257 (K = 16, one column
-    past 8's chunk) and U+1 1500 (two chunks of 1024 a row, alpha[t-1]
-    read back from shared memory)."""
+    memory) against the plain lattice in f64 at the lattice tolerance,
+    at each K: a narrow lattice (K = 4), the 8 s training batch (K = 8),
+    U+1 257 (K = 16, one column past 8's chunk) and U+1 1500 (K = 32, two
+    chunks of 1024 a row, alpha[t-1] read back from shared memory)."""
     assert rnnt_lattice.resident_fits(T, U1)
     args = lattice_case(B, T, U1, cuda, seed=5 * T + U1)
     got = resident(args)

@@ -404,11 +404,13 @@ def in_lattice(t_lens, u_lens, T, U1):
 @pytest.mark.parametrize("T,U1,t_lens,u_lens", SHAPES)
 @pytest.mark.parametrize("rule", ["kernel", "K1", "K2"])
 def test_alpha_chain_matches_reference(T, U1, t_lens, u_lens, rule):
-    """At the kernel's K (one chunk a row) and at K = 1 and 2 (32 and 64
+    """At the resident kernel's K (one chunk a row: K = 4 up to 128
+    columns, then as the beta slab's) and at K = 1 and 2 (32 and 64
     columns a chunk: several chunks a row, alpha[t-1] read back from the
     resident alpha). Inside each lattice alpha and logZ at 1e-10; a cell
     the chain reads before writing would be NaN."""
-    k = {"kernel": cols_per_lane(U1), "K1": 1, "K2": 2}[rule]
+    k = {"kernel": rnnt_lattice.resident_cols(T, U1), "K1": 1,
+         "K2": 2}[rule]
     args = lattice(T + U1 + k, len(t_lens), T, U1, t_lens, u_lens)
     alpha, logz = chain_alpha(*args, k=k)
     want, want_z = rnnt_lattice.rnnt_alpha_reference(*args)
@@ -425,7 +427,7 @@ def test_alpha_chain_matches_reference(T, U1, t_lens, u_lens, rule):
 def test_resident_chain_matches_reference(T, U1, t_lens, u_lens, rule):
     """Both passes as the resident kernel runs them, the beta chain
     reading the resident alpha: loss and both gradients at 1e-10."""
-    k = cols_per_lane(U1) if rule == "kernel" else 2
+    k = rnnt_lattice.resident_cols(T, U1) if rule == "kernel" else 2
     args = lattice(2 * T + U1, len(t_lens), T, U1, t_lens, u_lens)
     got = chain_resident(*args, k=k)
     want = rnnt_lattice.rnnt_lattice_reference(*args)
@@ -448,14 +450,15 @@ def test_resident_chain_in_f32_within_lattice_tolerance():
 
 
 @pytest.mark.parametrize("T,U1,fits,K", [
-    (208, 129, True, 8), (104, 61, True, 8), (408, 241, False, 8),
+    (208, 129, True, 8), (104, 61, True, 4), (408, 241, False, 8),
     (17, 1500, True, 32), (20, 1500, True, 8), (400, 200, False, 8)])
 def test_resident_footprint_routes_the_main_path(T, U1, fits, K):
     """The resident kernel's shared memory (``resident_smem``, the
     routing rule) admits the 8 s training batches (T208 U+1 129) and
     bench.py's step (T104 U+1 61) and refuses the 16 s ones (T408 U+1
     241), which take the slab; U+1 1500 fits at T17 in chunks of 1024
-    columns and at T20 only at K = 8. T208 U+1 129 by hand: 64 floats of
+    columns and at T20 only at K = 8; U+1 61 takes K = 4 (128-column
+    chunks). T208 U+1 129 by hand: 64 floats of
     mbarriers and logZ, 6 slots of 3 x 256, 208 alpha rows of 132, 7 beta
     rows of 256."""
     assert rnnt_lattice.resident_fits(T, U1) == fits

@@ -58,11 +58,12 @@ def _resident_smem_at(T, U1, K):
 
 
 def resident_cols(T, U1):
-    """Columns a chain lane owns in the resident kernel: the least of 8,
-    16, 32 whose chunk of 32 K columns holds a row; 8 when that would not
-    fit."""
-    K = 8 if U1 <= 256 else 16 if U1 <= 512 else 32
-    return K if _resident_smem_at(T, U1, K) <= MAX_SMEM_BYTES else 8
+    """Columns a chain lane owns in the resident kernel: the least of 4,
+    8, 16, 32 whose chunk of 32 K columns holds a row; 8 when 16 or 32
+    would not fit."""
+    K = 4 if U1 <= 128 else 8 if U1 <= 256 else 16 if U1 <= 512 else 32
+    return K if K <= 8 or _resident_smem_at(T, U1, K) <= MAX_SMEM_BYTES \
+        else 8
 
 
 def resident_smem(T, U1):
