@@ -75,6 +75,8 @@ def main():
     parser.add_argument("--order", help="comma-separated names, e.g. "
                         "a,b,b,a (default: each version once)")
     args = parser.parse_args()
+    if not all("=" in v for v in args.versions):
+        parser.error("each version is NAME=PATH")
     versions = dict(v.split("=", 1) for v in args.versions)
     order = args.order.split(",") if args.order else list(versions)
     if set(order) - set(versions):
