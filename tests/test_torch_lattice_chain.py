@@ -1,7 +1,8 @@
 """The row chains of ``csrc/rnnt_lattice.cu``, pinned on the CPU: the
 beta chain of ``rnnt_beta_slab_kernel`` (``chain_beta``), the alpha chain
-(``chain_alpha``) and both as ``rnnt_resident_kernel`` runs them
-(``chain_resident``).
+(``chain_alpha``), both as ``rnnt_resident_kernel`` runs them
+(``chain_resident``) and both as the slab pair runs them
+(``chain_slab``).
 
 ``chain_beta`` mirrors the kernel's algebra exactly as it is tiled. A
 row of an utterance's lattice (its ``Ul + 1`` columns) is walked from the
@@ -38,10 +39,14 @@ value as the carry, plus the row's carry from the chunks to its left);
 the chain forms ``x = (alpha[t-1] + lpb[t-1]) - cumP`` (``[0, NEG..]``
 at t = 0) and its left-to-right log-sum-exp as pairs, then ``alpha =
 cumP + max + log(sum)``. alpha[t-1] comes from the previous row's
-registers when a row is one chunk, else from the resident alpha itself,
-whose rows are ``U+1`` rounded up to 4 floats apart; the lane owning
-column Ul of row Tl - 1 forms logZ. ``chain_resident`` runs it, then
-``chain_beta`` on the resident alpha.
+registers when a row is one chunk, else from the alpha the chain wrote,
+whose rows are ``stride`` floats apart: ``U+1`` rounded up to 4 in the
+resident kernel's shared memory, ``U+1`` in the alpha slab kernel's
+device memory, where a lane's columns at or past the stride belong to no
+row. The lane owning column Ul of row Tl - 1 forms logZ.
+``chain_resident`` runs it, then ``chain_beta`` on the resident alpha;
+``chain_slab`` runs it at stride ``U+1`` (the alpha slab kernel), then
+``chain_beta`` on that alpha (the beta slab kernel).
 
 Each runs in f64 against ``rnnt_lattice_reference`` (or
 ``rnnt_alpha_reference``) at 1e-10 of each output's max: a wrong chunk
@@ -233,8 +238,8 @@ def chain_beta(lpb, lpl, t_lens, u_lens, alpha, logz, k=K, slots=SLOTS,
 
 
 def chain_alpha_utterance(lpb, lpl, Tl, Ul, k, alpha):
-    """One block's alpha pass: rows 0 .. Tl - 1 of the resident alpha
-    ``alpha`` (T, stride) written; returns logZ."""
+    """One block's alpha pass: rows 0 .. Tl - 1 of ``alpha`` (T, stride)
+    written; returns logZ."""
     C = LANES * k
     W = Ul + 1
     R = -(-W // C)
@@ -290,12 +295,11 @@ def chain_alpha_utterance(lpb, lpl, Tl, Ul, k, alpha):
     return logz
 
 
-def chain_alpha(lpb, lpl, t_lens, u_lens, k=K):
-    """The alpha chain as tiled: (the resident alpha (B, T, stride),
-    filled with NaN where the chain writes nothing, logZ (B,))."""
+def chain_alpha(lpb, lpl, t_lens, u_lens, stride, k=K):
+    """The alpha chain as tiled: (alpha (B, T, stride), filled with NaN
+    where the chain writes nothing, logZ (B,))."""
     B, T, U1 = lpb.shape
-    alpha = torch.full((B, T, alpha_stride(U1)), float("nan"),
-                       dtype=lpb.dtype)
+    alpha = torch.full((B, T, stride), float("nan"), dtype=lpb.dtype)
     logz = torch.full((B,), NEG, dtype=lpb.dtype)
     for b in range(B):
         Tl = min(max(int(t_lens[b]), 0), T)
@@ -307,9 +311,23 @@ def chain_alpha(lpb, lpl, t_lens, u_lens, k=K):
 def chain_resident(lpb, lpl, t_lens, u_lens, k=K, **beta_kw):
     """The resident kernel as tiled: the alpha chain into the resident
     alpha, then the beta chain reading it: (loss, dlpb, dlpl)."""
-    alpha, logz = chain_alpha(lpb, lpl, t_lens, u_lens, k=k)
+    alpha, logz = chain_alpha(lpb, lpl, t_lens, u_lens,
+                              alpha_stride(lpb.shape[2]), k=k)
     dlpb, dlpl = chain_beta(lpb, lpl, t_lens, u_lens,
                             alpha[..., :lpb.shape[2]], logz, k=k, **beta_kw)
+    return -logz, dlpb, dlpl
+
+
+def chain_slab(lpb, lpl, t_lens, u_lens, k=None, k_beta=None):
+    """The slab pair as tiled: the alpha slab kernel's chain into alpha
+    rows U+1 apart (NaN where it writes nothing, so that a cell the beta
+    chain reads unwritten shows), then the beta slab kernel's chain
+    reading it: (loss, dlpb, dlpl). K defaults to each kernel's own."""
+    U1 = lpb.shape[2]
+    k = rnnt_lattice.alpha_slab_cols(U1) if k is None else k
+    alpha, logz = chain_alpha(lpb, lpl, t_lens, u_lens, U1, k=k)
+    dlpb, dlpl = chain_beta(lpb, lpl, t_lens, u_lens, alpha, logz,
+                            k=cols_per_lane(U1) if k_beta is None else k_beta)
     return -logz, dlpb, dlpl
 
 
@@ -412,7 +430,7 @@ def test_alpha_chain_matches_reference(T, U1, t_lens, u_lens, rule):
     k = {"kernel": rnnt_lattice.resident_cols(T, U1), "K1": 1,
          "K2": 2}[rule]
     args = lattice(T + U1 + k, len(t_lens), T, U1, t_lens, u_lens)
-    alpha, logz = chain_alpha(*args, k=k)
+    alpha, logz = chain_alpha(*args, alpha_stride(U1), k=k)
     want, want_z = rnnt_lattice.rnnt_alpha_reference(*args)
     inside = in_lattice(args[2], args[3], T, U1)
     got = alpha[..., :U1][inside]
@@ -466,3 +484,68 @@ def test_resident_footprint_routes_the_main_path(T, U1, fits, K):
     if (T, U1) == (208, 129):
         assert rnnt_lattice.resident_smem(T, U1) == 4 * (
             64 + 6 * 3 * 256 + 208 * 132 + 7 * 256)
+
+
+# SHAPES plus the slab's edges: U+1 1-3 (every lane's columns but the
+# first's lie past the stride), rows of exactly 32 K columns (U+1 128 at
+# the kernel's K = 4; 32 columns at K = 1) and 32 K + 1 (33 at K = 1)
+SLAB_SHAPES = SHAPES + [
+    (4, 1, [4, 0], [0, 0]),
+    (5, 2, [5, 3, 0], [1, 0, 1]),
+    (6, 3, [6, 2], [2, 1]),
+    (5, 33, [5, 4, 3], [32, 31, 0]),
+    (4, 128, [4, 2], [127, 100]),
+]
+
+
+@pytest.mark.parametrize("T,U1,t_lens,u_lens", SLAB_SHAPES)
+@pytest.mark.parametrize("rule", ["kernel", "K1", "K2"])
+def test_slab_chain_matches_reference(T, U1, t_lens, u_lens, rule):
+    """The slab pair as tiled, the alpha chain at the alpha slab kernel's
+    K (one chunk a row up to 1024 columns) and at K = 1 and 2 (several
+    chunks a row, alpha[t-1] read back at stride U+1), the beta chain at
+    the beta slab kernel's K: loss and both gradients at 1e-10 of the
+    plain lattice; a cell read before it is written would be NaN."""
+    k = {"kernel": None, "K1": 1, "K2": 2}[rule]
+    args = lattice(3 * T + U1, len(t_lens), T, U1, t_lens, u_lens)
+    got = chain_slab(*args, k=k)
+    want = rnnt_lattice.rnnt_lattice_reference(*args)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        assert (g - w).abs().max().item() <= 1e-10 * w.abs().max().item()
+
+
+def test_slab_chain_in_f32_within_lattice_tolerance():
+    """The slab tiling in f32 against the f64 reference, at the tolerance
+    that chip_smoke.py and the card tests hold the kernels to (B3 T408
+    U+1 241's width, fewer rows)."""
+    args = lattice(6, 2, 40, 241, [40, 31], [240, 170])
+    want = rnnt_lattice.rnnt_lattice_reference(*args)
+    f32 = [a.float() if a.is_floating_point() else a for a in args]
+    got = chain_slab(*f32)
+    rtol = max(1e-4, 2 * math.sqrt(40 + 241) * want[0].abs().max().item()
+               * 2.0 ** -24)
+    for g, w in zip(got, want):
+        assert ((g.double() - w).abs() <= 1e-4 + rtol * w.abs()).all()
+
+
+@pytest.mark.parametrize("U1,K", [(1, 4), (3, 4), (128, 4), (129, 8),
+                                  (256, 8), (257, 16), (512, 16), (513, 32),
+                                  (1024, 32), (1025, 32), (5000, 32)])
+def test_alpha_slab_cols_is_the_least_chunk_holding_a_row(U1, K):
+    """``alpha_slab_cols``: the least of 4, 8, 16, 32 whose chunk of 32 K
+    columns holds a row of U+1, else 32 (several chunks a row)."""
+    assert rnnt_lattice.alpha_slab_cols(U1) == K
+    least = [k for k in (4, 8, 16, 32) if 32 * k >= U1]
+    assert K == (least[0] if least else 32)
+
+
+@pytest.mark.parametrize("T,U1,K_alpha,K_beta", [
+    (408, 241, 8, 8), (832, 298, 16, 16), (1375, 801, 32, 32)])
+def test_slab_routes_the_16s_batches(T, U1, K_alpha, K_beta):
+    """The 3 x 16 s micro-batch (T408 U+1 241) and chip_smoke.py's longer
+    slab lattices do not fit the resident kernel, so the wrapper takes
+    the slab pair, each kernel at the K stated."""
+    assert not rnnt_lattice.resident_fits(T, U1)
+    assert rnnt_lattice.alpha_slab_cols(U1) == K_alpha
+    assert cols_per_lane(U1) == K_beta

@@ -57,11 +57,18 @@ def _resident_smem_at(T, U1, K):
                 + T * (-(-U1 // 4) * 4) + _beta_ring_floats(U1, chunk))
 
 
+def alpha_slab_cols(U1):
+    """Columns a chain lane owns in the alpha slab kernel (its C++
+    ``alpha_slab_cols``): the least of 4, 8, 16, 32 whose chunk of 32 K
+    columns holds a row; 32 for wider rows, which take several chunks.
+    Its shared memory does not grow with T or U+1."""
+    return 4 if U1 <= 128 else 8 if U1 <= 256 else 16 if U1 <= 512 else 32
+
+
 def resident_cols(T, U1):
-    """Columns a chain lane owns in the resident kernel: the least of 4,
-    8, 16, 32 whose chunk of 32 K columns holds a row; 8 when 16 or 32
-    would not fit."""
-    K = 4 if U1 <= 128 else 8 if U1 <= 256 else 16 if U1 <= 512 else 32
+    """Columns a chain lane owns in the resident kernel: as the alpha
+    slab's, but 8 when 16 or 32 would not fit."""
+    K = alpha_slab_cols(U1)
     return K if K <= 8 or _resident_smem_at(T, U1, K) <= MAX_SMEM_BYTES \
         else 8
 
