@@ -238,8 +238,8 @@ def lattice_tol(loss, T, U1):
 def test_rnnt_lattice_kernels_match_plain(cuda, variant, B, T, U1):
     """Loss and both gradient lattices against the plain row scan on the
     card. U1 1100 and 1500 are wider than a row chain's chunk of 1024
-    columns and the alpha slab's block of 1024 threads, so the rows are
-    walked in chunks and rounds. f32 sums in another order: atol 1e-4 and
+    columns, so the rows are walked in chunks. f32 sums in another order:
+    atol 1e-4 and
     rtol 1e-4, or more on long lattices: a gradient is
     exp(alpha + lp + beta - logZ), whose exponent is a difference of sums
     of magnitude ~|logZ| = loss, and their rounding errors add up like a
@@ -284,17 +284,23 @@ def beta_slab(args, alpha, logz):
     return dlpb, dlpl
 
 
-def test_rnnt_lattice_variants_agree(cuda):
+@pytest.mark.parametrize("B,T,U1,beta_k", [(5, 60, 40, (4, 8)),
+                                           (6, 208, 129, (8, 8))])
+def test_rnnt_lattice_variants_agree(cuda, B, T, U1, beta_k):
     """Each variant against the plain version in f64, within the lattice
-    tolerance. Both run the beta pass as the same row chain, but the
-    slab's alpha kernel runs block scans where the resident kernel runs
-    the alpha row chain's pair scans, so the two agree within twice that
-    tolerance (each within it of f64), not bitwise."""
-    args = lattice_case(5, 60, 40, cuda, seed=3)
+    tolerance. Both run the same alpha row chain at the same K here (4 at
+    U+1 40, 8 at 129), so their losses agree bit for bit. The beta
+    passes are one chain's text in two copies: where their K differ
+    (``beta_k``: the resident kernel's, the beta slab's) the gradients
+    agree within twice the tolerance (each within it of f64), where it is
+    the same, bit for bit."""
+    assert rnnt_lattice.alpha_slab_cols(U1) == rnnt_lattice.resident_cols(
+        T, U1) == beta_k[0]
+    args = lattice_case(B, T, U1, cuda, seed=3)
     res = rnnt_lattice.rnnt_lattice(*args, variant="resident")
     slab = rnnt_lattice.rnnt_lattice(*args, variant="slab")
     want = rnnt_lattice.rnnt_lattice_reference(*f64(args))
-    atol, rtol = lattice_tol(want[0], 60, 40)
+    atol, rtol = lattice_tol(want[0], T, U1)
     for r, s, w in zip(res, slab, want):
         for got in (r, s):
             np.testing.assert_allclose(got.double().cpu().numpy(),
@@ -302,6 +308,113 @@ def test_rnnt_lattice_variants_agree(cuda):
                                        rtol=rtol)
         np.testing.assert_allclose(r.cpu().numpy(), s.cpu().numpy(),
                                    atol=2 * atol, rtol=2 * rtol)
+    assert torch.equal(res[0], slab[0])
+    if beta_k[0] == beta_k[1]:
+        assert torch.equal(res[1], slab[1]) and torch.equal(res[2], slab[2])
+
+
+def alpha_slab(args):
+    """The alpha slab kernel alone, through its C entry: (alpha filled
+    with NaN first, so that a cell it leaves unwritten shows, logZ,
+    loss)."""
+    lpb, lpl, t_lens, u_lens = args
+    B, T, U1 = lpb.shape
+    alpha = torch.full_like(lpb, float("nan"))
+    logz = torch.full((B,), float("nan"), device=lpb.device)
+    loss = torch.full((B,), float("nan"), device=lpb.device)
+    err = rnnt_lattice._kernels()["alpha"](
+        lpb.data_ptr(), lpl.data_ptr(), t_lens.data_ptr(), u_lens.data_ptr(),
+        alpha.data_ptr(), logz.data_ptr(), loss.data_ptr(), B, T, U1,
+        torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    return alpha, logz, loss
+
+
+def inside(t_lens, u_lens, T, U1):
+    """(B, T, U+1) mask of the cells inside each utterance's lattice."""
+    t = torch.arange(T, device=t_lens.device)[None, :, None]
+    u = torch.arange(U1, device=t_lens.device)[None, None]
+    return (t < t_lens.long()[:, None, None]) & (
+        u <= u_lens.long()[:, None, None])
+
+
+@pytest.mark.parametrize("B,T,U1", [(3, 70, 13), (2, 150, 1100),
+                                    (3, 408, 241), (2, 64, 300),
+                                    (4, 33, 257), (3, 20, 2)])
+def test_rnnt_alpha_slab_matches_f64(cuda, B, T, U1):
+    """The alpha slab kernel (the alpha row chain into device memory, rows
+    U+1 apart) against its plain version (rnnt_alpha_reference) in f64:
+    alpha inside each lattice and logZ at the lattice tolerance, the loss
+    -logZ. Rows of one chunk (U+1 13 at K = 4, 241, 300, 257), of two
+    chunks of 1024 (1100: alpha[t-1] read back from device memory) and
+    U+1 2, where every lane but the first owns columns past the stride.
+    The beta slab kernel then reads this alpha, NaN outside the lattices,
+    and its gradients are finite and within the tolerance of f64."""
+    args = lattice_case(B, T, U1, cuda, seed=11 * T + U1)
+    alpha, logz, loss = alpha_slab(args)
+    torch.cuda.synchronize()
+    want, want_z = rnnt_lattice.rnnt_alpha_reference(*f64(args))
+    atol, rtol = lattice_tol(want_z, T, U1)
+    cells = inside(args[2], args[3], T, U1)
+    got = alpha[cells]
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.double().cpu().numpy(),
+                               want[cells].cpu().numpy(), atol=atol,
+                               rtol=rtol)
+    np.testing.assert_allclose(logz.double().cpu().numpy(),
+                               want_z.cpu().numpy(), atol=atol, rtol=rtol)
+    assert torch.equal(loss, -logz)
+    grads = beta_slab(args, alpha, logz)
+    torch.cuda.synchronize()
+    full = rnnt_lattice.rnnt_lattice_reference(*f64(args))
+    for g, w in zip(grads, full[1:]):
+        assert torch.isfinite(g).all()
+        np.testing.assert_allclose(g.double().cpu().numpy(),
+                                   w.cpu().numpy(), atol=atol, rtol=rtol)
+
+
+def test_rnnt_slab_empty_utterances(cuda):
+    """Tl = 0: logZ NEG, loss -NEG (1e30) and every gradient 0, as the JAX
+    kernels give; Ul = 0 (one column) and a full utterance beside it
+    within the lattice tolerance of f64."""
+    args = lattice_case(3, 12, 8, cuda, seed=1)
+    args[2][:] = torch.tensor([12, 0, 7], dtype=torch.int32)
+    args[3][:] = torch.tensor([7, 3, 0], dtype=torch.int32)
+    _, logz, _ = alpha_slab(args)
+    loss, dlpb, dlpl = rnnt_lattice.rnnt_lattice(*args, variant="slab")
+    torch.cuda.synchronize()
+    want = rnnt_lattice.rnnt_lattice_reference(*f64(args))
+    assert logz[1].item() == float(np.float32(rnnt_lattice.NEG))
+    assert loss[1].item() == float(np.float32(-rnnt_lattice.NEG))
+    assert (dlpb[1] == 0).all() and (dlpl[1] == 0).all()
+    atol, rtol = lattice_tol(want[0][[0, 2]], 12, 8)
+    for g, w in zip((loss, dlpb, dlpl), want):
+        np.testing.assert_allclose(g[[0, 2]].double().cpu().numpy(),
+                                   w[[0, 2]].cpu().numpy(), atol=atol,
+                                   rtol=rtol)
+
+
+@pytest.mark.parametrize("B,T,U1", [(3, 408, 241), (2, 150, 1100)])
+def test_rnnt_slab_pair_is_deterministic(cuda, B, T, U1):
+    """No atomics and a fixed order of every sum: the slab pair (alpha
+    slab, then beta slab) repeated on the same inputs gives the same bits
+    of the loss and both gradients."""
+    args = lattice_case(B, T, U1, cuda, seed=U1 + 2)
+    first = rnnt_lattice.rnnt_lattice(*args, variant="slab")
+    for _ in range(3):
+        again = rnnt_lattice.rnnt_lattice(*args, variant="slab")
+        torch.cuda.synchronize()
+        assert torch.isfinite(first[1]).all()
+        assert all(torch.equal(a, f) for a, f in zip(again, first))
+
+
+def test_rnnt_alpha_slab_cols_matches_python(cuda):
+    """The alpha slab kernel's K as its C entry computes it and as
+    ``rnnt_lattice.alpha_slab_cols`` states it."""
+    fn = rnnt_lattice._kernels()["alpha_slab_cols"]
+    for U1 in (1, 3, 4, 61, 128, 129, 241, 256, 257, 298, 512, 513, 801,
+               1024, 1025, 1100, 5000):
+        assert fn(U1) == rnnt_lattice.alpha_slab_cols(U1), U1
 
 
 @pytest.mark.parametrize("B,T,U1", [(3, 70, 13), (2, 150, 1100),

@@ -41,9 +41,9 @@
 // (resident_smem), so the wrapper picks it when that fits 227 KB;
 // otherwise the slab pair round-trips alpha through device memory.
 //
-// The resident and beta slab kernels are warp-level row chains: only the
-// log-add scan that needs the previous row stays on the chain. A block
-// has 4 warps with one role each:
+// All three kernels are warp-level row chains: only the log-add scan that
+// needs the previous row stays on the chain. A block has up to 4 warps
+// with one role each:
 // - a producer stages chunks of 32 K columns (by cp.async, a few chunks
 //   in flight, a ring of slots) and writes each chunk's prefix sums
 //   (cumP from the left for alpha, sufP from the right for beta), which
@@ -53,41 +53,42 @@
 //   5-step shuffle scan of the lane totals, one exp per combine and one
 //   log per column. The previous row stays in its registers when a row
 //   is one chunk: K = 8, 16 or 32 covers 256, 512 or 1024 columns (the
-//   resident kernel also takes K = 4 up to 128). Wider
+//   alpha chain also takes K = 4 up to 128). Wider
 //   lanes were chosen over splitting a row across chain warps: they
 //   lengthen only the in-lane part of a row, where a split adds a
 //   barrier between warps to every row. Wider rows are walked in chunks
-//   with a carry, the previous row read back from shared memory (the
-//   resident alpha, the beta ring), so U+1 is bounded only by shared
-//   memory;
+//   with a carry, the previous row read back from where the chain wrote
+//   it (the resident alpha, the beta ring, the alpha slab's device
+//   memory), so U+1 is bounded only by shared memory (beta) or not at
+//   all (the alpha slab);
 // - two gradient warps compute dlpb and dlpl from the slot, alpha and a
 //   ring of beta rows, behind the beta chain, and write the zeros around
 //   the lattice.
-// The roles hand chunks on through per-slot mbarriers. The beta slab
-// kernel (rnnt_beta_slab_kernel) runs the beta chain alone, its slots also
-// staging alpha from device memory; its only block-wide barrier comes
-// before the first row. The resident kernel (rnnt_resident_kernel) runs
-// the alpha chain (alpha_roles) into shared memory while the gradient
-// warps write the zeros, then the beta chain (beta_roles, a copy of the
-// beta slab's roles with alpha read from shared memory): one block-wide
-// barrier before the first row and one between the passes, each pass
-// with mbarriers of its own. The beta slab keeps its own code: calling a
+// The roles hand chunks on through per-slot mbarriers. The alpha slab
+// kernel (rnnt_alpha_slab_kernel) runs the alpha chain alone (alpha_roles,
+// 2 warps: the gradient warps have nothing to do there, since the beta
+// slab writes every gradient cell), into device memory rows U+1 apart,
+// the layout the beta slab reads, by scalar stores (U+1 is rarely a
+// multiple of 4); its shared memory is the slot ring alone, and its
+// block-wide barriers come before the first row and after the last (for
+// logZ). The beta slab kernel (rnnt_beta_slab_kernel) runs the beta chain
+// alone, its slots also staging alpha from device memory; its only
+// block-wide barrier comes before the first row. The resident kernel
+// (rnnt_resident_kernel) runs the alpha chain (alpha_roles) into shared
+// memory while the gradient warps write the zeros, then the beta chain
+// (beta_roles, a copy of the beta slab's roles with alpha read from
+// shared memory): one block-wide barrier before the first row and one
+// between the passes, each pass with mbarriers of its own. The beta slab keeps its own code: calling a
 // copy shared with the resident kernel, the same source, compiled 17 %
 // slower at U+1 241 on an H100.
-//
-// The alpha slab kernel (alpha_pass) still runs a row across the block's
-// threads (a multiple of 32, at most 1024), rows wider than the block in
-// rounds with the scans' carries: warp shuffles plus one shared-memory
-// step across warps, a few block-wide barriers per row.
 //
 // What bounds them on an H100: the bytes are 16 per cell (read b and l,
 // write both gradients) plus 8 per cell on the slab path (alpha out and
 // back), microseconds at 3.35 TB/s for the training shapes. The real
 // limit is the T-long serial chain of row scans, which no byte or FLOP
-// count sees: block-wide barriers in the alpha slab kernel; in the row
-// chains one warp's dependent instructions (0.45 us a beta row at U+1 241
-// on an H100, PERF.md), with the producer's copies about as long. One
-// block per utterance leaves most SMs idle at B <= 8.
+// count sees: one warp's dependent instructions (0.45 us a beta row at
+// U+1 241 on an H100, PERF.md), with the producer's copies about as long.
+// One block per utterance leaves most SMs idle at B <= 8.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -101,49 +102,6 @@ namespace {
 
 constexpr float NEG = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float lae(float a, float b) {
-  const float mx = fmaxf(a, b), mn = fminf(a, b);
-  return mx <= NEG / 2 ? NEG : mx + log1pf(expf(mn - mx));
-}
-
-struct Sum {
-  __device__ float operator()(float a, float b) const { return a + b; }
-  static constexpr float identity = 0.f;
-};
-
-struct LogAdd {
-  __device__ float operator()(float a, float b) const { return lae(a, b); }
-  static constexpr float identity = NEG;
-};
-
-// Inclusive scan of x over the block in threadIdx order; *total gets the
-// block's total. s_warp holds 32 floats of scratch.
-template <class Op>
-__device__ float block_scan(float x, float* s_warp, float* total) {
-  Op op;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
-  for (int o = 1; o < 32; o <<= 1) {
-    const float y = __shfl_up_sync(kFull, x, o);
-    if (lane >= o) x = op(y, x);
-  }
-  __syncthreads();                  // s_warp's last readers are done
-  if (lane == 31) s_warp[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    float w = lane < n_warps ? s_warp[lane] : Op::identity;
-    for (int o = 1; o < 32; o <<= 1) {
-      const float y = __shfl_up_sync(kFull, w, o);
-      if (lane >= o) w = op(y, w);
-    }
-    s_warp[lane] = w;
-  }
-  __syncthreads();
-  if (warp > 0) x = op(s_warp[warp - 1], x);
-  *total = s_warp[n_warps - 1];
-  return x;
-}
 
 struct Utt {
   const float* lpb;    // (T, U1) rows of this utterance
@@ -162,61 +120,6 @@ __device__ Utt utterance(const float* lpb, const float* lpl, const int* t_lens,
   u.Tl = min(max(t_lens[b], 0), T);
   u.Ul = min(max(u_lens[b], 0), U1 - 1);
   return u;
-}
-
-// Alpha rows 0..Tl-1 into alpha[t * U1 + u] (shared or device memory; a
-// thread reads back only the columns it wrote). Returns logZ in *logz
-// (written by the thread that owns column Ul; NEG if Tl == 0 is left to
-// the caller's initialisation).
-__device__ void alpha_pass(const Utt& a, float* alpha, float* s_warp,
-                           float* logz) {
-  const int W = a.Ul + 1, nt = blockDim.x;
-  for (int t = 0; t < a.Tl; ++t) {
-    const float* lpl_t = a.lpl + (size_t)t * a.U1;
-    float carry_p = 0.f, carry_l = NEG;
-    for (int base = 0; base < W; base += nt) {
-      const int u = base + threadIdx.x;
-      const bool in = u < W;
-      const float p = (in && u < a.Ul) ? lpl_t[u] : 0.f;
-      float tot;
-      const float incl = block_scan<Sum>(p, s_warp, &tot) + carry_p;
-      carry_p += tot;
-      const float cum_p = incl - p;                    // exclusive
-      float c = NEG;
-      if (in) {
-        if (t == 0)
-          c = u == 0 ? 0.f : NEG;
-        else
-          c = alpha[(size_t)(t - 1) * a.U1 + u] +
-              a.lpb[(size_t)(t - 1) * a.U1 + u];
-      }
-      float y = lae(carry_l, block_scan<LogAdd>(c - cum_p, s_warp, &tot));
-      carry_l = lae(carry_l, tot);
-      if (in) {
-        const float row = cum_p + y;
-        alpha[(size_t)t * a.U1 + u] = row;
-        if (t == a.Tl - 1 && u == a.Ul)
-          *logz = row + a.lpb[(size_t)t * a.U1 + u];
-      }
-    }
-  }
-}
-
-__global__ void rnnt_alpha_slab_kernel(const float* lpb, const float* lpl,
-                                       const int* t_lens, const int* u_lens,
-                                       float* alpha, float* logz, float* loss,
-                                       int T, int U1) {
-  __shared__ float s_warp[32];
-  __shared__ float s_logz;
-  const Utt a = utterance(lpb, lpl, t_lens, u_lens, T, U1);
-  if (threadIdx.x == 0) s_logz = NEG;
-  __syncthreads();
-  alpha_pass(a, alpha + (size_t)blockIdx.x * T * U1, s_warp, &s_logz);
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    logz[blockIdx.x] = s_logz;
-    loss[blockIdx.x] = -s_logz;
-  }
 }
 
 // ------------------------------------------------------------- row chains
@@ -979,6 +882,44 @@ __global__ void __launch_bounds__(kChainThreads)
                       bar + 3 * kSlots, bar + 4 * kSlots, dlpb, dlpl);
 }
 
+// The alpha slab kernel's shared memory, in floats: a header (the full
+// and empty mbarriers, then logZ), then the slot ring (3 chunks a slot).
+constexpr int kAlphaSlabHeader = 32;
+static_assert(2 * 2 * kSlots + 1 <= kAlphaSlabHeader,
+              "the header holds 2 kSlots mbarriers and logZ");
+
+// The alpha pass of an utterance alone, alpha into device memory rows U1
+// apart (the beta slab kernel reads that layout), logZ and the loss.
+template <int K>
+__global__ void __launch_bounds__(64)
+    rnnt_alpha_slab_kernel(const float* lpb, const float* lpl,
+                           const int* t_lens, const int* u_lens,
+                           float* alpha, float* logz, float* loss, int T,
+                           int U1) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+  float* s_logz = smem + 2 * 2 * kSlots;
+  float* slots = smem + kAlphaSlabHeader;
+
+  const Utt a = utterance(lpb, lpl, t_lens, u_lens, T, U1);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kSlots; ++s) {
+      mbar_init(&bar[s], 32);            // full
+      mbar_init(&bar[kSlots + s], 32);   // empty
+    }
+    *s_logz = NEG;                       // stays so when Tl = 0
+  }
+  __syncthreads();   // barriers and logZ set, before any row
+  alpha_roles<K, false>(a, alpha + (size_t)blockIdx.x * T * U1, U1, s_logz,
+                        slots, bar, bar + kSlots);
+  __syncthreads();   // logZ written
+  if (threadIdx.x == 0) {
+    logz[blockIdx.x] = *s_logz;
+    loss[blockIdx.x] = -*s_logz;
+  }
+}
+
 // Floats of the beta ring at its largest over the rounds a row of at most
 // U1 columns can take in chunks of `chunk` columns.
 size_t beta_ring_floats(int U1, int chunk) {
@@ -1008,19 +949,32 @@ size_t resident_smem_at(int T, int U1, int K) {
 constexpr size_t kMaxSmem = 227 * 1024;
 
 // Columns a lane: the least K that holds a row of U1 columns in one chunk
-// (8 up to 256 columns, 16 up to 512, else 32); each kernel falls back to
-// 8 when its shared memory at that K would not fit.
+// (8 up to 256 columns, 16 up to 512, else 32); the beta slab and the
+// resident kernel fall back to 8 when their shared memory at that K would
+// not fit.
 int chain_cols(int U1) { return U1 <= 256 ? 8 : U1 <= 512 ? 16 : 32; }
+
+// The alpha slab kernel keeps no alpha on chip, so its shared memory (at
+// most 73,856 bytes, at K = 32) fits at every K: 4 up to 128 columns, as
+// the resident kernel, then the least K whose chunk holds a row; rows
+// wider than 1024 columns take chunks of 1024. kernels/rnnt_lattice.py::
+// alpha_slab_cols mirrors it.
+int alpha_slab_cols(int U1) { return U1 <= 128 ? 4 : chain_cols(U1); }
+
+size_t alpha_slab_smem(int K) {
+  return sizeof(float) * (kAlphaSlabHeader + (size_t)kSlots * 3 * 32 * K);
+}
 
 int beta_slab_cols(int U1) {
   const int K = chain_cols(U1);
   return beta_slab_smem(U1, K) <= kMaxSmem ? K : 8;
 }
 
-// The resident kernel also takes K = 4 up to 128 columns: a shorter
-// in-lane scan on the chain (18 % less time at B96 T104 U+1 61 on an H100).
+// The resident kernel takes the alpha slab's K, K = 4 up to 128 columns
+// included (a shorter in-lane scan on the chain: 18 % less time at B96
+// T104 U+1 61 on an H100).
 int resident_cols(int T, int U1) {
-  const int K = U1 <= 128 ? 4 : chain_cols(U1);
+  const int K = alpha_slab_cols(U1);
   return K <= 8 || resident_smem_at(T, U1, K) <= kMaxSmem ? K : 8;
 }
 
@@ -1049,6 +1003,24 @@ int launch_beta_slab(const float* lpb, const float* lpl, const int* t_lens,
 }
 
 template <int K>
+int launch_alpha_slab(const float* lpb, const float* lpl, const int* t_lens,
+                      const int* u_lens, float* alpha, float* logz,
+                      float* loss, int B, int T, int U1,
+                      cudaStream_t stream) {
+  static bool attribute_set = false;
+  if (!attribute_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        rnnt_alpha_slab_kernel<K>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxSmem);
+    if (err != cudaSuccess) return (int)err;
+    attribute_set = true;
+  }
+  rnnt_alpha_slab_kernel<K><<<B, 64, alpha_slab_smem(K), stream>>>(
+      lpb, lpl, t_lens, u_lens, alpha, logz, loss, T, U1);
+  return (int)cudaGetLastError();
+}
+
+template <int K>
 int launch_resident(const float* lpb, const float* lpl, const int* t_lens,
                     const int* u_lens, float* loss, float* dlpb, float* dlpl,
                     int B, int T, int U1, cudaStream_t stream) {
@@ -1065,11 +1037,6 @@ int launch_resident(const float* lpb, const float* lpl, const int* t_lens,
   rnnt_resident_kernel<K><<<B, kChainThreads, smem, stream>>>(
       lpb, lpl, t_lens, u_lens, loss, dlpb, dlpl, T, U1);
   return (int)cudaGetLastError();
-}
-
-int threads_for(int U1) {
-  const int n = ((U1 + 31) / 32) * 32;
-  return n < 32 ? 32 : (n > 1024 ? 1024 : n);
 }
 
 bool valid(int B, int T, int U1) {
@@ -1112,16 +1079,34 @@ extern "C" long long rnnt_lattice_resident_smem(int T, int U1) {
   return valid(1, T, U1) ? (long long)resident_smem(T, U1) : -1;
 }
 
-// alpha: (B, T, U1) f32 scratch; logz: (B,) f32.
+// alpha: (B, T, U1) f32 scratch (rows past t_lens and columns past
+// u_lens + 1 are left unwritten or hold NEG); logz: (B,) f32.
 extern "C" int rnnt_lattice_alpha_slab(const float* lpb, const float* lpl,
                                        const int* t_lens, const int* u_lens,
                                        float* alpha, float* logz, float* loss,
                                        int B, int T, int U1, void* stream) {
   if (!valid(B, T, U1)) return (int)cudaErrorInvalidValue;
-  rnnt_alpha_slab_kernel<<<B, threads_for(U1), 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      lpb, lpl, t_lens, u_lens, alpha, logz, loss, T, U1);
-  return (int)cudaGetLastError();
+  const auto st = static_cast<cudaStream_t>(stream);
+  switch (alpha_slab_cols(U1)) {
+    case 32:
+      return launch_alpha_slab<32>(lpb, lpl, t_lens, u_lens, alpha, logz,
+                                   loss, B, T, U1, st);
+    case 16:
+      return launch_alpha_slab<16>(lpb, lpl, t_lens, u_lens, alpha, logz,
+                                   loss, B, T, U1, st);
+    case 8:
+      return launch_alpha_slab<8>(lpb, lpl, t_lens, u_lens, alpha, logz,
+                                  loss, B, T, U1, st);
+    default:
+      return launch_alpha_slab<4>(lpb, lpl, t_lens, u_lens, alpha, logz,
+                                  loss, B, T, U1, st);
+  }
+}
+
+// Columns a lane of the alpha slab kernel's chain owns at U1 (-1 for
+// U1 < 1); kernels/rnnt_lattice.py::alpha_slab_cols mirrors it.
+extern "C" int rnnt_lattice_alpha_slab_cols(int U1) {
+  return valid(1, 1, U1) ? alpha_slab_cols(U1) : -1;
 }
 
 extern "C" int rnnt_lattice_beta_slab(const float* lpb, const float* lpl,

@@ -10,10 +10,11 @@ the per-utterance loss and the gradients w.r.t. both lattices come out.
   the utterance's alpha lattice in shared memory;
 - ``variant="slab"`` (``_rnnt_alpha_slab_kernel`` +
   ``_rnnt_beta_slab_kernel``): an alpha kernel that writes alpha and logZ
-  to device memory (block-wide scans), then a beta + gradient kernel
-  that reads them back, the same beta row chain as the resident
-  kernel's. The alpha passes differ in arithmetic, so the two variants
-  agree within the lattice's f32 tolerance, not bitwise.
+  to device memory, then a beta + gradient kernel that reads them back,
+  the resident kernel's alpha and beta row chains each on its own. Where
+  the two variants' chains take the same K (``alpha_slab_cols``,
+  ``resident_cols``), they run the same arithmetic, so their losses agree
+  bit for bit; elsewhere within the lattice's f32 tolerance.
 
 ``tests/test_torch_lattice_chain.py`` mirrors the row chains' tiling on
 the CPU. ``variant="auto"`` picks resident when ``resident_fits(T, U+1)``.
@@ -188,6 +189,9 @@ def _kernels():
     fns["resident_smem"] = lib.rnnt_lattice_resident_smem
     fns["resident_smem"].argtypes = [i32, i32]
     fns["resident_smem"].restype = ctypes.c_longlong
+    fns["alpha_slab_cols"] = lib.rnnt_lattice_alpha_slab_cols
+    fns["alpha_slab_cols"].argtypes = [i32]
+    fns["alpha_slab_cols"].restype = ctypes.c_int
     return fns
 
 
