@@ -237,9 +237,10 @@ def chain_beta(lpb, lpl, t_lens, u_lens, alpha, logz, k=K, slots=SLOTS,
     return dlpb, dlpl
 
 
-def chain_alpha_utterance(lpb, lpl, Tl, Ul, k, alpha):
+def chain_alpha_utterance(lpb, lpl, Tl, Ul, k, alpha, staged):
     """One block's alpha pass: rows 0 .. Tl - 1 of ``alpha`` (T, stride)
-    written; returns logZ."""
+    written, each lane's columns short of the stride, or (``staged``, the
+    alpha slab at K <= 8) the columns of the lattice; returns logZ."""
     C = LANES * k
     W = Ul + 1
     R = -(-W // C)
@@ -288,14 +289,14 @@ def chain_alpha_utterance(lpb, lpl, Tl, Ul, k, alpha):
                              NEG).view(C)
             carry = combine((im[-1], is_[-1]), carry) if j > 0 else (
                 im[-1], is_[-1])
-            keep = u < S
+            keep = u < W if staged else u < S
             alpha[t, u[keep]] = an[keep]
             if t == Tl - 1 and j * C <= Ul < (j + 1) * C:
                 logz = an[Ul - j * C] + lpb[Tl - 1, Ul]
     return logz
 
 
-def chain_alpha(lpb, lpl, t_lens, u_lens, stride, k=K):
+def chain_alpha(lpb, lpl, t_lens, u_lens, stride, k=K, staged=False):
     """The alpha chain as tiled: (alpha (B, T, stride), filled with NaN
     where the chain writes nothing, logZ (B,))."""
     B, T, U1 = lpb.shape
@@ -304,7 +305,8 @@ def chain_alpha(lpb, lpl, t_lens, u_lens, stride, k=K):
     for b in range(B):
         Tl = min(max(int(t_lens[b]), 0), T)
         Ul = min(max(int(u_lens[b]), 0), U1 - 1)
-        logz[b] = chain_alpha_utterance(lpb[b], lpl[b], Tl, Ul, k, alpha[b])
+        logz[b] = chain_alpha_utterance(lpb[b], lpl[b], Tl, Ul, k, alpha[b],
+                                        staged)
     return alpha, logz
 
 
@@ -321,11 +323,13 @@ def chain_resident(lpb, lpl, t_lens, u_lens, k=K, **beta_kw):
 def chain_slab(lpb, lpl, t_lens, u_lens, k=None, k_beta=None):
     """The slab pair as tiled: the alpha slab kernel's chain into alpha
     rows U+1 apart (NaN where it writes nothing, so that a cell the beta
-    chain reads unwritten shows), then the beta slab kernel's chain
-    reading it: (loss, dlpb, dlpl). K defaults to each kernel's own."""
+    chain reads unwritten shows; staged stores up to K = 8), then the
+    beta slab kernel's chain reading it: (loss, dlpb, dlpl). K defaults
+    to each kernel's own."""
     U1 = lpb.shape[2]
     k = rnnt_lattice.alpha_slab_cols(U1) if k is None else k
-    alpha, logz = chain_alpha(lpb, lpl, t_lens, u_lens, U1, k=k)
+    alpha, logz = chain_alpha(lpb, lpl, t_lens, u_lens, U1, k=k,
+                              staged=k <= 8)
     dlpb, dlpl = chain_beta(lpb, lpl, t_lens, u_lens, alpha, logz,
                             k=cols_per_lane(U1) if k_beta is None else k_beta)
     return -logz, dlpb, dlpl

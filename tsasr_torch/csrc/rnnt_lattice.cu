@@ -69,7 +69,8 @@
 // 2 warps: the gradient warps have nothing to do there, since the beta
 // slab writes every gradient cell), into device memory rows U+1 apart,
 // the layout the beta slab reads, by scalar stores (U+1 is rarely a
-// multiple of 4); its shared memory is the slot ring alone, and its
+// multiple of 4); its shared memory is the slot ring and one staging
+// chunk, and its
 // block-wide barriers come before the first row and after the last (for
 // logZ). The beta slab kernel (rnnt_beta_slab_kernel) runs the beta chain
 // alone, its slots also staging alpha from device memory; its only
@@ -78,9 +79,10 @@
 // memory while the gradient warps write the zeros, then the beta chain
 // (beta_roles, a copy of the beta slab's roles with alpha read from
 // shared memory): one block-wide barrier before the first row and one
-// between the passes, each pass with mbarriers of its own. The beta slab keeps its own code: calling a
-// copy shared with the resident kernel, the same source, compiled 17 %
-// slower at U+1 241 on an H100.
+// between the passes, each pass with mbarriers of its own. The beta slab
+// keeps its own code: calling a copy shared with the resident kernel, the
+// same source, compiled 17 % slower at U+1 241 on an H100. The alpha slab
+// calls the resident kernel's alpha_roles: a copy of it read the same.
 //
 // What bounds them on an H100: the bytes are 16 per cell (read b and l,
 // write both gradients) plus 8 per cell on the slab path (alpha out and
@@ -265,18 +267,21 @@ struct AlphaWalk {
 
 // The alpha chain, run by warps 0 (the chain) and 1 (the producer) of a
 // block: rows 0 .. Tl - 1 of alpha into alpha[t * stride + u], shared or
-// device memory (kVec as for store_cols; the chain reads back only what
-// its own lane wrote), and logZ into *logz by the lane that owns column
-// Ul of row Tl - 1 (the caller sets NEG first, for Tl = 0). Chunk c of
+// device memory, and logZ into *logz by the lane that owns column Ul of
+// row Tl - 1 (the caller sets NEG first, for Tl = 0). A lane stores its
+// own K columns (kVec as for store_cols), or with kStaged puts them in
+// the chunk of shared memory at `stage` and stores columns q 32 + lane
+// (q < K) of the lattice, coalesced; the chain reads back alpha[t-1] of
+// its own columns, after a __syncwarp when staged. Chunk c of
 // the utterance is row t = c / R, chunk j = c % R from the left, columns
 // u = j kChunk + i (i < kChunk; u > Ul is padding), in slot c % kSlots:
 // lpb of row t - 1 (0 at t = 0), lpl of row t and their exclusive prefix
 // sums cumP. A chunk passes full[s] (producer -> chain) and empty[s]
 // (chain -> producer), mbarriers whose phase n is the slot's n-th chunk.
-template <int K, bool kVec>
+template <int K, bool kVec, bool kStaged = false>
 __device__ void alpha_roles(const Utt& a, float* alpha, int stride,
                             float* logz, float* slots, uint64_t* full,
-                            uint64_t* empty) {
+                            uint64_t* empty, float* stage = nullptr) {
   constexpr int kChunk = 32 * K;
   constexpr int kSlotFloats = 3 * kChunk;   // lpb[t-1], lpl[t], cumP
   const int W = a.Ul + 1, R = (W + kChunk - 1) / kChunk;
@@ -402,7 +407,19 @@ __device__ void alpha_roles(const Utt& a, float* alpha, int stride,
         cm = nm;
         cs = ns;
       }
-      store_cols<K, kVec>(alpha + (size_t)t * stride, u0, stride, an);
+      if constexpr (kStaged) {
+        storev(stage + p0, an);
+        __syncwarp();
+        float* row = alpha + (size_t)t * stride + j * kChunk;
+        #pragma unroll
+        for (int q = 0; q < K; ++q) {
+          const int i = q * 32 + lane;
+          if (j * kChunk + i < W) row[i] = stage[i];
+        }
+        __syncwarp();   // read before the next chunk is staged
+      } else {
+        store_cols<K, kVec>(alpha + (size_t)t * stride, u0, stride, an);
+      }
       if (t == a.Tl - 1) {
         #pragma unroll
         for (int k = 0; k < K; ++k)
@@ -883,13 +900,17 @@ __global__ void __launch_bounds__(kChainThreads)
 }
 
 // The alpha slab kernel's shared memory, in floats: a header (the full
-// and empty mbarriers, then logZ), then the slot ring (3 chunks a slot).
+// and empty mbarriers, then logZ), the slot ring (3 chunks a slot), and
+// the chain's staging chunk.
 constexpr int kAlphaSlabHeader = 32;
 static_assert(2 * 2 * kSlots + 1 <= kAlphaSlabHeader,
               "the header holds 2 kSlots mbarriers and logZ");
 
 // The alpha pass of an utterance alone, alpha into device memory rows U1
-// apart (the beta slab kernel reads that layout), logZ and the loss.
+// apart (the beta slab kernel reads that layout), logZ and the loss. Up
+// to K = 8 a chunk's alpha is staged and stored coalesced: 0.2209 against
+// 0.2688 ms at B3 T408 U+1 241 on an H100, where at K = 16 and 32 that
+// read 9 and 15 % slower than each lane storing its own columns.
 template <int K>
 __global__ void __launch_bounds__(64)
     rnnt_alpha_slab_kernel(const float* lpb, const float* lpl,
@@ -911,8 +932,9 @@ __global__ void __launch_bounds__(64)
     *s_logz = NEG;                       // stays so when Tl = 0
   }
   __syncthreads();   // barriers and logZ set, before any row
-  alpha_roles<K, false>(a, alpha + (size_t)blockIdx.x * T * U1, U1, s_logz,
-                        slots, bar, bar + kSlots);
+  alpha_roles<K, false, (K <= 8)>(
+      a, alpha + (size_t)blockIdx.x * T * U1, U1, s_logz, slots, bar,
+      bar + kSlots, slots + kSlots * 3 * 32 * K);
   __syncthreads();   // logZ written
   if (threadIdx.x == 0) {
     logz[blockIdx.x] = *s_logz;
@@ -955,14 +977,15 @@ constexpr size_t kMaxSmem = 227 * 1024;
 int chain_cols(int U1) { return U1 <= 256 ? 8 : U1 <= 512 ? 16 : 32; }
 
 // The alpha slab kernel keeps no alpha on chip, so its shared memory (at
-// most 73,856 bytes, at K = 32) fits at every K: 4 up to 128 columns, as
+// most 77,952 bytes, at K = 32) fits at every K: 4 up to 128 columns, as
 // the resident kernel, then the least K whose chunk holds a row; rows
 // wider than 1024 columns take chunks of 1024. kernels/rnnt_lattice.py::
 // alpha_slab_cols mirrors it.
 int alpha_slab_cols(int U1) { return U1 <= 128 ? 4 : chain_cols(U1); }
 
 size_t alpha_slab_smem(int K) {
-  return sizeof(float) * (kAlphaSlabHeader + (size_t)kSlots * 3 * 32 * K);
+  return sizeof(float) *
+         (kAlphaSlabHeader + (size_t)(kSlots * 3 + 1) * 32 * K);
 }
 
 int beta_slab_cols(int U1) {
