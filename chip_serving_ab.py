@@ -14,8 +14,8 @@ imports only that tree's package (its kernels built into DIR/build on
 first use), builds the scratch recipe's model at full width with the
 seed-0 weights, and answers ``chip_smoke.py``'s three requests (8
 mixtures of 4, 8 and 12 s, 5 s enrollments) through
-``TSASRTranscriber.transcribe_batch``: once to warm up, then ``--reps``
-times each, on the host clock (to a synchronize), and once more under
+``TSASRTranscriber.transcribe_batch``: once to warm up, then REPS times
+each, on the host clock (to a synchronize), and once more under
 ``torch.profiler`` for the card's busy time. It prints the card, one
 line per process, then per request each version's medians in the order
 run, and exits 1 if the versions' weights differ or a process fails.
@@ -31,9 +31,10 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+REPS = 5
 
 
-def worker(tree, reps):
+def worker(tree):
     """One version's serving times, as one JSON line."""
     import numpy as np
     import torch
@@ -59,7 +60,7 @@ def worker(tree, reps):
     host, device = {}, {}
     for seconds, req in zip(cs.REQUEST_SECONDS, requests):
         times = []
-        for _ in range(reps):
+        for _ in range(REPS):
             t0 = time.perf_counter()
             tr.transcribe_batch(*req)
             torch.cuda.synchronize()
@@ -78,12 +79,10 @@ def main():
     parser.add_argument("versions", nargs="*", metavar="NAME=DIR")
     parser.add_argument("--order", help="comma-separated names, e.g. "
                         "a,b,b,a (default: each version once)")
-    parser.add_argument("--reps", type=int, default=5,
-                        help="timed answers of each request per process")
     parser.add_argument("--worker", metavar="DIR", help=argparse.SUPPRESS)
     args = parser.parse_args()
     if args.worker:
-        print(json.dumps(worker(args.worker, args.reps)))
+        print(json.dumps(worker(args.worker)))
         return 0
     if not args.versions or not all("=" in v for v in args.versions):
         parser.error("give versions as NAME=DIR")
@@ -108,8 +107,8 @@ def main():
     runs = []
     for name in order:
         proc = subprocess.run(
-            [sys.executable, __file__, "--worker", versions[name], "--reps",
-             str(args.reps)], capture_output=True, text=True, timeout=900)
+            [sys.executable, __file__, "--worker", versions[name]],
+            capture_output=True, text=True, timeout=900)
         if proc.returncode != 0:
             print(f"{name}: exited {proc.returncode}\n{proc.stderr[-3000:]}")
             return 1

@@ -32,7 +32,8 @@ checkout, or when any phase fails. Phases:
    so 2 optimizer steps), with every kernel's launches counted per
    micro-batch; at dropout 0 one micro-batch's loss and gradients
    against the same model with every kernel forced to its plain
-   version, and a profile of a 6 x 8 s and of a 3 x 16 s micro-batch;
+   version (loosely only where a leaky_relu kink flip can reach, as the
+   f64 run places it), and a profile of a 6 x 8 s and of a 3 x 16 s micro-batch;
    then one VALID batch through ``evaluate_batch``;
 5. a small model on the card against the same model on the CPU:
    serving encoder output, and 2 optimizer steps of training at

@@ -320,18 +320,18 @@ def chain_resident(lpb, lpl, t_lens, u_lens, k=K, **beta_kw):
     return -logz, dlpb, dlpl
 
 
-def chain_slab(lpb, lpl, t_lens, u_lens, k=None, k_beta=None):
+def chain_slab(lpb, lpl, t_lens, u_lens, k=None):
     """The slab pair as tiled: the alpha slab kernel's chain into alpha
     rows U+1 apart (NaN where it writes nothing, so that a cell the beta
     chain reads unwritten shows; staged stores up to K = 8), then the
-    beta slab kernel's chain reading it: (loss, dlpb, dlpl). K defaults
-    to each kernel's own."""
+    beta slab kernel's chain reading it, at its own K: (loss, dlpb,
+    dlpl). The alpha chain's K defaults to its kernel's own."""
     U1 = lpb.shape[2]
     k = rnnt_lattice.alpha_slab_cols(U1) if k is None else k
     alpha, logz = chain_alpha(lpb, lpl, t_lens, u_lens, U1, k=k,
                               staged=k <= 8)
     dlpb, dlpl = chain_beta(lpb, lpl, t_lens, u_lens, alpha, logz,
-                            k=cols_per_lane(U1) if k_beta is None else k_beta)
+                            k=cols_per_lane(U1))
     return -logz, dlpb, dlpl
 
 
