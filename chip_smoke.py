@@ -35,7 +35,22 @@ checkout, or when any phase fails. Phases:
    version (loosely only where a leaky_relu kink flip can reach, as the
    f64 run places it), and a profile of a 6 x 8 s and of a 3 x 16 s micro-batch;
    then one VALID batch through ``evaluate_batch``;
-5. a small model on the card against the same model on the CPU:
+5. the scratch recipe's experiment at full width through
+   ``run_experiment`` (``tsasr_torch/hparams/LibriSpeechMix/
+   conformer-t_scratch.yaml``, the CUDA attention kernels on) on a
+   synthetic corpus whose waveforms carry their transcripts as a tone
+   code: prepare, the tokenizer, dynamic batching through the loader, 2
+   optimizer steps (8 micro-batches at accumulation 4), VALID with greedy
+   search and a checkpoint, TEST; every TRAIN micro-batch and every
+   VALID and TEST batch must launch the kernels its shapes imply; a
+   second run with 2 epochs must recover the checkpoint bit for bit and
+   go on from its optimizer step; then each kernel is held against its
+   plain version on the inputs the two runs gave it, one call per shape
+   (the attention forward and, at TRAIN, backward with the path's
+   dropout; the lattice on the route the path took); the host-clock ms
+   of each micro-batch through the loader, the wait on the loader and
+   VALID's and TEST's wall times are printed;
+6. a small model on the card against the same model on the CPU:
    serving encoder output, and 2 optimizer steps of training at
    dropout 0.
 
@@ -44,10 +59,12 @@ the last line is ``{"ok": true, "device": {...}}``.
 """
 
 import collections
+import concurrent.futures
 import contextlib
 import hashlib
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -324,6 +341,38 @@ def phase_attention_fwd(device):
     return rows
 
 
+def attention_grad_errors(args, do, seed, scale, rate):
+    """The backward kernels' five gradients against autograd through the
+    plain version: (max abs err, max err of each gradient's max |g|
+    clamped at 1, and a line with the kernels' and the plain f32
+    version's errors against the plain version in f64). Raises above
+    ATTN_ATOL."""
+    import torch
+    from tsasr_torch.kernels import relpos_attention as ra
+    grads = {}
+    for name, fn, dtype in (
+            ("kernel", ra.fused_relpos_attention, torch.float32),
+            ("plain", ra.relpos_attention_reference, torch.float32),
+            ("f64", ra.relpos_attention_reference, torch.float64)):
+        leaves = [x.to(dtype).requires_grad_(i < 5)
+                  for i, x in enumerate(args)]
+        out = fn(*leaves, seed=seed, scale=scale, rate=rate)
+        grads[name] = torch.autograd.grad(out, leaves[:5], do.to(dtype))
+    pairs = list(zip(grads["kernel"], grads["plain"]))
+    abs_err = max((a - b).abs().max().item() for a, b in pairs)
+    rel_err = max(((a - b).abs().max() / b.abs().max().clamp(min=1.0))
+                  .item() for a, b in pairs)
+    if not rel_err <= ATTN_ATOL:
+        raise RuntimeError(f"relpos_attention_bwd {tuple(args[0].shape)} "
+                           f"rate {rate}: err {rel_err} of max |g| > "
+                           f"{ATTN_ATOL}")
+    wide = (f"against f64, of each gradient's max |g|: kernels "
+            f"{max(leaf_errors(grads['kernel'], grads['f64'])):.3g}, "
+            f"plain f32 "
+            f"{max(leaf_errors(grads['plain'], grads['f64'])):.3g}")
+    return abs_err, rel_err, wide
+
+
 def phase_attention_bwd(device):
     import torch
     import torch.nn.functional as F
@@ -331,40 +380,12 @@ def phase_attention_bwd(device):
 
     scale = 1.0 / math.sqrt(H * DH)
     gen = torch.Generator().manual_seed(SEED + 7)
-
-    def errors(args, do, seed, rate):
-        """The kernels' five gradients against autograd through the
-        plain version: (max abs err, max err of each gradient's max |g|
-        clamped at 1, and a line with the kernels' and the plain f32
-        version's errors against the plain version in f64)."""
-        grads = {}
-        for name, fn, dtype in (
-                ("kernel", ra.fused_relpos_attention, torch.float32),
-                ("plain", ra.relpos_attention_reference, torch.float32),
-                ("f64", ra.relpos_attention_reference, torch.float64)):
-            leaves = [x.to(dtype).requires_grad_(i < 5)
-                      for i, x in enumerate(args)]
-            out = fn(*leaves, seed=seed, scale=scale, rate=rate)
-            grads[name] = torch.autograd.grad(out, leaves[:5], do.to(dtype))
-        torch.cuda.synchronize()
-        pairs = list(zip(grads["kernel"], grads["plain"]))
-        abs_err = max((a - b).abs().max().item() for a, b in pairs)
-        rel_err = max(((a - b).abs().max() / b.abs().max().clamp(min=1.0))
-                      .item() for a, b in pairs)
-        if not rel_err <= ATTN_ATOL:
-            raise RuntimeError(f"relpos_attention_bwd T={t} rate {rate}: "
-                               f"err {rel_err} of max |g| > {ATTN_ATOL}")
-        wide = (f"against f64, of each gradient's max |g|: kernels "
-                f"{max(leaf_errors(grads['kernel'], grads['f64'])):.3g}, "
-                f"plain f32 "
-                f"{max(leaf_errors(grads['plain'], grads['f64'])):.3g}")
-        return abs_err, rel_err, wide
-
     rows = []
     for t in BWD_T:
         args = attention_case(t, False, gen, device)
         do = torch.randn(B, H, t, DH, generator=gen).to(device)
-        err, rel_err, wide = errors(args, do, 0, 0.0)
+        err, rel_err, wide = attention_grad_errors(args, do, 0, scale,
+                                                   0.0)
 
         # kernel: the backward launch alone, from the forward's out and
         # row statistics
@@ -436,7 +457,8 @@ def phase_attention_bwd(device):
     for t in BWD_DROPOUT_T:
         args = attention_case(t, False, gen, device)
         do = torch.randn(B, H, t, DH, generator=gen).to(device)
-        err, rel_err, wide = errors(args, do, seed, rate)
+        err, rel_err, wide = attention_grad_errors(args, do, seed, scale,
+                                                   rate)
         log(f"kernel relpos_attention_bwd B{B} H{H} T{t} Dh{DH} dropout "
             f"{rate}: max_abs_err {err:.3g}, err {rel_err:.3g} of each "
             f"gradient's max |g| (tol {ATTN_ATOL}, the same Philox mask on "
@@ -1234,6 +1256,358 @@ def phase_training(device, card):
     return counts
 
 
+EXPERIMENT_YAML = "tsasr_torch/hparams/LibriSpeechMix/conformer-t_scratch.yaml"
+# six speakers of eight utterances, 24 mixtures a split: each split has
+# 48 target utterances of 2-5 s in 17-20 dynamic batches
+EXPERIMENT_CORPUS = dict(n_speakers=6, utts_per_speaker=8, n_mix=24,
+                         encode_text=True, seed=SEED)
+EXPERIMENT_SPLITS = ("train-2mix", "dev-clean-2mix", "test-clean-2mix")
+
+
+def corpus_vocab(folder):
+    """Characters of the corpus + 1: the char tokenizer's vocab size."""
+    chars = set()
+    for split in EXPERIMENT_SPLITS:
+        with open(Path(folder) / f"{split}.jsonl") as f:
+            for line in f:
+                for text in json.loads(line)["texts"]:
+                    chars.update("▁" + text.replace(" ", "▁"))
+    return len(chars) + 1
+
+
+def train_state(brain):
+    """The state a checkpoint holds, cloned to the host."""
+    return {
+        "params": [p.detach().cpu().clone()
+                   for p in brain.model.parameters()],
+        "moments": [{k: v.detach().cpu().clone() for k, v in st.items()}
+                    for st in brain.optimizer.state_dict()["state"].values()],
+        "counters": (brain.optimizer_step, brain.global_micro_step,
+                     brain._mini_step)}
+
+
+def same_state(a, b):
+    import torch
+    return (a["counters"] == b["counters"]
+            and len(a["params"]) == len(b["params"])
+            and all(torch.equal(x, y) for x, y in zip(a["params"],
+                                                      b["params"]))
+            and len(a["moments"]) == len(b["moments"])
+            and all(x.keys() == y.keys()
+                    and all(torch.equal(x[k], y[k]) for k in x)
+                    for x, y in zip(a["moments"], b["moments"])))
+
+
+@contextlib.contextmanager
+def counted_batches(brain_class, on_card):
+    """Checks every ``fit_batch`` and ``evaluate_batch`` of the Brains
+    built inside: each must launch what its shapes imply (the attention
+    forward once per Conformer layer, the backward once per layer at
+    TRAIN, the lattice once: resident, or the slab pair). Yields the
+    per-stage launch totals and batch counts, and host-clock readings:
+    per TRAIN micro-batch the seconds since the stage began or the last
+    micro-batch ended (the loader's ``next()`` and the loop's
+    bookkeeping: ``loader_wait_s``) and the seconds in ``fit_batch``;
+    per VALID and TEST stage the seconds from its start to the end of
+    its last batch."""
+    from tsasr_torch.kernels.rnnt_lattice import resident_fits
+    from tsasr_torch.models.frontend import ConvolutionFrontEnd
+    totals = collections.defaultdict(collections.Counter)
+    timings = collections.defaultdict(list)
+    clock = {}
+    fit, evaluate = brain_class.fit_batch, brain_class.evaluate_batch
+    stage_start = brain_class.on_stage_start
+
+    def expect(batch, train):
+        L = batch.mixed_sig.data.shape[1]
+        hop = SAMPLE_RATE // 100
+        frames = 1 + L // hop
+        frames = -(-frames // 32) * 32                  # pad_feats_to
+        t = ConvolutionFrontEnd.output_length(frames)
+        u1 = batch.tokens_bos.data.shape[1]
+        resident = resident_fits(t, u1)
+        return {"relpos_attention_fwd": LAYERS_PER_REQUEST,
+                "relpos_attention_bwd": LAYERS_PER_REQUEST if train else 0,
+                "rnnt_lattice_resident": int(resident),
+                "rnnt_lattice_alpha_slab": int(not resident),
+                "rnnt_lattice_beta_slab": int(not resident)}
+
+    def started(self, stage, *args, **kwargs):
+        out = stage_start(self, stage, *args, **kwargs)
+        clock["start"] = clock["last"] = time.perf_counter()
+        if stage.name != "TRAIN":
+            timings[f"{stage.name.lower()}_s"].append(0.0)
+        return out
+
+    def checked(run, stage, train):
+        def wrapper(self, batch, *args):
+            t0 = time.perf_counter()
+            before = read_counts()
+            out = run(self, batch, *args)
+            after = read_counts()
+            t1 = time.perf_counter()
+            n = {k: after[k] - before[k] for k in after}
+            want = expect(batch, train) if on_card else \
+                {k: 0 for k in after}
+            name = stage(args)
+            if n != want:
+                raise RuntimeError(
+                    f"{name} batch {totals[name]['batches'] + 1} of shape "
+                    f"{tuple(batch.mixed_sig.data.shape)} launched {n}, "
+                    f"expected {want}")
+            totals[name].update(n)
+            totals[name]["batches"] += 1
+            if train:
+                timings["loader_wait_s"].append(t0 - clock["last"])
+                timings["fit_batch_s"].append(t1 - t0)
+            else:
+                timings[f"{name.lower()}_s"][-1] = t1 - clock["start"]
+            clock["last"] = time.perf_counter()
+            return out
+        return wrapper
+
+    brain_class.fit_batch = checked(fit, lambda args: "TRAIN", True)
+    brain_class.evaluate_batch = checked(
+        evaluate, lambda args: args[0].name, False)
+    brain_class.on_stage_start = started
+    try:
+        yield totals, timings
+    finally:
+        brain_class.fit_batch, brain_class.evaluate_batch = fit, evaluate
+        brain_class.on_stage_start = stage_start
+
+
+@contextlib.contextmanager
+def captured_kernel_calls():
+    """Keeps a detached copy of the inputs of the first call of each
+    shape that the model gives the attention and lattice wrappers while
+    inside; the calls go on to the wrappers, so their launches count as
+    the path's. Yields {"attention": {(shape, rate, train): (args, seed,
+    scale)}, "lattice": {(B, T, U+1): args}}."""
+    import torch
+    from tsasr_torch.models import attention
+    from tsasr_torch.ops import rnnt_loss, rnnt_loss_fused
+    seen = {"attention": {}, "lattice": {}}
+    fused, lattice = (attention.fused_relpos_attention,
+                      rnnt_loss_fused.rnnt_lattice)
+
+    def copy(x):
+        return x.detach().clone() if torch.is_tensor(x) else x
+
+    def attention_call(*args, seed, scale, rate):
+        train = torch.is_grad_enabled() and any(
+            x.requires_grad for x in args[:5])
+        key = (tuple(args[0].shape), rate, train)
+        if key not in seen["attention"]:
+            seen["attention"][key] = ([copy(x) for x in args], copy(seed),
+                                      scale)
+        return fused(*args, seed=seed, scale=scale, rate=rate)
+
+    def lattice_call(*args):
+        seen["lattice"].setdefault(tuple(args[0].shape),
+                                   [copy(x) for x in args])
+        return lattice(*args)
+
+    attention.fused_relpos_attention = attention_call
+    rnnt_loss.rnnt_lattice = rnnt_loss_fused.rnnt_lattice = lattice_call
+    try:
+        yield seen
+    finally:
+        attention.fused_relpos_attention = fused
+        rnnt_loss.rnnt_lattice = rnnt_loss_fused.rnnt_lattice = lattice
+
+
+def check_path_kernels(seen):
+    """Each call captured on the experiment's path (one per shape) again
+    through the kernel's wrapper, against the plain version on the same
+    tensors: the attention forward within ATTN_ATOL of the output's max
+    |o| clamped at 1 (dropout at the path's seed and rate: the same
+    Philox mask on both sides), at TRAIN also the backward
+    (``attention_grad_errors``, a random upstream gradient), and the
+    lattice on the route the path took, against the plain version in f32
+    and in f64 within ``lattice_rtol``. Returns the worst of each."""
+    import torch
+    from tsasr_torch.kernels import relpos_attention as ra
+    from tsasr_torch.kernels import rnnt_lattice as rl
+
+    gen = torch.Generator().manual_seed(SEED + 13)
+    worst = {"fwd": 0.0, "bwd": 0.0, "lattice": 0.0}
+    for (shape, rate, train), (args, seed, scale) in \
+            seen["attention"].items():
+        with torch.no_grad():
+            got = ra.fused_relpos_attention(*args, seed=seed, scale=scale,
+                                            rate=rate)
+            want = ra.relpos_attention_reference(*args, scale, seed, rate)
+        err = ((got - want).abs().max()
+               / want.abs().max().clamp(min=1.0)).item()
+        if not (err <= ATTN_ATOL and torch.isfinite(got).all()):
+            raise RuntimeError(f"relpos_attention_fwd at the experiment's "
+                               f"{shape} rate {rate}: err {err} of max |o| "
+                               f"> {ATTN_ATOL}")
+        worst["fwd"] = max(worst["fwd"], err)
+        if train:
+            do = torch.randn(got.shape, generator=gen).to(got.device)
+            _, rel_err, _ = attention_grad_errors(args, do, seed, scale,
+                                                  rate)
+            worst["bwd"] = max(worst["bwd"], rel_err)
+    for (b, t, u1), args in seen["lattice"].items():
+        got = rl.rnnt_lattice(*args)
+        want64 = rl.rnnt_lattice_reference(*as_f64(args))
+        rtol = lattice_rtol(want64[0], t, u1)
+        err = max(lattice_err(got, rl.rnnt_lattice_reference(*args), rtol),
+                  lattice_err(got, want64, rtol))
+        if not (err <= 1.0 and all(torch.isfinite(g).all() for g in got)):
+            raise RuntimeError(f"rnnt_lattice at the experiment's B{b} T{t} "
+                               f"U+1 {u1}: err/tol {err}")
+        worst["lattice"] = max(worst["lattice"], err)
+    return worst
+
+
+def phase_experiment(device, card):
+    """The scratch experiment twice in one output folder: 1 epoch cut at
+    2 optimizer steps, then 2 epochs, which recover the first's
+    checkpoint; then every kernel at each shape the two runs gave it,
+    on the tensors they gave it, against its plain version."""
+    import tempfile
+    import torch
+    from tsasr_torch.recipes.librispeechmix import TSASRBrain, run_experiment
+    from tsasr_torch.tools.make_synthetic_dataset import make_dataset
+
+    root = Path(__file__).resolve().parent
+    on_card = device.type == "cuda"
+    with tempfile.TemporaryDirectory(prefix="tsasr_experiment_") as tmp:
+        corpus, out = Path(tmp) / "corpus", Path(tmp) / "out"
+        make_dataset(str(corpus), **EXPERIMENT_CORPUS)
+
+        def argv(epochs, step_limit):
+            args = [str(root / EXPERIMENT_YAML), "--data_folder",
+                    str(corpus), "--output_folder", str(out),
+                    "--fused_attention", "True", "--beam_size", "1",
+                    "--valid_search_freq", "1", "--noprogressbar",
+                    "--vocab_size", str(corpus_vocab(corpus)),
+                    "--num_epochs", str(epochs),
+                    "--optimizer_step_limit", str(step_limit)]
+            # the card is the default device: only a rehearsal names one
+            return args if on_card else args + ["--device", str(device)]
+
+        resumed_from = []
+        fit_train = TSASRBrain._fit_train
+
+        def recording(self, train_set, epoch):
+            if not resumed_from:
+                resumed_from.append((epoch, train_state(self)))
+            return fit_train(self, train_set, epoch)
+
+        reset_counts()
+        t0 = time.perf_counter()
+        with captured_kernel_calls() as seen, \
+                counted_batches(TSASRBrain, on_card) as (first_counts,
+                                                         timings):
+            first = run_experiment(argv=argv(1, 2))
+        first_s = time.perf_counter() - t0
+        saved = train_state(first)
+        model = first.model
+        config = model.config
+        n_params = sum(p.numel() for p in model.parameters())
+        log_text = (out / "train_log.txt").read_text()
+        wer_text = (out / "wer_test-clean-2mix.txt").read_text()
+        ckpts = first.checkpointer.list_checkpoints()
+        log(f"experiment: run_experiment at d_model {config.d_model}, "
+            f"{config.encoder_num_layers}+{config.speaker_encoder_layers} "
+            f"layers, d_ffn {config.d_ffn}, {n_params} params, "
+            f"fused_attention {config.fused_attention}, on "
+            f"{next(model.parameters()).device}; {first_s:.1f} s; batches "
+            + ", ".join(f"{k} {v['batches']}"
+                        for k, v in first_counts.items())
+            + f"; optimizer steps {first.optimizer_step}; checkpoints "
+            f"{len(ckpts)}")
+        for line in log_text.splitlines():
+            log(f"  train_log: {line}")
+        if on_card and next(model.parameters()).device.type != "cuda":
+            raise RuntimeError("the experiment did not run on the card")
+        if not re.search(r"^epoch: 1, .* valid WER: ", log_text, re.M):
+            raise RuntimeError("train_log.txt has no epoch line with a "
+                               "valid WER")
+        if not wer_text.startswith("%WER") or not ckpts:
+            raise RuntimeError("no WER file or no checkpoint")
+        if first.optimizer_step != 2 or \
+                first_counts["TRAIN"]["batches"] != 8:
+            raise RuntimeError("the step limit did not stop TRAIN at 2 "
+                               "optimizer steps, 8 micro-batches")
+        wait = [t * 1e3 for t in timings["loader_wait_s"]]
+        step = [t * 1e3 for t in timings["fit_batch_s"]]
+        through = [a + b for a, b in zip(wait, step)]
+        log(f"experiment TRAIN through the loader: ms per micro-batch "
+            f"(loader wait, i.e. next() and the loop's bookkeeping, + "
+            f"fit_batch) "
+            + ", ".join(f"{x:.1f}" for x in through)
+            + f"; warm median {statistics.median(through[2:]):.1f} ms; "
+            f"loader wait ms " + ", ".join(f"{x:.2f}" for x in wait)
+            + f" (median {statistics.median(wait):.2f}, max "
+            f"{max(wait):.2f}) [{card}]")
+        log(f"experiment VALID wall {timings['valid_s'][0]:.2f} s over "
+            f"{first_counts['VALID']['batches']} batches, TEST wall "
+            f"{timings['test_s'][0]:.2f} s over "
+            f"{first_counts['TEST']['batches']} batches (greedy search) "
+            f"[{card}]")
+        del first, model
+
+        TSASRBrain._fit_train = recording
+        try:
+            t0 = time.perf_counter()
+            with captured_kernel_calls() as seen_again, \
+                    counted_batches(TSASRBrain, on_card) as (second_counts,
+                                                             _):
+                second = run_experiment(argv=argv(2, 4))
+            second_s = time.perf_counter() - t0
+        finally:
+            TSASRBrain._fit_train = fit_train
+        counts = read_counts()
+        epoch, start = resumed_from[0]
+        added = (out / "train_log.txt").read_text()[len(log_text):]
+        recovered = second._recovered_ckpt
+        with open(Path(recovered.path) / "counter.ckpt") as f:
+            loaded_epoch = json.load(f)["current"]
+        steps = re.search(r"^epoch: 2, .*steps: (\d+) ", added, re.M)
+        log(f"experiment resumed: {second_s:.1f} s; started at epoch "
+            f"{epoch} from optimizer step {start['counters'][0]} "
+            f"(saved {saved['counters'][0]}), state bit-identical "
+            f"{same_state(start, saved)}; epoch 2 ended at "
+            f"{steps and steps.group(1)} steps; TEST loaded the best "
+            f"checkpoint on WER, epoch {loaded_epoch}")
+        for line in added.splitlines():
+            log(f"  train_log: {line}")
+        if epoch != 2 or not same_state(start, saved):
+            raise RuntimeError("the second run did not recover the saved "
+                               "state bit for bit")
+        if not steps or steps.group(1) != "4" \
+                or f"Epoch loaded: {loaded_epoch}" not in added:
+            raise RuntimeError("the second run did not go on from the "
+                               "checkpoint")
+        del second
+    by_batch = {k: sum(c[k] for c in (*first_counts.values(),
+                                      *second_counts.values()))
+                for k in counts}
+    if by_batch != counts:
+        raise RuntimeError(f"launches {counts} outside the batches' "
+                           f"{by_batch}")
+    for kind in seen:
+        for key, args in seen_again[kind].items():
+            seen[kind].setdefault(key, args)
+    worst = check_path_kernels(seen)
+    frames = sorted({shape[2] for shape, _, _ in seen["attention"]})
+    log(f"experiment kernels against their plain versions on the path's "
+        f"own inputs, one call per shape: attention forward at "
+        f"{len(seen['attention'])} shapes (T {frames}), worst err "
+        f"{worst['fwd']:.3g} of max |o| (atol {ATTN_ATOL}); backward at "
+        f"{sum(train for _, _, train in seen['attention'])} TRAIN shapes "
+        f"(dropout as on the path), worst {worst['bwd']:.3g} of max |g| "
+        f"(atol {ATTN_ATOL}); lattice at {len(seen['lattice'])} shapes (B, "
+        f"T, U+1: {sorted(seen['lattice'])}), worst err/tol "
+        f"{worst['lattice']:.3g} (lattice_rtol, f32 and f64)")
+    return counts
+
+
 def phase_small(device):
     """A small model on the card (kernels) against the CPU (plain):
     serving encoder output, then 2 optimizer steps of training."""
@@ -1424,6 +1798,7 @@ def main():
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(root))
+    from tsasr_torch import native
     from tsasr_torch.kernels import _build
     from tsasr_torch.kernels import relpos_attention as ra
     from tsasr_torch.kernels import rnnt_lattice as rl
@@ -1434,8 +1809,12 @@ def main():
     card = card_line()
     log(card)
     t_start = t0 = time.perf_counter()
+    # the data loader's host decoder (g++) builds beside the kernels
+    # (nvcc), so the experiment's loader waits are not its build
+    host = concurrent.futures.ThreadPoolExecutor(1).submit(native.build)
     _build.build([ra.SOURCE, ra.BWD_SOURCE, rl.SOURCE])
-    log(f"build: {time.perf_counter() - t0:.1f} s")
+    log(f"build: {time.perf_counter() - t0:.1f} s; host decoder "
+        f"{host.result().name}")
     for name, entry in _build.build_log.items():
         for line in entry["log"].splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
@@ -1450,25 +1829,26 @@ def main():
     log(f"kernel phases done at {time.perf_counter() - t_start:.1f} s")
     serving = phase_serving(device, card)
     training = phase_training(device, card)
+    experiment = phase_experiment(device, card)
     phase_small(device)
     log(f"all phases done at {time.perf_counter() - t_start:.1f} s")
 
     def paths(name):
-        return {"serving": serving[name], "training": training[name]}
+        return {"serving": serving[name], "training": training[name],
+                "experiment": experiment[name]}
 
     fwd, bwd = fwd_rows[0], next(r for r in bwd_rows if r["T"] == 208)
     kernels = [
         kernel_entry("relpos_attention_fwd",
                      "tsasr_torch/csrc/relpos_attention_fwd.cu",
                      "tsasr_tpu/ops/attention_pallas.py:128",
-                     serving["relpos_attention_fwd"]
-                     + training["relpos_attention_fwd"],
+                     sum(paths("relpos_attention_fwd").values()),
                      paths("relpos_attention_fwd"), fwd,
                      f"B{fwd['B']} H{H} T{fwd['T']} Dh{DH} f32"),
         kernel_entry("relpos_attention_bwd",
                      "tsasr_torch/csrc/relpos_attention_bwd.cu",
                      "tsasr_tpu/ops/attention_pallas.py:143",
-                     training["relpos_attention_bwd"],
+                     sum(paths("relpos_attention_bwd").values()),
                      paths("relpos_attention_bwd"), bwd,
                      f"B{B} H{H} T{bwd['T']} Dh{DH} f32"),
     ]
@@ -1480,7 +1860,8 @@ def main():
         kernels.append(kernel_entry(
             name, "tsasr_torch/csrc/rnnt_lattice.cu",
             f"tsasr_tpu/ops/rnnt_loss_pallas.py:{line}",
-            training[name], paths(name), row, row["shape"] + " f32"))
+            sum(paths(name).values()), paths(name), row,
+            row["shape"] + " f32"))
     for entry in kernels:
         if entry["launches"] < 1:
             raise RuntimeError(f"{entry['name']} was not launched on the "

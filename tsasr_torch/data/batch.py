@@ -43,7 +43,8 @@ class PaddedBatch:
     non-array values are collected into lists.
 
     Attribute access: ``batch.mixed_sig`` -> ``PaddedData(data, lengths)``
-    for padded keys, plain list otherwise.
+    for padded keys, plain list otherwise. Iteration yields per-key
+    values in example order.
     """
 
     def __init__(self, examples, pad_to_multiple=None, padded_keys=None,
@@ -84,5 +85,11 @@ class PaddedBatch:
     def __contains__(self, key):
         return key in self.__keys
 
+    def __iter__(self):
+        return iter(getattr(self, key) for key in self.__keys)
+
     def keys(self):
         return list(self.__keys)
+
+    def as_dict(self):
+        return {k: getattr(self, k) for k in self.__keys}

@@ -59,6 +59,38 @@ class TSTransducerConfig:
     decoder_num_layers: int = 1
     joint_dim: int = 640
     fused_attention: bool = False
+    # keys of the JAX config that the recipe's yaml passes; the port runs
+    # their defaults only, and any other value raises (__post_init__)
+    causal_encoder: bool = False
+    att_context_size: int = 0
+    remat: bool = False
+    remat_policy: str = "full"
+    frontend_class: Optional[str] = None
+    encoder_class: Optional[str] = None
+    predictor_class: Optional[str] = None
+    joiner_class: Optional[str] = None
+    speaker_encoder_type: str = "conformer"
+
+    def __post_init__(self):
+        not_ported = {
+            "causal_encoder": (self.causal_encoder, False),
+            "att_context_size": (self.att_context_size, 0),
+            "remat": (self.remat, False),
+            "frontend_class": (self.frontend_class, None),
+            "encoder_class": (self.encoder_class, None),
+            "predictor_class": (self.predictor_class, None),
+            "joiner_class": (self.joiner_class, None),
+            "speaker_encoder_type": (self.speaker_encoder_type,
+                                     "conformer"),
+        }
+        for key, (value, ported) in not_ported.items():
+            if value != ported:
+                raise NotImplementedError(
+                    f"{key}={value!r} is not ported yet; the port runs "
+                    f"{key}={ported!r}")
+        # the policy only chooses what remat recomputes
+        if self.remat_policy not in ("full", "dots"):
+            raise ValueError(f"unknown remat_policy {self.remat_policy!r}")
 
 
 def scratch_config(**overrides):

@@ -1,7 +1,8 @@
-"""LibriSpeechMix TS-ASR recipe: the ``scratch`` variant's Brain.
+"""LibriSpeechMix TS-ASR recipe: the ``scratch`` variant's Brain and
+experiment.
 
-Counterpart of the JAX package's ``recipes/librispeechmix.py::TSASRBrain``
-for the scratch variant (the Conformer speaker encoder trained jointly):
+Counterpart of the JAX package's ``recipes/librispeechmix.py`` for the
+scratch variant (the Conformer speaker encoder trained jointly):
 
 - ``batch_to_arrays`` takes a ``PaddedBatch`` in the JAX recipe's form
   (``mixed_sig``, ``enroll_sig``, ``tokens_bos``, ``tokens``) to numpy;
@@ -14,26 +15,51 @@ for the scratch variant (the Conformer speaker encoder trained jointly):
   (``_fused_loss_active``), else the model's full logits;
 - ``compute_objectives`` is the weight-masked mean of the per-utterance
   RNN-T losses;
-- at VALID, ``evaluate_batch_extra`` decodes greedily and accumulates
-  WER against ``batch.target_words``.
+- ``evaluate_batch_extra`` decodes greedily at VALID every
+  ``valid_search_freq`` epochs, and at TEST when ``beam_size <= 1`` (as
+  the JAX recipe's searchers do); CER and WER accumulate in
+  ``ErrorRateStats``; ``on_stage_end`` logs each epoch, keeps the
+  ``keep_checkpoints`` best checkpoints on min WER and writes the WER
+  file at TEST;
+- ``dataio_prepare``, ``build_dataloader_kwargs`` and ``run_experiment``
+  run the experiment: manifests, the tokenizer fitted on
+  train+valid+test, datasets and dynamic batching, ``Brain.fit``, then
+  TEST of every split of ``test_splits`` from the best checkpoint.
 
-Speed perturbation and SpecAugment (``augment: True``), the banded
-joint and loss (a set ``joint_band_width``), the other variants, beam
-search at TEST, the data pipeline and checkpoints are not ported yet
-and raise.
+Not ported yet, each raising ``NotImplementedError``: speed perturbation
+and SpecAugment (``augment: True``), the banded joint and loss (a set
+``joint_band_width``), beam search (TEST with ``beam_size > 1``) and LM
+fusion, the other variants, warm start from ``model_path``,
+``prompt_test`` and the ``plot_*`` switches.
 """
+
+import json
+import logging
+import os
 
 import numpy as np
 import torch
 
+from tsasr_torch.data import (
+    DynamicBatchSampler,
+    DynamicItemDataset,
+    prepare_librispeechmix,
+    train_tokenizer,
+)
+from tsasr_torch.data.dataset import add_dynamic_item, set_output_keys
+from tsasr_torch.data.mixing import make_audio_pipeline, make_text_pipeline
 from tsasr_torch.decoding.greedy import TransducerGreedySearcher
+from tsasr_torch.device import resolve_device
 from tsasr_torch.ops.features import (Fbank, input_normalization,
                                       pad_audio_to_frame_multiple)
 from tsasr_torch.ops.rnnt_loss import rnnt_loss
 from tsasr_torch.ops.rnnt_loss_fused import rnnt_loss_fused
+from tsasr_torch.parallel.distributed import run_on_main
 from tsasr_torch.training.brain import Brain
-from tsasr_torch.utils.edit_distance import wer_details_for_batch, wer_summary
+from tsasr_torch.utils.metric_stats import ErrorRateStats
 from tsasr_torch.utils.stage import Stage
+
+logger = logging.getLogger(__name__)
 
 
 class TSASRBrain(Brain):
@@ -53,7 +79,8 @@ class TSASRBrain(Brain):
             win_length=float(self.hparams.win_length)).to(self.device)
         self._current_epoch = 0
         self._greedy = None
-        self.wer_details = []
+        self.cer_metric = ErrorRateStats(split_tokens=True)
+        self.wer_metric = ErrorRateStats()
         self.last_hyps = None
 
     # ------------------------------------------------------------ batches
@@ -143,29 +170,242 @@ class TSASRBrain(Brain):
         return (losses * w).sum() / torch.clamp(w.sum(), min=1.0)
 
     # ----------------------------------------------------------- decoding
-    def on_stage_start(self, stage, epoch=None):
-        if epoch is not None:
-            self._current_epoch = epoch
-        if stage != Stage.TRAIN:
-            self.wer_details = []
+    def _searching(self, stage):
+        """Whether this evaluation batch is decoded: every VALID of an
+        epoch that ``valid_search_freq`` divides, and every TEST."""
+        if stage == Stage.TEST:
+            beam = getattr(self.hparams, "beam_size", 15)
+            if beam > 1:
+                raise NotImplementedError(
+                    f"TEST decodes with beam search (beam_size={beam}), "
+                    "which is not ported yet; pass --beam_size 1 for "
+                    "greedy search")
+            return True
+        return self._current_epoch % self.hparams.valid_search_freq == 0
 
     def evaluate_batch_extra(self, batch, arrays, predictions, stage):
-        if stage == Stage.TEST:
-            raise NotImplementedError(
-                "TEST decodes with beam search, which is not ported yet")
-        if self._current_epoch % self.hparams.valid_search_freq != 0:
+        if not self._searching(stage):
             return
         if self._greedy is None:
             self._greedy = TransducerGreedySearcher(
                 self.model, blank_index=self.hparams.blank_index)
         _, enc_out, _ = predictions
         hyps, _, _, _ = self._greedy(enc_out, arrays["mixed_lens"])
-        words = [self.tokenizer.decode_ids_to_words(h) for h in hyps]
+        words = self.tokenizer(hyps, task="decode_from_list")
         self.last_hyps = words
         if "target_words" in batch:
-            self.wer_details += wer_details_for_batch(
-                batch.id, batch.target_words, words)
+            self.cer_metric.append(batch.id, words, batch.target_words)
+            self.wer_metric.append(batch.id, words, batch.target_words)
 
     def valid_wer(self):
-        """Corpus WER summary of the VALID batches since the stage began."""
-        return wer_summary(self.wer_details)
+        """Corpus WER summary of the batches decoded since the stage
+        began."""
+        return self.wer_metric.summarize()
+
+    # -------------------------------------------------------------- hooks
+    def on_stage_start(self, stage, epoch=None):
+        if epoch is not None:
+            self._current_epoch = epoch
+        if stage != Stage.TRAIN:
+            self.cer_metric = ErrorRateStats(split_tokens=True)
+            self.wer_metric = ErrorRateStats()
+
+    def on_evaluate_start(self, max_key=None, min_key=None):
+        super().on_evaluate_start(max_key=max_key, min_key=min_key)
+        # report the recovered epoch: keep-best selection may load one
+        # before the fit loop's last
+        counter = getattr(self.hparams, "epoch_counter", None)
+        if counter is not None and (
+                self._recovered_ckpt is not None
+                or counter.current > self._current_epoch):
+            self._current_epoch = counter.current
+
+    def on_stage_end(self, stage, stage_loss, epoch=None):
+        stage_stats = {"loss": stage_loss}
+        if stage == Stage.TRAIN:
+            self.train_stats = stage_stats
+            return
+        if self.wer_metric.scores:
+            stage_stats["CER"] = self.cer_metric.summarize("error_rate")
+            stage_stats["WER"] = self.wer_metric.summarize("error_rate")
+        if stage == Stage.VALID:
+            self.hparams.train_logger.log_stats(
+                stats_meta={"epoch": epoch, "lr": self.current_lr(),
+                            "steps": self.optimizer_step},
+                train_stats=getattr(self, "train_stats",
+                                    {"loss": float("nan")}),
+                valid_stats=stage_stats)
+            if "WER" in stage_stats and self.checkpointer is not None:
+                self.checkpointer.save_and_keep_only(
+                    meta={"WER": stage_stats["WER"]}, min_keys=["WER"],
+                    num_to_keep=self.hparams.keep_checkpoints)
+        elif stage == Stage.TEST:
+            self.hparams.train_logger.log_stats(
+                stats_meta={"Epoch loaded": self._current_epoch},
+                test_stats=stage_stats)
+            if hasattr(self.hparams, "wer_file"):
+                with open(self.hparams.wer_file, "w") as f:
+                    self.wer_metric.write_stats(f)
+
+
+# ======================================================== dataio plumbing
+def dataio_prepare(hparams, tokenizer):
+    """Datasets + pipelines, mirroring
+    ``train_librispeechmix_scratch.py:279-488``."""
+    data_folder = hparams["data_folder"]
+    replacements = {"DATA_ROOT": data_folder}
+
+    train_data = DynamicItemDataset.from_json(hparams["train_json"],
+                                              replacements=replacements)
+    sorting = hparams.get("sorting", "ascending")
+    if sorting in ("ascending", "descending"):
+        train_data = train_data.filtered_sorted(
+            sort_key="duration", reverse=sorting == "descending",
+            key_max_value={"duration": hparams["train_remove_if_longer"]})
+    elif sorting != "random":
+        raise NotImplementedError(
+            "`sorting` must be random, ascending or descending")
+
+    valid_data = DynamicItemDataset.from_json(
+        hparams["valid_json"], replacements=replacements).filtered_sorted(
+        sort_key="duration", reverse=True,
+        key_max_value={"duration": hparams["valid_remove_if_longer"]})
+    test_data = DynamicItemDataset.from_json(
+        hparams["test_json"], replacements=replacements).filtered_sorted(
+        sort_key="duration", reverse=True,
+        key_max_value={"duration": hparams["test_remove_if_longer"]})
+
+    datasets = [train_data, valid_data, test_data]
+    add_dynamic_item(datasets, make_audio_pipeline(hparams))
+    add_dynamic_item(datasets, make_text_pipeline(
+        tokenizer, blank_index=hparams["blank_index"]))
+    set_output_keys(datasets, ["id", "mixed_sig", "enroll_sig",
+                               "tokens_bos", "tokens", "target_words"])
+    return train_data, valid_data, test_data
+
+
+def build_dataloader_kwargs(hparams, dataset, stage):
+    """Dynamic-batching loader kwargs (reference main :576-610), for one
+    process."""
+    worker_mode = hparams.get("dataloader_worker_mode", "thread")
+    workers = hparams.get("dataloader_workers", 0)
+    if worker_mode == "thread":
+        # more than one prefetch thread only adds GIL contention; core
+        # scaling needs worker_mode: process
+        workers = min(workers, 1)
+    kwargs = {"num_workers": workers, "worker_mode": worker_mode,
+              "mp_context": hparams.get("dataloader_mp_context", "fork"),
+              "pad_to_multiple": hparams.get("pad_to_multiple")}
+    if hparams.get("dynamic_batching", True):
+        kwargs["batch_sampler"] = DynamicBatchSampler(
+            dataset, hparams[f"{stage}_max_batch_length"],
+            num_buckets=hparams["num_buckets"],
+            length_func=lambda x: x["duration"],
+            shuffle=False,
+            batch_ordering=(hparams.get("sorting", "ascending")
+                            if stage == "train" else "descending"),
+            max_batch_ex=hparams["max_batch_size"])
+    else:
+        kwargs["batch_size"] = hparams[f"{stage}_batch_size"]
+    return kwargs
+
+
+def check_ported(hparams, variant):
+    """Raise ``NotImplementedError`` for what the port does not run yet;
+    nothing is ignored silently."""
+    if variant != "scratch":
+        raise NotImplementedError(
+            f"variant {variant!r} is not ported yet; the port has "
+            "'scratch'")
+    switches = {
+        "model_path": "warm start from model_path (Pretrainer)",
+        "prompt_test": "prompt_test (two-pass prompted TEST)",
+        "plot_data": "plot_data", "plot_attentions": "plot_attentions",
+        "plot_embeddings": "plot_embeddings",
+        "plot_grad_norm": "plot_grad_norm",
+        "augment": "augment: True (speed perturbation and SpecAugment)",
+        "joint_band_width": "joint_band_width (the banded joint and loss)",
+    }
+    for key, what in switches.items():
+        if hparams.get(key):
+            raise NotImplementedError(f"{what} is not ported yet")
+    if float(hparams.get("lm_weight") or 0.0) > 0 and hparams.get("lm_path"):
+        raise NotImplementedError("LM shallow fusion is not ported yet")
+
+
+def _prepare(hparams, splits):
+    run_on_main(prepare_librispeechmix, kwargs={
+        "data_folder": hparams["data_folder"],
+        "save_folder": hparams["save_folder"],
+        "splits": splits,
+        "num_targets": hparams.get("num_targets"),
+        "num_enrolls": hparams.get("num_enrolls"),
+        "trim_nontarget": hparams.get("trim_nontarget"),
+        "suppress_delay": hparams.get("suppress_delay"),
+        "overlap_ratio": hparams.get("overlap_ratio"),
+    })
+
+
+def run_experiment(variant="scratch", argv=None):
+    """The experiment main of the scratch variant (the reference's
+    ``__main__`` block, ``train_librispeechmix_scratch.py:491-687``):
+    prepare, fit the tokenizer, build the datasets, ``Brain.fit``, then
+    TEST every split of ``test_splits``. Returns the Brain."""
+    from tsasr_torch.training.experiment import (
+        check_precision,
+        create_experiment_directory,
+        parse_arguments,
+    )
+    from tsasr_torch.utils.hparams import load_hyperpyyaml
+
+    hparams_file, run_opts, overrides = parse_arguments(argv)
+    with open(hparams_file) as f:
+        hparams = load_hyperpyyaml(f, overrides)
+    check_ported(hparams, variant)
+    check_precision(run_opts.get("precision", hparams.get("precision")))
+    # the device is resolved before anything is written: asking for the
+    # card on a host without one raises here
+    resolve_device(run_opts.get("device", hparams.get("device", "cuda")))
+
+    create_experiment_directory(
+        experiment_directory=hparams["output_folder"],
+        hyperparams_to_save=hparams_file, overrides=overrides)
+    _prepare(hparams, hparams["splits"])
+
+    # the tokenizer is fitted on train+valid+test transcripts (reference
+    # :526-556: token distributions may differ across splits)
+    texts = []
+    for split in ("train", "valid", "test"):
+        with open(hparams[f"{split}_json"], encoding="utf-8") as f:
+            texts.extend(e["wrd"] for e in json.load(f).values())
+    tokenizer = train_tokenizer(
+        hparams["save_folder"], texts, vocab_size=hparams["vocab_size"],
+        model_type=hparams.get("token_type", "char"),
+        character_coverage=hparams.get("character_coverage", 1.0),
+        unk_id=hparams["blank_index"])
+
+    train_data, valid_data, _ = dataio_prepare(hparams, tokenizer)
+    model = hparams["model"].init_weights(seed=int(hparams["seed"]))
+    brain = TSASRBrain(
+        modules={"model": model}, opt_class=hparams["opt_class"],
+        hparams=hparams, run_opts=run_opts,
+        checkpointer=hparams.get("checkpointer"), variant=variant,
+        tokenizer=tokenizer)
+    logger.info("%.1fM trainable parameters on %s",
+                sum(p.numel() for p in brain._params()) / 1e6, brain.device)
+
+    brain.fit(hparams["epoch_counter"], train_data, valid_data,
+              train_loader_kwargs=build_dataloader_kwargs(
+                  hparams, train_data, "train"),
+              valid_loader_kwargs=build_dataloader_kwargs(
+                  hparams, valid_data, "valid"))
+
+    for split in hparams["test_splits"]:
+        _prepare(hparams, [split])
+        _, _, test_data = dataio_prepare(hparams, tokenizer)
+        brain.hparams.wer_file = os.path.join(
+            hparams["output_folder"], f"wer_{split}.txt")
+        brain.evaluate(test_data, min_key="WER",
+                       test_loader_kwargs=build_dataloader_kwargs(
+                           hparams, test_data, "test"))
+    return brain

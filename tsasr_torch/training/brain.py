@@ -1,8 +1,7 @@
-"""The Brain: one training step and one evaluation step.
+"""The Brain: the fit/evaluate loop over eager training steps.
 
-Counterpart of the JAX package's ``training/brain.py`` for the pieces a
-training step needs. The JAX step is one jitted program; here it is
-eager PyTorch with the same semantics:
+Counterpart of the JAX package's ``training/brain.py``. The JAX step is
+one jitted program; here it is eager PyTorch with the same semantics:
 
 - gradients of ``grad_accumulation_factor`` micro-batches are averaged
   (``optax.MultiSteps``' running mean); on the last one the mean is
@@ -17,29 +16,51 @@ eager PyTorch with the same semantics:
   model's device, seeded from (seed, optimizer step, micro-batch count)
   as the JAX ``fit_batch`` folds its key.
 
+The loop is the JAX package's: ``fit`` runs the epochs of
+``epoch_counter`` (TRAIN micro-batches through a ``SaveableDataLoader``,
+then VALID), with ``debug`` / ``debug_batches`` / ``debug_epochs``,
+``optimizer_step_limit``, ``test_only`` and intra-epoch checkpoints by
+minutes or optimizer steps; ``evaluate`` recovers the best checkpoint and
+runs TEST. A ``Checkpointer`` gets the recoverables ``brain`` (model,
+optimizer, the running gradient mean and the counters), ``scheduler``
+and ``counter``, then ``dataloader`` just before recovery, in the JAX
+order. The loss is read synchronously (``loss.item()``), not one step
+late as in JAX.
+
 Subclasses provide ``batch_to_arrays``, ``compute_forward`` and
 ``compute_objectives``. Entry points run on ``device="cuda"`` unless
-``run_opts`` asks for the CPU. There is no epoch loop, checkpointing or
-data loading yet.
+``run_opts`` asks for the CPU.
 """
 
 import contextlib
 import logging
+import tempfile
+import time
 from types import SimpleNamespace
 
 import numpy as np
 import torch
 
+from tsasr_torch.data.loader import LoopedLoader, SaveableDataLoader
 from tsasr_torch.device import resolve_device
+from tsasr_torch.training.checkpoints import load_state, save_state
 from tsasr_torch.utils.stage import Stage
 
 logger = logging.getLogger(__name__)
 
 DEFAULT_RUN_OPTS = {
+    "debug": False,
+    "debug_batches": 2,
+    "debug_epochs": 2,
     "device": "cuda",
+    "noprogressbar": False,
     "grad_accumulation_factor": 1,
+    "optimizer_step_limit": None,
+    "ckpt_interval_minutes": 0,
+    "ckpt_interval_steps": 0,
     "max_grad_norm": 5.0,
     "nonfinite_patience": 3,
+    "test_only": False,
 }
 
 
@@ -76,12 +97,14 @@ class Brain:
         ``NoamScheduler``) sets the learning rate of every update.
     run_opts : overrides of ``DEFAULT_RUN_OPTS`` (hparams override the
         defaults, run_opts override both).
+    checkpointer : ``training.checkpoints.Checkpointer`` or None.
     """
 
     def __init__(self, modules=None, opt_class=None, hparams=None,
-                 run_opts=None):
+                 run_opts=None, checkpointer=None):
         self.opt_class = opt_class
         self.hparams = SimpleNamespace(**(hparams or {}))
+        self.checkpointer = checkpointer
         resolved = dict(DEFAULT_RUN_OPTS)
         for key in resolved:
             if hparams and key in hparams:
@@ -103,8 +126,21 @@ class Brain:
         self.optimizer_step = 0         # optimizer updates
         self.nonfinite_count = 0
         self.last_grad_norm = float("nan")
+        self.avg_train_loss = 0.0
         self._acc = None                # running mean of micro-batch grads
         self._mini_step = 0
+        self._resume_step = 0           # self.step a recovered epoch resumes
+        self._restored_opt_state = None  # recovered before the optimizer
+        self._recovered_ckpt = None     # the checkpoint TEST evaluates
+        self._last_ckpt_time = time.time()
+        if self.checkpointer is not None:
+            self.checkpointer.add_recoverable("brain", _BrainState(self))
+            sched = getattr(self.hparams, "noam_scheduler", None)
+            if sched is not None and hasattr(sched, "save"):
+                self.checkpointer.add_recoverable("scheduler", sched)
+            counter = getattr(self.hparams, "epoch_counter", None)
+            if counter is not None and hasattr(counter, "save"):
+                self.checkpointer.add_recoverable("counter", counter)
 
     # ================================================== subclass surface
     def compute_forward(self, batch, stage, generator):
@@ -122,6 +158,23 @@ class Brain:
     def evaluate_batch_extra(self, batch, arrays, predictions, stage):
         """Per-eval-batch hook (decoding, metrics)."""
 
+    def on_stage_start(self, stage, epoch=None):
+        pass
+
+    def on_stage_end(self, stage, stage_loss, epoch=None):
+        pass
+
+    def on_fit_start(self):
+        pass
+
+    def on_evaluate_start(self, max_key=None, min_key=None):
+        if self.checkpointer is not None:
+            # the recovered checkpoint stays visible to subclasses: the
+            # "Epoch loaded" line reports the epoch whose weights are
+            # evaluated (keep-best may pick an earlier one than the last)
+            self._recovered_ckpt = self.checkpointer.recover_if_possible(
+                min_key=min_key, max_key=max_key)
+
     # ========================================================= optimizer
     def _params(self):
         return [p for p in self.model.parameters() if p.requires_grad]
@@ -129,6 +182,11 @@ class Brain:
     def init_optimizers(self):
         if self.opt_class is not None and self.optimizer is None:
             self.optimizer = self.opt_class(self._params())
+            if self._restored_opt_state is not None:
+                # a checkpoint loaded before the optimizer existed: its
+                # moments go onto the new optimizer instead of being lost
+                self.optimizer.load_state_dict(self._restored_opt_state)
+                self._restored_opt_state = None
 
     def _lr_schedule(self):
         sched = getattr(self.hparams, "noam_scheduler", None)
@@ -238,3 +296,189 @@ class Brain:
             loss = self.compute_objectives(predictions, arrays, stage)
         self.evaluate_batch_extra(batch, arrays, predictions, stage)
         return float(loss)
+
+    # =========================================================== fitting
+    @staticmethod
+    def _update_average(loss, avg_loss, n):
+        """Running mean after the ``n``-th value (nonfinite ones skipped)."""
+        if np.isfinite(loss):
+            avg_loss -= avg_loss / n
+            avg_loss += loss / n
+        return avg_loss
+
+    def _progress(self, iterable, desc):
+        if self.noprogressbar:
+            return iterable
+        try:
+            from tqdm import tqdm
+        except ImportError:
+            return iterable
+        return tqdm(iterable, dynamic_ncols=True, desc=desc)
+
+    def fit(self, epoch_counter, train_set, valid_set=None,
+            train_loader_kwargs=None, valid_loader_kwargs=None):
+        """Train over ``epoch_counter``'s epochs; each is a TRAIN pass
+        over ``train_set`` and a VALID pass over ``valid_set``."""
+        if not isinstance(train_set, (SaveableDataLoader, LoopedLoader)):
+            train_set = SaveableDataLoader(train_set,
+                                           **(train_loader_kwargs or {}))
+        if valid_set is not None and not isinstance(
+                valid_set, (SaveableDataLoader, LoopedLoader)):
+            valid_set = SaveableDataLoader(valid_set,
+                                           **(valid_loader_kwargs or {}))
+        self.train_loader = train_set
+        self.on_fit_start()
+        self.init_optimizers()
+        if self.debug and self.checkpointer is not None and \
+                not getattr(self, "_debug_ckpt_diverted", False):
+            # debug runs checkpoint into a throwaway dir (reference
+            # core.py:670-685)
+            self.checkpointer.checkpoints_dir = tempfile.mkdtemp(
+                prefix="tsasr_debug_ckpt_")
+            self._debug_ckpt_diverted = True
+        if self.checkpointer is not None:
+            self.checkpointer.add_recoverable("dataloader", train_set)
+            self.checkpointer.recover_if_possible()
+        if self.test_only:
+            logger.info("test_only: skipping training")
+            return
+        for epoch in epoch_counter:
+            self._fit_train(train_set, epoch)
+            self._fit_valid(valid_set, epoch)
+            if self.debug and epoch >= self.debug_epochs:
+                logger.info("Debug mode: stopping after %d epochs", epoch)
+                break
+            if self.optimizer_step_limit is not None and \
+                    self.optimizer_step >= self.optimizer_step_limit:
+                logger.info("Reached optimizer step limit (%d)",
+                            self.optimizer_step_limit)
+                break
+
+    def _fit_train(self, train_set, epoch):
+        self.on_stage_start(Stage.TRAIN, epoch)
+        if hasattr(train_set, "set_epoch"):
+            train_set.set_epoch(epoch)
+        # a mid-epoch recovery resumes the count of the epoch's batches,
+        # so the dropout draws go on as in an uninterrupted epoch
+        self.step, self._resume_step = self._resume_step, 0
+        self.avg_train_loss = 0.0
+        bar = self._progress(train_set, f"Epoch {epoch}")
+        iterator = iter(bar)
+        n = 0
+        for batch in iterator:
+            loss = self.fit_batch(batch)
+            n += 1
+            self.avg_train_loss = self._update_average(
+                loss, self.avg_train_loss, n)
+            if bar is not train_set:
+                bar.set_postfix(train_loss=f"{self.avg_train_loss:.3f}")
+            self._maybe_intra_epoch_ckpt()
+            if self.debug and self.step >= self.debug_batches:
+                break
+            if self.optimizer_step_limit is not None and \
+                    self.optimizer_step >= self.optimizer_step_limit:
+                break
+        if hasattr(iterator, "close"):
+            iterator.close()        # reaps the loader's prefetch workers
+        self.on_stage_end(Stage.TRAIN, self.avg_train_loss, epoch)
+        self.step = 0
+
+    def _maybe_intra_epoch_ckpt(self):
+        if self.checkpointer is None:
+            return
+        by_minutes = self.ckpt_interval_minutes and (
+            time.time() - self._last_ckpt_time
+            >= self.ckpt_interval_minutes * 60)
+        by_steps = self.ckpt_interval_steps and \
+            self.optimizer_step > 0 and \
+            self.optimizer_step % self.ckpt_interval_steps == 0 and \
+            (self.step % self.grad_accumulation_factor) == 0
+        if by_minutes or by_steps:
+            # only intra-epoch checkpoints compete for deletion: the
+            # end-of-epoch keep-N-best set is untouchable (reference
+            # core.py:1241-1257 passes the same ckpt_predicate)
+            self.checkpointer.save_and_keep_only(
+                meta={"unfinished_epoch": True}, end_of_epoch=False,
+                num_to_keep=1,
+                importance_key=lambda c: c.unixtime,
+                ckpt_predicate=lambda c: c.meta.get(
+                    "unfinished_epoch", False))
+            self._last_ckpt_time = time.time()
+
+    def _eval_loop(self, dataset, stage, desc):
+        avg_loss = 0.0
+        self.step = 0
+        for batch in self._progress(dataset, desc):
+            self.step += 1
+            loss = self.evaluate_batch(batch, stage)
+            avg_loss = self._update_average(loss, avg_loss, self.step)
+            if self.debug and self.step >= self.debug_batches:
+                break
+        self.step = 0
+        return avg_loss
+
+    def _fit_valid(self, valid_set, epoch):
+        if valid_set is None:
+            return
+        self.on_stage_start(Stage.VALID, epoch)
+        avg_loss = self._eval_loop(valid_set, Stage.VALID, "Valid")
+        self.on_stage_end(Stage.VALID, avg_loss, epoch)
+
+    def evaluate(self, test_set, max_key=None, min_key=None,
+                 test_loader_kwargs=None):
+        """Recover the best checkpoint by ``min_key`` / ``max_key`` and
+        run TEST over ``test_set``; returns the average loss."""
+        if not isinstance(test_set, (SaveableDataLoader, LoopedLoader)):
+            test_set = SaveableDataLoader(test_set,
+                                          **(test_loader_kwargs or {}))
+        self.on_evaluate_start(max_key=max_key, min_key=min_key)
+        self.on_stage_start(Stage.TEST, epoch=None)
+        avg_loss = self._eval_loop(test_set, Stage.TEST, "Test")
+        self.on_stage_end(Stage.TEST, avg_loss, epoch=None)
+        return avg_loss
+
+
+class _BrainState:
+    """Checkpoint adapter for the Brain's train state: the model's and
+    the optimizer's state dicts, the running mean of the accumulated
+    gradients with its micro-step (an intra-epoch checkpoint can land in
+    the middle of an accumulation), and the counters, with the epoch's
+    batch count of an intra-epoch checkpoint. The dropout generator is
+    derived from the seed and the counters, so restoring them restores
+    the random draws too."""
+
+    def __init__(self, brain):
+        self.brain = brain
+
+    def save(self, path):
+        brain = self.brain
+        optimizer = brain.optimizer.state_dict() \
+            if brain.optimizer is not None else brain._restored_opt_state
+        save_state({
+            "model": brain.model.state_dict(),
+            "optimizer": optimizer,
+            "acc": brain._acc,
+            "mini_step": brain._mini_step,
+            "step": brain.step,
+            "optimizer_step": brain.optimizer_step,
+            "global_micro_step": brain.global_micro_step,
+            "nonfinite_count": brain.nonfinite_count,
+        }, path)
+
+    def load(self, path, end_of_epoch=True):
+        brain = self.brain
+        state = load_state(path)
+        brain.model.load_state_dict(state["model"])
+        if state["optimizer"] is not None:
+            if brain.optimizer is not None:
+                brain.optimizer.load_state_dict(state["optimizer"])
+            else:
+                brain._restored_opt_state = state["optimizer"]
+        brain._acc = None if state["acc"] is None else \
+            [a.to(brain.device) for a in state["acc"]]
+        brain._mini_step = int(state["mini_step"])
+        brain.optimizer_step = int(state["optimizer_step"])
+        brain.global_micro_step = int(state["global_micro_step"])
+        brain.nonfinite_count = int(state["nonfinite_count"])
+        brain.step = brain._resume_step = \
+            0 if end_of_epoch else int(state["step"])

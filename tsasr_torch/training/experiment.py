@@ -1,0 +1,170 @@
+"""Experiment CLI + directory management.
+
+The port of the JAX package's ``training/experiment.py``, the
+reference's CLI layer (``core.py:55-410``):
+- ``parse_arguments``: run-opt flags (device/debug/precision/ckpt
+  intervals/grad accumulation/...) are parsed; every *unknown*
+  ``--key value`` pair becomes a YAML override so anything in the hparams
+  file is overridable from the command line (``core.py:396-410``);
+- ``create_experiment_directory``: experiment dir with the resolved
+  hyperparams file, a copy of the invoking script, ``log.txt`` wired to
+  an excepthook for crash forensics, and ``env.log`` with the
+  environment snapshot (``core.py:55-131``).
+
+The flags are the JAX package's. ``--device`` is the torch device
+(``cuda`` unless given, which raises without a card; ``cpu`` to run on
+the host). The parallel flags, ``--profile`` and ``--precision bf16``
+raise ``NotImplementedError``: DDP, the profiler hook and bf16 are not
+ported yet.
+"""
+
+import argparse
+import logging
+import os
+import shutil
+import sys
+
+import yaml
+
+from tsasr_torch.parallel.distributed import run_on_main
+from tsasr_torch.utils.hparams import dump_resolved_yaml
+from tsasr_torch.utils.logger import (
+    get_environment_description,
+    setup_logging,
+)
+
+logger = logging.getLogger(__name__)
+
+RUN_OPT_FLAGS = [
+    ("--debug", {"action": "store_true", "default": None,
+                 "help": "Tiny run: debug_batches/debug_epochs only"}),
+    ("--debug_batches", {"type": int, "default": None}),
+    ("--debug_epochs", {"type": int, "default": None}),
+    ("--device", {"type": str, "default": None,
+                  "help": "torch device: cuda (the default), cuda:N or "
+                  "cpu"}),
+    ("--precision", {"type": str, "default": None,
+                     "choices": ["fp32", "bf16"]}),
+    ("--noprogressbar", {"action": "store_true", "default": None}),
+    ("--grad_accumulation_factor", {"type": int, "default": None}),
+    ("--optimizer_step_limit", {"type": int, "default": None}),
+    ("--ckpt_interval_minutes", {"type": float, "default": None}),
+    ("--ckpt_interval_steps", {"type": int, "default": None}),
+    ("--max_grad_norm", {"type": float, "default": None}),
+    ("--nonfinite_patience", {"type": int, "default": None}),
+    ("--test_only", {"action": "store_true", "default": None}),
+    ("--data_parallel_count", {"type": int, "default": None,
+                               "help": "devices on the data axis"}),
+    ("--tensor_parallel_count", {"type": int, "default": None,
+                                 "help": "devices on the model axis"}),
+    ("--sequence_parallel_count", {"type": int, "default": None,
+                                   "help": "devices on the seq (time) "
+                                   "axis"}),
+    ("--pipeline_parallel_count", {"type": int, "default": None,
+                                   "help": "devices on the pipe (layer) "
+                                   "axis"}),
+    ("--profile", {"action": "store_true", "default": None,
+                   "help": "capture a profiler trace of training"}),
+    ("--profile_dir", {"type": str, "default": None}),
+]
+
+
+NOT_PORTED_FLAGS = ("data_parallel_count", "tensor_parallel_count",
+                    "sequence_parallel_count", "pipeline_parallel_count",
+                    "profile", "profile_dir")
+
+
+def parse_arguments(arg_list=None):
+    """Returns (hparams_file, run_opts dict, overrides yaml string).
+
+    Raises ``NotImplementedError`` for the flags of what is not ported
+    (``NOT_PORTED_FLAGS``, ``--precision bf16``)."""
+    if arg_list is None:
+        arg_list = sys.argv[1:]
+    parser = argparse.ArgumentParser(description="tsasr_torch experiment")
+    parser.add_argument("hparams_file", type=str,
+                        help="HyperPyYAML hparams file")
+    for flag, kwargs in RUN_OPT_FLAGS:
+        parser.add_argument(flag, **kwargs)
+    known, unknown = parser.parse_known_args(arg_list)
+    run_opts = {k: v for k, v in vars(known).items()
+                if k != "hparams_file" and v is not None}
+    for key in NOT_PORTED_FLAGS:
+        if key in run_opts:
+            raise NotImplementedError(
+                f"--{key} is not ported yet (DDP and the profiler hook "
+                "wait on later slices of the port)")
+    check_precision(run_opts.get("precision"))
+    overrides = _unknown_to_overrides(unknown)
+    return known.hparams_file, run_opts, overrides
+
+
+def check_precision(precision):
+    """Raise unless ``precision`` is f32 (or unset)."""
+    if precision not in (None, "fp32"):
+        raise NotImplementedError(
+            f"precision {precision!r} is not ported yet; the port runs "
+            "fp32")
+
+
+def _unknown_to_overrides(unknown):
+    """['--lr', '3e-4', '--augment=True'] -> YAML override string."""
+    pairs = {}
+    i = 0
+    while i < len(unknown):
+        arg = unknown[i]
+        if not arg.startswith("--"):
+            raise ValueError(f"Unexpected positional argument: {arg}")
+        if "=" in arg:
+            key, value = arg[2:].split("=", 1)
+            i += 1
+        else:
+            key = arg[2:]
+            if i + 1 >= len(unknown):
+                raise ValueError(f"Override flag --{key} missing a value")
+            value = unknown[i + 1]
+            i += 2
+        pairs[key] = yaml.safe_load(value)
+    return yaml.safe_dump(pairs) if pairs else ""
+
+
+def create_experiment_directory(experiment_directory,
+                                hyperparams_to_save=None, overrides=None,
+                                log_config=None, save_env_desc=True):
+    """Create the experiment dir (main process), wire logging/excepthook."""
+
+    def _create():
+        os.makedirs(experiment_directory, exist_ok=True)
+        if hyperparams_to_save is not None:
+            dump_resolved_yaml(
+                hyperparams_to_save, overrides,
+                os.path.join(experiment_directory, "hyperparams.yaml"))
+        script = os.path.realpath(sys.argv[0])
+        if os.path.isfile(script):
+            shutil.copy(script, experiment_directory)
+        if save_env_desc:
+            with open(os.path.join(experiment_directory, "env.log"),
+                      "w") as f:
+                f.write(get_environment_description())
+
+    run_on_main(_create)
+    log_file = os.path.join(experiment_directory, "log.txt")
+    setup_logging(log_file)
+    sys.excepthook = _make_excepthook(log_file)
+    logger.info("Beginning experiment!")
+    logger.info("Experiment folder: %s", experiment_directory)
+
+
+def _make_excepthook(log_file):
+    def excepthook(exc_type, exc_value, exc_traceback):
+        import traceback
+        try:
+            with open(log_file, "a") as f:
+                f.write("\nException:\n")
+                traceback.print_exception(exc_type, exc_value,
+                                          exc_traceback, file=f)
+        except OSError:     # the experiment's folder is gone
+            pass
+        sys.__excepthook__(exc_type, exc_value, exc_traceback)
+
+    return excepthook

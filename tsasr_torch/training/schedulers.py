@@ -5,8 +5,12 @@ Counterpart of the JAX package's ``training/schedulers.py``
 min(n^-0.5, n * warmup^-1.5), normalize = warmup^0.5 (or
 model_size^-0.5). The schedule takes ``max(step, 1)``; the JAX optimizer
 calls it with its inner update count, which starts at 0, so the first
-two updates share lr(1). The Brain keeps that.
+two updates share lr(1). The Brain keeps that. The mirror is a
+checkpoint recoverable (``save`` / ``load``), as in JAX.
 """
+
+import json
+
 
 def noam_schedule(lr_initial, n_warmup_steps, model_size=None):
     """Pure schedule fn: step -> lr."""
@@ -51,3 +55,14 @@ class NoamScheduler:
     def as_schedule_fn(self):
         return noam_schedule(self.lr_initial, self.n_warmup_steps,
                              self.model_size)
+
+    def save(self, path):
+        with open(path, "w", encoding="utf-8") as f:
+            json.dump({"n_steps": self.n_steps,
+                       "current_lr": self.current_lr}, f)
+
+    def load(self, path, end_of_epoch=True):
+        with open(path, encoding="utf-8") as f:
+            saved = json.load(f)
+        self.n_steps = saved["n_steps"]
+        self.current_lr = saved["current_lr"]
