@@ -25,7 +25,11 @@ checkout, or when any phase fails. Phases:
    (8 mixtures of 4 s, 8 s and 12 s, 5 s enrollments); every request
    must launch the attention kernel once per Conformer layer (18), and
    the encoder output must match the same model with attention forced
-   to the plain version;
+   to the plain version; the same requests again at the recipe's TEST
+   beam (``beam_size=15``, the batched beam), the card's search held
+   against the same searcher on the CPU over the card's encoder output
+   (``beam_agreement``), once more with a seeded RNN-LM at weight 0.3,
+   and the exact beam on one 4 s utterance;
 4. one training step of the scratch recipe at full width through
    ``TSASRBrain.fit_batch``: 8 micro-batches (6 x 8 s and 3 x 16 s in
    turn, 5 s enrollments, dropout 0.1 with 8-bit masks, accumulation 4,
@@ -33,26 +37,33 @@ checkout, or when any phase fails. Phases:
    micro-batch; at dropout 0 one micro-batch's loss and gradients
    against the same model with every kernel forced to its plain
    version (loosely only where a leaky_relu kink flip can reach, as the
-   f64 run places it), and a profile of a 6 x 8 s and of a 3 x 16 s micro-batch;
+   f64 run places it, the joint's inside the fused loss included), and
+   a profile of a 6 x 8 s and of a 3 x 16 s micro-batch;
    then one VALID batch through ``evaluate_batch``;
 5. the scratch recipe's experiment at full width through
    ``run_experiment`` (``tsasr_torch/hparams/LibriSpeechMix/
    conformer-t_scratch.yaml``, the CUDA attention kernels on) on a
    synthetic corpus whose waveforms carry their transcripts as a tone
-   code: prepare, the tokenizer, dynamic batching through the loader, 2
-   optimizer steps (8 micro-batches at accumulation 4), VALID with greedy
-   search and a checkpoint, TEST; every TRAIN micro-batch and every
-   VALID and TEST batch must launch the kernels its shapes imply; a
-   second run with 2 epochs must recover the checkpoint bit for bit and
-   go on from its optimizer step; then each kernel is held against its
-   plain version on the inputs the two runs gave it, one call per shape
-   (the attention forward and, at TRAIN, backward with the path's
-   dropout; the lattice on the route the path took); the host-clock ms
+   code (mixtures up to ~6 s): prepare, the tokenizer, dynamic batching
+   through the loader, 2 optimizer steps (8 micro-batches at
+   accumulation 4), VALID with greedy search and a checkpoint, TEST at
+   the yaml's batched beam 15; every TRAIN micro-batch and every VALID
+   and TEST batch must launch the kernels its shapes imply; a second run
+   with 2 epochs must recover the checkpoint bit for bit and go on from
+   its optimizer step, its TEST one utterance a batch with an n-gram LM
+   of the train transcripts (``tsasr_torch.tools.train_ngram_lm``); the
+   run's folder through ``TSASRTranscriber.from_experiment`` and
+   ``transcribe_file`` must give TEST's transcripts; then each kernel is
+   held against its plain version on the inputs the two runs gave it,
+   one call per shape (the attention forward and, at TRAIN, backward
+   with the path's dropout; the lattice on the route the path took; T
+   128 must be among them); the host-clock ms
    of each micro-batch through the loader, the wait on the loader and
    VALID's and TEST's wall times are printed;
 6. a small model on the card against the same model on the CPU:
-   serving encoder output, and 2 optimizer steps of training at
-   dropout 0.
+   serving encoder output (the CPU side twice, each hash logged with the
+   host CPU's model and torch's thread count), and 2 optimizer steps of
+   training at dropout 0.
 
 The line before the last is one JSON object with each kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -88,6 +99,16 @@ ATTN_ATOL = 1e-4     # f32 on both sides, sums in another order
 ENC_ATOL = 2e-4      # the same, compounded over 18 layers
 SMALL_ATOL = 1e-4
 REQUEST_SECONDS = (4, 8, 12)
+# the recipe's TEST beam, and the card's beam against the same search on
+# the CPU over the card's encoder output (beam_agreement): the best
+# tokens must be identical where the card's top two distinct hypotheses
+# are more than BEAM_MARGIN apart in normalized score, and the best
+# normalized scores within BEAM_SCORE_ATOL (f32 on both sides: sums of a
+# few hundred log-probs over the length)
+BEAM_SIZE = 15
+BEAM_MARGIN = 1e-4
+BEAM_SCORE_ATOL = 1e-4
+LM_WEIGHT = 0.3
 ENROLL_SECONDS = 5
 SAMPLE_RATE = 16000
 LAYERS_PER_REQUEST = 18
@@ -739,6 +760,184 @@ def phase_serving(device, card):
     return counts
 
 
+def beam_agreement(searcher, cpu_searcher, enc, rel):
+    """The card's batched beam against the same search on the CPU over
+    the card's encoder output: per utterance, the best tokens must be
+    identical where the card's top two live hypotheses (two different
+    token sequences: the beam keeps a sequence reached by two alignments
+    twice, nearly tied) are more than BEAM_MARGIN apart in normalized
+    score, and where the best tokens are identical their normalized
+    scores within BEAM_SCORE_ATOL. Returns (utterances held to identical
+    tokens, utterances with identical best tokens, worst best-score
+    error, worst score error over the sequences both sides hold, the
+    card's top-two gaps)."""
+    import torch
+    got = [x.cpu() for x in searcher.decode(enc, rel)]
+    want = cpu_searcher.decode(enc.cpu(), rel.cpu())
+    held = same = 0
+    best_err = common_err = 0.0
+    gaps = []
+
+    def ranked(tokens, lengths, norm, b):
+        """{token sequence: its best normalized score}, best first."""
+        out = {}
+        for k in range(tokens.shape[1]):
+            if norm[b, k] > -1e20:
+                out.setdefault(tuple(tokens[b, k, :lengths[b, k]].tolist()),
+                               norm[b, k].item())
+        return out
+
+    for b in range(enc.shape[0]):
+        hyps, w_hyps = ranked(*got, b), ranked(*want, b)
+        scores = list(hyps.values())
+        gap = scores[0] - scores[1] if len(scores) > 1 else math.inf
+        gaps.append(gap)
+        best = next(iter(hyps))
+        if best == next(iter(w_hyps)):
+            same += 1
+            best_err = max(best_err, abs(hyps[best] - w_hyps[best]))
+        elif gap > BEAM_MARGIN:
+            raise RuntimeError(f"utterance {b}: the card's best hypothesis "
+                               f"({gap:.3g} above its second) is not the "
+                               "CPU's")
+        held += gap > BEAM_MARGIN
+        common = hyps.keys() & w_hyps.keys()
+        common_err = max([common_err] + [abs(hyps[h] - w_hyps[h])
+                                         for h in common])
+    if best_err > BEAM_SCORE_ATOL or not all(
+            torch.isfinite(x).all() for x in (got[2], want[2])):
+        raise RuntimeError(f"best normalized scores differ by {best_err} > "
+                           f"{BEAM_SCORE_ATOL}")
+    return held, same, best_err, common_err, gaps
+
+
+def profile_request(tr, request, seconds, card):
+    """Where one beam request's time goes: device time by kernel from
+    ``torch.profiler`` and the device's busy share of the wall time (the
+    profiler's own overhead included)."""
+    wall_ms, events = profiled(lambda: tr.transcribe_batch(*request))
+    if not events:
+        log("profile: the profiler saw no device time (not measured)")
+        return
+    busy_ms = sum(device_us(e) for e in events) / 1e3
+    launches = sum(e.count for e in events)
+    log(f"profile beam {BEAM_SIZE} request {B} x {seconds} s: wall "
+        f"{wall_ms:.1f} ms with the profiler on, device busy {busy_ms:.1f} "
+        f"ms ({100 * busy_ms / wall_ms:.1f} %), {launches} kernel launches "
+        f"[{card}]")
+    for e in sorted(events, key=device_us, reverse=True)[:6]:
+        log(f"  {device_us(e) / 1e3:8.2f} ms  x{e.count:<6d} {e.key[:90]}")
+
+
+def phase_serving_beam(device, card):
+    """The three requests again through ``TSASRTranscriber(beam_size=15)``
+    (the batched beam): host-clock ms per request and 18 attention
+    launches each, then the card's search against the same searcher on
+    the CPU over the card's encoder output (``beam_agreement``); once
+    more with a seeded RNN-LM in the port's checkpoint format at
+    lm_weight 0.3; the exact beam on one 4 s utterance. One 8 s request
+    is profiled."""
+    import copy
+    import tempfile
+    import numpy as np
+    import torch
+    from tsasr_torch.data.tokenizer import CharTokenizer
+    from tsasr_torch.decoding import (BatchedBeamSearcher,
+                                      TransducerBeamSearcher)
+    from tsasr_torch.inference import TSASRTranscriber
+    from tsasr_torch.models.lm import (RNNLM, RNNLMConfig,
+                                       load_lm_checkpoint, make_lm_step_fn,
+                                       save_lm_checkpoint)
+    from tsasr_torch.models.transducer import TSTransducer, scratch_config
+
+    model = TSTransducer(scratch_config()).init_weights(seed=SEED)
+    tr = TSASRTranscriber(model, None, CharTokenizer(PIECES),
+                          beam_size=BEAM_SIZE, device=str(device))
+    cpu_model = copy.deepcopy(tr.model).cpu()
+    requests = make_requests(np.random.default_rng(SEED))
+    tr.transcribe_batch(*requests[0])          # warm-up, not counted
+    torch.cuda.synchronize()
+    reset_counts()
+    for (wavs, enrolls), seconds in zip(requests, REQUEST_SECONDS):
+        before = read_counts()["relpos_attention_fwd"]
+        t0 = time.perf_counter()
+        texts = tr.transcribe_batch(wavs, enrolls)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        n = read_counts()["relpos_attention_fwd"] - before
+        t1 = time.perf_counter()
+        enc, rel = tr.encode_batch(wavs, enrolls)
+        torch.cuda.synchronize()
+        enc_dt = time.perf_counter() - t1
+        log(f"beam {BEAM_SIZE} request {B} x {seconds} s: {dt * 1e3:.1f} ms "
+            f"(features + speaker + encoder {enc_dt * 1e3:.1f} ms, the rest "
+            f"the batched beam over {enc.shape[1]} frames), "
+            f"{sum(len(w) for w in wavs) / SAMPLE_RATE / dt:.1f} "
+            f"audio-s/s, {n} attention launches [{card}]")
+        if n != LAYERS_PER_REQUEST:
+            raise RuntimeError(f"request launched the attention kernel {n} "
+                               f"times, expected {LAYERS_PER_REQUEST}")
+        if len(texts) != B or not all(set(x) <= set("".join(PIECES[2:])
+                                                     + " ") for x in texts):
+            raise RuntimeError(f"bad transcripts {texts!r}")
+        t1 = time.perf_counter()
+        held, same, best_err, common_err, gaps = beam_agreement(
+            tr.searcher, BatchedBeamSearcher(cpu_model, beam_size=BEAM_SIZE),
+            enc, rel)
+        log(f"  card vs CPU search on the card's encoder output: best "
+            f"tokens identical {same}/{B}, held to identical (top-two gap > "
+            f"{BEAM_MARGIN}) {held}/{B}, gaps min {min(gaps):.3g}; best "
+            f"normalized score max_abs_err {best_err:.3g} (atol "
+            f"{BEAM_SCORE_ATOL}), hypotheses both hold {common_err:.3g} "
+            f"({time.perf_counter() - t1:.1f} s)")
+    profile_request(tr, requests[1], REQUEST_SECONDS[1], card)
+
+    with tempfile.TemporaryDirectory(prefix="tsasr_lm_") as tmp:
+        lm_path = str(Path(tmp) / "rnnlm.ckpt")
+        save_lm_checkpoint(RNNLM(RNNLMConfig(vocab_size=len(PIECES)))
+                           .init_weights(seed=SEED), lm_path)
+        fused = TSASRTranscriber(tr.model, None, CharTokenizer(PIECES),
+                                 beam_size=BEAM_SIZE, lm_path=lm_path,
+                                 lm_weight=LM_WEIGHT, device=str(device))
+        cpu_lm = load_lm_checkpoint(lm_path, "cpu")
+    wavs, enrolls = requests[0]
+    fused.transcribe_batch(wavs, enrolls)          # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    texts = fused.transcribe_batch(wavs, enrolls)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    changed = sum(a != b for a, b in zip(
+        texts, tr.transcribe_batch(wavs, enrolls)))
+    enc, rel = fused.encode_batch(wavs, enrolls)
+    held, same, best_err, common_err, gaps = beam_agreement(
+        fused.searcher, BatchedBeamSearcher(
+            cpu_model, beam_size=BEAM_SIZE,
+            lm_step_fn=make_lm_step_fn(cpu_lm), lm_weight=LM_WEIGHT,
+            lm_initial_state_fn=cpu_lm.initial_state), enc, rel)
+    log(f"beam {BEAM_SIZE} + RNN-LM (seed {SEED}, port checkpoint, weight "
+        f"{LM_WEIGHT}) request {B} x {REQUEST_SECONDS[0]} s: "
+        f"{dt * 1e3:.1f} ms [{card}]; card vs CPU: best tokens identical "
+        f"{same}/{B}, held {held}/{B}, best score max_abs_err "
+        f"{best_err:.3g}, both-held {common_err:.3g}; {changed}/{B} "
+        f"transcripts changed by the LM")
+
+    exact = TransducerBeamSearcher(tr.model, 0, beam_size=BEAM_SIZE, nbest=1)
+    t0 = time.perf_counter()
+    hyps, score, _, _ = exact(enc[:1], rel[:1])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    batched, _, _, _ = tr.searcher(enc[:1], rel[:1])
+    log(f"exact beam {BEAM_SIZE} on one {REQUEST_SECONDS[0]} s utterance "
+        f"({enc.shape[1]} frames): {dt:.2f} s [{card}], {len(hyps[0])} "
+        f"tokens, exp score {score:.3g}; the batched beam's best "
+        f"{'identical' if hyps == batched else 'differs'}")
+    if not (hyps and all(0 < t < len(PIECES) for t in hyps[0])
+            and math.isfinite(score)):
+        raise RuntimeError(f"the exact beam gave {hyps!r}, {score}")
+    return read_counts()
+
+
 def make_train_batch(rng, n, seconds, ids=None):
     """A PaddedBatch in the JAX recipe's form: n mixtures of up to
     ``seconds`` (lengths 0.6-1.0, the first full), 5 s enrollments, random
@@ -849,6 +1048,16 @@ def wide_brain(device):
     return brain
 
 
+def batch_arrays(brain, batch, dtype=None):
+    """The micro-batch's arrays on the brain's device, the float ones
+    cast to ``dtype`` if given."""
+    arrays = brain._put_batch(brain.batch_to_arrays(batch))
+    if dtype is not None:
+        arrays = {k: v.to(dtype) if v.is_floating_point() else v
+                  for k, v in arrays.items()}
+    return arrays
+
+
 def loss_and_grads(brain, batch, dtype=None):
     """Loss and every parameter's gradient of one TRAIN micro-batch. With
     ``dtype``, the float inputs are cast to it and it is the default
@@ -856,10 +1065,7 @@ def loss_and_grads(brain, batch, dtype=None):
     import torch
     from tsasr_torch.training.brain import onednn_off_on_cpu
     from tsasr_torch.utils.stage import Stage
-    arrays = brain._put_batch(brain.batch_to_arrays(batch))
-    if dtype is not None:
-        arrays = {k: v.to(dtype) if v.is_floating_point() else v
-                  for k, v in arrays.items()}
+    arrays = batch_arrays(brain, batch, dtype)
     params = [p for p in brain.model.parameters()]
     saved = torch.get_default_dtype()
     torch.set_default_dtype(dtype or saved)
@@ -884,7 +1090,8 @@ def kink_sites(model):
     """Modules whose output goes straight into leaky_relu, by name: each
     FFN's first Linear, each conv module's mid LayerNorm, each frontend
     block's LayerNorm, with the kind of each. (The joint's leaky_relu runs
-    inside the fused loss, out of a hook's reach.)"""
+    inside the fused loss, out of a hook's reach: ``joint_kink_bounds``
+    recomputes its pre-activations.)"""
     from tsasr_torch.models.conformer import ConvolutionModule, FeedForward
     from tsasr_torch.models.frontend import ConvBlock
     kinds = {FeedForward: ("w1", "FFN"), ConvolutionModule: ("norm_mid",
@@ -948,6 +1155,91 @@ def kink_bounds(seen):
     return bounds
 
 
+# the Linears whose outputs the joint sums, enc_out and dec_out
+JOINT_PRODUCERS = ("encoder_proj", "predictor.decoder_proj")
+
+
+@contextlib.contextmanager
+def joint_producers(model, store):
+    """Context: ``store[name] = (input, output)`` of each of
+    ``JOINT_PRODUCERS`` in each forward, detached."""
+    def keep(name):
+        def run(module, inputs, out):
+            store[name] = (inputs[0].detach(), out.detach())
+        return run
+
+    handles = [model.get_submodule(name).register_forward_hook(keep(name))
+               for name in JOINT_PRODUCERS]
+    try:
+        yield
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def joint_pre_activations(store):
+    """The joint's pre-activations enc[:, :, None] + dec[:, None] over the
+    (B, T, U+1, J) lattice, from ``joint_producers``' store."""
+    enc = store["encoder_proj"][1]
+    dec = store["predictor.decoder_proj"][1]
+    return enc[:, :, None, :] + dec[:, None, :, :]
+
+
+def joint_kink_bounds(brain, batch, store):
+    """``kink_bounds`` for the joint's leaky_relu inside the fused loss, in
+    a plain f64 recomputation of the f64 run's joint: the pre-activations
+    z = enc + dec over the lattice, the head, the log-softmax, the plain
+    lattice's gradients, and the fused backward's dL/dlogits and dL/dh
+    (h = leaky_relu(z)). A flip at z within KINK_Z changes dL/dz by 0.99
+    |dL/dh|: encoder_proj's gradients take its sum over U+1 times |x|
+    and 1, predictor.decoder_proj's its sum over T; the flip moves h by
+    0.99 |z|, which the head's weight gradient takes times |dL/dlogits|.
+    Returns (bounds by parameter name, z, near the kink, inside the
+    lattice)."""
+    import torch
+    import torch.nn.functional as F
+    from tsasr_torch.kernels import rnnt_lattice as rl
+    from tsasr_torch.ops.rnnt_loss import (_gather_label_blank_logprobs,
+                                           _logprob_grads)
+
+    arrays = batch_arrays(brain, batch, torch.float64)
+    (enc_in, _), (dec_in, _) = (store[n] for n in JOINT_PRODUCERS)
+    z = joint_pre_activations(store)
+    _, T, U1, _ = z.shape
+    _, rel = brain._features(arrays["mixed_sig"], arrays["mixed_lens"])
+    t_lens = torch.round(rel * T).to(torch.int32)
+    labels = arrays["tokens"]
+    u_lens = torch.round(arrays["tokens_lens"] * labels.shape[1]
+                         ).to(torch.int32)
+    head = brain.model.transducer_head
+    blank = brain.hparams.blank_index
+    lp = torch.log_softmax(F.leaky_relu(z, 0.01) @ head.weight.t()
+                           + head.bias, dim=-1)
+    _, dlpb, dlpl = rl.rnnt_lattice_reference(
+        *_gather_label_blank_logprobs(lp, labels, blank), t_lens, u_lens)
+    weight = arrays["weight"]
+    share = (weight / weight.sum().clamp(min=1.0))[:, None, None]
+    dlogits = _logprob_grads(lp, dlpb * share, dlpl * share, labels, blank)
+    near = z.abs() < KINK_Z
+    delta = torch.where(near, 0.99 * (dlogits @ head.weight).abs(), 0.0)
+    d_enc = delta.sum(2).flatten(0, 1)
+    d_dec = delta.sum(1).flatten(0, 1)
+    moved_h = torch.where(near, 0.99 * z.abs(), 0.0).flatten(0, 2)
+    inside = ((torch.arange(T, device=z.device)[None, :, None]
+               < t_lens[:, None, None])
+              & (torch.arange(U1, device=z.device)[None, None, :]
+                 <= u_lens[:, None, None]))
+    return {
+        "encoder_proj.weight": d_enc.T @ enc_in.abs().flatten(0, 1),
+        "encoder_proj.bias": d_enc.sum(0),
+        "predictor.decoder_proj.weight":
+            d_dec.T @ dec_in.abs().flatten(0, 1),
+        "predictor.decoder_proj.bias": d_dec.sum(0),
+        "transducer_head.weight":
+            dlogits.abs().flatten(0, 2).T @ moved_h,
+    }, z, near, inside[..., None].expand_as(z)
+
+
 def held_errors(got, want, masks, held):
     """Per leaf: max |got - want| over the elements where the mask is
     ``held``, of the leaf's max |want| (0 where it holds none), in f64."""
@@ -971,7 +1263,9 @@ def check_gradients(device, batch):
     is held at GRAD_ATOL_REL, every other one at GRAD_TIGHT_REL. The f32
     runs' pre-activations are read against f64's: a sign flip outside
     the kink set fails the check, since its premise would not hold.
-    Returns the f32 brain, for the profile."""
+    The joint's leaky_relu inside the fused loss is placed the same way
+    from a plain f64 recomputation of its pre-activations
+    (``joint_kink_bounds``). Returns the f32 brain, for the profile."""
     import torch
     from tsasr_torch.models.transducer import scratch_config
 
@@ -1001,19 +1295,39 @@ def check_gradients(device, batch):
             acc["outside"] += int((flips & ~near[key]).sum())
         return read
 
+    def compare_joint(run, store):
+        """The f32 run's joint pre-activations against f64's, inside the
+        lattice."""
+        z = joint_pre_activations(store).double()
+        flips = ((z > 0) != (z64j > 0)) & inside_j
+        acc = z_err[run]
+        acc["joint"] = torch.where(inside_j, (z - z64j).abs(), 0.0
+                                   ).max().item()
+        acc["flips"] += int(flips.sum())
+        acc["outside"] += int((flips & ~near_j).sum())
+
+    store = {}
     with plain_kernels():
         reset_counts()
         wide = wide_brain(device)
-        with pre_activation_hooks(wide.model, capture):
+        with pre_activation_hooks(wide.model, capture), \
+                joint_producers(wide.model, store):
             loss_w, grads_w = loss_and_grads(wide, batch, torch.float64)
+        joint_bounds, z64j, near_j, inside_j = joint_kink_bounds(
+            wide, batch, store)
         if any(read_counts().values()):
             raise RuntimeError("the f64 run launched a kernel")
-        with pre_activation_hooks(det.model, compare("plain")):
+        with pre_activation_hooks(det.model, compare("plain")), \
+                joint_producers(det.model, store):
             loss_p, grads_p = loss_and_grads(det, batch)
+        compare_joint("plain", store)
         if any(read_counts().values()):
             raise RuntimeError("the plain run launched a kernel")
-    with pre_activation_hooks(det.model, compare("kernels")):
+    with pre_activation_hooks(det.model, compare("kernels")), \
+            joint_producers(det.model, store):
         loss_k, grads_k = loss_and_grads(det, batch)
+    compare_joint("kernels", store)
+    del store
     used = read_counts()
     with planted_fault():
         _, grads_f = loss_and_grads(det, batch)
@@ -1023,6 +1337,11 @@ def check_gradients(device, batch):
             det.model.parameters(), wide.model.parameters())):
         raise RuntimeError("the f64 model's weights are not the f32 ones")
     bounds = kink_bounds(seen)
+    for name, bound in joint_bounds.items():
+        bounds[name] = bounds.get(name, 0.0) + bound
+    n_near_joint = int((near_j & inside_j).sum())
+    n_joint = int(inside_j.sum())
+    del z64j, near_j, inside_j
     loose = [(bounds[n] > 0.5 * GRAD_TIGHT_REL * w.abs().max())
              if n in bounds else torch.zeros_like(w, dtype=torch.bool)
              for n, w in zip(names, grads_w)]
@@ -1054,8 +1373,10 @@ def check_gradients(device, batch):
     log(f"  held loosely: {n_loose} of {n_all} elements (cap "
         f"{KINK_LOOSE_SHARE:.2%}), those whose gradient a flip of the "
         f"{n_near} of {n_pre} pre-activations within |z| < {KINK_Z} of the "
-        f"kink in f64 ({len(kinds)} sites) could move by more than "
-        f"{0.5 * GRAD_TIGHT_REL:.3g} of the leaf's max |g|")
+        f"kink in f64 ({len(kinds)} sites), or of the {n_near_joint} of "
+        f"the joint's {n_joint} in the lattice (encoder_proj, "
+        f"predictor.decoder_proj, transducer_head), could move by more "
+        f"than {0.5 * GRAD_TIGHT_REL:.3g} of the leaf's max |g|")
     log("  pre-activations against f64, max abs err by site: " + "; ".join(
         f"{run} f32 " + ", ".join(f"{k} {v[k]:.3g}" for k in v
                                   if k not in ("flips", "outside"))
@@ -1113,11 +1434,9 @@ def device_ms_by_kernel(fn, reps=10):
             if e.device_type == DeviceType.CUDA and device_us(e) > 0}
 
 
-def profile_micro_batch(brain, batch, card):
-    """Where the time of one micro-batch's forward + backward goes: device
-    time by kernel from ``torch.profiler`` (CUPTI), the lattice kernels'
-    share of it, and the device's busy share of the wall time (the
-    profiler's own overhead included)."""
+def profiled(fn):
+    """(wall ms, the device's kernel events) of one call of ``fn`` under
+    ``torch.profiler`` (CUPTI), the profiler on."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1125,13 +1444,21 @@ def profile_micro_batch(brain, batch, card):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        loss_and_grads(brain, batch)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-
     # kernels only: a CPU op's own device time repeats its kernels'
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and device_us(e) > 0]
+    return wall_ms, [e for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA
+                     and device_us(e) > 0]
+
+
+def profile_micro_batch(brain, batch, card):
+    """Where the time of one micro-batch's forward + backward goes: device
+    time by kernel from ``torch.profiler`` (CUPTI), the lattice kernels'
+    share of it, and the device's busy share of the wall time (the
+    profiler's own overhead included)."""
+    wall_ms, events = profiled(lambda: loss_and_grads(brain, batch))
     if not events:
         log("profile: the profiler saw no device time (not measured)")
         return
@@ -1258,9 +1585,11 @@ def phase_training(device, card):
 
 EXPERIMENT_YAML = "tsasr_torch/hparams/LibriSpeechMix/conformer-t_scratch.yaml"
 # six speakers of eight utterances, 24 mixtures a split: each split has
-# 48 target utterances of 2-5 s in 17-20 dynamic batches
+# 48 target utterances of 2-6 s (max_dur 4.5: mixtures of 5 s and more
+# in every split, so T 128 and 152 are on the path) in 18-19 dynamic
+# batches for VALID and TEST
 EXPERIMENT_CORPUS = dict(n_speakers=6, utts_per_speaker=8, n_mix=24,
-                         encode_text=True, seed=SEED)
+                         encode_text=True, seed=SEED, max_dur=4.5)
 EXPERIMENT_SPLITS = ("train-2mix", "dev-clean-2mix", "test-clean-2mix")
 
 
@@ -1463,14 +1792,83 @@ def check_path_kernels(seen):
     return worst
 
 
+def write_float_wav(path, wav, sample_rate):
+    """A 32-bit IEEE-float WAV, which the port's ``read_audio`` (its
+    native decoder) reads back bit for bit, peaks above full scale
+    included."""
+    import struct
+    import numpy as np
+    data = np.ascontiguousarray(wav, "<f4").tobytes()
+    fmt = struct.pack("<HHIIHH", 3, 1, sample_rate, 4 * sample_rate, 4, 32)
+    with open(path, "wb") as f:
+        f.write(b"RIFF" + struct.pack("<I", 20 + len(fmt) + len(data))
+                + b"WAVE")
+        f.write(b"fmt " + struct.pack("<I", len(fmt)) + fmt)
+        f.write(b"data" + struct.pack("<I", len(data)) + data)
+
+
+def transcribe_test_split(brain, out, folder, device, card):
+    """The experiment folder through ``TSASRTranscriber.from_experiment``
+    at beam 15 (the best checkpoint on WER, the tokenizer, the run's LM),
+    each TEST mixture written as a file that reads back exactly and
+    transcribed by ``transcribe_file`` with its enrollment file: each
+    transcript must be the one the run's TEST recorded (one utterance a
+    batch there, so each saw what a file alone sees)."""
+    import numpy as np
+    import torch
+    from tsasr_torch.data.audio import read_audio
+    from tsasr_torch.inference import TSASRTranscriber
+    from tsasr_torch.recipes.librispeechmix import dataio_prepare
+
+    want = {d["key"]: " ".join(d["hyp_tokens"])
+            for d in brain.wer_metric.scores}
+    _, _, test_data = dataio_prepare(vars(brain.hparams), brain.tokenizer)
+    folder.mkdir()
+    files = {}
+    for i in range(len(test_data)):
+        item = test_data[i]
+        path = str(folder / f"mix{i}.wav")
+        write_float_wav(path, item["mixed_sig"], SAMPLE_RATE)
+        if not np.array_equal(read_audio(path)[0], item["mixed_sig"]):
+            raise RuntimeError(f"{path} does not read back exactly")
+        files[item["id"]] = (path, test_data.raw(i)["enroll_wav"])
+    tr = TSASRTranscriber.from_experiment(str(out), beam_size=BEAM_SIZE,
+                                          device=str(device))
+    before = read_counts()["relpos_attention_fwd"]
+    t0 = time.perf_counter()
+    got = {key: tr.transcribe_file(mix, enroll_path=enroll)
+           for key, (mix, enroll) in files.items()}
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n = read_counts()["relpos_attention_fwd"] - before
+    same = sum(got.get(k) == v for k, v in want.items())
+    log(f"experiment from_experiment (beam {BEAM_SIZE}, LM "
+        f"{Path(brain.hparams.lm_path).name} at weight "
+        f"{tr.searcher.lm_weight}) + transcribe_file over the "
+        f"{len(files)} TEST files: {dt:.2f} s, {n} attention launches; "
+        f"{same}/{len(want)} transcripts identical to the run's TEST "
+        f"[{card}]")
+    if got != want or n != LAYERS_PER_REQUEST * len(files) * (
+            device.type == "cuda"):
+        raise RuntimeError("from_experiment + transcribe_file did not "
+                           "reproduce the run's TEST transcripts")
+
+
 def phase_experiment(device, card):
     """The scratch experiment twice in one output folder: 1 epoch cut at
     2 optimizer steps, then 2 epochs, which recover the first's
-    checkpoint; then every kernel at each shape the two runs gave it,
-    on the tensors they gave it, against its plain version."""
+    checkpoint, with TEST at the yaml's batched beam 15, in the second
+    run with an n-gram LM of the corpus's train transcripts
+    (``tsasr_torch.tools.train_ngram_lm``) and one utterance a TEST
+    batch; then ``transcribe_test_split``; then every kernel at each
+    shape the two runs gave it, on the tensors they gave it, against its
+    plain version."""
+    import shutil
     import tempfile
     import torch
     from tsasr_torch.recipes.librispeechmix import TSASRBrain, run_experiment
+    from tsasr_torch.tools import train_ngram_lm
     from tsasr_torch.tools.make_synthetic_dataset import make_dataset
 
     root = Path(__file__).resolve().parent
@@ -1479,14 +1877,14 @@ def phase_experiment(device, card):
         corpus, out = Path(tmp) / "corpus", Path(tmp) / "out"
         make_dataset(str(corpus), **EXPERIMENT_CORPUS)
 
-        def argv(epochs, step_limit):
+        def argv(epochs, step_limit, *extra):
             args = [str(root / EXPERIMENT_YAML), "--data_folder",
                     str(corpus), "--output_folder", str(out),
-                    "--fused_attention", "True", "--beam_size", "1",
+                    "--fused_attention", "True",
                     "--valid_search_freq", "1", "--noprogressbar",
                     "--vocab_size", str(corpus_vocab(corpus)),
                     "--num_epochs", str(epochs),
-                    "--optimizer_step_limit", str(step_limit)]
+                    "--optimizer_step_limit", str(step_limit), *extra]
             # the card is the default device: only a rehearsal names one
             return args if on_card else args + ["--device", str(device)]
 
@@ -1548,17 +1946,32 @@ def phase_experiment(device, card):
         log(f"experiment VALID wall {timings['valid_s'][0]:.2f} s over "
             f"{first_counts['VALID']['batches']} batches, TEST wall "
             f"{timings['test_s'][0]:.2f} s over "
-            f"{first_counts['TEST']['batches']} batches (greedy search) "
-            f"[{card}]")
+            f"{first_counts['TEST']['batches']} batches (the yaml's batched "
+            f"beam {first._beam.beam_size}; PR 10's greedy search: "
+            f"1.90-2.20 s over 17) [{card}]")
+        if not (first._beam.beam_size == BEAM_SIZE
+                and type(first._beam).__name__ == "BatchedBeamSearcher"):
+            raise RuntimeError(f"TEST searched with {first._beam!r}")
         del first, model
+
+        # an n-gram LM of the train transcripts over the run's tokenizer
+        lm_data, arpa = Path(tmp) / "lm_data", Path(tmp) / "corpus.arpa"
+        lm_data.mkdir()
+        shutil.copy(corpus / "train-2mix.jsonl", lm_data)
+        train_ngram_lm.main([
+            "--data_folder", str(lm_data), "--tokenizer",
+            str(out / "save" / f"char_{corpus_vocab(corpus)}.json"),
+            "--out", str(arpa)])
 
         TSASRBrain._fit_train = recording
         try:
             t0 = time.perf_counter()
             with captured_kernel_calls() as seen_again, \
-                    counted_batches(TSASRBrain, on_card) as (second_counts,
-                                                             _):
-                second = run_experiment(argv=argv(2, 4))
+                    counted_batches(TSASRBrain, on_card) as (
+                        second_counts, second_timings):
+                second = run_experiment(argv=argv(
+                    2, 4, "--lm_path", str(arpa), "--lm_weight",
+                    str(LM_WEIGHT), "--test_max_batch_length", "0.5"))
             second_s = time.perf_counter() - t0
         finally:
             TSASRBrain._fit_train = fit_train
@@ -1584,6 +1997,15 @@ def phase_experiment(device, card):
                 or f"Epoch loaded: {loaded_epoch}" not in added:
             raise RuntimeError("the second run did not go on from the "
                                "checkpoint")
+        log(f"experiment resumed TEST wall {second_timings['test_s'][0]:.2f} "
+            f"s over {second_counts['TEST']['batches']} batches of one "
+            f"utterance (batched beam {second._beam.beam_size} + the "
+            f"n-gram, weight {second._beam.lm_weight}) [{card}]")
+        if second._beam.lm_weight != LM_WEIGHT:
+            raise RuntimeError("the resumed run's TEST fused no LM")
+        transcribe_test_split(second, out, Path(tmp) / "test_wavs", device,
+                              card)
+        path_counts = read_counts()
         del second
     by_batch = {k: sum(c[k] for c in (*first_counts.values(),
                                       *second_counts.values()))
@@ -1596,16 +2018,24 @@ def phase_experiment(device, card):
             seen[kind].setdefault(key, args)
     worst = check_path_kernels(seen)
     frames = sorted({shape[2] for shape, _, _ in seen["attention"]})
+    train_frames = sorted({shape[2] for shape, _, train in seen["attention"]
+                           if train})
+    long = sorted(k for k in seen["lattice"] if k[1] >= 128)
+    if max(frames) < 128:
+        raise RuntimeError(f"no mixture of 5 s or more on the path: T "
+                           f"{frames}")
     log(f"experiment kernels against their plain versions on the path's "
         f"own inputs, one call per shape: attention forward at "
         f"{len(seen['attention'])} shapes (T {frames}), worst err "
         f"{worst['fwd']:.3g} of max |o| (atol {ATTN_ATOL}); backward at "
         f"{sum(train for _, _, train in seen['attention'])} TRAIN shapes "
-        f"(dropout as on the path), worst {worst['bwd']:.3g} of max |g| "
+        f"(T {train_frames}; dropout as on the path), worst "
+        f"{worst['bwd']:.3g} of max |g| "
         f"(atol {ATTN_ATOL}); lattice at {len(seen['lattice'])} shapes (B, "
-        f"T, U+1: {sorted(seen['lattice'])}), worst err/tol "
-        f"{worst['lattice']:.3g} (lattice_rtol, f32 and f64)")
-    return counts
+        f"T, U+1: {sorted(seen['lattice'])}; at T 128 and more: {long}), "
+        f"worst err/tol {worst['lattice']:.3g} (lattice_rtol, f32 and "
+        f"f64)")
+    return path_counts
 
 
 def phase_small(device):
@@ -1628,20 +2058,25 @@ def phase_small(device):
     enrolls = [(rng.normal(size=n) * 0.1).astype(np.float32)
                for n in (20000, 15000)]
     outs = {}
-    for dev in ("cpu", str(device)):
+    # the CPU side twice in this process: a hash that moves between the
+    # two is this run's, one that moves only across runs is the host's
+    for run, dev in (("cpu", "cpu"), ("cpu again", "cpu"),
+                     ("card", str(device))):
         model = TSTransducer(config).init_weights(seed=SEED)
         tr = TSASRTranscriber(model, None, CharTokenizer(PIECES), device=dev)
         enc, _ = tr.encode_batch(wavs, enrolls)
-        outs[dev] = (enc.cpu(), tr.transcribe_batch(wavs, enrolls))
-    err = (outs["cpu"][0] - outs[str(device)][0]).abs().max().item()
+        outs[run] = (enc.cpu(), tr.transcribe_batch(wavs, enrolls))
+    err = (outs["cpu"][0] - outs["card"][0]).abs().max().item()
     # a short hash of each side's encoder output: across runs it shows
     # which side moved when the error does
-    digest = {dev: hashlib.sha256(enc.contiguous().numpy().tobytes())
-              .hexdigest()[:12] for dev, (enc, _) in outs.items()}
+    digest = {run: hashlib.sha256(enc.contiguous().numpy().tobytes())
+              .hexdigest()[:12] for run, (enc, _) in outs.items()}
     log(f"small model: card (kernel) vs CPU (plain) encoder max_abs_err "
         f"{err:.3g} (atol {SMALL_ATOL}); encoder sha256 CPU "
-        f"{digest['cpu']}, card {digest[str(device)]}; transcripts "
-        f"identical: {outs['cpu'][1] == outs[str(device)][1]}")
+        f"{digest['cpu']} then {digest['cpu again']} (twice in this "
+        f"process), card {digest['card']}; host CPU {host_cpu()!r}, torch "
+        f"threads {torch.get_num_threads()}; transcripts identical: "
+        f"{outs['cpu'][1] == outs['card'][1]}")
     if err > SMALL_ATOL:
         raise RuntimeError(f"card and CPU differ by {err} > {SMALL_ATOL}")
 
@@ -1721,6 +2156,29 @@ def phase_small(device):
             or not s_cpu == s_gpu == 2):
         raise RuntimeError("small-model training differs between the card "
                            "and the CPU")
+
+
+def host_cpu():
+    """The host CPU as /proc/cpuinfo names it (model name, vendor, family,
+    model and stepping, or an Arm core's implementer and part), the
+    machine type, the number of CPUs, whether AVX-512 is offered and a
+    hash of the feature flags: the CPU side's f32 kernels follow the
+    features the library finds."""
+    import os
+    import platform
+    fields = {}
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            key, _, value = line.partition(":")
+            fields.setdefault(key.strip(), value.strip())
+    flags = fields.get("flags", fields.get("Features", ""))
+    name = "; ".join(f"{key} {fields[key]}" for key in (
+        "model name", "vendor_id", "cpu family", "model", "stepping",
+        "CPU implementer", "CPU part") if key in fields)
+    return (f"{name or 'no model in /proc/cpuinfo'} ({platform.machine()}, "
+            f"{os.cpu_count()} CPUs, avx512f "
+            f"{'avx512f' in flags.split()}, flags sha256 "
+            f"{hashlib.sha256(flags.encode()).hexdigest()[:8]})")
 
 
 def step_gradients(brain):
@@ -1828,13 +2286,16 @@ def main():
     lattice_rows = phase_lattice(device, card)
     log(f"kernel phases done at {time.perf_counter() - t_start:.1f} s")
     serving = phase_serving(device, card)
+    serving_beam = phase_serving_beam(device, card)
     training = phase_training(device, card)
     experiment = phase_experiment(device, card)
     phase_small(device)
     log(f"all phases done at {time.perf_counter() - t_start:.1f} s")
 
     def paths(name):
-        return {"serving": serving[name], "training": training[name],
+        return {"serving": serving[name],
+                "serving_beam": serving_beam[name],
+                "training": training[name],
                 "experiment": experiment[name]}
 
     fwd, bwd = fwd_rows[0], next(r for r in bwd_rows if r["T"] == 208)

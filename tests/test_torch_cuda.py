@@ -588,3 +588,71 @@ def test_rnnt_lattice_wrapper_rejects_bad_inputs(cuda):
     lens = torch.ones(1, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="does not fit"):
         rnnt_lattice.rnnt_lattice(big, big, lens, lens, variant="resident")
+
+
+@pytest.mark.parametrize("lm", [None, "ngram", "rnnlm"])
+def test_batched_beam_on_the_card_matches_the_cpu(cuda, lm):
+    """The batched beam (no kernel of its own) on the card and on the CPU
+    over the same encoder output and weights, bare and with each LM:
+    the tensors stay on the card; where the top two distinct hypotheses
+    are more than 1e-4 apart the best tokens agree, and the best
+    normalized scores within 1e-4 (f32 on both sides)."""
+    import copy
+    from tsasr_torch.data.tokenizer import CharTokenizer
+    from tsasr_torch.decoding import BatchedBeamSearcher
+    from tsasr_torch.lm import (BackoffNgramLM, make_ngram_lm_step_fn,
+                                train_backoff_ngram)
+    from tsasr_torch.models.lm import RNNLM, RNNLMConfig, make_lm_step_fn
+    from tsasr_torch.models.transducer import (TSTransducer,
+                                               TSTransducerConfig)
+
+    pieces = ["<unk>", "▁"] + list("abcdefghij")
+    model = TSTransducer(TSTransducerConfig(
+        vocab_size=len(pieces), d_model=16, nhead=2, encoder_num_layers=1,
+        d_ffn=16, frontend_channels=(4, 4), injection_mode=None,
+        use_speaker_encoder=False, decoder_neurons=64, joint_dim=32,
+        dropout=0.0)).init_weights(seed=0).eval()
+    rng = np.random.default_rng(0)
+    enc = torch.from_numpy(rng.normal(size=(4, 60, 32)).astype(np.float32))
+    rel = torch.tensor([1.0, 0.8, 0.6, 0.5])
+
+    def searcher(device):
+        kwargs = {}
+        if lm == "ngram":
+            tok = CharTokenizer(pieces)
+            sents = [tok.encode_as_pieces(" ".join(np.random.default_rng(
+                i).choice(list("abcdefghij"), 5))) for i in range(30)]
+            step, init = make_ngram_lm_step_fn(
+                BackoffNgramLM(*train_backoff_ngram(sents, order=3)),
+                pieces, bos_id=0, device=device)
+            kwargs = dict(lm_step_fn=step, lm_initial_state_fn=init,
+                          lm_weight=0.3)
+        elif lm == "rnnlm":
+            net = RNNLM(RNNLMConfig(vocab_size=len(pieces), embedding_dim=8,
+                                    hidden_size=16, num_layers=2,
+                                    dnn_neurons=8)).init_weights(seed=0)
+            net = net.to(device).eval()
+            kwargs = dict(lm_step_fn=make_lm_step_fn(net),
+                          lm_initial_state_fn=net.initial_state,
+                          lm_weight=0.3)
+        return BatchedBeamSearcher(copy.deepcopy(model).to(device),
+                                   beam_size=8, nbest=8, **kwargs)
+
+    got = searcher(cuda).decode(enc.to(cuda), rel.to(cuda))
+    assert all(x.device.type == "cuda" for x in got)
+    got = [x.cpu() for x in got]
+    want = searcher(torch.device("cpu")).decode(enc, rel)
+    for b in range(enc.shape[0]):
+        def ranked(tokens, lengths, norm):
+            out = {}
+            for k in range(tokens.shape[1]):
+                out.setdefault(tuple(tokens[b, k, :lengths[b, k]].tolist()),
+                               norm[b, k].item())
+            return out
+        hyps, w_hyps = ranked(*got), ranked(*want)
+        scores = list(hyps.values())
+        best = next(iter(hyps))
+        if best == next(iter(w_hyps)):
+            assert abs(hyps[best] - w_hyps[best]) < 1e-4
+        else:
+            assert scores[0] - scores[1] <= 1e-4, b

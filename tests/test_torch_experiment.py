@@ -11,8 +11,14 @@ TRAIN micro-batch against the JAX package.
   2 to the same weights, bit for bit, as one run of 2 epochs;
 - a checkpoint in the middle of an accumulation, restored before the
   optimizer exists, continues bit for bit;
+- TEST runs the yaml's batched beam (beam 3 here, one utterance a
+  batch); ``TSASRTranscriber.from_experiment`` on the run's folder,
+  through ``transcribe_file``, gives the transcripts TEST recorded, as
+  does the ``tsasr_torch.tools.transcribe`` CLI; ``average_checkpoints``
+  of one checkpoint reproduces it bit for bit;
 - without ``--device`` the experiment asks for the card, and raises on a
-  host without one before writing anything; what is not ported raises;
+  host without one before writing anything; what is not ported raises,
+  and so does a missing LM file, before anything runs;
 - the JAX model's initial parameters, converted, and the first TRAIN
   batch of each package's pipeline give both ``fit_batch``es the same
   loss (rtol 1e-5) and gradient norm (rtol 1e-4), dropout off.
@@ -25,11 +31,16 @@ import pytest
 import torch
 
 from torch_port_helpers import (CORPUS, TORCH_YAML, corpus_vocab,
-                                package_pipeline)
+                                package_pipeline, split_as_files)
+
+TEST_BEAM = 3
 
 TINY_ARGS = ["--encoder_num_layers", "1", "--d_ffn", "64", "--d_model",
              "32", "--nhead", "4", "--decoder_neurons", "24",
-             "--joint_dim", "48", "--beam_size", "1",
+             "--joint_dim", "48", "--beam_size", "3",
+             # one utterance a TEST batch: a file transcribed alone then
+             # sees what TEST saw (no padding to a longer neighbour)
+             "--test_max_batch_length", "0.5",
              "--valid_search_freq", "1", "--noprogressbar",
              # 6 TRAIN micro-batches an epoch: at accumulation 4 an epoch
              # ends in the middle of an accumulation
@@ -155,6 +166,11 @@ def test_fit_writes_log_wer_file_and_checkpoint(runs):
                      "dataloader.ckpt", "scheduler.ckpt"]
     assert all(p.device.type == "cpu"
                for p in runs["first"].model.parameters())
+    from tsasr_torch.decoding import BatchedBeamSearcher
+    beam = runs["first"]._beam
+    assert isinstance(beam, BatchedBeamSearcher) and beam.lm_weight == 0
+    assert (beam.beam_size, beam.nbest, beam.expand_beam) == (TEST_BEAM, 1,
+                                                              2.3)
     # 6 micro-batches at accumulation 4: one update, two micro-batches
     # accumulated
     assert runs["saved"]["counters"] == (1, 6, 2, 0)
@@ -259,7 +275,7 @@ def test_without_device_it_asks_for_the_card(corpus, tmp_path, monkeypatch):
     (["--model_path", "x.ckpt"], "model_path"),
     (["--plot_attentions", "True"], "plot_attentions"),
     (["--joint_band_width", "64"], "joint_band_width"),
-    (["--lm_weight", "0.5", "--lm_path", "lm.arpa"], "LM"),
+    (["--speaker_encoder_type", "ecapa"], "speaker_encoder_type"),
     (["--causal_encoder", "True"], "causal_encoder"),
 ])
 def test_what_is_not_ported_raises_before_anything_runs(corpus, tmp_path,
@@ -267,6 +283,16 @@ def test_what_is_not_ported_raises_before_anything_runs(corpus, tmp_path,
     from tsasr_torch.recipes.librispeechmix import run_experiment
     with pytest.raises(NotImplementedError, match=match):
         run_experiment(argv=argv(corpus, tmp_path / "out", 1, *extra))
+    assert not (tmp_path / "out").exists()
+
+
+def test_missing_lm_file_raises_before_anything_runs(corpus, tmp_path):
+    """LM fusion runs at TEST, after training: a missing ``lm_path``
+    raises first."""
+    from tsasr_torch.recipes.librispeechmix import run_experiment
+    with pytest.raises(FileNotFoundError, match="lm_path"):
+        run_experiment(argv=argv(corpus, tmp_path / "out", 1, "--lm_weight",
+                                 "0.5", "--lm_path", str(tmp_path / "lm")))
     assert not (tmp_path / "out").exists()
 
 
@@ -373,3 +399,88 @@ def test_intra_epoch_checkpoint_by_steps(corpus, tmp_path):
         == (4, 0, 1)
     with open(inner.paramfile("dataloader")) as f:
         assert json.load(f) == {"num_batches_yielded": 4}
+
+
+def recorded_transcripts(brain):
+    """{utterance id: transcript} of the run's TEST, as its WER file
+    records them."""
+    return {d["key"]: " ".join(d["hyp_tokens"])
+            for d in brain.wer_metric.scores}
+
+
+@pytest.fixture(scope="module")
+def split_files(runs, tmp_path_factory):
+    """The TEST split's mixtures as files, beside the corpus's
+    enrollments."""
+    tmp = tmp_path_factory.mktemp("test_split")
+    _, _, datasets, _ = package_pipeline("tsasr_torch", runs["corpus"],
+                                         tmp / "pipeline")
+    return split_as_files(datasets[2], str(tmp / "wavs"))
+
+
+def test_from_experiment_reproduces_the_test_transcripts(runs, split_files):
+    """The resumed run's folder, loaded at its beam (its best checkpoint
+    on WER, its tokenizer, its yaml), transcribes each TEST file as TEST
+    did."""
+    from tsasr_torch.inference import TSASRTranscriber
+    out = runs["root"] / "resumed"
+    want = recorded_transcripts(runs["second"])
+    assert set(want) == set(split_files) and len(want) >= 6
+    assert all(key in (out / "wer_test-clean-2mix.txt").read_text()
+               for key in want)
+    tr = TSASRTranscriber.from_experiment(str(out), beam_size=TEST_BEAM,
+                                          device="cpu")
+    assert tr.pad_feats_to == 32 and tr.searcher.beam_size == TEST_BEAM
+    assert tr.pad_to_multiple["mixed_sig"] == 16000
+    got = {key: tr.transcribe_file(mix, enroll_path=enroll)
+           for key, (mix, enroll) in split_files.items()}
+    assert got == want
+    assert any(want.values())
+
+
+def test_average_of_one_checkpoint_reproduces_it(runs, tmp_path):
+    from tsasr_torch.inference import TSASRTranscriber
+    from tsasr_torch.tools import average_checkpoints
+    from tsasr_torch.training.checkpoints import load_state
+    save = runs["root"] / "resumed" / "save"
+    best = runs["second"].checkpointer.find_checkpoint(min_key="WER")
+    average_checkpoints.main([str(save), "--num", "1", "--out",
+                              str(tmp_path / "avg.ckpt")])
+    got, want = (load_state(p) for p in (tmp_path / "avg.ckpt",
+                                         best.paramfile("brain")))
+    assert got.keys() == want.keys() and got["model"].keys() \
+        == want["model"].keys()
+    for key, value in want["model"].items():
+        assert torch.equal(got["model"][key], value), key
+    assert got["optimizer_step"] == want["optimizer_step"]
+    tr = TSASRTranscriber.from_experiment(
+        str(runs["root"] / "resumed"), ckpt_path=str(tmp_path / "avg.ckpt"),
+        device="cpu")
+    for key, value in tr.model.state_dict().items():
+        assert torch.equal(value, want["model"][key]), key
+
+
+def test_transcribe_cli_prints_one_json_line_per_file(runs, split_files):
+    import json
+    import subprocess
+    import sys
+    from torch_port_helpers import REPO
+    from tsasr_torch.tools import transcribe
+    want = recorded_transcripts(runs["second"])
+    keys = sorted(split_files)[:2]
+    enroll = split_files[keys[0]][1]
+    res = subprocess.run(
+        [sys.executable, "-m", "tsasr_torch.tools.transcribe",
+         "--experiment", str(runs["root"] / "resumed"),
+         *(split_files[k][0] for k in keys), "--enroll", enroll,
+         "--beam_size", str(TEST_BEAM), "--device", "cpu"],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, OMP_NUM_THREADS="1"))
+    assert res.returncode == 0, res.stderr[-3000:]
+    lines = [json.loads(line) for line in res.stdout.splitlines()]
+    assert [line["file"] for line in lines] == [split_files[k][0]
+                                                for k in keys]
+    # the first file's own enrollment: TEST's transcript
+    assert lines[0]["text"] == want[keys[0]]
+    with pytest.raises(NotImplementedError, match="streaming"):
+        transcribe.main(["--experiment", "x", "a.wav", "--streaming"])

@@ -201,8 +201,13 @@ def test_valid_batch_decodes_and_scores(jax_side):
     assert np.isfinite(loss)
     assert len(brain.last_hyps) == 2
     assert brain.valid_wer()["num_scored_sents"] == 2
-    with pytest.raises(NotImplementedError, match="beam"):
-        brain.evaluate_batch(make_batch(30), Stage.TEST)
+    # TEST searches with the batched beam of the hparams' beam_size
+    from tsasr_torch.decoding import BatchedBeamSearcher
+    brain.hparams.beam_size, brain.hparams.expand_beam = 4, 2.3
+    brain.on_stage_start(Stage.TEST)
+    assert np.isfinite(brain.evaluate_batch(make_batch(30), Stage.TEST))
+    assert isinstance(brain._beam, BatchedBeamSearcher)
+    assert brain._beam.beam_size == 4 and len(brain.last_hyps) == 2
 
 
 def test_joint_band_width_raises():

@@ -80,21 +80,47 @@ def test_scratch_config_matches_recipe_yaml():
         assert kw[key] == hp[key], key
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(tmp_path):
+    """Streaming still raises; beam search and LM fusion are ported (the
+    batched beam, the LM loaded where the transcriber runs), and
+    ``from_experiment`` wants an experiment folder."""
+    from tsasr_torch.decoding import BatchedBeamSearcher
+    from tsasr_torch.models.lm import RNNLM, RNNLMConfig, save_lm_checkpoint
     model = TSTransducer(TSTransducerConfig(**TINY)).init_weights(seed=0)
     tok = CharTokenizer(PIECES)
-    with pytest.raises(NotImplementedError, match="beam"):
-        TSASRTranscriber(model, None, tok, beam_size=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="LM"):
-        TSASRTranscriber(model, None, tok, lm_path="lm.ckpt", lm_weight=0.5,
-                         device="cpu")
     port = TSASRTranscriber(model, None, tok, device="cpu")
     with pytest.raises(NotImplementedError, match="streaming"):
         port.streaming()
-    with pytest.raises(NotImplementedError, match="slice"):
-        TSASRTranscriber.from_experiment("exp")
+    with pytest.raises(FileNotFoundError):
+        TSASRTranscriber.from_experiment(str(tmp_path / "exp"), device="cpu")
     assert isinstance(port.transcribe(np.zeros(8000, np.float32)), str)
     assert next(model.parameters()).device == torch.device("cpu")
+    save_lm_checkpoint(RNNLM(RNNLMConfig(vocab_size=len(PIECES),
+                                         embedding_dim=4, hidden_size=4,
+                                         num_layers=1, dnn_neurons=4)),
+                       tmp_path / "lm.ckpt")
+    beam = TSASRTranscriber(model, None, tok, beam_size=4, device="cpu",
+                            lm_path=str(tmp_path / "lm.ckpt"), lm_weight=0.5)
+    assert isinstance(beam.searcher, BatchedBeamSearcher)
+    assert (beam.searcher.beam_size, beam.searcher.lm_weight) == (4, 0.5)
+    assert isinstance(beam.transcribe(np.zeros(8000, np.float32)), str)
+
+
+def test_beam_transcripts_identical_to_jax(rng, monkeypatch):
+    """The JAX transcriber at beam 4 (its batched beam, fused attention
+    in interpret mode) and the port's, with the same weights: the same
+    transcripts."""
+    monkeypatch.setenv("TSASR_ATTN_INTERPRET", "1")
+    jax_model, params, model = tiny_models()
+    wavs = [(rng.normal(size=n) * 0.1).astype(np.float32)
+            for n in (12000, 9000)]
+    enrolls = [(rng.normal(size=n) * 0.1).astype(np.float32)
+               for n in (10000, 14000)]
+    want = JaxTranscriber(jax_model, params, JaxTokenizer(PIECES),
+                          beam_size=4).transcribe_batch(wavs, enrolls)
+    got = TSASRTranscriber(model, None, CharTokenizer(PIECES), beam_size=4,
+                           device="cpu").transcribe_batch(wavs, enrolls)
+    assert got == want and all(got)
 
 
 def test_tokenizer_matches_jax(tmp_path):

@@ -109,3 +109,93 @@ def package_pipeline(package, corpus, out):
     kwargs = {stage: recipe.build_dataloader_kwargs(hparams, ds, stage)
               for stage, ds in zip(("train", "valid", "test"), datasets)}
     return hparams, tokenizer, datasets, kwargs
+
+
+# A transducer's predictor and joint in both packages, for the beams: the
+# port's seeded weights carried into a flax tree (``params_to_flax``), so
+# no JAX init runs; the encoder output is drawn, not computed.
+DECODER = dict(d_model=16, nhead=2, encoder_num_layers=1, d_ffn=16,
+               kernel_size=7, frontend_channels=(4, 4), injection_mode=None,
+               use_speaker_encoder=False, decoder_neurons=24, joint_dim=20,
+               dropout=0.0)
+# the beams' vocabulary: blank/unk, the word boundary and ten letters
+DECODER_PIECES = ["<unk>", "▁"] + list("abcdefghij")
+
+
+def decoder_models(seed=0):
+    """(jax model, {"params": flax tree}, port model in eval mode) over
+    ``DECODER_PIECES``, the blank's bias lowered so random weights emit."""
+    import torch
+    from tsasr_torch.convert import params_to_flax
+    from tsasr_torch.models.transducer import (TSTransducer,
+                                               TSTransducerConfig)
+    from tsasr_tpu.models.transducer import TSTransducer as JaxTransducer
+    from tsasr_tpu.models.transducer import TSTransducerConfig as JaxConfig
+
+    config = dict(DECODER, vocab_size=len(DECODER_PIECES))
+    model = TSTransducer(TSTransducerConfig(**config)).init_weights(seed)
+    with torch.no_grad():
+        model.transducer_head.bias[0] -= 1.0
+    params = {"params": params_to_flax(model.state_dict())}
+    return JaxTransducer(JaxConfig(**config)), params, model.eval()
+
+
+def encoder_output(batch=3, frames=14, seed=0):
+    """A drawn (B, T, joint_dim) encoder output and relative lengths
+    (the first full, the others shorter), as numpy."""
+    rng = np.random.default_rng(seed)
+    enc = rng.normal(size=(batch, frames, DECODER["joint_dim"]))
+    rel = np.linspace(1.0, 0.5, batch)
+    return enc.astype(np.float32), rel.astype(np.float32)
+
+
+# f32 on both sides, one LSTM step and one joint per expansion
+SCORE_ATOL = 1e-5
+
+
+def assert_same_beams(got, want):
+    """(tokens, lengths, normalized scores) of both packages: the same
+    live hypotheses (scores above -1e20) with identical tokens, and
+    their scores within SCORE_ATOL."""
+    tokens, lengths, scores = (np.asarray(x) for x in got)
+    w_tokens, w_lengths, w_scores = (np.asarray(x) for x in want)
+    live = w_scores > -1e20
+    np.testing.assert_array_equal(scores > -1e20, live)
+    np.testing.assert_array_equal(np.where(live, lengths, 0),
+                                  np.where(live, w_lengths, 0))
+    np.testing.assert_array_equal(tokens[live], w_tokens[live])
+    np.testing.assert_allclose(scores[live], w_scores[live], rtol=0,
+                               atol=SCORE_ATOL)
+    assert live[:, 0].all()
+
+
+def write_float_wav(path, wav, sample_rate):
+    """A 32-bit IEEE-float WAV: the port's ``read_audio`` (its native
+    decoder) reads it back bit for bit, peaks above full scale included,
+    which no PCM file holds."""
+    import struct
+    data = np.ascontiguousarray(wav, "<f4").tobytes()
+    fmt = struct.pack("<HHIIHH", 3, 1, sample_rate, 4 * sample_rate, 4, 32)
+    with open(path, "wb") as f:
+        f.write(b"RIFF" + struct.pack("<I", 20 + len(fmt) + len(data))
+                + b"WAVE")
+        f.write(b"fmt " + struct.pack("<I", len(fmt)) + fmt)
+        f.write(b"data" + struct.pack("<I", len(data)) + data)
+
+
+def split_as_files(dataset, folder, sample_rate=16000):
+    """Each utterance of a TEST dataset as files: {id: (mixture WAV, the
+    corpus's enrollment file)}. The mixture (mixed on the fly by the data
+    pipeline) is written as a float WAV and must read back exactly."""
+    from tsasr_torch.data.audio import read_audio
+    os.makedirs(folder, exist_ok=True)
+    files = {}
+    for i in range(len(dataset)):
+        item, raw = dataset[i], dataset.raw(i)
+        path = os.path.join(folder, f"mix{i}.wav")
+        write_float_wav(path, item["mixed_sig"], sample_rate)
+        read, sr = read_audio(path)
+        if sr != sample_rate or not np.array_equal(read, item["mixed_sig"]):
+            raise RuntimeError(f"{path} does not read back exactly")
+        files[item["id"]] = (path, raw["enroll_wav"])
+    return files

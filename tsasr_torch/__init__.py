@@ -3,8 +3,10 @@
 The JAX package stays the reference; this package keeps its module names
 (its ``X`` maps to ``tsasr_torch.X``) so each piece has a named
 counterpart, and imports nothing of it. What is ported so far is the
-offline serving path and the ``scratch`` recipe's experiment end to end
-(``python -m tsasr_torch.train_librispeechmix_scratch``):
+offline serving path, the ``scratch`` recipe's experiment end to end
+(``python -m tsasr_torch.train_librispeechmix_scratch``) and decoding as
+the recipe configures it (the batched and exact beams, LM fusion,
+checkpoint loading and the transcription tools):
 
 - ``tsasr_torch.ops``        Fbank features, input normalization, masks,
                              dropout, the RNN-T loss (fused joint).
@@ -12,14 +14,21 @@ offline serving path and the ``scratch`` recipe's experiment end to end
                              attention, the RNN-T lattice), each with its
                              plain PyTorch version.
 - ``tsasr_torch.models``     the TS-Conformer transducer as ``nn.Module``s.
-- ``tsasr_torch.decoding``   greedy transducer search.
+- ``tsasr_torch.decoding``   greedy search, the batched and the exact
+                             transducer beams.
+- ``tsasr_torch.lm``         backoff n-gram LMs, ARPA, the dense fusion
+                             table; ``models.lm`` holds the RNN-LM.
 - ``tsasr_torch.data``       manifests, mixing, tokenizers, dynamic
                              batching and the checkpointable loader.
 - ``tsasr_torch.training``   the Brain's loop, AdamW, Noam, checkpoints,
                              the experiment CLI.
 - ``tsasr_torch.recipes``    the LibriSpeechMix recipe (``scratch``).
-- ``tsasr_torch.inference``  ``TSASRTranscriber``.
-- ``tsasr_torch.convert``    flax params -> ``state_dict`` and back.
+- ``tsasr_torch.inference``  ``TSASRTranscriber`` (``from_experiment``,
+                             ``transcribe_file``).
+- ``tsasr_torch.tools``      the synthetic corpus, ``transcribe``,
+                             ``average_checkpoints``, ``train_ngram_lm``.
+- ``tsasr_torch.convert``    flax params -> ``state_dict`` and back (the
+                             transducer; the RNN-LM one way).
 
 Entry points run on ``device="cuda"`` unless the caller asks for the CPU,
 and raise when CUDA is asked for and absent (``tsasr_torch.device``).

@@ -15,6 +15,9 @@ of numpy arrays). Layout changes:
 - LSTM ``l{n}_w_ih`` (F, 4H) / ``l{n}_w_hh`` (H, 4H) are transposed to
   ``weight_ih_l{n}`` / ``weight_hh_l{n}``; the fused ``l{n}_b`` stays one
   bias, ``bias_l{n}``.
+
+``lm_params_from_flax`` does the same for the flax ``RNNLM``
+(``embedding``, ``rnn``, ``dnn``, ``out``) into ``models.lm.RNNLM``.
 """
 
 import numpy as np
@@ -86,15 +89,17 @@ def _encoder(out, prefix, tree):
             _layer(out, f"{prefix}.layers.{int(name[6:])}", layer)
 
 
-def _predictor(out, prefix, tree):
-    _dense(out, f"{prefix}.decoder_proj", tree["decoder_proj"])
-    lstm = tree["decoder"]
+def _lstm(out, prefix, lstm):
     n_layers = sum(1 for k in lstm if k.endswith("_w_ih"))
     for n in range(n_layers):
-        p = f"{prefix}.decoder"
-        out[f"{p}.weight_ih_l{n}"] = _t(np.asarray(lstm[f"l{n}_w_ih"]).T)
-        out[f"{p}.weight_hh_l{n}"] = _t(np.asarray(lstm[f"l{n}_w_hh"]).T)
-        out[f"{p}.bias_l{n}"] = _t(lstm[f"l{n}_b"])
+        out[f"{prefix}.weight_ih_l{n}"] = _t(np.asarray(lstm[f"l{n}_w_ih"]).T)
+        out[f"{prefix}.weight_hh_l{n}"] = _t(np.asarray(lstm[f"l{n}_w_hh"]).T)
+        out[f"{prefix}.bias_l{n}"] = _t(lstm[f"l{n}_b"])
+
+
+def _predictor(out, prefix, tree):
+    _dense(out, f"{prefix}.decoder_proj", tree["decoder_proj"])
+    _lstm(out, f"{prefix}.decoder", tree["decoder"])
 
 
 def params_from_flax(tree):
@@ -111,6 +116,17 @@ def params_from_flax(tree):
         if name in tree:
             _dense(out, name, tree[name])
     _predictor(out, "predictor", tree["predictor"])
+    return out
+
+
+def lm_params_from_flax(tree):
+    """Flax ``RNNLM`` params (nested numpy dict) -> state_dict of the
+    port's ``RNNLM``."""
+    tree = tree.get("params", tree)
+    out = {"embedding.weight": _t(tree["embedding"]["embedding"])}
+    _lstm(out, "rnn", tree["rnn"])
+    _dense(out, "dnn", tree["dnn"])
+    _dense(out, "out", tree["out"])
     return out
 
 

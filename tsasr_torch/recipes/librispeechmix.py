@@ -16,21 +16,22 @@ scratch variant (the Conformer speaker encoder trained jointly):
 - ``compute_objectives`` is the weight-masked mean of the per-utterance
   RNN-T losses;
 - ``evaluate_batch_extra`` decodes greedily at VALID every
-  ``valid_search_freq`` epochs, and at TEST when ``beam_size <= 1`` (as
-  the JAX recipe's searchers do); CER and WER accumulate in
-  ``ErrorRateStats``; ``on_stage_end`` logs each epoch, keeps the
-  ``keep_checkpoints`` best checkpoints on min WER and writes the WER
-  file at TEST;
+  ``valid_search_freq`` epochs, and at TEST with ``_beam``: the batched
+  or the exact beam by ``beam_backend``, greedy at ``beam_size <= 1``,
+  with the LM of ``lm_path`` / ``lm_weight`` fused in (as the JAX
+  recipe's ``_maybe_build_searchers`` and ``_load_fusion_lm``); CER and
+  WER accumulate in ``ErrorRateStats``; ``on_stage_end`` logs each
+  epoch, keeps the ``keep_checkpoints`` best checkpoints on min WER and
+  writes the WER file at TEST;
 - ``dataio_prepare``, ``build_dataloader_kwargs`` and ``run_experiment``
   run the experiment: manifests, the tokenizer fitted on
   train+valid+test, datasets and dynamic batching, ``Brain.fit``, then
   TEST of every split of ``test_splits`` from the best checkpoint.
 
-Not ported yet, each raising ``NotImplementedError``: speed perturbation
-and SpecAugment (``augment: True``), the banded joint and loss (a set
-``joint_band_width``), beam search (TEST with ``beam_size > 1``) and LM
-fusion, the other variants, warm start from ``model_path``,
-``prompt_test`` and the ``plot_*`` switches.
+Not ported yet, each raising ``NotImplementedError`` before anything
+runs: speed perturbation and SpecAugment (``augment: True``), the banded
+joint and loss (a set ``joint_band_width``), the other variants, warm
+start from ``model_path``, ``prompt_test`` and the ``plot_*`` switches.
 """
 
 import json
@@ -48,8 +49,11 @@ from tsasr_torch.data import (
 )
 from tsasr_torch.data.dataset import add_dynamic_item, set_output_keys
 from tsasr_torch.data.mixing import make_audio_pipeline, make_text_pipeline
-from tsasr_torch.decoding.greedy import TransducerGreedySearcher
+from tsasr_torch.decoding import (BatchedBeamSearcher,
+                                  TransducerBeamSearcher,
+                                  TransducerGreedySearcher)
 from tsasr_torch.device import resolve_device
+from tsasr_torch.lm.fusion import load_fusion_lm
 from tsasr_torch.ops.features import (Fbank, input_normalization,
                                       pad_audio_to_frame_multiple)
 from tsasr_torch.ops.rnnt_loss import rnnt_loss
@@ -79,6 +83,7 @@ class TSASRBrain(Brain):
             win_length=float(self.hparams.win_length)).to(self.device)
         self._current_epoch = 0
         self._greedy = None
+        self._beam = None
         self.cer_metric = ErrorRateStats(split_tokens=True)
         self.wer_metric = ErrorRateStats()
         self.last_hyps = None
@@ -170,27 +175,47 @@ class TSASRBrain(Brain):
         return (losses * w).sum() / torch.clamp(w.sum(), min=1.0)
 
     # ----------------------------------------------------------- decoding
-    def _searching(self, stage):
-        """Whether this evaluation batch is decoded: every VALID of an
-        epoch that ``valid_search_freq`` divides, and every TEST."""
-        if stage == Stage.TEST:
-            beam = getattr(self.hparams, "beam_size", 15)
-            if beam > 1:
-                raise NotImplementedError(
-                    f"TEST decodes with beam search (beam_size={beam}), "
-                    "which is not ported yet; pass --beam_size 1 for "
-                    "greedy search")
-            return True
-        return self._current_epoch % self.hparams.valid_search_freq == 0
+    def _maybe_build_searchers(self, stage):
+        """The greedy searcher, and at TEST the beam too, each built on
+        first use (so VALID needs no beam settings), with the yaml's LM
+        (``lm_path`` at ``lm_weight > 0``; the JAX recipe's
+        ``_load_fusion_lm``) fused into the beam."""
+        blank = self.hparams.blank_index
+        if self._greedy is None:
+            self._greedy = TransducerGreedySearcher(self.model,
+                                                    blank_index=blank)
+        if stage != Stage.TEST or self._beam is not None:
+            return
+        if self.hparams.beam_size <= 1:
+            self._beam = self._greedy
+            return
+        fusion = load_fusion_lm(getattr(self.hparams, "lm_path", None),
+                                getattr(self.hparams, "lm_weight", 0.0),
+                                self.tokenizer.pieces, blank, self.device)
+        if getattr(self.hparams, "beam_backend", "batched") == "batched":
+            lm_kwargs = {} if fusion is None else dict(zip(
+                ("lm_step_fn", "lm_weight", "lm_initial_state_fn"), fusion))
+            self._beam = BatchedBeamSearcher(
+                self.model, blank_index=blank,
+                beam_size=self.hparams.beam_size, nbest=1,
+                expand_beam=self.hparams.expand_beam, **lm_kwargs)
+        else:
+            lm_kwargs = {} if fusion is None else dict(zip(
+                ("lm_step_fn", "lm_weight"), fusion))
+            self._beam = TransducerBeamSearcher(
+                self.model, blank_index=blank,
+                beam_size=self.hparams.beam_size, nbest=1,
+                state_beam=self.hparams.state_beam,
+                expand_beam=self.hparams.expand_beam, **lm_kwargs)
 
     def evaluate_batch_extra(self, batch, arrays, predictions, stage):
-        if not self._searching(stage):
+        if stage != Stage.TEST and \
+                self._current_epoch % self.hparams.valid_search_freq:
             return
-        if self._greedy is None:
-            self._greedy = TransducerGreedySearcher(
-                self.model, blank_index=self.hparams.blank_index)
+        self._maybe_build_searchers(stage)
+        searcher = self._beam if stage == Stage.TEST else self._greedy
         _, enc_out, _ = predictions
-        hyps, _, _, _ = self._greedy(enc_out, arrays["mixed_lens"])
+        hyps, _, _, _ = searcher(enc_out, arrays["mixed_lens"])
         words = self.tokenizer(hyps, task="decode_from_list")
         self.last_hyps = words
         if "target_words" in batch:
@@ -311,8 +336,9 @@ def build_dataloader_kwargs(hparams, dataset, stage):
 
 
 def check_ported(hparams, variant):
-    """Raise ``NotImplementedError`` for what the port does not run yet;
-    nothing is ignored silently."""
+    """Raise ``NotImplementedError`` for what the port does not run yet
+    (nothing is ignored silently), and ``FileNotFoundError`` for a fusion
+    LM that is not there, before anything runs."""
     if variant != "scratch":
         raise NotImplementedError(
             f"variant {variant!r} is not ported yet; the port has "
@@ -329,8 +355,12 @@ def check_ported(hparams, variant):
     for key, what in switches.items():
         if hparams.get(key):
             raise NotImplementedError(f"{what} is not ported yet")
-    if float(hparams.get("lm_weight") or 0.0) > 0 and hparams.get("lm_path"):
-        raise NotImplementedError("LM shallow fusion is not ported yet")
+    # LM fusion runs at TEST, after training: a missing file fails first
+    lm_path = hparams.get("lm_path")
+    if float(hparams.get("lm_weight") or 0.0) > 0 and lm_path \
+            and not os.path.isfile(lm_path):
+        raise FileNotFoundError(f"lm_path {lm_path!r} (LM shallow fusion "
+                                "at TEST) does not exist")
 
 
 def _prepare(hparams, splits):

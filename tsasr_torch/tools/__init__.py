@@ -1,1 +1,2 @@
-"""Tools of the port: the synthetic LibriSpeechMix-shaped corpus."""
+"""Tools of the port: the synthetic LibriSpeechMix-shaped corpus,
+transcription, checkpoint averaging and n-gram LM training."""
