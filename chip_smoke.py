@@ -60,7 +60,23 @@ checkout, or when any phase fails. Phases:
    128 must be among them); the host-clock ms
    of each micro-batch through the loader, the wait on the loader and
    VALID's and TEST's wall times are printed;
-6. a small model on the card against the same model on the CPU:
+6. the ``none`` and ``pretrained`` recipes (``phase_variants``):
+   speed perturbation at each speed and SpecAugment (warp, frequency and
+   time masks) on a 6 x 8 s batch on the card against the CPU with the
+   same draws; the frozen WavLM x-vector model at its published widths
+   (seeded) on 6 x 5 s enrollments, card against CPU, then written as an
+   HF checkpoint directory and loaded by ``FrozenSpeakerEncoder`` bit for
+   bit; then each variant through ``run_experiment`` with its yaml copy,
+   ``--fused_attention True --augment True``, on the same corpus, 2
+   optimizer steps, VALID greedy, TEST at beam 1; with deterministic
+   algorithms on, a ``pretrained`` run's folder copied at its
+   intra-epoch checkpoint resumes to the uninterrupted run's state bit
+   for bit; every batch launches what its
+   shapes imply (12 attention layers), and each kernel is held against
+   its plain version on the runs' tensors; ms per micro-batch through
+   the loader, the WavLM's share, VALID and TEST wall times and the
+   augmentation's device time are printed;
+7. a small model on the card against the same model on the CPU:
    serving encoder output (the CPU side twice, each hash logged with the
    host CPU's model and torch's thread count), and 2 optimizer steps of
    training at dropout 0.
@@ -79,6 +95,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1628,11 +1645,12 @@ def same_state(a, b):
 
 
 @contextlib.contextmanager
-def counted_batches(brain_class, on_card):
+def counted_batches(brain_class, on_card, layers=LAYERS_PER_REQUEST):
     """Checks every ``fit_batch`` and ``evaluate_batch`` of the Brains
     built inside: each must launch what its shapes imply (the attention
-    forward once per Conformer layer, the backward once per layer at
-    TRAIN, the lattice once: resident, or the slab pair). Yields the
+    forward once per Conformer layer, ``layers`` of them, the backward
+    once per layer at TRAIN, the lattice once: resident, or the slab
+    pair). Yields the
     per-stage launch totals and batch counts, and host-clock readings:
     per TRAIN micro-batch the seconds since the stage began or the last
     micro-batch ended (the loader's ``next()`` and the loop's
@@ -1655,8 +1673,8 @@ def counted_batches(brain_class, on_card):
         t = ConvolutionFrontEnd.output_length(frames)
         u1 = batch.tokens_bos.data.shape[1]
         resident = resident_fits(t, u1)
-        return {"relpos_attention_fwd": LAYERS_PER_REQUEST,
-                "relpos_attention_bwd": LAYERS_PER_REQUEST if train else 0,
+        return {"relpos_attention_fwd": layers,
+                "relpos_attention_bwd": layers if train else 0,
                 "rnnt_lattice_resident": int(resident),
                 "rnnt_lattice_alpha_slab": int(not resident),
                 "rnnt_lattice_beta_slab": int(not resident)}
@@ -1855,11 +1873,11 @@ def transcribe_test_split(brain, out, folder, device, card):
                            "reproduce the run's TEST transcripts")
 
 
-def phase_experiment(device, card):
-    """The scratch experiment twice in one output folder: 1 epoch cut at
-    2 optimizer steps, then 2 epochs, which recover the first's
-    checkpoint, with TEST at the yaml's batched beam 15, in the second
-    run with an n-gram LM of the corpus's train transcripts
+def phase_experiment(device, card, corpus):
+    """The scratch experiment on ``corpus`` twice in one output folder: 1
+    epoch cut at 2 optimizer steps, then 2 epochs, which recover the
+    first's checkpoint, with TEST at the yaml's batched beam 15, in the
+    second run with an n-gram LM of the corpus's train transcripts
     (``tsasr_torch.tools.train_ngram_lm``) and one utterance a TEST
     batch; then ``transcribe_test_split``; then every kernel at each
     shape the two runs gave it, on the tensors they gave it, against its
@@ -1869,13 +1887,11 @@ def phase_experiment(device, card):
     import torch
     from tsasr_torch.recipes.librispeechmix import TSASRBrain, run_experiment
     from tsasr_torch.tools import train_ngram_lm
-    from tsasr_torch.tools.make_synthetic_dataset import make_dataset
 
     root = Path(__file__).resolve().parent
     on_card = device.type == "cuda"
     with tempfile.TemporaryDirectory(prefix="tsasr_experiment_") as tmp:
-        corpus, out = Path(tmp) / "corpus", Path(tmp) / "out"
-        make_dataset(str(corpus), **EXPERIMENT_CORPUS)
+        out = Path(tmp) / "out"
 
         def argv(epochs, step_limit, *extra):
             args = [str(root / EXPERIMENT_YAML), "--data_folder",
@@ -2035,6 +2051,484 @@ def phase_experiment(device, card):
         f"T, U+1: {sorted(seen['lattice'])}; at T 128 and more: {long}), "
         f"worst err/tol {worst['lattice']:.3g} (lattice_rtol, f32 and "
         f"f64)")
+    return path_counts
+
+
+VARIANT_YAMLS = {
+    "none": "tsasr_torch/hparams/LibriSpeechMix/conformer-t_none.yaml",
+    "pretrained": "tsasr_torch/hparams/LibriSpeechMix/conformer-t_wavlm.yaml"}
+# neither variant has a speaker branch: the mixture encoder's 12 layers
+VARIANT_LAYERS = 12
+# augmentation on the card against the same port code on the CPU, with
+# the same draws, on a 6 x 8 s batch (lengths 0.6-1.0, the first full).
+# Bounds set before the first run: the waveform (|x| < 1) within 1e-5
+# (a 34-tap f32 convolution summed in another order); the features
+# (normalized, O(1)) within 1e-5 (the same elementwise f32 ops; the
+# batch mean of the fill summed in another order). A mask or warp
+# placed one frame off moves features by O(1).
+AUG_BATCH = (6, 8)
+AUG_WAVE_ATOL = 1e-5
+AUG_FEAT_ATOL = 1e-5
+# the frozen WavLM on 6 enrollments of 5 s at these length fractions,
+# card against CPU: max |e| error over max |e| within 1e-4 (f32 through
+# a 7-layer CNN and 12 layers of 768, TF32 off on the card)
+WAVLM_ENROLL_FRACS = (1.0, 0.9, 0.8, 0.7, 0.6, 0.5)
+WAVLM_RTOL = 1e-4
+# None: WavLMConfig()'s published widths (a CPU rehearsal narrows it)
+WAVLM_CONFIG = None
+
+
+def augmentation_checks(device, card, spec_kwargs, speeds):
+    """Speed perturbation at each speed and SpecAugment (the warp, the
+    frequency masks, the time masks, then the whole) on the card against
+    the same functions on the CPU with the same draws; the device time of
+    each. Returns the worst errors and the times."""
+    import numpy as np
+    import torch
+    from tsasr_torch.ops import augment
+    from tsasr_torch.ops.features import (Fbank, input_normalization,
+                                          pad_audio_to_frame_multiple)
+
+    rng = np.random.default_rng(SEED + 21)
+    n, seconds = AUG_BATCH
+    L = seconds * SAMPLE_RATE
+    fracs = np.concatenate([[1.0], rng.uniform(0.6, 1.0, n - 1)])
+    wav = (rng.normal(size=(n, L)) * 0.1).astype(np.float32)
+    for i, frac in enumerate(fracs):
+        wav[i, int(L * frac):] = 0.0
+    cpu_wav = torch.from_numpy(wav)
+    card_wav = cpu_wav.to(device)
+    rel = torch.from_numpy(fracs.astype(np.float32)).to(device)
+    errors, times = {}, {}
+    for speed in speeds:
+        got, factor = augment.apply_speed_perturb(card_wav, speed)
+        want, want_factor = augment.apply_speed_perturb(cpu_wav, speed)
+        errors[f"speed {speed}"] = (got.cpu() - want).abs().max().item()
+        if not (errors[f"speed {speed}"] <= AUG_WAVE_ATOL
+                and factor.item() == want_factor.item()
+                and torch.isfinite(got).all()):
+            raise RuntimeError(f"speed {speed} on the card: waveform err "
+                               f"{errors[f'speed {speed}']} (atol "
+                               f"{AUG_WAVE_ATOL}), factor {factor.item()} "
+                               f"vs {want_factor.item()}")
+        if speed != 100:
+            times[f"speed {speed}"] = sum(device_ms_by_kernel(
+                lambda: augment.apply_speed_perturb(card_wav, speed),
+                reps=5).values())
+
+    # the features of the 95 % batch, made as the recipe makes them
+    wav95, factor = augment.apply_speed_perturb(card_wav, min(speeds))
+    fbank = Fbank(sample_rate=SAMPLE_RATE, n_fft=512, n_mels=80,
+                  win_length=32.0).to(device)
+    w, r = pad_audio_to_frame_multiple(
+        wav95, torch.clamp(rel * factor, max=1.0), 32, SAMPLE_RATE,
+        float(fbank.hop_length))
+    feats = input_normalization(fbank(w), r)
+    cpu_feats = feats.cpu()
+    draws = augment.draw_spec_augment(torch.Generator().manual_seed(SEED),
+                                      tuple(feats.shape), **spec_kwargs)
+    if draws["warp"] is None or draws["freq"] is None \
+            or draws["time"] is None:
+        raise RuntimeError(f"the yaml's SpecAugment draws {draws} leave a "
+                           "part out")
+    zero = spec_kwargs["replace_with_zero"]
+    parts = {
+        "warp": lambda x: augment.apply_time_warp(x, *draws["warp"]),
+        "freq masks": lambda x: augment.apply_masks(x, draws["freq"], 2,
+                                                    x.mean()),
+        "time masks": lambda x: augment.apply_masks(x, draws["time"], 1,
+                                                    x.mean()),
+        "spec_augment": lambda x: augment.apply_spec_augment(x, draws,
+                                                             zero)}
+    for name, fn in parts.items():
+        got = fn(feats)
+        errors[name] = (got.cpu() - fn(cpu_feats)).abs().max().item()
+        if not (errors[name] <= AUG_FEAT_ATOL and torch.isfinite(got).all()):
+            raise RuntimeError(f"{name} on the card: err {errors[name]} "
+                               f"(atol {AUG_FEAT_ATOL})")
+        times[name] = sum(device_ms_by_kernel(lambda: fn(feats),
+                                              reps=5).values())
+    log(f"variants augmentation, card vs CPU on the same draws, "
+        f"{n} x {seconds} s (features {tuple(feats.shape)}, warp "
+        f"c, w = {draws['warp']}): worst errors "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errors.items())
+        + f" (atol {AUG_WAVE_ATOL} waveform, {AUG_FEAT_ATOL} features); "
+        f"device ms per call " + ", ".join(f"{k} {v:.4f}"
+                                           for k, v in times.items())
+        + f" [{card}]")
+    return errors, times
+
+
+def wavlm_flops(config, batch, samples):
+    """Multiply-adds x 2 of one WavLM x-vector forward over ``batch``
+    inputs of ``samples`` samples, by shapes: the CNN, the feature
+    projection, the positional conv, the layers' projections, scores and
+    FFN, the projector and the TDNN (norms, softmax and the head's
+    vectors left out)."""
+    flops, length, c_in = 0, samples, 1
+    for c_out, k, s in zip(config.conv_dim, config.conv_kernel,
+                           config.conv_stride):
+        length = (length - k) // s + 1
+        flops += 2 * length * c_out * c_in * k
+        c_in = c_out
+    E, T = config.hidden_size, length
+    flops += 2 * T * c_in * E
+    flops += 2 * T * E * (E // config.num_conv_pos_embedding_groups) \
+        * config.num_conv_pos_embeddings
+    flops += config.num_hidden_layers * (
+        2 * T * (4 * E * E + 2 * E * config.intermediate_size)
+        + 4 * T * T * E)
+    flops += 2 * T * E * config.tdnn_dim[0]
+    c_in = config.tdnn_dim[0]
+    for c_out, k in zip(config.tdnn_dim, config.tdnn_kernel):
+        T -= k - 1
+        flops += 2 * T * c_out * c_in * k
+        c_in = c_out
+    return batch * flops
+
+
+def wavlm_checks(device, card, folder):
+    """The frozen WavLM x-vector model at ``WAVLM_CONFIG`` (the published
+    widths) on seeded weights: the card against the CPU on 6 enrollments
+    of 5 s with unequal lengths, its time per call; then a checkpoint
+    directory in HF names (``config.json`` + ``model.safetensors`` from
+    the port's writer), which ``FrozenSpeakerEncoder`` loads: its
+    embeddings must equal the in-memory module's bit for bit. Returns the
+    directory and the readings."""
+    import numpy as np
+    import torch
+    from tsasr_torch.models.wavlm import (WavLMConfig, WavLMForXVector,
+                                          save_pretrained_xvector)
+    from tsasr_torch.recipes.speaker_embeddings import FrozenSpeakerEncoder
+
+    config = WAVLM_CONFIG or WavLMConfig()
+    model = WavLMForXVector(config).init_weights(seed=SEED).eval()
+    n_params = sum(p.numel() for p in model.parameters())
+    L = ENROLL_SECONDS * SAMPLE_RATE
+    rng = np.random.default_rng(SEED + 22)
+    lengths = np.array([int(L * f) for f in WAVLM_ENROLL_FRACS])
+    wav = (rng.normal(size=(len(lengths), L)) * 0.1).astype(np.float32)
+    for i, n in enumerate(lengths):
+        wav[i, n:] = 0.0
+    cpu_args = (torch.from_numpy(wav), torch.from_numpy(lengths))
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        want = model(*cpu_args)["embeddings"]
+    cpu_s = time.perf_counter() - t0
+    model.to(device)
+    card_args = tuple(x.to(device) for x in cpu_args)
+    with torch.no_grad():
+        got = model(*card_args)["embeddings"]
+        ms = cuda_ms(lambda: model(*card_args), reps=3, rounds=3)
+        device_ms = sum(device_ms_by_kernel(lambda: model(*card_args),
+                                            reps=3).values())
+    err = ((got.cpu() - want).abs().max() / want.abs().max()).item()
+    flops = wavlm_flops(config, len(lengths), L)
+    log(f"variants WavLM x-vector at hidden {config.hidden_size}, "
+        f"{config.num_hidden_layers} layers, conv {config.conv_dim[0]} x "
+        f"{len(config.conv_dim)}, TDNN {config.tdnn_dim[-1]}, "
+        f"{n_params} params (seed {SEED}), 6 x {ENROLL_SECONDS} s "
+        f"enrollments: card vs CPU max |e| error {err:.3g} of max |e| "
+        f"{want.abs().max().item():.3g} (rtol {WAVLM_RTOL}); "
+        f"{ms:.2f} ms per call (events), device {device_ms:.2f} ms; "
+        f"{flops:.3g} FLOP by shapes, {flops / device_ms / 1e9:.1f} "
+        f"TFLOP/s of device time "
+        f"({flops * 1e3 / device_ms / PEAK_F32_FLOP_PER_S:.1%} of the f32 "
+        f"peak); the CPU {cpu_s:.2f} s [{card}]")
+    if not (err <= WAVLM_RTOL and torch.isfinite(got).all()):
+        raise RuntimeError(f"WavLM embeddings on the card: err {err} > "
+                           f"{WAVLM_RTOL}")
+
+    t0 = time.perf_counter()
+    save_pretrained_xvector(model, str(folder))
+    encoder = FrozenSpeakerEncoder(str(folder),
+                                   embedding_dim=config.xvector_output_dim,
+                                   device=device)
+    load_s = time.perf_counter() - t0
+    rel = card_args[1].to(torch.float32) / L
+    embedded = encoder.embed(card_args[0], rel)
+    with torch.no_grad():
+        ceil_lengths = torch.clamp(torch.ceil(rel * L), max=L).to(
+            torch.int64)
+        direct = model(card_args[0], ceil_lengths)["embeddings"][:, None]
+    same = torch.equal(embedded, direct)
+    size = sum(f.stat().st_size for f in folder.iterdir())
+    log(f"variants WavLM checkpoint directory ({size} bytes; written and "
+        f"loaded in {load_s:.2f} s): "
+        f"FrozenSpeakerEncoder's embeddings bit-identical to the in-memory "
+        f"module's {same}")
+    if not same:
+        raise RuntimeError("the checkpoint directory did not reproduce the "
+                           "in-memory WavLM's embeddings bit for bit")
+    del model, encoder
+    return {"wavlm_ms": ms, "wavlm_device_ms": device_ms, "wavlm_err": err}
+
+
+@contextlib.contextmanager
+def deterministic_algorithms(on):
+    """Context: with ``on``, cuDNN's deterministic algorithms and
+    ``torch.use_deterministic_algorithms`` (warning, not raising, where an
+    operation has no deterministic version). On the card the training
+    step is otherwise not reproducible bit for bit: a cuDNN convolution
+    backward may sum in another order from one run to the next (the
+    frontend's first-block biases read 1e-14 apart after 2 steps). Yields
+    the set of the warnings' first lines."""
+    import warnings
+    import torch
+    warned = set()
+    if not on:
+        yield warned
+        return
+    cudnn = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield warned
+        warned.update(str(w.message).splitlines()[0] for w in caught
+                      if "deterministic" in str(w.message))
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = cudnn
+
+
+@contextlib.contextmanager
+def timed_embeds(on_card):
+    """Times every TRAIN call of ``FrozenSpeakerEncoder.embed`` (those with
+    gradients on) made inside: CUDA events around it on the card, no
+    sync added, read after the run. Yields a list to which ``ms()`` gives
+    the times."""
+    import torch
+    from tsasr_torch.recipes.speaker_embeddings import FrozenSpeakerEncoder
+    embed = FrozenSpeakerEncoder.embed
+    marks = []
+
+    def timed(self, *args):
+        if not torch.is_grad_enabled():
+            return embed(self, *args)
+        if on_card:
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            out = embed(self, *args)
+            end.record()
+            marks.append((start, end))
+        else:
+            t0 = time.perf_counter()
+            out = embed(self, *args)
+            marks.append((t0, time.perf_counter()))
+        return out
+
+    def ms():
+        if on_card:
+            torch.cuda.synchronize()
+            return [a.elapsed_time(b) for a, b in marks]
+        return [(b - a) * 1e3 for a, b in marks]
+
+    FrozenSpeakerEncoder.embed = timed
+    try:
+        yield ms
+    finally:
+        FrozenSpeakerEncoder.embed = embed
+
+
+def phase_variants(device, card, corpus):
+    """The ``none`` and ``pretrained`` recipes through their entry points
+    at full width: augmentation and the frozen WavLM each on the card
+    against the CPU, a seeded WavLM checkpoint directory, then
+    ``run_experiment`` of each variant with the port's yaml copy,
+    ``--fused_attention True --augment True``, on ``corpus``, 2 optimizer
+    steps, VALID greedy and TEST at ``--beam_size 1`` (the scratch run
+    covers beam 15); these two runs give the readings. Then, with
+    deterministic algorithms on, another ``pretrained`` run takes an
+    intra-epoch checkpoint after its first update; a copy of its folder
+    taken there resumes, and its end-of-TRAIN state must equal the
+    uninterrupted run's bit for bit with augmentation on. Every batch
+    launches what its shapes imply; each kernel is then held against its
+    plain version on the runs' own tensors. Returns the launch counts of
+    the path."""
+    import shutil
+    import torch
+    from tsasr_torch.recipes import librispeechmix as recipe
+    from tsasr_torch.recipes.librispeechmix import TSASRBrain
+    from tsasr_torch.utils.hparams import load_hyperpyyaml
+
+    root = Path(__file__).resolve().parent
+    on_card = device.type == "cuda"
+    with open(root / VARIANT_YAMLS["none"]) as f:
+        yaml_hp = load_hyperpyyaml(f, {"data_folder": str(corpus)})
+    spec_kwargs = recipe.specaugment_kwargs(yaml_hp)
+    speeds = recipe.speed_perturb_kwargs(yaml_hp)["speeds"]
+    del yaml_hp
+    augmentation_checks(device, card, spec_kwargs, speeds)
+
+    with tempfile.TemporaryDirectory(prefix="tsasr_variants_") as tmp:
+        tmp = Path(tmp)
+        (tmp / "wavlm").mkdir()
+        wavlm = wavlm_checks(device, card, tmp / "wavlm")
+
+        def argv(variant, out, *extra):
+            args = [str(root / VARIANT_YAMLS[variant]), "--data_folder",
+                    str(corpus), "--output_folder", str(out),
+                    "--fused_attention", "True", "--augment", "True",
+                    "--valid_search_freq", "1", "--noprogressbar",
+                    "--vocab_size", str(corpus_vocab(corpus)),
+                    "--num_epochs", "1", "--optimizer_step_limit", "2",
+                    "--beam_size", "1", *extra]
+            if variant == "pretrained":
+                args += ["--speaker_encoder_path", str(tmp / "wavlm")]
+            return args if on_card else args + ["--device", str(device)]
+
+        ends, copied = [], []
+        fit_train = TSASRBrain._fit_train
+        maybe_ckpt = TSASRBrain._maybe_intra_epoch_ckpt
+
+        def recording(self, train_set, epoch):
+            fit_train(self, train_set, epoch)
+            ends.append(train_state(self))
+
+        def copy_first(self):
+            maybe_ckpt(self)
+            out = Path(self.hparams.output_folder)
+            if not copied and self.optimizer_step == 1 \
+                    and out.name == "uninterrupted":
+                shutil.copytree(out, tmp / "resumed")
+                copied.append(self.step)
+
+        runs, nondeterministic = {}, set()
+        reset_counts()
+        TSASRBrain._fit_train = recording
+        TSASRBrain._maybe_intra_epoch_ckpt = copy_first
+        try:
+            with captured_kernel_calls() as seen:
+                for name, variant, extra in (
+                        ("none", "none", ()),
+                        ("pretrained", "pretrained", ()),
+                        ("uninterrupted", "pretrained",
+                         ("--ckpt_interval_steps", "1", "--test_splits",
+                          "[]")),
+                        ("resumed", "pretrained", ("--test_splits", "[]"))):
+                    t0 = time.perf_counter()
+                    with counted_batches(TSASRBrain, on_card,
+                                         VARIANT_LAYERS) as (
+                                counts, timings), \
+                            timed_embeds(on_card) as embed_ms, \
+                            deterministic_algorithms(
+                                name in ("uninterrupted", "resumed")) as (
+                                warned):
+                        brain = recipe.run_experiment(
+                            variant, argv(variant, tmp / name, *extra))
+                    nondeterministic.update(warned)
+                    runs[name] = {
+                        "brain": brain, "counts": counts,
+                        "timings": timings, "embed_ms": embed_ms(),
+                        "s": time.perf_counter() - t0,
+                        "log": (tmp / name / "train_log.txt").read_text()}
+        finally:
+            TSASRBrain._fit_train = fit_train
+            TSASRBrain._maybe_intra_epoch_ckpt = maybe_ckpt
+        path_counts = read_counts()
+
+        for name in ("none", "pretrained"):
+            run = runs[name]
+            brain, counts, timings = run["brain"], run["counts"], \
+                run["timings"]
+            config = brain.model.config
+            through = [(a + b) * 1e3 for a, b in zip(
+                timings["loader_wait_s"], timings["fit_batch_s"])]
+            step_ms = [t * 1e3 for t in timings["fit_batch_s"]]
+            embed = run["embed_ms"]
+            log(f"variants {name}: run_experiment at d_model "
+                f"{config.d_model}, {config.encoder_num_layers} layers, "
+                f"injection {config.injection_mode}, speaker encoder "
+                f"{type(brain.speaker_encoder).__name__}, "
+                f"{sum(p.numel() for p in brain.model.parameters())} "
+                f"trained params, on "
+                f"{next(brain.model.parameters()).device}; {run['s']:.1f} "
+                f"s; batches " + ", ".join(
+                    f"{k} {v['batches']}" for k, v in counts.items())
+                + f"; optimizer steps {brain.optimizer_step}; cut: 2 "
+                f"optimizer steps, VALID greedy, TEST at beam 1 (the "
+                f"scratch run covers beam 15)")
+            for line in run["log"].splitlines():
+                log(f"  train_log: {line}")
+            log(f"variants {name} TRAIN through the loader: ms per "
+                f"micro-batch " + ", ".join(f"{x:.1f}" for x in through)
+                + f"; warm median {statistics.median(through[2:]):.1f} ms"
+                + (f"; the frozen WavLM's share of fit_batch (CUDA events "
+                   f"around embed, {statistics.median(embed):.2f} ms "
+                   f"median): {sum(embed) / sum(step_ms):.3f}"
+                   if embed else "")
+                + f"; VALID wall {timings['valid_s'][0]:.2f} s over "
+                f"{counts['VALID']['batches']} batches, TEST wall "
+                f"{timings['test_s'][0]:.2f} s over "
+                f"{counts['TEST']['batches']} batches (greedy) [{card}]")
+            if brain.optimizer_step != 2 or counts["TRAIN"]["batches"] != 8:
+                raise RuntimeError(f"{name}: the step limit did not stop "
+                                   "TRAIN at 2 optimizer steps")
+            if not re.search(r"^epoch: 1, .* valid WER: ", run["log"], re.M) \
+                    or not (tmp / name / "wer_test-clean-2mix.txt").exists():
+                raise RuntimeError(f"{name}: no epoch line with a valid WER "
+                                   "or no WER file")
+            if on_card and next(brain.model.parameters()).device.type \
+                    != "cuda":
+                raise RuntimeError(f"{name} did not run on the card")
+            if (name == "pretrained") != bool(embed) or len(embed) not in (
+                    0, 8):
+                raise RuntimeError(f"{name}: {len(embed)} frozen encoder "
+                                   "calls at TRAIN")
+            train = counts["TRAIN"]
+            if on_card and not (train["relpos_attention_fwd"]
+                                and train["relpos_attention_bwd"]
+                                and train["rnnt_lattice_resident"]):
+                raise RuntimeError(f"{name}: the attention forward, backward "
+                                   f"or the resident lattice was not "
+                                   f"launched at TRAIN: {dict(train)}")
+
+        resumed = runs["resumed"]["brain"]
+        same = len(ends) == 4 and same_state(ends[3], ends[2])
+        log(f"variants pretrained, deterministic algorithms on (cuDNN "
+            f"deterministic): a run of 2 optimizer steps and a copy of its "
+            f"folder taken at its intra-epoch checkpoint after micro-batch "
+            f"{copied}, resumed: "
+            f"{runs['resumed']['counts']['TRAIN']['batches']} micro-batches "
+            f"trained, to optimizer step {resumed.optimizer_step}; "
+            f"end-of-TRAIN state bit-identical to the uninterrupted run's "
+            f"{same} ({runs['uninterrupted']['s']:.1f} + "
+            f"{runs['resumed']['s']:.1f} s); operations without a "
+            f"deterministic version: {sorted(nondeterministic) or 'none'}")
+        if copied != [4] or resumed.optimizer_step != 2 \
+                or runs["resumed"]["counts"]["TRAIN"]["batches"] != 4:
+            raise RuntimeError("the copy did not resume from its intra-epoch "
+                               "checkpoint")
+        if not same:
+            diffs = [(i, (a - b).abs().max().item()) for i, (a, b) in
+                     enumerate(zip(ends[3]["params"], ends[2]["params"]))
+                     if not torch.equal(a, b)]
+            raise RuntimeError(f"the resumed run's state differs from the "
+                               f"uninterrupted run's: counters "
+                               f"{ends[3]['counters']} vs "
+                               f"{ends[2]['counters']}, params (index, max "
+                               f"|diff|) {diffs[:5]} of {len(diffs)}")
+        by_batch = {k: sum(c[k] for run in runs.values()
+                           for c in run["counts"].values())
+                    for k in path_counts}
+        del runs, resumed, brain
+    if by_batch != path_counts:
+        raise RuntimeError(f"launches {path_counts} outside the batches' "
+                           f"{by_batch}")
+    worst = check_path_kernels(seen)
+    frames = sorted({shape[2] for shape, _, _ in seen["attention"]})
+    log(f"variants kernels against their plain versions on the runs' own "
+        f"inputs, one call per shape: attention forward at "
+        f"{len(seen['attention'])} shapes (T {frames}), worst err "
+        f"{worst['fwd']:.3g} of max |o| (atol {ATTN_ATOL}); backward at "
+        f"{sum(train for _, _, train in seen['attention'])} TRAIN shapes, "
+        f"worst {worst['bwd']:.3g} of max |g| (atol {ATTN_ATOL}); lattice "
+        f"at {len(seen['lattice'])} shapes, worst err/tol "
+        f"{worst['lattice']:.3g}; launches on the variants' path "
+        f"{path_counts}")
     return path_counts
 
 
@@ -2260,6 +2754,7 @@ def main():
     from tsasr_torch.kernels import _build
     from tsasr_torch.kernels import relpos_attention as ra
     from tsasr_torch.kernels import rnnt_lattice as rl
+    from tsasr_torch.tools.make_synthetic_dataset import make_dataset
 
     device = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2288,7 +2783,14 @@ def main():
     serving = phase_serving(device, card)
     serving_beam = phase_serving_beam(device, card)
     training = phase_training(device, card)
-    experiment = phase_experiment(device, card)
+    with tempfile.TemporaryDirectory(prefix="tsasr_corpus_") as tmp:
+        # one synthetic corpus for the scratch experiment and the variants
+        corpus = Path(tmp) / "corpus"
+        make_dataset(str(corpus), **EXPERIMENT_CORPUS)
+        experiment = phase_experiment(device, card, corpus)
+        log(f"experiment phase done at {time.perf_counter() - t_start:.1f} "
+            "s")
+        variants = phase_variants(device, card, corpus)
     phase_small(device)
     log(f"all phases done at {time.perf_counter() - t_start:.1f} s")
 
@@ -2296,7 +2798,8 @@ def main():
         return {"serving": serving[name],
                 "serving_beam": serving_beam[name],
                 "training": training[name],
-                "experiment": experiment[name]}
+                "experiment": experiment[name],
+                "variants": variants[name]}
 
     fwd, bwd = fwd_rows[0], next(r for r in bwd_rows if r["T"] == 208)
     kernels = [

@@ -18,7 +18,8 @@ TRAIN micro-batch against the JAX package.
   of one checkpoint reproduces it bit for bit;
 - without ``--device`` the experiment asks for the card, and raises on a
   host without one before writing anything; what is not ported raises,
-  and so does a missing LM file, before anything runs;
+  and so do a missing LM file and an unknown variant, before anything
+  runs;
 - the JAX model's initial parameters, converted, and the first TRAIN
   batch of each package's pipeline give both ``fit_batch``es the same
   loss (rtol 1e-5) and gradient norm (rtol 1e-4), dropout off.
@@ -270,7 +271,7 @@ def test_without_device_it_asks_for_the_card(corpus, tmp_path, monkeypatch):
     (["--precision", "bf16"], "precision"),
     (["--data_parallel_count", "2"], "data_parallel_count"),
     (["--profile"], "profile"),
-    (["--augment", "True"], "augment"),
+    (["--injection_mode", "cross_attention"], "injection_mode"),
     (["--prompt_test", "True"], "prompt_test"),
     (["--model_path", "x.ckpt"], "model_path"),
     (["--plot_attentions", "True"], "plot_attentions"),
@@ -297,9 +298,12 @@ def test_missing_lm_file_raises_before_anything_runs(corpus, tmp_path):
 
 
 def test_other_variants_raise(corpus, tmp_path):
+    """A variant the recipe does not have raises before anything runs
+    (``none`` and ``pretrained``: ``tests/test_torch_variants.py``)."""
     from tsasr_torch.recipes.librispeechmix import run_experiment
-    with pytest.raises(NotImplementedError, match="variant 'none'"):
-        run_experiment("none", argv=argv(corpus, tmp_path / "out", 1))
+    with pytest.raises(ValueError, match="variant 'ecapa'"):
+        run_experiment("ecapa", argv=argv(corpus, tmp_path / "out", 1))
+    assert not (tmp_path / "out").exists()
 
 
 def test_first_train_batch_loss_matches_jax_fit_batch(corpus, tmp_path):

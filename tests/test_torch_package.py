@@ -1,6 +1,7 @@
-"""Import and device hygiene of tsasr_torch: it imports no JAX, flax or
-tsasr_tpu, its entry points default to CUDA and raise without it, and
-its kernel modules import (and run on the CPU) without nvcc."""
+"""Import and device hygiene of tsasr_torch: it imports no JAX, flax,
+tsasr_tpu, HF transformers or the safetensors package, its entry points
+default to CUDA and raise without it, and its kernel modules import (and
+run on the CPU) without nvcc."""
 
 import os
 import pkgutil
@@ -37,12 +38,17 @@ def _run(code, env=None):
 
 def test_every_module_imports_without_jax():
     mods = _modules()
-    assert "tsasr_torch.kernels.relpos_attention" in mods
+    for name in ("kernels.relpos_attention", "ops.augment", "models.wavlm",
+                 "recipes.speaker_embeddings", "utils.safetensors_io",
+                 "train_librispeechmix_none",
+                 "train_librispeechmix_pretrained"):
+        assert f"tsasr_torch.{name}" in mods, name
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'tsasr_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'tsasr_tpu', 'transformers', "
+        "'safetensors'))\n"
         "print('BAD', bad)\n"
         "sys.exit(1 if bad else 0)\n")
     res = _run(code)
@@ -50,7 +56,8 @@ def test_every_module_imports_without_jax():
 
 
 def test_no_source_names_jax_or_the_jax_package():
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax)\b|tsasr_tpu",
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|"
+                         r"transformers|safetensors)\b|tsasr_tpu",
                          re.MULTILINE)
     offenders = [str(path.relative_to(REPO))
                  for path in PACKAGE.rglob("*")

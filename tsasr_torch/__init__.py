@@ -3,17 +3,20 @@
 The JAX package stays the reference; this package keeps its module names
 (its ``X`` maps to ``tsasr_torch.X``) so each piece has a named
 counterpart, and imports nothing of it. What is ported so far is the
-offline serving path, the ``scratch`` recipe's experiment end to end
-(``python -m tsasr_torch.train_librispeechmix_scratch``) and decoding as
-the recipe configures it (the batched and exact beams, LM fusion,
-checkpoint loading and the transcription tools):
+offline serving path, the three LibriSpeechMix recipes' experiments end
+to end with train-time augmentation (``python -m
+tsasr_torch.train_librispeechmix_{scratch,none,pretrained}``) and
+decoding as the recipes configure it (the batched and exact beams, LM
+fusion, checkpoint loading and the transcription tools):
 
 - ``tsasr_torch.ops``        Fbank features, input normalization, masks,
-                             dropout, the RNN-T loss (fused joint).
+                             dropout, SpecAugment and speed perturbation,
+                             the RNN-T loss (fused joint).
 - ``tsasr_torch.kernels``    hand-written CUDA kernels (fused rel-pos
                              attention, the RNN-T lattice), each with its
                              plain PyTorch version.
-- ``tsasr_torch.models``     the TS-Conformer transducer as ``nn.Module``s.
+- ``tsasr_torch.models``     the TS-Conformer transducer as ``nn.Module``s;
+                             the WavLM x-vector speaker encoder.
 - ``tsasr_torch.decoding``   greedy search, the batched and the exact
                              transducer beams.
 - ``tsasr_torch.lm``         backoff n-gram LMs, ARPA, the dense fusion
@@ -22,13 +25,15 @@ checkpoint loading and the transcription tools):
                              batching and the checkpointable loader.
 - ``tsasr_torch.training``   the Brain's loop, AdamW, Noam, checkpoints,
                              the experiment CLI.
-- ``tsasr_torch.recipes``    the LibriSpeechMix recipe (``scratch``).
+- ``tsasr_torch.recipes``    the LibriSpeechMix recipe (``none``,
+                             ``scratch``, ``pretrained`` with its frozen
+                             speaker encoder).
 - ``tsasr_torch.inference``  ``TSASRTranscriber`` (``from_experiment``,
                              ``transcribe_file``).
 - ``tsasr_torch.tools``      the synthetic corpus, ``transcribe``,
                              ``average_checkpoints``, ``train_ngram_lm``.
 - ``tsasr_torch.convert``    flax params -> ``state_dict`` and back (the
-                             transducer; the RNN-LM one way).
+                             transducer; the RNN-LM and WavLM one way).
 
 Entry points run on ``device="cuda"`` unless the caller asks for the CPU,
 and raise when CUDA is asked for and absent (``tsasr_torch.device``).

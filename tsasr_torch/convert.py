@@ -17,7 +17,11 @@ of numpy arrays). Layout changes:
   bias, ``bias_l{n}``.
 
 ``lm_params_from_flax`` does the same for the flax ``RNNLM``
-(``embedding``, ``rnn``, ``dnn``, ``out``) into ``models.lm.RNNLM``.
+(``embedding``, ``rnn``, ``dnn``, ``out``) into ``models.lm.RNNLM``, and
+``wavlm_params_from_flax`` for the flax ``WavLMForXVector`` into
+``models.wavlm.WavLMForXVector`` (HF's module names): Conv1d kernels
+(k, in, out) become (out, in, k), and a TDNN kernel (k, in, out) becomes
+HF's Linear weight (out, k * in).
 """
 
 import numpy as np
@@ -127,6 +131,65 @@ def lm_params_from_flax(tree):
     _lstm(out, "rnn", tree["rnn"])
     _dense(out, "dnn", tree["dnn"])
     _dense(out, "out", tree["out"])
+    return out
+
+
+def _conv1d(out, prefix, tree):
+    out[f"{prefix}.weight"] = _t(np.asarray(tree["kernel"]
+                                            ).transpose(2, 1, 0))
+    if "bias" in tree:
+        out[f"{prefix}.bias"] = _t(tree["bias"])
+
+
+def wavlm_params_from_flax(tree):
+    """Flax ``WavLMForXVector`` params (nested numpy dict) -> state_dict
+    of the port's ``WavLMForXVector``."""
+    tree = tree.get("params", tree)
+    out = {}
+    wavlm = tree["wavlm"]
+    fe = "wavlm.feature_extractor.conv_layers"
+    for name, node in wavlm["feature_extractor"].items():
+        if name.startswith("conv_"):
+            _conv1d(out, f"{fe}.{name[5:]}.conv", node)
+        elif name == "group_norm":
+            _norm(out, f"{fe}.0.layer_norm", node)
+        else:                                       # layer_norm_{i}
+            _norm(out, f"{fe}.{name[11:]}.layer_norm", node)
+    _norm(out, "wavlm.feature_projection.layer_norm", wavlm["fp_layer_norm"])
+    _dense(out, "wavlm.feature_projection.projection",
+           wavlm["fp_projection"])
+    enc = wavlm["encoder"]
+    _conv1d(out, "wavlm.encoder.pos_conv_embed.conv",
+            enc["pos_conv_embed"]["conv"])
+    _norm(out, "wavlm.encoder.layer_norm", enc["layer_norm"])
+    for name, layer in enc.items():
+        if not name.startswith("layers_"):
+            continue
+        p = f"wavlm.encoder.layers.{name[7:]}"
+        att = layer["attention"]
+        for proj in ("q_proj", "k_proj", "v_proj", "out_proj",
+                     "gru_rel_pos_linear"):
+            _dense(out, f"{p}.attention.{proj}", att[proj])
+        out[f"{p}.attention.gru_rel_pos_const"] = _t(att["gru_rel_pos_const"])
+        if "rel_attn_embed" in att:
+            out[f"{p}.attention.rel_attn_embed.weight"] = _t(
+                att["rel_attn_embed"])
+        _norm(out, f"{p}.layer_norm", layer["layer_norm"])
+        _norm(out, f"{p}.final_layer_norm", layer["final_layer_norm"])
+        for dense in ("intermediate_dense", "output_dense"):
+            _dense(out, f"{p}.feed_forward.{dense}",
+                   layer["feed_forward"][dense])
+    if "layer_weights" in tree:
+        out["layer_weights"] = _t(tree["layer_weights"])
+    for name in ("projector", "feature_extractor", "classifier"):
+        _dense(out, name, tree[name])
+    for name, node in tree.items():
+        if name.startswith("tdnn_"):
+            k, c_in, c_out = np.asarray(node["kernel"]).shape
+            out[f"tdnn.{name[5:]}.kernel.weight"] = _t(
+                np.asarray(node["kernel"]).transpose(2, 0, 1).reshape(
+                    c_out, k * c_in))
+            out[f"tdnn.{name[5:]}.kernel.bias"] = _t(node["bias"])
     return out
 
 

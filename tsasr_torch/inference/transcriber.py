@@ -3,7 +3,8 @@
 Counterpart of the JAX package's ``inference/transcriber.py::TSASRTranscriber``:
 waveforms are zero-padded to the longest in the batch with relative
 lengths ``len / max_len``, features are Fbank plus sentence
-normalization, the enrollment goes through the speaker branch, and the
+normalization, the enrollment goes through the speaker branch (the
+``scratch`` variant; ``none`` has none), and the
 encoder output is searched greedily (``beam_size <= 1``) or by the
 batched beam, with optional LM shallow fusion. ``from_experiment`` loads
 a trained experiment: its ``hyperparams.yaml``, its tokenizer and its
@@ -54,7 +55,8 @@ class TSASRTranscriber:
     ``device``, which defaults to CUDA and raises when CUDA is absent.
     ``beam_size > 1`` searches with the batched beam; ``lm_path`` with
     ``lm_weight > 0`` fuses an n-gram (``*.arpa``) or the port's RNN-LM
-    into it.
+    into it. ``variant`` "scratch" runs the enrollments through the
+    model's speaker branch; "none" ignores them.
     """
 
     def __init__(self, model, params, tokenizer, sample_rate=16000,
@@ -93,8 +95,9 @@ class TSASRTranscriber:
                         lm_path=None, lm_weight=None, ckpt_path=None,
                         device="cuda"):
         """Load an experiment folder written by
-        ``python -m tsasr_torch.train_librispeechmix_scratch``: the model
-        of its ``hyperparams.yaml``, the tokenizer under ``save_folder``,
+        ``python -m tsasr_torch.train_librispeechmix_{scratch,none}``: the
+        model of its ``hyperparams.yaml``, the tokenizer under
+        ``save_folder``,
         and the ``"model"`` entry of the best checkpoint's ``brain.ckpt``
         on ``min_key`` (or of ``ckpt_path``, e.g. the output of
         ``tsasr_torch.tools.average_checkpoints``). LM fusion defaults
@@ -108,9 +111,16 @@ class TSASRTranscriber:
             hparams = load_hyperpyyaml(
                 f, overrides={"data_folder": "/nonexistent"},
                 overrides_must_match=False)
-        if not hparams["model_config"].use_speaker_encoder:
+        config = hparams["model_config"]
+        variant = "scratch" if config.use_speaker_encoder else (
+            "pretrained" if config.speaker_embedding_dim else "none")
+        if variant == "pretrained":
+            # the JAX transcriber encodes such a model with no speaker
+            # embedding at all, unlike the conditioning it was trained with
             raise NotImplementedError(
-                "only the scratch variant (speaker encoder) is ported")
+                "transcribing a pretrained-variant experiment is not "
+                "ported: its model needs the frozen WavLM d-vectors of the "
+                "enrollment, which the transcriber does not compute yet")
         save_folder = hparams["save_folder"]
         tokenizer = load_tokenizer(os.path.join(
             save_folder, f"{hparams.get('token_type', 'char')}_"
@@ -131,7 +141,7 @@ class TSASRTranscriber:
                    n_fft=hparams["n_fft"], n_mels=hparams["n_mels"],
                    win_length=float(hparams["win_length"]),
                    blank_index=hparams["blank_index"],
-                   beam_size=beam_size, lm_path=lm_path,
+                   beam_size=beam_size, variant=variant, lm_path=lm_path,
                    lm_weight=lm_weight,
                    pad_to_multiple=hparams.get("pad_to_multiple"),
                    pad_feats_to=hparams.get("pad_feats_to"), device=device)

@@ -1,4 +1,5 @@
-"""The TS-Conformer transducer as ``nn.Module``s."""
+"""The TS-Conformer transducer as ``nn.Module``s (the WavLM x-vector
+speaker encoder is ``tsasr_torch.models.wavlm``)."""
 
 from tsasr_torch.models.attention import RelPosMHAXL, rel_pos_encoding  # noqa: F401
 from tsasr_torch.models.conformer import (  # noqa: F401

@@ -1,11 +1,13 @@
 """Transducer model assembly: TS-Conformer encoder + LSTM predictor + joint.
 
 Counterpart of the JAX package's ``models/transducer.py`` for the serving
-path and the training forward of the scratch speaker branch:
+path and the training forward of the three recipes' speaker paths:
 
     mixture feats -> ConvFrontEnd -> TSConformer(+cat inject) -> encoder_proj
     enroll feats  -> ConvFrontEnd -> TSConformer -> ceil-length mean pool
-                  -> speaker_proj
+                  -> speaker_proj                      (scratch)
+    external d-vectors (B, 1, E) -> speaker_proj       (pretrained)
+    no speaker branch, injection_mode None             (none)
     tokens_bos    -> one-hot (V -> V-1, blank row zero) -> LSTM
                   -> decoder_proj
     logits = transducer_head(leaky_relu(enc + dec))
@@ -55,6 +57,9 @@ class TSTransducerConfig:
     injection_after: Union[int, Sequence[int]] = 0
     use_speaker_encoder: bool = True
     speaker_encoder_layers: int = 6
+    # width of external speaker embeddings (the pretrained recipe's frozen
+    # WavLM d-vectors); None: speaker_proj takes d_model
+    speaker_embedding_dim: Optional[int] = None
     decoder_neurons: int = 512
     decoder_num_layers: int = 1
     joint_dim: int = 640
@@ -188,7 +193,11 @@ class TSTransducer(nn.Module):
                     enc_in, c.d_model, c.nhead, c.speaker_encoder_layers,
                     c.d_ffn, c.kernel_size, c.dropout, c.dropout_bits, None,
                     fused_attention=c.fused_attention)
-            self.speaker_proj = nn.Linear(c.d_model, c.d_model)
+            # projects the own speaker encoder's output, or the external
+            # embeddings when there is no speaker encoder
+            proj_in = c.d_model if c.use_speaker_encoder \
+                else (c.speaker_embedding_dim or c.d_model)
+            self.speaker_proj = nn.Linear(proj_in, c.d_model)
 
     # ----------------------------------------------------------- speaker
     def extract_speaker(self, enroll_feats, enroll_rel_lens,
@@ -199,6 +208,16 @@ class TSTransducer(nn.Module):
         x = self.speaker_encoder(x, enroll_rel_lens, None, deterministic,
                                  generator)
         return self.speaker_proj(self.pool_speaker(x, enroll_rel_lens))
+
+    def project_external_speaker(self, speaker_embs):
+        """External pooled speaker embeddings (B, 1, E), e.g. WavLM
+        d-vectors, -> (B, 1, d_model)."""
+        if speaker_embs.dim() != 3 or speaker_embs.shape[1] != 1:
+            raise NotImplementedError(
+                "frame-level external speaker embeddings (B, S, E) belong "
+                "to injection_mode cross_attention, which is not ported "
+                f"yet; got shape {tuple(speaker_embs.shape)}")
+        return self.speaker_proj(speaker_embs)
 
     @staticmethod
     def pool_speaker(x, rel_lens):
@@ -234,26 +253,33 @@ class TSTransducer(nn.Module):
 
     # ---------------------------------------------------------- training
     def encode_predict(self, feats, rel_lens, tokens_bos, enroll_feats=None,
-                       enroll_rel_lens=None, deterministic=True,
-                       generator=None):
+                       enroll_rel_lens=None, external_speaker_embs=None,
+                       deterministic=True, generator=None):
         """Forward up to (excluding) the joint: (enc_out (B, T', J),
         dec_out (B, U+1, J)). The fused loss takes these plus the head's
-        parameters, so the (B, T', U+1, J) joint is never stored."""
+        parameters, so the (B, T', U+1, J) joint is never stored.
+        ``external_speaker_embs`` (B, 1, E) take precedence over
+        ``enroll_feats``; without injection both are ignored."""
         speaker_embs = None
-        if self.config.injection_mode is not None and enroll_feats is not None:
-            speaker_embs = self.extract_speaker(
-                enroll_feats, enroll_rel_lens, deterministic, generator)
+        if self.config.injection_mode is not None:
+            if external_speaker_embs is not None:
+                speaker_embs = self.project_external_speaker(
+                    external_speaker_embs)
+            elif enroll_feats is not None:
+                speaker_embs = self.extract_speaker(
+                    enroll_feats, enroll_rel_lens, deterministic, generator)
         enc_out = self.encode(feats, rel_lens, speaker_embs, deterministic,
                               generator)
         dec_out, _ = self.predict(tokens_bos)
         return enc_out, dec_out
 
     def forward(self, feats, rel_lens, tokens_bos, enroll_feats=None,
-                enroll_rel_lens=None, deterministic=True, generator=None):
+                enroll_rel_lens=None, external_speaker_embs=None,
+                deterministic=True, generator=None):
         """Training/eval forward -> (logits (B, T', U+1, V), enc_out)."""
         enc_out, dec_out = self.encode_predict(
             feats, rel_lens, tokens_bos, enroll_feats, enroll_rel_lens,
-            deterministic, generator)
+            external_speaker_embs, deterministic, generator)
         logits = self.joint_logits(enc_out[:, :, None, :],
                                    dec_out[:, None, :, :])
         return logits, enc_out

@@ -1,15 +1,28 @@
-"""LibriSpeechMix TS-ASR recipe: the ``scratch`` variant's Brain and
-experiment.
+"""LibriSpeechMix TS-ASR recipe: the Brain and the experiment of its
+three variants.
 
-Counterpart of the JAX package's ``recipes/librispeechmix.py`` for the
-scratch variant (the Conformer speaker encoder trained jointly):
+Counterpart of the JAX package's ``recipes/librispeechmix.py``. The
+variant selects the speaker conditioning: ``none`` (no conditioning,
+injection off), ``scratch`` (the Conformer speaker encoder trained
+jointly) and ``pretrained`` (frozen WavLM x-vector d-vectors, computed
+on the device inside the step by ``FrozenSpeakerEncoder`` from a local
+checkpoint directory; its parameters are neither trained nor
+checkpointed).
 
 - ``batch_to_arrays`` takes a ``PaddedBatch`` in the JAX recipe's form
   (``mixed_sig``, ``enroll_sig``, ``tokens_bos``, ``tokens``) to numpy;
-- ``_mixture_features``: the waveform is zero-padded so the frame count
-  is a multiple of ``pad_feats_to``, then Fbank and sentence
-  normalization; the enrollment goes the same way
-  (``_forward_kwargs``);
+  ``none`` leaves the enrollment out;
+- ``_mixture_features``, in the JAX order: at TRAIN with ``augment`` on,
+  speed perturbation (``rel = min(rel * factor, 1)``); the waveform is
+  zero-padded so the frame count is a multiple of ``pad_feats_to``;
+  Fbank and sentence normalization; at TRAIN with ``augment`` on,
+  SpecAugment. The augmentation draws come from a CPU generator of the
+  micro-batch (``Brain.step_generator(stream=1)``), a stream apart from
+  dropout, so recovery stays bit for bit and drawing needs no device
+  sync;
+- ``_forward_kwargs``: nothing for ``none``; for ``scratch`` the
+  enrollment's features, made as the mixture's; for ``pretrained`` the
+  frozen encoder's (B, 1, E) d-vectors as ``external_speaker_embs``;
 - ``compute_forward`` runs ``encode_predict`` and hands the head's
   parameters to the fused joint + loss when ``fused_joint_loss`` is on
   (``_fused_loss_active``), else the model's full logits;
@@ -26,12 +39,16 @@ scratch variant (the Conformer speaker encoder trained jointly):
 - ``dataio_prepare``, ``build_dataloader_kwargs`` and ``run_experiment``
   run the experiment: manifests, the tokenizer fitted on
   train+valid+test, datasets and dynamic batching, ``Brain.fit``, then
-  TEST of every split of ``test_splits`` from the best checkpoint.
+  TEST of every split of ``test_splits`` from the best checkpoint; the
+  ``pretrained`` variant embeds the enrollment waveforms on the device,
+  so no ``speaker_emb`` item (the JAX ``torch_cache`` backend's) is made.
 
 Not ported yet, each raising ``NotImplementedError`` before anything
-runs: speed perturbation and SpecAugment (``augment: True``), the banded
-joint and loss (a set ``joint_band_width``), the other variants, warm
-start from ``model_path``, ``prompt_test`` and the ``plot_*`` switches.
+runs: the banded joint and loss (a set ``joint_band_width``), the
+``torch_cache`` speaker backend (HF ``transformers``), injection modes
+other than ``cat`` (frame-level speaker embeddings with
+``cross_attention`` among them), warm start from ``model_path``,
+``prompt_test`` and the ``plot_*`` switches.
 """
 
 import json
@@ -54,26 +71,79 @@ from tsasr_torch.decoding import (BatchedBeamSearcher,
                                   TransducerGreedySearcher)
 from tsasr_torch.device import resolve_device
 from tsasr_torch.lm.fusion import load_fusion_lm
+from tsasr_torch.ops.augment import spec_augment, speed_perturb
 from tsasr_torch.ops.features import (Fbank, input_normalization,
                                       pad_audio_to_frame_multiple)
 from tsasr_torch.ops.rnnt_loss import rnnt_loss
 from tsasr_torch.ops.rnnt_loss_fused import rnnt_loss_fused
 from tsasr_torch.parallel.distributed import run_on_main
+from tsasr_torch.recipes.speaker_embeddings import (FrozenSpeakerEncoder,
+                                                    is_checkpoint_dir,
+                                                    require_checkpoint_dir)
 from tsasr_torch.training.brain import Brain
 from tsasr_torch.utils.metric_stats import ErrorRateStats
 from tsasr_torch.utils.stage import Stage
 
 logger = logging.getLogger(__name__)
 
+VARIANTS = ("none", "scratch", "pretrained")
+
+
+def _hparams_get(hparams):
+    """A getter over dict or namespace hparams."""
+    if hasattr(hparams, "get"):
+        return hparams.get
+    return lambda k, d=None: getattr(hparams, k, d)
+
+
+def specaugment_kwargs(hparams):
+    """SpecAugment's keywords from the yaml's keys, with the reference
+    recipe's defaults."""
+    get = _hparams_get(hparams)
+    return dict(
+        time_warp=bool(get("time_warp", True)),
+        time_warp_window=int(get("time_warp_window", 5)),
+        freq_mask=bool(get("freq_mask", True)),
+        freq_mask_width=get("freq_mask_width", 30),
+        n_freq_mask=int(get("n_freq_mask", 2)),
+        time_mask=bool(get("time_mask", True)),
+        time_mask_width=get("time_mask_width", 20),
+        n_time_mask=int(get("n_time_mask", 2)),
+        replace_with_zero=bool(get("replace_with_zero", False)),
+    )
+
+
+def speed_perturb_kwargs(hparams, sample_rate=16000):
+    """Speed perturbation's keywords (the yaml's ``speeds``, by default
+    [95, 100, 105])."""
+    get = _hparams_get(hparams)
+    return dict(speeds=tuple(get("speeds", (95, 100, 105)) or
+                             (95, 100, 105)),
+                sample_rate=int(get("sample_rate", sample_rate)))
+
+
+def resolve_speaker_backend(hparams):
+    """The frozen speaker encoder's backend for the ``pretrained``
+    variant, as the JAX recipe picks it: ``speaker_encoder_backend``, or
+    for ``auto`` the on-device encoder (``jax``) when
+    ``speaker_encoder_path`` is a local checkpoint directory, else
+    ``torch_cache``. The port runs ``jax`` as ``FrozenSpeakerEncoder``;
+    ``torch_cache`` is not ported."""
+    get = _hparams_get(hparams)
+    backend = get("speaker_encoder_backend", "auto")
+    if backend != "auto":
+        return backend
+    return "jax" if is_checkpoint_dir(get("speaker_encoder_path", "")) \
+        else "torch_cache"
+
 
 class TSASRBrain(Brain):
     """Target-speaker ASR trainer over a ``TSTransducer`` model."""
 
     def __init__(self, *args, variant="scratch", tokenizer=None, **kwargs):
-        if variant != "scratch":
-            raise NotImplementedError(
-                f"variant {variant!r} is not ported yet; the port has "
-                "'scratch'")
+        if variant not in VARIANTS:
+            raise ValueError(f"unknown variant {variant!r}; the recipe has "
+                             f"{VARIANTS}")
         super().__init__(*args, **kwargs)
         self.variant = variant
         self.tokenizer = tokenizer
@@ -87,6 +157,13 @@ class TSASRBrain(Brain):
         self.cer_metric = ErrorRateStats(split_tokens=True)
         self.wer_metric = ErrorRateStats()
         self.last_hyps = None
+        self.speaker_encoder = None
+        if variant == "pretrained":
+            _check_speaker_backend(self.hparams)
+            self.speaker_encoder = FrozenSpeakerEncoder(
+                self.hparams.speaker_encoder_path,
+                embedding_dim=self.hparams.speaker_embedding_dim,
+                device=self.device)
 
     # ------------------------------------------------------------ batches
     def batch_to_arrays(self, batch):
@@ -96,7 +173,7 @@ class TSASRBrain(Brain):
         abs_token_lens = np.round(
             batch.tokens.lengths
             * batch.tokens.data.shape[1]).astype(np.int64)
-        return {
+        arrays = {
             "mixed_sig": batch.mixed_sig.data.astype(np.float32),
             "mixed_lens": batch.mixed_sig.lengths.astype(np.float32),
             "tokens_bos": tokens_bos,
@@ -105,9 +182,12 @@ class TSASRBrain(Brain):
                             / max(tokens_bos.shape[1] - 1, 1)
                             ).astype(np.float32),
             "weight": np.ones(len(batch), np.float32),
-            "enroll_sig": batch.enroll_sig.data.astype(np.float32),
-            "enroll_lens": batch.enroll_sig.lengths.astype(np.float32),
         }
+        if self.variant != "none":
+            arrays["enroll_sig"] = batch.enroll_sig.data.astype(np.float32)
+            arrays["enroll_lens"] = batch.enroll_sig.lengths.astype(
+                np.float32)
+        return arrays
 
     # ------------------------------------------------------------ forward
     def _features(self, wav, rel):
@@ -118,15 +198,28 @@ class TSASRBrain(Brain):
                 float(self.fbank.hop_length))
         return input_normalization(self.fbank(wav), rel), rel
 
-    def _mixture_features(self, batch, stage, generator):
-        if bool(getattr(self.hparams, "augment", False)) \
-                and stage == Stage.TRAIN:
-            raise NotImplementedError(
-                "speed perturbation and SpecAugment (augment: True) are not "
-                "ported yet")
-        return self._features(batch["mixed_sig"], batch["mixed_lens"])
+    def _mixture_features(self, batch, stage):
+        wav, rel = batch["mixed_sig"], batch["mixed_lens"]
+        augment = stage == Stage.TRAIN and bool(
+            getattr(self.hparams, "augment", False))
+        generator = self.step_generator(stream=1) if augment else None
+        if augment and bool(getattr(self.hparams, "speed_perturb", True)):
+            wav, factor = speed_perturb(
+                wav, generator, **speed_perturb_kwargs(self.hparams))
+            rel = torch.clamp(rel * factor, max=1.0)
+        feats, rel = self._features(wav, rel)
+        if augment:
+            feats = spec_augment(feats, generator,
+                                 **specaugment_kwargs(self.hparams))
+        return feats, rel
 
     def _forward_kwargs(self, batch):
+        if self.variant == "none":
+            return {}
+        if self.variant == "pretrained":
+            return {"external_speaker_embs": self.speaker_encoder.embed(
+                        batch["enroll_sig"], batch["enroll_lens"]),
+                    "enroll_rel_lens": batch["enroll_lens"]}
         feats, rel = self._features(batch["enroll_sig"], batch["enroll_lens"])
         return {"enroll_feats": feats, "enroll_rel_lens": rel}
 
@@ -138,7 +231,7 @@ class TSASRBrain(Brain):
             raise NotImplementedError(
                 "joint_band_width trains the banded joint with "
                 "rnnt_loss_banded, which is not ported yet")
-        feats, rel = self._mixture_features(batch, stage, generator)
+        feats, rel = self._mixture_features(batch, stage)
         kwargs = self._forward_kwargs(batch)
         deterministic = stage != Stage.TRAIN
         if self._fused_loss_active():
@@ -335,21 +428,37 @@ def build_dataloader_kwargs(hparams, dataset, stage):
     return kwargs
 
 
+def _check_speaker_backend(hparams):
+    """Raise for a ``pretrained`` speaker backend the port does not run,
+    and for a checkpoint directory that is not there."""
+    backend = resolve_speaker_backend(hparams)
+    if backend == "torch_cache":
+        raise NotImplementedError(
+            "speaker_encoder_backend torch_cache (what auto picks when "
+            "speaker_encoder_path is no local checkpoint directory, e.g. a "
+            "hub id) is not ported: it needs HF transformers; point "
+            "speaker_encoder_path at a local WavLM-sv checkpoint directory")
+    if backend != "jax":
+        raise ValueError(f"unknown speaker_encoder_backend {backend!r}")
+    require_checkpoint_dir(_hparams_get(hparams)("speaker_encoder_path"))
+
+
 def check_ported(hparams, variant):
     """Raise ``NotImplementedError`` for what the port does not run yet
     (nothing is ignored silently), and ``FileNotFoundError`` for a fusion
-    LM that is not there, before anything runs."""
-    if variant != "scratch":
-        raise NotImplementedError(
-            f"variant {variant!r} is not ported yet; the port has "
-            "'scratch'")
+    LM or a speaker encoder checkpoint that is not there, before anything
+    runs."""
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown variant {variant!r}; the recipe has "
+                         f"{VARIANTS}")
+    if variant == "pretrained":
+        _check_speaker_backend(hparams)
     switches = {
         "model_path": "warm start from model_path (Pretrainer)",
         "prompt_test": "prompt_test (two-pass prompted TEST)",
         "plot_data": "plot_data", "plot_attentions": "plot_attentions",
         "plot_embeddings": "plot_embeddings",
         "plot_grad_norm": "plot_grad_norm",
-        "augment": "augment: True (speed perturbation and SpecAugment)",
         "joint_band_width": "joint_band_width (the banded joint and loss)",
     }
     for key, what in switches.items():
@@ -377,10 +486,10 @@ def _prepare(hparams, splits):
 
 
 def run_experiment(variant="scratch", argv=None):
-    """The experiment main of the scratch variant (the reference's
-    ``__main__`` block, ``train_librispeechmix_scratch.py:491-687``):
-    prepare, fit the tokenizer, build the datasets, ``Brain.fit``, then
-    TEST every split of ``test_splits``. Returns the Brain."""
+    """The experiment main of one variant (the reference's ``__main__``
+    block, ``train_librispeechmix_scratch.py:491-687``): prepare, fit the
+    tokenizer, build the datasets, ``Brain.fit``, then TEST every split
+    of ``test_splits``. Returns the Brain."""
     from tsasr_torch.training.experiment import (
         check_precision,
         create_experiment_directory,

@@ -14,7 +14,8 @@ one jitted program; here it is eager PyTorch with the same semantics:
   (``brain.py:266-281,357-366`` of the JAX package);
 - dropout draws from one ``torch.Generator`` per micro-batch on the
   model's device, seeded from (seed, optimizer step, micro-batch count)
-  as the JAX ``fit_batch`` folds its key.
+  as the JAX ``fit_batch`` folds its key (``step_generator``; other
+  streams of it, on the CPU, serve the recipe's augmentation).
 
 The loop is the JAX package's: ``fit`` runs the epochs of
 ``epoch_counter`` (TRAIN micro-batches through a ``SaveableDataLoader``,
@@ -202,11 +203,16 @@ class Brain:
         return float(sched(max(self.optimizer_step, 1)))
 
     # ============================================================ steps
-    def step_generator(self):
-        """The dropout generator of the current micro-batch."""
-        key = np.random.SeedSequence(
-            [self.seed, self.optimizer_step * 131071 + self.step])
-        gen = torch.Generator(device=self.device)
+    def step_generator(self, stream=0):
+        """A generator of the current micro-batch. Stream 0, on the
+        model's device, draws dropout; another stream is apart from it and
+        on the CPU (the recipe's augmentation draws from stream 1). Each is
+        seeded from (seed, optimizer step, micro-batch count), so a
+        recovered run draws what an uninterrupted one does."""
+        entropy = [self.seed, self.optimizer_step * 131071 + self.step]
+        key = np.random.SeedSequence(entropy + [stream] if stream
+                                     else entropy)
+        gen = torch.Generator(device=self.device if stream == 0 else "cpu")
         gen.manual_seed(int(key.generate_state(1, np.uint64)[0] >> 1))
         return gen
 
