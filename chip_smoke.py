@@ -76,7 +76,26 @@ checkout, or when any phase fails. Phases:
    its plain version on the runs' tensors; ms per micro-batch through
    the loader, the WavLM's share, VALID and TEST wall times and the
    augmentation's device time are printed;
-7. a small model on the card against the same model on the CPU:
+7. streaming transcription (``phase_streaming``) of the scratch model
+   made causal (``causal_encoder``, ``frontend_causal``), seeded: first
+   the attention kernels on the lookahead mask and on lookahead + an
+   ``att_context_size`` band of 64 against their plain versions (T 101
+   and 208, forward and backward); then one 12 s mixture with a 5 s
+   enrollment: the offline encode (18 attention launches) against the
+   plain path, ``encode_stream`` in chunks of 100 and 32 feature frames
+   against it, the same with ``att_context_size`` 64, the ``kv_cache``
+   streamer's tokens against offline greedy on unnormalized features and
+   against the same streamer on the CPU, the ``reencode`` streamer's
+   final transcript against its last partial, ms per chunk (host clock
+   and, under the profiler, device time and launches) and the real-time
+   factor at 1 s and 0.32 s chunks, and a stream past its KV capacity,
+   which must raise; then the scratch yaml through ``run_experiment``
+   with ``--causal_encoder True --frontend_padding causal`` (2 optimizer
+   steps, VALID greedy, TEST at beam 1, launches per batch as the
+   shapes imply), ``transcribe --streaming --enroll`` on 3 of its TEST
+   files against the same stream from ``from_experiment``, and each
+   kernel against its plain version on the run's own tensors;
+8. a small model on the card against the same model on the CPU:
    serving encoder output (the CPU side twice, each hash logged with the
    host CPU's model and torch's thread count), and 2 optimizer steps of
    training at dropout 0.
@@ -1730,7 +1749,8 @@ def captured_kernel_calls():
     shape that the model gives the attention and lattice wrappers while
     inside; the calls go on to the wrappers, so their launches count as
     the path's. Yields {"attention": {(shape, rate, train): (args, seed,
-    scale)}, "lattice": {(B, T, U+1): args}}."""
+    scale)}, "lattice": {(B, T, U+1): args}}; ``causal`` in the attention
+    key says the call's mask hides the future (a causal encoder's)."""
     import torch
     from tsasr_torch.models import attention
     from tsasr_torch.ops import rnnt_loss, rnnt_loss_fused
@@ -1744,7 +1764,9 @@ def captured_kernel_calls():
     def attention_call(*args, seed, scale, rate):
         train = torch.is_grad_enabled() and any(
             x.requires_grad for x in args[:5])
-        key = (tuple(args[0].shape), rate, train)
+        am = args[6]
+        causal = am.shape[0] > 1 and bool(am[0, -1] != 0)
+        key = (tuple(args[0].shape), rate, train, causal)
         if key not in seen["attention"]:
             seen["attention"][key] = ([copy(x) for x in args], copy(seed),
                                       scale)
@@ -1779,7 +1801,7 @@ def check_path_kernels(seen):
 
     gen = torch.Generator().manual_seed(SEED + 13)
     worst = {"fwd": 0.0, "bwd": 0.0, "lattice": 0.0}
-    for (shape, rate, train), (args, seed, scale) in \
+    for (shape, rate, train, _), (args, seed, scale) in \
             seen["attention"].items():
         with torch.no_grad():
             got = ra.fused_relpos_attention(*args, seed=seed, scale=scale,
@@ -2033,8 +2055,8 @@ def phase_experiment(device, card, corpus):
         for key, args in seen_again[kind].items():
             seen[kind].setdefault(key, args)
     worst = check_path_kernels(seen)
-    frames = sorted({shape[2] for shape, _, _ in seen["attention"]})
-    train_frames = sorted({shape[2] for shape, _, train in seen["attention"]
+    frames = sorted({shape[2] for shape, *_ in seen["attention"]})
+    train_frames = sorted({shape[2] for shape, _, train, _ in seen["attention"]
                            if train})
     long = sorted(k for k in seen["lattice"] if k[1] >= 128)
     if max(frames) < 128:
@@ -2044,7 +2066,7 @@ def phase_experiment(device, card, corpus):
         f"own inputs, one call per shape: attention forward at "
         f"{len(seen['attention'])} shapes (T {frames}), worst err "
         f"{worst['fwd']:.3g} of max |o| (atol {ATTN_ATOL}); backward at "
-        f"{sum(train for _, _, train in seen['attention'])} TRAIN shapes "
+        f"{sum(train for _, _, train, _ in seen['attention'])} TRAIN shapes "
         f"(T {train_frames}; dropout as on the path), worst "
         f"{worst['bwd']:.3g} of max |g| "
         f"(atol {ATTN_ATOL}); lattice at {len(seen['lattice'])} shapes (B, "
@@ -2519,15 +2541,437 @@ def phase_variants(device, card, corpus):
         raise RuntimeError(f"launches {path_counts} outside the batches' "
                            f"{by_batch}")
     worst = check_path_kernels(seen)
-    frames = sorted({shape[2] for shape, _, _ in seen["attention"]})
+    frames = sorted({shape[2] for shape, *_ in seen["attention"]})
     log(f"variants kernels against their plain versions on the runs' own "
         f"inputs, one call per shape: attention forward at "
         f"{len(seen['attention'])} shapes (T {frames}), worst err "
         f"{worst['fwd']:.3g} of max |o| (atol {ATTN_ATOL}); backward at "
-        f"{sum(train for _, _, train in seen['attention'])} TRAIN shapes, "
+        f"{sum(train for _, _, train, _ in seen['attention'])} TRAIN shapes, "
         f"worst {worst['bwd']:.3g} of max |g| (atol {ATTN_ATOL}); lattice "
         f"at {len(seen['lattice'])} shapes, worst err/tol "
         f"{worst['lattice']:.3g}; launches on the variants' path "
+        f"{path_counts}")
+    return path_counts
+
+
+# ------------------------------------------------------------- streaming
+# one mixture of this many seconds (5 s enrollment) streams through a
+# causal scratch model
+STREAM_SECONDS = 12
+# encode_stream in chunks of this many feature frames (1 s and 0.32 s)
+STREAM_FEATURE_CHUNKS = (100, 32)
+# the bounded model's att_context_size (encoder frames, 2.56 s)
+STREAM_CONTEXT = 64
+# streamed against offline, of the offline output's max |enc|: f32 on
+# both sides through 12 layers, the stream's attention in cuBLAS products
+# where the offline encode runs the kernel (3xTF32)
+STREAM_RTOL = 1e-4
+# kv_cache timed at these chunk lengths (s); reencode's 1 s chunks read at
+# these seconds of history
+KV_CHUNK_SECONDS = (1.0, 0.32)
+REENCODE_AT = (4, 8, 12)
+# a kv_cache stream whose buffers hold this many seconds must raise past it
+OVERFLOW_SECONDS = 2.0
+# TEST files of the causal run that ``transcribe --streaming`` takes
+STREAM_FILES = 3
+# T of the kernels' checks on causal masks: a 4 s and an 8 s encoder
+MASK_T = (101, 208)
+
+
+def causal_am(t, context=0):
+    """A causal encoder's ``am_add``: the lookahead mask, and with
+    ``context`` the band of ``att_context_size`` as well."""
+    import torch
+    pos = torch.arange(t)
+    hidden = pos[None, :] > pos[:, None]
+    if context:
+        hidden = hidden | ((pos[:, None] - pos[None, :]) >= context)
+    return torch.where(hidden, -1e9, 0.0)
+
+
+def causal_mask_checks(device):
+    """The attention kernels on a causal model's masks against their
+    plain versions: the lookahead mask, and lookahead + the
+    ``att_context_size`` band, at MASK_T (B8 H4 Dh64, key padding; row 0
+    sees one key, most of a row is fill, with the band some padded rows
+    see none). The forward at dropout 0 within ATTN_ATOL of max |o|, the
+    backward at the training's dropout 0.1 within ATTN_ATOL of each
+    gradient's max |g| (``attention_grad_errors``; its reading against
+    f64 is wide on the band's rows that see no key, where f64 keeps the
+    scores under the -1e9 fill that f32 rounds away)."""
+    import torch
+    from tsasr_torch.kernels import relpos_attention as ra
+
+    scale = 1.0 / math.sqrt(H * DH)
+    gen = torch.Generator().manual_seed(SEED + 21)
+    seed = torch.tensor([2024], device=device)
+    for t in MASK_T:
+        for context in (0, STREAM_CONTEXT):
+            args = attention_case(t, False, gen, device)
+            args[6] = causal_am(t, context).to(device)
+            got = ra.fused_relpos_attention(*args, seed=0, scale=scale,
+                                            rate=0.0)
+            want = ra.relpos_attention_reference(*args, scale)
+            err = ((got - want).abs().max()
+                   / want.abs().max().clamp(min=1.0)).item()
+            do = torch.randn(got.shape, generator=gen).to(device)
+            _, grad_err, wide = attention_grad_errors(args, do, seed, scale,
+                                                      0.1)
+            name = (f"B{B} H{H} T{t} Dh{DH} lookahead"
+                    + (f" + band {context}" if context else "") + " mask")
+            log(f"kernel relpos_attention {name}, key padding: forward err "
+                f"{err:.3g} of max |o|, backward (dropout 0.1) "
+                f"{grad_err:.3g} of max |g| (atol {ATTN_ATOL}); {wide}")
+            if not (err <= ATTN_ATOL and torch.isfinite(got).all()):
+                raise RuntimeError(f"relpos_attention_fwd on the {name}: "
+                                   f"err {err} > {ATTN_ATOL}")
+
+
+def encode_in_chunks(model, feats, chunk, spk):
+    """``encode_stream`` over ``feats`` (1, T, n_mels) in chunks of
+    ``chunk`` frames (the last one shorter), T a multiple of 4."""
+    import torch
+    state = model.init_stream_state(1, feats.shape[1] // 4 + 8,
+                                    feats.device)
+    outs = []
+    for lo in range(0, feats.shape[1], chunk):
+        out, state = model.encode_stream(feats[:, lo:lo + chunk], state, spk)
+        outs.append(out)
+    return torch.cat(outs, dim=1)
+
+
+def rel_err(got, want):
+    """max |got - want| of max |want|."""
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+def stream_chunks(streamer, wav, seconds, sync, per_chunk=None):
+    """Feed ``wav`` in chunks of ``seconds``, then finalize; returns (the
+    host-clock ms of each chunk, each partial, the final transcript).
+    ``per_chunk()`` is read after each chunk and listed too."""
+    n = int(round(seconds * SAMPLE_RATE))
+    times, partials, reads = [], [], []
+    for lo in range(0, len(wav), n):
+        t0 = time.perf_counter()
+        partials.append(streamer.accept_chunk(wav[lo:lo + n]))
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if per_chunk:
+            reads.append(per_chunk())
+    final = streamer.finalize()
+    sync()
+    return times, partials, final, reads
+
+
+def streaming_experiment(device, card, corpus, tmp):
+    """The scratch yaml through ``run_experiment`` as a causal model
+    (``--causal_encoder True --frontend_padding causal``, the kernels on),
+    2 optimizer steps, VALID greedy, TEST at beam 1; every batch launches
+    what its shapes imply, and the attention calls are captured (the
+    mixture encoder's with the lookahead mask). Then ``transcribe
+    --streaming --enroll`` on STREAM_FILES TEST files, each against the
+    same stream built from ``from_experiment`` directly. Returns the
+    captured calls."""
+    import contextlib
+    import io
+    import numpy as np
+    from tsasr_torch.inference import TSASRTranscriber
+    from tsasr_torch.recipes.librispeechmix import (TSASRBrain,
+                                                    dataio_prepare,
+                                                    run_experiment)
+    from tsasr_torch.tools import transcribe
+
+    root = Path(__file__).resolve().parent
+    on_card = device.type == "cuda"
+    out = tmp / "causal"
+    args = [str(root / EXPERIMENT_YAML), "--data_folder", str(corpus),
+            "--output_folder", str(out), "--fused_attention", "True",
+            "--causal_encoder", "True", "--frontend_padding", "causal",
+            "--valid_search_freq", "1", "--noprogressbar",
+            "--vocab_size", str(corpus_vocab(corpus)), "--num_epochs", "1",
+            "--optimizer_step_limit", "2", "--beam_size", "1"]
+    if not on_card:
+        args += ["--device", str(device)]
+    t0 = time.perf_counter()
+    with captured_kernel_calls() as seen, \
+            counted_batches(TSASRBrain, on_card) as (counts, timings):
+        brain = run_experiment(argv=args)
+    run_s = time.perf_counter() - t0
+    config = brain.model.config
+    log_text = (out / "train_log.txt").read_text()
+    through = [(a + b) * 1e3 for a, b in zip(timings["loader_wait_s"],
+                                             timings["fit_batch_s"])]
+    log(f"streaming: causal run_experiment (causal_encoder "
+        f"{config.causal_encoder}, frontend_causal {config.frontend_causal}"
+        f" from --frontend_padding causal, fused_attention "
+        f"{config.fused_attention}) at d_model {config.d_model}, "
+        f"{config.encoder_num_layers}+{config.speaker_encoder_layers} "
+        f"layers, on {next(brain.model.parameters()).device}; {run_s:.1f} s;"
+        f" batches " + ", ".join(f"{k} {v['batches']}"
+                                 for k, v in counts.items())
+        + f"; optimizer steps {brain.optimizer_step}; TRAIN ms per "
+        f"micro-batch through the loader " + ", ".join(
+            f"{x:.1f}" for x in through)
+        + f", warm median {statistics.median(through[2:]):.1f}; VALID "
+        f"wall {timings['valid_s'][0]:.2f} s, TEST wall "
+        f"{timings['test_s'][0]:.2f} s (beam 1) [{card}]")
+    for line in log_text.splitlines():
+        log(f"  train_log: {line}")
+    if not (config.causal_encoder and config.frontend_causal):
+        raise RuntimeError("the run's model is not causal")
+    if brain.optimizer_step != 2 or counts["TRAIN"]["batches"] != 8 \
+            or not re.search(r"^epoch: 1, .* valid WER: ", log_text, re.M):
+        raise RuntimeError("the causal run did not train 2 optimizer steps "
+                           "and validate")
+    if on_card and not any(causal and train
+                           for _, _, train, causal in seen["attention"]):
+        raise RuntimeError("no attention call at TRAIN had the lookahead "
+                           "mask")
+
+    _, _, test_data = dataio_prepare(vars(brain.hparams), brain.tokenizer)
+    del brain
+    (tmp / "stream_wavs").mkdir()
+    tr = TSASRTranscriber.from_experiment(str(out), device=str(device))
+    same = 0
+    for i in range(STREAM_FILES):
+        item = test_data[i]
+        mix = str(tmp / "stream_wavs" / f"mix{i}.wav")
+        write_float_wav(mix, item["mixed_sig"], SAMPLE_RATE)
+        enroll = test_data.raw(i)["enroll_wav"]
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            transcribe.main(["--experiment", str(out), mix, "--streaming",
+                             "--enroll", enroll]
+                            + ([] if on_card else ["--device", str(device)]))
+        got = json.loads(printed.getvalue())["text"]
+        streamer = tr.streaming(speaker_embs=tr.speaker_embedding(
+            transcribe.read_resampled(enroll, SAMPLE_RATE)))
+        _, _, want, _ = stream_chunks(streamer, np.asarray(
+            item["mixed_sig"], np.float32), 1.0, lambda: None)
+        same += got == want
+        log(f"  transcribe --streaming --enroll {Path(enroll).name} "
+            f"{item['id']} ({len(item['mixed_sig']) / SAMPLE_RATE:.2f} s): "
+            f"{got!r}; the same stream from from_experiment: "
+            f"{'identical' if got == want else repr(want)}")
+    if same != STREAM_FILES:
+        raise RuntimeError("transcribe --streaming differs from the stream "
+                           "of from_experiment")
+    return seen
+
+
+def phase_streaming(device, card, corpus):
+    """Streaming transcription of the scratch recipe's model made causal
+    (``causal_encoder``, ``frontend_causal``, fused attention; seeded)
+    on one STREAM_SECONDS mixture with a 5 s enrollment: (a) the offline
+    encode launches the attention kernel 18 times and matches the plain
+    path; (b) ``encode_stream`` in chunks of 100 and 32 feature frames
+    matches it; (c) the same with att_context_size 64; (d) the kv_cache
+    streamer's tokens equal offline greedy on unnormalized features and
+    the same streamer's on the CPU; (e) the reencode streamer's final
+    transcript starts with its last partial; (f) timings; (g) a stream
+    past kv_capacity_seconds raises; (h) a causal ``run_experiment`` and
+    ``transcribe --streaming``. The kernels are held on causal masks
+    before, and on the run's own tensors after, the main path. Returns
+    the path's launch counts."""
+    import copy
+    import numpy as np
+    import torch
+    from tsasr_torch.data.tokenizer import CharTokenizer
+    from tsasr_torch.decoding import TransducerGreedySearcher
+    from tsasr_torch.inference import TSASRTranscriber
+    from tsasr_torch.models.transducer import TSTransducer, scratch_config
+    from tsasr_torch.ops.features import input_normalization
+
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    causal_mask_checks(device)
+
+    rng = np.random.default_rng(SEED + 3)
+    wav = (rng.normal(size=STREAM_SECONDS * SAMPLE_RATE) * 0.1
+           ).astype(np.float32)
+    enroll = (rng.normal(size=ENROLL_SECONDS * SAMPLE_RATE) * 0.1
+              ).astype(np.float32)
+    config = scratch_config(causal_encoder=True, frontend_causal=True)
+    model = TSTransducer(config).init_weights(seed=SEED)
+    tr = TSASRTranscriber(model, None, CharTokenizer(PIECES),
+                          device=str(device))
+    ones = torch.ones(1, device=device)
+    fwd = lambda: read_counts()["relpos_attention_fwd"]  # noqa: E731
+    tr.encode_batch([wav], [enroll])          # warm-up, not counted
+    sync()
+
+    reset_counts()
+    with torch.inference_mode():
+        # (a) the offline causal encode, kernels against plain
+        t0 = time.perf_counter()
+        enc, _ = tr.encode_batch([wav], [enroll])
+        sync()
+        enc_ms = (time.perf_counter() - t0) * 1e3
+        n_offline = fwd()
+        set_fused(tr.model, False)
+        plain, _ = tr.encode_batch([wav], [enroll])
+        set_fused(tr.model, True)
+        err = (enc - plain).abs().max().item()
+        peak = enc.abs().max().item()
+        log(f"streaming: causal scratch model ({config.encoder_num_layers}"
+            f"+{config.speaker_encoder_layers} layers, d_model "
+            f"{config.d_model}); (a) offline encode of {STREAM_SECONDS} s "
+            f"+ {ENROLL_SECONDS} s enrollment: {enc_ms:.1f} ms, "
+            f"{n_offline} attention launches, shape {tuple(enc.shape)}; "
+            f"kernels vs plain max_abs_err {err:.3g} (atol {ENC_ATOL}), max "
+            f"|enc| {peak:.3g} [{card}]")
+        if n_offline != LAYERS_PER_REQUEST * on_card or err > ENC_ATOL \
+                or not torch.isfinite(enc).all():
+            raise RuntimeError("the causal offline encode failed its check")
+
+        # (b) encode_stream against (a)'s offline encode
+        spk = tr.speaker_embedding(enroll)
+        feats = input_normalization(tr.fbank(
+            torch.from_numpy(wav)[None].to(device)), ones)
+        t4 = feats.shape[1] // 4 * 4
+        n_enc = t4 // 4
+        for chunk in STREAM_FEATURE_CHUNKS:
+            streamed = encode_in_chunks(tr.model, feats[:, :t4], chunk, spk)
+            err = rel_err(streamed, enc[:, :n_enc])
+            log(f"streaming (b) encode_stream in chunks of {chunk} feature "
+                f"frames, {n_enc} frames: err {err:.3g} of max |enc| "
+                f"(rtol {STREAM_RTOL})")
+            if streamed.shape != enc[:, :n_enc].shape or err > STREAM_RTOL:
+                raise RuntimeError(f"encode_stream in chunks of {chunk} "
+                                   f"differs from the offline encode: {err}")
+
+        # (c) a bounded context: its offline encode, kernels against plain,
+        # and its stream
+        bounded = TSTransducer(scratch_config(
+            causal_encoder=True, frontend_causal=True,
+            att_context_size=STREAM_CONTEXT))
+        bounded.load_state_dict(tr.model.state_dict())
+        bounded = bounded.to(device).eval()
+        before = fwd()
+        enc_b = bounded.encode(feats, ones, spk)
+        n_bounded = fwd() - before
+        set_fused(bounded, False)
+        err_plain = (enc_b - bounded.encode(feats, ones, spk)
+                     ).abs().max().item()
+        errs = [rel_err(encode_in_chunks(bounded, feats[:, :t4], chunk, spk),
+                        enc_b[:, :n_enc])
+                for chunk in STREAM_FEATURE_CHUNKS]
+        moved = rel_err(enc_b, enc)
+        log(f"streaming (c) att_context_size {STREAM_CONTEXT}: offline "
+            f"{n_bounded} attention launches, kernels vs plain "
+            f"max_abs_err {err_plain:.3g} (atol {ENC_ATOL}); encode_stream "
+            f"in chunks of {STREAM_FEATURE_CHUNKS}: err "
+            + ", ".join(f"{e:.3g}" for e in errs)
+            + f" of max |enc| (rtol {STREAM_RTOL}); against the unbounded "
+            f"encode {moved:.3g}")
+        if n_bounded != config.encoder_num_layers * on_card \
+                or err_plain > ENC_ATOL or max(errs) > STREAM_RTOL \
+                or moved < 1e-3:
+            raise RuntimeError("the bounded-context encode failed its check")
+        del bounded, enc_b
+
+        # (d) kv_cache tokens against offline greedy (unnormalized
+        # features) and against the CPU
+        raw = tr.fbank(torch.from_numpy(wav)[None].to(device))
+        t4_raw = raw.shape[1] // 4 * 4
+        offline_tokens = TransducerGreedySearcher(tr.model, 0)(
+            tr.model.encode(raw[:, :t4_raw], ones, spk), ones)[0][0]
+    kv = tr.streaming("kv_cache", speaker_embs=spk)
+    before = fwd()
+    kv_times, kv_partials, kv_final, _ = stream_chunks(kv, wav, 1.0, sync)
+    kv_tokens = list(kv._tokens)
+    cpu_model = copy.deepcopy(tr.model).cpu()
+    cpu_tr = TSASRTranscriber(cpu_model, None, tr.tokenizer, device="cpu")
+    cpu_kv = cpu_tr.streaming("kv_cache", speaker_embs=spk.cpu())
+    stream_chunks(cpu_kv, wav, 1.0, lambda: None)
+    log(f"streaming (d) kv_cache in 1 s chunks: {len(kv_tokens)} tokens; "
+        f"offline greedy on the unnormalized features ({t4_raw} frames): "
+        f"identical {kv_tokens == offline_tokens}; the same streamer on the "
+        f"CPU: identical {kv_tokens == cpu_kv._tokens}; final "
+        f"{kv_final[:60]!r}")
+    if not kv_tokens or kv_tokens != offline_tokens \
+            or kv_tokens != cpu_kv._tokens or fwd() != before:
+        raise RuntimeError("kv_cache tokens differ from offline greedy or "
+                           "from the CPU's (or the stream launched the "
+                           "offline kernel)")
+    del cpu_model, cpu_tr, cpu_kv
+
+    # (e) reencode: each 1 s chunk re-encodes the history (12 launches)
+    rs = tr.streaming("reencode", speaker_embs=spk)
+    start = fwd()
+    re_times, re_partials, re_final, re_reads = stream_chunks(
+        rs, wav, 1.0, sync, fwd)
+    re_launches = [b - a for a, b in zip([start] + re_reads[:-1], re_reads)]
+    log(f"streaming (e) reencode in 1 s chunks: {len(rs._tokens)} tokens, "
+        f"attention launches per chunk {sorted(set(re_launches))}; the "
+        f"final transcript starts with the last partial "
+        f"{re_final.startswith(re_partials[-1])}")
+    if not re_final.startswith(re_partials[-1]) or not rs._tokens \
+            or set(re_launches) != {config.encoder_num_layers * on_card}:
+        raise RuntimeError("reencode streaming failed its check")
+
+    # (f) timings: kv_cache at 1 s and 0.32 s chunks, then once more
+    # under the profiler for the device time and the launches
+    for seconds in KV_CHUNK_SECONDS:
+        kv.reset()
+        times, _, _, _ = stream_chunks(kv, wav, seconds, sync)
+        tokens_same = kv._tokens == kv_tokens
+        line = (f"streaming (f) kv_cache {seconds} s chunks over "
+                f"{STREAM_SECONDS} s: host ms per chunk median "
+                f"{statistics.median(times):.2f} (max {max(times):.2f}, "
+                f"first {times[0]:.2f}); real-time factor "
+                f"{sum(times) / 1e3 / STREAM_SECONDS:.4f}; tokens as at 1 s "
+                f"{tokens_same}")
+        if on_card:
+            kv.reset()
+            wall_ms, events = profiled(
+                lambda: stream_chunks(kv, wav, seconds, sync))
+            busy = sum(device_us(e) for e in events) / 1e3
+            launches = sum(e.count for e in events)
+            line += (f"; under the profiler: wall {wall_ms:.1f} ms, device "
+                     f"busy {busy:.2f} ms ({100 * busy / wall_ms:.1f} %), "
+                     f"{busy / len(times):.3f} ms and "
+                     f"{launches / len(times):.0f} kernel launches per "
+                     f"chunk")
+        log(line + f" [{card}]")
+        if not tokens_same:
+            raise RuntimeError(f"kv_cache at {seconds} s chunks gave other "
+                               "tokens than at 1 s")
+    log("streaming (f) reencode 1 s chunks: host ms per chunk at "
+        + ", ".join(f"{s} s of history {re_times[s - 1]:.2f}"
+                    for s in REENCODE_AT)
+        + f"; real-time factor {sum(re_times) / 1e3 / STREAM_SECONDS:.4f} "
+        f"[{card}]")
+
+    # (g) a stream past its KV capacity raises
+    small = tr.streaming("kv_cache", speaker_embs=spk,
+                         kv_capacity_seconds=OVERFLOW_SECONDS)
+    try:
+        stream_chunks(small, wav, 1.0, sync)
+    except RuntimeError as e:
+        if "KV cache overflow" not in str(e):
+            raise
+        log(f"streaming (g) kv_capacity_seconds {OVERFLOW_SECONDS} "
+            f"({small.kv_capacity} frames): raised after "
+            f"{small._feat_frames_done / 100:.2f} s of features: {e}")
+    else:
+        raise RuntimeError("a stream past its KV capacity did not raise")
+    del kv, rs, small, tr, model
+
+    # (h) a causal run through run_experiment, transcribe --streaming
+    with tempfile.TemporaryDirectory(prefix="tsasr_streaming_") as tmp:
+        seen = streaming_experiment(device, card, corpus, Path(tmp))
+    path_counts = read_counts()
+    worst = check_path_kernels(seen)
+    causal = sorted({(shape[2], train) for shape, _, train, causal in
+                     seen["attention"] if causal})
+    log(f"streaming kernels against their plain versions on the causal "
+        f"run's own inputs, one call per shape: attention forward at "
+        f"{len(seen['attention'])} shapes, with the lookahead mask at (T, "
+        f"TRAIN) {causal}, worst err {worst['fwd']:.3g} of max |o|; "
+        f"backward worst {worst['bwd']:.3g} of max |g| (atol {ATTN_ATOL}); "
+        f"lattice at {len(seen['lattice'])} shapes, worst err/tol "
+        f"{worst['lattice']:.3g}; launches on the streaming path "
         f"{path_counts}")
     return path_counts
 
@@ -2791,6 +3235,10 @@ def main():
         log(f"experiment phase done at {time.perf_counter() - t_start:.1f} "
             "s")
         variants = phase_variants(device, card, corpus)
+        log(f"variants phase done at {time.perf_counter() - t_start:.1f} s")
+        streaming = phase_streaming(device, card, corpus)
+        log(f"streaming phase done at {time.perf_counter() - t_start:.1f} "
+            "s")
     phase_small(device)
     log(f"all phases done at {time.perf_counter() - t_start:.1f} s")
 
@@ -2799,7 +3247,8 @@ def main():
                 "serving_beam": serving_beam[name],
                 "training": training[name],
                 "experiment": experiment[name],
-                "variants": variants[name]}
+                "variants": variants[name],
+                "streaming": streaming[name]}
 
     fwd, bwd = fwd_rows[0], next(r for r in bwd_rows if r["T"] == 208)
     kernels = [

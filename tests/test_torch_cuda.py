@@ -212,6 +212,46 @@ def test_relpos_attention_forward_and_backward_match_plain(cuda, B, H, T,
                                    atol=1e-4 * scale, rtol=0)
 
 
+def causal_mask(T, context):
+    """A causal encoder's ``am_add``: the lookahead mask, and with
+    ``context`` the band of ``att_context_size`` (keys that many frames or
+    more back hidden too)."""
+    pos = torch.arange(T)
+    hidden = pos[None, :] > pos[:, None]
+    if context:
+        hidden |= (pos[:, None] - pos[None, :]) >= context
+    return torch.where(hidden, -1e9, 0.0)
+
+
+@pytest.mark.parametrize("T", [101, 208])
+@pytest.mark.parametrize("context", [0, 64])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_relpos_attention_on_causal_masks_matches_plain(cuda, T, context,
+                                                        rate):
+    """The masks a causal model gives the kernels (row 0 sees one key,
+    most of a row is fill; with the band, padded rows see none): the
+    forward and every gradient against autograd through the plain
+    version, with key padding and the same Philox mask, at the tolerance
+    of the test above."""
+    args = attention_case(8, 4, T, 64, cuda, seed=T + context)
+    args[6] = causal_mask(T, context).to(cuda)
+    seed = torch.tensor([4242], device=cuda)
+    outs = {}
+    for name, fn in (("kernel", relpos_attention.fused_relpos_attention),
+                     ("plain", relpos_attention.relpos_attention_reference)):
+        leaves = [t.clone().requires_grad_(i < 5) for i, t in enumerate(args)]
+        out = fn(*leaves, seed=seed, scale=0.0625, rate=rate)
+        g = torch.Generator(device=cuda).manual_seed(6)
+        out.backward(torch.randn(out.shape, generator=g, device=cuda))
+        outs[name] = [out] + [t.grad for t in leaves[:5]]
+    torch.cuda.synchronize()
+    for got, want in zip(outs["kernel"], outs["plain"]):
+        scale = max(1.0, want.abs().max().item())
+        np.testing.assert_allclose(got.detach().cpu().numpy(),
+                                   want.detach().cpu().numpy(),
+                                   atol=1e-4 * scale, rtol=0)
+
+
 def lattice_case(B, T, U1, device, seed=0):
     g = torch.Generator().manual_seed(seed)
     V = 7

@@ -292,7 +292,7 @@ def test_scratch_yamls_give_the_same_scalars(tmp_path):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("causal_encoder", "true"), ("att_context_size", "8"),
+    ("predictor_class", "lstm"), ("joiner_class", "sum"),
     ("remat", "true"), ("speaker_encoder_type", "ecapa"),
     ("encoder_class", "conformer")])
 def test_unported_model_keys_raise(key, value, tmp_path):

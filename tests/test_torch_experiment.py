@@ -277,7 +277,7 @@ def test_without_device_it_asks_for_the_card(corpus, tmp_path, monkeypatch):
     (["--plot_attentions", "True"], "plot_attentions"),
     (["--joint_band_width", "64"], "joint_band_width"),
     (["--speaker_encoder_type", "ecapa"], "speaker_encoder_type"),
-    (["--causal_encoder", "True"], "causal_encoder"),
+    (["--remat", "True"], "remat"),
 ])
 def test_what_is_not_ported_raises_before_anything_runs(corpus, tmp_path,
                                                         extra, match):
@@ -486,5 +486,9 @@ def test_transcribe_cli_prints_one_json_line_per_file(runs, split_files):
                                                 for k in keys]
     # the first file's own enrollment: TEST's transcript
     assert lines[0]["text"] == want[keys[0]]
-    with pytest.raises(NotImplementedError, match="streaming"):
-        transcribe.main(["--experiment", "x", "a.wav", "--streaming"])
+    # the run's model is not causal: its kv_cache stream would not be the
+    # offline encode (tests/test_torch_streaming.py streams causal ones)
+    with pytest.raises(ValueError, match="causal"):
+        transcribe.main(["--experiment", str(runs["root"] / "resumed"),
+                         split_files[keys[0]][0], "--enroll", enroll,
+                         "--streaming", "--device", "cpu"])

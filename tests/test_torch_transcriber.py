@@ -81,15 +81,17 @@ def test_scratch_config_matches_recipe_yaml():
 
 
 def test_unported_options_raise(tmp_path):
-    """Streaming still raises; beam search and LM fusion are ported (the
-    batched beam, the LM loaded where the transcriber runs), and
-    ``from_experiment`` wants an experiment folder."""
+    """Streaming a model with a speaker branch wants its speaker
+    embedding (``tests/test_torch_streaming.py`` streams); beam search
+    and LM fusion are ported (the batched beam, the LM loaded where the
+    transcriber runs), and ``from_experiment`` wants an experiment
+    folder."""
     from tsasr_torch.decoding import BatchedBeamSearcher
     from tsasr_torch.models.lm import RNNLM, RNNLMConfig, save_lm_checkpoint
     model = TSTransducer(TSTransducerConfig(**TINY)).init_weights(seed=0)
     tok = CharTokenizer(PIECES)
     port = TSASRTranscriber(model, None, tok, device="cpu")
-    with pytest.raises(NotImplementedError, match="streaming"):
+    with pytest.raises(ValueError, match="speaker_embs"):
         port.streaming()
     with pytest.raises(FileNotFoundError):
         TSASRTranscriber.from_experiment(str(tmp_path / "exp"), device="cpu")

@@ -413,7 +413,9 @@ def test_unported_speaker_paths_raise_before_anything_runs(
 def test_yaml_copies_keep_the_jax_values():
     """The port's none and wavlm yamls hold the JAX yamls' keys and
     values, line for line, every class pointed at tsasr_torch (comments
-    aside)."""
+    aside), plus the two lines of the model config that pass
+    ``frontend_padding`` on as ``frontend_causal``, which the JAX yamls
+    declare and never pass on."""
     from torch_port_helpers import REPO
 
     def values(path):
@@ -422,8 +424,15 @@ def test_yaml_copies_keep_the_jax_values():
         return [line.split(" #")[0].rstrip() for line in lines
                 if line.strip() and not line.lstrip().startswith("#")]
 
+    frontend_causal = [
+        "    frontend_causal: "
+        "!apply:tsasr_torch.models.frontend.causal_from_padding",
+        "        padding: !ref <frontend_padding>"]
     for name in ("none", "wavlm"):
-        assert values(f"tsasr_torch/hparams/LibriSpeechMix/conformer-t_"
-                      f"{name}.yaml") \
+        port = values(f"tsasr_torch/hparams/LibriSpeechMix/conformer-t_"
+                      f"{name}.yaml")
+        i = port.index(frontend_causal[0])
+        assert port[i:i + 2] == frontend_causal, name
+        assert port[:i] + port[i + 2:] \
             == values(f"hparams/LibriSpeechMix/conformer-t_{name}.yaml"), \
             name

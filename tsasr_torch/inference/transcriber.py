@@ -18,6 +18,12 @@ to a frame multiple of ``pad_feats_to`` for the features (the recipe's
 ``_features``), and the search gets the relative lengths before the
 second padding, as the recipe's TEST gives it. So a file's transcript is
 the one TEST records for that utterance in a batch of its own.
+
+``streaming`` gives a ``StreamingTranscriber`` over the same model, as
+the JAX ``streaming`` does; where the JAX one builds it without the
+speaker embedding, a model with a speaker branch here needs
+``speaker_embs`` (``speaker_embedding`` computes them from an
+enrollment) and raises without them.
 """
 
 import os
@@ -72,6 +78,7 @@ class TSASRTranscriber:
         self.sample_rate = sample_rate
         self.blank_index = blank_index
         self.variant = variant
+        self.win_length = win_length
         self.pad_to_multiple = dict(pad_to_multiple or {})
         self.pad_feats_to = pad_feats_to
         self.fbank = Fbank(sample_rate=sample_rate, n_fft=n_fft,
@@ -147,9 +154,27 @@ class TSASRTranscriber:
                    pad_feats_to=hparams.get("pad_feats_to"), device=device)
 
     def streaming(self, mode="kv_cache", **kwargs):
-        raise NotImplementedError(
-            "streaming transcription is not ported yet (the streaming "
-            "slice)")
+        """A ``StreamingTranscriber`` over this model, tokenizer, features
+        and device (causal models; ``inference.streaming``). A model with
+        a speaker branch needs ``speaker_embs=``, e.g. from
+        ``speaker_embedding(enrollment)``."""
+        from tsasr_torch.inference.streaming import StreamingTranscriber
+        return StreamingTranscriber(
+            self.model, None, self.tokenizer, sample_rate=self.sample_rate,
+            n_fft=self.fbank.n_fft, n_mels=self.fbank.mel.shape[1],
+            win_length=self.win_length, blank_index=self.blank_index,
+            mode=mode, device=self.device, **kwargs)
+
+    @torch.inference_mode()
+    def speaker_embedding(self, enroll):
+        """One enrollment waveform -> the speaker embedding (1, 1, d_model)
+        that ``encode_batch`` injects (the ``scratch`` variant)."""
+        if self.variant != "scratch":
+            raise ValueError(f"a {self.variant!r} model computes no speaker "
+                             "embedding from an enrollment")
+        efeats, rel = self._features(*_pad_batch(
+            [enroll], self.pad_to_multiple.get("enroll_sig")))
+        return self.model.extract_speaker(efeats, rel)
 
     # ---------------------------------------------------------- inference
     def _features(self, batch, rel):

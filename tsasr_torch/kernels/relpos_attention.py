@@ -58,14 +58,19 @@ launches = 0
 bwd_launches = 0
 
 
-def rel_shift(x, klen):
+def rel_shift(x, klen, causal=False):
     """Transformer-XL rel-shift: (..., T, 2T-1) scores against relative
     positions -> (..., T, klen) with column j of row i holding entry
-    ``T-1-i+j`` of that row."""
+    ``T-1-i+j`` of that row. ``causal`` zeroes the shifted scores' future
+    triangle before the slice, as the JAX ``_rel_shift`` does for a
+    causal model (the triangle lies past the columns kept)."""
     *lead, qlen, pos_len = x.shape
     x = torch.nn.functional.pad(x, (1, 0))
     x = x.reshape(*lead, pos_len + 1, qlen)
     x = x[..., 1:, :].reshape(*lead, qlen, pos_len)
+    if causal:
+        tri = torch.ones(qlen, pos_len, dtype=torch.bool, device=x.device)
+        x = x * tri.tril(pos_len - qlen)
     return x[..., :pos_len // 2 + 1][..., :klen]
 
 

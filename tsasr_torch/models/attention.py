@@ -1,8 +1,8 @@
 """Transformer-XL style relative-position multi-head self-attention.
 
 Counterpart of the JAX package's ``models/attention.py`` (``rel_pos_encoding``,
-``_rel_shift``, ``RelPosMHAXL``) for the non-streaming paths. Traps kept
-from the reference:
+``_rel_shift``, ``RelPosMHAXL``, ``_past_pos_encoding``), causal and
+streaming paths included. Traps kept from the reference:
 
 - the positional encoding is symmetric in distance;
 - ``qkv_proj`` has no bias and splits per head, (B, T, H, 3*Dh);
@@ -18,6 +18,26 @@ dropped out: the unfused path draws a ``dropout_bits``-wide mask from
 the step's generator, the fused path draws one seed per call from it
 (as the JAX module draws ``randint(0, 2**23)`` from its rng stream) and
 the kernels' Philox mask follows from that seed.
+
+A causal model (``mask_pos_future``) gets the lookahead mask from its
+encoder; the plain path also zeroes the future half of the shifted
+positional scores, as the JAX ``_rel_shift`` does (a triangle that lies
+past the ``klen`` columns kept, so it changes no score), and the fused
+path relies on the mask alone, as the JAX ``_fused_attention`` does.
+``att_context_size > 0`` hides keys that many frames or more in the
+past: on the fused path as part of ``am_add``, which the CUDA kernels
+take as they take any additive mask.
+
+Streaming (``kv_cache``): Q new frames attend over the cached keys and
+values plus their own, with the positional scores looked up by distance
+(the shift trick needs qlen == klen). Plain PyTorch, as the JAX module
+computes it outside any Pallas kernel. Two differences from the JAX
+module: the cache's ``count`` is one host int for the whole batch (every
+row of a stream advances together; JAX writes at the batch's max count
+anyway), and a stream that would run past the buffer's capacity raises,
+where JAX's clamped ``dynamic_update_slice`` overwrites the last slots.
+The buffers are written in place, and only the keys a query can see
+(``count + Q`` of them, within ``att_context_size``) enter the products.
 """
 
 import math
@@ -47,11 +67,17 @@ def rel_pos_encoding(seq_len, emb_dim, device=None):
     return pe[None]
 
 
+def _past_pos_encoding(n, emb_dim, device=None):
+    """enc(d) for distances d = 0..n-1 (n, emb_dim): the past half of the
+    symmetric relative encoding."""
+    return rel_pos_encoding(n, emb_dim, device)[0, n - 1:]
+
+
 class RelPosMHAXL(nn.Module):
-    """Relative-position multi-head self-attention (non-streaming)."""
+    """Relative-position multi-head self-attention."""
 
     def __init__(self, embed_dim, num_heads, dropout=0.0, dropout_bits=32,
-                 fused=False):
+                 fused=False, mask_pos_future=False, att_context_size=0):
         super().__init__()
         if embed_dim % num_heads:
             raise ValueError(f"embed_dim {embed_dim} is not divisible by "
@@ -59,6 +85,8 @@ class RelPosMHAXL(nn.Module):
         self.embed_dim = embed_dim
         self.num_heads = num_heads
         self.fused = fused
+        self.mask_pos_future = mask_pos_future
+        self.att_context_size = att_context_size
         self.dropout = Dropout(dropout, dropout_bits)
         head_dim = embed_dim // num_heads
         self.qkv_proj = nn.Linear(embed_dim, 3 * embed_dim, bias=False)
@@ -68,12 +96,14 @@ class RelPosMHAXL(nn.Module):
         self.out_proj = nn.Linear(embed_dim, embed_dim)
 
     def forward(self, x, pos_emb, key_padding_mask=None, attn_mask=None,
-                deterministic=True, generator=None):
+                deterministic=True, generator=None, kv_cache=None):
         """x: (B, T, D); pos_emb: (1, 2T-1, D); key_padding_mask: (B, T)
         bool, True = padding; attn_mask: (T, T) bool, True = masked;
         ``generator`` draws the dropout when ``deterministic`` is False.
 
-        Returns (out (B, T, D), attention probs or None when fused).
+        Returns (out (B, T, D), attention probs or None when fused). With
+        ``kv_cache`` ({"k", "v": (B, C, H, Dh), "count": int}), x holds
+        the new frames and the return is ((out, probs), new cache).
         """
         B, T, D = x.shape
         H = self.num_heads
@@ -81,8 +111,14 @@ class RelPosMHAXL(nn.Module):
         q, k, v = self.qkv_proj(x).reshape(B, T, H, 3 * Dh).split(Dh, dim=-1)
         q_u = q + self.pos_bias_u
         q_v = q + self.pos_bias_v
-        p_k = self.pos_proj(pos_emb).reshape(-1, H, Dh)     # (2T-1, H, Dh)
         scale = 1.0 / math.sqrt(self.embed_dim)
+        if kv_cache is not None:
+            return self._streaming_attention(q_u, q_v, k, v, kv_cache, scale)
+        p_k = self.pos_proj(pos_emb).reshape(-1, H, Dh)     # (2T-1, H, Dh)
+        if self.att_context_size > 0:
+            pos = torch.arange(T, device=x.device)
+            far = (pos[:, None] - pos[None, :]) >= self.att_context_size
+            attn_mask = far if attn_mask is None else attn_mask | far
 
         if self.fused:
             rate = 0.0 if deterministic else self.dropout.rate
@@ -99,7 +135,8 @@ class RelPosMHAXL(nn.Module):
             return self.out_proj(out), None
 
         ac = torch.einsum("bthd,bshd->bhts", q_u, k)
-        bd = _rel_shift(torch.einsum("bthd,shd->bhts", q_v, p_k), klen=T)
+        bd = _rel_shift(torch.einsum("bthd,shd->bhts", q_v, p_k), klen=T,
+                        causal=self.mask_pos_future)
         scores = (ac + bd) * scale
         if attn_mask is not None:
             scores = scores.masked_fill(attn_mask[None, None], ATTN_FILL)
@@ -127,3 +164,38 @@ class RelPosMHAXL(nn.Module):
             p_k.transpose(0, 1).contiguous(), kp_add, am_add, seed=seed,
             scale=scale, rate=rate)
         return out.transpose(1, 2).reshape(B, T, H * Dh)
+
+    def _streaming_attention(self, q_u, q_v, k_new, v_new, kv_cache, scale):
+        """Q new frames over the cache plus themselves, causally."""
+        B, Q, H, Dh = q_u.shape
+        k_buf, v_buf, count = kv_cache["k"], kv_cache["v"], kv_cache["count"]
+        capacity = k_buf.shape[1]
+        n = count + Q
+        if n > capacity:
+            raise RuntimeError(
+                f"KV cache overflow: {count} cached + {Q} new frames > "
+                f"capacity {capacity}; raise kv_capacity_seconds")
+        k_buf[:, count:n] = k_new
+        v_buf[:, count:n] = v_new
+        # keys a query can see: all n, or the att_context_size last
+        lo = max(0, count - self.att_context_size + 1) \
+            if self.att_context_size > 0 else 0
+        dev = q_u.device
+        dist = ((count + torch.arange(Q, device=dev))[:, None]
+                - torch.arange(lo, n, device=dev)[None, :])      # (Q, S)
+        hidden = dist < 0
+        if self.att_context_size > 0:
+            hidden = hidden | (dist >= self.att_context_size)
+        p = self.pos_proj(_past_pos_encoding(n, self.embed_dim, dev))
+        p = p.reshape(n, H, Dh)                                 # enc(d)
+        keys, values = k_buf[:, lo:n], v_buf[:, lo:n]
+        ac = torch.einsum("bqhd,bshd->bhqs", q_u, keys)         # (B,H,Q,S)
+        bd_all = torch.einsum("bqhd,rhd->bhqr", q_v, p)         # (B,H,Q,n)
+        index = dist.clamp(0, n - 1).expand(B, H, Q, n - lo)
+        bd = torch.gather(bd_all, -1, index)
+        scores = ((ac + bd) * scale).masked_fill(hidden, ATTN_FILL)
+        attn = torch.softmax(scores, dim=-1, dtype=f32_or_wider(scores))
+        out = torch.einsum("bhqs,bshd->bqhd", attn, values).reshape(
+            B, Q, H * Dh)
+        return (self.out_proj(out), attn), {"k": k_buf, "v": v_buf,
+                                            "count": n}

@@ -2,21 +2,34 @@
 
 Counterpart of the JAX package's ``models/conformer.py`` (``FeedForward``,
 ``ConvolutionModule``, ``ConformerEncoderLayer``, ``TSConformerEncoder``)
-for the non-causal, non-streaming path with injection modes ``cat`` and
-``None``. Dropout sits where the JAX modules put it: inside each FFN,
-after each half-FFN, after the conv module, on the attention
-probabilities and after ``input_proj``; every ``forward`` takes the JAX
-``deterministic`` switch and the step's ``generator``. Traps kept from
+with injection modes ``cat`` and ``None``, causal (``causal``: the
+lookahead mask and a left-padded depthwise conv), with a bounded
+attention context (``att_context_size``) and streaming (``stream_states``:
+per layer a KV cache and the conv's last ``kernel_size - 1`` frames).
+Dropout sits where the JAX modules put it: inside each FFN, after each
+half-FFN, after the conv module, on the attention probabilities and
+after ``input_proj``; every ``forward`` takes the JAX ``deterministic``
+switch and the step's ``generator``. Traps kept from
 the reference:
 
 - the FFNs and the conv module use leaky_relu (slope 0.01): the encoder
   overrides the layer's swish default;
 - every LayerNorm has eps 1e-6 (flax's default, not torch's 1e-5);
-- the GLU is ``a * sigmoid(b)``; the depthwise conv zero-pads "same";
+- the GLU is ``a * sigmoid(b)``; the depthwise conv zero-pads "same",
+  or ``kernel_size - 1`` frames on the left when causal;
 - the conv module's output is zeroed on padded frames;
 - the key-padding mask comes from ``round(rel * T')``;
 - ``cat`` broadcasts the speaker vector over time, concatenates, then
   projects 2D -> D with ``cat_proj``.
+
+One difference from the JAX module: the streaming conv cache holds the
+last ``kernel_size - 1`` frames after the GLU, the depthwise conv's own
+input, where the JAX module caches the module's input and runs the
+LayerNorm, ``pointwise_in`` and the GLU over it again. Zeros in the
+JAX cache become LN bias -> pointwise -> GLU, not zeros, so its stream
+matches the offline causal encode only while those biases are zero (as
+at init); zeros in the port's cache are the offline zero left padding
+exactly, for any weights.
 """
 
 import torch
@@ -25,7 +38,8 @@ from torch import nn
 
 from tsasr_torch.models.attention import RelPosMHAXL, rel_pos_encoding
 from tsasr_torch.ops.dropout import Dropout
-from tsasr_torch.ops.masks import length_to_mask, relative_to_absolute_lengths
+from tsasr_torch.ops.masks import (length_to_mask, lookahead_mask,
+                                   relative_to_absolute_lengths)
 
 LN_EPS = 1e-6
 
@@ -52,26 +66,41 @@ class ConvolutionModule(nn.Module):
     """LN -> pointwise(2D) -> GLU -> depthwise -> LN -> act -> pointwise
     -> dropout."""
 
-    def __init__(self, d_model, kernel_size=31, dropout=0.0, dropout_bits=32):
+    def __init__(self, d_model, kernel_size=31, dropout=0.0, dropout_bits=32,
+                 causal=False):
         super().__init__()
+        self.kernel_size = kernel_size
+        self.causal = causal
         self.norm_in = nn.LayerNorm(d_model, eps=LN_EPS)
         self.pointwise_in = nn.Linear(d_model, 2 * d_model)
         self.depthwise = nn.Conv1d(d_model, d_model, kernel_size,
-                                   padding=(kernel_size - 1) // 2,
+                                   padding=0 if causal
+                                   else (kernel_size - 1) // 2,
                                    groups=d_model)
         self.norm_mid = nn.LayerNorm(d_model, eps=LN_EPS)
         self.pointwise_out = nn.Linear(d_model, d_model)
         self.dropout = Dropout(dropout, dropout_bits)
 
-    def forward(self, x, pad_mask=None, deterministic=True, generator=None):
-        """x: (B, T, D); pad_mask: (B, T) bool, True = padding."""
+    def forward(self, x, pad_mask=None, deterministic=True, generator=None,
+                conv_cache=None):
+        """x: (B, T, D); pad_mask: (B, T) bool, True = padding.
+
+        Streaming (causal): ``conv_cache`` (B, kernel_size - 1, D) holds
+        the depthwise conv's input frames before x, zeros at the start;
+        returns (out, new cache)."""
         a, b = self.pointwise_in(self.norm_in(x)).chunk(2, dim=-1)
-        out = a * torch.sigmoid(b)
-        out = self.depthwise(out.transpose(1, 2)).transpose(1, 2)
+        glu = a * torch.sigmoid(b)
+        if conv_cache is not None:
+            glu = torch.cat([conv_cache, glu], dim=1)
+        elif self.causal:
+            glu = F.pad(glu, (0, 0, self.kernel_size - 1, 0))
+        out = self.depthwise(glu.transpose(1, 2)).transpose(1, 2)
         out = self.pointwise_out(_act(self.norm_mid(out)))
         out = self.dropout(out, deterministic, generator)
         if pad_mask is not None:
             out = out.masked_fill(pad_mask[..., None], 0.0)
+        if conv_cache is not None:
+            return out, glu[:, glu.shape[1] - (self.kernel_size - 1):]
         return out
 
 
@@ -79,32 +108,46 @@ class ConformerEncoderLayer(nn.Module):
     """Macaron half-FFN -> rel-pos MHSA -> conv module -> half-FFN -> LN."""
 
     def __init__(self, d_model, d_ffn, nhead, kernel_size=31, dropout=0.0,
-                 dropout_bits=32, fused_attention=False):
+                 dropout_bits=32, fused_attention=False, causal=False,
+                 att_context_size=0):
         super().__init__()
         self.norm_ffn1 = nn.LayerNorm(d_model, eps=LN_EPS)
         self.ffn1 = FeedForward(d_model, d_ffn, dropout, dropout_bits)
         self.norm_mha = nn.LayerNorm(d_model, eps=LN_EPS)
         self.mha = RelPosMHAXL(d_model, nhead, dropout, dropout_bits,
-                               fused=fused_attention)
+                               fused=fused_attention, mask_pos_future=causal,
+                               att_context_size=att_context_size)
         self.conv = ConvolutionModule(d_model, kernel_size, dropout,
-                                      dropout_bits)
+                                      dropout_bits, causal)
         self.norm_ffn2 = nn.LayerNorm(d_model, eps=LN_EPS)
         self.ffn2 = FeedForward(d_model, d_ffn, dropout, dropout_bits)
         self.norm_out = nn.LayerNorm(d_model, eps=LN_EPS)
         self.dropout = Dropout(dropout, dropout_bits)
 
     def forward(self, x, pos_emb, key_padding_mask=None, attn_mask=None,
-                deterministic=True, generator=None):
+                deterministic=True, generator=None, layer_state=None):
+        """Streaming: ``layer_state`` = {"attn": KV cache, "conv": conv
+        cache} takes x as new frames after the cached ones and the return
+        is (x, attn, new state)."""
         drop = (deterministic, generator)
         ff1 = self.ffn1(self.norm_ffn1(x), *drop)
         x = x + 0.5 * self.dropout(ff1, *drop)
-        attn_out, attn = self.mha(self.norm_mha(x), pos_emb,
-                                  key_padding_mask, attn_mask, *drop)
-        x = x + attn_out
-        x = x + self.conv(x, key_padding_mask, *drop)
+        if layer_state is None:
+            attn_out, attn = self.mha(self.norm_mha(x), pos_emb,
+                                      key_padding_mask, attn_mask, *drop)
+            x = x + attn_out
+            x = x + self.conv(x, key_padding_mask, *drop)
+        else:
+            (attn_out, attn), kv = self.mha(self.norm_mha(x), None,
+                                            kv_cache=layer_state["attn"])
+            x = x + attn_out
+            conv_out, conv = self.conv(x, conv_cache=layer_state["conv"])
+            x = x + conv_out
         ff2 = self.ffn2(self.norm_ffn2(x), *drop)
         x = self.norm_out(x + 0.5 * self.dropout(ff2, *drop))
-        return x, attn
+        if layer_state is None:
+            return x, attn
+        return x, attn, {"attn": kv, "conv": conv}
 
 
 class TSConformerEncoder(nn.Module):
@@ -114,19 +157,21 @@ class TSConformerEncoder(nn.Module):
     def __init__(self, input_size, d_model=256, nhead=4, num_layers=12,
                  d_ffn=2048, kernel_size=31, dropout=0.0, dropout_bits=32,
                  injection_mode=None, injection_after=(0,),
-                 fused_attention=False):
+                 fused_attention=False, causal=False, att_context_size=0):
         super().__init__()
         if injection_mode not in (None, "cat"):
             raise NotImplementedError(
                 f"injection_mode={injection_mode!r} is not ported yet; the "
                 "port has 'cat' and None")
         self.d_model = d_model
+        self.causal = causal
         self.injection_mode = injection_mode
         self.injection_after = tuple(injection_after)
         self.input_proj = nn.Linear(input_size, d_model)
         self.layers = nn.ModuleList(
             ConformerEncoderLayer(d_model, d_ffn, nhead, kernel_size,
-                                  dropout, dropout_bits, fused_attention)
+                                  dropout, dropout_bits, fused_attention,
+                                  causal, att_context_size)
             for _ in range(num_layers))
         self.cat_proj = nn.Linear(2 * d_model, d_model) \
             if injection_mode == "cat" else None
@@ -140,13 +185,17 @@ class TSConformerEncoder(nn.Module):
         return self.cat_proj(torch.cat([x, expanded], dim=-1))
 
     def forward(self, src, rel_lengths=None, speaker_embs=None,
-                deterministic=True, generator=None):
+                deterministic=True, generator=None, stream_states=None):
         """src: (B, T, F) or (B, T, F1, F2) (flattened to F1*F2);
-        rel_lengths: (B,) in (0, 1]; speaker_embs: (B, 1, D)."""
+        rel_lengths: (B,) in (0, 1]; speaker_embs: (B, 1, D).
+
+        Streaming (causal models): ``stream_states`` holds each layer's
+        state, src the new frames; returns (out, new states)."""
         if src.dim() == 4:
             src = src.reshape(src.shape[0], src.shape[1], -1)
         T = src.shape[1]
-        key_padding_mask = None
+        streaming = stream_states is not None
+        key_padding_mask = attn_mask = pos_emb = None
         if rel_lengths is not None:
             abs_len = relative_to_absolute_lengths(rel_lengths, T)
             key_padding_mask = ~length_to_mask(abs_len, T)
@@ -155,10 +204,20 @@ class TSConformerEncoder(nn.Module):
         inject = speaker_embs is not None
         if inject and -1 in self.injection_after:
             x = self._inject(x, speaker_embs)
-        pos_emb = rel_pos_encoding(T, self.d_model, device=x.device)
+        if not streaming:
+            pos_emb = rel_pos_encoding(T, self.d_model, device=x.device)
+            if self.causal:
+                attn_mask = lookahead_mask(T, device=x.device)
+        new_states = []
         for i, layer in enumerate(self.layers):
-            x, _ = layer(x, pos_emb, key_padding_mask, None, deterministic,
-                         generator)
+            if streaming:
+                x, _, state = layer(x, None, layer_state=stream_states[i])
+                new_states.append(state)
+            else:
+                x, _ = layer(x, pos_emb, key_padding_mask, attn_mask,
+                             deterministic, generator)
             if inject and i in self.injection_after:
                 x = self._inject(x, speaker_embs)
+        if streaming:
+            return self.norm(x), new_states
         return self.norm(x)

@@ -14,6 +14,11 @@ path and the training forward of the three recipes' speaker paths:
 
 Methods take the JAX ``deterministic`` switch; with
 ``deterministic=False`` dropout draws from the step's ``generator``.
+A causal model (``causal_encoder``, ``frontend_causal``) also encodes in
+chunks: ``init_stream_state`` and ``encode_stream`` carry the frontend's
+rows and each layer's KV and conv caches from one chunk to the next, and
+give the offline causal encode's frames. The speaker branch stays
+non-causal: the enrollment is whole before the stream starts.
 
 The machine that runs the port has no JAX to make weights with, so
 ``TSTransducer.init_weights`` draws them from a seeded
@@ -64,10 +69,11 @@ class TSTransducerConfig:
     decoder_num_layers: int = 1
     joint_dim: int = 640
     fused_attention: bool = False
+    causal_encoder: bool = False
+    att_context_size: int = 0   # >0: bounded left attention context
+    frontend_causal: bool = False
     # keys of the JAX config that the recipe's yaml passes; the port runs
     # their defaults only, and any other value raises (__post_init__)
-    causal_encoder: bool = False
-    att_context_size: int = 0
     remat: bool = False
     remat_policy: str = "full"
     frontend_class: Optional[str] = None
@@ -78,8 +84,6 @@ class TSTransducerConfig:
 
     def __post_init__(self):
         not_ported = {
-            "causal_encoder": (self.causal_encoder, False),
-            "att_context_size": (self.att_context_size, 0),
             "remat": (self.remat, False),
             "frontend_class": (self.frontend_class, None),
             "encoder_class": (self.encoder_class, None),
@@ -168,17 +172,17 @@ class TSTransducer(nn.Module):
             if isinstance(c.injection_after, (list, tuple)) \
             else (c.injection_after,)
 
-        def frontend():
+        def frontend(causal):
             return ConvolutionFrontEnd(
                 c.n_mels, tuple(c.frontend_channels),
                 strides=tuple(c.frontend_strides), dropout=c.dropout,
-                dropout_bits=c.dropout_bits)
+                dropout_bits=c.dropout_bits, causal=causal)
 
-        self.frontend = frontend()
+        self.frontend = frontend(c.frontend_causal)
         self.encoder = TSConformerEncoder(
             enc_in, c.d_model, c.nhead, c.encoder_num_layers, c.d_ffn,
             c.kernel_size, c.dropout, c.dropout_bits, c.injection_mode, after,
-            c.fused_attention)
+            c.fused_attention, c.causal_encoder, c.att_context_size)
         self.encoder_proj = nn.Linear(c.d_model, c.joint_dim)
         self.predictor = Predictor(c.vocab_size, c.blank_index,
                                    c.decoder_neurons, c.decoder_num_layers,
@@ -188,7 +192,7 @@ class TSTransducer(nn.Module):
         self.speaker_proj = None
         if c.injection_mode is not None:
             if c.use_speaker_encoder:
-                self.speaker_frontend = frontend()
+                self.speaker_frontend = frontend(False)
                 self.speaker_encoder = TSConformerEncoder(
                     enc_in, c.d_model, c.nhead, c.speaker_encoder_layers,
                     c.d_ffn, c.kernel_size, c.dropout, c.dropout_bits, None,
@@ -235,6 +239,39 @@ class TSTransducer(nn.Module):
         x = self.frontend(feats, deterministic, generator)
         x = self.encoder(x, rel_lens, speaker_embs, deterministic, generator)
         return self.encoder_proj(x)
+
+    def encode_stream(self, feats_new, stream_state, speaker_embs=None):
+        """New feature frames (B, n, n_mels), n a multiple of the
+        frontend's strides' product, against the cached state ->
+        (encoder_proj frames (B, n / 4, joint_dim), new state)."""
+        x, frontend = self.frontend(feats_new,
+                                    stream_caches=stream_state["frontend"])
+        x, encoder = self.encoder(x, speaker_embs=speaker_embs,
+                                  stream_states=stream_state["encoder"])
+        return self.encoder_proj(x), {"frontend": frontend,
+                                      "encoder": encoder}
+
+    def init_stream_state(self, batch_size, capacity, device=None):
+        """The zero streaming state; ``capacity`` is the number of encoder
+        frames the attention KV buffers hold."""
+        c = self.config
+        frontend = []
+        freq, ch = c.n_mels, 1
+        for block in self.frontend.blocks:
+            frontend.append(torch.zeros(batch_size, block.kernel_size - 1,
+                                        freq, ch, device=device))
+            freq = -(-freq // block.conv.stride[0])
+            ch = block.conv.out_channels
+        H, Dh = c.nhead, c.d_model // c.nhead
+        encoder = [{"attn": {"k": torch.zeros(batch_size, capacity, H, Dh,
+                                              device=device),
+                             "v": torch.zeros(batch_size, capacity, H, Dh,
+                                              device=device),
+                             "count": 0},
+                    "conv": torch.zeros(batch_size, c.kernel_size - 1,
+                                        c.d_model, device=device)}
+                   for _ in range(c.encoder_num_layers)]
+        return {"frontend": frontend, "encoder": encoder}
 
     # --------------------------------------------------------- predictor
     def predict(self, tokens_bos, initial_state=None):

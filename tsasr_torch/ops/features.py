@@ -1,10 +1,12 @@
 """Log-mel features and sentence normalization.
 
 Counterpart of the JAX package's ``ops/features.py`` (``Fbank``, ``stft``,
-``mel_filterbank_matrix``, ``amplitude_to_db``, ``input_normalization``,
-``pad_audio_to_frame_multiple``) for the settings the recipe uses: periodic Hamming window,
-center zero padding, power spectrum, triangular mel filters, dB with a
-per-utterance ``top_db`` clamp. The windowed DFT is one strided
+``spectral_magnitude``, ``mel_filterbank_matrix``, ``amplitude_to_db``,
+``input_normalization``, ``pad_audio_to_frame_multiple``) for the
+settings the recipe uses: periodic Hamming window, center zero padding
+(``stft(center=False)`` frames a raw window as it is, which the
+streaming transcriber needs), power spectrum, triangular mel filters, dB
+with a per-utterance ``top_db`` clamp. The windowed DFT is one strided
 ``conv1d`` against the (window x DFT basis) rows, as in the JAX package;
 on CUDA it needs TF32 off (``tsasr_torch.device.resolve_device``).
 """
@@ -42,6 +44,37 @@ def _windowed_dft_filters(n_fft, win):
     cos_f = (cos_m * window[:, None]).T[:, None, :]
     sin_f = (sin_m * window[:, None]).T[:, None, :]
     return np.concatenate([cos_f, sin_f], axis=0).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=8)
+def _dft_filters_on(n_fft, win, device):
+    return torch.from_numpy(_windowed_dft_filters(n_fft, win)).to(device)
+
+
+def _stft(x, filters, n_fft, hop, center):
+    if center:
+        pad = n_fft // 2
+        x = F.pad(x, (pad, pad))
+    spec = F.conv1d(x[:, None, :], filters, stride=hop)     # (B, 2F, T)
+    spec = spec.transpose(1, 2)
+    n_bins = n_fft // 2 + 1
+    return spec[..., :n_bins], spec[..., n_bins:]
+
+
+def stft(x, sample_rate=16000, win_length=25.0, hop_length=10.0, n_fft=400,
+         center=True):
+    """Onesided STFT of (B, L) waveforms -> (real, imag), each
+    (B, T, n_fft//2+1); ``center`` pads n_fft//2 zeros on both sides."""
+    filters = _dft_filters_on(n_fft, _ms_to_samples(sample_rate, win_length),
+                              x.device)
+    return _stft(x, filters, n_fft, _ms_to_samples(sample_rate, hop_length),
+                 center)
+
+
+def spectral_magnitude(re, im):
+    """|X|^2 of a complex spectrogram: the JAX function at the Fbank's
+    settings (power 1, no log)."""
+    return re * re + im * im
 
 
 def _to_mel(hz):
@@ -90,14 +123,10 @@ class Fbank(nn.Module):
             n_mels, n_fft, sample_rate)), persistent=False)
 
     def forward(self, wav):
-        pad = self.n_fft // 2
-        x = F.pad(wav, (pad, pad))[:, None, :]
-        spec = F.conv1d(x, self.dft_filters, stride=self.hop)  # (B, 2F, T)
-        spec = spec.transpose(1, 2)
-        n_bins = self.n_fft // 2 + 1
-        re, im = spec[..., :n_bins], spec[..., n_bins:]
-        fbanks = torch.matmul(re * re + im * im, self.mel)
-        return amplitude_to_db(fbanks)
+        re, im = _stft(wav, self.dft_filters, self.n_fft, self.hop,
+                       center=True)
+        return amplitude_to_db(torch.matmul(spectral_magnitude(re, im),
+                                            self.mel))
 
 
 def input_normalization(x, rel_lengths, eps=1e-10):

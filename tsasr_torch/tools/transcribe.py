@@ -2,12 +2,15 @@
 
 The port's copy of the JAX package's ``tools/transcribe.py``, with
 ``--device`` (default ``cuda``; ``cpu`` on a host without a card). One
-JSON line per file.
+JSON line per file. ``--streaming`` feeds each file in 1 s chunks to
+the ``kv_cache`` streamer (causal models); a model with a speaker branch
+then needs ``--enroll``, whose embedding conditions the stream (the JAX
+tool streams without it).
 
 Usage:
     python -m tsasr_torch.tools.transcribe --experiment results/.../0 \\
         mix1.wav [mix2.flac ...] [--enroll enroll.wav] [--beam_size 15] \\
-        [--lm_path lm.arpa --lm_weight 0.3] [--device cpu]
+        [--lm_path lm.arpa --lm_weight 0.3] [--streaming] [--device cpu]
 """
 
 import argparse
@@ -28,10 +31,6 @@ def main(argv=None):
     ap.add_argument("--min_key", default="WER")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.streaming:
-        raise NotImplementedError(
-            "streaming transcription is not ported yet (the streaming "
-            "slice)")
 
     from tsasr_torch.inference import TSASRTranscriber
 
@@ -39,9 +38,27 @@ def main(argv=None):
         args.experiment, beam_size=args.beam_size, min_key=args.min_key,
         lm_path=args.lm_path, lm_weight=args.lm_weight,
         device=args.device)
+    speaker = None
+    if args.streaming and args.enroll and t.variant == "scratch":
+        speaker = t.speaker_embedding(read_resampled(args.enroll,
+                                                     t.sample_rate))
     for path in args.audio:
-        text = t.transcribe_file(path, enroll_path=args.enroll)
+        if args.streaming:
+            wav = read_resampled(path, t.sample_rate)
+            s = t.streaming(speaker_embs=speaker)
+            chunk = t.sample_rate                     # 1 s chunks
+            for lo in range(0, len(wav), chunk):
+                s.accept_chunk(wav[lo: lo + chunk])
+            text = s.finalize()
+        else:
+            text = t.transcribe_file(path, enroll_path=args.enroll)
         print(json.dumps({"file": path, "text": text}))
+
+
+def read_resampled(path, sample_rate):
+    from tsasr_torch.data.audio import read_audio, resample
+    wav, sr = read_audio(path)
+    return resample(wav, sr, sample_rate)
 
 
 if __name__ == "__main__":
