@@ -8,7 +8,8 @@ checkout, or when any phase fails. Phases:
 1. card and build: the card's name and power limit, then ``nvcc`` builds
    every CUDA source of the port from ``tsasr_torch/csrc``, all at once;
    the attention forward and the backward's dq, dkv and dp passes must
-   hold TF32 tensor-core instructions (``cuobjdump -sass``);
+   hold TF32 tensor-core instructions (``cuobjdump -sass``), their bf16
+   variants' passes bf16 ones;
 2. each kernel against its plain PyTorch version on the card, at the
    shapes the serving and training paths give it, with its time, the
    plain version's time, one PyTorch library call's time where one
@@ -95,7 +96,24 @@ checkout, or when any phase fails. Phases:
    shapes imply), ``transcribe --streaming --enroll`` on 3 of its TEST
    files against the same stream from ``from_experiment``, and each
    kernel against its plain version on the run's own tensors;
-8. a small model on the card against the same model on the CPU:
+8. bf16 compute (``phase_bf16``, the recipe's ``--precision bf16``):
+   the bf16 variants of both attention kernels must hold bf16
+   tensor-core instructions (HMMA ... BF16); each against its plain bf16
+   version (forward within 2^-7 of max |o|, backward within 2^-6 of max
+   |g|) and no further from f64 than 1.5 times the plain version, at T
+   101, 208 and 408 on key-padding, causal and causal + band-64 masks,
+   dropout 0.1; their times beside the f32 kernels' (in turns), the
+   plain versions', SDPA's in bf16 and the bound at the bf16 peak;
+   ``fit_batch`` at full width in f32 and bf16 in turns on the same
+   weights and batches (host ms, device time and launches under the
+   profiler, ``max_memory_allocated``); the full-width model in bf16
+   against f32 at dropout 0 (loss within 2e-2, gradient cosine 0.99 or
+   more); the scratch yaml through ``run_experiment`` with ``--precision
+   bf16 --fused_attention True`` (2 optimizer steps, VALID greedy, TEST
+   at beam 15; every batch launches the bf16 kernels as its shapes imply
+   and no f32 attention kernel), then the bf16 kernels on the run's own
+   tensors;
+9. a small model on the card against the same model on the CPU:
    serving encoder output (the CPU side twice, each hash logged with the
    host CPU's model and torch's thread count), and 2 optimizer steps of
    training at dropout 0.
@@ -192,6 +210,8 @@ PEAK_F32_FLOP_PER_S = 67e12
 # f32-accurate products on the tensor cores: 3xTF32 runs three TF32
 # products (495 TFLOP/s dense) for each f32 one
 PEAK_TF32X3_FLOP_PER_S = 495e12 / 3
+# the H100's dense bf16 tensor-core peak (NVIDIA's data sheet, SXM, 700 W)
+PEAK_BF16_FLOP_PER_S = 989e12
 PIECES = ["<unk>", "▁"] + list("abcdefghijklmnopqrstuvwxyz'")
 HPARAMS = {"sample_rate": 16000, "n_fft": 512, "n_mels": 80,
            "win_length": 32, "augment": False, "blank_index": 0,
@@ -276,10 +296,11 @@ def lattice_bound(kind, valid_cells, all_cells):
     return bound(12 * valid_cells + 8 * all_cells, 30 * valid_cells)
 
 
-def tensor_core_check(name, passes):
-    """Count the TF32 tensor-core instructions (HMMA ... TF32) of each
-    kernel function of the built ``csrc/<name>.cu`` in its SASS; fail if
-    one of ``passes`` has none."""
+def tensor_core_check(name, passes, kind="TF32"):
+    """Count the tensor-core instructions of type ``kind`` (HMMA ...
+    TF32, or BF16) of each kernel function of the built
+    ``csrc/<name>.cu`` in its SASS; fail if one of ``passes`` has
+    none."""
     from tsasr_torch.kernels import _build
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass",
@@ -291,14 +312,15 @@ def tensor_core_check(name, passes):
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
             counts[fn] = 0
-        elif fn is not None and "HMMA" in line and "TF32" in line:
+        elif fn is not None and "HMMA" in line and kind in line:
             counts[fn] += 1
     for pas in passes:
         found = {f: n for f, n in counts.items() if pas in f}
-        log(f"  {name} {pas}: HMMA TF32 instructions per instance "
+        log(f"  {name} {pas}: HMMA {kind} instructions per instance "
             f"{sorted(found.values())}")
         if not found or min(found.values()) == 0:
-            raise RuntimeError(f"{pas} runs no TF32 tensor-core instruction")
+            raise RuntimeError(f"{pas} runs no {kind} tensor-core "
+                               "instruction")
 
 
 def attention_case(t, band, gen, device, b=B):
@@ -705,6 +727,7 @@ def reset_counts():
     from tsasr_torch.kernels import relpos_attention as ra
     from tsasr_torch.kernels import rnnt_lattice as rl
     ra.launches = ra.bwd_launches = 0
+    ra.bf16_launches = ra.bf16_bwd_launches = 0
     rl.resident_launches = rl.alpha_slab_launches = 0
     rl.beta_slab_launches = 0
 
@@ -717,6 +740,13 @@ def read_counts():
             "rnnt_lattice_resident": rl.resident_launches,
             "rnnt_lattice_alpha_slab": rl.alpha_slab_launches,
             "rnnt_lattice_beta_slab": rl.beta_slab_launches}
+
+
+def read_bf16_counts():
+    """``read_counts`` and the bf16 attention kernels' counts."""
+    from tsasr_torch.kernels import relpos_attention as ra
+    return dict(read_counts(), relpos_attention_fwd_bf16=ra.bf16_launches,
+                relpos_attention_bwd_bf16=ra.bf16_bwd_launches)
 
 
 def phase_serving(device, card):
@@ -1664,7 +1694,8 @@ def same_state(a, b):
 
 
 @contextlib.contextmanager
-def counted_batches(brain_class, on_card, layers=LAYERS_PER_REQUEST):
+def counted_batches(brain_class, on_card, layers=LAYERS_PER_REQUEST,
+                    bf16=False):
     """Checks every ``fit_batch`` and ``evaluate_batch`` of the Brains
     built inside: each must launch what its shapes imply (the attention
     forward once per Conformer layer, ``layers`` of them, the backward
@@ -1675,7 +1706,8 @@ def counted_batches(brain_class, on_card, layers=LAYERS_PER_REQUEST):
     micro-batch ended (the loader's ``next()`` and the loop's
     bookkeeping: ``loader_wait_s``) and the seconds in ``fit_batch``;
     per VALID and TEST stage the seconds from its start to the end of
-    its last batch."""
+    its last batch. ``bf16``: the attention launches are the bf16
+    kernels', and the f32 attention kernels must launch none."""
     from tsasr_torch.kernels.rnnt_lattice import resident_fits
     from tsasr_torch.models.frontend import ConvolutionFrontEnd
     totals = collections.defaultdict(collections.Counter)
@@ -1692,11 +1724,18 @@ def counted_batches(brain_class, on_card, layers=LAYERS_PER_REQUEST):
         t = ConvolutionFrontEnd.output_length(frames)
         u1 = batch.tokens_bos.data.shape[1]
         resident = resident_fits(t, u1)
-        return {"relpos_attention_fwd": layers,
+        want = {"relpos_attention_fwd": layers,
                 "relpos_attention_bwd": layers if train else 0,
                 "rnnt_lattice_resident": int(resident),
                 "rnnt_lattice_alpha_slab": int(not resident),
                 "rnnt_lattice_beta_slab": int(not resident)}
+        if bf16:
+            want["relpos_attention_fwd_bf16"] = want["relpos_attention_fwd"]
+            want["relpos_attention_bwd_bf16"] = want["relpos_attention_bwd"]
+            want["relpos_attention_fwd"] = want["relpos_attention_bwd"] = 0
+        return want
+
+    count = read_bf16_counts if bf16 else read_counts
 
     def started(self, stage, *args, **kwargs):
         out = stage_start(self, stage, *args, **kwargs)
@@ -1708,9 +1747,9 @@ def counted_batches(brain_class, on_card, layers=LAYERS_PER_REQUEST):
     def checked(run, stage, train):
         def wrapper(self, batch, *args):
             t0 = time.perf_counter()
-            before = read_counts()
+            before = count()
             out = run(self, batch, *args)
-            after = read_counts()
+            after = count()
             t1 = time.perf_counter()
             n = {k: after[k] - before[k] for k in after}
             want = expect(batch, train) if on_card else \
@@ -2976,6 +3015,488 @@ def phase_streaming(device, card, corpus):
     return path_counts
 
 
+# ------------------------------------------------------------------ bf16
+# the bf16 kernels at the serving and training lengths, on each mask the
+# paths give them
+BF16_T = (101, 208, 408)
+BF16_MASKS = ("key padding", "causal", "causal band 64")
+BF16_RATE = 0.1
+# a bf16 kernel against its plain bf16 version on the same inputs: both
+# round at the JAX kernels' points, but sum in other orders, so a value
+# near a rounding boundary lands an ulp apart (one ulp at the top of the
+# range is at most 2^-7 of max |o|)
+BF16_FWD_TOL = 2.0 ** -7          # of max |o|
+BF16_BWD_TOL = 2.0 ** -6          # of each gradient's max |g|
+# and against the same function in f64: no worse than the plain version
+BF16_F64_RATIO = 1.5
+# the full-width model in bf16 against f32 on the same weights, dropout 0
+BF16_LOSS_RTOL = 2e-2
+BF16_GRAD_COSINE = 0.99
+BF16_TURNS = 2                    # micro-batches per precision and shape
+
+
+def attention_bf16_bound(b, h, t, dh):
+    """The bf16 forward: bf16 operands and output, f32 masks; the three
+    products at the bf16 tensor-core peak (plus ~6 ops per score)."""
+    n_bytes = (2 * (5 * b * h * t * dh + h * (2 * t - 1) * dh)
+               + 4 * (b * t + t * t))
+    return bound(n_bytes, 6 * b * h * t * t * dh + 6 * b * h * t * t,
+                 PEAK_BF16_FLOP_PER_S)
+
+
+def attention_bf16_bwd_bound(b, h, t, dh):
+    """The bf16 backward: read q_u, q_v, k, v, do and p in bf16, the row
+    statistics and the masks in f32; write dq_u, dq_v, dk, dv and dp in
+    bf16; 16 B H T^2 Dh of products at the bf16 peak (plus ~10 ops per
+    score)."""
+    n_bytes = (2 * (9 * b * h * t * dh + 2 * h * (2 * t - 1) * dh)
+               + 4 * (2 * b * h * t + b * t + t * t))
+    return bound(n_bytes, 16 * b * h * t * t * dh + 10 * b * h * t * t,
+                 PEAK_BF16_FLOP_PER_S)
+
+
+def bf16_case(t, mask, gen, device, b=B):
+    """``attention_case`` with bf16 operands and the f32 masks of
+    ``mask``: key padding only, or the causal lookahead, or lookahead
+    and an ``att_context_size`` band of 64."""
+    import torch
+    args = attention_case(t, False, gen, device, b)
+    if mask != "key padding":
+        args[6] = causal_am(t, 64 if "band" in mask else 0).to(device)
+    return [x.to(torch.bfloat16) for x in args[:5]] + args[5:]
+
+
+def bf16_attention_errors(args, do, seed, scale, rate, what,
+                          backward=True):
+    """A bf16 kernel pair on ``args`` against the plain bf16 version and
+    the same function in f64: the forward within BF16_FWD_TOL of the
+    plain max |o| and each gradient within BF16_BWD_TOL of its max |g|,
+    and the kernels' error against f64 at most BF16_F64_RATIO times the
+    plain version's. Returns (forward err, worst gradient err, worst
+    kernel / plain ratio against f64); ``backward`` False checks the
+    forward alone."""
+    import torch
+    from tsasr_torch.kernels import relpos_attention as ra
+    res = {}
+    for name, fn, dtype in (
+            ("kernel", ra.fused_relpos_attention, None),
+            ("plain", ra.relpos_attention_reference, None),
+            ("f64", ra.relpos_attention_reference, torch.float64)):
+        leaves = [(x if dtype is None else x.to(dtype)).requires_grad_(
+                      backward and i < 5) for i, x in enumerate(args)]
+        with torch.set_grad_enabled(backward):
+            out = fn(*leaves, seed=seed, scale=scale, rate=rate)
+        grads = torch.autograd.grad(out, leaves[:5], do if dtype is None
+                                    else do.to(dtype)) if backward else ()
+        res[name] = [out.detach(), *grads]
+
+    def err(a, b):
+        return ((a.double() - b.double()).abs().max()
+                / b.double().abs().max().clamp(min=1e-30)).item()
+
+    names = ("out", "dq_u", "dq_v", "dk", "dv", "dp")[:len(res["kernel"])]
+    worst_fwd = worst_bwd = worst_ratio = 0.0
+    for i, name in enumerate(names):
+        k, p, f = res["kernel"][i], res["plain"][i], res["f64"][i]
+        e_kp, e_kf, e_pf = err(k, p), err(k, f), err(p, f)
+        tol = BF16_FWD_TOL if i == 0 else BF16_BWD_TOL
+        if not (e_kp <= tol and torch.isfinite(k).all()):
+            raise RuntimeError(f"{what} {name}: err {e_kp:.3g} of the plain "
+                               f"bf16 version's max > {tol:.3g}")
+        if e_kf > BF16_F64_RATIO * e_pf + 1e-7:
+            raise RuntimeError(f"{what} {name}: err against f64 {e_kf:.3g} "
+                               f"> {BF16_F64_RATIO} x the plain version's "
+                               f"{e_pf:.3g}")
+        if i == 0:
+            worst_fwd = e_kp
+        else:
+            worst_bwd = max(worst_bwd, e_kp)
+        worst_ratio = max(worst_ratio, e_kf / max(e_pf, 1e-30))
+    return worst_fwd, worst_bwd, worst_ratio
+
+
+def bf16_kernel_checks(device):
+    """(a) each bf16 kernel against its plain bf16 version and f64, the
+    forward and the backward, dropout 0.1, on each of BF16_MASKS at each
+    of BF16_T (B8 H4 Dh64)."""
+    import torch
+    scale = 1.0 / math.sqrt(H * DH)
+    gen = torch.Generator().manual_seed(SEED + 21)
+    seed = torch.tensor([2024], device=device)
+    for t in BF16_T:
+        for mask in BF16_MASKS:
+            args = bf16_case(t, mask, gen, device)
+            do = torch.randn(B, H, t, DH, generator=gen).to(device).to(
+                torch.bfloat16)
+            what = f"bf16 kernels B{B} H{H} T{t} Dh{DH} {mask}"
+            fwd, bwd, ratio = bf16_attention_errors(args, do, seed, scale,
+                                                    BF16_RATE, what)
+            log(f"{what} dropout {BF16_RATE}: forward err {fwd:.3g} of max "
+                f"|o| (tol {BF16_FWD_TOL:.3g}), backward worst {bwd:.3g} "
+                f"of max |g| (tol {BF16_BWD_TOL:.3g}), against f64 at most "
+                f"{ratio:.3f} x the plain bf16 version's error (limit "
+                f"{BF16_F64_RATIO})")
+
+
+def device_ms_seen(fn, tries=3):
+    """``device_ms_by_kernel`` again when a profiler window saw no device
+    event (it happens now and then after many windows in one process);
+    {} after ``tries`` empty windows."""
+    for _ in range(tries):
+        seen = device_ms_by_kernel(fn)
+        if seen:
+            return seen
+    return {}
+
+
+def bf16_kernel_times(device, card):
+    """(b1) the bf16 kernels at B8 H4 T101 / 208 / 408 Dh64 (key
+    padding, dropout 0): CUDA events and profiler device time, the f32
+    kernels on the same values in turns (bf16, f32, f32, bf16), the
+    plain bf16 versions, SDPA in bf16 given the pre-shifted bias, and the
+    bound at the bf16 peak. Returns (forward rows, backward rows)."""
+    import torch
+    import torch.nn.functional as F
+    from tsasr_torch.kernels import relpos_attention as ra
+    scale = 1.0 / math.sqrt(H * DH)
+    gen = torch.Generator().manual_seed(SEED + 22)
+    fwd_rows, bwd_rows = [], []
+    for t in BF16_T:
+        a16 = bf16_case(t, "key padding", gen, device)
+        a32 = [x.float() for x in a16[:5]] + a16[5:]
+        do16 = torch.randn(B, H, t, DH, generator=gen).to(device).to(
+            torch.bfloat16)
+        do32 = do16.float()
+        qu, qv, k, v, p, kp, am = a16
+        bias = (ra.rel_shift(torch.einsum("bhtd,hsd->bhts", qv, p), t)
+                * scale + am + kp[:, None, None, :]).to(torch.bfloat16)
+        with torch.no_grad():
+            err = ((ra.fused_relpos_attention(*a16, seed=0, scale=scale,
+                                              rate=0.0).double()
+                    - ra.relpos_attention_reference(*a16, scale).double())
+                   .abs().max().item())
+
+        def fwd(args):
+            return lambda: ra._launch_fwd(*args, 0, scale, 0.0, False)
+
+        turns = [cuda_ms(fn) for fn in (fwd(a16), fwd(a32), fwd(a32),
+                                        fwd(a16))]
+        ms, ms32 = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+        plain_ms = cuda_ms(lambda: ra.relpos_attention_reference(*a16,
+                                                                 scale))
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qu, k, v, attn_mask=bias, scale=scale))
+        dev = [sum(device_ms_seen(fn).values()) or None
+               for fn in (fwd(a16), fwd(a32), lambda: (
+                   F.scaled_dot_product_attention(qu, k, v, attn_mask=bias,
+                                                  scale=scale)))]
+        bound_ms, bound_by = attention_bf16_bound(B, H, t, DH)
+        fwd_rows.append(dict(B=B, T=t, err=err, ms=ms, plain_ms=plain_ms,
+                             library_ms=lib_ms, device_ms=dev[0],
+                             library_device_ms=dev[2], bound_ms=bound_ms,
+                             bound_by=bound_by))
+        log(f"kernel relpos_attention_fwd_bf16 B{B} H{H} T{t} Dh{DH}: "
+            f"CUDA events bf16 {turns[0]:.4f} / {turns[3]:.4f} ms, f32 "
+            f"{turns[1]:.4f} / {turns[2]:.4f} ms (in turns), plain bf16 "
+            f"{plain_ms:.4f} ms, SDPA bf16 {lib_ms:.4f} ms (given the "
+            f"bias); device time (profiler) bf16 {dev[0]} ms, f32 {dev[1]} "
+            f"ms, SDPA {dev[2]} ms; bound {bound_ms:.5f} ms by {bound_by} "
+            f"(bf16 peak); max_abs_err {err:.3g} [{card}]")
+
+        outs = {}
+        for name, args in (("bf16", a16), ("f32", a32)):
+            outs[name] = ra._launch_fwd(*args, 0, scale, 0.0, True)[:2]
+        grads = []
+        for fn in (ra.fused_relpos_attention, ra.relpos_attention_reference):
+            leaves = [x.clone().requires_grad_(i < 5)
+                      for i, x in enumerate(a16)]
+            out = fn(*leaves, seed=0, scale=scale, rate=0.0)
+            grads.append(torch.autograd.grad(out, leaves[:5], do16))
+        berr = max((a.double() - b.double()).abs().max().item()
+                   for a, b in zip(*grads))
+
+        def bwd(args, name, do):
+            out, stats = outs[name]
+            return lambda: ra._launch_bwd(*args, out, stats, do, None,
+                                          scale, 0.0)
+
+        turns = [cuda_ms(fn) for fn in (bwd(a16, "bf16", do16),
+                                        bwd(a32, "f32", do32),
+                                        bwd(a32, "f32", do32),
+                                        bwd(a16, "bf16", do16))]
+        bms, bms32 = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+        plain_bwd_ms = cuda_ms(lambda: ra.relpos_attention_bwd_bf16(
+            *a16, do16, scale), reps=10)
+        sq, sk, sv = (x.clone().requires_grad_() for x in (qu, k, v))
+
+        def sdpa_fwd_bwd():
+            o = F.scaled_dot_product_attention(sq, sk, sv, attn_mask=bias,
+                                               scale=scale)
+            torch.autograd.grad(o, (sq, sk, sv), do16)
+
+        with torch.no_grad():
+            sdpa_fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                sq, sk, sv, attn_mask=bias, scale=scale))
+        lib_bwd_ms = cuda_ms(sdpa_fwd_bwd, reps=10) - sdpa_fwd_ms
+        passes = device_ms_seen(bwd(a16, "bf16", do16))
+        passes32 = device_ms_seen(bwd(a32, "f32", do32))
+        by_pass = ", ".join(
+            f"{name} {sum(v for k, v in passes.items() if name in k):.4f}"
+            for name in ("dq16_kernel<64, 4, true>",
+                         "dq16_kernel<64, 4, false>", "dkv16_kernel",
+                         "dp16_kernel", "dp16_sum_kernel"))
+        bbound, bby = attention_bf16_bwd_bound(B, H, t, DH)
+        bwd_rows.append(dict(T=t, err=berr, ms=bms, plain_ms=plain_bwd_ms,
+                             library_ms=lib_bwd_ms,
+                             device_ms=sum(passes.values()) or None,
+                             bound_ms=bbound, bound_by=bby))
+        log(f"kernel relpos_attention_bwd_bf16 B{B} H{H} T{t} Dh{DH}: CUDA "
+            f"events bf16 {turns[0]:.4f} / {turns[3]:.4f} ms, f32 "
+            f"{turns[1]:.4f} / {turns[2]:.4f} ms (in turns), plain bf16 "
+            f"backward {plain_bwd_ms:.4f} ms, SDPA bf16 backward "
+            f"{lib_bwd_ms:.4f} ms (fwd+bwd minus fwd, given the bias); "
+            f"device time (profiler) bf16 {sum(passes.values()):.4f} ms "
+            f"(delta, dq, dkv, dp, dp sum: {by_pass}), f32 "
+            f"{sum(passes32.values()):.4f} ms; bound {bbound:.5f} ms by "
+            f"{bby} (bf16 peak); max_abs_err {berr:.3g} [{card}]")
+    return fwd_rows, bwd_rows
+
+
+def precision_brains(device):
+    """Two full-width scratch brains, f32 and bf16, on the same seeded
+    weights; no optimizer step within the accumulation window."""
+    import torch
+    from tsasr_torch.models.transducer import scratch_config
+    brains = {}
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        brains[name] = make_brain(scratch_config(dtype=dtype), device,
+                                  {"grad_accumulation_factor": 1000})
+        brains[name].init_optimizers()
+    for a, b in zip(brains["f32"].model.parameters(),
+                    brains["bf16"].model.parameters()):
+        if not torch.equal(a, b):
+            raise RuntimeError("the bf16 and f32 brains' weights differ")
+    return brains
+
+
+def bf16_fit_batches(device, card, batches, brains):
+    """(b2) ``fit_batch`` at full width in bf16 and f32 in turns (f32,
+    bf16, bf16, f32 on each shape) on the same weights and batches:
+    host ms per micro-batch, the device time and launches under the
+    profiler, ``max_memory_allocated``; every bf16 micro-batch launches
+    the bf16 kernels once per layer and no f32 attention kernel."""
+    import torch
+    order = ("f32", "bf16", "bf16", "f32")
+    summary = {}
+    for (n, seconds), batch in zip(TRAIN_BATCHES, batches):
+        for name in ("f32", "bf16"):                 # warm up each
+            brains[name].fit_batch(batch)
+        torch.cuda.synchronize()
+        ms = collections.defaultdict(list)
+        for name in order:
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            before = read_bf16_counts()
+            t0 = time.perf_counter()
+            loss = brains[name].fit_batch(batch)
+            torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t0) * 1e3)
+            # the process's peak, and the micro-batch's own above what
+            # was live before it (both brains, earlier phases' leftovers)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            own = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+            after = read_bf16_counts()
+            got = {k: after[k] - before[k] for k in after if after[k] !=
+                   before[k]}
+            sfx = "_bf16" if name == "bf16" else ""
+            want_attn = {f"relpos_attention_fwd{sfx}": LAYERS_PER_REQUEST,
+                         f"relpos_attention_bwd{sfx}": LAYERS_PER_REQUEST}
+            if device.type != "cuda":
+                want_attn = {}
+            if {k: v for k, v in got.items() if "attention" in k} != \
+                    want_attn or not math.isfinite(loss):
+                raise RuntimeError(f"{name} fit_batch {n} x {seconds} s: "
+                                   f"loss {loss}, launches {got}")
+            summary.setdefault((n, seconds, name), {}).update(
+                peak_gib=peak, own_gib=own)
+        for name in ("f32", "bf16"):
+            wall, events = profiled(lambda: brains[name].fit_batch(batch))
+            dev_ms = sum(device_us(e) for e in events) / 1e3
+            launches = sum(e.count for e in events)
+            row = summary[(n, seconds, name)]
+            row.update(ms=ms[name], device_ms=dev_ms, launches=launches)
+            log(f"fit_batch {n} x {seconds} s {name}: host ms "
+                + " / ".join(f"{x:.1f}" for x in ms[name])
+                + f" (in turns f32, bf16, bf16, f32); under the profiler "
+                f"device {dev_ms:.1f} ms of {wall:.1f} ms wall, {launches} "
+                f"kernel launches; max_memory_allocated "
+                f"{row['peak_gib']:.2f} GiB, {row['own_gib']:.2f} GiB above "
+                f"what was live before the micro-batch [{card}]")
+    return summary
+
+
+def bf16_model_check(batch, brains):
+    """(c) the full-width scratch model in bf16 against f32 on the same
+    weights and micro-batch, dropout 0 (the brains' dropout turned off):
+    the loss within BF16_LOSS_RTOL and the gradient (all leaves as one
+    vector) at cosine BF16_GRAD_COSINE or more."""
+    import torch
+    from tsasr_torch.ops.dropout import Dropout
+    for brain in brains.values():
+        for module in brain.model.modules():
+            if isinstance(module, Dropout):
+                module.rate = 0.0
+    res = {name: loss_and_grads(brain, batch)
+           for name, brain in brains.items()}
+    (l32, g32), (l16, g16) = res["f32"], res["bf16"]
+    if any(g.dtype != torch.float32 for g in g16):
+        raise RuntimeError("the bf16 model's gradients are not f32")
+    v32 = torch.cat([g.double().flatten() for g in g32])
+    v16 = torch.cat([g.double().flatten() for g in g16])
+    cosine = (v32 @ v16 / (v32.norm() * v16.norm())).item()
+    rel = abs(l16.item() - l32.item()) / abs(l32.item())
+    l2 = ((v16 - v32).norm() / v32.norm()).item()
+    log(f"full-width model bf16 against f32, dropout 0, one 6 x 8 s "
+        f"micro-batch: loss {l16.item():.4f} against {l32.item():.4f} "
+        f"(rel {rel:.3g}, limit {BF16_LOSS_RTOL}), gradient cosine "
+        f"{cosine:.5f} (limit {BF16_GRAD_COSINE}), relative L2 {l2:.4f}, "
+        f"worst leaf "
+        f"{max(leaf_errors(g16, g32)):.3g} of its max |g|")
+    if not (rel <= BF16_LOSS_RTOL and cosine >= BF16_GRAD_COSINE):
+        raise RuntimeError("the bf16 model disagrees with the f32 model")
+
+
+def bf16_experiment(device, card, corpus):
+    """(d) the scratch yaml through ``run_experiment`` with ``--precision
+    bf16 --fused_attention True``: 2 optimizer steps, VALID greedy, TEST
+    at the yaml's batched beam 15; every batch launches the bf16 kernels
+    as its shapes imply and no f32 attention kernel; then the bf16
+    kernels against their plain versions (and f64) on the run's own
+    tensors, one call per shape. Returns the launch counts."""
+    import tempfile
+    import torch
+    from tsasr_torch.recipes.librispeechmix import TSASRBrain, run_experiment
+    root = Path(__file__).resolve().parent
+    on_card = device.type == "cuda"
+    with tempfile.TemporaryDirectory(prefix="tsasr_bf16_") as tmp:
+        args = [str(root / EXPERIMENT_YAML), "--data_folder", str(corpus),
+                "--output_folder", str(Path(tmp) / "out"),
+                "--fused_attention", "True", "--precision", "bf16",
+                "--valid_search_freq", "1", "--noprogressbar",
+                "--vocab_size", str(corpus_vocab(corpus)),
+                "--num_epochs", "1", "--optimizer_step_limit", "2"]
+        if not on_card:
+            args += ["--device", str(device)]
+        t0 = time.perf_counter()
+        with captured_kernel_calls() as seen, \
+                counted_batches(TSASRBrain, on_card, bf16=True) as (
+                    counts, timings):
+            brain = run_experiment(argv=args)
+        run_s = time.perf_counter() - t0
+        run_counts = read_bf16_counts()
+        by_batch = {k: sum(c.get(k, 0) for c in counts.values())
+                    for k in run_counts}
+        if by_batch != run_counts:
+            raise RuntimeError(f"launches {run_counts} outside the bf16 "
+                               f"run's batches {by_batch}")
+        model = brain.model
+        if model.config.dtype != torch.bfloat16 or any(
+                p.dtype != torch.float32 for p in model.parameters()):
+            raise RuntimeError("the bf16 run's model is not bf16 on f32 "
+                               "parameters")
+        if brain.optimizer_step != 2 or counts["TRAIN"]["batches"] != 8:
+            raise RuntimeError("the bf16 run did not take 2 optimizer steps")
+        if not (brain._beam.beam_size == BEAM_SIZE
+                and type(brain._beam).__name__ == "BatchedBeamSearcher"):
+            raise RuntimeError(f"the bf16 TEST searched with {brain._beam!r}")
+        wer = (Path(tmp) / "out" / "wer_test-clean-2mix.txt").read_text()
+        if not wer.startswith("%WER"):
+            raise RuntimeError("the bf16 run wrote no WER file")
+        through = [(a + b) * 1e3 for a, b in zip(timings["loader_wait_s"],
+                                                 timings["fit_batch_s"])]
+        log(f"bf16 experiment: {run_s:.1f} s; batches "
+            + ", ".join(f"{k} {v['batches']}" for k, v in counts.items())
+            + "; launches " + ", ".join(
+                f"{k} {dict((n, c) for n, c in v.items() if c)}"
+                for k, v in counts.items()))
+        log(f"bf16 experiment TRAIN through the loader: ms per micro-batch "
+            + ", ".join(f"{x:.1f}" for x in through)
+            + f"; warm median {statistics.median(through[2:]):.1f} ms; "
+            f"VALID wall {timings['valid_s'][0]:.2f} s over "
+            f"{counts['VALID']['batches']} batches (greedy), TEST wall "
+            f"{timings['test_s'][0]:.2f} s over {counts['TEST']['batches']} "
+            f"batches (batched beam {BEAM_SIZE}) [{card}]")
+        del brain, model
+    gen = torch.Generator().manual_seed(SEED + 23)
+    worst = {"fwd": 0.0, "bwd": 0.0, "ratio": 0.0}
+    for (shape, rate, train, _), (args, seed, scale) in \
+            seen["attention"].items():
+        if args[0].dtype != torch.bfloat16:
+            raise RuntimeError(f"the bf16 run gave the attention "
+                               f"{args[0].dtype} operands at {shape}")
+        do = torch.randn(shape, generator=gen).to(args[0].device).to(
+            torch.bfloat16)
+        fwd, bwd, ratio = bf16_attention_errors(
+            args, do, seed, scale, rate, f"bf16 kernels at the run's {shape} "
+            f"rate {rate}", backward=train)
+        worst["fwd"] = max(worst["fwd"], fwd)
+        worst["ratio"] = max(worst["ratio"], ratio)
+        if train:
+            worst["bwd"] = max(worst["bwd"], bwd)
+    lattice = check_path_kernels({"attention": {}, "lattice": seen["lattice"]})
+    frames = sorted({shape[2] for shape, *_ in seen["attention"]})
+    log(f"bf16 experiment kernels against their plain bf16 versions on the "
+        f"run's own inputs, one call per shape: attention at "
+        f"{len(seen['attention'])} shapes (T {frames}), forward worst "
+        f"{worst['fwd']:.3g} of max |o| (tol {BF16_FWD_TOL:.3g}), backward "
+        f"worst {worst['bwd']:.3g} of max |g| (tol {BF16_BWD_TOL:.3g}), "
+        f"against f64 at most {worst['ratio']:.3f} x the plain version's "
+        f"error; lattice at {len(seen['lattice'])} shapes on f32 log-probs "
+        f"of the bf16 joint, worst err/tol {lattice['lattice']:.3g}")
+    return run_counts
+
+
+def phase_bf16(device, card, corpus):
+    """bf16 compute (the recipe's ``precision: bf16``): (a) the bf16
+    kernels against their plain versions and f64; (b) their times
+    beside the f32 kernels', SDPA's and the bound, and ``fit_batch`` in
+    bf16 and f32 in turns; (c) the full-width model in bf16 against f32;
+    (d) the bf16 recipe run. The bf16 kernels' launch counts come from
+    (b)'s ``fit_batch`` runs and (d), the counts set to 0 before each."""
+    import torch
+    t0 = time.perf_counter()
+    marks = []
+
+    def mark(name):
+        marks.append(f"{name} {time.perf_counter() - t0:.1f} s")
+
+    bf16_kernel_checks(device)
+    mark("kernel checks")
+    fwd_rows, bwd_rows = bf16_kernel_times(device, card)
+    mark("kernel times")
+    batches, check_batch, _ = training_batches()
+    brains = precision_brains(device)
+    mark("brains")
+    reset_counts()
+    bf16_fit_batches(device, card, batches[:2], brains)
+    fit_counts = read_bf16_counts()
+    mark("fit_batch turns")
+    bf16_model_check(check_batch, brains)
+    del brains
+    torch.cuda.empty_cache()
+    mark("bf16 vs f32")
+    reset_counts()
+    run_counts = bf16_experiment(device, card, corpus)
+    mark("recipe run")
+    counts = {k: {"fit_batch": fit_counts[k], "experiment": run_counts[k]}
+              for k in ("relpos_attention_fwd_bf16",
+                        "relpos_attention_bwd_bf16")}
+    log(f"bf16 kernels' launches on the bf16 paths: {counts}; phase "
+        f"{time.perf_counter() - t0:.1f} s (done at: {', '.join(marks)})")
+    torch.cuda.empty_cache()
+    return fwd_rows, bwd_rows, counts
+
+
 def phase_small(device):
     """A small model on the card (kernels) against the CPU (plain):
     serving encoder output, then 2 optimizer steps of training."""
@@ -3219,6 +3740,10 @@ def main():
     tensor_core_check(ra.SOURCE, ("relpos_attention_fwd_kernel",))
     tensor_core_check(ra.BWD_SOURCE, ("dq_kernel", "dkv_kernel",
                                       "dp_kernel"))
+    tensor_core_check(ra.SOURCE, ("relpos_attention_fwd_bf16_kernel",),
+                      "BF16")
+    tensor_core_check(ra.BWD_SOURCE, ("dq16_kernel", "dkv16_kernel",
+                                      "dp16_kernel"), "BF16")
 
     fwd_rows = phase_attention_fwd(device)
     bwd_rows = phase_attention_bwd(device)
@@ -3239,6 +3764,8 @@ def main():
         streaming = phase_streaming(device, card, corpus)
         log(f"streaming phase done at {time.perf_counter() - t_start:.1f} "
             "s")
+        bf16_fwd, bf16_bwd, bf16_counts = phase_bf16(device, card, corpus)
+        log(f"bf16 phase done at {time.perf_counter() - t_start:.1f} s")
     phase_small(device)
     log(f"all phases done at {time.perf_counter() - t_start:.1f} s")
 
@@ -3275,6 +3802,15 @@ def main():
             f"tsasr_tpu/ops/rnnt_loss_pallas.py:{line}",
             sum(paths(name).values()), paths(name), row,
             row["shape"] + " f32"))
+    for name, rows, t in (("relpos_attention_fwd_bf16", bf16_fwd, 101),
+                          ("relpos_attention_bwd_bf16", bf16_bwd, 208)):
+        row = next(r for r in rows if r["T"] == t)
+        line = 128 if "fwd" in name else 143
+        kernels.append(kernel_entry(
+            name, f"tsasr_torch/csrc/relpos_attention_{name[17:20]}.cu",
+            f"tsasr_tpu/ops/attention_pallas.py:{line}",
+            sum(bf16_counts[name].values()), bf16_counts[name], row,
+            f"B{B} H{H} T{t} Dh{DH} bf16"))
     for entry in kernels:
         if entry["launches"] < 1:
             raise RuntimeError(f"{entry['name']} was not launched on the "

@@ -696,3 +696,75 @@ def test_batched_beam_on_the_card_matches_the_cpu(cuda, lm):
             assert abs(hyps[best] - w_hyps[best]) < 1e-4
         else:
             assert scores[0] - scores[1] <= 1e-4, b
+
+
+# ------------------------------------------------------------------ bf16
+@pytest.mark.parametrize("M,N,K", [(16, 16, 16), (64, 48, 32), (32, 64, 64)])
+@pytest.mark.parametrize("mode", [0, 1, 2, 3])
+def test_bf16_mma_helper_matches_f64(cuda, M, N, K, mode):
+    """The bf16 kernels' mma.sync m16n8k16 helper by each route of its
+    fragments (ldmatrix, ldmatrix .trans, the functor loaders, the
+    accumulators packed as the A operand) as a plain product of bf16
+    operands, against f64: the products are exact and sum in f32."""
+    import ctypes
+    from tsasr_torch.kernels import _build
+    fn = _build.load(relpos_attention.SOURCE).relpos_bf16_matmul_test
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + \
+        [ctypes.c_void_p]
+    g = torch.Generator().manual_seed(M + N + K)
+    a = torch.randn(M, K, generator=g).to(cuda).bfloat16()
+    b = torch.randn(K, N, generator=g).to(cuda).bfloat16()
+    c = torch.full((M, N), float("nan"), device=cuda)
+    assert fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), M, N, K, mode,
+              torch.cuda.current_stream().cuda_stream) == 0
+    torch.cuda.synchronize()
+    want = a.double() @ b.double()
+    assert (c.double() - want).abs().max() <= 1e-5 * (
+        a.double().abs() @ b.double().abs()).max()
+
+
+@pytest.mark.parametrize("B,H,T,Dh,rate", [(2, 3, 10, 8, 0.0),
+                                           (8, 4, 101, 64, 0.1),
+                                           (3, 4, 208, 64, 0.1),
+                                           (2, 2, 45, 128, 0.1),
+                                           (1, 2, 19, 12, 0.0)])
+def test_relpos_attention_bf16_kernels_match_plain(cuda, B, H, T, Dh, rate):
+    """The bf16 kernels against the plain bf16 version (the JAX kernels'
+    rounding points), forward and backward: both round at the same
+    points but sum in other orders, so an output near a rounding boundary
+    lands an ulp apart: within 2^-7 of max |o| and 2^-6 of each
+    gradient's max |g|; and no further from f64 than 1.5 times the plain
+    version. The bf16 counts move, the f32 ones do not."""
+    args = attention_case(B, H, T, Dh, cuda, seed=T + Dh)
+    args = [x.bfloat16() for x in args[:5]] + args[5:]
+    seed = torch.tensor([31337], device=cuda)
+    do = torch.randn(B, H, T, Dh, device=cuda).bfloat16()
+    res = {}
+    before = (relpos_attention.launches, relpos_attention.bwd_launches,
+              relpos_attention.bf16_launches,
+              relpos_attention.bf16_bwd_launches)
+    for name, fn, dtype in (
+            ("kernel", relpos_attention.fused_relpos_attention, None),
+            ("plain", relpos_attention.relpos_attention_reference, None),
+            ("f64", relpos_attention.relpos_attention_reference,
+             torch.float64)):
+        leaves = [(x if dtype is None else x.to(dtype)).clone()
+                  .requires_grad_(i < 5) for i, x in enumerate(args)]
+        out = fn(*leaves, seed=seed, scale=0.0625, rate=rate)
+        res[name] = [out.detach(), *torch.autograd.grad(
+            out, leaves[:5], do if dtype is None else do.to(dtype))]
+    torch.cuda.synchronize()
+    after = (relpos_attention.launches, relpos_attention.bwd_launches,
+             relpos_attention.bf16_launches,
+             relpos_attention.bf16_bwd_launches)
+    assert after == (before[0], before[1], before[2] + 1, before[3] + 1)
+
+    def err(a, b):
+        return ((a.double() - b.double()).abs().max()
+                / b.double().abs().max()).item()
+
+    for i, (k, p, f) in enumerate(zip(res["kernel"], res["plain"],
+                                      res["f64"])):
+        assert k.dtype == torch.bfloat16
+        assert err(k, p) <= (2.0 ** -7 if i == 0 else 2.0 ** -6)
+        assert err(k, f) <= 1.5 * err(p, f) + 1e-7

@@ -281,6 +281,8 @@ def test_scratch_yamls_give_the_same_scalars(tmp_path):
     for key in tcfg.__dataclass_fields__:
         if key in ("frontend_channels", "frontend_strides"):
             assert tuple(getattr(tcfg, key)) == tuple(getattr(jcfg, key))
+        elif key == "dtype":             # torch's f32 and jnp's, by name
+            assert str(tcfg.dtype) == f"torch.{np.dtype(jcfg.dtype)}"
         else:
             assert getattr(tcfg, key) == getattr(jcfg, key), key
     assert got["noam_scheduler"].n_warmup_steps == \

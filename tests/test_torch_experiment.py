@@ -268,7 +268,6 @@ def test_without_device_it_asks_for_the_card(corpus, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--precision", "bf16"], "precision"),
     (["--data_parallel_count", "2"], "data_parallel_count"),
     (["--profile"], "profile"),
     (["--injection_mode", "cross_attention"], "injection_mode"),

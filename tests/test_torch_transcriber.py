@@ -67,6 +67,9 @@ def test_scratch_config_matches_recipe_yaml():
     for field in config.__dataclass_fields__:
         if field == "fused_attention":
             continue
+        if field == "dtype":            # torch's f32 and jnp's, by name
+            assert str(config.dtype) == f"torch.{np.dtype(recipe.dtype)}"
+            continue
         assert getattr(config, field) == getattr(recipe, field), field
     assert config.fused_attention        # the slice runs the kernel
     assert recipe.speaker_encoder_type == "conformer"

@@ -716,3 +716,602 @@ extern "C" int relpos_tf32x3_matmul_test(const float* a, const float* b,
                                                               K);
   return (int)cudaGetLastError();
 }
+
+// ===================================================================== bf16
+// The bf16 variant (relpos_attention_bwd_bf16): q_u, q_v, k, v, p, out and
+// do in bf16, the gradients in bf16, the masks and the statistics f32. It
+// rounds where the JAX kernel rounds with bf16 operands (_bwd_kernel with
+// cdt = bf16): every product takes bf16 operands and sums in f32
+// (mma_bf16.cuh); dv = bf16(Pd)^T do; dP = do v^T and the softmax
+// jacobian in f32; dS rounded to bf16 once, which is both the JAX
+// kernel's ds (for dq_u and dk) and its un-shifted dbdf (for dq_v and
+// dp: the un-shift only moves elements); dp summed over the batch in f32
+// (the partials and pass 5 as in the f32 kernel) and rounded to bf16
+// once.
+//
+// One pass more than the f32 kernel: D_i = sum_j P_ij dP_ij, the JAX
+// kernel's "row", in f32 from the scores (pass 1, delta: a sweep over the
+// keys of each query tile with the scores and dP products, no gradient
+// products), where the f32 kernel takes do_i . out_i. With a bf16 out
+// that dot carries out's rounding into every dS of the row, coherently:
+// on peaked rows it doubled the gradients' error against f64 in the plain
+// version. Passes 2-4 are the f32 kernel's, tiles in bf16 (rows DP + 8
+// elements apart), fragments by ldmatrix where the rows are contiguous
+// (q_u, q_v, do, k, v, the window, Pd and dS transposed from the dkv
+// tile) and by functors on the skewed reads (dS for dq_u, dSk for dp).
+// The dq pass writes bf16 dS into the row group's skew buffer, in the
+// memory of its f32 BD buffer.
+//
+// What bounds it on an H100: ~16 B H T^2 Dh operations of products at the
+// bf16 tensor-core peak (989 TFLOP/s) against the bytes of the bf16
+// operands, outputs and f32 masks at 3.35 TB/s; at B8 H4 T208 Dh64, 0.0014
+// ms of operations against 0.0031 ms of bytes. The kernel recomputes
+// every score in each of passes 1-4 and runs one wave of blocks: latency-
+// bound, as the f32 kernel.
+
+#include "mma_bf16.cuh"
+
+namespace {
+
+using tsasr::bf16;
+using tsasr::FragA16;
+using tsasr::ldsm_a;
+using tsasr::ldsm_a_trans;
+using tsasr::load_a16;
+using tsasr::load_rows16;
+using tsasr::mma_row_kmajor;
+using tsasr::mma_row_nmajor;
+using tsasr::pair_sync;
+
+struct Args16 {
+  const bf16 *qu, *qv, *k, *v, *p, *dout;
+  const float *kp, *am, *stats;
+  const long long* seed;
+  uint32_t thresh;
+  float keep_scale, scale;
+  float* delta;
+  bf16 *dqu, *dqv, *dk, *dv;
+  float* dp_part;
+  bf16* dp;
+  int B, H, T, Dh;
+  bool vec;                                // 16-byte copies are aligned
+};
+
+// DP: padded head dim; NR: row groups of 16 in a tile (2 NR warps). Tile
+// sizes in bf16 elements, the byte counts named so.
+template <int DP, int NR>
+struct Cfg16 {
+  static constexpr int kTile = kWarpRows * NR;
+  static constexpr int kWarps = 2 * NR;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kWin = 2 * kTile;
+  static constexpr int kBW = kTile + kWarpRows;
+  static constexpr int kNB = kBW / 8;
+  static constexpr int kWK = kTile / 2;
+  static constexpr int kNKW = kWK / 8;
+  static constexpr int kND = DP / 8;
+  static constexpr int kNDH = kND / 2;
+  static constexpr int kLd = DP + 8;
+  static constexpr int kLdB = kBW + 4;     // f32 BD buffer rows (floats)
+  static constexpr int kLdS = kBW + 8;     // bf16 dS skew buffer rows
+  static constexpr int kLdX = kTile + 8;   // bf16 Pd / dS tile rows
+  static constexpr int kTileE = kTile * kLd;
+  static constexpr int kWinE = kWin * kLd;
+  static constexpr int kScratchBytes =
+      4 * NR * kWarpRows * kLdB > 2 * kTile * kLdX ? 4 * NR * kWarpRows * kLdB
+                                                   : 2 * kTile * kLdX;
+  static constexpr int kDqStage = 2 * kTileE + kWinE;    // k, v, window
+  static constexpr int kDkvStage = 3 * kTileE + kWinE;   // q_u, q_v, do, win
+  static constexpr int kDpStage = 5 * kTileE;            // q_u, q_v, do, k, v
+  static constexpr int kDqTiles = 3 * kTileE + 2 * kDqStage;
+  static constexpr int kDkvTiles = 2 * kTileE + 2 * kDkvStage;
+  static constexpr int kDpTiles = kWinE + 2 * kDpStage;
+  static constexpr int kDqBytes = 2 * kDqTiles + kScratchBytes;
+  static constexpr int kDkvBytes = 2 * kDkvTiles + kScratchBytes;
+  static constexpr int kDpBytes = 2 * kDpTiles + kScratchBytes;
+  static_assert(kND % 2 == 0 && kWin == kWarps * 16 && kBW % 16 == 0,
+                "warp shares");
+  static_assert(2 * kWarpRows * kLdS <= 4 * kWarpRows * kLdB,
+                "dS skew buffer in the BD buffer");
+  static_assert(kDqBytes <= kSmemLimit && kDkvBytes <= kSmemLimit &&
+                    kDpBytes <= kSmemLimit,
+                "shared memory of a block");
+};
+
+__device__ __forceinline__ RowStats row_stats16(const Args16& a, size_t bh,
+                                                int i_first, bool delta) {
+  RowStats st;
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const size_t row = bh + min(i_first + c_row(2 * q), a.T - 1);
+    st.m[q] = a.stats[2 * row];
+    st.linv[q] = a.stats[2 * row + 1];
+    st.delta[q] = delta ? a.delta[row] : 0.f;
+  }
+  return st;
+}
+
+// This warp's scores as score_tile has them, from bf16 tiles: Pd, and dS
+// = P (dP - D) scale, or with kRaw P dP (pass 1's terms of D). sB is the
+// row group's f32 16 x (TILE + 16) buffer; it holds BD on return.
+template <int DP, int NR, bool kRaw>
+__device__ __forceinline__ void score_tile16(
+    const Args16& a, const bf16* sQu, const bf16* sQv, const bf16* sDo,
+    const bf16* sK, const bf16* sV, const bf16* sP, float* sB, int i0,
+    int j0, int b, int h, const RowStats& st, uint64_t seed,
+    float (&ds)[Cfg16<DP, NR>::kNKW][4],
+    float (&pd)[Cfg16<DP, NR>::kNKW][4]) {
+  using C = Cfg16<DP, NR>;
+  const int T = a.T;
+  const int grp = row_group<NR>();
+  const int r0 = grp * kWarpRows, c0 = warp_half<NR>() * C::kWK;
+  const int first = C::kTile - kWarpRows - r0;
+  float am[C::kNKW][4], kp[C::kNKW][2];
+#pragma unroll
+  for (int nt = 0; nt < C::kNKW; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = min(i0 + r0 + c_row(e), T - 1);
+      const int j = min(j0 + c0 + nt * 8 + c_col(e), T - 1);
+      am[nt][e] = a.am[(size_t)i * T + j];
+      if (e < 2) kp[nt][e] = a.kp[(size_t)b * T + j];
+    }
+  {
+    constexpr int kHalf = C::kNB / 2;
+    const int nb0 = warp_half<NR>() * kHalf;
+    float bd[kHalf][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)
+      mma_row_nmajor<kHalf>(bd, ldsm_a(sQv + r0 * C::kLd + kk * 16, C::kLd),
+                            sP + (first + nb0 * 8) * C::kLd + kk * 16,
+                            C::kLd);
+#pragma unroll
+    for (int nb = 0; nb < kHalf; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        sB[c_row(e) * C::kLdB + (nb0 + nb) * 8 + c_col(e)] = bd[nb][e];
+  }
+#pragma unroll
+  for (int nt = 0; nt < C::kNKW; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) ds[nt][e] = pd[nt][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {           // S = q_u k^T, dO v^T
+    mma_row_nmajor<C::kNKW>(ds, ldsm_a(sQu + r0 * C::kLd + kk * 16, C::kLd),
+                            sK + c0 * C::kLd + kk * 16, C::kLd);
+    mma_row_nmajor<C::kNKW>(pd, ldsm_a(sDo + r0 * C::kLd + kk * 16, C::kLd),
+                            sV + c0 * C::kLd + kk * 16, C::kLd);
+  }
+  pair_sync(grp);                                  // BD of both halves
+
+#pragma unroll
+  for (int nt = 0; nt < C::kNKW; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int rl = c_row(e), c = c0 + nt * 8 + c_col(e), q = e >> 1;
+      const int i = i0 + r0 + rl, j = j0 + c;
+      float g_ds = 0.f, g_pd = 0.f;
+      if (i < T && j < T) {
+        const float s =
+            (ds[nt][e] + sB[rl * C::kLdB + kWarpRows - 1 - rl + c]) *
+                a.scale +
+            am[nt][e] + kp[nt][e & 1];
+        const float prob = expf(s - st.m[q]) * st.linv[q];
+        float dprob = pd[nt][e];
+        g_pd = prob;
+        if (a.seed != nullptr) {
+          const bool keep = tsasr::dropout_keep(seed, a.thresh, b, h, i, j);
+          g_pd = keep ? prob * a.keep_scale : 0.f;
+          dprob = keep ? dprob * a.keep_scale : 0.f;
+        }
+        g_ds = kRaw ? prob * dprob : prob * (dprob - st.delta[q]) * a.scale;
+      }
+      ds[nt][e] = g_ds;
+      pd[nt][e] = g_pd;
+    }
+}
+
+// x (this warp's scores) rounded into the block's bf16 TILE x TILE buffer
+template <int DP, int NR>
+__device__ __forceinline__ void store_tile16(
+    bf16* X, const float (&x)[Cfg16<DP, NR>::kNKW][4]) {
+  using C = Cfg16<DP, NR>;
+  const int r0 = row_group<NR>() * kWarpRows, c0 = warp_half<NR>() * C::kWK;
+#pragma unroll
+  for (int nt = 0; nt < C::kNKW; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      X[(r0 + c_row(e)) * C::kLdX + c0 + nt * 8 + c_col(e)] =
+          __float2bfloat16_rn(x[nt][e]);
+}
+
+template <int ND>
+__device__ __forceinline__ void store_rows16(bf16* dst,
+                                             const float (&acc)[ND][4],
+                                             int row0, int limit, int col0,
+                                             int Dh) {
+#pragma unroll
+  for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = row0 + c_row(e), d = col0 + nd * 8 + c_col(e);
+      if (r < limit && d < Dh)
+        dst[(size_t)r * Dh + d] = __float2bfloat16_rn(acc[nd][e]);
+    }
+}
+
+// ------------------------------------------------------- passes 1 and 2
+// One block per (query tile, h, b) over the key tiles. kDelta: pass 1,
+// D_i = sum_j P_ij dP_ij into delta (the two halves of a row group summed
+// in a fixed order); else pass 2, dq_u and dq_v.
+template <int DP, int NR, bool kDelta>
+__global__ void __launch_bounds__(Cfg16<DP, NR>::kThreads, 1)
+    dq16_kernel(Args16 a) {
+  using C = Cfg16<DP, NR>;
+  extern __shared__ __align__(16) unsigned char smem16[];
+  const int T = a.T, Dh = a.Dh, nt = (T + C::kTile - 1) / C::kTile;
+  const int i0 = blockIdx.x * C::kTile, h = blockIdx.y, b = blockIdx.z;
+  const int grp = row_group<NR>(), half = warp_half<NR>();
+  const int r0 = grp * kWarpRows;
+  const int d0 = half * C::kNDH * 8;             // this warp's columns
+  const size_t bh = ((size_t)b * a.H + h) * T;
+  const bf16* p_h = a.p + (size_t)h * (2 * T - 1) * Dh;
+  const uint64_t seed = a.seed ? (uint64_t)a.seed[0] : 0;
+  bf16* sQu = reinterpret_cast<bf16*>(smem16);
+  bf16* sQv = sQu + C::kTileE;
+  bf16* sDo = sQv + C::kTileE;
+  bf16* stages = sDo + C::kTileE;                // k, v, window
+  float* sB = reinterpret_cast<float*>(smem16 + 2 * C::kDqTiles) +
+              r0 * C::kLdB;
+  bf16* sS = reinterpret_cast<bf16*>(sB);        // dS skew buffer
+
+  auto load_keys = [&](int s, int j0) {
+    bf16* st = stages + s * C::kDqStage;
+    load_rows16<DP, C::kThreads>(st, a.k + bh * Dh, j0, C::kTile, T, Dh,
+                                 a.vec);
+    load_rows16<DP, C::kThreads>(st + C::kTileE, a.v + bh * Dh, j0, C::kTile,
+                                 T, Dh, a.vec);
+    load_rows16<DP, C::kThreads>(st + 2 * C::kTileE, p_h,
+                                 T - C::kTile - i0 + j0, C::kWin, 2 * T - 1,
+                                 Dh, a.vec);
+  };
+  load_rows16<DP, C::kThreads>(sQu, a.qu + bh * Dh, i0, C::kTile, T, Dh,
+                               a.vec);
+  load_rows16<DP, C::kThreads>(sQv, a.qv + bh * Dh, i0, C::kTile, T, Dh,
+                               a.vec);
+  load_rows16<DP, C::kThreads>(sDo, a.dout + bh * Dh, i0, C::kTile, T, Dh,
+                               a.vec);
+  load_keys(0, 0);
+  cp_async_commit();
+  const RowStats st = row_stats16(a, bh, i0 + r0, !kDelta);
+  const int first = C::kTile - kWarpRows - r0;
+  float gu[C::kNDH][4] = {}, gv[C::kNDH][4] = {};
+  float dsum[2] = {0.f, 0.f};
+
+  for (int jt = 0; jt < nt; ++jt) {
+    if (jt + 1 < nt) {
+      load_keys((jt + 1) & 1, (jt + 1) * C::kTile);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* sK = stages + (jt & 1) * C::kDqStage;
+    const bf16* sV = sK + C::kTileE;
+    const bf16* sP = sK + 2 * C::kTileE;
+    float ds[C::kNKW][4], pd[C::kNKW][4];
+    score_tile16<DP, NR, kDelta>(a, sQu, sQv, sDo, sK, sV, sP, sB, i0,
+                                 jt * C::kTile, b, h, st, seed, ds, pd);
+    if (kDelta) {
+#pragma unroll
+      for (int n = 0; n < C::kNKW; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dsum[e >> 1] += ds[n][e];
+      __syncthreads();
+      continue;
+    }
+    // bf16 dS into the group's zeroed skew buffer: dSk[rl][15 - rl + c]
+    pair_sync(grp);
+    for (int e = half * 32 + (threadIdx.x & 31); e < kWarpRows * C::kLdS;
+         e += 64)
+      sS[e] = __float2bfloat16(0.f);
+    pair_sync(grp);
+    const int c0 = half * C::kWK;
+#pragma unroll
+    for (int n = 0; n < C::kNKW; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        sS[c_row(e) * C::kLdS + kWarpRows - 1 - c_row(e) + c0 + n * 8 +
+           c_col(e)] = __float2bfloat16_rn(ds[n][e]);
+    pair_sync(grp);
+#pragma unroll
+    for (int kk = 0; kk < C::kTile / 16; ++kk) {  // dq_u += dS k
+      const FragA16 x = load_a16([&](int m, int k) {
+        return sS[m * C::kLdS + kWarpRows - 1 - m + kk * 16 + k];
+      });
+      mma_row_kmajor<C::kNDH>(gu, x, sK + kk * 16 * C::kLd + d0, C::kLd);
+    }
+#pragma unroll
+    for (int kk = 0; kk < C::kBW / 16; ++kk)      // dq_v += dSk win
+      mma_row_kmajor<C::kNDH>(gv, ldsm_a(sS + kk * 16, C::kLdS),
+                              sP + (first + kk * 16) * C::kLd + d0, C::kLd);
+    __syncthreads();
+  }
+  if (kDelta) {
+    float* red = reinterpret_cast<float*>(stages);  // idle after the loop
+    const int lane = threadIdx.x & 31;
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      dsum[q] += __shfl_xor_sync(0xffffffffu, dsum[q], 1);
+      dsum[q] += __shfl_xor_sync(0xffffffffu, dsum[q], 2);
+      red[((2 * grp + half) * 2 + q) * 32 + lane] = dsum[q];
+    }
+    pair_sync(grp);
+    if (half == 0 && tsasr::lane_t() == 0) {
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int i = i0 + r0 + tsasr::lane_g() + 8 * q;
+        if (i < T)
+          a.delta[bh + i] = red[((2 * grp) * 2 + q) * 32 + lane] +
+                            red[((2 * grp + 1) * 2 + q) * 32 + lane];
+      }
+    }
+    return;
+  }
+  store_rows16(a.dqu + bh * Dh, gu, i0 + r0, T, d0, Dh);
+  store_rows16(a.dqv + bh * Dh, gv, i0 + r0, T, d0, Dh);
+}
+
+// ---------------------------------------------------------------- pass 3
+template <int DP, int NR>
+__global__ void __launch_bounds__(Cfg16<DP, NR>::kThreads, 1)
+    dkv16_kernel(Args16 a) {
+  using C = Cfg16<DP, NR>;
+  extern __shared__ __align__(16) unsigned char smem16[];
+  const int T = a.T, Dh = a.Dh, nt = (T + C::kTile - 1) / C::kTile;
+  const int j0 = blockIdx.x * C::kTile, h = blockIdx.y, b = blockIdx.z;
+  const int r0 = row_group<NR>() * kWarpRows;
+  const int d0 = warp_half<NR>() * C::kNDH * 8;
+  const size_t bh = ((size_t)b * a.H + h) * T;
+  const bf16* p_h = a.p + (size_t)h * (2 * T - 1) * Dh;
+  const uint64_t seed = a.seed ? (uint64_t)a.seed[0] : 0;
+  bf16* sK = reinterpret_cast<bf16*>(smem16);
+  bf16* sV = sK + C::kTileE;
+  bf16* stages = sV + C::kTileE;                 // q_u, q_v, do, window
+  unsigned char* scratch = smem16 + 2 * C::kDkvTiles;
+  bf16* X = reinterpret_cast<bf16*>(scratch);    // Pd or dS tile
+  float* sB = reinterpret_cast<float*>(scratch) + r0 * C::kLdB;
+
+  auto load_queries = [&](int s, int i0) {
+    bf16* st = stages + s * C::kDkvStage;
+    load_rows16<DP, C::kThreads>(st, a.qu + bh * Dh, i0, C::kTile, T, Dh,
+                                 a.vec);
+    load_rows16<DP, C::kThreads>(st + C::kTileE, a.qv + bh * Dh, i0,
+                                 C::kTile, T, Dh, a.vec);
+    load_rows16<DP, C::kThreads>(st + 2 * C::kTileE, a.dout + bh * Dh, i0,
+                                 C::kTile, T, Dh, a.vec);
+    load_rows16<DP, C::kThreads>(st + 3 * C::kTileE, p_h,
+                                 T - C::kTile - i0 + j0, C::kWin, 2 * T - 1,
+                                 Dh, a.vec);
+  };
+  load_rows16<DP, C::kThreads>(sK, a.k + bh * Dh, j0, C::kTile, T, Dh, a.vec);
+  load_rows16<DP, C::kThreads>(sV, a.v + bh * Dh, j0, C::kTile, T, Dh, a.vec);
+  load_queries(0, 0);
+  cp_async_commit();
+  float gk[C::kNDH][4] = {}, gv[C::kNDH][4] = {};
+
+  for (int it = 0; it < nt; ++it) {
+    if (it + 1 < nt) {
+      load_queries((it + 1) & 1, (it + 1) * C::kTile);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int i0 = it * C::kTile;
+    const bf16* sQu = stages + (it & 1) * C::kDkvStage;
+    const bf16* sQv = sQu + C::kTileE;
+    const bf16* sDo = sQu + 2 * C::kTileE;
+    const bf16* sP = sQu + 3 * C::kTileE;
+    const RowStats st = row_stats16(a, bh, i0 + r0, true);
+    float ds[C::kNKW][4], pd[C::kNKW][4];
+    score_tile16<DP, NR, false>(a, sQu, sQv, sDo, sK, sV, sP, sB, i0, j0, b,
+                                h, st, seed, ds, pd);
+    __syncthreads();                             // X held the BD buffers
+    store_tile16<DP, NR>(X, pd);
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < C::kTile / 16; ++kk)   // dv += Pd^T do
+      mma_row_kmajor<C::kNDH>(gv, ldsm_a_trans(X + kk * 16 * C::kLdX + r0,
+                                               C::kLdX),
+                              sDo + kk * 16 * C::kLd + d0, C::kLd);
+    __syncthreads();
+    store_tile16<DP, NR>(X, ds);
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < C::kTile / 16; ++kk)   // dk += dS^T q_u
+      mma_row_kmajor<C::kNDH>(gk, ldsm_a_trans(X + kk * 16 * C::kLdX + r0,
+                                               C::kLdX),
+                              sQu + kk * 16 * C::kLd + d0, C::kLd);
+    __syncthreads();
+  }
+  store_rows16(a.dk + bh * Dh, gk, j0 + r0, T, d0, Dh);
+  store_rows16(a.dv + bh * Dh, gv, j0 + r0, T, d0, Dh);
+}
+
+// ---------------------------------------------------------------- pass 4
+template <int DP, int NR>
+__global__ void __launch_bounds__(Cfg16<DP, NR>::kThreads, 1)
+    dp16_kernel(Args16 a) {
+  using C = Cfg16<DP, NR>;
+  extern __shared__ __align__(16) unsigned char smem16[];
+  const int T = a.T, Dh = a.Dh, nt = (T + C::kTile - 1) / C::kTile;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int r0 = row_group<NR>() * kWarpRows;
+  const int wr0 = warp_id() * 16;                // this warp's window rows
+  const size_t bh = ((size_t)b * a.H + h) * T;
+  const uint64_t seed = a.seed ? (uint64_t)a.seed[0] : 0;
+  bf16* sP = reinterpret_cast<bf16*>(smem16);    // the diagonal's window
+  bf16* stages = sP + C::kWinE;                  // q_u, q_v, do, k, v
+  unsigned char* scratch = smem16 + 2 * C::kDpTiles;
+  bf16* X = reinterpret_cast<bf16*>(scratch);
+  float* sB = reinterpret_cast<float*>(scratch) + r0 * C::kLdB;
+
+  auto load_pair = [&](int s, int i0, int j0) {
+    bf16* st = stages + s * C::kDpStage;
+    const bf16* src[5] = {a.qu, a.qv, a.dout, a.k, a.v};
+#pragma unroll
+    for (int x = 0; x < 5; ++x)
+      load_rows16<DP, C::kThreads>(st + x * C::kTileE, src[x] + bh * Dh,
+                                   x < 3 ? i0 : j0, C::kTile, T, Dh, a.vec);
+  };
+
+  for (int d = blockIdx.x; d > -nt; d -= nt) {
+    load_rows16<DP, C::kThreads>(sP, a.p + (size_t)h * (2 * T - 1) * Dh,
+                                 T - C::kTile + d * C::kTile, C::kWin,
+                                 2 * T - 1, Dh, a.vec);
+    const int it_lo = max(0, -d), it_hi = min(nt, nt - d);
+    load_pair(0, it_lo * C::kTile, (it_lo + d) * C::kTile);
+    cp_async_commit();
+    float acc[C::kND][4] = {};
+
+    for (int it = it_lo; it < it_hi; ++it) {
+      const int s = (it - it_lo) & 1;
+      if (it + 1 < it_hi) {
+        load_pair(s ^ 1, (it + 1) * C::kTile, (it + 1 + d) * C::kTile);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      const int i0 = it * C::kTile;
+      const bf16* sQu = stages + s * C::kDpStage;
+      const bf16* sQv = sQu + C::kTileE;
+      const RowStats st = row_stats16(a, bh, i0 + r0, true);
+      float ds[C::kNKW][4], pd[C::kNKW][4];
+      score_tile16<DP, NR, false>(a, sQu, sQv, sQu + 2 * C::kTileE,
+                                  sQu + 3 * C::kTileE, sQu + 4 * C::kTileE,
+                                  sP, sB, i0, i0 + d * C::kTile, b, h, st,
+                                  seed, ds, pd);
+      __syncthreads();
+      store_tile16<DP, NR>(X, ds);
+      __syncthreads();
+      // dp_win += dSk^T q_v, dSk[r][col] = dS[r][col - (TILE - 1) + r]
+#pragma unroll
+      for (int kk = 0; kk < C::kTile / 16; ++kk) {
+        // rows 16 kk.. meet columns wr0..wr0+15 only inside the band
+        if (16 * kk + 15 < C::kTile - 16 - wr0 ||
+            16 * kk > 2 * C::kTile - 2 - wr0)
+          continue;
+        const FragA16 x = load_a16([&](int m, int k) {
+          const int r = kk * 16 + k, c = wr0 + m - (C::kTile - 1) + r;
+          return (c >= 0 && c < C::kTile) ? X[r * C::kLdX + c]
+                                          : __float2bfloat16(0.f);
+        });
+        mma_row_kmajor<C::kND>(acc, x, sQv + kk * 16 * C::kLd, C::kLd);
+      }
+      __syncthreads();
+    }
+    float* part = a.dp_part +
+                  (((size_t)b * a.H + h) * (2 * nt - 1) + d + nt - 1) *
+                      C::kWin * Dh;
+    store_rows(part, acc, wr0, C::kWin, 0, Dh);
+  }
+}
+
+// ---------------------------------------------------------------- pass 5
+__global__ void dp16_sum_kernel(Args16 a, int tile) {
+  const int T = a.T, P = 2 * T - 1, nt = (T + tile - 1) / tile;
+  const size_t n = (size_t)a.H * P * a.Dh;
+  for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < n;
+       e += (size_t)gridDim.x * blockDim.x) {
+    const int c = (int)(e % a.Dh), r = (int)((e / a.Dh) % P);
+    const int h = (int)(e / ((size_t)P * a.Dh));
+    const int u = r - (T - tile);
+    const int d_hi = u >= 0 ? u / tile : -((tile - 1 - u) / tile);
+    float acc = 0.f;
+    for (int d = d_hi - 1; d <= d_hi; ++d) {
+      const int wr = r - (T - tile + d * tile);
+      if (d < -(nt - 1) || d > nt - 1 || wr < 0 || wr >= 2 * tile) continue;
+      for (int b = 0; b < a.B; ++b)
+        acc += a.dp_part[((((size_t)b * a.H + h) * (2 * nt - 1) + d + nt - 1) *
+                              (2 * tile) + wr) * a.Dh + c];
+    }
+    a.dp[e] = __float2bfloat16_rn(acc);
+  }
+}
+
+template <int DP, int NR>
+cudaError_t launch16(const Args16& a, cudaStream_t stream) {
+  using C = Cfg16<DP, NR>;
+  static bool attribute_set = false;
+  cudaError_t err;
+  if (!attribute_set) {
+    err = cudaFuncSetAttribute(dq16_kernel<DP, NR, true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               C::kDqBytes);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(dq16_kernel<DP, NR, false>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 C::kDqBytes);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(dkv16_kernel<DP, NR>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 C::kDkvBytes);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(dp16_kernel<DP, NR>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 C::kDpBytes);
+    if (err != cudaSuccess) return err;
+    attribute_set = true;
+  }
+  const dim3 grid((a.T + C::kTile - 1) / C::kTile, a.H, a.B);
+  dq16_kernel<DP, NR, true><<<grid, C::kThreads, C::kDqBytes, stream>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  dq16_kernel<DP, NR, false><<<grid, C::kThreads, C::kDqBytes, stream>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  dkv16_kernel<DP, NR><<<grid, C::kThreads, C::kDkvBytes, stream>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  dp16_kernel<DP, NR><<<grid, C::kThreads, C::kDpBytes, stream>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  dp16_sum_kernel<<<264, 256, 0, stream>>>(a, C::kTile);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// The bf16 backward: q_u, q_v, k, v, out, dout (B, H, T, Dh) and p (H,
+// 2T-1, Dh) in bf16; kp, am and stats f32 as relpos_attention_bwd's.
+// Scratch: delta (B, H, T) f32, dp_part of relpos_attention_bwd_dp_part_floats
+// floats (the same tiles). Outputs dqu, dqv, dk, dv (B, H, T, Dh) and dp
+// (H, 2T-1, Dh) in bf16. out is not read: D comes from the scores (pass
+// 1). Returns the CUDA error code of the launches (0 on success).
+extern "C" int relpos_attention_bwd_bf16(
+    const __nv_bfloat16* qu, const __nv_bfloat16* qv, const __nv_bfloat16* k,
+    const __nv_bfloat16* v, const __nv_bfloat16* p, const float* kp,
+    const float* am, const float* stats, const __nv_bfloat16* dout,
+    const long long* seed, unsigned thresh, float keep_scale, float* delta,
+    __nv_bfloat16* dqu, __nv_bfloat16* dqv, __nv_bfloat16* dk,
+    __nv_bfloat16* dv, float* dp_part, __nv_bfloat16* dp, int B, int H,
+    int T, int Dh, float scale, void* stream) {
+  if (B < 1 || H < 1 || T < 1 || Dh < 1 || Dh > 128 || B > 65535 ||
+      H > 65535)
+    return (int)cudaErrorInvalidValue;
+  const bool vec = Dh % 8 == 0 && aligned16(qu) && aligned16(qv) &&
+                   aligned16(k) && aligned16(v) && aligned16(p) &&
+                   aligned16(dout);
+  Args16 a{qu, qv, k, v, p, dout, kp, am, stats, seed, thresh, keep_scale,
+           scale, delta, dqu, dqv, dk, dv, dp_part, dp, B, H, T, Dh, vec};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (Dh <= 32)
+    err = launch16<32, 4>(a, s);
+  else if (Dh <= 64)
+    err = launch16<64, 4>(a, s);
+  else
+    err = launch16<128, 2>(a, s);
+  return (int)err;
+}

@@ -471,3 +471,418 @@ extern "C" int relpos_tf32x3_chain_test(const float* a, const float* b,
                                                              N, K, P);
   return (int)cudaGetLastError();
 }
+
+// ===================================================================== bf16
+// The bf16 variant (relpos_attention_fwd_bf16): q_u, q_v, k, v, p and the
+// output in bf16, the masks and the statistics f32. It rounds where the
+// JAX kernel rounds with bf16 operands (_fwd_kernel with v.dtype bf16):
+// every product takes bf16 operands and sums in f32 (mma_bf16.cuh, one
+// m16n8k16 mma a k-step of 16), the positional scores stay f32 through
+// the skew read (the TPU kernel's roll runs in f32), the scores, the
+// softmax and the dropout scaling are f32, the probabilities are rounded
+// to bf16 before the product with v, and the output to bf16 once.
+//
+// The probabilities are rounded as the JAX kernel rounds them, after
+// normalising: exp(s - m) / l * keep / (1 - rate), with m and l the
+// row's max and sum over all keys. An online softmax (the f32 kernel's)
+// would round exp(s - m_running) and divide by l after the product: an
+// f32 output does not see where a rounding falls, a bf16 one does (one
+// bf16 ulp of the output against the JAX rounding). So the block runs
+// over the keys twice: pass 1 takes the scores' products and the row's
+// max and sum (online, no v), the two warps of a row group merge them
+// (and write the statistics); pass 2 takes the products again (the same
+// scores, bit for bit), the normalised, dropped probabilities, and
+// O += bf16(P) v. The score products are done twice; at these sizes the
+// kernel is bound by its latency, not by them.
+//
+// Tiling, dropout and statistics are the f32 kernel's: 32 query rows a
+// block, key tiles of 32, two warps a row group, each over half of every
+// key tile, one Philox draw per (b, h, i, j); the halves' O are added at
+// the end. What changes is the element type of the tiles in shared
+// memory (bf16 rows DP + 8 elements apart, half the f32 tiles' bytes: 52
+// KB a block at DP 64) and the products: q_v and q_u fragments by
+// ldmatrix, the window, key and value tiles by ldmatrix (.trans for v),
+// and P straight from the accumulators (two n-tiles of 8 keys are one
+// 16-key A operand, pack_acc).
+//
+// What bounds it on an H100: at B8 H4 T101 Dh64 it moves about 2.2 MB
+// (bf16 operands and output, f32 masks and statistics) and does 6 B H
+// T^2 Dh = 125 MFLOP of products: 0.0007 ms of bytes at 3.35 TB/s
+// against 0.00013 ms at the bf16 tensor-core peak (989 TFLOP/s). At
+// these sizes it runs one wave of small blocks: latency-bound, as the f32
+// kernel.
+
+#include "mma_bf16.cuh"
+
+namespace {
+
+using tsasr::bf16;
+using tsasr::FragA16;
+using tsasr::ldsm_a;
+using tsasr::load_rows16;
+using tsasr::mma_row_kmajor;
+using tsasr::mma_row_nmajor;
+using tsasr::pack_acc;
+using tsasr::pair_sync;
+
+struct Args16 {
+  const bf16 *qu, *qv, *k, *v, *p;
+  const float *kp, *am;
+  bf16* out;
+  float* stats;
+  const long long* seed;
+  uint32_t thresh;
+  float keep_scale, scale;
+  int H, T, Dh;
+  bool vec;                                // 16-byte copies are aligned
+};
+
+// DP: padded head dim; sizes in bf16 elements unless named in floats
+template <int DP>
+struct Cfg16 {
+  static constexpr int kTileQ = kWarpRows * kNR;
+  static constexpr int kWarps = 2 * kNR;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kWin = kTileQ + kTileK;   // a pair's p rows
+  static constexpr int kBW = kTileK + kWarpRows; // a row group's (TK + 15)
+  static constexpr int kNB = kBW / 8;      // its n-tiles, half to each warp
+  static constexpr int kWK = kTileK / 2;   // keys of a warp: one k-step
+  static constexpr int kNKW = kWK / 8;
+  static constexpr int kND = DP / 8;       // n-tiles over the head dim
+  static constexpr int kLd = DP + 8;
+  static constexpr int kLdB = kBW + 4;     // the f32 BD buffer's rows
+  static constexpr int kQE = kTileQ * kLd;
+  static constexpr int kKE = kTileK * kLd;
+  static constexpr int kStage = 2 * kKE + kWin * kLd;   // k, v, window
+  static constexpr int kTileBytes = 2 * (2 * kQE + 2 * kStage);
+  static constexpr int kBytes = kTileBytes + 4 * kNR * kWarpRows * kLdB;
+  static constexpr int kMergeW = 32 * 4 * kND;   // a warp's O, in floats
+  static_assert(kNB % 2 == 0 && kND % 2 == 0 && kWK == 16, "warp shares");
+  static_assert(4 * 2 * kNR * kMergeW <= 2 * 2 * kStage,
+                "merge fits the stages");
+  static_assert(kBytes <= kSmemLimit, "shared memory of a block");
+};
+
+template <int DP>
+__global__ void __launch_bounds__(Cfg16<DP>::kThreads)
+    relpos_attention_fwd_bf16_kernel(Args16 a) {
+  using C = Cfg16<DP>;
+  extern __shared__ __align__(16) unsigned char smem16[];
+  const int T = a.T, Dh = a.Dh, nk = (T + kTileK - 1) / kTileK;
+  const int i0 = blockIdx.x * C::kTileQ, h = blockIdx.y, b = blockIdx.z;
+  const int grp = row_group<kNR>(), half = warp_half<kNR>();
+  const int r0 = grp * kWarpRows, c0 = half * C::kWK;
+  const int first = C::kTileQ - kWarpRows - r0;  // the group's window row 0
+  const size_t bh = ((size_t)b * a.H + h) * T;
+  const bf16* p_h = a.p + (size_t)h * (2 * T - 1) * Dh;
+  const bool drop = a.seed != nullptr;
+  const uint64_t seed = drop ? (uint64_t)a.seed[0] : 0;
+  bf16* sQu = reinterpret_cast<bf16*>(smem16);
+  bf16* sQv = sQu + C::kQE;
+  bf16* stages = sQv + C::kQE;                   // k, v, window
+  float* sB = reinterpret_cast<float*>(smem16 + C::kTileBytes) +
+              r0 * C::kLdB;
+
+  // k and the window for the scores; v too in the second pass
+  auto load_keys = [&](int s, int j0, bool with_v) {
+    bf16* st = stages + s * C::kStage;
+    load_rows16<DP, C::kThreads>(st, a.k + bh * Dh, j0, kTileK, T, Dh, a.vec);
+    if (with_v)
+      load_rows16<DP, C::kThreads>(st + C::kKE, a.v + bh * Dh, j0, kTileK,
+                                   T, Dh, a.vec);
+    load_rows16<DP, C::kThreads>(st + 2 * C::kKE, p_h,
+                                 T - C::kTileQ - i0 + j0, C::kWin, 2 * T - 1,
+                                 Dh, a.vec);
+  };
+  load_rows16<DP, C::kThreads>(sQu, a.qu + bh * Dh, i0, C::kTileQ, T, Dh,
+                               a.vec);
+  load_rows16<DP, C::kThreads>(sQv, a.qv + bh * Dh, i0, C::kTileQ, T, Dh,
+                               a.vec);
+
+  // rows g and g + 8 of the group: the max and this lane's share of the
+  // sum of this warp's keys (pass 1), then the row's max and 1 / sum
+  // over all keys; O over this warp's keys (pass 2)
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, inv[2];
+  float o[C::kND][4] = {};
+  const int lane = threadIdx.x & 31;
+  float* merge = reinterpret_cast<float*>(stages);  // idle between passes
+
+  for (int pass = 0; pass < 2; ++pass) {
+    load_keys(0, 0, pass == 1);
+    cp_async_commit();
+    for (int jt = 0; jt < nk; ++jt) {
+      const int j0 = jt * kTileK;
+      float am[C::kNKW][4], kp[C::kNKW][2];
+#pragma unroll
+      for (int nt = 0; nt < C::kNKW; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = min(i0 + r0 + c_row(e), T - 1);
+          const int j = min(j0 + c0 + nt * 8 + c_col(e), T - 1);
+          am[nt][e] = a.am[(size_t)i * T + j];
+          if (e < 2) kp[nt][e] = a.kp[(size_t)b * T + j];
+        }
+      if (jt + 1 < nk) {
+        load_keys((jt + 1) & 1, j0 + kTileK, pass == 1);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      const bf16* sK = stages + (jt & 1) * C::kStage;
+      const bf16* sV = sK + C::kKE;
+      const bf16* sP = sK + 2 * C::kKE;
+
+      {                                          // BD, half the columns
+        constexpr int kHalf = C::kNB / 2;
+        const int nb0 = half * kHalf;
+        float bd[kHalf][4] = {};
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk)
+          mma_row_nmajor<kHalf>(bd,
+                                ldsm_a(sQv + r0 * C::kLd + kk * 16, C::kLd),
+                                sP + (first + nb0 * 8) * C::kLd + kk * 16,
+                                C::kLd);
+#pragma unroll
+        for (int nb = 0; nb < kHalf; ++nb)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            sB[c_row(e) * C::kLdB + (nb0 + nb) * 8 + c_col(e)] = bd[nb][e];
+      }
+      float s[C::kNKW][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)       // S = q_u k^T
+        mma_row_nmajor<C::kNKW>(s,
+                                ldsm_a(sQu + r0 * C::kLd + kk * 16, C::kLd),
+                                sK + c0 * C::kLd + kk * 16, C::kLd);
+      pair_sync(grp);                            // BD of both halves
+#pragma unroll
+      for (int nt = 0; nt < C::kNKW; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int rl = c_row(e), c = c0 + nt * 8 + c_col(e);
+          s[nt][e] =
+              j0 + c < T
+                  ? (s[nt][e] + sB[rl * C::kLdB + kWarpRows - 1 - rl + c]) *
+                            a.scale +
+                        am[nt][e] + kp[nt][e & 1]
+                  : -INFINITY;
+        }
+
+      if (pass == 0) {                           // the row's max and sum
+        float mx[2] = {m[0], m[1]};
+#pragma unroll
+        for (int nt = 0; nt < C::kNKW; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          mx[q] = fmaxf(mx[q], __shfl_xor_sync(0xffffffffu, mx[q], 1));
+          mx[q] = fmaxf(mx[q], __shfl_xor_sync(0xffffffffu, mx[q], 2));
+          // no key below T yet: every exp below is of -inf, so 0, not NaN
+          const float mu = mx[q] == -INFINITY ? 0.f : mx[q];
+          l[q] *= expf(m[q] - mu);
+#pragma unroll
+          for (int nt = 0; nt < C::kNKW; ++nt)
+#pragma unroll
+            for (int e = 2 * q; e < 2 * q + 2; ++e)
+              l[q] += expf(s[nt][e] - mu);
+          m[q] = mx[q];
+        }
+      } else {                                   // O += bf16(P) v
+#pragma unroll
+        for (int nt = 0; nt < C::kNKW; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int q = e >> 1;
+            const float pr = expf(s[nt][e] - m[q]) * inv[q];
+            const int i = i0 + r0 + c_row(e), j = j0 + c0 + nt * 8 + c_col(e);
+            s[nt][e] = drop && i < T && j < T
+                           ? (tsasr::dropout_keep(seed, a.thresh, b, h, i, j)
+                                  ? pr * a.keep_scale
+                                  : 0.f)
+                           : pr;
+          }
+        mma_row_kmajor<C::kND>(o, pack_acc(s[0], s[1]), sV + c0 * C::kLd,
+                               C::kLd);
+      }
+      __syncthreads();                           // stage and sB consumed
+    }
+    if (pass == 1) break;
+
+    // the two halves' (max, sum) merged, in one order in both warps
+    float* mine = merge + (2 * grp + half) * 128;
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      l[q] += __shfl_xor_sync(0xffffffffu, l[q], 1);
+      l[q] += __shfl_xor_sync(0xffffffffu, l[q], 2);
+      mine[q * 32 + lane] = m[q];
+      mine[(2 + q) * 32 + lane] = l[q];
+    }
+    pair_sync(grp);
+    const float* s0 = merge + 2 * grp * 128;
+    const float* s1 = s0 + 128;
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const float m0 = s0[q * 32 + lane], m1 = s1[q * 32 + lane];
+      const float mm = fmaxf(m0, m1);            // finite: key 0 is in half 0
+      inv[q] = 1.f / (s0[(2 + q) * 32 + lane] * expf(m0 - mm) +
+                      s1[(2 + q) * 32 + lane] * expf(m1 - mm));
+      m[q] = mm;
+      const int i = i0 + r0 + lane_g() + 8 * q;
+      if (a.stats != nullptr && half == 0 && lane_t() == 0 && i < T) {
+        a.stats[2 * (bh + i)] = mm;
+        a.stats[2 * (bh + i) + 1] = inv[q];
+      }
+    }
+    __syncthreads();                             // merge read: stages free
+  }
+
+  // O = the two halves' sums, half 0's first, each warp half of Dh
+  float* mine = merge + (2 * grp + half) * C::kMergeW;
+#pragma unroll
+  for (int nd = 0; nd < C::kND; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) mine[(4 * nd + e) * 32 + lane] = o[nd][e];
+  pair_sync(grp);
+  const float* s0 = merge + 2 * grp * C::kMergeW;
+  const float* s1 = s0 + C::kMergeW;
+  for (int nd = half * C::kND / 2; nd < (half + 1) * C::kND / 2; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = i0 + r0 + c_row(e), d = nd * 8 + c_col(e);
+      const int x = (4 * nd + e) * 32 + lane;
+      if (i < T && d < Dh)
+        a.out[(bh + i) * Dh + d] = __float2bfloat16_rn(s0[x] + s1[x]);
+    }
+}
+
+template <int DP>
+cudaError_t launch16(const Args16& a, int B, cudaStream_t stream) {
+  using C = Cfg16<DP>;
+  static bool attribute_set = false;
+  if (!attribute_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        relpos_attention_fwd_bf16_kernel<DP>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, C::kBytes);
+    if (err != cudaSuccess) return err;
+    attribute_set = true;
+  }
+  const dim3 grid((a.T + C::kTileQ - 1) / C::kTileQ, a.H, B);
+  relpos_attention_fwd_bf16_kernel<DP>
+      <<<grid, C::kThreads, C::kBytes, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// c = a @ b for bf16 a (M x K) and b (K x N), row-major, M, N, K
+// multiples of 16, K <= 64, f32 out: one block, one warp per 16 rows of
+// c, the operands staged in shared memory and read by the route `mode`
+// selects (a test of the fragment layouts): 0 ldmatrix a row-major, b
+// k-major (.trans); 1 a from its transpose (.trans), b from its
+// transpose (n-major); 2 the functor loaders; 3 the accumulator route,
+// c = (a @ I) @ b with the first product's n-tiles packed as the A
+// operand of the second.
+constexpr int kTestMax = 64;
+__global__ void bf16_matmul_test_kernel(const bf16* a, const bf16* b,
+                                        float* c, int M, int N, int K,
+                                        int mode) {
+  constexpr int ld = kTestMax + 8;
+  __shared__ __align__(16) bf16 sA[kTestMax * ld], sAt[kTestMax * ld];
+  __shared__ __align__(16) bf16 sBk[kTestMax * ld], sBn[kTestMax * ld];
+  __shared__ __align__(16) bf16 sI[kTestMax * ld];
+  for (int e = threadIdx.x; e < kTestMax * kTestMax; e += blockDim.x) {
+    const int r = e / kTestMax, q = e % kTestMax;
+    const bf16 zero = __float2bfloat16(0.f);
+    sA[r * ld + q] = r < M && q < K ? a[r * K + q] : zero;
+    sAt[q * ld + r] = sA[r * ld + q];
+    sBk[r * ld + q] = r < K && q < N ? b[r * N + q] : zero;
+    sBn[q * ld + r] = sBk[r * ld + q];
+    sI[r * ld + q] = __float2bfloat16(r == q ? 1.f : 0.f);
+  }
+  __syncthreads();
+  const int m0 = (threadIdx.x >> 5) * 16;
+  if (m0 >= M) return;
+  float acc[kTestMax / 8][4] = {};
+  for (int k0 = 0; k0 < K; k0 += 16) {
+    FragA16 x;
+    if (mode == 0 || mode == 3) {
+      x = ldsm_a(sA + m0 * ld + k0, ld);
+    } else if (mode == 1) {
+      x = tsasr::ldsm_a_trans(sAt + k0 * ld + m0, ld);
+    } else {
+      x = tsasr::load_a16([&](int r, int q) { return sA[(m0 + r) * ld + k0 + q]; });
+    }
+    if (mode == 3) {
+      // x @ I[k0:k0+16, :] -> the n-tiles of columns k0..k0+15 of a, back
+      // into an A operand
+      float t[2][4] = {};
+      mma_row_kmajor<2>(t, x, sI + k0 * ld + k0, ld);
+      x = pack_acc(t[0], t[1]);
+    }
+    if (mode == 1) {
+      mma_row_nmajor<kTestMax / 8>(acc, x, sBn + k0, ld);
+    } else if (mode == 2) {
+#pragma unroll
+      for (int n = 0; n < kTestMax / 8; ++n)
+        tsasr::mma_bf16(acc[n], x, tsasr::load_b16([&](int q, int col) {
+          return sBk[(k0 + q) * ld + n * 8 + col];
+        }));
+    } else {
+      mma_row_kmajor<kTestMax / 8>(acc, x, sBk + k0 * ld, ld);
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < kTestMax / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = m0 + c_row(e), col = n * 8 + c_col(e);
+      if (r < M && col < N) c[r * N + col] = acc[n][e];
+    }
+}
+
+}  // namespace
+
+// The bf16 forward: q_u, q_v, k, v, out (B, H, T, Dh) and p (H, 2T-1,
+// Dh) in bf16; kp (B, T), am (T, T) and stats (B, H, T, 2, may be null)
+// f32; the rest as relpos_attention_fwd. Returns the CUDA error code of
+// the launch (0 on success). 1 <= Dh <= 128.
+extern "C" int relpos_attention_fwd_bf16(
+    const __nv_bfloat16* qu, const __nv_bfloat16* qv, const __nv_bfloat16* k,
+    const __nv_bfloat16* v, const __nv_bfloat16* p, const float* kp,
+    const float* am, __nv_bfloat16* out, float* stats, unsigned thresh,
+    float keep_scale, const long long* seed, int B, int H, int T, int Dh,
+    float scale, void* stream) {
+  if (B < 1 || H < 1 || T < 1 || Dh < 1 || Dh > 128 || B > 65535 ||
+      H > 65535)
+    return (int)cudaErrorInvalidValue;
+  const bool vec = Dh % 8 == 0 && aligned16(qu) && aligned16(qv) &&
+                   aligned16(k) && aligned16(v) && aligned16(p);
+  Args16 a{qu, qv, k, v, p, kp, am, out, stats, seed, thresh, keep_scale,
+           scale, H, T, Dh, vec};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (Dh <= 32)
+    err = launch16<32>(a, B, s);
+  else if (Dh <= 64)
+    err = launch16<64>(a, B, s);
+  else
+    err = launch16<128>(a, B, s);
+  return (int)err;
+}
+
+// c = a @ b through the bf16 mma helper by route `mode` (0-3, see
+// bf16_matmul_test_kernel; a: M x K, b: K x N bf16 row-major, c f32; M, N,
+// K multiples of 16 up to 64), for tests. Returns the CUDA error code.
+extern "C" int relpos_bf16_matmul_test(const __nv_bfloat16* a,
+                                       const __nv_bfloat16* b, float* c,
+                                       int M, int N, int K, int mode,
+                                       void* stream) {
+  if (M < 16 || N < 16 || K < 16 || M > kTestMax || N > kTestMax ||
+      K > kTestMax || M % 16 || N % 16 || K % 16 || mode < 0 || mode > 3)
+    return (int)cudaErrorInvalidValue;
+  bf16_matmul_test_kernel<<<1, 32 * (kTestMax / 16), 0,
+                            static_cast<cudaStream_t>(stream)>>>(a, b, c, M,
+                                                                 N, K, mode);
+  return (int)cudaGetLastError();
+}

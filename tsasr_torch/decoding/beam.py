@@ -65,10 +65,12 @@ class TransducerBeamSearcher:
         return self.model.predict_step(tokens, state)
 
     def _joint_log_probs(self, enc_t, dec):
-        """enc_t (J,), dec (1, J) -> host log-probs (V,)."""
+        """enc_t (J,), dec (1, J) -> host log-probs (V,), f32 on the host
+        (a bf16 model's log-probs are bf16, which f32 holds exactly; the
+        scores sum as Python floats)."""
         logits = self.model.joint_logits(enc_t[None, None, :],
                                          dec[:, None, :])[:, 0, :]
-        return torch.log_softmax(logits, dim=-1)[0].cpu().numpy()
+        return torch.log_softmax(logits, dim=-1)[0].float().cpu().numpy()
 
     def _initial_state(self, device):
         return self.model.predictor_initial_state(1, device)

@@ -22,7 +22,9 @@ hypotheses are ranked by ``score / (len + 1)``.
 ``torch.topk`` promises no order for ties, and on the first frame the
 K-1 hypotheses at ``NEG`` tie exactly. So the top K and the final
 ranking come from a stable sort, which keeps the JAX package's order on
-the CPU and on the card.
+the CPU and on the card. A bf16 model's log-probs are bf16, where ties
+between tokens are common: the same stable sort decides them, and the
+hypothesis scores sum in f32.
 """
 
 import numpy as np

@@ -4,7 +4,10 @@ Counterpart of the JAX package's ``decoding/greedy.py``: at most one
 emission per encoder frame; the prediction network is stepped for every
 row and its result kept (by select) only where a row emitted a
 non-blank, as in the JAX scan. The frame loop only queues device work:
-nothing is read back to the host until the loop ends.
+nothing is read back to the host until the loop ends. A bf16 model gives
+bf16 log-probs (a log-softmax of bf16 logits, as the JAX searcher takes
+them); the argmax keeps the first index on a tie, as ``jnp.argmax``
+does, and the scores sum in f32.
 """
 
 import torch

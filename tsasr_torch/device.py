@@ -13,7 +13,9 @@ def resolve_device(device="cuda"):
 
     On CUDA this also turns TF32 off for matmuls and cuDNN convolutions:
     the slice runs in full f32 like the reference, and a TF32 STFT
-    visibly moves the log-mel features.
+    visibly moves the log-mel features. It also keeps cuBLAS from
+    reducing bf16 products in bf16 (split-K): XLA sums a bf16 product in
+    f32, and so does a bf16 model here.
     """
     device = torch.device(device)
     if device.type == "cuda":
@@ -23,6 +25,8 @@ def resolve_device(device="cuda"):
                 "available; pass device='cpu' to run on the CPU")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            False
     elif device.type != "cpu":
         raise ValueError(f"unsupported device {str(device)!r}")
     return device

@@ -28,12 +28,27 @@ forward and the backward regenerate one mask bit for bit, and
 ``philox_keep_mask`` computes the same bits in int64 tensor arithmetic,
 so the plain version and the kernels drop the same elements.
 
+bf16 (the JAX package's production precision): both sources also hold a
+bf16 variant (``relpos_attention_fwd_bf16``, ``relpos_attention_bwd_bf16``)
+that rounds where the JAX kernels round with bf16 operands: q_u, q_v, k,
+v, p and the output gradient in bf16, every product on the tensor cores
+in bf16 with f32 accumulation (``csrc/mma_bf16.cuh``), the scores, the
+rel-shift, the softmax and the dropout scaling in f32, the probabilities
+rounded to bf16 before ``@ v``, dS rounded to bf16 before the dq, dk and
+dp products, dp summed over the batch in f32 and rounded once, the masks
+and the statistics f32. The wrapper dispatches on q_u's dtype: f32 to the
+f32 kernels, bf16 to the bf16 kernels, anything else raises.
+
 ``relpos_attention_reference`` is the plain PyTorch version of the whole
-function (autograd gives its backward). ``fused_relpos_attention`` takes
-the plain version only for tensors on the CPU; on CUDA it launches the
-kernels (through a ``torch.autograd.Function`` when a gradient is needed)
-or raises. ``launches`` and ``bwd_launches`` count the launches of the
-forward and the backward.
+function: in f32 (or f64) autograd gives its backward; in bf16 it rounds
+where the kernels do and its backward is ``relpos_attention_bwd_bf16``,
+the JAX backward kernel's arithmetic written out (autograd would round
+elsewhere). ``fused_relpos_attention`` takes the plain version only for
+tensors on the CPU; on CUDA it launches the kernels (through a
+``torch.autograd.Function`` when a gradient is needed) or raises.
+``launches`` and ``bwd_launches`` count the launches of the f32 forward
+and backward, ``bf16_launches`` and ``bf16_bwd_launches`` those of the
+bf16 variants.
 """
 
 import ctypes
@@ -56,6 +71,10 @@ MASK32 = 0xFFFFFFFF
 
 launches = 0
 bwd_launches = 0
+bf16_launches = 0
+bf16_bwd_launches = 0
+# the kernels' element types
+DTYPES = (torch.float32, torch.bfloat16)
 
 
 def rel_shift(x, klen, causal=False):
@@ -125,8 +144,13 @@ def relpos_attention_reference(q_u, q_v, k, v, p, kp_add, am_add, scale,
 
     q_u, q_v, k, v: (B, H, T, Dh); p: (H, 2T-1, Dh); kp_add: (B, T) and
     am_add: (T, T) additive f32 masks (0 or -1e9); seed: int or integer
-    tensor; rate: dropout rate on the probabilities.
+    tensor; rate: dropout rate on the probabilities. bf16 operands round
+    as the bf16 kernels do, with ``relpos_attention_bwd_bf16`` as the
+    backward.
     """
+    if q_u.dtype == torch.bfloat16:
+        return _PlainBf16Attention.apply(q_u, q_v, k, v, p, kp_add, am_add,
+                                         seed, scale, rate)
     B, H, T, _ = q_u.shape
     ac = torch.einsum("bhtd,bhsd->bhts", q_u, k)
     bd = rel_shift(torch.einsum("bhtd,hsd->bhts", q_v, p), klen=T)
@@ -137,6 +161,100 @@ def relpos_attention_reference(q_u, q_v, k, v, p, kp_add, am_add, scale,
         keep = philox_keep_mask(seed, B, H, T, rate, q_u.device)
         probs = torch.where(keep, probs * (1.0 / (1.0 - rate)), 0.0)
     return torch.einsum("bhts,bhsd->bhtd", probs.to(v.dtype), v)
+
+
+def _bf16_probs(q_u, q_v, k, p, kp_add, am_add, scale):
+    """The JAX kernel's ``_probs_in_tile`` on bf16 operands: products of
+    the bf16 values summed in f32, the rel-shift, masks and softmax in
+    f32. Returns the f32 probabilities (B, H, T, T)."""
+    T = q_u.shape[2]
+    f32 = torch.float32
+    ac = torch.einsum("bhtd,bhsd->bhts", q_u.to(f32), k.to(f32))
+    bd = rel_shift(torch.einsum("bhtd,hsd->bhts", q_v.to(f32), p.to(f32)),
+                   klen=T)
+    scores = ((ac + bd) * scale + am_add[None, None]
+              + kp_add[:, None, None, :])
+    return torch.softmax(scores, dim=-1)
+
+
+def _bf16_dropped(probs, seed, rate):
+    """(keep mask or None, probabilities after dropout, f32)."""
+    if rate <= 0.0:
+        return None, probs
+    B, H, T, _ = probs.shape
+    keep = philox_keep_mask(seed, B, H, T, rate, probs.device)
+    return keep, torch.where(keep, probs * (1.0 / (1.0 - rate)), 0.0)
+
+
+def _bf16_product(equation, a, b):
+    """A product of bf16 operands with f32 accumulation, in f32."""
+    return torch.einsum(equation, a.to(torch.bfloat16).float(),
+                        b.to(torch.bfloat16).float())
+
+
+def relpos_attention_fwd_bf16(q_u, q_v, k, v, p, kp_add, am_add, scale,
+                              seed=0, rate=0.0):
+    """Plain bf16 forward (JAX ``_fwd_kernel`` with bf16 operands): the
+    dropped probabilities rounded to bf16, ``@ v`` summed in f32, the
+    output rounded to bf16."""
+    probs = _bf16_probs(q_u, q_v, k, p, kp_add, am_add, scale)
+    _, pd = _bf16_dropped(probs, seed, rate)
+    return _bf16_product("bhts,bhsd->bhtd", pd, v).to(torch.bfloat16)
+
+
+def unshift(ds, P):
+    """Adjoint of ``rel_shift`` (non-causal): (..., T, T) -> (..., T, P)
+    with column T-1-i+j of row i holding ds[..., i, j], zeros elsewhere."""
+    *lead, T, _ = ds.shape
+    i = torch.arange(T, device=ds.device)
+    col = (T - 1 - i[:, None] + i[None, :]).expand(*lead, T, T)
+    return torch.zeros(*lead, T, P, dtype=ds.dtype,
+                       device=ds.device).scatter_(-1, col, ds)
+
+
+def relpos_attention_bwd_bf16(q_u, q_v, k, v, p, kp_add, am_add, do, scale,
+                              seed=0, rate=0.0):
+    """Plain bf16 backward (JAX ``_bwd_kernel`` with bf16 operands):
+    dv = bf16(Pd)^T do and dP = do v^T summed in f32; the softmax
+    jacobian in f32; dS rounded to bf16 for dq_u and dk; dS un-shifted
+    in f32, then rounded to bf16 for dq_v and dp; dp summed over the
+    batch in f32 and rounded once. Returns (dq_u, dq_v, dk, dv, dp) in
+    bf16."""
+    bf16 = torch.bfloat16
+    do = do.to(bf16)
+    probs = _bf16_probs(q_u, q_v, k, p, kp_add, am_add, scale)
+    keep, pd = _bf16_dropped(probs, seed, rate)
+    dv = _bf16_product("bhts,bhtd->bhsd", pd, do)
+    dprobs = _bf16_product("bhtd,bhsd->bhts", do, v)
+    if keep is not None:
+        dprobs = torch.where(keep, dprobs * (1.0 / (1.0 - rate)), 0.0)
+    row = (probs * dprobs).sum(dim=-1, keepdim=True)
+    dscores = probs * (dprobs - row) * scale
+    dqu = _bf16_product("bhts,bhsd->bhtd", dscores, k)
+    dk = _bf16_product("bhts,bhtd->bhsd", dscores, q_u)
+    dbdf = unshift(dscores, p.shape[1])
+    dqv = _bf16_product("bhtr,hrd->bhtd", dbdf, p)
+    dp = _bf16_product("bhtr,bhtd->hrd", dbdf, q_v)
+    return tuple(g.to(bf16) for g in (dqu, dqv, dk, dv, dp))
+
+
+class _PlainBf16Attention(torch.autograd.Function):
+    """The plain bf16 forward with the plain bf16 backward: the JAX
+    custom VJP's rounding, which autograd through the forward would not
+    give."""
+
+    @staticmethod
+    def forward(ctx, q_u, q_v, k, v, p, kp_add, am_add, seed, scale, rate):
+        ctx.save_for_backward(q_u, q_v, k, v, p, kp_add, am_add)
+        ctx.seed, ctx.scale, ctx.rate = seed, scale, rate
+        return relpos_attention_fwd_bf16(q_u, q_v, k, v, p, kp_add, am_add,
+                                         scale, seed, rate)
+
+    @staticmethod
+    def backward(ctx, do):
+        grads = relpos_attention_bwd_bf16(*ctx.saved_tensors, do, ctx.scale,
+                                          ctx.seed, ctx.rate)
+        return (*grads, None, None, None, None, None)
 
 
 # ------------------------------------------------------------------ kernels
@@ -170,6 +288,26 @@ def _bwd_kernel():
 
 
 @functools.cache
+def _fwd_kernel_bf16():
+    fn = _build.load(SOURCE).relpos_attention_fwd_bf16
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_uint, ctypes.c_float,
+                                           ctypes.c_void_p] + \
+        [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _bwd_kernel_bf16():
+    fn = _build.load(BWD_SOURCE).relpos_attention_bwd_bf16
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_uint, ctypes.c_float] + \
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_float,
+                                                       ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
 def _bwd_dp_part_floats():
     fn = _build.load(BWD_SOURCE).relpos_attention_bwd_dp_part_floats
     fn.argtypes = [ctypes.c_int] * 4
@@ -187,11 +325,14 @@ def _check(q_u, q_v, k, v, p, kp_add, am_add, do=None):
                "kp_add": kp_add, "am_add": am_add}
     if do is not None:
         tensors["grad_out"] = do
+    if q_u.dtype not in DTYPES:
+        raise TypeError(f"q_u must be float32 or bfloat16, got {q_u.dtype}")
     for name, t in tensors.items():
         if t.device != q_u.device:
             raise ValueError(f"{name} is on {t.device}, q_u on {q_u.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        want = torch.float32 if name in ("kp_add", "am_add") else q_u.dtype
+        if t.dtype != want:
+            raise TypeError(f"{name} must be {want}, got {t.dtype}")
         if tuple(t.shape) != expected[name]:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, "
                              f"expected {expected[name]}")
@@ -223,16 +364,22 @@ def _launch_fwd(q_u, q_v, k, v, p, kp_add, am_add, seed, scale, rate,
     out = torch.empty_like(q_u)
     stats = torch.empty(B, H, T, 2, device=q_u.device) if want_stats \
         else None
+    bf16 = q_u.dtype == torch.bfloat16
+    kernel = _fwd_kernel_bf16() if bf16 else _fwd_kernel()
     with torch.cuda.device(q_u.device):
-        err = _fwd_kernel()(
+        err = kernel(
             q_u.data_ptr(), q_v.data_ptr(), k.data_ptr(), v.data_ptr(),
             p.data_ptr(), kp_add.data_ptr(), am_add.data_ptr(),
             out.data_ptr(), 0 if stats is None else stats.data_ptr(),
             thresh, keep_scale, 0 if seed_t is None else seed_t.data_ptr(),
             B, H, T, Dh, float(scale), _stream(q_u.device))
-    _build.check_launch(err, "relpos_attention_fwd")
-    global launches
-    launches += 1
+    global launches, bf16_launches
+    if bf16:
+        _build.check_launch(err, "relpos_attention_fwd_bf16")
+        bf16_launches += 1
+    else:
+        _build.check_launch(err, "relpos_attention_fwd")
+        launches += 1
     return out, stats, seed_t
 
 
@@ -246,6 +393,20 @@ def _launch_bwd(q_u, q_v, k, v, p, kp_add, am_add, out, stats, do, seed_t,
     # dp's partials, one per (b, h, tile diagonal); the kernel sizes them
     dp_part = torch.empty(_bwd_dp_part_floats()(B, H, T, Dh), device=p.device)
     delta = torch.empty(B, H, T, device=q_u.device)
+    if q_u.dtype == torch.bfloat16:
+        with torch.cuda.device(q_u.device):
+            err = _bwd_kernel_bf16()(
+                q_u.data_ptr(), q_v.data_ptr(), k.data_ptr(), v.data_ptr(),
+                p.data_ptr(), kp_add.data_ptr(), am_add.data_ptr(),
+                stats.data_ptr(), do.data_ptr(),
+                0 if seed_t is None else seed_t.data_ptr(), thresh,
+                keep_scale, delta.data_ptr(), dqu.data_ptr(), dqv.data_ptr(),
+                dk.data_ptr(), dv.data_ptr(), dp_part.data_ptr(),
+                dp.data_ptr(), B, H, T, Dh, float(scale), _stream(q_u.device))
+        _build.check_launch(err, "relpos_attention_bwd_bf16")
+        global bf16_bwd_launches
+        bf16_bwd_launches += 1
+        return dqu, dqv, dk, dv, dp
     with torch.cuda.device(q_u.device):
         err = _bwd_kernel()(
             q_u.data_ptr(), q_v.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -287,8 +448,10 @@ class _FusedRelPosAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do):
-        grads = _launch_bwd(*ctx.saved_tensors, do.contiguous(), ctx.seed_t,
-                            ctx.scale, ctx.rate)
+        # the JAX custom VJP casts the output gradient to q's dtype
+        do = do.to(ctx.saved_tensors[0].dtype).contiguous()
+        grads = _launch_bwd(*ctx.saved_tensors, do, ctx.seed_t, ctx.scale,
+                            ctx.rate)
         return (*grads, None, None, None, None, None)
 
 
@@ -298,7 +461,8 @@ def fused_relpos_attention(q_u, q_v, k, v, p, kp_add, am_add, seed, scale,
 
     ``seed`` (int or integer tensor) keys the dropout mask, which the
     backward regenerates; ``rate`` is the dropout rate on the
-    probabilities (0 in eval). Returns (B, H, T, Dh).
+    probabilities (0 in eval). Returns (B, H, T, Dh) in q_u's dtype: f32
+    or bf16 operands (the masks f32), each to its own kernels.
     """
     if q_u.device.type == "cpu":
         return relpos_attention_reference(q_u, q_v, k, v, p, kp_add, am_add,

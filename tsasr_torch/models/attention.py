@@ -28,6 +28,13 @@ path relies on the mask alone, as the JAX ``_fused_attention`` does.
 past: on the fused path as part of ``am_add``, which the CUDA kernels
 take as they take any additive mask.
 
+``dtype`` is the compute dtype (flax's ``dtype``): in bf16 the
+projections, the positional encoding and ``q + pos_bias`` are bf16; the
+plain path takes the scores in bf16 and the softmax in f32, rounds the
+probabilities back to bf16 and drops them out in bf16, as the JAX module
+does; the fused path sends bf16 operands to the bf16 kernels (the masks
+stay f32). An f32 module computes in its tensors' own dtype.
+
 Streaming (``kv_cache``): Q new frames attend over the cached keys and
 values plus their own, with the positional scores looked up by distance
 (the shift trick needs qlen == klen). Plain PyTorch, as the JAX module
@@ -47,15 +54,17 @@ from torch import nn
 
 from tsasr_torch.kernels.relpos_attention import fused_relpos_attention
 from tsasr_torch.kernels.relpos_attention import rel_shift as _rel_shift
+from tsasr_torch.models.layers import Linear
 from tsasr_torch.ops.dropout import Dropout
-from tsasr_torch.utils.precision import f32_or_wider
+from tsasr_torch.utils.precision import cast, f32_or_wider
 
 ATTN_FILL = -1e9
 
 
-def rel_pos_encoding(seq_len, emb_dim, device=None):
+def rel_pos_encoding(seq_len, emb_dim, device=None, dtype=torch.float32):
     """Relative positional encoding (1, 2*seq_len-1, emb_dim); index j is
-    relative position (T-1) - j, encoded by its absolute distance."""
+    relative position (T-1) - j, encoded by its absolute distance;
+    computed in f32 and returned in ``dtype``."""
     inv_freq = torch.exp(
         torch.arange(0, emb_dim, 2, dtype=torch.float32, device=device)
         * -(math.log(10000.0) / emb_dim))
@@ -64,7 +73,7 @@ def rel_pos_encoding(seq_len, emb_dim, device=None):
     pe = torch.zeros(2 * seq_len - 1, emb_dim, device=device)
     pe[:, 0::2] = torch.sin(angles)
     pe[:, 1::2] = torch.cos(angles)
-    return pe[None]
+    return cast(pe[None], dtype)
 
 
 def _past_pos_encoding(n, emb_dim, device=None):
@@ -77,7 +86,8 @@ class RelPosMHAXL(nn.Module):
     """Relative-position multi-head self-attention."""
 
     def __init__(self, embed_dim, num_heads, dropout=0.0, dropout_bits=32,
-                 fused=False, mask_pos_future=False, att_context_size=0):
+                 fused=False, mask_pos_future=False, att_context_size=0,
+                 dtype=torch.float32):
         super().__init__()
         if embed_dim % num_heads:
             raise ValueError(f"embed_dim {embed_dim} is not divisible by "
@@ -87,13 +97,16 @@ class RelPosMHAXL(nn.Module):
         self.fused = fused
         self.mask_pos_future = mask_pos_future
         self.att_context_size = att_context_size
+        self.dtype = dtype
         self.dropout = Dropout(dropout, dropout_bits)
         head_dim = embed_dim // num_heads
-        self.qkv_proj = nn.Linear(embed_dim, 3 * embed_dim, bias=False)
-        self.pos_proj = nn.Linear(embed_dim, embed_dim, bias=False)
+        self.qkv_proj = Linear(embed_dim, 3 * embed_dim, bias=False,
+                               compute_dtype=dtype)
+        self.pos_proj = Linear(embed_dim, embed_dim, bias=False,
+                               compute_dtype=dtype)
         self.pos_bias_u = nn.Parameter(torch.zeros(num_heads, head_dim))
         self.pos_bias_v = nn.Parameter(torch.zeros(num_heads, head_dim))
-        self.out_proj = nn.Linear(embed_dim, embed_dim)
+        self.out_proj = Linear(embed_dim, embed_dim, compute_dtype=dtype)
 
     def forward(self, x, pos_emb, key_padding_mask=None, attn_mask=None,
                 deterministic=True, generator=None, kv_cache=None):
@@ -109,8 +122,8 @@ class RelPosMHAXL(nn.Module):
         H = self.num_heads
         Dh = D // H
         q, k, v = self.qkv_proj(x).reshape(B, T, H, 3 * Dh).split(Dh, dim=-1)
-        q_u = q + self.pos_bias_u
-        q_v = q + self.pos_bias_v
+        q_u = q + cast(self.pos_bias_u, self.dtype)
+        q_v = q + cast(self.pos_bias_v, self.dtype)
         scale = 1.0 / math.sqrt(self.embed_dim)
         if kv_cache is not None:
             return self._streaming_attention(q_u, q_v, k, v, kv_cache, scale)
@@ -144,7 +157,7 @@ class RelPosMHAXL(nn.Module):
             scores = scores.masked_fill(key_padding_mask[:, None, None, :],
                                         ATTN_FILL)
         attn = torch.softmax(scores, dim=-1, dtype=f32_or_wider(scores))
-        attn = self.dropout(attn, deterministic, generator)
+        attn = self.dropout(cast(attn, self.dtype), deterministic, generator)
         out = torch.einsum("bhts,bshd->bthd", attn, v).reshape(B, T, D)
         return self.out_proj(out), attn
 

@@ -30,6 +30,11 @@ JAX cache become LN bias -> pointwise -> GLU, not zeros, so its stream
 matches the offline causal encode only while those biases are zero (as
 at init); zeros in the port's cache are the offline zero left padding
 exactly, for any weights.
+
+``dtype`` is the compute dtype (flax's ``dtype``): in bf16 every Linear,
+the depthwise conv and every LayerNorm return bf16 (``models.layers``),
+so the residual stream, the GLU, the macaron halves and ``cat_proj``
+compute in bf16, as the JAX modules do with ``dtype=bfloat16``.
 """
 
 import torch
@@ -37,6 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tsasr_torch.models.attention import RelPosMHAXL, rel_pos_encoding
+from tsasr_torch.models.layers import Conv1d, LayerNorm, Linear
 from tsasr_torch.ops.dropout import Dropout
 from tsasr_torch.ops.masks import (length_to_mask, lookahead_mask,
                                    relative_to_absolute_lengths)
@@ -51,10 +57,11 @@ def _act(x):
 class FeedForward(nn.Module):
     """Linear(d_ffn) -> leaky_relu -> dropout -> Linear(d_model)."""
 
-    def __init__(self, d_model, d_ffn, dropout=0.0, dropout_bits=32):
+    def __init__(self, d_model, d_ffn, dropout=0.0, dropout_bits=32,
+                 dtype=torch.float32):
         super().__init__()
-        self.w1 = nn.Linear(d_model, d_ffn)
-        self.w2 = nn.Linear(d_ffn, d_model)
+        self.w1 = Linear(d_model, d_ffn, compute_dtype=dtype)
+        self.w2 = Linear(d_ffn, d_model, compute_dtype=dtype)
         self.dropout = Dropout(dropout, dropout_bits)
 
     def forward(self, x, deterministic=True, generator=None):
@@ -67,18 +74,18 @@ class ConvolutionModule(nn.Module):
     -> dropout."""
 
     def __init__(self, d_model, kernel_size=31, dropout=0.0, dropout_bits=32,
-                 causal=False):
+                 causal=False, dtype=torch.float32):
         super().__init__()
         self.kernel_size = kernel_size
         self.causal = causal
-        self.norm_in = nn.LayerNorm(d_model, eps=LN_EPS)
-        self.pointwise_in = nn.Linear(d_model, 2 * d_model)
-        self.depthwise = nn.Conv1d(d_model, d_model, kernel_size,
-                                   padding=0 if causal
-                                   else (kernel_size - 1) // 2,
-                                   groups=d_model)
-        self.norm_mid = nn.LayerNorm(d_model, eps=LN_EPS)
-        self.pointwise_out = nn.Linear(d_model, d_model)
+        self.norm_in = LayerNorm(d_model, eps=LN_EPS, compute_dtype=dtype)
+        self.pointwise_in = Linear(d_model, 2 * d_model, compute_dtype=dtype)
+        self.depthwise = Conv1d(d_model, d_model, kernel_size,
+                                padding=0 if causal
+                                else (kernel_size - 1) // 2,
+                                groups=d_model, compute_dtype=dtype)
+        self.norm_mid = LayerNorm(d_model, eps=LN_EPS, compute_dtype=dtype)
+        self.pointwise_out = Linear(d_model, d_model, compute_dtype=dtype)
         self.dropout = Dropout(dropout, dropout_bits)
 
     def forward(self, x, pad_mask=None, deterministic=True, generator=None,
@@ -109,19 +116,19 @@ class ConformerEncoderLayer(nn.Module):
 
     def __init__(self, d_model, d_ffn, nhead, kernel_size=31, dropout=0.0,
                  dropout_bits=32, fused_attention=False, causal=False,
-                 att_context_size=0):
+                 att_context_size=0, dtype=torch.float32):
         super().__init__()
-        self.norm_ffn1 = nn.LayerNorm(d_model, eps=LN_EPS)
-        self.ffn1 = FeedForward(d_model, d_ffn, dropout, dropout_bits)
-        self.norm_mha = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.norm_ffn1 = LayerNorm(d_model, eps=LN_EPS, compute_dtype=dtype)
+        self.ffn1 = FeedForward(d_model, d_ffn, dropout, dropout_bits, dtype)
+        self.norm_mha = LayerNorm(d_model, eps=LN_EPS, compute_dtype=dtype)
         self.mha = RelPosMHAXL(d_model, nhead, dropout, dropout_bits,
                                fused=fused_attention, mask_pos_future=causal,
-                               att_context_size=att_context_size)
+                               att_context_size=att_context_size, dtype=dtype)
         self.conv = ConvolutionModule(d_model, kernel_size, dropout,
-                                      dropout_bits, causal)
-        self.norm_ffn2 = nn.LayerNorm(d_model, eps=LN_EPS)
-        self.ffn2 = FeedForward(d_model, d_ffn, dropout, dropout_bits)
-        self.norm_out = nn.LayerNorm(d_model, eps=LN_EPS)
+                                      dropout_bits, causal, dtype)
+        self.norm_ffn2 = LayerNorm(d_model, eps=LN_EPS, compute_dtype=dtype)
+        self.ffn2 = FeedForward(d_model, d_ffn, dropout, dropout_bits, dtype)
+        self.norm_out = LayerNorm(d_model, eps=LN_EPS, compute_dtype=dtype)
         self.dropout = Dropout(dropout, dropout_bits)
 
     def forward(self, x, pos_emb, key_padding_mask=None, attn_mask=None,
@@ -157,7 +164,8 @@ class TSConformerEncoder(nn.Module):
     def __init__(self, input_size, d_model=256, nhead=4, num_layers=12,
                  d_ffn=2048, kernel_size=31, dropout=0.0, dropout_bits=32,
                  injection_mode=None, injection_after=(0,),
-                 fused_attention=False, causal=False, att_context_size=0):
+                 fused_attention=False, causal=False, att_context_size=0,
+                 dtype=torch.float32):
         super().__init__()
         if injection_mode not in (None, "cat"):
             raise NotImplementedError(
@@ -165,17 +173,18 @@ class TSConformerEncoder(nn.Module):
                 "port has 'cat' and None")
         self.d_model = d_model
         self.causal = causal
+        self.dtype = dtype
         self.injection_mode = injection_mode
         self.injection_after = tuple(injection_after)
-        self.input_proj = nn.Linear(input_size, d_model)
+        self.input_proj = Linear(input_size, d_model, compute_dtype=dtype)
         self.layers = nn.ModuleList(
             ConformerEncoderLayer(d_model, d_ffn, nhead, kernel_size,
                                   dropout, dropout_bits, fused_attention,
-                                  causal, att_context_size)
+                                  causal, att_context_size, dtype)
             for _ in range(num_layers))
-        self.cat_proj = nn.Linear(2 * d_model, d_model) \
+        self.cat_proj = Linear(2 * d_model, d_model, compute_dtype=dtype) \
             if injection_mode == "cat" else None
-        self.norm = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.norm = LayerNorm(d_model, eps=LN_EPS, compute_dtype=dtype)
         self.dropout = Dropout(dropout, dropout_bits)
 
     def _inject(self, x, speaker_embs):
@@ -205,7 +214,8 @@ class TSConformerEncoder(nn.Module):
         if inject and -1 in self.injection_after:
             x = self._inject(x, speaker_embs)
         if not streaming:
-            pos_emb = rel_pos_encoding(T, self.d_model, device=x.device)
+            pos_emb = rel_pos_encoding(T, self.d_model, device=x.device,
+                                       dtype=self.dtype)
             if self.causal:
                 attn_mask = lookahead_mask(T, device=x.device)
         new_states = []

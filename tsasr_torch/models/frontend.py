@@ -21,13 +21,19 @@ kept:
 - dropout follows the activation and the residual sum, as in the JAX
   ``ConvBlock``; ``forward`` takes the JAX ``deterministic`` switch and
   the step's ``generator``.
+
+``dtype`` is the compute dtype: in bf16 the f32 features are cast to bf16
+at the first convolution, and the convolutions and LayerNorms return
+bf16 (``models.layers``).
 """
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tsasr_torch.models.layers import Conv2d, LayerNorm
 from tsasr_torch.ops.dropout import Dropout
+from tsasr_torch.utils.precision import cast
 
 
 FRONTEND_PADDINGS = {"same": False, "causal": True}
@@ -47,22 +53,24 @@ class ConvBlock(nn.Module):
 
     def __init__(self, in_channels, out_channels, freq_in, kernel_size=3,
                  stride=1, residual=True, dropout=0.0, dropout_bits=32,
-                 causal=False):
+                 causal=False, dtype=torch.float32):
         super().__init__()
         self.kernel_size = kernel_size
         self.causal = causal
+        self.dtype = dtype
         self.pad = kernel_size // 2 if stride > 1 else (kernel_size - 1) // 2
         freq_out = -(-freq_in // stride)
-        self.conv = nn.Conv2d(in_channels, out_channels, kernel_size,
-                              stride=stride)
-        self.norm = nn.LayerNorm((freq_out, out_channels), eps=1e-5)
+        self.conv = Conv2d(in_channels, out_channels, kernel_size,
+                           stride=stride, compute_dtype=dtype)
+        self.norm = LayerNorm((freq_out, out_channels), eps=1e-5,
+                              compute_dtype=dtype)
         self.dropout = Dropout(dropout, dropout_bits)
         self.residual_conv = self.residual_norm = None
         if residual:
-            self.residual_conv = nn.Conv2d(in_channels, out_channels, 1,
-                                           stride=stride)
-            self.residual_norm = nn.LayerNorm((freq_out, out_channels),
-                                              eps=1e-5)
+            self.residual_conv = Conv2d(in_channels, out_channels, 1,
+                                        stride=stride, compute_dtype=dtype)
+            self.residual_norm = LayerNorm((freq_out, out_channels),
+                                           eps=1e-5, compute_dtype=dtype)
 
     def forward(self, x, deterministic=True, generator=None,
                 block_cache=None):
@@ -71,6 +79,7 @@ class ConvBlock(nn.Module):
         Streaming (causal): ``block_cache`` (B, kernel_size - 1, F, C)
         holds the input rows before x (zeros at the start), x a multiple
         of the stride of new rows; returns (out, new cache)."""
+        x = cast(x, self.dtype)
         x_nchw = x.permute(0, 3, 1, 2)
         freq_pad = (self.pad, self.pad)
         if block_cache is not None:
@@ -98,14 +107,14 @@ class ConvolutionFrontEnd(nn.Module):
     def __init__(self, n_mels=80, out_channels=(128, 128),
                  kernel_sizes=(3, 3), strides=(2, 2),
                  residuals=(True, True), dropout=0.0, dropout_bits=32,
-                 causal=False):
+                 causal=False, dtype=torch.float32):
         super().__init__()
         blocks = []
         ch, freq = 1, n_mels
         for out_ch, k, s, r in zip(out_channels, kernel_sizes, strides,
                                    residuals):
             blocks.append(ConvBlock(ch, out_ch, freq, k, s, r, dropout,
-                                    dropout_bits, causal))
+                                    dropout_bits, causal, dtype))
             ch, freq = out_ch, -(-freq // s)
         self.blocks = nn.ModuleList(blocks)
 

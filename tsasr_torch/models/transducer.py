@@ -20,6 +20,13 @@ rows and each layer's KV and conv caches from one chunk to the next, and
 give the offline causal encode's frames. The speaker branch stays
 non-causal: the enrollment is whole before the stream starts.
 
+``TSTransducerConfig.dtype`` is the compute dtype (the JAX config's
+``dtype``): a bf16 model computes in bf16 throughout, its parameters f32,
+and the one-hot embedding, the speaker pool's mask and the projections
+follow it; the features (fbank, normalization, augmentation) stay f32
+and are cast at the frontend's first convolution. The same f32
+``state_dict`` loads into either precision.
+
 The machine that runs the port has no JAX to make weights with, so
 ``TSTransducer.init_weights`` draws them from a seeded
 ``torch.Generator``; ``tsasr_torch.convert`` brings in trained flax
@@ -37,8 +44,10 @@ from torch import nn
 from tsasr_torch.models.attention import RelPosMHAXL
 from tsasr_torch.models.conformer import TSConformerEncoder
 from tsasr_torch.models.frontend import ConvolutionFrontEnd
+from tsasr_torch.models.layers import Linear
 from tsasr_torch.models.rnn import LSTM
 from tsasr_torch.ops.masks import length_to_mask
+from tsasr_torch.utils.precision import cast
 
 
 @dataclass(frozen=True)
@@ -81,8 +90,13 @@ class TSTransducerConfig:
     predictor_class: Optional[str] = None
     joiner_class: Optional[str] = None
     speaker_encoder_type: str = "conformer"
+    # the compute dtype: float32, or bfloat16 (the recipe's precision bf16)
+    dtype: torch.dtype = torch.float32
 
     def __post_init__(self):
+        if self.dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"dtype {self.dtype} is not float32 or "
+                             "bfloat16")
         not_ported = {
             "remat": (self.remat, False),
             "frontend_class": (self.frontend_class, None),
@@ -122,8 +136,9 @@ class OneHotEmbedding(nn.Module):
     """Fixed one-hot embedding V -> V-1: token i maps to the unit vector
     at i-1 (i above blank) or i (below); blank maps to zeros."""
 
-    def __init__(self, num_embeddings, blank_id=0):
+    def __init__(self, num_embeddings, blank_id=0, dtype=torch.float32):
         super().__init__()
+        self.dtype = dtype
         V = num_embeddings
         table = torch.zeros(V, V - 1)
         for i in range(V):
@@ -132,18 +147,19 @@ class OneHotEmbedding(nn.Module):
         self.register_buffer("table", table, persistent=False)
 
     def forward(self, tokens):
-        return self.table[tokens]
+        return cast(self.table, self.dtype)[tokens]
 
 
 class Predictor(nn.Module):
     """Prediction network: one-hot embed -> LSTM -> joint projection."""
 
     def __init__(self, vocab_size, blank_index=0, hidden_size=512,
-                 num_layers=1, joint_dim=640):
+                 num_layers=1, joint_dim=640, dtype=torch.float32):
         super().__init__()
-        self.embedding = OneHotEmbedding(vocab_size, blank_index)
-        self.decoder = LSTM(vocab_size - 1, hidden_size, num_layers)
-        self.decoder_proj = nn.Linear(hidden_size, joint_dim)
+        self.embedding = OneHotEmbedding(vocab_size, blank_index, dtype)
+        self.decoder = LSTM(vocab_size - 1, hidden_size, num_layers, dtype)
+        self.decoder_proj = Linear(hidden_size, joint_dim,
+                                   compute_dtype=dtype)
 
     def forward(self, tokens_bos, initial_state=None):
         """tokens_bos (B, U+1) int -> (dec_proj (B, U+1, J), state)."""
@@ -176,18 +192,20 @@ class TSTransducer(nn.Module):
             return ConvolutionFrontEnd(
                 c.n_mels, tuple(c.frontend_channels),
                 strides=tuple(c.frontend_strides), dropout=c.dropout,
-                dropout_bits=c.dropout_bits, causal=causal)
+                dropout_bits=c.dropout_bits, causal=causal, dtype=c.dtype)
 
         self.frontend = frontend(c.frontend_causal)
         self.encoder = TSConformerEncoder(
             enc_in, c.d_model, c.nhead, c.encoder_num_layers, c.d_ffn,
             c.kernel_size, c.dropout, c.dropout_bits, c.injection_mode, after,
-            c.fused_attention, c.causal_encoder, c.att_context_size)
-        self.encoder_proj = nn.Linear(c.d_model, c.joint_dim)
+            c.fused_attention, c.causal_encoder, c.att_context_size, c.dtype)
+        self.encoder_proj = Linear(c.d_model, c.joint_dim,
+                                   compute_dtype=c.dtype)
         self.predictor = Predictor(c.vocab_size, c.blank_index,
                                    c.decoder_neurons, c.decoder_num_layers,
-                                   c.joint_dim)
-        self.transducer_head = nn.Linear(c.joint_dim, c.vocab_size)
+                                   c.joint_dim, c.dtype)
+        self.transducer_head = Linear(c.joint_dim, c.vocab_size,
+                                      compute_dtype=c.dtype)
         self.speaker_frontend = self.speaker_encoder = None
         self.speaker_proj = None
         if c.injection_mode is not None:
@@ -196,12 +214,13 @@ class TSTransducer(nn.Module):
                 self.speaker_encoder = TSConformerEncoder(
                     enc_in, c.d_model, c.nhead, c.speaker_encoder_layers,
                     c.d_ffn, c.kernel_size, c.dropout, c.dropout_bits, None,
-                    fused_attention=c.fused_attention)
+                    fused_attention=c.fused_attention, dtype=c.dtype)
             # projects the own speaker encoder's output, or the external
             # embeddings when there is no speaker encoder
             proj_in = c.d_model if c.use_speaker_encoder \
                 else (c.speaker_embedding_dim or c.d_model)
-            self.speaker_proj = nn.Linear(proj_in, c.d_model)
+            self.speaker_proj = Linear(proj_in, c.d_model,
+                                       compute_dtype=c.dtype)
 
     # ----------------------------------------------------------- speaker
     def extract_speaker(self, enroll_feats, enroll_rel_lens,
@@ -253,8 +272,14 @@ class TSTransducer(nn.Module):
 
     def init_stream_state(self, batch_size, capacity, device=None):
         """The zero streaming state; ``capacity`` is the number of encoder
-        frames the attention KV buffers hold."""
+        frames the attention KV buffers hold. f32 models only: the
+        caches of a bf16 stream are not ported (the JAX streamer has no
+        precision switch either)."""
         c = self.config
+        if c.dtype != torch.float32:
+            raise NotImplementedError(
+                f"streaming a {c.dtype} model is not ported; stream the f32 "
+                "model (its state_dict loads into either precision)")
         frontend = []
         freq, ch = c.n_mels, 1
         for block in self.frontend.blocks:

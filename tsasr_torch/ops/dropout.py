@@ -35,9 +35,23 @@ def keep_mask(gen, keep_prob, shape, bits=32, device=None):
 
 def dropout(x, gen, rate, bits=32):
     """Zero elements of ``x`` with probability ``rate`` and scale the rest
-    by ``1 / (1 - rate)``."""
+    by ``1 / (1 - rate)``. The mask depends on the generator and the
+    shape only, so an f32 and a bf16 run of one step drop the same
+    elements."""
     keep = keep_mask(gen, 1.0 - rate, x.shape, bits, x.device)
-    return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
+    return torch.where(keep, x / _keep_divisor(x, rate), 0.0).to(x.dtype)
+
+
+def _keep_divisor(x, rate):
+    """``1 - rate`` as the JAX package divides by it. Below f32 the
+    weak-typed Python float takes x's dtype there (0.9 is 0.8984375 in
+    bf16) and the quotient is rounded from the true one; a 0-d tensor on
+    x's device does the same here, where a Python scalar would become a
+    product with its reciprocal on CUDA, an ulp away in bf16. f32 and
+    wider keep the Python float, as the f32 path always had."""
+    if torch.finfo(x.dtype).bits >= 32:
+        return 1.0 - rate
+    return torch.full((), 1.0 - rate, dtype=x.dtype, device=x.device)
 
 
 class Dropout(nn.Module):

@@ -13,6 +13,13 @@ Counterpart of the JAX package's ``ops/rnnt_loss_fused.py``, as a
 
 The chunk products stay ``torch.matmul``, as the JAX package left them
 to XLA. Only the recipe's joint (sum + leaky_relu) is supported.
+
+bf16 (a bf16 model's enc and dec, f32 head parameters), as the JAX
+function: the forward's joint and logits in bf16 (``joint @ w.bf16 +
+b.bf16``), the log-softmax of the f32 logits; the backward recomputes the
+bf16 joint, takes dw, db and d(joint) in f32 (``joint.float()``, ``w``),
+the leaky-relu mask from the bf16 ``pre``, sums d(enc) and d(dec) in f32
+and casts them to bf16 once. The lattice is f32 either way.
 """
 
 import torch
@@ -28,7 +35,7 @@ def _chunk_joint(enc_c, dec, w, b, slope):
     """enc_c (B, c, J), dec (B, U+1, J) -> (pre, joint, log-probs)."""
     pre = enc_c[:, :, None, :] + dec[:, None, :, :]
     joint = F.leaky_relu(pre, slope)
-    logits = joint @ w + b
+    logits = joint @ w.to(joint.dtype) + b.to(joint.dtype)
     return pre, joint, torch.log_softmax(logits, dim=-1,
                                          dtype=f32_or_wider(logits))
 
@@ -56,7 +63,8 @@ class _FusedRNNTLoss(torch.autograd.Function):
         dlpb = dlpb * g[:, None, None]
         dlpl = dlpl * g[:, None, None]
         denc = torch.empty_like(enc)
-        ddec = torch.zeros_like(dec)
+        # d(dec) sums over the chunks in f32 (or wider) whatever dec's dtype
+        ddec = torch.zeros_like(dec, dtype=f32_or_wider(dec))
         dw = torch.zeros_like(w)
         db = torch.zeros_like(b)
         for c0 in range(0, enc.shape[1], chunk):
@@ -64,13 +72,15 @@ class _FusedRNNTLoss(torch.autograd.Function):
             pre, joint, lp = _chunk_joint(enc[:, sl], dec, w, b, slope)
             dlogits = _logprob_grads(lp, dlpb[:, sl], dlpl[:, sl], labels,
                                      ctx.blank)
-            dw += torch.einsum("bcuj,bcuv->jv", joint, dlogits)
+            dw += torch.einsum("bcuj,bcuv->jv", joint.to(dlogits.dtype),
+                               dlogits)
             db += dlogits.sum(dim=(0, 1, 2))
             djoint = dlogits @ w.T
             dpre = torch.where(pre > 0, djoint, slope * djoint)
             denc[:, sl] = dpre.sum(dim=2)
             ddec += dpre.sum(dim=1)
-        return denc, ddec, dw, db, None, None, None, None, None, None
+        return (denc, ddec.to(dec.dtype), dw, db, None, None, None, None,
+                None, None)
 
 
 def rnnt_loss_fused(enc, dec, head_w, head_b, labels, logit_lengths,

@@ -51,6 +51,7 @@ other than ``cat`` (frame-level speaker embeddings with
 ``prompt_test`` and the ``plot_*`` switches.
 """
 
+import dataclasses
 import json
 import logging
 import os
@@ -71,6 +72,7 @@ from tsasr_torch.decoding import (BatchedBeamSearcher,
                                   TransducerGreedySearcher)
 from tsasr_torch.device import resolve_device
 from tsasr_torch.lm.fusion import load_fusion_lm
+from tsasr_torch.models.transducer import TSTransducer
 from tsasr_torch.ops.augment import spec_augment, speed_perturb
 from tsasr_torch.ops.features import (Fbank, input_normalization,
                                       pad_audio_to_frame_multiple)
@@ -82,6 +84,7 @@ from tsasr_torch.recipes.speaker_embeddings import (FrozenSpeakerEncoder,
                                                     require_checkpoint_dir)
 from tsasr_torch.training.brain import Brain
 from tsasr_torch.utils.metric_stats import ErrorRateStats
+from tsasr_torch.utils.precision import compute_dtype
 from tsasr_torch.utils.stage import Stage
 
 logger = logging.getLogger(__name__)
@@ -524,6 +527,12 @@ def run_experiment(variant="scratch", argv=None):
         unk_id=hparams["blank_index"])
 
     train_data, valid_data, _ = dataio_prepare(hparams, tokenizer)
+    # bf16 compute: the model is rebuilt with a bf16 dtype (the parameters
+    # and the optimizer stay f32; the same seed gives the same weights)
+    precision = run_opts.get("precision", hparams.get("precision"))
+    if precision == "bf16" and "model_config" in hparams:
+        hparams["model"] = TSTransducer(dataclasses.replace(
+            hparams["model_config"], dtype=compute_dtype(precision)))
     model = hparams["model"].init_weights(seed=int(hparams["seed"]))
     brain = TSASRBrain(
         modules={"model": model}, opt_class=hparams["opt_class"],

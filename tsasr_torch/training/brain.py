@@ -30,7 +30,10 @@ late as in JAX.
 
 Subclasses provide ``batch_to_arrays``, ``compute_forward`` and
 ``compute_objectives``. Entry points run on ``device="cuda"`` unless
-``run_opts`` asks for the CPU.
+``run_opts`` asks for the CPU. ``precision`` (fp32 | bf16) is the
+model's compute dtype, which the recipe builds the model with: the
+parameters, their gradients, the running gradient mean and the AdamW
+state are f32 either way, so the step (clip, AdamW, Noam) is the same.
 """
 
 import contextlib
@@ -54,6 +57,7 @@ DEFAULT_RUN_OPTS = {
     "debug_batches": 2,
     "debug_epochs": 2,
     "device": "cuda",
+    "precision": "fp32",            # fp32 | bf16
     "noprogressbar": False,
     "grad_accumulation_factor": 1,
     "optimizer_step_limit": None,

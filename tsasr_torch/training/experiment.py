@@ -13,9 +13,9 @@ reference's CLI layer (``core.py:55-410``):
 
 The flags are the JAX package's. ``--device`` is the torch device
 (``cuda`` unless given, which raises without a card; ``cpu`` to run on
-the host). The parallel flags, ``--profile`` and ``--precision bf16``
-raise ``NotImplementedError``: DDP, the profiler hook and bf16 are not
-ported yet.
+the host). ``--precision bf16`` builds the model in bf16 (the recipe).
+The parallel flags and ``--profile`` raise ``NotImplementedError``: DDP
+and the profiler hook are not ported yet.
 """
 
 import argparse
@@ -78,7 +78,7 @@ def parse_arguments(arg_list=None):
     """Returns (hparams_file, run_opts dict, overrides yaml string).
 
     Raises ``NotImplementedError`` for the flags of what is not ported
-    (``NOT_PORTED_FLAGS``, ``--precision bf16``)."""
+    (``NOT_PORTED_FLAGS``)."""
     if arg_list is None:
         arg_list = sys.argv[1:]
     parser = argparse.ArgumentParser(description="tsasr_torch experiment")
@@ -100,11 +100,9 @@ def parse_arguments(arg_list=None):
 
 
 def check_precision(precision):
-    """Raise unless ``precision`` is f32 (or unset)."""
-    if precision not in (None, "fp32"):
-        raise NotImplementedError(
-            f"precision {precision!r} is not ported yet; the port runs "
-            "fp32")
+    """Raise unless ``precision`` is fp32, bf16 or unset."""
+    if precision not in (None, "fp32", "bf16"):
+        raise ValueError(f"precision {precision!r} is not fp32 or bf16")
 
 
 def _unknown_to_overrides(unknown):
