@@ -54,7 +54,8 @@ checkout, or when any phase fails. Phases:
    its optimizer step, its TEST one utterance a batch with an n-gram LM
    of the train transcripts (``tsasr_torch.tools.train_ngram_lm``); the
    run's folder through ``TSASRTranscriber.from_experiment`` and
-   ``transcribe_file`` must give TEST's transcripts; then each kernel is
+   ``transcribe_file`` must give TEST's transcripts (16 of its 48 TEST
+   files, EXPERIMENT_FILES); then each kernel is
    held against its plain version on the inputs the two runs gave it,
    one call per shape (the attention forward and, at TRAIN, backward
    with the path's dropout; the lattice on the route the path took; T
@@ -113,7 +114,28 @@ checkout, or when any phase fails. Phases:
    at beam 15; every batch launches the bf16 kernels as its shapes imply
    and no f32 attention kernel), then the bf16 kernels on the run's own
    tensors;
-9. a small model on the card against the same model on the CPU:
+9. the yamls' model switches (``phase_switches``) at the scratch
+   recipe's full width: for each of the injection modes prod, sum and
+   cross_attention, ``injection_after`` [-1, 0, 6], the ECAPA speaker
+   branch, the concat joint, a band of 64 and a covering band, one
+   dropout-0 6 x 8 s micro-batch with the kernels against every kernel
+   forced to its plain version (loss within 1e-5, gradients by the
+   training phase's rule, the kink set placed in f64 for each), its host
+   and device ms, launches and own peak memory; a covering band against
+   the full loss, band 64 on 3 x 16 s no smaller than it and the banded
+   loss's launches and device time; remat full and dots bit for bit
+   against the step without remat (dropout 0.1, deterministic
+   algorithms), and remat full's own peak memory on 3 x 16 s below the
+   step's without it; the pretrained recipe with cross_attention (the
+   frozen WavLM's frames, card against CPU, and one fit_batch); the
+   scratch yaml through ``run_experiment`` with ``--speaker_encoder_type
+   ecapa --remat True`` and with ``--injection_mode cross_attention
+   --joint_band_width 64`` (2 optimizer steps, VALID greedy, TEST at beam
+   2, every batch launching what its shapes imply, then
+   ``from_experiment`` on the TEST files); a causal cross_attention model
+   streaming with kv_cache to the offline greedy tokens; then each kernel
+   against its plain version on the phase's own tensors;
+10. a small model on the card against the same model on the CPU:
    serving encoder output (the CPU side twice, each hash logged with the
    host CPU's model and torch's thread count), and 2 optimizer steps of
    training at dropout 0.
@@ -1045,7 +1067,9 @@ def training_batches():
     return train, check, valid
 
 
-def make_brain(config, device, hparams=None):
+def make_brain(config, device, hparams=None, model=None):
+    """A brain over ``model``, by default ``config``'s model on seeded
+    weights."""
     from tsasr_torch.data.tokenizer import CharTokenizer
     from tsasr_torch.models.transducer import TSTransducer
     from tsasr_torch.recipes.librispeechmix import TSASRBrain
@@ -1053,7 +1077,7 @@ def make_brain(config, device, hparams=None):
 
     hp = dict(HPARAMS, **(hparams or {}))
     hp.setdefault("noam_scheduler", NoamScheduler(1e-3, 10000))
-    model = TSTransducer(config).init_weights(seed=SEED)
+    model = model or TSTransducer(config).init_weights(seed=SEED)
     return TSASRBrain(modules={"model": model},
                       opt_class=make_adamw(1e-3, (0.9, 0.98), 1e-8, 0.01),
                       hparams=hp, run_opts={"device": str(device)},
@@ -1067,17 +1091,21 @@ def plain_kernels():
     from tsasr_torch.kernels import relpos_attention as ra
     from tsasr_torch.kernels import rnnt_lattice as rl
     from tsasr_torch.models import attention as attention_mod
+    from tsasr_torch.ops import rnnt_loss as loss_mod
     from tsasr_torch.ops import rnnt_loss_fused as fused_mod
 
-    saved = (attention_mod.fused_relpos_attention, fused_mod.rnnt_lattice)
+    saved = (attention_mod.fused_relpos_attention, fused_mod.rnnt_lattice,
+             loss_mod.rnnt_lattice)
     attention_mod.fused_relpos_attention = \
         lambda *a, seed, scale, rate: ra.relpos_attention_reference(
             *a, scale, seed, rate)
-    fused_mod.rnnt_lattice = rl.rnnt_lattice_reference
+    fused_mod.rnnt_lattice = loss_mod.rnnt_lattice = \
+        rl.rnnt_lattice_reference
     try:
         yield
     finally:
-        attention_mod.fused_relpos_attention, fused_mod.rnnt_lattice = saved
+        (attention_mod.fused_relpos_attention, fused_mod.rnnt_lattice,
+         loss_mod.rnnt_lattice) = saved
 
 
 @contextlib.contextmanager
@@ -1104,11 +1132,15 @@ def planted_fault():
         ra._launch_bwd = real
 
 
-def wide_brain(device):
-    """The dropout-0 full-width brain with its weights (the same as
-    ``make_brain``'s) and its features in f64, for the plain versions."""
+def wide_brain(device, config=None, hparams=None, model=None):
+    """The dropout-0 full-width brain (of ``config``, by default the
+    scratch recipe's) with its weights (the same as ``make_brain``'s, or
+    a copy of ``model``'s) and its features in f64, for the plain
+    versions."""
+    import copy
     from tsasr_torch.models.transducer import scratch_config
-    brain = make_brain(scratch_config(dropout=0.0), device)
+    brain = make_brain(config or scratch_config(dropout=0.0), device,
+                       hparams, model and copy.deepcopy(model))
     brain.model.double()
     brain.fbank.double()
     return brain
@@ -1124,10 +1156,11 @@ def batch_arrays(brain, batch, dtype=None):
     return arrays
 
 
-def loss_and_grads(brain, batch, dtype=None):
+def loss_and_grads(brain, batch, dtype=None, retain=False):
     """Loss and every parameter's gradient of one TRAIN micro-batch. With
     ``dtype``, the float inputs are cast to it and it is the default
-    dtype for the run (an f64 run of ``wide_brain``)."""
+    dtype for the run (an f64 run of ``wide_brain``); ``retain`` keeps
+    the graph for a second differentiation."""
     import torch
     from tsasr_torch.training.brain import onednn_off_on_cpu
     from tsasr_torch.utils.stage import Stage
@@ -1140,7 +1173,8 @@ def loss_and_grads(brain, batch, dtype=None):
             loss = brain.compute_objectives(
                 brain.compute_forward(arrays, Stage.TRAIN, None), arrays,
                 Stage.TRAIN)
-            return loss.detach(), torch.autograd.grad(loss, params)
+            return loss.detach(), torch.autograd.grad(
+                loss, params, retain_graph=retain)
     finally:
         torch.set_default_dtype(saved)
 
@@ -1306,21 +1340,128 @@ def joint_kink_bounds(brain, batch, store):
     }, z, near, inside[..., None].expand_as(z)
 
 
-def held_errors(got, want, masks, held):
-    """Per leaf: max |got - want| over the elements where the mask is
-    ``held``, of the leaf's max |want| (0 where it holds none), in f64."""
+@contextlib.contextmanager
+def joiner_capture(model, store, grads=False):
+    """Context, for a joint outside the fused loss (the ``concat`` joint,
+    a band): ``store["z"]`` the pre-activation of the joiner's
+    leaky_relu in each forward (enc + dec, or ``joint_network``'s
+    output), detached. With ``grads`` (the f64 run) also what
+    ``joiner_kink_bounds`` needs: the joint producers' inputs and
+    outputs, the joint's input x (concat), dL/dh at the joiner's output,
+    dL/dlogits at the head's, and the pre-activation z_abs taken with
+    |joint_network| (enc + dec itself for the sum), which stays in the
+    graph from enc_out and dec_out."""
     import torch
+    import torch.nn.functional as F
+
+    def on_joiner(module, inputs, h):
+        enc, dec = inputs
+        x = None
+        if module.joint_network is None:
+            z = z_abs = enc + dec
+        else:
+            shape = torch.broadcast_shapes(enc.shape[:-1], dec.shape[:-1])
+            x = torch.cat([enc.expand(*shape, -1), dec.expand(*shape, -1)],
+                          dim=-1)
+            z = module.joint_network(x)
+            z_abs = F.linear(x, module.joint_network.weight.abs())
+        store["z"] = z.detach()
+        if grads:
+            store["x"] = None if x is None else x.detach()
+            store["z_abs"] = z_abs
+            h.register_hook(lambda g: store.__setitem__("dh", g.detach()))
+
+    def on_head(module, inputs, logits):
+        logits.register_hook(
+            lambda g: store.__setitem__("dlogits", g.detach()))
+
+    def on_producer(name):
+        def run(module, inputs, out):
+            store[name] = (inputs[0].detach(), out)
+        return run
+
+    handles = [model.joiner.register_forward_hook(on_joiner)]
+    if grads:
+        handles.append(model.transducer_head.register_forward_hook(on_head))
+        handles += [model.get_submodule(n).register_forward_hook(
+            on_producer(n)) for n in JOINT_PRODUCERS]
+    try:
+        yield
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def joiner_kink_bounds(store):
+    """``joint_kink_bounds`` for a joint outside the fused loss, from the
+    f64 run's ``joiner_capture(grads=True)`` store: a flip at z within
+    KINK_Z changes dL/dz by delta = 0.99 |dL/dh|; enc_out's and
+    dec_out's gradients take delta through |joint_network| (the band's
+    gather summed back by autograd), the producers' weights times |x|
+    and their biases times 1, ``joint_network``'s weight delta times
+    the joint's |x|, and the head's weight 0.99 |z| times |dL/dlogits|.
+    Returns (bounds by parameter name, z, near the kink, where the loss
+    sees the cell: dL/dh != 0)."""
+    import torch
+    z = store["z"]
+    near = z.abs() < KINK_Z
+    delta = torch.where(near, 0.99 * store["dh"].abs(), 0.0)
+    (enc_in, enc_out), (dec_in, dec_out) = (store[n]
+                                            for n in JOINT_PRODUCERS)
+    d_enc, d_dec = torch.autograd.grad(store["z_abs"], (enc_out, dec_out),
+                                       grad_outputs=delta)
+    moved_h = torch.where(near, 0.99 * z.abs(), 0.0).flatten(0, 2)
+    bounds = {
+        "encoder_proj.weight": d_enc.flatten(0, 1).T
+        @ enc_in.abs().flatten(0, 1),
+        "encoder_proj.bias": d_enc.sum((0, 1)),
+        "predictor.decoder_proj.weight": d_dec.flatten(0, 1).T
+        @ dec_in.abs().flatten(0, 1),
+        "predictor.decoder_proj.bias": d_dec.sum((0, 1)),
+        "transducer_head.weight":
+            store["dlogits"].abs().flatten(0, 2).T @ moved_h,
+    }
+    if store["x"] is not None:
+        bounds["joiner.joint_network.weight"] = delta.flatten(0, 2).T \
+            @ store["x"].abs().flatten(0, 2)
+        bounds["joiner.joint_network.bias"] = delta.sum((0, 1, 2))
+    return bounds, z, near, store["dh"] != 0
+
+
+# leaves whose gradient is 0 in exact arithmetic (a softmax does not see
+# a shift shared by all its inputs: the key bias of the cross-attention,
+# the bias of ECAPA's pooling attention): both runs give rounding noise,
+# held at the scale of the same layer's weight gradient
+ZERO_GRADIENT_LEAVES = ("speaker_attn.k_proj.bias", "asp.conv.bias")
+
+
+def scale_leaves(names):
+    """Per leaf, the index of the leaf whose max |g| scales its error."""
+    return [names.index(n[:-len("bias")] + "weight")
+            if n.endswith(ZERO_GRADIENT_LEAVES) else i
+            for i, n in enumerate(names)]
+
+
+def held_errors(got, want, masks, held, scales=None):
+    """Per leaf: max |got - want| over the elements where the mask is
+    ``held``, of the leaf's max |want| (0 where it holds none), or of
+    ``want[scales[i]]``'s, in f64."""
+    import torch
+    scales = scales or range(len(want))
     return [(torch.where(m == held, (g.double() - w.double()).abs(), 0.0)
-             .max() / w.double().abs().max().clamp(min=1e-30)).item()
-            for g, w, m in zip(got, want, masks)]
+             .max() / want[j].double().abs().max().clamp(min=1e-30)).item()
+            for g, w, m, j in zip(got, want, masks, scales)]
 
 
-def check_gradients(device, batch):
+def check_gradients(device, batch, config=None, hparams=None, fault=True,
+                    loss_rtol=1e-4, name="6 x 8 s"):
     """At dropout 0, one micro-batch's loss and gradients with every
     kernel against the same model with every kernel forced to its plain
     version. Two more readings place the tolerances: the f32 noise floor
     (the plain model in f32 against the same model, weights and batch in
-    f64) and a planted fault (dp not summed over the batch).
+    f64) and, with ``fault``, a planted fault (dp not summed over the
+    batch). ``config`` / ``hparams``: the model and the recipe's keys
+    (by default the scratch recipe's at dropout 0).
 
     The elements held loosely are decided from the plain f64 run alone:
     forward hooks find the pre-activations within KINK_Z of leaky_relu's
@@ -1329,13 +1470,20 @@ def check_gradients(device, batch):
     is held at GRAD_ATOL_REL, every other one at GRAD_TIGHT_REL. The f32
     runs' pre-activations are read against f64's: a sign flip outside
     the kink set fails the check, since its premise would not hold.
-    The joint's leaky_relu inside the fused loss is placed the same way
-    from a plain f64 recomputation of its pre-activations
-    (``joint_kink_bounds``). Returns the f32 brain, for the profile."""
+    The joint's leaky_relu is placed the same way from a plain f64
+    recomputation of its pre-activations inside the fused loss
+    (``joint_kink_bounds``), or from the f64 run's own joint where the
+    loss is not fused (``joiner_kink_bounds``). An ECAPA speaker branch
+    (ReLU kinks) runs before any kernel: its output must be the same in
+    both f32 runs, so no flip there. Returns (the f32 brain, the
+    readings)."""
     import torch
+    from tsasr_torch.models.ecapa import ECAPA_TDNN
     from tsasr_torch.models.transducer import scratch_config
 
-    det = make_brain(scratch_config(dropout=0.0), device)
+    config = config or scratch_config(dropout=0.0)
+    det = make_brain(config, device, hparams)
+    fused = det._fused_loss_active()
     kinds = kink_sites(det.model)
     z64, near, seen = {}, {}, []
 
@@ -1361,10 +1509,14 @@ def check_gradients(device, batch):
             acc["outside"] += int((flips & ~near[key]).sum())
         return read
 
+    def joint_capture(model, store, grads=False):
+        return joint_producers(model, store) if fused \
+            else joiner_capture(model, store, grads)
+
     def compare_joint(run, store):
-        """The f32 run's joint pre-activations against f64's, inside the
-        lattice."""
-        z = joint_pre_activations(store).double()
+        """The f32 run's joint pre-activations against f64's, where the
+        loss sees them."""
+        z = (joint_pre_activations(store) if fused else store["z"]).double()
         flips = ((z > 0) != (z64j > 0)) & inside_j
         acc = z_err[run]
         acc["joint"] = torch.where(inside_j, (z - z64j).abs(), 0.0
@@ -1375,36 +1527,54 @@ def check_gradients(device, batch):
     store = {}
     with plain_kernels():
         reset_counts()
-        wide = wide_brain(device)
+        wide = wide_brain(device, config, hparams, det.model)
+        speaker = []
+        hook = det.model.speaker_encoder.register_forward_hook(
+            lambda m, i, out: speaker.append(out.detach())) \
+            if isinstance(det.model.speaker_encoder, ECAPA_TDNN) else None
         with pre_activation_hooks(wide.model, capture), \
-                joint_producers(wide.model, store):
-            loss_w, grads_w = loss_and_grads(wide, batch, torch.float64)
-        joint_bounds, z64j, near_j, inside_j = joint_kink_bounds(
-            wide, batch, store)
+                joint_capture(wide.model, store, grads=True):
+            loss_w, grads_w = loss_and_grads(wide, batch, torch.float64,
+                                             retain=not fused)
+        joint_bounds, z64j, near_j, inside_j = \
+            joint_kink_bounds(wide, batch, store) if fused \
+            else joiner_kink_bounds(store)
+        store = {}
         if any(read_counts().values()):
             raise RuntimeError("the f64 run launched a kernel")
         with pre_activation_hooks(det.model, compare("plain")), \
-                joint_producers(det.model, store):
+                joint_capture(det.model, store):
             loss_p, grads_p = loss_and_grads(det, batch)
         compare_joint("plain", store)
         if any(read_counts().values()):
             raise RuntimeError("the plain run launched a kernel")
     with pre_activation_hooks(det.model, compare("kernels")), \
-            joint_producers(det.model, store):
-        loss_k, grads_k = loss_and_grads(det, batch)
+            joint_capture(det.model, store):
+        kernels = {}
+        host_ms, peak_gib = own_peak(device, lambda: kernels.update(
+            zip(("loss", "grads"), loss_and_grads(det, batch))))
+        loss_k, grads_k = kernels["loss"], kernels["grads"]
     compare_joint("kernels", store)
     del store
     used = read_counts()
-    with planted_fault():
-        _, grads_f = loss_and_grads(det, batch)
+    if hook is not None:
+        hook.remove()
+        if not torch.equal(speaker[0], speaker[1]):
+            raise RuntimeError("the ECAPA branch differs between the plain "
+                               "and the kernels run")
+    grads_f = None
+    if fault:
+        with planted_fault():
+            _, grads_f = loss_and_grads(det, batch)
     torch.cuda.synchronize()
     names = [n for n, _ in det.model.named_parameters()]
     if any(not torch.equal(a.double(), b) for a, b in zip(
             det.model.parameters(), wide.model.parameters())):
         raise RuntimeError("the f64 model's weights are not the f32 ones")
+    del wide
     bounds = kink_bounds(seen)
-    for name, bound in joint_bounds.items():
-        bounds[name] = bounds.get(name, 0.0) + bound
+    for key, bound in joint_bounds.items():
+        bounds[key] = bounds.get(key, 0.0) + bound
     n_near_joint = int((near_j & inside_j).sum())
     n_joint = int(inside_j.sum())
     del z64j, near_j, inside_j
@@ -1416,10 +1586,12 @@ def check_gradients(device, batch):
     n_near = sum(int(m.sum()) for m in near.values())
     n_pre = sum(m.numel() for m in near.values())
 
+    scales = scale_leaves(names)
+
     def reading(got, want):
         """(worst tight-held, worst loosely held, line)."""
-        tight = held_errors(got, want, loose, False)
-        slack = held_errors(got, want, loose, True)
+        tight = held_errors(got, want, loose, False, scales)
+        slack = held_errors(got, want, loose, True, scales)
         worst = max(tight)
         return worst, max(slack), (
             f"held tight: worst leaf {names[tight.index(worst)]} "
@@ -1430,18 +1602,18 @@ def check_gradients(device, batch):
     check, check_loose, check_line = reading(grads_k, grads_p)
     floor, floor_loose, floor_line = reading(grads_p, grads_w)
     _, _, kernel_line = reading(grads_k, grads_w)
-    fault, _, fault_line = reading(grads_f, grads_p)
-    log(f"dropout 0, 6 x 8 s, {len(names)} gradient leaves, each error of "
+    log(f"dropout 0, {name}, {len(names)} gradient leaves, each error of "
         f"the leaf's max |g|: kernels {used} vs plain: loss "
         f"{loss_k.item():.5f} vs {loss_p.item():.5f} (rel err "
-        f"{loss_err:.3g}, tol 1e-4), {check_line} (tol {GRAD_TIGHT_REL} "
-        f"tight, {GRAD_ATOL_REL} loosely)")
+        f"{loss_err:.3g}, tol {loss_rtol}), {check_line} (tol "
+        f"{GRAD_TIGHT_REL} tight, {GRAD_ATOL_REL} loosely)")
     log(f"  held loosely: {n_loose} of {n_all} elements (cap "
         f"{KINK_LOOSE_SHARE:.2%}), those whose gradient a flip of the "
         f"{n_near} of {n_pre} pre-activations within |z| < {KINK_Z} of the "
         f"kink in f64 ({len(kinds)} sites), or of the {n_near_joint} of "
-        f"the joint's {n_joint} in the lattice (encoder_proj, "
-        f"predictor.decoder_proj, transducer_head), could move by more "
+        f"the joint's {n_joint} the loss sees (encoder_proj, "
+        f"predictor.decoder_proj, transducer_head"
+        f"{'' if fused else ', joiner'}), could move by more "
         f"than {0.5 * GRAD_TIGHT_REL:.3g} of the leaf's max |g|")
     log("  pre-activations against f64, max abs err by site: " + "; ".join(
         f"{run} f32 " + ", ".join(f"{k} {v[k]:.3g}" for k in v
@@ -1451,22 +1623,29 @@ def check_gradients(device, batch):
     log(f"  f32 noise floor, plain f32 vs plain f64 (loss "
         f"{loss_w.item():.5f}): {floor_line}")
     log(f"  kernels f32 vs plain f64: {kernel_line}")
-    log(f"  planted fault (dp not summed over the batch) vs plain: "
-        f"{fault_line}")
-    if (loss_err > 1e-4 or check > GRAD_TIGHT_REL
+    fault_err = None
+    if fault:
+        fault_err, _, fault_line = reading(grads_f, grads_p)
+        log(f"  planted fault (dp not summed over the batch) vs plain: "
+            f"{fault_line}")
+    if (loss_err > loss_rtol or check > GRAD_TIGHT_REL
             or check_loose > GRAD_ATOL_REL):
-        raise RuntimeError("the training step with kernels differs from "
-                           "the plain version")
-    if not floor < GRAD_TIGHT_REL < fault or floor_loose > GRAD_ATOL_REL:
+        raise RuntimeError(f"the training step ({name}) with kernels "
+                           "differs from the plain version")
+    if not floor < GRAD_TIGHT_REL or floor_loose > GRAD_ATOL_REL or (
+            fault and not GRAD_TIGHT_REL < fault_err):
         raise RuntimeError(f"the gradient tolerance {GRAD_TIGHT_REL} is not "
                            f"between the f32 noise floor {floor:.3g} and "
-                           f"the planted fault {fault:.3g}")
+                           f"the planted fault {fault_err}")
     if n_loose > KINK_LOOSE_SHARE * n_all or any(
             v["outside"] for v in z_err.values()):
         raise RuntimeError("the kink set does not place the f32 outliers: "
                            f"{n_loose} elements held loosely, flips "
                            f"{z_err}")
-    return det
+    return det, {"loss_err": loss_err, "grad_err": check,
+                 "grad_err_loose": check_loose, "floor": floor,
+                 "loose": n_loose, "launches": used, "host_ms": host_ms,
+                 "peak_gib": peak_gib, "loss": loss_k.item()}
 
 
 def device_us(e):
@@ -1627,7 +1806,7 @@ def phase_training(device, card):
         f"{peak:.2f} GiB [{card}]")
 
     # dropout 0: kernels against every kernel forced to its plain version
-    det = check_gradients(device, check_batch)
+    det, _ = check_gradients(device, check_batch)
     profile_micro_batch(det, check_batch, card)
     profile_micro_batch(det, batches[1], card)    # 3 x 16 s: the slab pair
 
@@ -1657,6 +1836,8 @@ EXPERIMENT_YAML = "tsasr_torch/hparams/LibriSpeechMix/conformer-t_scratch.yaml"
 EXPERIMENT_CORPUS = dict(n_speakers=6, utts_per_speaker=8, n_mix=24,
                          encode_text=True, seed=SEED, max_dur=4.5)
 EXPERIMENT_SPLITS = ("train-2mix", "dev-clean-2mix", "test-clean-2mix")
+# the TEST files the scratch experiment transcribes from its folder
+EXPERIMENT_FILES = 16
 
 
 def corpus_vocab(folder):
@@ -1695,12 +1876,13 @@ def same_state(a, b):
 
 @contextlib.contextmanager
 def counted_batches(brain_class, on_card, layers=LAYERS_PER_REQUEST,
-                    bf16=False):
+                    bf16=False, lattice=True, train_forward=1):
     """Checks every ``fit_batch`` and ``evaluate_batch`` of the Brains
     built inside: each must launch what its shapes imply (the attention
-    forward once per Conformer layer, ``layers`` of them, the backward
-    once per layer at TRAIN, the lattice once: resident, or the slab
-    pair). Yields the
+    forward once per Conformer layer, ``layers`` of them, ``train_forward``
+    times at TRAIN (2: remat's recompute), the backward once per layer at
+    TRAIN, the lattice once: resident, or the slab pair; none without
+    ``lattice``, the banded loss's plain row scan). Yields the
     per-stage launch totals and batch counts, and host-clock readings:
     per TRAIN micro-batch the seconds since the stage began or the last
     micro-batch ended (the loader's ``next()`` and the loop's
@@ -1724,11 +1906,12 @@ def counted_batches(brain_class, on_card, layers=LAYERS_PER_REQUEST,
         t = ConvolutionFrontEnd.output_length(frames)
         u1 = batch.tokens_bos.data.shape[1]
         resident = resident_fits(t, u1)
-        want = {"relpos_attention_fwd": layers,
+        want = {"relpos_attention_fwd": layers * (train_forward if train
+                                                  else 1),
                 "relpos_attention_bwd": layers if train else 0,
-                "rnnt_lattice_resident": int(resident),
-                "rnnt_lattice_alpha_slab": int(not resident),
-                "rnnt_lattice_beta_slab": int(not resident)}
+                "rnnt_lattice_resident": int(lattice and resident),
+                "rnnt_lattice_alpha_slab": int(lattice and not resident),
+                "rnnt_lattice_beta_slab": int(lattice and not resident)}
         if bf16:
             want["relpos_attention_fwd_bf16"] = want["relpos_attention_fwd"]
             want["relpos_attention_bwd_bf16"] = want["relpos_attention_bwd"]
@@ -1886,32 +2069,35 @@ def write_float_wav(path, wav, sample_rate):
         f.write(b"data" + struct.pack("<I", len(data)) + data)
 
 
-def transcribe_test_split(brain, out, folder, device, card):
+def transcribe_test_split(brain, out, folder, device, card, beam=BEAM_SIZE,
+                          layers=LAYERS_PER_REQUEST, limit=None):
     """The experiment folder through ``TSASRTranscriber.from_experiment``
-    at beam 15 (the best checkpoint on WER, the tokenizer, the run's LM),
-    each TEST mixture written as a file that reads back exactly and
+    at ``beam`` (the best checkpoint on WER, the tokenizer, the run's
+    LM), each TEST mixture written as a file that reads back exactly and
     transcribed by ``transcribe_file`` with its enrollment file: each
     transcript must be the one the run's TEST recorded (one utterance a
-    batch there, so each saw what a file alone sees)."""
+    batch there, so each saw what a file alone sees), each file
+    launching the attention kernel once per Conformer layer
+    (``layers``). ``limit``: only the first that many TEST files."""
     import numpy as np
     import torch
     from tsasr_torch.data.audio import read_audio
     from tsasr_torch.inference import TSASRTranscriber
     from tsasr_torch.recipes.librispeechmix import dataio_prepare
 
-    want = {d["key"]: " ".join(d["hyp_tokens"])
-            for d in brain.wer_metric.scores}
     _, _, test_data = dataio_prepare(vars(brain.hparams), brain.tokenizer)
     folder.mkdir()
     files = {}
-    for i in range(len(test_data)):
+    for i in range(min(limit or len(test_data), len(test_data))):
         item = test_data[i]
         path = str(folder / f"mix{i}.wav")
         write_float_wav(path, item["mixed_sig"], SAMPLE_RATE)
         if not np.array_equal(read_audio(path)[0], item["mixed_sig"]):
             raise RuntimeError(f"{path} does not read back exactly")
         files[item["id"]] = (path, test_data.raw(i)["enroll_wav"])
-    tr = TSASRTranscriber.from_experiment(str(out), beam_size=BEAM_SIZE,
+    want = {d["key"]: " ".join(d["hyp_tokens"])
+            for d in brain.wer_metric.scores if d["key"] in files}
+    tr = TSASRTranscriber.from_experiment(str(out), beam_size=beam,
                                           device=str(device))
     before = read_counts()["relpos_attention_fwd"]
     t0 = time.perf_counter()
@@ -1922,14 +2108,15 @@ def transcribe_test_split(brain, out, folder, device, card):
     dt = time.perf_counter() - t0
     n = read_counts()["relpos_attention_fwd"] - before
     same = sum(got.get(k) == v for k, v in want.items())
-    log(f"experiment from_experiment (beam {BEAM_SIZE}, LM "
-        f"{Path(brain.hparams.lm_path).name} at weight "
-        f"{tr.searcher.lm_weight}) + transcribe_file over the "
+    lm = brain.hparams.lm_path
+    lm_weight = getattr(tr.searcher, "lm_weight", 0.0)
+    log(f"experiment from_experiment (beam {beam}, LM "
+        f"{lm and Path(lm).name} at weight {lm_weight}) + transcribe_file "
+        f"over the "
         f"{len(files)} TEST files: {dt:.2f} s, {n} attention launches; "
         f"{same}/{len(want)} transcripts identical to the run's TEST "
         f"[{card}]")
-    if got != want or n != LAYERS_PER_REQUEST * len(files) * (
-            device.type == "cuda"):
+    if got != want or n != layers * len(files) * (device.type == "cuda"):
         raise RuntimeError("from_experiment + transcribe_file did not "
                            "reproduce the run's TEST transcripts")
 
@@ -2080,8 +2267,10 @@ def phase_experiment(device, card, corpus):
             f"n-gram, weight {second._beam.lm_weight}) [{card}]")
         if second._beam.lm_weight != LM_WEIGHT:
             raise RuntimeError("the resumed run's TEST fused no LM")
+        # a third of the 48 TEST files: the depth of this path is cut so
+        # the whole script keeps to its time budget
         transcribe_test_split(second, out, Path(tmp) / "test_wavs", device,
-                              card)
+                              card, limit=EXPERIMENT_FILES)
         path_counts = read_counts()
         del second
     by_batch = {k: sum(c[k] for c in (*first_counts.values(),
@@ -3497,6 +3686,419 @@ def phase_bf16(device, card, corpus):
     return fwd_rows, bwd_rows, counts
 
 
+# ------------------------------------------------------ the model switches
+# The yamls' model switches at the scratch recipe's full width, each in
+# one dropout-0 micro-batch of 6 x 8 s, kernels against every kernel
+# forced to its plain version (check_gradients' rule, the loss within
+# SWITCH_LOSS_RTOL): (name, model config keys, recipe keys). The
+# covering band's width is set to the batch's U+1.
+SWITCHES = (
+    ("injection_mode prod", {"injection_mode": "prod"}, {}),
+    ("injection_mode sum", {"injection_mode": "sum"}, {}),
+    ("injection_mode cross_attention",
+     {"injection_mode": "cross_attention"}, {}),
+    ("injection_after [-1, 0, 6]", {"injection_after": (-1, 0, 6)}, {}),
+    ("speaker_encoder_type ecapa", {"speaker_encoder_type": "ecapa"}, {}),
+    ("joint_mode concat", {"joint_mode": "concat"}, {}),
+    ("joint_band_width 64", {}, {"joint_band_width": 64}),
+    ("joint_band_width covering", {}, {"joint_band_width": None}),
+)
+SWITCH_LOSS_RTOL = 1e-5
+SWITCH_BAND = 64
+# the two switched experiments: TEST at this beam, one utterance a batch
+SWITCH_BEAM = 2
+SWITCH_CORPUS = dict(EXPERIMENT_CORPUS, n_mix=4)
+SWITCH_RUNS = (
+    # (name, CLI switches, attention layers, lattice kernels, TRAIN
+    # forwards per layer: remat recomputes each layer once)
+    ("ecapa + remat", ["--speaker_encoder_type", "ecapa", "--remat",
+                       "True"], 12, True, 2),
+    ("cross_attention + band 64", ["--injection_mode", "cross_attention",
+                                   "--joint_band_width",
+                                   str(SWITCH_BAND)], 18, False, 1),
+)
+SWITCH_STREAM_SECONDS = 6
+
+
+def remat_step(brain, batch):
+    """One TRAIN micro-batch's loss and gradients with dropout on, drawn
+    from the brain's step generator: (loss, grads, the generator's state
+    after)."""
+    import torch
+    from tsasr_torch.training.brain import onednn_off_on_cpu
+    from tsasr_torch.utils.stage import Stage
+    arrays = batch_arrays(brain, batch)
+    gen = brain.step_generator()
+    with onednn_off_on_cpu(brain.device):
+        loss = brain.compute_objectives(
+            brain.compute_forward(arrays, Stage.TRAIN, gen), arrays,
+            Stage.TRAIN)
+        grads = torch.autograd.grad(loss, list(brain.model.parameters()))
+    return loss.detach(), grads, gen.get_state()
+
+
+def own_peak(device, fn):
+    """(host ms, the call's own peak memory in GiB above what was
+    allocated before it) of ``fn()``."""
+    import torch
+    sync = torch.cuda.synchronize if device.type == "cuda" else \
+        (lambda: None)
+    sync()
+    before = torch.cuda.memory_allocated() if device.type == "cuda" else 0
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fn()
+    sync()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = (torch.cuda.max_memory_allocated() - before) / 2 ** 30 \
+        if device.type == "cuda" else 0.0
+    return ms, peak
+
+
+def device_reading(fn):
+    """(device ms, kernel launches) of one call of ``fn`` under the
+    profiler, tracing the device only (the banded loss's ~10^5 launches
+    take a CPU trace tens of seconds to process)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and device_us(e) > 0]
+    return (sum(device_us(e) for e in events) / 1e3,
+            sum(e.count for e in events))
+
+
+def switch_cases(device, card, batch, counts):
+    """Item 1: each switch kernels against plain, with its host ms,
+    device ms, launches and own peak memory."""
+    import torch
+    from tsasr_torch.models.transducer import scratch_config
+    u1 = batch.tokens_bos.data.shape[1]
+    for name, keys, recipe in SWITCHES:
+        t0 = time.perf_counter()
+        covering = recipe.get("joint_band_width", 0) is None
+        if covering:
+            recipe = {"joint_band_width": u1}
+        det, r = check_gradients(
+            device, batch, scratch_config(dropout=0.0, **keys), recipe,
+            fault=False, loss_rtol=SWITCH_LOSS_RTOL,
+            name=f"{name}, 6 x 8 s")
+        # the covering band's row loop traces as band 64's does, ~10^5
+        # launches: its trace is not taken again (the phase's budget)
+        reading = "device time and launches not measured (as band 64's)" \
+            if covering else "device {:.1f} ms and {} kernel launches " \
+            "under the profiler".format(*device_reading(
+                lambda: loss_and_grads(det, batch)))
+        counts.update(read_counts())
+        log(f"switches {name}: fit_batch forward + backward host "
+            f"{r['host_ms']:.1f} ms, {reading}, the "
+            f"micro-batch's own peak {r['peak_gib']:.2f} GiB; loss "
+            f"{r['loss']:.4f}, kernels vs plain loss {r['loss_err']:.3g} "
+            f"rel, gradients {r['grad_err']:.3g} tight / "
+            f"{r['grad_err_loose']:.3g} loose of max |g| ({r['loose']} "
+            f"held loosely; f32 floor {r['floor']:.3g}); the case "
+            f"{time.perf_counter() - t0:.1f} s [{card}]")
+        del det
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+
+
+def band_checks(device, card, short, long, counts):
+    """Item 2: a covering band against the full loss (the same encoder
+    output, so no kink can flip between them: every element held at
+    GRAD_TIGHT_REL); band 64 on 3 x 16 s no smaller than the full loss;
+    the banded loss's own launches and device time."""
+    import torch
+    from tsasr_torch.models.transducer import scratch_config
+    from tsasr_torch.utils.stage import Stage
+    u1 = short.tokens_bos.data.shape[1]
+    reset_counts()
+    # one brain; the recipe reads joint_band_width at each call
+    band = make_brain(scratch_config(dropout=0.0), device)
+    loss_f, grads_f = loss_and_grads(band, short)
+    loss_l, _ = loss_and_grads(band, long)
+    band.hparams.joint_band_width = u1
+    loss_c, grads_c = loss_and_grads(band, short)
+    err = abs(loss_c.item() - loss_f.item()) / abs(loss_f.item())
+    grad_err = max(leaf_errors(grads_c, grads_f))
+    band.hparams.joint_band_width = SWITCH_BAND
+    arrays = batch_arrays(band, long)
+    logits, enc_out, rel = band.compute_forward(arrays, Stage.TRAIN, None)
+    logits = logits.detach().requires_grad_(True)
+
+    def banded():
+        loss = band.compute_objectives((logits, enc_out, rel), arrays,
+                                       Stage.TRAIN)
+        loss.backward()
+        return loss
+
+    out = {}
+    device_ms, launches = device_reading(
+        lambda: out.setdefault("loss", banded()))
+    loss_b = out["loss"].item()
+    counts.update(read_counts())
+    log(f"switches band: covering band (W = U+1 = {u1}) vs the full "
+        f"(fused) loss on 6 x 8 s: loss {loss_c.item():.5f} vs "
+        f"{loss_f.item():.5f} (rel err {err:.3g}, tol {SWITCH_LOSS_RTOL}), "
+        f"gradients worst leaf {grad_err:.3g} of max |g| (tol "
+        f"{GRAD_TIGHT_REL}); band {SWITCH_BAND} on 3 x 16 s (logits "
+        f"{tuple(logits.shape)}): loss {loss_b:.4f} >= full "
+        f"{loss_l.item():.4f}; the banded loss forward + backward "
+        f"{launches} kernel launches, device {device_ms:.2f} ms under the "
+        f"profiler [{card}]")
+    if err > SWITCH_LOSS_RTOL or grad_err > GRAD_TIGHT_REL \
+            or not loss_b >= loss_l.item() * (1 - SWITCH_LOSS_RTOL):
+        raise RuntimeError("the banded loss failed its check")
+    return {"banded_device_ms": device_ms, "banded_launches": launches}
+
+
+def remat_checks(device, card, short, long, counts):
+    """Item 3: at dropout 0.1 under deterministic algorithms, remat full
+    and dots give the step without remat bit for bit (loss, every
+    gradient, the generator's final state); on 3 x 16 s the
+    micro-batch's own peak memory, host and device ms of each."""
+    import torch
+    from tsasr_torch.models.transducer import scratch_config
+    policies = (None, "full", "dots")
+    brain = make_brain(scratch_config(), device)
+    encoders = (brain.model.encoder, brain.model.speaker_encoder)
+
+    def remat(policy):
+        """The brain with remat at ``policy`` (None: off), as a config of
+        ``remat`` / ``remat_policy`` builds it."""
+        for encoder in encoders:
+            encoder.remat, encoder.remat_policy = policy is not None, \
+                policy or "full"
+        return brain
+
+    reset_counts()
+    with deterministic_algorithms(True):
+        steps = {p: remat_step(remat(p), short) for p in policies}
+        loss, grads, state = steps[None]
+        same = {p: (torch.equal(steps[p][0], loss)
+                    and all(torch.equal(a, b)
+                            for a, b in zip(steps[p][1], grads))
+                    and torch.equal(steps[p][2], state))
+                for p in policies[1:]}
+        del steps
+        readings = {}
+        for p in policies:
+            ms, peak = own_peak(device, lambda: remat_step(remat(p), long))
+            readings[p] = (ms, peak) + device_reading(
+                lambda: remat_step(remat(p), long))
+    counts.update(read_counts())
+    log(f"switches remat, dropout 0.1, deterministic algorithms: full and "
+        f"dots vs no remat on 6 x 8 s, loss, every gradient and the "
+        f"generator's final state bit-identical {same}; 3 x 16 s "
+        + "; ".join(f"{p or 'no remat'}: host {ms:.1f} ms, device "
+                    f"{dev:.1f} ms, {n} launches, own peak {peak:.2f} GiB"
+                    for p, (ms, peak, dev, n) in readings.items())
+        + f" [{card}]")
+    if not all(same.values()):
+        raise RuntimeError("remat is not bit for bit the step without it")
+    if device.type == "cuda" and \
+            not readings["full"][1] < readings[None][1]:
+        raise RuntimeError("remat full did not lower the micro-batch's own "
+                           "peak memory")
+    return readings
+
+
+def pretrained_cross_attention(device, card, batch, tmp, counts):
+    """Item 4: the pretrained recipe with cross_attention: the frozen
+    WavLM at WAVLM_CONFIG (the published widths) gives frame-level
+    features, card against CPU; one fit_batch."""
+    import torch
+    from tsasr_torch.data.tokenizer import CharTokenizer
+    from tsasr_torch.models.transducer import TSTransducer, scratch_config
+    from tsasr_torch.models.wavlm import (WavLMConfig, WavLMForXVector,
+                                          save_pretrained_xvector)
+    from tsasr_torch.recipes.librispeechmix import TSASRBrain
+    from tsasr_torch.recipes.speaker_embeddings import FrozenSpeakerEncoder
+    from tsasr_torch.training import NoamScheduler, make_adamw
+
+    wavlm = WAVLM_CONFIG or WavLMConfig()
+    folder = tmp / "wavlm"
+    save_pretrained_xvector(WavLMForXVector(wavlm).init_weights(seed=SEED),
+                            str(folder))
+    dim = min(512, wavlm.hidden_size)
+    hparams = dict(HPARAMS, speaker_encoder_path=str(folder),
+                   speaker_encoder_backend="jax", speaker_embedding_dim=dim,
+                   injection_mode="cross_attention",
+                   noam_scheduler=NoamScheduler(1e-3, 10000))
+    model = TSTransducer(scratch_config(
+        use_speaker_encoder=False, speaker_embedding_dim=dim,
+        injection_mode="cross_attention")).init_weights(seed=SEED)
+    brain = TSASRBrain(modules={"model": model},
+                       opt_class=make_adamw(1e-3, (0.9, 0.98), 1e-8, 0.01),
+                       hparams=hparams, run_opts={"device": str(device)},
+                       variant="pretrained", tokenizer=CharTokenizer(PIECES))
+    arrays = batch_arrays(brain, batch)
+    frames = brain.speaker_encoder.embed(arrays["enroll_sig"],
+                                         arrays["enroll_lens"])
+    cpu = FrozenSpeakerEncoder(str(folder), frame_level=True,
+                               embedding_dim=dim, device="cpu")
+    want = cpu.embed(arrays["enroll_sig"].cpu(), arrays["enroll_lens"].cpu())
+    err = ((frames.cpu() - want).abs().max() / want.abs().max()).item()
+    reset_counts()
+    step = {}
+    ms, peak = own_peak(device, lambda: step.setdefault(
+        "loss", brain.fit_batch(batch)))
+    loss = step["loss"]
+    n = read_counts()
+    counts.update(n)
+    log(f"switches pretrained + cross_attention: frozen WavLM (hidden "
+        f"{wavlm.hidden_size}, {wavlm.num_hidden_layers} layers) frames "
+        f"{tuple(frames.shape)}, the first {dim} channels of the last "
+        f"hidden state, card vs CPU max err {err:.3g} of max |f| (rtol "
+        f"{WAVLM_RTOL}); fit_batch 6 x 8 s: loss {loss:.4f}, {ms:.1f} ms, "
+        f"own peak {peak:.2f} GiB, launches {n} [{card}]")
+    if err > WAVLM_RTOL or frames.shape[-1] != dim \
+            or n["relpos_attention_fwd"] != VARIANT_LAYERS * (
+                device.type == "cuda") or not math.isfinite(loss):
+        raise RuntimeError("the pretrained cross_attention step failed")
+    del brain, cpu
+
+
+def switched_experiments(device, card, tmp, counts):
+    """Item 5: the scratch yaml through ``run_experiment`` with the
+    switches of SWITCH_RUNS, 2 optimizer steps, VALID greedy, TEST at
+    SWITCH_BEAM one utterance a batch; every batch launches what its
+    shapes imply; then the TEST files through ``from_experiment``."""
+    from tsasr_torch.recipes.librispeechmix import TSASRBrain, run_experiment
+    from tsasr_torch.tools.make_synthetic_dataset import make_dataset
+    root = Path(__file__).resolve().parent
+    on_card = device.type == "cuda"
+    corpus = tmp / "switch_corpus"
+    make_dataset(str(corpus), **SWITCH_CORPUS)
+    for i, (name, switches, layers, lattice, forwards) in \
+            enumerate(SWITCH_RUNS):
+        out = tmp / f"switch_run{i}"
+        args = [str(root / EXPERIMENT_YAML), "--data_folder", str(corpus),
+                "--output_folder", str(out), "--fused_attention", "True",
+                "--valid_search_freq", "1", "--noprogressbar",
+                "--vocab_size", str(corpus_vocab(corpus)),
+                "--num_epochs", "1", "--optimizer_step_limit", "2",
+                "--grad_accumulation_factor", "1",
+                "--train_max_batch_length", "20.0",
+                "--beam_size", str(SWITCH_BEAM),
+                "--test_max_batch_length", "0.5", *switches]
+        if not on_card:
+            args += ["--device", str(device)]
+        reset_counts()
+        t0 = time.perf_counter()
+        with counted_batches(TSASRBrain, on_card, layers, lattice=lattice,
+                             train_forward=forwards) as (totals, timings):
+            brain = run_experiment(argv=args)
+        run_s = time.perf_counter() - t0
+        log_text = (out / "train_log.txt").read_text()
+        through = [(a + b) * 1e3 for a, b in zip(timings["loader_wait_s"],
+                                                 timings["fit_batch_s"])]
+        log(f"switches experiment {name}: {run_s:.1f} s; batches "
+            + ", ".join(f"{k} {v['batches']}" for k, v in totals.items())
+            + f"; optimizer steps {brain.optimizer_step}; ms per TRAIN "
+            f"micro-batch " + ", ".join(f"{x:.1f}" for x in through)
+            + f"; VALID {timings['valid_s'][0]:.2f} s, TEST "
+            f"{timings['test_s'][0]:.2f} s (beam {SWITCH_BEAM}) [{card}]")
+        if brain.optimizer_step != 2 or not re.search(
+                r"^epoch: 1, .* valid WER: ", log_text, re.M) or not (
+                out / "wer_test-clean-2mix.txt").read_text().startswith(
+                "%WER"):
+            raise RuntimeError(f"the {name} experiment did not train, "
+                               "validate and test")
+        transcribe_test_split(brain, out, tmp / f"switch_wavs{i}", device,
+                              card, beam=SWITCH_BEAM, layers=layers)
+        counts.update(read_counts())
+        del brain
+
+
+def cross_attention_stream(device, card, counts):
+    """Item 6: a causal cross_attention model (seeded, full width)
+    streams with kv_cache, the enrollment's speaker frames injected, to
+    the offline greedy tokens on the unnormalized features."""
+    import numpy as np
+    import torch
+    from tsasr_torch.data.tokenizer import CharTokenizer
+    from tsasr_torch.decoding import TransducerGreedySearcher
+    from tsasr_torch.inference import TSASRTranscriber
+    from tsasr_torch.models.transducer import TSTransducer, scratch_config
+    sync = torch.cuda.synchronize if device.type == "cuda" else \
+        (lambda: None)
+    rng = np.random.default_rng(SEED + 37)
+    wav = (rng.normal(size=SWITCH_STREAM_SECONDS * SAMPLE_RATE) * 0.1
+           ).astype(np.float32)
+    enroll = (rng.normal(size=ENROLL_SECONDS * SAMPLE_RATE) * 0.1
+              ).astype(np.float32)
+    model = TSTransducer(scratch_config(
+        causal_encoder=True, frontend_causal=True,
+        injection_mode="cross_attention")).init_weights(seed=SEED)
+    tr = TSASRTranscriber(model, None, CharTokenizer(PIECES),
+                          device=str(device))
+    reset_counts()
+    ones = torch.ones(1, device=device)
+    with torch.inference_mode():
+        spk = tr.speaker_embedding(enroll)
+        raw = tr.fbank(torch.from_numpy(wav)[None].to(device))
+        t4 = raw.shape[1] // 4 * 4
+        offline = TransducerGreedySearcher(tr.model, 0)(
+            tr.model.encode(raw[:, :t4], ones, spk), ones)[0][0]
+    kv = tr.streaming("kv_cache", speaker_embs=spk)
+    times, _, final, _ = stream_chunks(kv, wav, 1.0, sync)
+    counts.update(read_counts())
+    log(f"switches streaming: causal cross_attention model, speaker frames "
+        f"{tuple(spk.shape)}; kv_cache in 1 s chunks over "
+        f"{SWITCH_STREAM_SECONDS} s: {len(kv._tokens)} tokens, offline "
+        f"greedy identical {kv._tokens == offline}; host ms per chunk "
+        f"median {statistics.median(times):.2f}; final {final[:40]!r} "
+        f"[{card}]")
+    if not kv._tokens or kv._tokens != offline:
+        raise RuntimeError("the cross_attention kv_cache stream differs from "
+                           "offline greedy")
+
+
+def phase_switches(device, card):
+    """The yamls' model switches at the scratch recipe's full width:
+    (1) each of SWITCHES, kernels against plain; (2) the band; (3) remat;
+    (4) pretrained + cross_attention; (5) two switched experiments; (6)
+    a cross_attention stream. Each kernel is then held against its plain
+    version on the tensors this path gave it. Returns the path's launch
+    counts."""
+    import tempfile
+    import numpy as np
+    t_start = time.perf_counter()
+    rng = np.random.default_rng(SEED + 31)
+    short = make_train_batch(rng, 6, 8, ids="sw-")
+    long = make_train_batch(rng, 3, 16, ids="sl-")
+    counts = collections.Counter()
+    with captured_kernel_calls() as seen, \
+            tempfile.TemporaryDirectory(prefix="tsasr_switches_") as tmp:
+        tmp = Path(tmp)
+        switch_cases(device, card, short, counts)
+        for part, args in ((band_checks, (short, long)),
+                           (remat_checks, (short, long)),
+                           (pretrained_cross_attention, (short, tmp)),
+                           (switched_experiments, (tmp,)),
+                           (cross_attention_stream, ())):
+            t0 = time.perf_counter()
+            part(device, card, *args, counts)
+            log(f"switches {part.__name__}: {time.perf_counter() - t0:.1f} "
+                "s")
+    path_counts = {k: counts[k] for k in read_counts()}
+    worst = check_path_kernels(seen)
+    log(f"switches kernels against their plain versions on the phase's own "
+        f"inputs, one call per shape: attention at "
+        f"{len(seen['attention'])} shapes, worst fwd {worst['fwd']:.3g} of "
+        f"max |o|, bwd {worst['bwd']:.3g} of max |g| (atol {ATTN_ATOL}); "
+        f"lattice at {len(seen['lattice'])} shapes "
+        f"({sorted(seen['lattice'])}), worst err/tol "
+        f"{worst['lattice']:.3g}; the phase's launches {path_counts}; "
+        f"{time.perf_counter() - t_start:.1f} s")
+    return path_counts
+
+
 def phase_small(device):
     """A small model on the card (kernels) against the CPU (plain):
     serving encoder output, then 2 optimizer steps of training."""
@@ -3766,6 +4368,8 @@ def main():
             "s")
         bf16_fwd, bf16_bwd, bf16_counts = phase_bf16(device, card, corpus)
         log(f"bf16 phase done at {time.perf_counter() - t_start:.1f} s")
+    switches = phase_switches(device, card)
+    log(f"switches phase done at {time.perf_counter() - t_start:.1f} s")
     phase_small(device)
     log(f"all phases done at {time.perf_counter() - t_start:.1f} s")
 
@@ -3775,7 +4379,8 @@ def main():
                 "training": training[name],
                 "experiment": experiment[name],
                 "variants": variants[name],
-                "streaming": streaming[name]}
+                "streaming": streaming[name],
+                "switches": switches[name]}
 
     fwd, bwd = fwd_rows[0], next(r for r in bwd_rows if r["T"] == 208)
     kernels = [

@@ -298,9 +298,25 @@ def test_scratch_yamls_give_the_same_scalars(tmp_path):
     ("remat", "true"), ("speaker_encoder_type", "ecapa"),
     ("encoder_class", "conformer")])
 def test_unported_model_keys_raise(key, value, tmp_path):
-    with pytest.raises(NotImplementedError, match=key):
-        load_yaml("tsasr_torch", TORCH_YAML,
-                  overrides("/data", tmp_path, 31) + f"{key}: {value}\n")
+    """The yaml's model keys that raised before they were ported: a
+    ``*_class`` name that is not registered raises ``ValueError`` with
+    the registered names, as the JAX registry does; ``remat`` and
+    ``speaker_encoder_type: ecapa`` load and build their model."""
+    text = overrides("/data", tmp_path, 31) + f"{key}: {value}\n"
+    if key.endswith("_class"):
+        with pytest.raises(ValueError, match=f"unknown {key[:-6]} class "
+                           f"'{value}'; registered"):
+            load_yaml("tsasr_torch", TORCH_YAML, text)
+        return
+    model = load_yaml("tsasr_torch", TORCH_YAML, text)["model"]
+    if key == "remat":
+        assert model.config.remat and model.encoder.remat
+        assert model.speaker_encoder.remat
+    else:
+        from tsasr_torch.models.ecapa import ECAPA_TDNN
+        assert isinstance(model.speaker_encoder, ECAPA_TDNN)
+        assert model.speaker_frontend is None
+        assert model.speaker_proj.in_features == 192
 
 
 # --------------------------------------------------------------- metrics

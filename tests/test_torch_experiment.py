@@ -270,13 +270,13 @@ def test_without_device_it_asks_for_the_card(corpus, tmp_path, monkeypatch):
 @pytest.mark.parametrize("extra,match", [
     (["--data_parallel_count", "2"], "data_parallel_count"),
     (["--profile"], "profile"),
-    (["--injection_mode", "cross_attention"], "injection_mode"),
+    (["--plot_data", "True"], "plot_data"),
     (["--prompt_test", "True"], "prompt_test"),
     (["--model_path", "x.ckpt"], "model_path"),
     (["--plot_attentions", "True"], "plot_attentions"),
-    (["--joint_band_width", "64"], "joint_band_width"),
-    (["--speaker_encoder_type", "ecapa"], "speaker_encoder_type"),
-    (["--remat", "True"], "remat"),
+    (["--plot_embeddings", "True"], "plot_embeddings"),
+    (["--plot_grad_norm", "True"], "plot_grad_norm"),
+    (["--pipeline_parallel_count", "2"], "pipeline_parallel_count"),
 ])
 def test_what_is_not_ported_raises_before_anything_runs(corpus, tmp_path,
                                                         extra, match):

@@ -17,6 +17,8 @@ with the same (converted) weights and the same numpy batches, at dropout
 - a nonfinite micro-batch is skipped without advancing any counter;
 - the Noam schedule's values, and the dropout keep rates."""
 
+import copy
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -211,20 +213,31 @@ def test_valid_batch_decodes_and_scores(jax_side):
 
 
 def test_joint_band_width_raises():
-    """The JAX recipe trains a banded joint with ``rnnt_loss_banded`` when
-    ``joint_band_width`` is set; the port has neither, so it raises
-    before any loss is computed, at TRAIN and at VALID."""
+    """``joint_band_width`` raised here before the banded joint and loss
+    were ported; it now trains and evaluates on the band, as the JAX
+    recipe does: the fused loss is off, a narrow band steps at TRAIN and
+    at VALID, and a band that covers the lattice gives the unbanded
+    loss."""
     model = TSTransducer(TSTransducerConfig(**CONFIG)).init_weights(seed=0)
-    brain = TSASRBrain(modules={"model": model},
-                       opt_class=make_adamw(**OPT),
-                       hparams=dict(HPARAMS, joint_band_width=4),
-                       run_opts={"device": "cpu"},
-                       tokenizer=CharTokenizer(PIECES))
-    for run in (brain.fit_batch,
-                lambda b: brain.evaluate_batch(b, Stage.VALID)):
-        with pytest.raises(NotImplementedError, match="joint_band_width"):
-            run(make_batch(40))
-    assert brain.global_micro_step == 0
+
+    def brain(**extra):
+        return TSASRBrain(modules={"model": copy.deepcopy(model)},
+                          opt_class=make_adamw(**OPT),
+                          hparams=dict(HPARAMS, **extra),
+                          run_opts={"device": "cpu"},
+                          tokenizer=CharTokenizer(PIECES))
+
+    full = brain().evaluate_batch(make_batch(40), Stage.VALID)
+    covering = brain(joint_band_width=64)
+    assert not covering._fused_loss_active()
+    assert covering.evaluate_batch(make_batch(40), Stage.VALID) \
+        == pytest.approx(full, rel=1e-5)
+    narrow = brain(joint_band_width=2)
+    # a band loses alignments, so its loss is no smaller
+    assert narrow.evaluate_batch(make_batch(40), Stage.VALID) \
+        >= full * (1 - 1e-6)
+    assert np.isfinite(narrow.fit_batch(make_batch(40)))
+    assert narrow.global_micro_step == 1
 
 
 @pytest.mark.parametrize("step", [0, 1, 2, 500, 9999, 10000, 10001, 50000])

@@ -10,8 +10,9 @@ package where both run, and end to end on the CPU.
   its d-vectors through ``speaker_proj``. The loss within 1e-5, every
   gradient leaf within 1e-4 of its max |g| (as
   ``tests/test_torch_training.py``);
-- external embeddings take precedence over enrollment features, and a
-  frame-level (B, S, E) embedding raises (``cross_attention``);
+- external embeddings take precedence over enrollment features, and
+  frame-level (B, S, E) embeddings condition a ``cross_attention``
+  model, their padded frames masked;
 - ``run_experiment("none")`` with ``--augment True`` trains, validates,
   tests and checkpoints, augmenting every TRAIN micro-batch and nothing
   else; a copy of its folder taken at its first intra-epoch checkpoint
@@ -21,8 +22,9 @@ package where both run, and end to end on the CPU.
   ``--augment True``: the WavLM stays frozen, outside the optimizer and
   the checkpoint; ``from_experiment`` refuses the variant;
 - the speaker backend resolves as the JAX recipe's; ``torch_cache`` (a
-  hub id under ``auto``), a missing directory and ``cross_attention``
-  raise before anything is written.
+  hub id under ``auto``) and a missing directory raise before anything
+  is written; ``cross_attention`` gets to training with frame-level
+  embeddings.
 """
 
 import shutil
@@ -199,9 +201,28 @@ def test_external_embeddings_take_precedence():
                                      external_speaker_embs=embs * 2)
     assert all(torch.equal(a, b) for a, b in zip(alone, both))
     assert not torch.equal(alone[0], other[0])
-    with pytest.raises(NotImplementedError, match="cross_attention"):
-        model.encode_predict(feats, rel, tokens,
-                             external_speaker_embs=torch.zeros(2, 5, 12))
+    # frame-level (B, S, E) embeddings condition a cross_attention model,
+    # the frames past round(enroll_rel_lens * S) masked out
+    cross = TSTransducer(TSTransducerConfig(**dict(
+        MODELS["pretrained"], injection_mode="cross_attention")))
+    cross = cross.init_weights(0).eval()
+    frames = torch.randn(2, 5, 12, generator=gen)
+    lens = torch.tensor([1.0, 0.6])
+    moved = frames.clone()
+    moved[1, 3:] += 1.0
+    with torch.no_grad():
+        enc = [cross.encode_predict(feats, rel, tokens,
+                                    external_speaker_embs=f,
+                                    enroll_rel_lens=lens)[0]
+               for f in (frames, moved)]
+        moved[1, 2] += 1.0
+        seen = cross.encode_predict(feats, rel, tokens,
+                                    external_speaker_embs=moved,
+                                    enroll_rel_lens=lens)[0]
+    assert enc[0].shape == (2, 16, TINY["joint_dim"])
+    assert torch.equal(enc[0], enc[1])
+    assert not torch.equal(enc[0][1], seen[1])
+    assert torch.equal(enc[0][0], seen[0])
 
 
 @pytest.mark.parametrize("backend,path,want", [
@@ -401,9 +422,33 @@ def test_pretrained_experiment_keeps_the_encoder_frozen(augmented_runs,
      "injection_mode"),
 ])
 def test_unported_speaker_paths_raise_before_anything_runs(
-        corpus, tmp_path, wavlm_dir, extra, error, match):
+        corpus, tmp_path, wavlm_dir, monkeypatch, extra, error, match):
     if extra and extra[0] == "--injection_mode":
-        extra = extra + ["--speaker_encoder_path", wavlm_dir]
+        # ported since: the run gets to training with the frozen encoder
+        # giving frames (the first speaker_embedding_dim channels of the
+        # last hidden state) to the cross-attention injection
+        seen = {}
+
+        def stop(brain, *args, **kwargs):
+            seen["brain"] = brain
+            raise KeyboardInterrupt
+
+        monkeypatch.setattr(librispeechmix.TSASRBrain, "fit", stop)
+        with pytest.raises(KeyboardInterrupt):
+            librispeechmix.run_experiment("pretrained", argv(
+                "pretrained", corpus, tmp_path / "out", *extra,
+                "--speaker_encoder_path", wavlm_dir,
+                "--speaker_embedding_dim", "24"))
+        brain = seen["brain"]
+        assert brain.model.encoder.speaker_attn is not None
+        assert brain.model.speaker_proj.in_features == 24
+        wav = torch.randn(2, 8000, generator=torch.Generator().manual_seed(0))
+        frames = brain.speaker_encoder.embed(wav, torch.tensor([1.0, 0.5]))
+        hidden = brain.speaker_encoder.model(wav, torch.tensor(
+            [8000, 4000]))["hidden_states"][-1]
+        assert frames.shape == (2, 24, 24) and hidden.shape[-1] == 32
+        assert torch.equal(frames, hidden[..., :24])
+        return
     with pytest.raises(error, match=match):
         librispeechmix.run_experiment("pretrained", argv(
             "pretrained", corpus, tmp_path / "out", *extra))

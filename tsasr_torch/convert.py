@@ -14,7 +14,17 @@ of numpy arrays). Layout changes:
   keep their shape;
 - LSTM ``l{n}_w_ih`` (F, 4H) / ``l{n}_w_hh`` (H, 4H) are transposed to
   ``weight_ih_l{n}`` / ``weight_hh_l{n}``; the fused ``l{n}_b`` stays one
-  bias, ``bias_l{n}``.
+  bias, ``bias_l{n}``;
+- the ECAPA speaker encoder's Conv1d kernels (k, in, out) become
+  (out, in, k), a BatchNorm's ``scale`` its ``weight``, and its
+  ``batch_stats`` (``mean``, ``var``, in the flax variables' second
+  collection) its buffers of the same names; flax's ``block_{i}`` is
+  ``blocks.{i}``.
+
+``params_from_flax`` takes the whole variables dict (``{"params": ...,
+"batch_stats": ...}``) where the model has an ECAPA branch;
+``params_to_flax`` leaves the statistics out and ``batch_stats_to_flax``
+gives them.
 
 ``lm_params_from_flax`` does the same for the flax ``RNNLM``
 (``embedding``, ``rnn``, ``dnn``, ``out``) into ``models.lm.RNNLM``, and
@@ -88,6 +98,8 @@ def _encoder(out, prefix, tree):
     _norm(out, f"{prefix}.norm", tree["norm"])
     if "cat_proj" in tree:
         _dense(out, f"{prefix}.cat_proj", tree["cat_proj"])
+    for name, node in tree.get("speaker_attn", {}).items():
+        _dense(out, f"{prefix}.speaker_attn.{name}", node)
     for name, layer in tree.items():
         if name.startswith("layer_"):
             _layer(out, f"{prefix}.layers.{int(name[6:])}", layer)
@@ -106,19 +118,40 @@ def _predictor(out, prefix, tree):
     _lstm(out, f"{prefix}.decoder", tree["decoder"])
 
 
+def _ecapa(out, prefix, tree):
+    """ECAPA params or batch_stats, walked by name."""
+    for name, node in tree.items():
+        key = f"blocks.{name[6:]}" if name.startswith("block_") else name
+        if isinstance(node, dict):
+            _ecapa(out, f"{prefix}.{key}", node)
+        elif name == "kernel":
+            out[f"{prefix}.weight"] = _t(np.asarray(node).transpose(2, 1, 0))
+        elif name == "scale":
+            out[f"{prefix}.weight"] = _t(node)
+        else:                                       # bias, mean, var
+            out[f"{prefix}.{name}"] = _t(node)
+
+
 def params_from_flax(tree):
-    """Flax ``TSTransducer`` params (nested numpy dict) -> state_dict."""
+    """Flax ``TSTransducer`` variables or params (nested numpy dict) ->
+    state_dict."""
+    stats = tree.get("batch_stats", {})
     tree = tree.get("params", tree)
     out = {}
     for name in ("frontend", "speaker_frontend"):
         if name in tree:
             _frontend(out, name, tree[name])
-    for name in ("encoder", "speaker_encoder"):
-        if name in tree:
-            _encoder(out, name, tree[name])
+    _encoder(out, "encoder", tree["encoder"])
+    if "block_0" in tree.get("speaker_encoder", {}):
+        _ecapa(out, "speaker_encoder", tree["speaker_encoder"])
+        _ecapa(out, "speaker_encoder", stats["speaker_encoder"])
+    elif "speaker_encoder" in tree:
+        _encoder(out, "speaker_encoder", tree["speaker_encoder"])
     for name in ("encoder_proj", "speaker_proj", "transducer_head"):
         if name in tree:
             _dense(out, name, tree[name])
+    if "joint_network" in tree.get("joiner", {}):
+        _dense(out, "joiner.joint_network", tree["joiner"]["joint_network"])
     _predictor(out, "predictor", tree["predictor"])
     return out
 
@@ -225,7 +258,10 @@ def _flax_path(key):
         kind, n = leaf.rsplit("_l", 1)
         name = {"weight_ih": "w_ih", "weight_hh": "w_hh", "bias": "b"}[kind]
         return path + [f"l{n}_{name}"], "lstm_w" if name != "b" else "plain"
-    is_norm = "norm" in path[-1] or path[-1].startswith("LayerNorm")
+    is_norm = "norm" in path[-1] or path[-1].startswith("LayerNorm") \
+        or path[-1] == "asp_bn"
+    if leaf in BATCH_STATS:
+        return path + [leaf], "plain"
     if is_norm:
         return path + ["scale" if leaf == "weight" else "bias"], "plain"
     if leaf == "bias":
@@ -244,11 +280,26 @@ _TO_FLAX = {
     "conv2d": lambda x: x.transpose(2, 3, 1, 0),
     "depthwise": lambda x: x.transpose(2, 1, 0),
 }
+# ECAPA's BatchNorm statistics: buffers here, flax's batch_stats
+BATCH_STATS = ("mean", "var")
 
 
 def params_to_flax(state_dict):
     """The port's ``state_dict`` (or gradients under the same names) ->
-    the inner flax parameter tree, nested dicts of f32 numpy arrays."""
+    the inner flax parameter tree, nested dicts of f32 numpy arrays.
+    ECAPA's statistics are left out (``batch_stats_to_flax``)."""
+    return _to_flax({k: v for k, v in state_dict.items()
+                     if k.rsplit(".", 1)[-1] not in BATCH_STATS})
+
+
+def batch_stats_to_flax(state_dict):
+    """ECAPA's BatchNorm statistics of a ``state_dict`` -> flax's
+    ``batch_stats`` tree ({} without an ECAPA branch)."""
+    return _to_flax({k: v for k, v in state_dict.items()
+                     if k.rsplit(".", 1)[-1] in BATCH_STATS})
+
+
+def _to_flax(state_dict):
     tree = {}
     for key, value in state_dict.items():
         path, kind = _flax_path(key)
@@ -258,5 +309,7 @@ def params_to_flax(state_dict):
         array = np.asarray(value.detach().cpu().numpy()
                            if isinstance(value, torch.Tensor) else value,
                            dtype=np.float32)
+        if kind == "dense" and array.ndim == 3:         # ECAPA's Conv1d
+            kind = "depthwise"
         node[path[-1]] = np.ascontiguousarray(_TO_FLAX[kind](array))
     return tree

@@ -58,8 +58,10 @@ class StreamingTranscriber:
 
     ``model`` is a ``TSTransducer``; ``params`` a ``state_dict`` to load
     into it, or None. The model moves to ``device`` (default CUDA, which
-    raises when absent). ``speaker_embs`` (1, 1, d_model) condition a
-    model with a speaker branch.
+    raises when absent). ``speaker_embs`` (1, 1, d_model), or the
+    speaker frames (1, S, d_model) of a ``cross_attention`` model,
+    condition a model with a speaker branch; no lengths go with them, as
+    in JAX (one whole enrollment).
     """
 
     def __init__(self, model, params, tokenizer, sample_rate=16000,

@@ -4,7 +4,9 @@ Counterpart of the JAX package's ``inference/transcriber.py::TSASRTranscriber``:
 waveforms are zero-padded to the longest in the batch with relative
 lengths ``len / max_len``, features are Fbank plus sentence
 normalization, the enrollment goes through the speaker branch (the
-``scratch`` variant; ``none`` has none), and the
+``scratch`` variant, a Conformer or an ECAPA branch; ``none`` has none)
+and its relative lengths mask the speaker frames of a
+``cross_attention`` model, and the
 encoder output is searched greedily (``beam_size <= 1``) or by the
 batched beam, with optional LM shallow fusion. ``from_experiment`` loads
 a trained experiment: its ``hyperparams.yaml``, its tokenizer and its
@@ -168,7 +170,9 @@ class TSASRTranscriber:
     @torch.inference_mode()
     def speaker_embedding(self, enroll):
         """One enrollment waveform -> the speaker embedding (1, 1, d_model)
-        that ``encode_batch`` injects (the ``scratch`` variant)."""
+        that ``encode_batch`` injects (the ``scratch`` variant, either
+        speaker branch), or its frames (1, S, d_model) for a
+        ``cross_attention`` model."""
         if self.variant != "scratch":
             raise ValueError(f"a {self.variant!r} model computes no speaker "
                              "embedding from an enrollment")
@@ -193,12 +197,12 @@ class TSASRTranscriber:
         search takes."""
         batch, rel = _pad_batch(wavs, self.pad_to_multiple.get("mixed_sig"))
         feats, feats_rel = self._features(batch, rel)
-        speaker = None
+        speaker = enroll_rel = None
         if enrolls is not None and self.variant == "scratch":
             efeats, enroll_rel = self._features(*_pad_batch(
                 enrolls, self.pad_to_multiple.get("enroll_sig")))
             speaker = self.model.extract_speaker(efeats, enroll_rel)
-        return (self.model.encode(feats, feats_rel, speaker),
+        return (self.model.encode(feats, feats_rel, speaker, enroll_rel),
                 torch.from_numpy(rel).to(self.device))
 
     def transcribe_batch(self, wavs, enrolls=None):

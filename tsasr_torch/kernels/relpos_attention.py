@@ -448,10 +448,12 @@ class _FusedRelPosAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do):
+        # saved_tensors read once: a checkpoint (remat) unpacks each
+        # saved tensor only once
+        saved = ctx.saved_tensors
         # the JAX custom VJP casts the output gradient to q's dtype
-        do = do.to(ctx.saved_tensors[0].dtype).contiguous()
-        grads = _launch_bwd(*ctx.saved_tensors, do, ctx.seed_t, ctx.scale,
-                            ctx.rate)
+        do = do.to(saved[0].dtype).contiguous()
+        grads = _launch_bwd(*saved, do, ctx.seed_t, ctx.scale, ctx.rate)
         return (*grads, None, None, None, None, None)
 
 

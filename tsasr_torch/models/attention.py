@@ -1,8 +1,8 @@
 """Transformer-XL style relative-position multi-head self-attention.
 
 Counterpart of the JAX package's ``models/attention.py`` (``rel_pos_encoding``,
-``_rel_shift``, ``RelPosMHAXL``, ``_past_pos_encoding``), causal and
-streaming paths included. Traps kept from the reference:
+``_rel_shift``, ``RelPosMHAXL``, ``_past_pos_encoding``, ``CrossAttention``),
+causal and streaming paths included. Traps kept from the reference:
 
 - the positional encoding is symmetric in distance;
 - ``qkv_proj`` has no bias and splits per head, (B, T, H, 3*Dh);
@@ -212,3 +212,45 @@ class RelPosMHAXL(nn.Module):
             B, Q, H * Dh)
         return (self.out_proj(out), attn), {"k": k_buf, "v": v_buf,
                                             "count": n}
+
+
+class CrossAttention(nn.Module):
+    """Plain multi-head attention of ``query`` over ``key_value``: the
+    ``cross_attention`` speaker injection (the JAX ``CrossAttention``).
+    Projections ``q_proj``, ``k_proj``, ``v_proj`` and ``out_proj`` with
+    biases; scores scaled by 1/sqrt(head_dim); padded keys filled with
+    ``ATTN_FILL``; the softmax in f32, the probabilities rounded to the
+    compute dtype and then dropped out. The JAX module computes it with
+    einsums outside any Pallas kernel, and so does this one."""
+
+    def __init__(self, embed_dim, num_heads, dropout=0.0, dropout_bits=32,
+                 dtype=torch.float32):
+        super().__init__()
+        if embed_dim % num_heads:
+            raise ValueError(f"embed_dim {embed_dim} is not divisible by "
+                             f"num_heads {num_heads}")
+        self.num_heads = num_heads
+        self.dtype = dtype
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            setattr(self, name, Linear(embed_dim, embed_dim,
+                                       compute_dtype=dtype))
+        self.dropout = Dropout(dropout, dropout_bits)
+
+    def forward(self, query, key_value, key_padding_mask=None,
+                deterministic=True, generator=None):
+        """query (B, Tq, D), key_value (B, S, D); key_padding_mask (B, S)
+        bool, True = padding -> (B, Tq, D)."""
+        B, Tq, D = query.shape
+        S, H = key_value.shape[1], self.num_heads
+        Dh = D // H
+        q = self.q_proj(query).reshape(B, Tq, H, Dh)
+        k = self.k_proj(key_value).reshape(B, S, H, Dh)
+        v = self.v_proj(key_value).reshape(B, S, H, Dh)
+        scores = torch.einsum("bthd,bshd->bhts", q, k) / math.sqrt(Dh)
+        if key_padding_mask is not None:
+            scores = scores.masked_fill(key_padding_mask[:, None, None, :],
+                                        ATTN_FILL)
+        attn = torch.softmax(scores, dim=-1, dtype=f32_or_wider(scores))
+        attn = self.dropout(cast(attn, self.dtype), deterministic, generator)
+        out = torch.einsum("bhts,bshd->bthd", attn, v).reshape(B, Tq, D)
+        return self.out_proj(out)

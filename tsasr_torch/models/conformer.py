@@ -2,8 +2,10 @@
 
 Counterpart of the JAX package's ``models/conformer.py`` (``FeedForward``,
 ``ConvolutionModule``, ``ConformerEncoderLayer``, ``TSConformerEncoder``)
-with injection modes ``cat`` and ``None``, causal (``causal``: the
-lookahead mask and a left-padded depthwise conv), with a bounded
+with every injection mode (``prod``, ``sum``, ``cat``,
+``cross_attention`` and ``None``), rematerialized layers (``remat``),
+causal (``causal``: the lookahead mask and a left-padded depthwise
+conv), with a bounded
 attention context (``att_context_size``) and streaming (``stream_states``:
 per layer a KV cache and the conv's last ``kernel_size - 1`` frames).
 Dropout sits where the JAX modules put it: inside each FFN, after each
@@ -20,7 +22,9 @@ the reference:
 - the conv module's output is zeroed on padded frames;
 - the key-padding mask comes from ``round(rel * T')``;
 - ``cat`` broadcasts the speaker vector over time, concatenates, then
-  projects 2D -> D with ``cat_proj``.
+  projects 2D -> D with ``cat_proj``;
+- ``cross_attention``'s key mask comes from ``round(rel * S)`` of the
+  speaker frames' relative lengths.
 
 One difference from the JAX module: the streaming conv cache holds the
 last ``kernel_size - 1`` frames after the GLU, the depthwise conv's own
@@ -41,7 +45,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tsasr_torch.models.attention import RelPosMHAXL, rel_pos_encoding
+from tsasr_torch.models.attention import (CrossAttention, RelPosMHAXL,
+                                         rel_pos_encoding)
 from tsasr_torch.models.layers import Conv1d, LayerNorm, Linear
 from tsasr_torch.ops.dropout import Dropout
 from tsasr_torch.ops.masks import (length_to_mask, lookahead_mask,
@@ -157,25 +162,93 @@ class ConformerEncoderLayer(nn.Module):
         return x, attn, {"attn": kv, "conv": conv}
 
 
+INJECTION_MODES = (None, "prod", "sum", "cat", "cross_attention")
+REMAT_POLICIES = ("full", "dots")
+# what the ``dots`` policy keeps from the forward: the matmul outputs
+# (the JAX ``dots_saveable``); everything else is recomputed
+_DOTS = ("mm", "addmm", "bmm")
+
+
+def _dots_context():
+    from torch.utils.checkpoint import (CheckpointPolicy,
+                                        create_selective_checkpoint_contexts)
+    saved = {getattr(torch.ops.aten, name).default for name in _DOTS}
+
+    def policy(ctx, op, *args, **kwargs):
+        return CheckpointPolicy.MUST_SAVE if op in saved \
+            else CheckpointPolicy.PREFER_RECOMPUTE
+    return create_selective_checkpoint_contexts(policy)
+
+
+def rematerialized(fn, generator, policy="full"):
+    """``fn`` run under ``torch.utils.checkpoint``: its activations are
+    recomputed in the backward instead of being kept (``full``), or all
+    but the matmul outputs (``dots``).
+
+    The port's dropout masks and attention seeds come from ``generator``,
+    which checkpoint's ``preserve_rng_state`` does not cover. So the
+    generator's state is saved before the forward, the recompute runs from
+    it and the state is put back where the recompute found it: the
+    recompute draws the forward's masks, and the generator ends where a
+    step without remat leaves it."""
+    from torch.utils.checkpoint import checkpoint
+    start = None if generator is None else generator.get_state()
+    calls = []
+
+    def run(*args):
+        if not calls or generator is None:
+            calls.append(True)
+            return fn(*args)
+        now = generator.get_state()
+        generator.set_state(start)
+        try:
+            return fn(*args)
+        finally:
+            generator.set_state(now)
+
+    def wrapped(*args):
+        kwargs = {"context_fn": _dots_context} if policy == "dots" else {}
+        return checkpoint(run, *args, use_reentrant=False,
+                          preserve_rng_state=False, **kwargs)
+    return wrapped
+
+
 class TSConformerEncoder(nn.Module):
     """Conformer encoder; the speaker embedding is injected after the
-    layers listed in ``injection_after`` (-1: before layer 0)."""
+    layers listed in ``injection_after`` (-1: before layer 0).
+
+    ``injection_mode``: ``prod`` and ``sum`` multiply or add the speaker
+    vector (B, 1, D); ``cat`` concatenates it to every frame and projects
+    back with ``cat_proj``; ``cross_attention`` attends from every frame
+    over the speaker frames (B, S, D) with ``speaker_attn``, the padded
+    ones masked by ``round(speaker_embs_length * S)``; None injects
+    nothing. One ``cat_proj`` / ``speaker_attn`` serves every injection
+    point, as in JAX.
+
+    ``remat`` recomputes each layer in the backward (``remat_policy``
+    ``full``, or ``dots``: keep the matmul outputs), off while streaming;
+    see ``rematerialized``."""
 
     def __init__(self, input_size, d_model=256, nhead=4, num_layers=12,
                  d_ffn=2048, kernel_size=31, dropout=0.0, dropout_bits=32,
                  injection_mode=None, injection_after=(0,),
                  fused_attention=False, causal=False, att_context_size=0,
-                 dtype=torch.float32):
+                 remat=False, remat_policy="full", dtype=torch.float32):
         super().__init__()
-        if injection_mode not in (None, "cat"):
-            raise NotImplementedError(
-                f"injection_mode={injection_mode!r} is not ported yet; the "
-                "port has 'cat' and None")
+        if injection_mode not in INJECTION_MODES:
+            raise ValueError(f"injection_mode {injection_mode!r} is not one "
+                             f"of {INJECTION_MODES}")
+        if remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"unknown remat_policy {remat_policy!r}")
         self.d_model = d_model
         self.causal = causal
         self.dtype = dtype
         self.injection_mode = injection_mode
-        self.injection_after = tuple(injection_after)
+        self.injection_after = tuple(injection_after) \
+            if isinstance(injection_after, (list, tuple)) \
+            else (injection_after,)
+        self.remat = remat
+        self.remat_policy = remat_policy
         self.input_proj = Linear(input_size, d_model, compute_dtype=dtype)
         self.layers = nn.ModuleList(
             ConformerEncoderLayer(d_model, d_ffn, nhead, kernel_size,
@@ -184,19 +257,34 @@ class TSConformerEncoder(nn.Module):
             for _ in range(num_layers))
         self.cat_proj = Linear(2 * d_model, d_model, compute_dtype=dtype) \
             if injection_mode == "cat" else None
+        self.speaker_attn = CrossAttention(
+            d_model, nhead, dropout, dropout_bits, dtype) \
+            if injection_mode == "cross_attention" else None
         self.norm = LayerNorm(d_model, eps=LN_EPS, compute_dtype=dtype)
         self.dropout = Dropout(dropout, dropout_bits)
 
-    def _inject(self, x, speaker_embs):
-        if self.injection_mode is None:
-            return x
-        expanded = speaker_embs.expand(x.shape[0], x.shape[1], -1)
-        return self.cat_proj(torch.cat([x, expanded], dim=-1))
+    def _inject(self, x, speaker_embs, speaker_mask, deterministic,
+                generator):
+        mode = self.injection_mode
+        if mode == "prod":
+            return x * speaker_embs
+        if mode == "sum":
+            return x + speaker_embs
+        if mode == "cat":
+            expanded = speaker_embs.expand(x.shape[0], x.shape[1], -1)
+            return self.cat_proj(torch.cat([x, expanded], dim=-1))
+        if mode == "cross_attention":
+            return self.speaker_attn(x, speaker_embs, speaker_mask,
+                                     deterministic, generator)
+        return x
 
     def forward(self, src, rel_lengths=None, speaker_embs=None,
-                deterministic=True, generator=None, stream_states=None):
+                deterministic=True, generator=None, stream_states=None,
+                speaker_embs_length=None):
         """src: (B, T, F) or (B, T, F1, F2) (flattened to F1*F2);
-        rel_lengths: (B,) in (0, 1]; speaker_embs: (B, 1, D).
+        rel_lengths: (B,) in (0, 1]; speaker_embs: (B, 1, D), or (B, S, D)
+        for ``cross_attention`` with ``speaker_embs_length`` (B,) their
+        relative lengths.
 
         Streaming (causal models): ``stream_states`` holds each layer's
         state, src the new frames; returns (out, new states)."""
@@ -204,30 +292,40 @@ class TSConformerEncoder(nn.Module):
             src = src.reshape(src.shape[0], src.shape[1], -1)
         T = src.shape[1]
         streaming = stream_states is not None
-        key_padding_mask = attn_mask = pos_emb = None
+        key_padding_mask = attn_mask = pos_emb = speaker_mask = None
         if rel_lengths is not None:
             abs_len = relative_to_absolute_lengths(rel_lengths, T)
             key_padding_mask = ~length_to_mask(abs_len, T)
+        if speaker_embs_length is not None and speaker_embs is not None:
+            S = speaker_embs.shape[1]
+            speaker_mask = ~length_to_mask(
+                relative_to_absolute_lengths(speaker_embs_length, S), S)
 
         x = self.dropout(self.input_proj(src), deterministic, generator)
         inject = speaker_embs is not None
+        drop = (deterministic, generator)
         if inject and -1 in self.injection_after:
-            x = self._inject(x, speaker_embs)
+            x = self._inject(x, speaker_embs, speaker_mask, *drop)
         if not streaming:
             pos_emb = rel_pos_encoding(T, self.d_model, device=x.device,
                                        dtype=self.dtype)
             if self.causal:
                 attn_mask = lookahead_mask(T, device=x.device)
+        remat = self.remat and not streaming and torch.is_grad_enabled()
         new_states = []
         for i, layer in enumerate(self.layers):
             if streaming:
                 x, _, state = layer(x, None, layer_state=stream_states[i])
                 new_states.append(state)
+            elif remat:
+                def run(h, layer=layer):
+                    return layer(h, pos_emb, key_padding_mask, attn_mask,
+                                 *drop)[0]
+                x = rematerialized(run, generator, self.remat_policy)(x)
             else:
-                x, _ = layer(x, pos_emb, key_padding_mask, attn_mask,
-                             deterministic, generator)
+                x, _ = layer(x, pos_emb, key_padding_mask, attn_mask, *drop)
             if inject and i in self.injection_after:
-                x = self._inject(x, speaker_embs)
+                x = self._inject(x, speaker_embs, speaker_mask, *drop)
         if streaming:
             return self.norm(x), new_states
         return self.norm(x)

@@ -3,14 +3,28 @@
 Counterpart of the JAX package's ``models/transducer.py`` for the serving
 path and the training forward of the three recipes' speaker paths:
 
-    mixture feats -> ConvFrontEnd -> TSConformer(+cat inject) -> encoder_proj
+    mixture feats -> ConvFrontEnd -> TSConformer(+inject) -> encoder_proj
     enroll feats  -> ConvFrontEnd -> TSConformer -> ceil-length mean pool
                   -> speaker_proj                      (scratch)
-    external d-vectors (B, 1, E) -> speaker_proj       (pretrained)
+                  (unpooled (B, S, D) frames for cross_attention)
+    enroll feats  -> ECAPA-TDNN -> speaker_proj        (speaker_encoder_type
+                                                        ecapa)
+    external d-vectors (B, 1, E) or frames (B, S, E) -> speaker_proj
+                                                       (pretrained)
     no speaker branch, injection_mode None             (none)
     tokens_bos    -> one-hot (V -> V-1, blank row zero) -> LSTM
                   -> decoder_proj
-    logits = transducer_head(leaky_relu(enc + dec))
+    logits = transducer_head(joiner(enc, dec)),
+    joiner: leaky_relu(enc + dec) (sum) or
+            leaky_relu(joint_network([enc, dec])) (concat)
+
+``forward`` with ``band_width`` evaluates the joint on a diagonal band
+of label positions only (``joint_logits_banded``, the band of
+``ops.rnnt_loss_banded.band_centers``). The frontend, encoder, predictor
+and joiner classes can be swapped from the config by a registered name or
+a dotted path (``models.registry``, which states the keyword contract).
+The speaker frames' relative lengths (``speaker_rel_lens``: the
+enrollment's) mask the ``cross_attention`` keys.
 
 Methods take the JAX ``deterministic`` switch; with
 ``deterministic=False`` dropout draws from the step's ``generator``.
@@ -43,11 +57,18 @@ from torch import nn
 
 from tsasr_torch.models.attention import RelPosMHAXL
 from tsasr_torch.models.conformer import TSConformerEncoder
+from tsasr_torch.models.ecapa import ECAPA_TDNN, ECAPAConfig, FrozenBatchNorm
 from tsasr_torch.models.frontend import ConvolutionFrontEnd
 from tsasr_torch.models.layers import Linear
+from tsasr_torch.models.registry import resolve
 from tsasr_torch.models.rnn import LSTM
-from tsasr_torch.ops.masks import length_to_mask
+from tsasr_torch.ops.masks import (length_to_mask,
+                                   relative_to_absolute_lengths)
+from tsasr_torch.ops.rnnt_loss_banded import band_centers
 from tsasr_torch.utils.precision import cast
+
+SPEAKER_ENCODERS = ("conformer", "ecapa")
+JOINT_MODES = ("sum", "concat")
 
 
 @dataclass(frozen=True)
@@ -70,26 +91,31 @@ class TSTransducerConfig:
     injection_mode: Optional[str] = "cat"
     injection_after: Union[int, Sequence[int]] = 0
     use_speaker_encoder: bool = True
+    speaker_encoder_type: str = "conformer"   # "conformer" | "ecapa"
     speaker_encoder_layers: int = 6
+    ecapa_channels: Sequence[int] = (512, 512, 512, 512, 1536)
+    ecapa_lin_neurons: int = 192
     # width of external speaker embeddings (the pretrained recipe's frozen
     # WavLM d-vectors); None: speaker_proj takes d_model
     speaker_embedding_dim: Optional[int] = None
     decoder_neurons: int = 512
     decoder_num_layers: int = 1
     joint_dim: int = 640
+    joint_mode: str = "sum"
+    # recompute encoder layers in the backward ("full"; "dots" keeps the
+    # matmul outputs): activation memory for long utterances
+    remat: bool = False
+    remat_policy: str = "full"
     fused_attention: bool = False
     causal_encoder: bool = False
     att_context_size: int = 0   # >0: bounded left attention context
     frontend_causal: bool = False
-    # keys of the JAX config that the recipe's yaml passes; the port runs
-    # their defaults only, and any other value raises (__post_init__)
-    remat: bool = False
-    remat_policy: str = "full"
+    # swapped component classes (models/registry.py): a registered name or
+    # a dotted import path; None: the built-in
     frontend_class: Optional[str] = None
     encoder_class: Optional[str] = None
     predictor_class: Optional[str] = None
     joiner_class: Optional[str] = None
-    speaker_encoder_type: str = "conformer"
     # the compute dtype: float32, or bfloat16 (the recipe's precision bf16)
     dtype: torch.dtype = torch.float32
 
@@ -97,23 +123,13 @@ class TSTransducerConfig:
         if self.dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"dtype {self.dtype} is not float32 or "
                              "bfloat16")
-        not_ported = {
-            "remat": (self.remat, False),
-            "frontend_class": (self.frontend_class, None),
-            "encoder_class": (self.encoder_class, None),
-            "predictor_class": (self.predictor_class, None),
-            "joiner_class": (self.joiner_class, None),
-            "speaker_encoder_type": (self.speaker_encoder_type,
-                                     "conformer"),
-        }
-        for key, (value, ported) in not_ported.items():
-            if value != ported:
-                raise NotImplementedError(
-                    f"{key}={value!r} is not ported yet; the port runs "
-                    f"{key}={ported!r}")
-        # the policy only chooses what remat recomputes
-        if self.remat_policy not in ("full", "dots"):
-            raise ValueError(f"unknown remat_policy {self.remat_policy!r}")
+        for key, value, allowed in (
+                ("speaker_encoder_type", self.speaker_encoder_type,
+                 SPEAKER_ENCODERS),
+                ("joint_mode", self.joint_mode, JOINT_MODES),
+                ("remat_policy", self.remat_policy, ("full", "dots"))):
+            if value not in allowed:
+                raise ValueError(f"{key} {value!r} is not one of {allowed}")
 
 
 def scratch_config(**overrides):
@@ -172,6 +188,29 @@ class Predictor(nn.Module):
         return self.decoder_proj(out), state
 
 
+class Joiner(nn.Module):
+    """The transducer joint before the head: ``leaky_relu(enc + dec)``
+    (``sum``), or ``leaky_relu(joint_network(concat(enc, dec)))``
+    (``concat``), enc (..., 1, J) and dec (..., U, J) broadcast."""
+
+    def __init__(self, joint_dim=640, mode="sum", dtype=torch.float32):
+        super().__init__()
+        if mode not in JOINT_MODES:
+            raise ValueError(f"joint mode {mode!r} is not one of "
+                             f"{JOINT_MODES}")
+        self.joint_network = Linear(2 * joint_dim, joint_dim,
+                                    compute_dtype=dtype) \
+            if mode == "concat" else None
+
+    def forward(self, enc, dec):
+        if self.joint_network is None:
+            return F.leaky_relu(enc + dec, 0.01)
+        shape = torch.broadcast_shapes(enc.shape[:-1], dec.shape[:-1])
+        joint = torch.cat([enc.expand(*shape, -1), dec.expand(*shape, -1)],
+                          dim=-1)
+        return F.leaky_relu(self.joint_network(joint), 0.01)
+
+
 class TSTransducer(nn.Module):
     """Target-speaker transducer: the JAX model's inference methods and
     its training forward (``encode_predict``, ``forward``)."""
@@ -187,38 +226,58 @@ class TSTransducer(nn.Module):
         after = tuple(c.injection_after) \
             if isinstance(c.injection_after, (list, tuple)) \
             else (c.injection_after,)
+        speaker_branch = c.injection_mode is not None
+        ecapa = speaker_branch and c.use_speaker_encoder \
+            and c.speaker_encoder_type == "ecapa"
+        if ecapa and c.injection_mode == "cross_attention":
+            raise ValueError("speaker_encoder_type 'ecapa' pools over time; "
+                             "use the conformer branch for cross_attention")
+        frontend_kwargs = dict(
+            n_mels=c.n_mels, out_channels=tuple(c.frontend_channels),
+            strides=tuple(c.frontend_strides), dropout=c.dropout,
+            dropout_bits=c.dropout_bits, dtype=c.dtype)
+        encoder_kwargs = dict(
+            input_size=enc_in, d_model=c.d_model, nhead=c.nhead,
+            d_ffn=c.d_ffn, kernel_size=c.kernel_size, dropout=c.dropout,
+            dropout_bits=c.dropout_bits, fused_attention=c.fused_attention,
+            remat=c.remat, remat_policy=c.remat_policy, dtype=c.dtype)
 
-        def frontend(causal):
-            return ConvolutionFrontEnd(
-                c.n_mels, tuple(c.frontend_channels),
-                strides=tuple(c.frontend_strides), dropout=c.dropout,
-                dropout_bits=c.dropout_bits, causal=causal, dtype=c.dtype)
-
-        self.frontend = frontend(c.frontend_causal)
-        self.encoder = TSConformerEncoder(
-            enc_in, c.d_model, c.nhead, c.encoder_num_layers, c.d_ffn,
-            c.kernel_size, c.dropout, c.dropout_bits, c.injection_mode, after,
-            c.fused_attention, c.causal_encoder, c.att_context_size, c.dtype)
+        self.frontend = (resolve("frontend", c.frontend_class)
+                         or ConvolutionFrontEnd)(
+            causal=c.frontend_causal, **frontend_kwargs)
+        self.encoder = (resolve("encoder", c.encoder_class)
+                        or TSConformerEncoder)(
+            num_layers=c.encoder_num_layers, injection_mode=c.injection_mode,
+            injection_after=after, causal=c.causal_encoder,
+            att_context_size=c.att_context_size, **encoder_kwargs)
         self.encoder_proj = Linear(c.d_model, c.joint_dim,
                                    compute_dtype=c.dtype)
-        self.predictor = Predictor(c.vocab_size, c.blank_index,
-                                   c.decoder_neurons, c.decoder_num_layers,
-                                   c.joint_dim, c.dtype)
+        self.predictor = (resolve("predictor", c.predictor_class)
+                          or Predictor)(
+            vocab_size=c.vocab_size, blank_index=c.blank_index,
+            hidden_size=c.decoder_neurons, num_layers=c.decoder_num_layers,
+            joint_dim=c.joint_dim, dtype=c.dtype)
         self.transducer_head = Linear(c.joint_dim, c.vocab_size,
                                       compute_dtype=c.dtype)
+        self.joiner = (resolve("joiner", c.joiner_class) or Joiner)(
+            joint_dim=c.joint_dim, mode=c.joint_mode, dtype=c.dtype)
         self.speaker_frontend = self.speaker_encoder = None
         self.speaker_proj = None
-        if c.injection_mode is not None:
-            if c.use_speaker_encoder:
-                self.speaker_frontend = frontend(False)
-                self.speaker_encoder = TSConformerEncoder(
-                    enc_in, c.d_model, c.nhead, c.speaker_encoder_layers,
-                    c.d_ffn, c.kernel_size, c.dropout, c.dropout_bits, None,
-                    fused_attention=c.fused_attention, dtype=c.dtype)
+        if speaker_branch:
             # projects the own speaker encoder's output, or the external
             # embeddings when there is no speaker encoder
-            proj_in = c.d_model if c.use_speaker_encoder \
-                else (c.speaker_embedding_dim or c.d_model)
+            proj_in = c.speaker_embedding_dim or c.d_model
+            if ecapa:
+                self.speaker_encoder = ECAPA_TDNN(ECAPAConfig(
+                    input_size=c.n_mels, channels=tuple(c.ecapa_channels),
+                    lin_neurons=c.ecapa_lin_neurons, dtype=c.dtype))
+                proj_in = c.ecapa_lin_neurons
+            elif c.use_speaker_encoder:
+                self.speaker_frontend = ConvolutionFrontEnd(
+                    causal=False, **frontend_kwargs)
+                self.speaker_encoder = TSConformerEncoder(
+                    num_layers=c.speaker_encoder_layers, **encoder_kwargs)
+                proj_in = c.d_model
             self.speaker_proj = Linear(proj_in, c.d_model,
                                        compute_dtype=c.dtype)
 
@@ -226,20 +285,24 @@ class TSTransducer(nn.Module):
     def extract_speaker(self, enroll_feats, enroll_rel_lens,
                         deterministic=True, generator=None):
         """Enrollment features (B, T, n_mels) -> speaker embedding
-        (B, 1, d_model)."""
+        (B, 1, d_model), or the unpooled frames (B, S, d_model) of the
+        conformer branch for ``cross_attention``. The ECAPA branch runs
+        its BatchNorms on their running statistics and draws no
+        dropout."""
+        if self.config.speaker_encoder_type == "ecapa":
+            return self.speaker_proj(self.speaker_encoder(enroll_feats,
+                                                          enroll_rel_lens))
         x = self.speaker_frontend(enroll_feats, deterministic, generator)
         x = self.speaker_encoder(x, enroll_rel_lens, None, deterministic,
                                  generator)
-        return self.speaker_proj(self.pool_speaker(x, enroll_rel_lens))
+        if self.config.injection_mode != "cross_attention":
+            x = self.pool_speaker(x, enroll_rel_lens)
+        return self.speaker_proj(x)
 
     def project_external_speaker(self, speaker_embs):
-        """External pooled speaker embeddings (B, 1, E), e.g. WavLM
-        d-vectors, -> (B, 1, d_model)."""
-        if speaker_embs.dim() != 3 or speaker_embs.shape[1] != 1:
-            raise NotImplementedError(
-                "frame-level external speaker embeddings (B, S, E) belong "
-                "to injection_mode cross_attention, which is not ported "
-                f"yet; got shape {tuple(speaker_embs.shape)}")
+        """External speaker embeddings, pooled (B, 1, E) (WavLM
+        d-vectors) or frames (B, S, E) for ``cross_attention``, ->
+        (B, 1 or S, d_model)."""
         return self.speaker_proj(speaker_embs)
 
     @staticmethod
@@ -252,21 +315,26 @@ class TSTransducer(nn.Module):
             / mask.sum(dim=-2, keepdim=True)
 
     # ----------------------------------------------------------- encoder
-    def encode(self, feats, rel_lens, speaker_embs=None, deterministic=True,
-               generator=None):
-        """Mixture features (B, T, n_mels) -> (B, T', joint_dim)."""
+    def encode(self, feats, rel_lens, speaker_embs=None,
+               speaker_rel_lens=None, deterministic=True, generator=None):
+        """Mixture features (B, T, n_mels) -> (B, T', joint_dim);
+        ``speaker_rel_lens`` mask the speaker frames of
+        ``cross_attention``."""
         x = self.frontend(feats, deterministic, generator)
-        x = self.encoder(x, rel_lens, speaker_embs, deterministic, generator)
+        x = self.encoder(x, rel_lens, speaker_embs, deterministic, generator,
+                         speaker_embs_length=speaker_rel_lens)
         return self.encoder_proj(x)
 
-    def encode_stream(self, feats_new, stream_state, speaker_embs=None):
+    def encode_stream(self, feats_new, stream_state, speaker_embs=None,
+                      speaker_rel_lens=None):
         """New feature frames (B, n, n_mels), n a multiple of the
         frontend's strides' product, against the cached state ->
         (encoder_proj frames (B, n / 4, joint_dim), new state)."""
         x, frontend = self.frontend(feats_new,
                                     stream_caches=stream_state["frontend"])
         x, encoder = self.encoder(x, speaker_embs=speaker_embs,
-                                  stream_states=stream_state["encoder"])
+                                  stream_states=stream_state["encoder"],
+                                  speaker_embs_length=speaker_rel_lens)
         return self.encoder_proj(x), {"frontend": frontend,
                                       "encoder": encoder}
 
@@ -311,7 +379,18 @@ class TSTransducer(nn.Module):
     # -------------------------------------------------------------- joint
     def joint_logits(self, enc, dec):
         """enc (..., 1, J), dec (..., U, J) -> logits (..., U, V)."""
-        return self.transducer_head(F.leaky_relu(enc + dec, 0.01))
+        return self.transducer_head(self.joiner(enc, dec))
+
+    def joint_logits_banded(self, enc_out, dec_out, centers, band_width):
+        """The joint and head on a diagonal band of label positions only:
+        enc_out (B, T, J), dec_out (B, U+1, J), ``centers`` (B, T) the
+        band starts (``ops.rnnt_loss_banded.band_centers``) -> logits
+        (B, T, band_width, V); positions past U repeat row U."""
+        B, U1, _ = dec_out.shape
+        idx = torch.clamp(centers[:, :, None].long() + torch.arange(
+            band_width, device=centers.device), 0, U1 - 1)   # (B, T, W)
+        rows = torch.arange(B, device=centers.device)[:, None, None]
+        return self.joint_logits(enc_out[:, :, None, :], dec_out[rows, idx])
 
     # ---------------------------------------------------------- training
     def encode_predict(self, feats, rel_lens, tokens_bos, enroll_feats=None,
@@ -320,38 +399,53 @@ class TSTransducer(nn.Module):
         """Forward up to (excluding) the joint: (enc_out (B, T', J),
         dec_out (B, U+1, J)). The fused loss takes these plus the head's
         parameters, so the (B, T', U+1, J) joint is never stored.
-        ``external_speaker_embs`` (B, 1, E) take precedence over
-        ``enroll_feats``; without injection both are ignored."""
-        speaker_embs = None
+        ``external_speaker_embs`` (B, 1, E) or (B, S, E) take precedence
+        over ``enroll_feats``; without injection both are ignored.
+        ``enroll_rel_lens`` are the speaker frames' relative lengths."""
+        speaker_embs = speaker_rel = None
         if self.config.injection_mode is not None:
             if external_speaker_embs is not None:
                 speaker_embs = self.project_external_speaker(
                     external_speaker_embs)
+                speaker_rel = enroll_rel_lens
             elif enroll_feats is not None:
                 speaker_embs = self.extract_speaker(
                     enroll_feats, enroll_rel_lens, deterministic, generator)
-        enc_out = self.encode(feats, rel_lens, speaker_embs, deterministic,
-                              generator)
+                speaker_rel = enroll_rel_lens
+        enc_out = self.encode(feats, rel_lens, speaker_embs, speaker_rel,
+                              deterministic, generator)
         dec_out, _ = self.predict(tokens_bos)
         return enc_out, dec_out
 
     def forward(self, feats, rel_lens, tokens_bos, enroll_feats=None,
                 enroll_rel_lens=None, external_speaker_embs=None,
-                deterministic=True, generator=None):
-        """Training/eval forward -> (logits (B, T', U+1, V), enc_out)."""
+                deterministic=True, generator=None, band_width=None,
+                token_rel_lens=None):
+        """Training/eval forward -> (logits (B, T', U+1, V), enc_out).
+        With ``band_width`` (and ``token_rel_lens``) the joint runs on the
+        band only and the logits are (B, T', band_width, V); the loss
+        recomputes the same ``band_centers`` from the lengths."""
         enc_out, dec_out = self.encode_predict(
             feats, rel_lens, tokens_bos, enroll_feats, enroll_rel_lens,
             external_speaker_embs, deterministic, generator)
-        logits = self.joint_logits(enc_out[:, :, None, :],
-                                   dec_out[:, None, :, :])
-        return logits, enc_out
+        if band_width is None:
+            return self.joint_logits(enc_out[:, :, None, :],
+                                     dec_out[:, None, :, :]), enc_out
+        T, U = enc_out.shape[1], tokens_bos.shape[1] - 1
+        centers = band_centers(relative_to_absolute_lengths(rel_lens, T),
+                               relative_to_absolute_lengths(token_rel_lens,
+                                                            U),
+                               T, band_width)
+        return self.joint_logits_banded(enc_out, dec_out, centers,
+                                        band_width), enc_out
 
     # ------------------------------------------------------------- init
     @torch.no_grad()
     def init_weights(self, seed=0):
         """Random weights from a seeded CPU generator, the same on every
         device: xavier-normal matrices and kernels, zero biases, unit
-        LayerNorm scales, LSTM uniform(+-1/sqrt(H)) as in the reference."""
+        LayerNorm and BatchNorm scales, BatchNorm statistics 0 and 1,
+        LSTM uniform(+-1/sqrt(H)) as in the reference."""
         g = torch.Generator().manual_seed(seed)
 
         def fill(param, draw):
@@ -360,9 +454,12 @@ class TSTransducer(nn.Module):
             param.copy_(value)
 
         for module in self.modules():
-            if isinstance(module, nn.LayerNorm):
+            if isinstance(module, (nn.LayerNorm, FrozenBatchNorm)):
                 module.weight.fill_(1.0)
                 module.bias.zero_()
+                if isinstance(module, FrozenBatchNorm):
+                    module.mean.zero_()
+                    module.var.fill_(1.0)
             elif isinstance(module, (nn.Linear, nn.Conv1d, nn.Conv2d)):
                 fill(module.weight,
                      lambda t: nn.init.xavier_normal_(t, generator=g))

@@ -22,12 +22,15 @@ checkpointed).
   sync;
 - ``_forward_kwargs``: nothing for ``none``; for ``scratch`` the
   enrollment's features, made as the mixture's; for ``pretrained`` the
-  frozen encoder's (B, 1, E) d-vectors as ``external_speaker_embs``;
+  frozen encoder's (B, 1, E) d-vectors as ``external_speaker_embs``, or
+  its (B, S, E) frames under ``injection_mode: cross_attention``;
 - ``compute_forward`` runs ``encode_predict`` and hands the head's
-  parameters to the fused joint + loss when ``fused_joint_loss`` is on
-  (``_fused_loss_active``), else the model's full logits;
+  parameters to the fused joint + loss when ``_fused_loss_active``
+  (``fused_joint_loss`` on, no ``joint_band_width``, the ``sum``
+  joint), else the model's logits: the full lattice, or the band of
+  ``joint_band_width`` label positions a frame;
 - ``compute_objectives`` is the weight-masked mean of the per-utterance
-  RNN-T losses;
+  RNN-T losses (``rnnt_loss_banded`` on a band);
 - ``evaluate_batch_extra`` decodes greedily at VALID every
   ``valid_search_freq`` epochs, and at TEST with ``_beam``: the batched
   or the exact beam by ``beam_backend``, greedy at ``beam_size <= 1``,
@@ -44,11 +47,9 @@ checkpointed).
   so no ``speaker_emb`` item (the JAX ``torch_cache`` backend's) is made.
 
 Not ported yet, each raising ``NotImplementedError`` before anything
-runs: the banded joint and loss (a set ``joint_band_width``), the
-``torch_cache`` speaker backend (HF ``transformers``), injection modes
-other than ``cat`` (frame-level speaker embeddings with
-``cross_attention`` among them), warm start from ``model_path``,
-``prompt_test`` and the ``plot_*`` switches.
+runs: the ``torch_cache`` speaker backend (HF ``transformers``), warm
+start from ``model_path``, ``prompt_test`` and the ``plot_*``
+switches.
 """
 
 import dataclasses
@@ -77,6 +78,7 @@ from tsasr_torch.ops.augment import spec_augment, speed_perturb
 from tsasr_torch.ops.features import (Fbank, input_normalization,
                                       pad_audio_to_frame_multiple)
 from tsasr_torch.ops.rnnt_loss import rnnt_loss
+from tsasr_torch.ops.rnnt_loss_banded import band_centers, rnnt_loss_banded
 from tsasr_torch.ops.rnnt_loss_fused import rnnt_loss_fused
 from tsasr_torch.parallel.distributed import run_on_main
 from tsasr_torch.recipes.speaker_embeddings import (FrozenSpeakerEncoder,
@@ -165,6 +167,8 @@ class TSASRBrain(Brain):
             _check_speaker_backend(self.hparams)
             self.speaker_encoder = FrozenSpeakerEncoder(
                 self.hparams.speaker_encoder_path,
+                frame_level=(getattr(self.hparams, "injection_mode", None)
+                             == "cross_attention"),
                 embedding_dim=self.hparams.speaker_embedding_dim,
                 device=self.device)
 
@@ -227,13 +231,16 @@ class TSASRBrain(Brain):
         return {"enroll_feats": feats, "enroll_rel_lens": rel}
 
     def _fused_loss_active(self):
+        """The fused joint + head + loss, as the JAX recipe chooses it:
+        only for the ``sum`` joint and without a band, and
+        ``fused_joint_loss: False`` opts out."""
+        if getattr(self.hparams, "joint_band_width", None):
+            return False
+        if self.model.config.joint_mode != "sum":
+            return False
         return bool(getattr(self.hparams, "fused_joint_loss", True))
 
     def compute_forward(self, batch, stage, generator):
-        if getattr(self.hparams, "joint_band_width", None):
-            raise NotImplementedError(
-                "joint_band_width trains the banded joint with "
-                "rnnt_loss_banded, which is not ported yet")
         feats, rel = self._mixture_features(batch, stage)
         kwargs = self._forward_kwargs(batch)
         deterministic = stage != Stage.TRAIN
@@ -243,6 +250,10 @@ class TSASRBrain(Brain):
                 deterministic=deterministic, generator=generator)
             head = self.model.transducer_head
             return (enc_out, dec_out, head.weight.t(), head.bias), enc_out, rel
+        band = getattr(self.hparams, "joint_band_width", None)
+        if band:
+            kwargs["band_width"] = int(band)
+            kwargs["token_rel_lens"] = batch["tokens_lens"]
         logits, enc_out = self.model(
             feats, rel, batch["tokens_bos"], **kwargs,
             deterministic=deterministic, generator=generator)
@@ -265,8 +276,17 @@ class TSASRBrain(Brain):
                 chunk=int(getattr(self.hparams, "fused_loss_chunk", 8)))
         else:
             input_lens = torch.round(rel * logits.shape[1]).to(torch.int32)
-            losses = rnnt_loss(logits, tokens, input_lens, target_lens,
-                               blank=blank, reduction="none")
+            band = getattr(self.hparams, "joint_band_width", None)
+            if band:
+                # the same band centers the model's joint took
+                centers = band_centers(input_lens, target_lens,
+                                       logits.shape[1], int(band))
+                losses = rnnt_loss_banded(logits, tokens, centers,
+                                          input_lens, target_lens,
+                                          blank=blank, reduction="none")
+            else:
+                losses = rnnt_loss(logits, tokens, input_lens, target_lens,
+                                   blank=blank, reduction="none")
         w = batch["weight"]
         return (losses * w).sum() / torch.clamp(w.sum(), min=1.0)
 
@@ -462,7 +482,6 @@ def check_ported(hparams, variant):
         "plot_data": "plot_data", "plot_attentions": "plot_attentions",
         "plot_embeddings": "plot_embeddings",
         "plot_grad_norm": "plot_grad_norm",
-        "joint_band_width": "joint_band_width (the banded joint and loss)",
     }
     for key, what in switches.items():
         if hparams.get(key):

@@ -48,18 +48,27 @@ class FrozenSpeakerEncoder:
     the valid lengths ``min(ceil(rel * L), L)`` as the reference masks;
     no gradient flows into the encoder. ``embedding_dim`` must be the
     checkpoint's x-vector width (the yaml's ``speaker_embedding_dim``).
+
+    ``frame_level`` (the ``cross_attention`` injection) gives the frames
+    (B, S, embedding_dim) instead: the first ``embedding_dim`` channels
+    of the last hidden state, as the JAX ``JaxSpeakerEncoder`` and the
+    reference take them (512 of WavLM-base's 768).
     """
 
-    def __init__(self, model_path, embedding_dim=512, device="cuda"):
+    def __init__(self, model_path, frame_level=False, embedding_dim=512,
+                 device="cuda"):
         require_checkpoint_dir(model_path)
         self.device = resolve_device(device)
         self.config, model = load_pretrained_xvector(model_path)
-        if self.config.xvector_output_dim != embedding_dim:
+        width, what = (self.config.hidden_size, "hidden states") \
+            if frame_level else (self.config.xvector_output_dim, "x-vectors")
+        if embedding_dim > width or (not frame_level
+                                     and embedding_dim != width):
             raise ValueError(
-                f"the checkpoint's x-vectors have "
-                f"{self.config.xvector_output_dim} dimensions, "
+                f"the checkpoint's {what} have {width} dimensions, "
                 f"speaker_embedding_dim is {embedding_dim}")
         self.model = model.to(self.device).eval().requires_grad_(False)
+        self.frame_level = frame_level
         self.embedding_dim = embedding_dim
         logger.info("%.1fM parameters in the frozen speaker encoder",
                     sum(p.numel() for p in self.model.parameters()) / 1e6)
@@ -68,4 +77,7 @@ class FrozenSpeakerEncoder:
     def embed(self, wav, rel_lens):
         L = wav.shape[1]
         lengths = torch.clamp(torch.ceil(rel_lens * L), max=L).to(torch.int64)
-        return self.model(wav, lengths)["embeddings"][:, None, :]
+        out = self.model(wav, lengths)
+        if self.frame_level:
+            return out["hidden_states"][-1][..., :self.embedding_dim]
+        return out["embeddings"][:, None, :]
