@@ -135,7 +135,27 @@ checkout, or when any phase fails. Phases:
    ``from_experiment`` on the TEST files); a causal cross_attention model
    streaming with kv_cache to the offline greedy tokens; then each kernel
    against its plain version on the phase's own tensors;
-10. a small model on the card against the same model on the CPU:
+10. the recipe's run flags and last switches (``phase_run_flags``) at
+   the scratch recipe's full width on the same corpus: (a) the scratch
+   yaml through ``tsasr_torch.train_librispeechmix_scratch`` with
+   ``--profile --profile_dir build/run_flags_profile``, ``prompt_test``
+   (prepend), 5 optimizer steps at accumulation 1, VALID greedy, TEST at
+   beam 1 in two passes: JAX's default schedule's trace (the last TRAIN
+   micro-batch and the first VALID batch) must name ``fit_batch``,
+   ``evaluate_batch`` and the CUDA attention and lattice kernels,
+   ``report_time`` and ``report_memory`` are printed, both WER files
+   written and no stripped hypothesis keeps its enrollment's words;
+   (b) a run with ``model_path`` set to (a)'s checkpoint: its model
+   before the first step equals the source bit for bit, then one step;
+   (c) ``encode_with_attn`` on 6 x 8 s within the encoder tolerance of
+   ``encode`` with the kernel, every row over unmasked keys summing to
+   1; (d) the causal model in bf16 streaming a 12 s mixture in 1 s
+   chunks, ``kv_cache`` tokens against the offline bf16 greedy,
+   ``encode_stream`` against the offline bf16 encode, ``reencode`` on
+   the bf16 kernel, ms, device ms and launches a chunk beside the f32
+   stream's in turns; then each kernel against its plain version on the
+   phase's own tensors;
+11. a small model on the card against the same model on the CPU:
    serving encoder output (the CPU side twice, each hash logged with the
    host CPU's model and torch's thread count), and 2 optimizer steps of
    training at dropout 0.
@@ -4099,6 +4119,515 @@ def phase_switches(device, card):
     return path_counts
 
 
+# ------------------------------------------------------------ run flags
+RUN_FLAGS_STEPS = 5           # optimizer steps of (a), at accumulation 1
+# JAX's default profiler schedule (wait 2, warmup 2, active 2): its window
+# is the 5th and 6th profiled calls, so (a)'s 5 TRAIN micro-batches put
+# the last of them and the first VALID batch in the trace
+RUN_FLAGS_WINDOW = "trace_steps_5-6.json"
+ATTN_BATCH = (6, 8)           # (c): 6 x 8 s
+ROW_SUM_ATOL = 1e-5
+# (d): the bf16 stream against the offline bf16 encode, at the model
+# tolerance of tests/test_torch_bf16.py (2^-5 of max |enc|): the stream's
+# attention rounds its scores to bf16 as the plain path does, the
+# offline encode's bf16 kernel keeps them in f32
+BF16_STREAM_RTOL = 2.0 ** -5
+BF16_STREAM_TURNS = ("f32", "bf16", "bf16", "f32")
+
+
+TRACE_KERNELS = (("attention fwd", ("relpos_attention_fwd",)),
+                 ("attention bwd", ("dq_kernel", "dkv_kernel", "dp_kernel",
+                                    "rows_kernel", "dp_sum")),
+                 ("lattice", ("rnnt_",)))
+
+
+def trace_summary(path):
+    """A Chrome trace's event names and what it holds: the calls and
+    wall ms of the ``fit_batch`` and ``evaluate_batch`` regions, the
+    device's kernel launches and their summed time (busy ms), and that
+    time for the port's kernels."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    regions = collections.defaultdict(list)
+    for e in events:
+        if e.get("cat") == "user_annotation" and \
+                e.get("name") in ("fit_batch", "evaluate_batch"):
+            regions[e["name"]].append(e.get("dur", 0) / 1e3)
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    ours = {label: sum(e.get("dur", 0) for e in kernels
+                       if any(k in e.get("name", "") for k in keys)) / 1e3
+            for label, keys in TRACE_KERNELS}
+    return ({e.get("name", "") for e in events}, dict(regions),
+            len(kernels), sum(e.get("dur", 0) for e in kernels) / 1e3, ours)
+
+
+def profiled_prompted_run(device, card, corpus, out, trace_dir):
+    """(a) The scratch yaml through its entry module with ``--profile``,
+    ``prompt_test`` (prepend), RUN_FLAGS_STEPS optimizer steps at
+    accumulation 1, VALID greedy and TEST at beam 1 (two passes); every
+    batch launches what its shapes imply. Returns (the Brain, its launch
+    counts by stage)."""
+    from tsasr_torch import train_librispeechmix_scratch as entry
+    from tsasr_torch.recipes.librispeechmix import TSASRBrain
+    from tsasr_torch.utils.profiling import report_memory, report_time
+
+    root = Path(__file__).resolve().parent
+    on_card = device.type == "cuda"
+    args = [str(root / EXPERIMENT_YAML), "--data_folder", str(corpus),
+            "--output_folder", str(out), "--fused_attention", "True",
+            "--valid_search_freq", "1", "--noprogressbar",
+            "--vocab_size", str(corpus_vocab(corpus)), "--num_epochs", "1",
+            "--optimizer_step_limit", str(RUN_FLAGS_STEPS),
+            "--grad_accumulation_factor", "1", "--beam_size", "1",
+            "--profile", "--profile_dir", str(trace_dir),
+            "--prompt_test", "True", "--prompt_mode", "[prepend]"]
+    if not on_card:
+        args += ["--device", str(device)]
+    brains, stripped = [], []
+    fit_start, strip = TSASRBrain.on_fit_start, \
+        TSASRBrain._strip_enroll_transcripts
+
+    def started(self):
+        brains.append(self)
+        return fit_start(self)
+
+    def stripping(self, ids, words):
+        got = strip(self, ids, words)
+        stripped.extend(zip(ids, words, got))
+        return got
+
+    TSASRBrain.on_fit_start = started
+    TSASRBrain._strip_enroll_transcripts = stripping
+    t0 = time.perf_counter()
+    try:
+        with counted_batches(TSASRBrain, on_card) as (counts, timings):
+            entry.main(args)
+    finally:
+        TSASRBrain.on_fit_start = fit_start
+        TSASRBrain._strip_enroll_transcripts = strip
+    run_s = time.perf_counter() - t0
+    [brain] = brains
+    prof = brain.profiler
+    log(f"run flags (a): the scratch yaml through "
+        f"tsasr_torch.train_librispeechmix_scratch with --profile "
+        f"--prompt_test True --prompt_mode [prepend], {run_s:.1f} s; "
+        f"batches " + ", ".join(f"{k} {v['batches']}"
+                                for k, v in counts.items())
+        + f"; optimizer steps {brain.optimizer_step}; traces "
+        f"{[Path(t).name for t in prof.traces]} [{card}]")
+    for line in report_time(prof).splitlines():
+        log(f"  report_time: {line} (profiled host clock)")
+    log(f"  report_memory: {report_memory(device)}")
+    if brain.optimizer_step != RUN_FLAGS_STEPS \
+            or counts["TRAIN"]["batches"] != RUN_FLAGS_STEPS:
+        raise RuntimeError("the profiled run did not take its steps")
+    if [Path(t).name for t in prof.traces] != [RUN_FLAGS_WINDOW]:
+        raise RuntimeError(f"traces {prof.traces}, expected one "
+                           f"{RUN_FLAGS_WINDOW}")
+    names, regions, launches, busy, ours = trace_summary(prof.traces[0])
+    want = ["fit_batch", "evaluate_batch"]
+    if on_card:
+        want += ["relpos_attention_fwd_kernel", "dq_kernel", "dkv_kernel",
+                 "dp_kernel", "rnnt_"]
+    missing = [w for w in want if not any(w in n for n in names)]
+    size = Path(prof.traces[0]).stat().st_size
+    log(f"run flags (a) trace {RUN_FLAGS_WINDOW}: {len(names)} distinct "
+        f"event names, {size / 2**20:.1f} MiB; names the regions and "
+        f"kernels {sorted(set(want) - set(missing))}; missing {missing}")
+    wall = sum(sum(v) for v in regions.values())
+    log(f"run flags (a) trace summary: regions "
+        + ", ".join(f"{k} {len(v)} x {sum(v):.1f} ms"
+                    for k, v in sorted(regions.items()))
+        + f" (profiled host clock); {launches} kernel launches, device busy "
+        f"{busy:.1f} ms ({100 * busy / max(wall, 1e-9):.1f} % of the "
+        f"regions' wall); the port's kernels "
+        + ", ".join(f"{k} {v:.2f} ms" for k, v in ours.items())
+        + f" [{card}]")
+    if missing:
+        raise RuntimeError(f"the trace does not name {missing}")
+    for name in ("wer_enrollments.txt", "wer_test-clean-2mix.txt"):
+        if not (out / name).read_text().startswith("%WER"):
+            raise RuntimeError(f"{name} was not written")
+    enrolls = brain.hparams.enroll_transcriptions
+    kept = [key for key, words, got in stripped
+            if got != (words[len(enrolls[key]):] or [""])]
+    began = sum(words[:len(enrolls[key])] == enrolls[key]
+                for key, words, _ in stripped)
+    final = {d["key"]: d["hyp_tokens"] for d in brain.wer_metric.scores}
+    log(f"run flags (a) prompt_test: {len(enrolls)} enrollments transcribed "
+        f"(wer_enrollments.txt), {len(stripped)} prompted hypotheses "
+        f"stripped of their enrollment's words ({began} began with them); "
+        f"any that kept the prefix: {kept}")
+    if kept or len(stripped) != len(enrolls) or any(
+            final[key] != got for key, _, got in stripped):
+        raise RuntimeError("prompt_test's second pass kept an enrollment "
+                           "prefix, or its WER file is not the stripped "
+                           "pass")
+    return brain, counts
+
+
+def warm_started_run(device, card, corpus, out, source):
+    """(b) A run with ``model_path`` = ``source``: before its first step
+    the model equals the source's weights bit for bit; it trains one
+    step. Returns its launch counts by stage."""
+    import torch
+    from tsasr_torch.recipes.librispeechmix import TSASRBrain, run_experiment
+    from tsasr_torch.training.checkpoints import load_state
+
+    root = Path(__file__).resolve().parent
+    on_card = device.type == "cuda"
+    args = [str(root / EXPERIMENT_YAML), "--data_folder", str(corpus),
+            "--output_folder", str(out), "--fused_attention", "True",
+            "--noprogressbar", "--vocab_size", str(corpus_vocab(corpus)),
+            "--num_epochs", "1", "--optimizer_step_limit", "1",
+            "--grad_accumulation_factor", "1", "--test_splits", "[]",
+            "--model_path", str(source)]
+    if not on_card:
+        args += ["--device", str(device)]
+    want = load_state(source)["model"]
+    first = []
+    fit_batch = TSASRBrain.fit_batch
+
+    def recording(self, batch):
+        if not first:
+            first.append({k: v.detach().cpu().clone()
+                          for k, v in self.model.state_dict().items()})
+        return fit_batch(self, batch)
+
+    TSASRBrain.fit_batch = recording
+    t0 = time.perf_counter()
+    try:
+        with counted_batches(TSASRBrain, on_card) as (counts, _):
+            brain = run_experiment(argv=args)
+    finally:
+        TSASRBrain.fit_batch = fit_batch
+    same = first[0].keys() == want.keys() and all(
+        torch.equal(first[0][k], v) for k, v in want.items())
+    moved = any(not torch.equal(v.detach().cpu(), want[k])
+                for k, v in brain.model.state_dict().items())
+    log(f"run flags (b) model_path = (a)'s checkpoint "
+        f"({Path(source).parent.name}/brain.ckpt), new output folder: "
+        f"{time.perf_counter() - t0:.1f} s; the model before the first "
+        f"step equals the source bit for bit {same} ({len(want)} entries); "
+        f"optimizer steps {brain.optimizer_step}, the weights moved {moved}")
+    if not same or brain.optimizer_step != 1 or not moved:
+        raise RuntimeError("the warm start did not load the source bit for "
+                           "bit, or did not train its step")
+    return counts
+
+
+def attention_maps_check(device, card):
+    """(c) ``encode_with_attn`` of the full-width scratch model (fused
+    attention on) on a 6 x 8 s batch: its output within ENC_ATOL of
+    ``encode`` with the kernel (which launches it once a mixture layer),
+    every attention row over unmasked keys summing to 1 within
+    ROW_SUM_ATOL, the maps from the plain path (no launch)."""
+    import numpy as np
+    import torch
+    from tsasr_torch.models.transducer import TSTransducer, scratch_config
+    from tsasr_torch.ops.features import Fbank, input_normalization
+
+    rng = np.random.default_rng(SEED + 41)
+    model = TSTransducer(scratch_config()).init_weights(seed=SEED)
+    model = model.to(device).eval()
+    fbank = Fbank(sample_rate=SAMPLE_RATE, n_fft=512, n_mels=80,
+                  win_length=32.0).to(device)
+    n, seconds = ATTN_BATCH
+    lens = np.array([1.0] + list(rng.uniform(0.6, 1.0, n - 1)))
+    wav = torch.from_numpy((rng.normal(size=(n, seconds * SAMPLE_RATE))
+                            * 0.1).astype(np.float32)).to(device)
+    rel = torch.from_numpy(lens.astype(np.float32)).to(device)
+    enroll = torch.from_numpy((rng.normal(size=(n, ENROLL_SECONDS
+                                                * SAMPLE_RATE)) * 0.1
+                               ).astype(np.float32)).to(device)
+    ones = torch.ones(n, device=device)
+    with torch.inference_mode():
+        feats = input_normalization(fbank(wav), rel)
+        spk = model.extract_speaker(input_normalization(fbank(enroll), ones),
+                                    ones)
+        before = read_counts()["relpos_attention_fwd"]
+        enc = model.encode(feats, rel, spk)
+        launches = read_counts()["relpos_attention_fwd"] - before
+        got, maps = model.encode_with_attn(feats, rel, spk)
+        plain = read_counts()["relpos_attention_fwd"] - before - launches
+        err = (got - enc).abs().max().item()
+        T = maps[0].shape[-1]
+        keys = torch.arange(T, device=device)[None] < torch.round(
+            rel * T)[:, None]                                  # (B, T)
+        row_err = max((m.sum(-1) - 1).abs().max().item() for m in maps)
+        leaked = max(m.masked_fill(keys[:, None, None], 0).abs().max().item()
+                     for m in maps)
+    log(f"run flags (c) encode_with_attn on {n} x {seconds} s: "
+        f"{len(maps)} maps of {tuple(maps[0].shape)}; against encode with "
+        f"the kernel ({launches} launches) max_abs_err {err:.3g} (atol "
+        f"{ENC_ATOL}); rows over unmasked keys sum to 1 within "
+        f"{row_err:.3g} (atol {ROW_SUM_ATOL}); probability on masked keys "
+        f"{leaked:.3g}; attention launches of encode_with_attn {plain} "
+        f"[{card}]")
+    on_card = device.type == "cuda"
+    if len(maps) != model.config.encoder_num_layers or err > ENC_ATOL \
+            or row_err > ROW_SUM_ATOL or leaked > 0 or plain \
+            or launches != model.config.encoder_num_layers * on_card:
+        raise RuntimeError("encode_with_attn failed its check")
+
+
+def forced_logits(model, enc, decisions=None, blank=0):
+    """The joint's logits (T, V), f32, of each frame of ``enc`` (1, T, J)
+    as greedy search meets them (at most one token a frame, the
+    streamer's rule), the predictor fed ``decisions`` (one token or the
+    blank a frame) or its own argmax. Returns (logits, decisions)."""
+    import torch
+    dev = enc.device
+    with torch.inference_mode():
+        state = model.predictor_initial_state(1, dev)
+        dec, state = model.predict_step(torch.tensor([blank], device=dev),
+                                        state)
+        rows, made = [], []
+        for t in range(enc.shape[1]):
+            logits = model.joint_logits(enc[:, t][:, None, :],
+                                        dec[:, None, :])[0, 0]
+            tok = int(torch.argmax(logits)) if decisions is None \
+                else decisions[t]
+            rows.append(logits.float())
+            made.append(tok)
+            if tok != blank:
+                dec, state = model.predict_step(
+                    torch.tensor([tok], device=dev), state)
+    return torch.stack(rows), made
+
+
+def bf16_stream_checks(device, card):
+    """(d) The causal full-width scratch model in bf16 (its stream caches
+    in bf16) on a STREAM_SECONDS mixture with a 5 s enrollment:
+    ``encode_stream`` in 100-frame chunks against the offline bf16 causal
+    encode (the bf16 kernel) within BF16_STREAM_RTOL, and against the
+    plain path; the kv_cache streamer's tokens (1 s chunks) against the
+    offline bf16 greedy on the same unnormalized features; reencode,
+    which runs the bf16 attention forward kernel once a mixture layer a
+    chunk; then ms, device ms and launches a chunk of the f32 and the
+    bf16 kv_cache streams in turns. Returns the bf16 kernels' launches of
+    the streams."""
+    import numpy as np
+    import torch
+    from tsasr_torch.data.tokenizer import CharTokenizer
+    from tsasr_torch.decoding import TransducerGreedySearcher
+    from tsasr_torch.inference import TSASRTranscriber
+    from tsasr_torch.models.transducer import TSTransducer, scratch_config
+
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    rng = np.random.default_rng(SEED + 43)
+    wav = (rng.normal(size=STREAM_SECONDS * SAMPLE_RATE) * 0.1
+           ).astype(np.float32)
+    enroll = (rng.normal(size=ENROLL_SECONDS * SAMPLE_RATE) * 0.1
+              ).astype(np.float32)
+    state = TSTransducer(scratch_config(
+        causal_encoder=True, frontend_causal=True)).init_weights(
+        seed=SEED).state_dict()
+    trs = {}
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        model = TSTransducer(scratch_config(
+            causal_encoder=True, frontend_causal=True, dtype=dtype))
+        model.load_state_dict(state)
+        trs[name] = TSASRTranscriber(model, None, CharTokenizer(PIECES),
+                                     device=str(device))
+    tr = trs["bf16"]
+    model = tr.model
+    layers = model.config.encoder_num_layers
+    bf16_fwd = lambda: read_bf16_counts()[  # noqa: E731
+        "relpos_attention_fwd_bf16"]
+    ones = torch.ones(1, device=device)
+    with torch.inference_mode():
+        spk = {k: t.speaker_embedding(enroll) for k, t in trs.items()}
+        raw = tr.fbank(torch.from_numpy(wav)[None].to(device))
+        t4 = raw.shape[1] // 4 * 4
+        before = bf16_fwd()
+        offline = model.encode(raw[:, :t4], ones, spk["bf16"])
+        n_offline = bf16_fwd() - before
+        streamed = encode_in_chunks(model, raw[:, :t4], 100, spk["bf16"])
+        set_fused(model, False)
+        plain = model.encode(raw[:, :t4], ones, spk["bf16"])
+        set_fused(model, True)
+        f32 = trs["f32"].model.encode(raw[:, :t4], ones, spk["f32"])
+        err = rel_err(streamed.float(), offline.float())
+        err_plain = rel_err(streamed.float(), plain.float())
+        err_f32 = rel_err(offline.float(), f32)
+    log(f"run flags (d) causal scratch model in bf16 "
+        f"({layers}+{model.config.speaker_encoder_layers} layers, caches "
+        f"{model.init_stream_state(1, 1)['encoder'][0]['attn']['k'].dtype}):"
+        f" encode_stream in 100-frame chunks of {t4} frames against the "
+        f"offline bf16 encode ({n_offline} bf16 kernel launches): err "
+        f"{err:.3g} of max |enc| (rtol {BF16_STREAM_RTOL}); against the "
+        f"offline plain path {err_plain:.3g}; offline bf16 against f32 "
+        f"{err_f32:.3g} [{card}]")
+    if streamed.dtype != torch.bfloat16 or err > BF16_STREAM_RTOL \
+            or n_offline != layers * on_card:
+        raise RuntimeError("the bf16 stream left the offline bf16 encode")
+
+    reset_counts()
+    kv = tr.streaming("kv_cache", speaker_embs=spk["bf16"])
+    chunk_feats, chunk_enc = [], []
+    to_feats, encode_stream = kv._frames_to_feats, model.encode_stream
+
+    def features(window, n):
+        chunk_feats.append(to_feats(window, n))
+        return chunk_feats[-1]
+
+    def encoded(*args, **kwargs):
+        out, new_state = encode_stream(*args, **kwargs)
+        chunk_enc.append(out)
+        return out, new_state
+
+    kv._frames_to_feats, model.encode_stream = features, encoded
+    try:
+        stream_chunks(kv, wav, 1.0, sync)
+    finally:
+        kv._frames_to_feats = to_feats
+        del model.encode_stream
+    kv_tokens = list(kv._tokens)
+    n_kv = bf16_fwd()
+    # the offline greedy on the stream's own features (its STFT of each
+    # chunk's window): bf16 through the kernel and through the plain path,
+    # and the f32 twin
+    with torch.inference_mode():
+        feats = torch.cat(chunk_feats, dim=1)
+        stream_enc = torch.cat(chunk_enc, dim=1)
+        greedy = TransducerGreedySearcher(model, 0)
+        kernel_enc = model.encode(feats, ones, spk["bf16"])
+        offline_tokens = greedy(kernel_enc, ones)[0][0]
+        set_fused(model, False)
+        plain_tokens = greedy(model.encode(feats, ones, spk["bf16"]),
+                              ones)[0][0]
+        set_fused(model, True)
+        f32_enc = trs["f32"].model.encode(feats, ones, spk["f32"])
+        f32_tokens = TransducerGreedySearcher(trs["f32"].model, 0)(
+            f32_enc, ones)[0][0]
+    # each frame's decision of the stream, replayed, against the offline
+    # bf16 logits at the same predictor state: the stream's token must be
+    # one bf16's own rounding could have picked, within twice the largest
+    # logit error of the offline bf16 encode against the f32 twin's (the
+    # stream's logits within that error of the offline's make it so)
+    stream_logits, decisions = forced_logits(model, stream_enc)
+    offline_logits, _ = forced_logits(model, kernel_enc, decisions)
+    f32_logits, _ = forced_logits(trs["f32"].model, f32_enc, decisions)
+    own = (offline_logits - f32_logits).abs().max().item()
+    gap = (offline_logits.max(-1).values - offline_logits.gather(
+        1, torch.tensor(decisions, device=device)[:, None])[:, 0])
+    parted = int((gap > 0).sum())
+    worst_gap = gap.max().item()
+    replayed = [d for d in decisions if d != 0] == kv_tokens
+    reset_counts()
+    rs = tr.streaming("reencode", speaker_embs=spk["bf16"])
+    start = bf16_fwd()
+    _, re_partials, re_final, re_reads = stream_chunks(rs, wav, 1.0, sync,
+                                                       bf16_fwd)
+    re_launches = [b - a for a, b in zip([start] + re_reads[:-1], re_reads)]
+    counts = read_bf16_counts()
+    def agree(a, b):
+        return (f"{sum(x == y for x, y in zip(a, b))}/"
+                f"{max(len(a), len(b))}")
+
+    log(f"run flags (d) bf16 kv_cache in 1 s chunks: {len(kv_tokens)} "
+        f"tokens over {len(decisions)} frames ({feats.shape[1]} feature "
+        f"frames); tokens agreeing in place with the offline greedy on the "
+        f"same features: bf16 kernel {agree(kv_tokens, offline_tokens)}, "
+        f"bf16 plain path {agree(kv_tokens, plain_tokens)}, f32 "
+        f"{agree(kv_tokens, f32_tokens)}; the offline bf16 kernel's own "
+        f"against f32 {agree(offline_tokens, f32_tokens)} and against the "
+        f"plain path {agree(offline_tokens, plain_tokens)}; the stream's "
+        f"decisions replayed {replayed}: {parted} frames where it is not "
+        f"the offline bf16 argmax, the worst {worst_gap:.4g} below it, "
+        f"bound 2 x {own:.4g} (the offline bf16 logits' largest error "
+        f"against the f32 twin's); bf16 kernel launches of the stream "
+        f"{n_kv}; reencode: "
+        f"{len(rs._tokens)} tokens, bf16 attention launches per chunk "
+        f"{sorted(set(re_launches))}, the final transcript starts with the "
+        f"last partial {re_final.startswith(re_partials[-1])}")
+    if not kv_tokens or not replayed or worst_gap > 2 * own or n_kv \
+            or set(re_launches) != {layers * on_card} \
+            or not re_final.startswith(re_partials[-1]):
+        raise RuntimeError("the bf16 streams failed their check")
+
+    streams = {k: t.streaming("kv_cache", speaker_embs=spk[k])
+               for k, t in trs.items()}
+    readings = collections.defaultdict(list)
+    for turn, name in enumerate(BF16_STREAM_TURNS):
+        s = streams[name]
+        s.reset()
+        times, _, _, _ = stream_chunks(s, wav, 1.0, sync)
+        line = (f"{name} host ms a chunk median "
+                f"{statistics.median(times):.2f}")
+        # the device reading at each precision's first turn only: it does
+        # not drift as the host clock does, and a profiled stream costs
+        # seconds
+        if on_card and name not in BF16_STREAM_TURNS[:turn]:
+            s.reset()
+            _, events = profiled(lambda: stream_chunks(s, wav, 1.0, sync))
+            busy = sum(device_us(e) for e in events) / 1e3
+            line += (f", device {busy / len(times):.3f} ms and "
+                     f"{sum(e.count for e in events) / len(times):.0f} "
+                     f"launches a chunk")
+        readings[name].append(line)
+    log("run flags (d) kv_cache 1 s chunks in turns "
+        f"{'/'.join(BF16_STREAM_TURNS)}: " + "; ".join(
+            line for name in BF16_STREAM_TURNS[:2] for line in readings[name])
+        + f" [{card}]")
+    return counts
+
+
+def phase_run_flags(device, card, corpus):
+    """The recipe's run flags and last switches at the scratch recipe's
+    full width: (a) the scratch yaml through its entry module with
+    ``--profile``, ``prompt_test``; (b) a warm start from (a)'s
+    checkpoint; (c) ``encode_with_attn``; (d) a bf16 causal model
+    streaming. Every kernel the path launched is then held against its
+    plain version on the tensors it gave it. Returns the launch counts
+    of the f32 and the bf16 kernels."""
+    import torch
+    t0 = time.perf_counter()
+    marks = []
+
+    def mark(name):
+        marks.append(f"{name} {time.perf_counter() - t0:.1f} s")
+
+    root = Path(__file__).resolve().parent
+    counts = collections.Counter()
+    with captured_kernel_calls() as seen, \
+            tempfile.TemporaryDirectory(prefix="tsasr_run_flags_") as tmp:
+        tmp = Path(tmp)
+        trace_dir = root / "build" / "run_flags_profile"
+        if trace_dir.exists():
+            for old in trace_dir.glob("*.json"):
+                old.unlink()
+        reset_counts()
+        brain, _ = profiled_prompted_run(device, card, corpus, tmp / "a",
+                                         trace_dir)
+        source = brain.checkpointer.find_checkpoint(
+            min_key="WER").paramfile("brain")
+        del brain
+        mark("(a)")
+        warm_started_run(device, card, corpus, tmp / "b", source)
+        mark("(b)")
+        attention_maps_check(device, card)
+        mark("(c)")
+        counts.update(read_bf16_counts())
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    reset_counts()
+    stream_counts = bf16_stream_checks(device, card)
+    counts.update(stream_counts)
+    mark("(d)")
+    worst = check_path_kernels(seen)
+    log(f"run flags kernels against their plain versions on the phase's own "
+        f"inputs, one call per shape: attention at {len(seen['attention'])} "
+        f"shapes, worst fwd {worst['fwd']:.3g} of max |o|, bwd "
+        f"{worst['bwd']:.3g} of max |g| (atol {ATTN_ATOL}); lattice at "
+        f"{len(seen['lattice'])} shapes, worst err/tol "
+        f"{worst['lattice']:.3g}; the phase's launches {dict(counts)}; "
+        f"{time.perf_counter() - t0:.1f} s (done at: {', '.join(marks)})")
+    return dict(counts)
+
+
 def phase_small(device):
     """A small model on the card (kernels) against the CPU (plain):
     serving encoder output, then 2 optimizer steps of training."""
@@ -4368,6 +4897,9 @@ def main():
             "s")
         bf16_fwd, bf16_bwd, bf16_counts = phase_bf16(device, card, corpus)
         log(f"bf16 phase done at {time.perf_counter() - t_start:.1f} s")
+        run_flags = phase_run_flags(device, card, corpus)
+        log(f"run flags phase done at {time.perf_counter() - t_start:.1f} "
+            "s")
     switches = phase_switches(device, card)
     log(f"switches phase done at {time.perf_counter() - t_start:.1f} s")
     phase_small(device)
@@ -4380,7 +4912,8 @@ def main():
                 "experiment": experiment[name],
                 "variants": variants[name],
                 "streaming": streaming[name],
-                "switches": switches[name]}
+                "switches": switches[name],
+                "run_flags": run_flags[name]}
 
     fwd, bwd = fwd_rows[0], next(r for r in bwd_rows if r["T"] == 208)
     kernels = [
@@ -4411,10 +4944,11 @@ def main():
                           ("relpos_attention_bwd_bf16", bf16_bwd, 208)):
         row = next(r for r in rows if r["T"] == t)
         line = 128 if "fwd" in name else 143
+        by_path = dict(bf16_counts[name], run_flags=run_flags[name])
         kernels.append(kernel_entry(
             name, f"tsasr_torch/csrc/relpos_attention_{name[17:20]}.cu",
             f"tsasr_tpu/ops/attention_pallas.py:{line}",
-            sum(bf16_counts[name].values()), bf16_counts[name], row,
+            sum(by_path.values()), by_path, row,
             f"B{B} H{H} T{t} Dh{DH} bf16"))
     for entry in kernels:
         if entry["launches"] < 1:

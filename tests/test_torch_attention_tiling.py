@@ -22,6 +22,11 @@ held against autograd through
 ``relpos_attention_reference`` at 1e-10 of each gradient's max |g|: a
 wrong rel-shift, window start, diagonal or padding row shows up as an
 error of the order of the gradient itself.
+
+The mirrors compute the kernels' blocks, warps and row groups side by
+side, as tensors; only the k-steps that a block takes in order (the key
+tiles of a query tile, the query tiles of a key tile or a diagonal) are
+Python loops, so every ordered sum is summed in the kernel's order.
 """
 
 import numpy as np
@@ -33,13 +38,23 @@ from tsasr_torch.kernels import relpos_attention
 WARP_ROWS = 16      # query rows of a row group (the m16n8k8 row tile)
 
 
-def padded_rows(x, start, n):
-    """Rows ``start .. start + n`` of x's dim -2, zero outside x."""
-    out = x.new_zeros(*x.shape[:-2], n, x.shape[-1])
-    lo, hi = max(start, 0), min(start + n, x.shape[-2])
-    if hi > lo:
-        out[..., lo - start:hi - start, :] = x[..., lo:hi, :]
-    return out
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Torch on one thread: beside other test processes a multi-threaded
+    op's wait for all its threads costs more than the op."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def rows_at(x, starts, n):
+    """Rows ``starts[k] .. starts[k] + n`` of x's dim -2 for each k,
+    zero outside x: (..., K, n, D)."""
+    idx = torch.as_tensor(starts)[:, None] + torch.arange(n)
+    inside = (idx >= 0) & (idx < x.shape[-2])
+    got = x[..., idx.clamp(0, x.shape[-2] - 1), :]
+    return torch.where(inside[..., None], got, 0.0)
 
 
 def window_start(T, tile, i0, j0):
@@ -55,34 +70,43 @@ def skew_index(tile, device):
     return WARP_ROWS - 1 - rl + c
 
 
+def group_windows(p, starts, tile):
+    """Each row group's window rows of p for the tile pairs whose windows
+    start at ``starts`` (K,): group w reads ``tile + 16`` rows from its
+    first row ``tile - 16 - 16 w`` of the pair's window. (H, K, G, tile
+    + 16, Dh)."""
+    G = tile // WARP_ROWS
+    first = tile - WARP_ROWS - WARP_ROWS * torch.arange(G)
+    rows = rows_at(p, (starts[:, None] + first).reshape(-1),
+                   tile + WARP_ROWS)
+    return rows.reshape(p.shape[0], len(starts), G, tile + WARP_ROWS, -1)
+
+
 def pair_scores(x, i0, j0, tile):
-    """dS and dropped P of one tile pair, (B, H, tile, tile), built as the
-    kernel builds them, row group by row group."""
+    """dS and dropped P of the tile pairs (i0[k], j0[k]), (B, H, K,
+    tile, tile), each built as the kernel builds it, row group by row
+    group (the groups and the pairs side by side)."""
     T = x["T"]
-    qu, qv, do = (padded_rows(x[n], i0, tile) for n in ("qu", "qv", "do"))
-    k, v = (padded_rows(x[n], j0, tile) for n in ("k", "v"))
-    win = padded_rows(x["p"], window_start(T, tile, i0, j0), 2 * tile)
-    bw = tile + WARP_ROWS           # a row group's window: tile+15, padded
-    idx = skew_index(tile, qu.device)
-    bd = []
-    for w in range(tile // WARP_ROWS):
-        r0 = w * WARP_ROWS
-        first = tile - WARP_ROWS - r0         # group w's first window row
-        bd_w = qv[..., r0:r0 + WARP_ROWS, :] @ \
-            win[:, first:first + bw].transpose(-1, -2)
-        bd.append(torch.gather(bd_w, -1, idx.expand(*bd_w.shape[:2], -1, -1)))
-    bd = torch.cat(bd, -2)
-    i = torch.arange(i0, i0 + tile)
-    j = torch.arange(j0, j0 + tile)
-    valid = (i[:, None] < T) & (j[None] < T)
+    qu, qv, do = (rows_at(x[n], i0, tile) for n in ("qu", "qv", "do"))
+    k, v = (rows_at(x[n], j0, tile) for n in ("k", "v"))
+    B, H, K, _, Dh = qu.shape
+    G = tile // WARP_ROWS
+    win = group_windows(x["p"], window_start(T, tile, i0, j0), tile)
+    bd = qv.reshape(B, H, K, G, WARP_ROWS, Dh) @ win.transpose(-1, -2)
+    idx = skew_index(tile, qu.device).expand(B, H, K, G, -1, -1)
+    bd = torch.gather(bd, -1, idx).reshape(B, H, K, tile, tile)
+    i = i0[:, None] + torch.arange(tile)                    # (K, tile)
+    j = j0[:, None] + torch.arange(tile)
+    valid = (i[:, :, None] < T) & (j[:, None, :] < T)
     ic, jc = i.clamp(max=T - 1), j.clamp(max=T - 1)
     s = ((qu @ k.transpose(-1, -2) + bd) * x["scale"]
-         + x["am"][ic][:, jc] + x["kp"][:, None, None, jc])
+         + x["am"][ic[:, :, None], jc[:, None, :]]
+         + x["kp"][:, jc][:, None, :, None, :])
     m, linv = (x[n][:, :, ic, None] for n in ("m", "linv"))
     prob = torch.exp(s - m) * linv
     dpd = do @ v.transpose(-1, -2)
     if x["keep"] is not None:
-        keep = x["keep"][:, :, ic][..., jc]
+        keep = x["keep"][:, :, ic[:, :, None], jc[:, None, :]]
         pd = torch.where(keep, prob * x["keep_scale"], 0.0)
         dpd = torch.where(keep, dpd * x["keep_scale"], 0.0)
     else:
@@ -91,89 +115,91 @@ def pair_scores(x, i0, j0, tile):
     return torch.where(valid, ds, 0.0), torch.where(valid, pd, 0.0)
 
 
-def dq_pass(x, tile):
-    """One block per query tile over all key tiles: dq_u += dS k, and
-    dq_v += dSk win, with dSk the row group's zeroed skewed buffer."""
+def all_pair_scores(x, tile):
+    """dS and dropped P of every tile pair, (B, H, nt, nt, tile, tile):
+    query tile first, key tile second."""
+    nt = -(-x["T"] // tile)
+    i0 = torch.arange(nt).repeat_interleave(nt) * tile
+    j0 = torch.arange(nt).repeat(nt) * tile
+    ds, pd = pair_scores(x, i0, j0, tile)
+    B, H = ds.shape[:2]
+    return (ds.reshape(B, H, nt, nt, tile, tile),
+            pd.reshape(B, H, nt, nt, tile, tile))
+
+
+def dq_pass(x, ds, tile):
+    """One block per query tile (the blocks side by side) over the key
+    tiles in order: dq_u += dS k, and dq_v += dSk win, with dSk each row
+    group's zeroed skewed buffer."""
     T, nt = x["T"], -(-x["T"] // tile)
-    bw = tile + WARP_ROWS
-    idx = skew_index(tile, x["qu"].device)
-    dqu, dqv = torch.zeros_like(x["qu"]), torch.zeros_like(x["qv"])
+    B, H, _, Dh = x["qu"].shape
+    G, bw = tile // WARP_ROWS, tile + WARP_ROWS
+    i0 = torch.arange(nt) * tile
+    idx = skew_index(tile, x["qu"].device).expand(B, H, nt, G, -1, -1)
+    gu = x["qu"].new_zeros(B, H, nt, tile, Dh)
+    gv = torch.zeros_like(gu)
+    for jt in range(nt):                 # the kernel's k-steps, in order
+        j0 = jt * tile
+        d = ds[:, :, :, jt]                          # (B, H, nt, tile, tile)
+        gu += d @ rows_at(x["k"], [j0], tile)
+        win = group_windows(x["p"], window_start(T, tile, i0, j0), tile)
+        dsk = d.new_zeros(B, H, nt, G, WARP_ROWS, bw).scatter_(
+            -1, idx, d.reshape(B, H, nt, G, WARP_ROWS, tile))
+        gv += (dsk @ win).reshape(B, H, nt, tile, Dh)
+    return (gu.reshape(B, H, nt * tile, Dh)[:, :, :T],
+            gv.reshape(B, H, nt * tile, Dh)[:, :, :T])
+
+
+def dkv_pass(x, ds, pd, tile):
+    """One block per key tile (the blocks side by side) over the query
+    tiles in order: dv += Pd^T do and dk += dS^T q_u, both read
+    transposed from the score tile."""
+    T, nt = x["T"], -(-x["T"] // tile)
+    B, H, _, Dh = x["k"].shape
+    gk = x["k"].new_zeros(B, H, nt, tile, Dh)
+    gv = torch.zeros_like(gk)
     for it in range(nt):
         i0 = it * tile
-        gu = x["qu"].new_zeros(*x["qu"].shape[:2], tile, x["qu"].shape[-1])
-        gv = torch.zeros_like(gu)
-        for jt in range(nt):
-            j0 = jt * tile
-            ds, _ = pair_scores(x, i0, j0, tile)
-            gu += ds @ padded_rows(x["k"], j0, tile)
-            win = padded_rows(x["p"], window_start(T, tile, i0, j0), 2 * tile)
-            for w in range(tile // WARP_ROWS):
-                r0 = w * WARP_ROWS
-                first = tile - WARP_ROWS - r0
-                dsk = ds.new_zeros(*ds.shape[:2], WARP_ROWS, bw)
-                dsk.scatter_(-1, idx.expand(*ds.shape[:2], -1, -1),
-                             ds[..., r0:r0 + WARP_ROWS, :])
-                gv[..., r0:r0 + WARP_ROWS, :] += \
-                    dsk @ win[None, :, first:first + bw]
-        n = min(tile, T - i0)
-        dqu[..., i0:i0 + n, :] = gu[..., :n, :]
-        dqv[..., i0:i0 + n, :] = gv[..., :n, :]
-    return dqu, dqv
+        gv += pd[:, :, it].transpose(-1, -2) @ rows_at(x["do"], [i0], tile)
+        gk += ds[:, :, it].transpose(-1, -2) @ rows_at(x["qu"], [i0], tile)
+    return (gk.reshape(B, H, nt * tile, Dh)[:, :, :T],
+            gv.reshape(B, H, nt * tile, Dh)[:, :, :T])
 
 
-def dkv_pass(x, tile):
-    """One block per key tile over all query tiles: dv += Pd^T do and
-    dk += dS^T q_u, both read transposed from the score tile."""
-    T, nt = x["T"], -(-x["T"] // tile)
-    dk, dv = torch.zeros_like(x["k"]), torch.zeros_like(x["v"])
-    for jt in range(nt):
-        j0 = jt * tile
-        gk = x["k"].new_zeros(*x["k"].shape[:2], tile, x["k"].shape[-1])
-        gv = torch.zeros_like(gk)
-        for it in range(nt):
-            i0 = it * tile
-            ds, pd = pair_scores(x, i0, j0, tile)
-            gv += pd.transpose(-1, -2) @ padded_rows(x["do"], i0, tile)
-            gk += ds.transpose(-1, -2) @ padded_rows(x["qu"], i0, tile)
-        n = min(tile, T - j0)
-        dk[..., j0:j0 + n, :] = gk[..., :n, :]
-        dv[..., j0:j0 + n, :] = gv[..., :n, :]
-    return dk, dv
-
-
-def dp_pass(x, tile):
+def dp_pass(x, ds, tile):
     """Per (tile diagonal d = (j0 - i0) / tile, h, b; a kernel block
     walks two diagonals, d and d - nt, to even out the pairs): every
     pair on the diagonal shares the window starting at T - tile + d tile,
-    so dp_win += dSk^T q_v accumulates over the diagonal into one
-    partial, (2 tile) rows of the window. Then the sum pass:
-    p row r takes the diagonals d_hi = floor((r - (T - tile)) / tile) and
-    d_hi - 1 whose windows hold it, in that order, each over b in order."""
+    so dp_win += dSk^T q_v accumulates over the diagonal, in order of
+    its query tiles, into one partial, (2 tile) rows of the window (the
+    diagonals side by side). Then the sum pass: p row r takes the
+    diagonals d_hi = floor((r - (T - tile)) / tile) and d_hi - 1 whose
+    windows hold it, in that order, each over b in order."""
     T, nt = x["T"], -(-x["T"] // tile)
     B, H, _, Dh = x["qv"].shape
-    win_rows = 2 * tile
-    parts = x["qv"].new_zeros(B, H, 2 * nt - 1, win_rows, Dh)
+    win_rows, n_diag = 2 * tile, 2 * nt - 1
+    parts = x["qv"].new_zeros(B, H, n_diag, win_rows, Dh)
     r = torch.arange(tile)[:, None]
     c = torch.arange(tile)[None]
-    col = (tile - 1 - r + c).expand(B, H, -1, -1)
-    for d in range(-(nt - 1), nt):
-        acc = x["qv"].new_zeros(B, H, win_rows, Dh)
-        for it in range(nt):
-            i0, j0 = it * tile, (it + d) * tile
-            if not 0 <= j0 < T:
-                continue
-            ds, _ = pair_scores(x, i0, j0, tile)
-            dsk = ds.new_zeros(B, H, tile, win_rows).scatter_(-1, col, ds)
-            acc += dsk.transpose(-1, -2) @ padded_rows(x["qv"], i0, tile)
-        parts[:, :, d + nt - 1] = acc
+    col = (tile - 1 - r + c).expand(B, H, n_diag, -1, -1)
+    diag = torch.arange(-(nt - 1), nt)
+    for it in range(nt):
+        jt = it + diag
+        on = ((jt >= 0) & (jt < nt))[:, None, None]
+        d = torch.where(on, ds[:, :, it, jt.clamp(0, nt - 1)], 0.0)
+        dsk = d.new_zeros(B, H, n_diag, tile, win_rows).scatter_(-1, col, d)
+        parts += dsk.transpose(-1, -2) @ rows_at(x["qv"], [it * tile], tile)
+    rows = torch.arange(2 * T - 1)
+    d_hi = (rows - (T - tile)) // tile
     dp = x["p"].new_zeros(x["p"].shape)
-    for row in range(2 * T - 1):
-        d_hi = (row - (T - tile)) // tile
-        for d in (d_hi - 1, d_hi):
-            first = T - tile + d * tile
-            if -(nt - 1) <= d <= nt - 1 and 0 <= row - first < win_rows:
-                for b in range(B):
-                    dp[:, row] += parts[b, :, d + nt - 1, row - first]
+    for d in (d_hi - 1, d_hi):
+        at = rows - (T - tile + d * tile)
+        on = (d >= -(nt - 1)) & (d <= nt - 1) & (at >= 0) & (at < win_rows)
+        got = parts[:, :, (d + nt - 1).clamp(0, n_diag - 1),
+                    at.clamp(0, win_rows - 1)]
+        got = torch.where(on[:, None], got, 0.0)
+        for b in range(B):
+            dp += got[b]
     return dp
 
 
@@ -188,31 +214,34 @@ def row_stats(args, scale):
     return m, 1.0 / torch.exp(s - m[..., None]).sum(-1)
 
 
-def warp_state(x, i0, r0, hf, tile, qtile):
-    """One warp's online softmax over its half ``hf`` of every key tile,
-    for the 16 query rows i0 + r0 ...: (m, l, O), m = -inf while the
-    warp has seen no key below T."""
-    T, qu, qv, B, H = x["T"], x["qu"], x["qv"], *x["qu"].shape[:2]
+def warp_states(x, tile, qtile):
+    """Every warp's online softmax over its half ``hf`` of every key
+    tile, in order, for the 16 query rows of its row group (all row
+    groups of all query tiles and both halves side by side): (m, l, O)
+    of shape (B, H, NG, 2, 16[, Dh]); m = -inf while a warp has seen no
+    key below T."""
+    T, qu, qv = x["T"], x["qu"], x["qv"]
+    B, H, _, Dh = qu.shape
     half, bw = tile // 2, tile + WARP_ROWS
-    first = qtile - WARP_ROWS - r0           # the group's first window row
-    idx = skew_index(tile, qu.device).expand(B, H, -1, -1)
-    q_u, q_v = (padded_rows(t, i0 + r0, WARP_ROWS) for t in (qu, qv))
-    i = torch.arange(i0 + r0, i0 + r0 + WARP_ROWS)
+    R = torch.arange(0, -(-T // qtile) * qtile, WARP_ROWS)  # groups' rows
+    NG = len(R)
+    idx = skew_index(tile, qu.device).expand(B, H, NG, -1, -1)
+    q_u, q_v = (rows_at(t, R, WARP_ROWS) for t in (qu, qv))
+    i = (R[:, None] + torch.arange(WARP_ROWS))[:, None, :, None]
     ic = i.clamp(max=T - 1)
-    m = qu.new_full((B, H, WARP_ROWS), -torch.inf)
-    l = qu.new_zeros(B, H, WARP_ROWS)
-    o = qu.new_zeros(B, H, WARP_ROWS, qu.shape[-1])
-    for j0 in range(0, T, tile):
-        win = padded_rows(x["p"], window_start(T, qtile, i0, j0),
-                          qtile + tile)
-        bd = q_v @ win[:, first:first + bw].transpose(-1, -2)
-        bd = torch.gather(bd, -1, idx)[..., hf * half:(hf + 1) * half]
-        c0 = j0 + hf * half
-        k, v = (padded_rows(x[n], c0, half) for n in ("k", "v"))
-        j = torch.arange(c0, c0 + half)
+    m = qu.new_full((B, H, NG, 2, WARP_ROWS), -torch.inf)
+    l = qu.new_zeros(B, H, NG, 2, WARP_ROWS)
+    o = qu.new_zeros(B, H, NG, 2, WARP_ROWS, Dh)
+    for j0 in range(0, T, tile):         # the kernel's k-steps, in order
+        # the group's first window row: T - 16 - R + j0
+        win = rows_at(x["p"], T - WARP_ROWS - R + j0, bw)
+        bd = torch.gather(q_v @ win.transpose(-1, -2), -1, idx)
+        bd = bd.reshape(B, H, NG, WARP_ROWS, 2, half).transpose(3, 4)
+        k, v = (rows_at(x[n], [j0, j0 + half], half) for n in ("k", "v"))
+        j = (j0 + torch.arange(tile)).reshape(2, 1, half)
         jc = j.clamp(max=T - 1)
-        s = ((q_u @ k.transpose(-1, -2) + bd) * x["scale"]
-             + x["am"][ic][:, jc] + x["kp"][:, None, None, jc])
+        s = ((q_u[:, :, :, None] @ k[:, :, None].transpose(-1, -2) + bd)
+             * x["scale"] + x["am"][ic, jc] + x["kp"][:, jc][:, None, None])
         s = torch.where(j < T, s, -torch.inf)
         mx = torch.maximum(m, s.max(-1).values)
         mu = torch.where(mx == -torch.inf, 0.0, mx)   # no exp(-inf + inf)
@@ -221,11 +250,11 @@ def warp_state(x, i0, r0, hf, tile, qtile):
         l = l * corr + e.sum(-1)
         pd = e
         if x["keep"] is not None:
-            keep = x["keep"][:, :, ic][..., jc]
-            valid = (i[:, None] < T) & (j[None] < T)
+            keep = x["keep"][:, :, ic, jc]
+            valid = (i < T) & (j < T)
             pd = torch.where(valid, torch.where(keep, e * x["keep_scale"],
                                                 0.0), e)
-        o = o * corr[..., None] + pd @ v
+        o = o * corr[..., None] + pd @ v[:, :, None]
         m = mx
     return m, l, o
 
@@ -236,35 +265,27 @@ def tiled_forward(args, scale, seed, rate, tile, qtile):
     the two warp halves' states merged as m = max(m0, m1), l = l0 w0 +
     l1 w1 and O = O0 w0 + O1 w1 with w = exp(m_half - m)."""
     qu, qv, k, v, p, kp, am = args
-    B, H, T, _ = qu.shape
+    B, H, T, Dh = qu.shape
     x = dict(T=T, qu=qu, qv=qv, k=k, v=v, p=p, kp=kp, am=am, scale=scale,
              keep=None, keep_scale=1.0)
     if rate > 0.0:
         x["keep"] = relpos_attention.philox_keep_mask(seed, B, H, T, rate)
         x["keep_scale"] = 1.0 / (1.0 - rate)
-    out = torch.zeros_like(qu)
-    m_out, linv_out = qu.new_zeros(B, H, T), qu.new_zeros(B, H, T)
-    for i0 in range(0, T, qtile):
-        for r0 in range(0, qtile, WARP_ROWS):
-            n = min(WARP_ROWS, T - i0 - r0)
-            if n <= 0:
-                continue
-            (m0, l0, o0), (m1, l1, o1) = (
-                warp_state(x, i0, r0, hf, tile, qtile) for hf in (0, 1))
-            m = torch.maximum(m0, m1)
-            w0, w1 = torch.exp(m0 - m), torch.exp(m1 - m)
-            linv = 1.0 / (l0 * w0 + l1 * w1)
-            o = (o0 * w0[..., None] + o1 * w1[..., None]) * linv[..., None]
-            rows = slice(i0 + r0, i0 + r0 + n)
-            out[..., rows, :] = o[..., :n, :]
-            m_out[..., rows], linv_out[..., rows] = m[..., :n], linv[..., :n]
-    return out, m_out, linv_out
+    (m0, m1), (l0, l1), (o0, o1) = (t.unbind(3) for t in
+                                    warp_states(x, tile, qtile))
+    m = torch.maximum(m0, m1)
+    w0, w1 = torch.exp(m0 - m), torch.exp(m1 - m)
+    linv = 1.0 / (l0 * w0 + l1 * w1)
+    o = (o0 * w0[..., None] + o1 * w1[..., None]) * linv[..., None]
+    return (o.reshape(B, H, -1, Dh)[:, :, :T],
+            m.reshape(B, H, -1)[:, :, :T], linv.reshape(B, H, -1)[:, :, :T])
 
 
 def tiled_backward(args, do, scale, seed, rate, tile, stats=None):
     """dq_u, dq_v, dk, dv, dp of the fused attention through the tiled
     passes, from the forward's row statistics (max, 1 / sum): ``stats``,
-    or the plain ones."""
+    or the plain ones. Each pair's score tile is built once and read by
+    all three passes."""
     qu, qv, k, v, p, kp, am = args
     B, H, T, _ = qu.shape
     m, linv = stats if stats is not None else row_stats(args, scale)
@@ -275,7 +296,9 @@ def tiled_backward(args, do, scale, seed, rate, tile, stats=None):
     if rate > 0.0:
         x["keep"] = relpos_attention.philox_keep_mask(seed, B, H, T, rate)
         x["keep_scale"] = 1.0 / (1.0 - rate)
-    return (*dq_pass(x, tile), *dkv_pass(x, tile), dp_pass(x, tile))
+    ds, pd = all_pair_scores(x, tile)
+    return (*dq_pass(x, ds, tile), *dkv_pass(x, ds, pd, tile),
+            dp_pass(x, ds, tile))
 
 
 SCALE, SEED = 0.125, 99

@@ -643,13 +643,19 @@ def test_bf16_experiment_checkpoint_resumes_in_f32(tmp_path, monkeypatch):
 
 
 def test_streaming_a_bf16_model_raises(models):
-    """Streaming is f32 only: a bf16 model raises before any state is
-    made, and its f32 twin (the same state_dict) streams."""
+    """A bf16 model's stream state, which raised until bf16 streaming was
+    ported (``tests/test_torch_run_flags.py`` streams one against JAX):
+    every cache in bf16, as the JAX ``init_stream_state`` builds them in
+    the model's dtype, and its f32 twin's (the same state_dict) in f32;
+    nothing raises."""
     _, m32, m16 = models
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        m16.init_stream_state(1, 8)
-    assert len(m32.init_stream_state(1, 8)["encoder"]) == \
-        CONFIG["encoder_num_layers"]
+    for model, dtype in ((m16, BF16), (m32, torch.float32)):
+        state = model.init_stream_state(1, 8)
+        assert len(state["encoder"]) == CONFIG["encoder_num_layers"]
+        caches = state["frontend"] + [c for layer in state["encoder"] for c
+                                      in (layer["attn"]["k"],
+                                          layer["attn"]["v"], layer["conv"])]
+        assert all(c.dtype == dtype for c in caches)
 
 
 def test_precision_config_raises_on_other_dtypes():

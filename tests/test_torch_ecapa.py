@@ -13,6 +13,9 @@ port against the JAX package.
   dropout 0), the loss within 1e-5 and every gradient leaf within 1e-4
   of its max |g| (as ``tests/test_torch_training.py``); the step leaves
   the statistics where they were;
+- the pinned deviation: JAX's gradient reaches every BatchNorm
+  statistic (its train step differentiates the whole ``model.init``
+  tree), while one port optimizer step leaves them bit for bit;
 - ``FrozenSpeakerEncoder(frame_level=True)`` against the JAX
   ``JaxSpeakerEncoder(frame_level=True)`` on one seeded WavLM checkpoint
   directory: the first ``embedding_dim`` channels of the last hidden
@@ -37,10 +40,11 @@ from tsasr_torch.data.tokenizer import CharTokenizer
 from tsasr_torch.models.ecapa import FrozenBatchNorm
 from tsasr_torch.models.transducer import TSTransducer, TSTransducerConfig
 from tsasr_torch.recipes.librispeechmix import TSASRBrain
+from tsasr_torch.training import make_adamw
 from tsasr_torch.training.brain import onednn_off_on_cpu
 from tsasr_torch.utils.stage import Stage
 
-from test_torch_training import HPARAMS, PIECES, _flat, make_batch
+from test_torch_training import HPARAMS, OPT, PIECES, _flat, make_batch
 
 ECAPA = dict(TINY, dropout=0.0, speaker_encoder_type="ecapa",
              ecapa_channels=(16, 16, 16, 16, 48), ecapa_lin_neurons=24)
@@ -147,20 +151,30 @@ def test_branch_matches_jax(seeded, rng):
             ECAPA, injection_mode="cross_attention")))
 
 
-def test_ecapa_transducer_trains_as_jax(seeded):
-    model, variables = seeded
+@pytest.fixture(scope="module")
+def jax_step(seeded):
+    """One TRAIN batch, and JAX's loss and its gradient with respect to
+    the whole ``model.init`` tree, ``params`` and ``batch_stats``: the JAX
+    recipe's ``_init_params`` returns the whole tree and its train step
+    differentiates all of it (``training/brain.py``)."""
+    _, variables = seeded
     jbrain = JaxBrain(modules={"model": JaxTransducer(JaxConfig(**ECAPA))},
                       hparams=HPARAMS, variant="scratch")
     batch = make_batch(3)
     arrays = jbrain.batch_to_arrays(batch)
 
-    def loss_fn(p):
-        preds = jbrain.compute_forward(dict(variables, params=p), arrays,
-                                       JaxStage.TRAIN, jax.random.PRNGKey(1))
+    def loss_fn(v):
+        preds = jbrain.compute_forward(v, arrays, JaxStage.TRAIN,
+                                       jax.random.PRNGKey(1))
         return jbrain.compute_objectives(preds, arrays, JaxStage.TRAIN)
 
-    want_loss, want_grads = jax.jit(jax.value_and_grad(loss_fn))(
-        variables["params"])
+    loss, grads = jax.jit(jax.value_and_grad(loss_fn))(variables)
+    return batch, loss, jax.device_get(grads)
+
+
+def test_ecapa_transducer_trains_as_jax(seeded, jax_step):
+    model, _ = seeded
+    batch, want_loss, want_grads = jax_step
     torch_model = TSTransducer(TSTransducerConfig(**ECAPA))
     torch_model.load_state_dict(model.state_dict())
     stats = {k: v.clone() for k, v in torch_model.state_dict().items()
@@ -177,7 +191,7 @@ def test_ecapa_transducer_trains_as_jax(seeded):
         grads = torch.autograd.grad(loss, leaves)
     np.testing.assert_allclose(loss.item(), float(want_loss), rtol=1e-5)
     got = _flat(params_to_flax(dict(zip(names, grads))))
-    want = _flat(jax.device_get(want_grads))
+    want = _flat(want_grads["params"])
     assert got.keys() == want.keys()
     for key in want:
         # the pooling attention's bias has a 0 gradient in exact
@@ -191,6 +205,43 @@ def test_ecapa_transducer_trains_as_jax(seeded):
                                    err_msg=key)
     after = brain.model.state_dict()
     assert all(torch.equal(after[k], v) for k, v in stats.items())
+
+
+def test_statistics_get_gradients_in_jax_and_stay_fixed_in_the_port(
+        seeded, jax_step):
+    """The port's pinned deviation (ROADMAP.md, section 3, item 15): JAX
+    differentiates the ECAPA BatchNorm statistics with the weights, so
+    its optimizer moves them (the clip norm counts them, AdamW's decay
+    pulls the variances towards 0); the port keeps them fixed, as JAX's
+    own "frozen-BN convention" comment intends. One port optimizer step
+    (AdamW with weight decay) moves the weights and leaves every
+    statistic bit for bit where it was."""
+    model, variables = seeded
+    batch, _, grads = jax_step
+    stats = _flat(grads["batch_stats"])
+    assert stats.keys() == _flat(variables["batch_stats"]).keys()
+    assert all(np.abs(g).max() > 0 for g in stats.values())
+
+    torch_model = TSTransducer(TSTransducerConfig(**ECAPA))
+    torch_model.load_state_dict(model.state_dict())
+    brain = TSASRBrain(modules={"model": torch_model},
+                       opt_class=make_adamw(**OPT),
+                       hparams=dict(HPARAMS, grad_accumulation_factor=1),
+                       run_opts={"device": "cpu"},
+                       tokenizer=CharTokenizer(PIECES))
+    held = {f"{name}.{key}": buf for name, module in
+            torch_model.named_modules() if isinstance(module,
+                                                      FrozenBatchNorm)
+            for key, buf in module.named_buffers()}
+    before = {k: v.clone() for k, v in held.items()}
+    weights = [p.detach().clone() for p in torch_model.parameters()]
+    brain.fit_batch(batch)
+    assert brain.optimizer_step == 1
+    assert len(held) == len(stats)
+    for key, buf in held.items():
+        assert not buf.requires_grad and torch.equal(buf, before[key]), key
+    assert any(not torch.equal(a, p) for a, p in
+               zip(weights, torch_model.parameters()))
 
 
 def test_frame_level_wavlm_matches_jax(tmp_path):

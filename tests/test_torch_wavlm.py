@@ -63,8 +63,9 @@ def pair(seed=0, **overrides):
     d = dict(TINY, **overrides)
     jcfg = jax_wavlm.WavLMConfig.from_hf_dict(d)
     jmodel = jax_wavlm.WavLMForXVector(jcfg)
-    variables = jmodel.init(jax.random.PRNGKey(seed),
-                            jnp.zeros((1, 640), jnp.float32))
+    # compiled: the eager init's values, in a fraction of the time
+    variables = jax.jit(jmodel.init)(jax.random.PRNGKey(seed),
+                                     jnp.zeros((1, 640), jnp.float32))
     variables = jax.tree.map(lambda x: np.array(x, np.float32), variables)
     # non-trivial layer weights, gate constants and norms
     rng = np.random.default_rng(seed)
@@ -177,7 +178,7 @@ def test_checkpoint_read_by_both_loaders(tmp_path, naming):
         assert torch.equal(loaded.state_dict()[key], value), key
 
     jcfg, variables = jax_wavlm.load_pretrained_xvector(str(tmp_path))
-    out = jax_wavlm.WavLMForXVector(jcfg).apply(
+    out = jax.jit(jax_wavlm.WavLMForXVector(jcfg).apply)(
         variables, jnp.asarray(x), jnp.asarray(lengths.numpy()))
     np.testing.assert_allclose(np.asarray(out["embeddings"]), want.numpy(),
                                atol=ATOL)
@@ -239,7 +240,8 @@ def test_frozen_encoder_matches_jax_speaker_encoder(tmp_path):
     assert torch.equal(got[:, 0], want)
     jenc = JaxSpeakerEncoder(str(tmp_path / "ckpt"), embedding_dim=12)
     np.testing.assert_allclose(
-        got.numpy(), np.asarray(jenc.embed(jnp.asarray(x), jnp.asarray(rel))),
+        got.numpy(),
+        np.asarray(jax.jit(jenc.embed)(jnp.asarray(x), jnp.asarray(rel))),
         atol=ATOL)
 
     with pytest.raises(ValueError, match="speaker_embedding_dim"):

@@ -1,7 +1,8 @@
 """On-the-fly mixture synthesis (host side).
 
 The port's own copy of the JAX package's ``data/mixing.py``, with its
-imports pointed at ``tsasr_torch``; ``plot_data: True`` raises.
+imports pointed at ``tsasr_torch``; ``plot_data: True`` dumps each example's
+waveform and fbank images and its WAVs (``_plot_example``).
 
 Numpy re-implementation of the recipe's audio pipeline
 (the reference's ``train_librispeechmix_scratch.py:334-459``), whose math
@@ -103,10 +104,6 @@ def make_audio_pipeline(hparams):
     """
     from tsasr_torch.data.pipeline import provides, takes
 
-    if hparams.get("plot_data"):
-        raise NotImplementedError(
-            "plot_data: True (waveform and fbank plots) is not ported")
-
     @takes("wavs", "enroll_wav", "delays", "start", "duration",
            "target_speaker_idx")
     @provides("mixed_sig", "enroll_sig")
@@ -120,6 +117,8 @@ def make_audio_pipeline(hparams):
         enroll = load_enrollment(
             enroll_wav, sample_rate=hparams["sample_rate"],
             trim_enroll=hparams.get("trim_enroll"))
+        if hparams.get("plot_data"):
+            _plot_example(hparams, mixed, enroll)
         if hparams.get("prompt_test"):
             mode = hparams.get("prompt_mode", [])
             if "prepend" in mode:
@@ -132,6 +131,31 @@ def make_audio_pipeline(hparams):
         yield enroll
 
     return audio_pipeline
+
+
+def _plot_example(hparams, mixed, enroll, ID=None):
+    """Per-example waveform / fbank images and WAV dumps (the
+    ``plot_data`` switch in the audio pipeline), under ``image_folder``
+    in a folder named by ``ID`` or, as the JAX pipeline calls it, a
+    random one."""
+    import os
+    import uuid
+    from tsasr_torch.utils.visualization import (
+        play_waveform,
+        plot_fbanks,
+        plot_waveform,
+    )
+    folder = hparams.get("image_folder", "images")
+    safe = (ID or uuid.uuid4().hex[:8]).replace("/", "_").split(".")[0]
+    out = os.path.join(folder, safe)
+    os.makedirs(out, exist_ok=True)
+    sr = hparams["sample_rate"]
+    play_waveform(mixed, sr, os.path.join(out, f"{safe}.wav"))
+    play_waveform(enroll, sr, os.path.join(out, f"{safe}_enrollment.wav"))
+    for fmt in hparams.get("image_formats", ["jpg"]):
+        plot_waveform(mixed, sr,
+                      os.path.join(out, f"{safe}_waveform.{fmt}"))
+        plot_fbanks(mixed, sr, os.path.join(out, f"{safe}_fbanks.{fmt}"))
 
 
 def make_text_pipeline(tokenizer, blank_index=0):

@@ -109,14 +109,18 @@ class RelPosMHAXL(nn.Module):
         self.out_proj = Linear(embed_dim, embed_dim, compute_dtype=dtype)
 
     def forward(self, x, pos_emb, key_padding_mask=None, attn_mask=None,
-                deterministic=True, generator=None, kv_cache=None):
+                deterministic=True, generator=None, kv_cache=None,
+                return_attn=False):
         """x: (B, T, D); pos_emb: (1, 2T-1, D); key_padding_mask: (B, T)
         bool, True = padding; attn_mask: (T, T) bool, True = masked;
         ``generator`` draws the dropout when ``deterministic`` is False.
 
-        Returns (out (B, T, D), attention probs or None when fused). With
-        ``kv_cache`` ({"k", "v": (B, C, H, Dh), "count": int}), x holds
-        the new frames and the return is ((out, probs), new cache).
+        Returns (out (B, T, D), attention probs or None when fused).
+        ``return_attn`` takes the plain path on a fused module too, so the
+        probabilities are there (the JAX encoder turns the fused path off
+        for ``return_attn``). With ``kv_cache`` ({"k", "v": (B, C, H, Dh),
+        "count": int}), x holds the new frames and the return is ((out,
+        probs), new cache).
         """
         B, T, D = x.shape
         H = self.num_heads
@@ -133,7 +137,7 @@ class RelPosMHAXL(nn.Module):
             far = (pos[:, None] - pos[None, :]) >= self.att_context_size
             attn_mask = far if attn_mask is None else attn_mask | far
 
-        if self.fused:
+        if self.fused and not return_attn:
             rate = 0.0 if deterministic else self.dropout.rate
             seed = 0
             if rate > 0.0:
@@ -207,7 +211,8 @@ class RelPosMHAXL(nn.Module):
         index = dist.clamp(0, n - 1).expand(B, H, Q, n - lo)
         bd = torch.gather(bd_all, -1, index)
         scores = ((ac + bd) * scale).masked_fill(hidden, ATTN_FILL)
-        attn = torch.softmax(scores, dim=-1, dtype=f32_or_wider(scores))
+        attn = cast(torch.softmax(scores, dim=-1,
+                                  dtype=f32_or_wider(scores)), self.dtype)
         out = torch.einsum("bhqs,bshd->bqhd", attn, values).reshape(
             B, Q, H * Dh)
         return (self.out_proj(out), attn), {"k": k_buf, "v": v_buf,

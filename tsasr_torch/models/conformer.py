@@ -137,16 +137,20 @@ class ConformerEncoderLayer(nn.Module):
         self.dropout = Dropout(dropout, dropout_bits)
 
     def forward(self, x, pos_emb, key_padding_mask=None, attn_mask=None,
-                deterministic=True, generator=None, layer_state=None):
-        """Streaming: ``layer_state`` = {"attn": KV cache, "conv": conv
-        cache} takes x as new frames after the cached ones and the return
-        is (x, attn, new state)."""
+                deterministic=True, generator=None, layer_state=None,
+                return_attn=False):
+        """Returns (x, the attention probabilities, or None from the fused
+        path; ``return_attn`` takes the plain path for them). Streaming:
+        ``layer_state`` = {"attn": KV cache, "conv": conv cache} takes x
+        as new frames after the cached ones and the return is (x, attn,
+        new state)."""
         drop = (deterministic, generator)
         ff1 = self.ffn1(self.norm_ffn1(x), *drop)
         x = x + 0.5 * self.dropout(ff1, *drop)
         if layer_state is None:
             attn_out, attn = self.mha(self.norm_mha(x), pos_emb,
-                                      key_padding_mask, attn_mask, *drop)
+                                      key_padding_mask, attn_mask, *drop,
+                                      return_attn=return_attn)
             x = x + attn_out
             x = x + self.conv(x, key_padding_mask, *drop)
         else:
@@ -280,11 +284,15 @@ class TSConformerEncoder(nn.Module):
 
     def forward(self, src, rel_lengths=None, speaker_embs=None,
                 deterministic=True, generator=None, stream_states=None,
-                speaker_embs_length=None):
+                speaker_embs_length=None, return_attn=False):
         """src: (B, T, F) or (B, T, F1, F2) (flattened to F1*F2);
         rel_lengths: (B,) in (0, 1]; speaker_embs: (B, 1, D), or (B, S, D)
         for ``cross_attention`` with ``speaker_embs_length`` (B,) their
         relative lengths.
+
+        ``return_attn``: also every layer's attention probabilities
+        (B, H, T, T), through the plain attention path (the JAX encoder
+        turns its fused path off for them); returns (out, [probs]).
 
         Streaming (causal models): ``stream_states`` holds each layer's
         state, src the new frames; returns (out, new states)."""
@@ -311,8 +319,9 @@ class TSConformerEncoder(nn.Module):
                                        dtype=self.dtype)
             if self.causal:
                 attn_mask = lookahead_mask(T, device=x.device)
-        remat = self.remat and not streaming and torch.is_grad_enabled()
-        new_states = []
+        remat = self.remat and not streaming and not return_attn \
+            and torch.is_grad_enabled()
+        new_states, attns = [], []
         for i, layer in enumerate(self.layers):
             if streaming:
                 x, _, state = layer(x, None, layer_state=stream_states[i])
@@ -323,9 +332,13 @@ class TSConformerEncoder(nn.Module):
                                  *drop)[0]
                 x = rematerialized(run, generator, self.remat_policy)(x)
             else:
-                x, _ = layer(x, pos_emb, key_padding_mask, attn_mask, *drop)
+                x, attn = layer(x, pos_emb, key_padding_mask, attn_mask,
+                                *drop, return_attn=return_attn)
+                attns.append(attn)
             if inject and i in self.injection_after:
                 x = self._inject(x, speaker_embs, speaker_mask, *drop)
         if streaming:
             return self.norm(x), new_states
+        if return_attn:
+            return self.norm(x), attns
         return self.norm(x)

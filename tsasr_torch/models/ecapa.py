@@ -18,12 +18,23 @@ the reference:
   square root and masks padded frames with -1e30 before the softmax.
 
 BatchNorm runs on its running statistics, in training too
-(``FrozenBatchNorm``): the JAX model calls ECAPA with ``train=False``
-inside its train step, so the statistics are never updated. They are buffers, so a ``state_dict``
-(and a checkpoint) carries them; ``convert`` maps them to flax's
-``batch_stats``. ``dtype`` is the compute dtype: the convolutions run in
-it, the BatchNorm in f32 with one rounding (flax's ``_normalize`` with
-f32 statistics), the pooling's statistics in it.
+(``FrozenBatchNorm``), and the port holds them fixed: they are buffers,
+which no gradient and no optimizer step reaches, so a ``state_dict`` (and
+a checkpoint) carries them unchanged; ``convert`` maps them to flax's
+``batch_stats``. This is a deliberate deviation from the JAX package.
+The JAX model calls ECAPA with ``train=False`` (its "frozen-BN
+convention"), so its BatchNorm never updates the statistics from batch
+moments; but the JAX recipe's ``_init_params`` returns the whole
+``model.init`` tree and its train step differentiates all of it, so
+there the statistics get gradients, count in the clip norm and take
+AdamW steps, weight decay included, which pulls the variances towards 0
+with nothing to keep them above -eps. The port keeps what the JAX
+comment intends (``tests/test_torch_ecapa.py::
+test_statistics_get_gradients_in_jax_and_stay_fixed_in_the_port``).
+
+``dtype`` is the compute dtype: the convolutions run in it, the
+BatchNorm in f32 with one rounding (flax's ``_normalize`` with f32
+statistics), the pooling's statistics in it.
 
 ``Xvector`` and ``CosineClassifier`` of the JAX module are off the
 recipe's path and not ported.

@@ -30,9 +30,11 @@ Methods take the JAX ``deterministic`` switch; with
 ``deterministic=False`` dropout draws from the step's ``generator``.
 A causal model (``causal_encoder``, ``frontend_causal``) also encodes in
 chunks: ``init_stream_state`` and ``encode_stream`` carry the frontend's
-rows and each layer's KV and conv caches from one chunk to the next, and
-give the offline causal encode's frames. The speaker branch stays
-non-causal: the enrollment is whole before the stream starts.
+rows and each layer's KV and conv caches (in the compute dtype) from one
+chunk to the next, and give the offline causal encode's frames. The
+speaker branch stays non-causal: the enrollment is whole before the
+stream starts. ``encode_with_attn`` also gives each encoder layer's
+attention probabilities.
 
 ``TSTransducerConfig.dtype`` is the compute dtype (the JAX config's
 ``dtype``): a bf16 model computes in bf16 throughout, its parameters f32,
@@ -325,6 +327,17 @@ class TSTransducer(nn.Module):
                          speaker_embs_length=speaker_rel_lens)
         return self.encoder_proj(x)
 
+    def encode_with_attn(self, feats, rel_lens, speaker_embs=None,
+                         speaker_rel_lens=None):
+        """Like ``encode`` (deterministic), and also every encoder
+        layer's attention probabilities (B, H, T', T'), from the plain
+        attention path: the recipe's ``plot_attentions``."""
+        x = self.frontend(feats)
+        x, attns = self.encoder(x, rel_lens, speaker_embs,
+                                speaker_embs_length=speaker_rel_lens,
+                                return_attn=True)
+        return self.encoder_proj(x), attns
+
     def encode_stream(self, feats_new, stream_state, speaker_embs=None,
                       speaker_rel_lens=None):
         """New feature frames (B, n, n_mels), n a multiple of the
@@ -340,29 +353,29 @@ class TSTransducer(nn.Module):
 
     def init_stream_state(self, batch_size, capacity, device=None):
         """The zero streaming state; ``capacity`` is the number of encoder
-        frames the attention KV buffers hold. f32 models only: the
-        caches of a bf16 stream are not ported (the JAX streamer has no
-        precision switch either)."""
+        frames the attention KV buffers hold. Every cache is in the
+        compute dtype, as the JAX ``init_stream_state`` builds them in
+        ``c.dtype``: a bf16 model streams in bf16, its caches holding
+        what its offline encode rounds to bf16 at the same points (the
+        frontend's cast input rows, the projected keys and values, the
+        GLU outputs)."""
         c = self.config
-        if c.dtype != torch.float32:
-            raise NotImplementedError(
-                f"streaming a {c.dtype} model is not ported; stream the f32 "
-                "model (its state_dict loads into either precision)")
+        kv = dict(device=device, dtype=c.dtype)
         frontend = []
         freq, ch = c.n_mels, 1
         for block in self.frontend.blocks:
             frontend.append(torch.zeros(batch_size, block.kernel_size - 1,
-                                        freq, ch, device=device))
+                                        freq, ch, **kv))
             freq = -(-freq // block.conv.stride[0])
             ch = block.conv.out_channels
         H, Dh = c.nhead, c.d_model // c.nhead
         encoder = [{"attn": {"k": torch.zeros(batch_size, capacity, H, Dh,
-                                              device=device),
+                                              **kv),
                              "v": torch.zeros(batch_size, capacity, H, Dh,
-                                              device=device),
+                                              **kv),
                              "count": 0},
                     "conv": torch.zeros(batch_size, c.kernel_size - 1,
-                                        c.d_model, device=device)}
+                                        c.d_model, **kv)}
                    for _ in range(c.encoder_num_layers)]
         return {"frontend": frontend, "encoder": encoder}
 
@@ -393,6 +406,24 @@ class TSTransducer(nn.Module):
         return self.joint_logits(enc_out[:, :, None, :], dec_out[rows, idx])
 
     # ---------------------------------------------------------- training
+    def speaker_condition(self, enroll_feats=None, enroll_rel_lens=None,
+                          external_speaker_embs=None, deterministic=True,
+                          generator=None):
+        """(speaker_embs, their relative lengths) that ``encode`` takes:
+        the projected ``external_speaker_embs`` if given, else the
+        speaker branch's embedding of ``enroll_feats``; (None, None)
+        without injection or without either input."""
+        if self.config.injection_mode is None:
+            return None, None
+        if external_speaker_embs is not None:
+            return (self.project_external_speaker(external_speaker_embs),
+                    enroll_rel_lens)
+        if enroll_feats is not None:
+            return (self.extract_speaker(enroll_feats, enroll_rel_lens,
+                                         deterministic, generator),
+                    enroll_rel_lens)
+        return None, None
+
     def encode_predict(self, feats, rel_lens, tokens_bos, enroll_feats=None,
                        enroll_rel_lens=None, external_speaker_embs=None,
                        deterministic=True, generator=None):
@@ -402,16 +433,9 @@ class TSTransducer(nn.Module):
         ``external_speaker_embs`` (B, 1, E) or (B, S, E) take precedence
         over ``enroll_feats``; without injection both are ignored.
         ``enroll_rel_lens`` are the speaker frames' relative lengths."""
-        speaker_embs = speaker_rel = None
-        if self.config.injection_mode is not None:
-            if external_speaker_embs is not None:
-                speaker_embs = self.project_external_speaker(
-                    external_speaker_embs)
-                speaker_rel = enroll_rel_lens
-            elif enroll_feats is not None:
-                speaker_embs = self.extract_speaker(
-                    enroll_feats, enroll_rel_lens, deterministic, generator)
-                speaker_rel = enroll_rel_lens
+        speaker_embs, speaker_rel = self.speaker_condition(
+            enroll_feats, enroll_rel_lens, external_speaker_embs,
+            deterministic, generator)
         enc_out = self.encode(feats, rel_lens, speaker_embs, speaker_rel,
                               deterministic, generator)
         dec_out, _ = self.predict(tokens_bos)

@@ -39,17 +39,28 @@ checkpointed).
   WER accumulate in ``ErrorRateStats``; ``on_stage_end`` logs each
   epoch, keeps the ``keep_checkpoints`` best checkpoints on min WER and
   writes the WER file at TEST;
+- the switches around it: ``plot_attentions`` plots every encoder
+  layer's attention maps of each VALID and TEST utterance
+  (``collect_diagnostics``, ``TSTransducer.encode_with_attn``; the maps
+  of the conditioning the model runs with, where the JAX recipe drops
+  the ``pretrained`` variant's and the speaker frames' lengths),
+  ``plot_embeddings`` the ``scratch`` speaker embeddings after TEST,
+  ``plot_grad_norm`` the TRAIN gradient norms after ``fit``
+  (``on_fit_batch_end``); ``prompt_test`` runs TEST twice, first on the
+  enrollments (``wer_enrollments.txt``), then on the mixtures with the
+  enrollment prompted in and its transcript's words stripped from each
+  hypothesis (``_strip_enroll_transcripts``);
 - ``dataio_prepare``, ``build_dataloader_kwargs`` and ``run_experiment``
   run the experiment: manifests, the tokenizer fitted on
   train+valid+test, datasets and dynamic batching, ``Brain.fit``, then
   TEST of every split of ``test_splits`` from the best checkpoint; the
   ``pretrained`` variant embeds the enrollment waveforms on the device,
-  so no ``speaker_emb`` item (the JAX ``torch_cache`` backend's) is made.
+  so no ``speaker_emb`` item (the JAX ``torch_cache`` backend's) is made;
+  ``model_path`` warm-starts the model and ``--profile`` traces the run
+  (see ``run_experiment``).
 
-Not ported yet, each raising ``NotImplementedError`` before anything
-runs: the ``torch_cache`` speaker backend (HF ``transformers``), warm
-start from ``model_path``, ``prompt_test`` and the ``plot_*``
-switches.
+Not ported yet, raising ``NotImplementedError`` before anything runs:
+the ``torch_cache`` speaker backend (HF ``transformers``).
 """
 
 import dataclasses
@@ -86,7 +97,9 @@ from tsasr_torch.recipes.speaker_embeddings import (FrozenSpeakerEncoder,
                                                     require_checkpoint_dir)
 from tsasr_torch.training.brain import Brain
 from tsasr_torch.utils.metric_stats import ErrorRateStats
+from tsasr_torch.utils.parameter_transfer import Pretrainer
 from tsasr_torch.utils.precision import compute_dtype
+from tsasr_torch.utils.profiling import Profiler, profile
 from tsasr_torch.utils.stage import Stage
 
 logger = logging.getLogger(__name__)
@@ -325,18 +338,79 @@ class TSASRBrain(Brain):
                 expand_beam=self.hparams.expand_beam, **lm_kwargs)
 
     def evaluate_batch_extra(self, batch, arrays, predictions, stage):
+        hp = self.hparams
+        if getattr(hp, "plot_attentions", False) or \
+                getattr(hp, "plot_embeddings", False):
+            diag = self.collect_diagnostics(batch, arrays, stage)
+            if "attentions" in diag and getattr(hp, "image_folder", None):
+                from tsasr_torch.utils.visualization import plot_attention
+                for j, attn in enumerate(diag["attentions"]):
+                    for i, ID in enumerate(batch.id):
+                        safe = ID.replace("/", "_").split(".")[0]
+                        for fmt in getattr(hp, "image_formats", ["jpg"]):
+                            plot_attention(attn[i], os.path.join(
+                                hp.image_folder, safe, "attention",
+                                f"{safe}_attention_"
+                                f"{str(j + 1).zfill(2)}.{fmt}"))
         if stage != Stage.TEST and \
-                self._current_epoch % self.hparams.valid_search_freq:
+                self._current_epoch % hp.valid_search_freq:
             return
         self._maybe_build_searchers(stage)
         searcher = self._beam if stage == Stage.TEST else self._greedy
         _, enc_out, _ = predictions
         hyps, _, _, _ = searcher(enc_out, arrays["mixed_lens"])
         words = self.tokenizer(hyps, task="decode_from_list")
+        if stage == Stage.TEST and getattr(hp, "prompt_test", False) and \
+                not getattr(hp, "transcribe_enroll", False):
+            words = self._strip_enroll_transcripts(batch.id, words)
         self.last_hyps = words
         if "target_words" in batch:
             self.cer_metric.append(batch.id, words, batch.target_words)
             self.wer_metric.append(batch.id, words, batch.target_words)
+
+    def _strip_enroll_transcripts(self, ids, predicted_words):
+        """Prompt-test mode: remove the enrollment's transcript (its
+        words, from the first TEST pass) that was prepended / appended to
+        each mixture's hypothesis (the JAX recipe's method)."""
+        out = []
+        mode = getattr(self.hparams, "prompt_mode", [])
+        for ID, transcription in zip(ids, predicted_words):
+            enroll = self.hparams.enroll_transcriptions[ID]
+            if "prepend" in mode:
+                transcription = transcription[len(enroll):]
+            if "append" in mode:
+                transcription = transcription[
+                    : len(transcription) - len(enroll)]
+            out.append(transcription if transcription else [""])
+        return out
+
+    @torch.no_grad()
+    def collect_diagnostics(self, batch, arrays, stage):
+        """What the plotting switches collect from an evaluation batch:
+        with ``plot_attentions`` every encoder layer's attention
+        probabilities (numpy, (B, H, T', T') each) through
+        ``encode_with_attn`` on the batch's features and conditioning,
+        and with ``plot_embeddings`` (``scratch`` only, as the JAX
+        recipe) each utterance's speaker embedding into
+        ``all_speaker_embs``."""
+        out = {}
+        if getattr(self.hparams, "plot_attentions", False):
+            feats, rel = self._mixture_features(arrays, stage)
+            speaker, speaker_rel = self.model.speaker_condition(
+                **self._forward_kwargs(arrays))
+            _, attns = self.model.encode_with_attn(feats, rel, speaker,
+                                                   speaker_rel)
+            out["attentions"] = [a.float().cpu().numpy() for a in attns]
+        if getattr(self.hparams, "plot_embeddings", False) and \
+                self.variant == "scratch":
+            kwargs = self._forward_kwargs(arrays)
+            embs = self.model.extract_speaker(kwargs["enroll_feats"],
+                                              kwargs["enroll_rel_lens"])
+            if not hasattr(self, "all_speaker_embs"):
+                self.all_speaker_embs = {}
+            for i, ID in enumerate(batch.id):
+                self.all_speaker_embs[ID] = embs[i, 0].float().cpu().numpy()
+        return out
 
     def valid_wer(self):
         """Corpus WER summary of the batches decoded since the stage
@@ -344,6 +418,13 @@ class TSASRBrain(Brain):
         return self.wer_metric.summarize()
 
     # -------------------------------------------------------------- hooks
+    def on_fit_batch_end(self, batch, outputs, loss, should_step):
+        """``plot_grad_norm`` records each micro-batch's gradient norm."""
+        if getattr(self.hparams, "plot_grad_norm", False):
+            if not hasattr(self, "grad_norm"):
+                self.grad_norm = []
+            self.grad_norm.append(self.last_grad_norm)
+
     def on_stage_start(self, stage, epoch=None):
         if epoch is not None:
             self._current_epoch = epoch
@@ -466,32 +547,39 @@ def _check_speaker_backend(hparams):
     require_checkpoint_dir(_hparams_get(hparams)("speaker_encoder_path"))
 
 
+PLOT_SWITCHES = ("plot_data", "plot_attentions", "plot_embeddings",
+                 "plot_grad_norm")
+
+
 def check_ported(hparams, variant):
-    """Raise ``NotImplementedError`` for what the port does not run yet
-    (nothing is ignored silently), and ``FileNotFoundError`` for a fusion
-    LM or a speaker encoder checkpoint that is not there, before anything
-    runs."""
+    """Raise before anything runs for what cannot run: an unknown variant
+    (``ValueError``), a speaker backend the port does not run
+    (``NotImplementedError``), a fusion LM, a warm-start ``model_path``
+    or a speaker encoder checkpoint that is not there
+    (``FileNotFoundError``), and a set ``plot_*`` switch whose plotting
+    package is missing (``ImportError``: nothing is ignored silently)."""
     if variant not in VARIANTS:
         raise ValueError(f"unknown variant {variant!r}; the recipe has "
                          f"{VARIANTS}")
     if variant == "pretrained":
         _check_speaker_backend(hparams)
-    switches = {
-        "model_path": "warm start from model_path (Pretrainer)",
-        "prompt_test": "prompt_test (two-pass prompted TEST)",
-        "plot_data": "plot_data", "plot_attentions": "plot_attentions",
-        "plot_embeddings": "plot_embeddings",
-        "plot_grad_norm": "plot_grad_norm",
-    }
-    for key, what in switches.items():
-        if hparams.get(key):
-            raise NotImplementedError(f"{what} is not ported yet")
+    if any(hparams.get(key) for key in PLOT_SWITCHES):
+        from tsasr_torch.utils.visualization import require_plot_packages
+        require_plot_packages(embeddings=bool(hparams.get(
+            "plot_embeddings")))
     # LM fusion runs at TEST, after training: a missing file fails first
     lm_path = hparams.get("lm_path")
     if float(hparams.get("lm_weight") or 0.0) > 0 and lm_path \
             and not os.path.isfile(lm_path):
         raise FileNotFoundError(f"lm_path {lm_path!r} (LM shallow fusion "
                                 "at TEST) does not exist")
+    model_path = hparams.get("model_path")
+    if model_path and not (
+            os.path.isfile(model_path)
+            or os.path.isfile(os.path.join(model_path, "model.ckpt"))):
+        raise FileNotFoundError(
+            f"model_path {model_path!r} (warm start) is neither a file nor "
+            "a directory holding model.ckpt")
 
 
 def _prepare(hparams, splits):
@@ -507,11 +595,39 @@ def _prepare(hparams, splits):
     })
 
 
+def _speaker_label(key):
+    """The enrollment's speaker in an utterance key: the folder two above
+    the enrollment file (LibriSpeech's ``<speaker>/<chapter>/<file>``),
+    as the JAX recipe labels its plot; the whole key when the path is
+    shallower (the JAX recipe raises an IndexError there)."""
+    parts = str(key).split("/")
+    return parts[-3] if len(parts) >= 3 else str(key)
+
+
 def run_experiment(variant="scratch", argv=None):
     """The experiment main of one variant (the reference's ``__main__``
     block, ``train_librispeechmix_scratch.py:491-687``): prepare, fit the
     tokenizer, build the datasets, ``Brain.fit``, then TEST every split
-    of ``test_splits``. Returns the Brain."""
+    of ``test_splits``. Returns the Brain.
+
+    - ``model_path``: the file is collected into ``save_folder`` as the
+      JAX recipe collects it (``Pretrainer``), then, unlike the JAX
+      recipe, which never loads it, loaded into the model
+      (``load_state_dict_into``) once the Brain is built; a checkpoint
+      that ``fit``'s recovery finds in ``save_folder`` takes precedence;
+    - ``--profile``: ``utils.profiling.profile`` hooks ``fit_batch`` and
+      ``evaluate_batch`` with a ``Profiler`` on the Brain's device, its
+      traces in ``--profile_dir`` or ``<output_folder>/profiler``. The
+      JAX recipe never stops its profiler, so a window still open at the
+      end of the run is never written; this one calls ``stop()`` after
+      ``fit`` and after TEST, so the trace is always written;
+    - ``prompt_test``: each TEST split is evaluated twice, first on its
+      enrollments (``transcribe_enroll``; WER file
+      ``wer_enrollments.txt``), whose hypotheses become
+      ``enroll_transcriptions``, then on the prompted mixtures, their
+      hypotheses stripped of those words;
+    - ``plot_grad_norm`` plots after ``fit``, ``plot_embeddings`` after
+      TEST, into ``image_folder``."""
     from tsasr_torch.training.experiment import (
         check_precision,
         create_experiment_directory,
@@ -546,6 +662,12 @@ def run_experiment(variant="scratch", argv=None):
         unk_id=hparams["blank_index"])
 
     train_data, valid_data, _ = dataio_prepare(hparams, tokenizer)
+    # warm start (the reference's Pretrainer, yaml model_path)
+    pretrainer = None
+    if hparams.get("model_path"):
+        pretrainer = Pretrainer(collect_in=hparams["save_folder"],
+                                paths={"model": hparams["model_path"]})
+        run_on_main(pretrainer.collect_files)
     # bf16 compute: the model is rebuilt with a bf16 dtype (the parameters
     # and the optimizer stay f32; the same seed gives the same weights)
     precision = run_opts.get("precision", hparams.get("precision"))
@@ -560,19 +682,67 @@ def run_experiment(variant="scratch", argv=None):
         tokenizer=tokenizer)
     logger.info("%.1fM trainable parameters on %s",
                 sum(p.numel() for p in brain._params()) / 1e6, brain.device)
+    if pretrainer is not None:
+        pretrainer.load_state_dict_into("model", brain.model)
+    profiler = None
+    if run_opts.get("profile"):
+        profiler = Profiler(
+            run_opts.get("profile_dir")
+            or os.path.join(hparams["output_folder"], "profiler"),
+            device=brain.device)
+        profile(brain, profiler)
 
     brain.fit(hparams["epoch_counter"], train_data, valid_data,
               train_loader_kwargs=build_dataloader_kwargs(
                   hparams, train_data, "train"),
               valid_loader_kwargs=build_dataloader_kwargs(
                   hparams, valid_data, "valid"))
+    if profiler is not None:
+        profiler.stop()
+    image_folder = hparams.get("image_folder", hparams["output_folder"])
+    if hparams.get("plot_grad_norm") and getattr(brain, "grad_norm", None):
+        from tsasr_torch.utils.visualization import plot_grad_norm
+        for fmt in hparams.get("image_formats", ["jpg"]):
+            plot_grad_norm(brain.grad_norm,
+                           os.path.join(image_folder, f"grad_norm.{fmt}"))
 
     for split in hparams["test_splits"]:
         _prepare(hparams, [split])
         _, _, test_data = dataio_prepare(hparams, tokenizer)
         brain.hparams.wer_file = os.path.join(
             hparams["output_folder"], f"wer_{split}.txt")
+        if hparams.get("prompt_test"):
+            # two passes: the enrollments first, then the prompted
+            # mixtures with the enrollments' words stripped (reference
+            # :660-687)
+            brain.hparams.transcribe_enroll = True
+            hparams["transcribe_enroll"] = True
+            wer_file = brain.hparams.wer_file
+            brain.hparams.wer_file = os.path.join(
+                os.path.dirname(wer_file), "wer_enrollments.txt")
+            brain.evaluate(test_data, min_key="WER",
+                           test_loader_kwargs=build_dataloader_kwargs(
+                               hparams, test_data, "test"))
+            brain.hparams.enroll_transcriptions = {
+                x["key"]: x["hyp_tokens"] for x in brain.wer_metric.scores}
+            brain.hparams.transcribe_enroll = False
+            hparams["transcribe_enroll"] = False
+            brain.hparams.wer_file = wer_file
+            _, _, test_data = dataio_prepare(hparams, tokenizer)
         brain.evaluate(test_data, min_key="WER",
                        test_loader_kwargs=build_dataloader_kwargs(
                            hparams, test_data, "test"))
+    if profiler is not None:
+        profiler.stop()
+
+    if hparams.get("plot_embeddings") and \
+            getattr(brain, "all_speaker_embs", None):
+        from tsasr_torch.utils.visualization import plot_embeddings
+        for fmt in hparams.get("image_formats", ["jpg"]):
+            plot_embeddings(
+                list(brain.all_speaker_embs.values()),
+                [_speaker_label(k) for k in brain.all_speaker_embs],
+                os.path.join(image_folder, f"embeddings.{fmt}"),
+                title=f"Speaker embeddings ({variant})",
+                perplexity=min(len(brain.all_speaker_embs) - 1, 30))
     return brain

@@ -172,6 +172,10 @@ class Brain:
     def on_fit_start(self):
         pass
 
+    def on_fit_batch_end(self, batch, outputs, loss, should_step):
+        """After each TRAIN micro-batch (the JAX hook's arguments;
+        ``outputs`` is None there too)."""
+
     def on_evaluate_start(self, max_key=None, min_key=None):
         if self.checkpointer is not None:
             # the recovered checkpoint stays visible to subclasses: the
@@ -376,7 +380,10 @@ class Brain:
         iterator = iter(bar)
         n = 0
         for batch in iterator:
+            should_step = ((self.global_micro_step + 1)
+                           % int(self.grad_accumulation_factor)) == 0
             loss = self.fit_batch(batch)
+            self.on_fit_batch_end(batch, None, loss, should_step)
             n += 1
             self.avg_train_loss = self._update_average(
                 loss, self.avg_train_loss, n)

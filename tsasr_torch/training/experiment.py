@@ -14,8 +14,10 @@ reference's CLI layer (``core.py:55-410``):
 The flags are the JAX package's. ``--device`` is the torch device
 (``cuda`` unless given, which raises without a card; ``cpu`` to run on
 the host). ``--precision bf16`` builds the model in bf16 (the recipe).
-The parallel flags and ``--profile`` raise ``NotImplementedError``: DDP
-and the profiler hook are not ported yet.
+``--profile`` traces training and evaluation with ``torch.profiler``
+into ``--profile_dir`` (the recipe's ``<output_folder>/profiler`` unless
+given; ``utils/profiling.py``). The parallel flags raise
+``NotImplementedError``: DDP is not ported yet.
 """
 
 import argparse
@@ -70,8 +72,7 @@ RUN_OPT_FLAGS = [
 
 
 NOT_PORTED_FLAGS = ("data_parallel_count", "tensor_parallel_count",
-                    "sequence_parallel_count", "pipeline_parallel_count",
-                    "profile", "profile_dir")
+                    "sequence_parallel_count", "pipeline_parallel_count")
 
 
 def parse_arguments(arg_list=None):
@@ -92,8 +93,8 @@ def parse_arguments(arg_list=None):
     for key in NOT_PORTED_FLAGS:
         if key in run_opts:
             raise NotImplementedError(
-                f"--{key} is not ported yet (DDP and the profiler hook "
-                "wait on later slices of the port)")
+                f"--{key} is not ported yet (DDP waits on a later slice "
+                "of the port)")
     check_precision(run_opts.get("precision"))
     overrides = _unknown_to_overrides(unknown)
     return known.hparams_file, run_opts, overrides
