@@ -150,11 +150,14 @@ checkout, or when any phase fails. Phases:
    (c) ``encode_with_attn`` on 6 x 8 s within the encoder tolerance of
    ``encode`` with the kernel, every row over unmasked keys summing to
    1; (d) the causal model in bf16 streaming a 12 s mixture in 1 s
-   chunks, ``kv_cache`` tokens against the offline bf16 greedy,
-   ``encode_stream`` against the offline bf16 encode, ``reencode`` on
-   the bf16 kernel, ms, device ms and launches a chunk beside the f32
-   stream's in turns; then each kernel against its plain version on the
-   phase's own tensors;
+   chunks, ``encode_stream`` against the offline bf16 encode, each
+   replayed ``kv_cache`` decision within a fixed logit gap of the
+   offline bf16 greedy's argmax (the tokens against it, and the plain
+   path in the stream's chunking with no cache against the whole
+   sequence, printed), ``reencode`` on the bf16 kernel, ms, device ms
+   and launches a chunk beside the f32 stream's in turns; then each
+   kernel against its plain version on the phase's own tensors, (d)'s
+   bf16 attention calls at the bf16 tolerance;
 11. a small model on the card against the same model on the CPU:
    serving encoder output (the CPU side twice, each hash logged with the
    host CPU's model and torch's thread count), and 2 optimizer steps of
@@ -168,6 +171,7 @@ import collections
 import concurrent.futures
 import contextlib
 import hashlib
+import itertools
 import json
 import math
 import re
@@ -4132,6 +4136,13 @@ ROW_SUM_ATOL = 1e-5
 # attention rounds its scores to bf16 as the plain path does, the
 # offline encode's bf16 kernel keeps them in f32
 BF16_STREAM_RTOL = 2.0 ** -5
+# (d): each replayed decision of the bf16 kv_cache stream at most this
+# far (in logits) below the offline bf16 argmax at the same predictor
+# state: twice the worst recorded on an H100 80GB HBM3 at 700 W (0.03125,
+# two bf16 ulps of a logit in [2, 4), at 14 of 300 frames), where the
+# offline bf16 logits' own largest error against the f32 twin's read
+# 0.0358 (chip_smoke.py, phase_run_flags)
+STREAM_DECISION_GAP = 2.0 ** -4
 BF16_STREAM_TURNS = ("f32", "bf16", "bf16", "f32")
 
 
@@ -4398,24 +4409,19 @@ def forced_logits(model, enc, decisions=None, blank=0):
 
 def bf16_stream_checks(device, card):
     """(d) The causal full-width scratch model in bf16 (its stream caches
-    in bf16) on a STREAM_SECONDS mixture with a 5 s enrollment:
-    ``encode_stream`` in 100-frame chunks against the offline bf16 causal
-    encode (the bf16 kernel) within BF16_STREAM_RTOL, and against the
-    plain path; the kv_cache streamer's tokens (1 s chunks) against the
-    offline bf16 greedy on the same unnormalized features; reencode,
-    which runs the bf16 attention forward kernel once a mixture layer a
-    chunk; then ms, device ms and launches a chunk of the f32 and the
-    bf16 kv_cache streams in turns. Returns the bf16 kernels' launches of
-    the streams."""
+    in bf16) and its f32 twin on a STREAM_SECONDS mixture with a 5 s
+    enrollment: the streams and offline encodes of ``bf16_streams``, with
+    every attention call they make captured (one per shape) and then held
+    against its plain version on its own tensors (``hold_stream_kernels``);
+    then ms, device ms and launches a chunk of the f32 and the bf16
+    kv_cache streams in turns, outside the capture. Returns (the bf16
+    reencode stream's launch counts, the captured calls' worst errors)."""
     import numpy as np
     import torch
     from tsasr_torch.data.tokenizer import CharTokenizer
-    from tsasr_torch.decoding import TransducerGreedySearcher
     from tsasr_torch.inference import TSASRTranscriber
     from tsasr_torch.models.transducer import TSTransducer, scratch_config
 
-    on_card = device.type == "cuda"
-    sync = torch.cuda.synchronize if on_card else (lambda: None)
     rng = np.random.default_rng(SEED + 43)
     wav = (rng.normal(size=STREAM_SECONDS * SAMPLE_RATE) * 0.1
            ).astype(np.float32)
@@ -4431,6 +4437,29 @@ def bf16_stream_checks(device, card):
         model.load_state_dict(state)
         trs[name] = TSASRTranscriber(model, None, CharTokenizer(PIECES),
                                      device=str(device))
+    with captured_kernel_calls() as seen:
+        counts, spk = bf16_streams(device, card, trs, wav, enroll)
+    held = hold_stream_kernels(seen, card)
+    stream_turns(device, card, trs, wav, spk)
+    return counts, held
+
+
+def bf16_streams(device, card, trs, wav, enroll):
+    """``encode_stream`` of the bf16 model in 100-frame chunks against the
+    offline bf16 causal encode (the bf16 kernel) within BF16_STREAM_RTOL,
+    and against the plain path; the kv_cache streamer (1 s chunks) on the
+    offline greedy of the same unnormalized features: each of its
+    decisions, replayed, within STREAM_DECISION_GAP of the offline bf16
+    argmax at the same predictor state; the witness of the stream's
+    difference (the plain path in the stream's chunking with no cache,
+    against the whole-sequence plain path); reencode, which runs the
+    bf16 attention forward kernel once a mixture layer a chunk. Returns
+    (the reencode stream's launch counts, the speaker embeddings)."""
+    import torch
+    from tsasr_torch.decoding import TransducerGreedySearcher
+
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
     tr = trs["bf16"]
     model = tr.model
     layers = model.config.encoder_num_layers
@@ -4488,7 +4517,12 @@ def bf16_stream_checks(device, card):
     n_kv = bf16_fwd()
     # the offline greedy on the stream's own features (its STFT of each
     # chunk's window): bf16 through the kernel and through the plain path,
-    # and the f32 twin
+    # and the f32 twin; and the witness: the plain path in the stream's
+    # chunking with no cache at all, each chunk's frames from an encode
+    # of the features up to the chunk's end (the same values for a causal
+    # model), which differs from the whole-sequence plain encode only in
+    # the lengths the GEMMs and convolutions are given
+    ends = list(itertools.accumulate(f.shape[1] for f in chunk_feats))
     with torch.inference_mode():
         feats = torch.cat(chunk_feats, dim=1)
         stream_enc = torch.cat(chunk_enc, dim=1)
@@ -4496,17 +4530,22 @@ def bf16_stream_checks(device, card):
         kernel_enc = model.encode(feats, ones, spk["bf16"])
         offline_tokens = greedy(kernel_enc, ones)[0][0]
         set_fused(model, False)
-        plain_tokens = greedy(model.encode(feats, ones, spk["bf16"]),
-                              ones)[0][0]
+        plain_enc = model.encode(feats, ones, spk["bf16"])
+        plain_tokens = greedy(plain_enc, ones)[0][0]
+        chunked_enc = torch.cat(
+            [model.encode(feats[:, :hi], ones, spk["bf16"])[:, lo // 4:hi // 4]
+             for lo, hi in zip([0] + ends[:-1], ends)], dim=1)
+        chunked_tokens = greedy(chunked_enc, ones)[0][0]
         set_fused(model, True)
         f32_enc = trs["f32"].model.encode(feats, ones, spk["f32"])
         f32_tokens = TransducerGreedySearcher(trs["f32"].model, 0)(
             f32_enc, ones)[0][0]
+    witness = rel_err(chunked_enc.float(), plain_enc.float())
+    err_kv = rel_err(stream_enc.float(), plain_enc.float())
     # each frame's decision of the stream, replayed, against the offline
     # bf16 logits at the same predictor state: the stream's token must be
-    # one bf16's own rounding could have picked, within twice the largest
-    # logit error of the offline bf16 encode against the f32 twin's (the
-    # stream's logits within that error of the offline's make it so)
+    # within STREAM_DECISION_GAP of the offline argmax (the offline bf16
+    # logits' own error against the f32 twin's is printed beside it)
     stream_logits, decisions = forced_logits(model, stream_enc)
     offline_logits, _ = forced_logits(model, kernel_enc, decisions)
     f32_logits, _ = forced_logits(trs["f32"].model, f32_enc, decisions)
@@ -4523,6 +4562,7 @@ def bf16_stream_checks(device, card):
                                                        bf16_fwd)
     re_launches = [b - a for a, b in zip([start] + re_reads[:-1], re_reads)]
     counts = read_bf16_counts()
+
     def agree(a, b):
         return (f"{sum(x == y for x, y in zip(a, b))}/"
                 f"{max(len(a), len(b))}")
@@ -4536,18 +4576,73 @@ def bf16_stream_checks(device, card):
         f"against f32 {agree(offline_tokens, f32_tokens)} and against the "
         f"plain path {agree(offline_tokens, plain_tokens)}; the stream's "
         f"decisions replayed {replayed}: {parted} frames where it is not "
-        f"the offline bf16 argmax, the worst {worst_gap:.4g} below it, "
-        f"bound 2 x {own:.4g} (the offline bf16 logits' largest error "
-        f"against the f32 twin's); bf16 kernel launches of the stream "
-        f"{n_kv}; reencode: "
-        f"{len(rs._tokens)} tokens, bf16 attention launches per chunk "
-        f"{sorted(set(re_launches))}, the final transcript starts with the "
-        f"last partial {re_final.startswith(re_partials[-1])}")
-    if not kv_tokens or not replayed or worst_gap > 2 * own or n_kv \
-            or set(re_launches) != {layers * on_card} \
+        f"the offline bf16 argmax, the worst {worst_gap:.4g} below it "
+        f"(bound {STREAM_DECISION_GAP}; the offline bf16 logits' largest "
+        f"error against the f32 twin's {own:.4g}); bf16 kernel launches "
+        f"of the stream {n_kv}; reencode: {len(rs._tokens)} tokens, bf16 "
+        f"attention launches per chunk {sorted(set(re_launches))}, the "
+        f"final transcript starts with the last partial "
+        f"{re_final.startswith(re_partials[-1])} [{card}]")
+    log(f"run flags (d) witness, the bf16 plain path in the kv_cache "
+        f"stream's chunking ({len(ends)} chunks) with no cache, against "
+        f"the whole-sequence plain path: err {witness:.3g} of max |enc|, "
+        f"greedy tokens agreeing in place "
+        f"{agree(chunked_tokens, plain_tokens)}; the kv_cache stream "
+        f"against the whole-sequence plain path {err_kv:.3g}, against the "
+        f"chunked one {rel_err(stream_enc.float(), chunked_enc.float()):.3g}"
+        f", its tokens agreeing with the chunked one's "
+        f"{agree(kv_tokens, chunked_tokens)} [{card}]")
+    if not kv_tokens or not replayed or worst_gap > STREAM_DECISION_GAP \
+            or n_kv or set(re_launches) != {layers * on_card} \
             or not re_final.startswith(re_partials[-1]):
         raise RuntimeError("the bf16 streams failed their check")
+    return counts, spk
 
+
+def hold_stream_kernels(seen, card):
+    """Each attention call captured in (d) (one per shape) again through
+    the kernel's wrapper, against its plain version on the same tensors:
+    the bf16 forward by ``bf16_attention_errors`` (within BF16_FWD_TOL of
+    the plain max |o|, and no further from f64 than BF16_F64_RATIO times
+    the plain version), the f32 twin's by ``check_path_kernels``. Returns
+    the worst of each."""
+    import torch
+    calls = seen["attention"]
+    bf16 = {k: v for k, v in calls.items()
+            if v[0][0].dtype == torch.bfloat16}
+    if not any(causal for _, _, _, causal in bf16):
+        raise RuntimeError("(d) captured no causal bf16 attention call")
+    worst = {"bf16_fwd": 0.0, "bf16_f64_ratio": 0.0}
+    for (shape, rate, train, causal), (args, seed, scale) in bf16.items():
+        if train:
+            raise RuntimeError(f"a stream asked the bf16 attention at "
+                               f"{shape} for a gradient")
+        fwd, _, ratio = bf16_attention_errors(
+            args, None, seed, scale, rate, f"the bf16 attention forward at "
+            f"(d)'s {shape}{' causal' if causal else ''}", backward=False)
+        worst["bf16_fwd"] = max(worst["bf16_fwd"], fwd)
+        worst["bf16_f64_ratio"] = max(worst["bf16_f64_ratio"], ratio)
+    f32 = check_path_kernels({"attention": {
+        k: v for k, v in calls.items() if k not in bf16}, "lattice": {}})
+    worst["f32_fwd"] = f32["fwd"]
+    frames = sorted({shape[2] for shape, *_ in bf16})
+    log(f"run flags (d) kernels against their plain versions on the "
+        f"streams' and encodes' own inputs, one call per shape: the bf16 "
+        f"attention forward at {len(bf16)} shapes (T {frames}), worst "
+        f"{worst['bf16_fwd']:.3g} of max |o| (tol {BF16_FWD_TOL:.3g}), "
+        f"against f64 at most {worst['bf16_f64_ratio']:.3f} x the plain "
+        f"version's error; the f32 forward at {len(calls) - len(bf16)} "
+        f"shapes, worst {f32['fwd']:.3g} of max |o| (atol {ATTN_ATOL}) "
+        f"[{card}]")
+    return worst
+
+
+def stream_turns(device, card, trs, wav, spk):
+    """ms, device ms and launches a chunk of the f32 and the bf16 kv_cache
+    streams (1 s chunks), in the turns of BF16_STREAM_TURNS."""
+    import torch
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
     streams = {k: t.streaming("kv_cache", speaker_embs=spk[k])
                for k, t in trs.items()}
     readings = collections.defaultdict(list)
@@ -4572,7 +4667,6 @@ def bf16_stream_checks(device, card):
         f"{'/'.join(BF16_STREAM_TURNS)}: " + "; ".join(
             line for name in BF16_STREAM_TURNS[:2] for line in readings[name])
         + f" [{card}]")
-    return counts
 
 
 def phase_run_flags(device, card, corpus):
@@ -4581,7 +4675,8 @@ def phase_run_flags(device, card, corpus):
     ``--profile``, ``prompt_test``; (b) a warm start from (a)'s
     checkpoint; (c) ``encode_with_attn``; (d) a bf16 causal model
     streaming. Every kernel the path launched is then held against its
-    plain version on the tensors it gave it. Returns the launch counts
+    plain version on the tensors it gave it, one call per shape: (a) to
+    (c) by ``check_path_kernels``, (d) by ``hold_stream_kernels``. Returns the launch counts
     of the f32 and the bf16 kernels."""
     import torch
     t0 = time.perf_counter()
@@ -4614,16 +4709,19 @@ def phase_run_flags(device, card, corpus):
     if device.type == "cuda":
         torch.cuda.empty_cache()
     reset_counts()
-    stream_counts = bf16_stream_checks(device, card)
+    stream_counts, stream_worst = bf16_stream_checks(device, card)
     counts.update(stream_counts)
     mark("(d)")
     worst = check_path_kernels(seen)
     log(f"run flags kernels against their plain versions on the phase's own "
-        f"inputs, one call per shape: attention at {len(seen['attention'])} "
-        f"shapes, worst fwd {worst['fwd']:.3g} of max |o|, bwd "
-        f"{worst['bwd']:.3g} of max |g| (atol {ATTN_ATOL}); lattice at "
-        f"{len(seen['lattice'])} shapes, worst err/tol "
-        f"{worst['lattice']:.3g}; the phase's launches {dict(counts)}; "
+        f"inputs, one call per shape: (a)-(c) attention at "
+        f"{len(seen['attention'])} shapes, worst fwd {worst['fwd']:.3g} of "
+        f"max |o|, bwd {worst['bwd']:.3g} of max |g| (atol {ATTN_ATOL}); "
+        f"lattice at {len(seen['lattice'])} shapes, worst err/tol "
+        f"{worst['lattice']:.3g}; (d) bf16 attention forward worst "
+        f"{stream_worst['bf16_fwd']:.3g} of max |o| (tol "
+        f"{BF16_FWD_TOL:.3g}), f32 forward {stream_worst['f32_fwd']:.3g}; "
+        f"the phase's launches {dict(counts)}; "
         f"{time.perf_counter() - t0:.1f} s (done at: {', '.join(marks)})")
     return dict(counts)
 

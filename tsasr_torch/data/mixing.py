@@ -145,14 +145,14 @@ def _plot_example(hparams, mixed, enroll, ID=None):
         plot_fbanks,
         plot_waveform,
     )
-    folder = hparams.get("image_folder", "images")
+    folder = hparams["image_folder"]
     safe = (ID or uuid.uuid4().hex[:8]).replace("/", "_").split(".")[0]
     out = os.path.join(folder, safe)
     os.makedirs(out, exist_ok=True)
     sr = hparams["sample_rate"]
     play_waveform(mixed, sr, os.path.join(out, f"{safe}.wav"))
     play_waveform(enroll, sr, os.path.join(out, f"{safe}_enrollment.wav"))
-    for fmt in hparams.get("image_formats", ["jpg"]):
+    for fmt in hparams["image_formats"]:
         plot_waveform(mixed, sr,
                       os.path.join(out, f"{safe}_waveform.{fmt}"))
         plot_fbanks(mixed, sr, os.path.join(out, f"{safe}_fbanks.{fmt}"))

@@ -342,12 +342,12 @@ class TSASRBrain(Brain):
         if getattr(hp, "plot_attentions", False) or \
                 getattr(hp, "plot_embeddings", False):
             diag = self.collect_diagnostics(batch, arrays, stage)
-            if "attentions" in diag and getattr(hp, "image_folder", None):
+            if "attentions" in diag:
                 from tsasr_torch.utils.visualization import plot_attention
                 for j, attn in enumerate(diag["attentions"]):
                     for i, ID in enumerate(batch.id):
                         safe = ID.replace("/", "_").split(".")[0]
-                        for fmt in getattr(hp, "image_formats", ["jpg"]):
+                        for fmt in hp.image_formats:
                             plot_attention(attn[i], os.path.join(
                                 hp.image_folder, safe, "attention",
                                 f"{safe}_attention_"
@@ -683,7 +683,7 @@ def run_experiment(variant="scratch", argv=None):
     logger.info("%.1fM trainable parameters on %s",
                 sum(p.numel() for p in brain._params()) / 1e6, brain.device)
     if pretrainer is not None:
-        pretrainer.load_state_dict_into("model", brain.model)
+        pretrainer.load_collected({"model": brain.model})
     profiler = None
     if run_opts.get("profile"):
         profiler = Profiler(
@@ -699,12 +699,11 @@ def run_experiment(variant="scratch", argv=None):
                   hparams, valid_data, "valid"))
     if profiler is not None:
         profiler.stop()
-    image_folder = hparams.get("image_folder", hparams["output_folder"])
     if hparams.get("plot_grad_norm") and getattr(brain, "grad_norm", None):
         from tsasr_torch.utils.visualization import plot_grad_norm
-        for fmt in hparams.get("image_formats", ["jpg"]):
-            plot_grad_norm(brain.grad_norm,
-                           os.path.join(image_folder, f"grad_norm.{fmt}"))
+        for fmt in hparams["image_formats"]:
+            plot_grad_norm(brain.grad_norm, os.path.join(
+                hparams["image_folder"], f"grad_norm.{fmt}"))
 
     for split in hparams["test_splits"]:
         _prepare(hparams, [split])
@@ -715,8 +714,9 @@ def run_experiment(variant="scratch", argv=None):
             # two passes: the enrollments first, then the prompted
             # mixtures with the enrollments' words stripped (reference
             # :660-687)
-            brain.hparams.transcribe_enroll = True
-            hparams["transcribe_enroll"] = True
+            # the Brain reads its namespace, the audio pipeline the dict
+            brain.hparams.transcribe_enroll = \
+                hparams["transcribe_enroll"] = True
             wer_file = brain.hparams.wer_file
             brain.hparams.wer_file = os.path.join(
                 os.path.dirname(wer_file), "wer_enrollments.txt")
@@ -725,10 +725,9 @@ def run_experiment(variant="scratch", argv=None):
                                hparams, test_data, "test"))
             brain.hparams.enroll_transcriptions = {
                 x["key"]: x["hyp_tokens"] for x in brain.wer_metric.scores}
-            brain.hparams.transcribe_enroll = False
-            hparams["transcribe_enroll"] = False
+            brain.hparams.transcribe_enroll = \
+                hparams["transcribe_enroll"] = False
             brain.hparams.wer_file = wer_file
-            _, _, test_data = dataio_prepare(hparams, tokenizer)
         brain.evaluate(test_data, min_key="WER",
                        test_loader_kwargs=build_dataloader_kwargs(
                            hparams, test_data, "test"))
@@ -738,11 +737,11 @@ def run_experiment(variant="scratch", argv=None):
     if hparams.get("plot_embeddings") and \
             getattr(brain, "all_speaker_embs", None):
         from tsasr_torch.utils.visualization import plot_embeddings
-        for fmt in hparams.get("image_formats", ["jpg"]):
+        for fmt in hparams["image_formats"]:
             plot_embeddings(
                 list(brain.all_speaker_embs.values()),
                 [_speaker_label(k) for k in brain.all_speaker_embs],
-                os.path.join(image_folder, f"embeddings.{fmt}"),
+                os.path.join(hparams["image_folder"], f"embeddings.{fmt}"),
                 title=f"Speaker embeddings ({variant})",
                 perplexity=min(len(brain.all_speaker_embs) - 1, 30))
     return brain

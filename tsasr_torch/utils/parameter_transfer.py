@@ -29,31 +29,20 @@ logger = logging.getLogger(__name__)
 
 
 class Pretrainer:
-    def __init__(self, collect_in="./model_checkpoints", loadables=None,
-                 paths=None, conditions=None):
+    """``paths`` maps a name to its source file or directory."""
+
+    def __init__(self, collect_in="./model_checkpoints", paths=None):
         self.collect_in = collect_in
-        self.loadables = loadables or {}
         self.paths = paths or {}
-        self.conditions = conditions or {}
         self.collected = {}
 
-    def add_loadable(self, name, obj, path=None, condition=True):
-        self.loadables[name] = obj
-        if path is not None:
-            self.paths[name] = path
-        self.conditions[name] = condition
-
-    def _enabled(self, name):
-        cond = self.conditions.get(name, True)
-        return bool(cond)
-
     def collect_files(self):
-        """Link (or, where linking fails, copy) each enabled loadable's
-        file into ``collect_in`` as ``<name>.ckpt``; a directory source
-        resolves to its ``<name>.ckpt``."""
+        """Link (or, where linking fails, copy) each source into
+        ``collect_in`` as ``<name>.ckpt``; a directory source resolves to
+        its ``<name>.ckpt``."""
         os.makedirs(self.collect_in, exist_ok=True)
         for name, source in self.paths.items():
-            if not self._enabled(name) or source is None:
+            if source is None:
                 continue
             target = os.path.join(self.collect_in, f"{name}.ckpt")
             if os.path.isdir(source):
@@ -77,20 +66,11 @@ class Pretrainer:
             self.collected[name] = target
         return self.collected
 
-    def load_collected(self):
-        """Load collected files into the registered loadables (objects
-        with a ``load(path)`` method, or modules)."""
-        for name, target in self.collected.items():
-            obj = self.loadables.get(name)
-            if obj is None:
-                continue
-            if hasattr(obj, "load"):
-                obj.load(target, end_of_epoch=True)
-            elif isinstance(obj, torch.nn.Module):
-                self.load_state_dict_into(name, obj)
-            else:
-                raise TypeError(f"Loadable {name} has no load() hook")
-            logger.info("Warm-started %s from %s", name, target)
+    def load_collected(self, modules):
+        """Load each collected file into ``modules[name]``, a module."""
+        for name in self.collected:
+            if name in modules:
+                self.load_state_dict_into(name, modules[name])
 
     def load_state_dict_into(self, name, module):
         """Load the collected file ``name`` into ``module`` in place: the

@@ -71,10 +71,9 @@ class Profiler:
     ``traces`` lists the files written so far."""
 
     def __init__(self, logdir="profiler_logs", schedule_fn=None,
-                 with_memory=True, device="cuda"):
+                 device="cuda"):
         self.logdir = logdir
         self.schedule_fn = schedule_fn or schedule()
-        self.with_memory = with_memory
         self.device = resolve_device(device)
         self.step_num = 0
         self.step_times = []
@@ -96,7 +95,7 @@ class Profiler:
             os.makedirs(self.logdir, exist_ok=True)
             self._prof = torch.profiler.profile(
                 activities=self._activities(),
-                profile_memory=self.with_memory)
+                profile_memory=True)
             self._prof.start()
             self._first = self.step_num + 1
             logger.info("profiler: trace started at step %d -> %s",
