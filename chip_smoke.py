@@ -158,7 +158,25 @@ checkout, or when any phase fails. Phases:
    and launches a chunk beside the f32 stream's in turns; then each
    kernel against its plain version on the phase's own tensors, (d)'s
    bf16 attention calls at the bf16 tolerance;
-11. a small model on the card against the same model on the CPU:
+11. data parallelism (``phase_ddp``): the scratch yaml at full width
+   on the same corpus (VALID and TEST cut to 12 and 6 mixtures), 2
+   optimizer steps of 2 micro-batches at dropout 0 under deterministic
+   algorithms, VALID and TEST greedy: (a) in place; (b) through
+   ``python -m tsasr_torch.parallel.launch --nproc_per_node 1`` on
+   ``cuda`` over NCCL: its losses, launches and WER file (a)'s, its first
+   step's gradient within 1e-6 of each leaf's max |g|; (c) two ranks
+   sharing ``cuda:0`` over gloo (``--data_parallel_count 2``): each
+   loss within 1e-5 relative of (a)'s, the first step's gradient by the
+   training phase's rule (the kink set placed by plain f64 runs of its
+   micro-batches, the f32 noise floor below the tolerance and rank 0's
+   unreduced gradient above it), a TEST WER file naming each utterance
+   once from disjoint shards; (c') two ranks ``--test_only``
+   reproducing it; every batch launches what its shapes imply and each
+   rank holds its kernels against their plain versions (the ranks are
+   ``chip_smoke.py --ddp_worker DIR ARGS``); ms per micro-batch, the
+   all-reduce's ms (CUDA events) and bytes, the device-busy share of a
+   profiled micro-batch and audio-s/s of two ranks against one;
+12. a small model on the card against the same model on the CPU:
    serving encoder output (the CPU side twice, each hash logged with the
    host CPU's model and torch's thread count), and 2 optimizer steps of
    training at dropout 0.
@@ -4726,6 +4744,498 @@ def phase_run_flags(device, card, corpus):
     return dict(counts)
 
 
+# data parallelism (phase_ddp): the scratch yaml at full width, one
+# process in place against the launcher's one NCCL rank and two gloo
+# ranks sharing the card
+DDP_STEPS = 2                 # optimizer steps, at accumulation 2
+DDP_ACCUMULATION = 2
+# the debug cut of TEST: the split's first 6 mixtures, 12 utterances of
+# one a batch, so two ranks decode 6 batches each, greedy (the beam has
+# its own phases); VALID's: its first 12 mixtures, in dynamic batches
+DDP_TEST_MIXTURES = 6
+DDP_VALID_MIXTURES = 12
+DDP_LOSS_RTOL = 1e-5
+DDP_GRAD_NCCL = 1e-6          # of each leaf's max |g|: (b) against (a)
+# (c) against (a), of each leaf's max |g|: the training phase's rule
+# (GRAD_TIGHT_REL, the kink set at GRAD_ATOL_REL), since splitting the
+# row sums moves the frontend's convolution gradients past 1e-4 in f32
+# (up to 2.9e-4 with no kink in reach, on an H100 80GB HBM3 at 700 W);
+# the elements past this are counted and printed
+DDP_GRAD_SPLIT = 1e-4
+DDP_PROFILED = 4              # the micro-batch each run profiles
+DDP_LAUNCH_TIMEOUT = 300
+# appended to every run's arguments (a CPU rehearsal narrows the model)
+DDP_OVERRIDES = []
+
+
+def ddp_corpus(corpus, folder):
+    """``corpus`` with its VALID and TEST splits cut to their first
+    DDP_VALID_MIXTURES and DDP_TEST_MIXTURES mixtures (the speakers'
+    folders linked, not copied)."""
+    folder.mkdir()
+    cut = {EXPERIMENT_SPLITS[1]: DDP_VALID_MIXTURES,
+           EXPERIMENT_SPLITS[2]: DDP_TEST_MIXTURES}
+    for entry in Path(corpus).iterdir():
+        if entry.suffix == ".jsonl":
+            lines = entry.read_text().splitlines(keepends=True)
+            lines = lines[:cut.get(entry.stem, len(lines))]
+            (folder / entry.name).write_text("".join(lines))
+        else:
+            (folder / entry.name).symlink_to(entry.resolve())
+    return folder
+
+
+def ddp_args(corpus, out, device, *extra):
+    """The scratch yaml's arguments of one phase_ddp run."""
+    root = Path(__file__).resolve().parent
+    return [str(root / EXPERIMENT_YAML), "--data_folder", str(corpus),
+            "--output_folder", str(out), "--fused_attention", "True",
+            "--valid_search_freq", "1", "--noprogressbar",
+            "--vocab_size", str(corpus_vocab(corpus)), "--num_epochs", "1",
+            "--dropout", "0.0",
+            "--grad_accumulation_factor", str(DDP_ACCUMULATION),
+            "--optimizer_step_limit", str(DDP_STEPS),
+            "--test_max_batch_length", "0.5", "--beam_size", "1",
+            "--device", device, *extra,
+            *DDP_OVERRIDES]
+
+
+def ddp_run(result_dir, argv, keep=None, hold=True):
+    """One run of the scratch entry module with ``argv`` in this process,
+    alone or as a launched rank: every batch launches what its shapes
+    imply, the kernels it launched are then held against their plain
+    versions on its own tensors. Records each micro-batch's loss, host
+    ms, loader wait and audio seconds, the all-reduce's ms (CUDA events)
+    and bytes, a profile of micro-batch DDP_PROFILED (device busy), the
+    TEST batches it decoded, its launches; rank 0 saves the first
+    optimizer step's accumulated gradient as ``grad.pt``. ``keep`` (a
+    dict) receives the Brain, a copy of its model before the first step
+    and the first step's micro-batches; ``hold=False`` leaves the kernels
+    unchecked (a run that another repeats bit for bit). Returns the
+    record, also written as ``rank{r}.json``."""
+    import torch
+    from tsasr_torch import train_librispeechmix_scratch as entry
+    from tsasr_torch.parallel import distributed
+    from tsasr_torch.recipes.librispeechmix import TSASRBrain
+
+    result_dir = Path(result_dir)
+    record = collections.defaultdict(list)
+    brains, reduce_events, local = [], [], []
+    patched = {name: getattr(TSASRBrain, name) for name in
+               ("on_fit_start", "_update", "evaluate_batch_extra")}
+    all_reduce = distributed.all_reduce_sum
+
+    def started(self):
+        brains.append(self)
+        return patched["on_fit_start"](self)
+
+    def update(self, params):
+        if self.optimizer_step == 0 and distributed.if_main_process():
+            torch.save([a.detach().cpu() for a in self._acc],
+                       result_dir / "grad.pt")
+            if local:
+                # the planted fault: rank 0's rows alone, unreduced
+                mean = sum(local) / len(local)
+                torch.save([part.view_as(a) for part, a in zip(
+                    torch.split(mean, [a.numel() for a in self._acc]),
+                    self._acc)], result_dir / "grad_local.pt")
+        return patched["_update"](self, params)
+
+    def decoded(self, batch, arrays, predictions, stage):
+        if stage.name == "TEST":
+            record["test_keys"].extend(batch.id)
+        return patched["evaluate_batch_extra"](self, batch, arrays,
+                                               predictions, stage)
+
+    def timed_all_reduce(tensor):
+        if tensor.numel() >= 1024 and len(local) < DDP_ACCUMULATION and \
+                distributed.world_size() > 1 and distributed.rank() == 0:
+            local.append(tensor.detach().cpu().clone())
+        if tensor.numel() < 1024 or not tensor.is_cuda:
+            if tensor.numel() >= 1024:
+                t0 = time.perf_counter()
+                all_reduce(tensor)
+                record["allreduce_host_ms"].append(
+                    (time.perf_counter() - t0) * 1e3)
+                record["allreduce_bytes"] = tensor.numel() * \
+                    tensor.element_size()
+                return tensor
+            return all_reduce(tensor)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        all_reduce(tensor)
+        end.record()
+        reduce_events.append((start, end))
+        record["allreduce_bytes"] = tensor.numel() * tensor.element_size()
+        return tensor
+
+    on_card = argv[argv.index("--device") + 1].startswith("cuda")
+    t0 = time.perf_counter()
+    with captured_kernel_calls() as seen:
+        with counted_batches(TSASRBrain, on_card) as (counts, timings):
+            fit = TSASRBrain.fit_batch      # counted_batches' wrapper
+
+            def fit_batch(self, batch):
+                n = len(record["losses"]) + 1
+                if keep is not None and n <= DDP_ACCUMULATION:
+                    if n == 1:
+                        import copy
+                        keep["model0"] = copy.deepcopy(self.model)
+                    keep.setdefault("batches", []).append(batch)
+                seconds = float((batch.mixed_sig.lengths
+                                 * batch.mixed_sig.data.shape[1]).sum()
+                                / SAMPLE_RATE)
+                record["audio_s"].append(seconds)
+                if n == DDP_PROFILED and self.device.type == "cuda":
+                    out = []
+                    wall, events = profiled(lambda: out.append(
+                        fit(self, batch)))
+                    record["profiled"] = {
+                        "wall_ms": wall,
+                        "device_ms": sum(device_us(e) for e in events) / 1e3,
+                        "launches": sum(e.count for e in events)}
+                    loss = out[0]
+                else:
+                    loss = fit(self, batch)
+                record["losses"].append(loss)
+                return loss
+
+            TSASRBrain.fit_batch = fit_batch
+            TSASRBrain.on_fit_start = started
+            TSASRBrain._update = update
+            TSASRBrain.evaluate_batch_extra = decoded
+            distributed.all_reduce_sum = timed_all_reduce
+            try:
+                with deterministic_algorithms(True):
+                    entry.main(argv)
+            finally:
+                for name, fn in patched.items():
+                    setattr(TSASRBrain, name, fn)
+                TSASRBrain.fit_batch = fit
+                distributed.all_reduce_sum = all_reduce
+        launches = read_counts()
+        [brain] = brains
+        if keep is not None:
+            keep["brain"] = brain
+        if on_card:
+            torch.cuda.synchronize()
+        record["seconds"] = time.perf_counter() - t0
+        worst = check_path_kernels(seen) if hold else None
+    record.update(
+        rank=distributed.rank(), world=distributed.world_size(),
+        place=distributed.describe(), device=str(brain.device),
+        launches=launches, worst=worst,
+        batches={k: v["batches"] for k, v in counts.items()},
+        fit_ms=[t * 1e3 for t in timings["fit_batch_s"]],
+        wait_ms=[t * 1e3 for t in timings["loader_wait_s"]],
+        allreduce_ms=[s.elapsed_time(e) for s, e in reduce_events],
+        shapes={"attention": len(seen["attention"]),
+                "lattice": sorted(seen["lattice"])},
+        optimizer_step=brain.optimizer_step)
+    record = dict(record)
+    (result_dir / f"rank{record['rank']}.json").write_text(
+        json.dumps(record))
+    return record
+
+
+def ddp_worker(result_dir, argv):
+    """``chip_smoke.py --ddp_worker DIR ARGS``: a launched rank's
+    ``ddp_run`` (the launcher starts one per rank)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    record = ddp_run(result_dir, argv)
+    log(f"ddp worker rank {record['rank']} of {record['world']} done: "
+        f"{record['place']} on {record['device']}, {record['seconds']:.1f} s")
+    return 0
+
+
+def ddp_launch(result_dir, nproc, argv):
+    """The scratch yaml on ``nproc`` ranks through ``python -m
+    tsasr_torch.parallel.launch``, each rank a ``ddp_worker``; returns
+    the ranks' records and the launch's wall seconds."""
+    import os
+    root = Path(__file__).resolve().parent
+    result_dir.mkdir(parents=True)
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR",
+                        "MASTER_PORT")}
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "tsasr_torch.parallel.launch",
+         "--nproc_per_node", str(nproc), "--log_dir",
+         str(result_dir / "logs"), str(root / "chip_smoke.py"),
+         "--ddp_worker", str(result_dir), *argv],
+        cwd=root, env=env, capture_output=True, text=True,
+        timeout=DDP_LAUNCH_TIMEOUT)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(proc.stdout[-6000:], file=sys.stderr)
+        raise RuntimeError(f"the {nproc}-rank launch exited "
+                           f"{proc.returncode}")
+    return [json.loads((result_dir / f"rank{r}.json").read_text())
+            for r in range(nproc)], seconds
+
+
+def ddp_f64_step(keep):
+    """The first optimizer step's gradient (the mean of
+    ``keep["batches"]``' gradients) in plain f64 on the weights before
+    the step, and the elements held loosely by check_gradients' rule:
+    those whose gradient a flip of a pre-activation within KINK_Z of
+    leaky_relu's kink (the joint's inside the fused loss too) could move
+    by more than half of GRAD_TIGHT_REL of the leaf's max |g|. Returns
+    (the f64 gradient and the masks by leaf, on the CPU, the
+    pre-activations near the kink, all of them)."""
+    import copy
+    import torch
+    from tsasr_torch.recipes.librispeechmix import TSASRBrain
+    brain = keep["brain"]
+    wide = TSASRBrain(modules={"model": copy.deepcopy(keep["model0"])},
+                      hparams=dict(vars(brain.hparams)),
+                      run_opts={"device": str(brain.device)},
+                      variant=brain.variant, tokenizer=brain.tokenizer)
+    wide.model.double()
+    wide.fbank.double()
+    bounds, counted, step = {}, [0, 0], None
+    n = len(keep["batches"])
+    with plain_kernels():
+        for batch in keep["batches"]:
+            seen, store = [], {}
+
+            def capture(key, module, x, z):
+                near = z.detach().abs() < KINK_Z
+                counted[0] += int(near.sum())
+                counted[1] += near.numel()
+                z.register_hook(lambda g: seen.append(
+                    (key[0], module, x.detach(), z.detach(), near,
+                     g.detach())))
+
+            with pre_activation_hooks(wide.model, capture), \
+                    joint_producers(wide.model, store):
+                _, grads = loss_and_grads(wide, batch, torch.float64)
+            step = [g.cpu() / n for g in grads] if step is None else \
+                [a + g.cpu() / n for a, g in zip(step, grads)]
+            joint, _, near_j, inside_j = joint_kink_bounds(wide, batch, store)
+            counted[0] += int((near_j & inside_j).sum())
+            counted[1] += int(inside_j.sum())
+            for name, bound in [*kink_bounds(seen).items(), *joint.items()]:
+                bounds[name] = bounds.get(name, 0.0) + bound.cpu() / n
+            del seen, store, grads
+    names = [n for n, _ in wide.model.named_parameters()]
+    del wide
+    loose = [(bounds[n] > 0.5 * GRAD_TIGHT_REL * w.abs().max())
+             if n in bounds else torch.zeros_like(w, dtype=torch.bool)
+             for n, w in zip(names, step)]
+    return step, loose, counted[0], counted[1]
+
+
+def ddp_grad_errors(got, want, loose, names):
+    """(worst error of the tightly held elements, of the loosely held
+    ones, bit for bit, the elements past DDP_GRAD_SPLIT by leaf): each of
+    the leaf's max |want|."""
+    import torch
+    scales = scale_leaves(names)
+    tight = held_errors(got, want, loose, False, scales)
+    slack = held_errors(got, want, loose, True, scales)
+    over = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        err = (g.double() - w.double()).abs() / w.double().abs().max(
+        ).clamp(min=1e-30)
+        past = int((err > DDP_GRAD_SPLIT).sum())
+        if past:
+            over.append((past, f"{names[i]} {past} of {w.numel()} (max "
+                         f"{err.max().item():.3g}, "
+                         f"{int((loose[i] & (err > DDP_GRAD_SPLIT)).sum())} "
+                         "in the kink set)"))
+    same = len(got) == len(want) and all(
+        torch.equal(g, w) for g, w in zip(got, want))
+    over.sort(key=lambda x: -x[0])
+    line = (f"{sum(n for n, _ in over)} elements in {len(over)} leaves, "
+            "most in " + "; ".join(t for _, t in over[:4])) if over \
+        else "none"
+    return max(tight), max(slack), same, line
+
+
+def ddp_readings(name, rec, card):
+    """One run's timing lines."""
+    warm = slice(1, DDP_PROFILED - 1)     # not the first, not the profiled
+    through = [a + b for a, b in zip(rec["fit_ms"], rec["wait_ms"])]
+    audio = sum(rec["audio_s"][warm]) / max(sum(through[warm]) / 1e3, 1e-9)
+    reduce_ms = rec.get("allreduce_ms") or []
+    prof = rec.get("profiled")
+    busy = (f"device busy {prof['device_ms']:.1f} of {prof['wall_ms']:.1f} "
+            f"ms wall ({100 * prof['device_ms'] / prof['wall_ms']:.1f} %, "
+            f"{prof['launches']} launches; micro-batch {DDP_PROFILED}, "
+            "the profiler on)" if prof else "device busy not measured")
+    log(f"ddp {name}: {rec['place']} on {rec['device']}: ms per micro-batch "
+        f"through the loader " + ", ".join(f"{x:.1f}" for x in through)
+        + f" (fit_batch " + ", ".join(f"{x:.1f}" for x in rec["fit_ms"])
+        + f"); audio-s/s {audio:.1f} over micro-batches 2-"
+        f"{DDP_PROFILED - 1}; all-reduce "
+        + (", ".join(f"{x:.2f}" for x in reduce_ms) + " ms (events)"
+           if reduce_ms else "none on the card")
+        + f" of {rec.get('allreduce_bytes', 0) / 1e6:.1f} MB; {busy}; "
+        f"the run {rec['seconds']:.1f} s [{card}]")
+    return audio
+
+
+def phase_ddp(device, card, corpus):
+    """Data-parallel training and evaluation of the scratch yaml at full
+    width, 2 optimizer steps of 2 micro-batches at dropout 0, VALID
+    greedy, TEST greedy on a debug cut of its split: (a) one
+    process in place; (b) the launcher's one rank on ``cuda`` over NCCL;
+    (c) two ranks sharing ``cuda:0`` over gloo, then (c') two ranks
+    ``--test_only``. (b) must give (a)'s losses and WER file and its first
+    step's gradient within DDP_GRAD_NCCL; (c) each loss within
+    DDP_LOSS_RTOL, the gradient by the training phase's rule
+    (GRAD_TIGHT_REL, the kink set of ``ddp_f64_step`` at GRAD_ATOL_REL;
+    the f32 noise floor, (a) against plain f64, below it and a planted
+    fault, rank 0's rows unreduced, above it), a TEST WER file naming
+    every utterance once from disjoint shards, which (c') reproduces. Every run's batches launch what their shapes imply and
+    each rank holds its kernels against their plain versions. Returns
+    the launch counts of all runs."""
+    import torch
+    on_card = device.type == "cuda"
+    counts = collections.Counter()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="tsasr_ddp_") as tmp:
+        tmp = Path(tmp)
+        data = ddp_corpus(corpus, tmp / "corpus")
+        (tmp / "a").mkdir()
+        reset_counts()
+        keep = {}
+        # (b) repeats (a) bit for bit and holds its kernels
+        one = ddp_run(tmp / "a", ddp_args(data, tmp / "a" / "out",
+                                          str(device)), keep, hold=False)
+        counts.update(one["launches"])
+        want = torch.load(tmp / "a" / "grad.pt", weights_only=True)
+        t_kink = time.perf_counter()
+        step64, loose, n_near, n_pre = ddp_f64_step(keep)
+        t_kink = time.perf_counter() - t_kink
+        names = [n for n, _ in keep["model0"].named_parameters()]
+        del keep
+        if on_card:
+            torch.cuda.empty_cache()
+        [nccl], nccl_s = ddp_launch(tmp / "b", 1, ddp_args(
+            data, tmp / "b" / "out", "cuda" if on_card else "cpu"))
+        [c0, c1], gloo_s = ddp_launch(tmp / "c", 2, ddp_args(
+            data, tmp / "c" / "out", "cuda:0" if on_card else "cpu",
+            "--data_parallel_count", "2"))
+        wer_c = (tmp / "c" / "out" / "wer_test-clean-2mix.txt").read_text()
+        (tmp / "c" / "out" / "wer_test-clean-2mix.txt").rename(
+            tmp / "c" / "first_wer.txt")
+        test_only, test_only_s = ddp_launch(tmp / "c2", 2, ddp_args(
+            data, tmp / "c" / "out", "cuda:0" if on_card else "cpu",
+            "--test_only"))
+        wer_again = (tmp / "c" / "out" /
+                     "wer_test-clean-2mix.txt").read_text()
+        for rec in (nccl, c0, c1, *test_only):
+            counts.update(rec["launches"])
+        errs = {name: ddp_grad_errors(torch.load(
+                    tmp / path, weights_only=True), want, loose, names)
+                for name, path in (("b", "b/grad.pt"), ("c", "c/grad.pt"),
+                                   ("fault", "c/grad_local.pt"))}
+        errs["floor"] = ddp_grad_errors(want, step64, loose, names)
+        del step64
+        wer_a = (tmp / "a" / "out" / "wer_test-clean-2mix.txt").read_text()
+        wer_b = (tmp / "b" / "out" / "wer_test-clean-2mix.txt").read_text()
+        del want
+    n_loose = sum(int(m.sum()) for m in loose)
+    n_all = sum(m.numel() for m in loose)
+    keys = [block.split(",")[0] for block in
+            wer_c.split("=" * 80)[2:] if block.strip()]
+    n_test = 2 * DDP_TEST_MIXTURES
+    shards = [set(c0["test_keys"]), set(c1["test_keys"])]
+    loss_err = max(abs(x - y) / abs(y) for rec in (c0, c1)
+                   for x, y in zip(rec["losses"], one["losses"]))
+    log(f"ddp: the scratch yaml at full width, {DDP_STEPS} optimizer steps "
+        f"of {DDP_ACCUMULATION} micro-batches (dropout 0, the yaml's "
+        f"augmentation, deterministic algorithms), VALID greedy, TEST "
+        f"greedy on {n_test} utterances; runs (a) in place "
+        f"{one['seconds']:.1f} s, (b) 1 rank {nccl_s:.1f} s, (c) 2 ranks "
+        f"{gloo_s:.1f} s, (c') 2 ranks --test_only {test_only_s:.1f} s "
+        f"(launches: process start, imports, the run and its kernel "
+        f"checks)")
+    log(f"ddp losses: (a) {one['losses']}; (b) {nccl['losses']}; (c) "
+        f"{c0['losses']} / {c1['losses']} (worst (c) vs (a) {loss_err:.3g} "
+        f"relative, tol {DDP_LOSS_RTOL})")
+    log(f"ddp first-step gradient: held loosely {n_loose} of {n_all} "
+        f"elements (cap {KINK_LOOSE_SHARE:.2%}), those a flip of the "
+        f"{n_near} of {n_pre} pre-activations within |z| < {KINK_Z} of "
+        f"leaky_relu's kink in the plain f64 runs of its {DDP_ACCUMULATION} "
+        f"micro-batches could move by more than {0.5 * GRAD_TIGHT_REL:.3g} "
+        f"of the leaf's max |g|; the f64 runs took {t_kink:.1f} s")
+    for name, what, tol in (
+            ("b", "(b) vs (a)", f"{DDP_GRAD_NCCL} both"),
+            ("c", "(c) vs (a)", f"{GRAD_TIGHT_REL} tight, {GRAD_ATOL_REL} "
+             "loosely"),
+            ("floor", "the f32 noise floor, (a) vs plain f64",
+             f"below {GRAD_TIGHT_REL} tight"),
+            ("fault", "a planted fault, (c) rank 0's rows unreduced vs (a)",
+             f"above {GRAD_TIGHT_REL} tight")):
+        tight, slack, same, over = errs[name]
+        log(f"ddp first-step gradient, {what}, of each leaf's max |g|: held "
+            f"tight worst {tight:.3g}, loosely {slack:.3g} (tol {tol}); bit "
+            f"for bit {same}; past {DDP_GRAD_SPLIT}: {over}")
+    log(f"ddp TEST: (c) WER file {len(keys)} entries, {len(set(keys))} "
+        f"distinct of {n_test}; shards {len(shards[0])} + {len(shards[1])}, "
+        f"shared {sorted(shards[0] & shards[1])}; (c') --test_only WER file "
+        f"equal {wer_again == wer_c}; (b) WER file equal to (a)'s "
+        f"{wer_b == wer_a}")
+    audio = {}
+    for name, rec in (("(a) in place", one), ("(b) NCCL, 1 rank", nccl),
+                      ("(c) gloo, rank 0 of 2 on one card", c0),
+                      ("(c) gloo, rank 1 of 2 on one card", c1)):
+        audio[name] = ddp_readings(name, rec, card)
+    log(f"ddp audio-s/s two ranks on one card / one rank: "
+        f"{audio['(c) gloo, rank 0 of 2 on one card'] / audio['(b) NCCL, 1 rank']:.2f}"
+        f" x [{card}]")
+    log(f"ddp kernels of (a): batches {one['batches']}, launches "
+        f"{one['launches']}, as (b)'s, which holds them")
+    for rec in (nccl, c0, c1, *test_only):
+        log(f"ddp kernels of {rec['place']} "
+            f"({'test_only' if rec in test_only else 'train'}): "
+            f"batches {rec['batches']}, launches {rec['launches']}; against "
+            f"their plain versions on its own tensors: attention at "
+            f"{rec['shapes']['attention']} shapes, worst fwd "
+            f"{rec['worst']['fwd']:.3g} / bwd {rec['worst']['bwd']:.3g} of "
+            f"max (atol {ATTN_ATOL}); lattice at "
+            f"{len(rec['shapes']['lattice'])} shapes, worst err/tol "
+            f"{rec['worst']['lattice']:.3g}")
+    failures = []
+    if one["losses"] != nccl["losses"] or wer_b != wer_a or \
+            one["launches"] != nccl["launches"]:
+        failures.append("(b)'s losses, WER file or launches are not (a)'s")
+    if errs["b"][0] > DDP_GRAD_NCCL or errs["b"][1] > DDP_GRAD_NCCL:
+        failures.append("(b)'s gradient is not (a)'s")
+    if errs["c"][0] > GRAD_TIGHT_REL or errs["c"][1] > GRAD_ATOL_REL \
+            or loss_err > DDP_LOSS_RTOL:
+        failures.append("(c)'s gradient or losses are not (a)'s")
+    if not errs["floor"][0] < GRAD_TIGHT_REL < errs["fault"][0] or \
+            errs["floor"][1] > GRAD_ATOL_REL:
+        failures.append("the tolerance is not between the f32 noise floor "
+                        "and the planted fault")
+    if n_loose > KINK_LOOSE_SHARE * n_all:
+        failures.append(f"{n_loose} elements held loosely")
+    if sorted(keys) != sorted(set(keys)) or len(keys) != n_test or \
+            shards[0] & shards[1] or len(shards[0] | shards[1]) != n_test:
+        failures.append("(c)'s TEST is not every utterance once from "
+                        "disjoint shards")
+    if wer_again != wer_c:
+        failures.append("(c')'s --test_only did not reproduce the WER file")
+    steps = {rec["optimizer_step"] for rec in (one, nccl, c0, c1)}
+    if steps != {DDP_STEPS} or len(one["losses"]) != \
+            DDP_STEPS * DDP_ACCUMULATION:
+        failures.append(f"optimizer steps {steps}")
+    if not {nccl["place"], c0["place"]} >= {
+            "rank 0 of 1 over nccl" if on_card else "rank 0 of 1 over gloo",
+            "rank 0 of 2 over gloo"}:
+        failures.append(f"backends {nccl['place']}, {c0['place']}")
+    if failures:
+        raise RuntimeError("phase_ddp: " + "; ".join(failures))
+    log(f"ddp phase: {time.perf_counter() - t0:.1f} s; launches {dict(counts)}")
+    return dict(counts)
+
+
 def phase_small(device):
     """A small model on the card (kernels) against the CPU (plain):
     serving encoder output, then 2 optimizer steps of training."""
@@ -4934,6 +5444,8 @@ def kernel_entry(name, source, replaces, launches, by_path, row, shape):
 
 
 def main():
+    if sys.argv[1:2] == ["--ddp_worker"]:
+        return ddp_worker(sys.argv[2], sys.argv[3:])
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4998,6 +5510,8 @@ def main():
         run_flags = phase_run_flags(device, card, corpus)
         log(f"run flags phase done at {time.perf_counter() - t_start:.1f} "
             "s")
+        ddp = phase_ddp(device, card, corpus)
+        log(f"ddp phase done at {time.perf_counter() - t_start:.1f} s")
     switches = phase_switches(device, card)
     log(f"switches phase done at {time.perf_counter() - t_start:.1f} s")
     phase_small(device)
@@ -5011,7 +5525,8 @@ def main():
                 "variants": variants[name],
                 "streaming": streaming[name],
                 "switches": switches[name],
-                "run_flags": run_flags[name]}
+                "run_flags": run_flags[name],
+                "ddp": ddp[name]}
 
     fwd, bwd = fwd_rows[0], next(r for r in bwd_rows if r["T"] == 208)
     kernels = [
@@ -5042,7 +5557,8 @@ def main():
                           ("relpos_attention_bwd_bf16", bf16_bwd, 208)):
         row = next(r for r in rows if r["T"] == t)
         line = 128 if "fwd" in name else 143
-        by_path = dict(bf16_counts[name], run_flags=run_flags[name])
+        by_path = dict(bf16_counts[name], run_flags=run_flags[name],
+                       ddp=ddp.get(name, 0))
         kernels.append(kernel_entry(
             name, f"tsasr_torch/csrc/relpos_attention_{name[17:20]}.cu",
             f"tsasr_tpu/ops/attention_pallas.py:{line}",

@@ -2,10 +2,13 @@
 
 The port runs on the card unless the caller asks for the CPU: the
 default is ``"cuda"``, and asking for CUDA on a host without it raises
-instead of falling back.
+instead of falling back. In a launched run a bare ``"cuda"`` is the
+rank's own card, ``cuda:{LOCAL_RANK}`` (``parallel.distributed``).
 """
 
 import torch
+
+from tsasr_torch.parallel.distributed import rank_device
 
 
 def resolve_device(device="cuda"):
@@ -27,6 +30,7 @@ def resolve_device(device="cuda"):
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
             False
+        device = rank_device(device)
     elif device.type != "cpu":
         raise ValueError(f"unsupported device {str(device)!r}")
     return device

@@ -18,7 +18,9 @@ Semantics kept from the JAX functions:
   masks, then the time masks, per example, with
   ``max_pos = max(1, D - lengths.max())`` over the whole batch; masked
   values take the mean of the whole padded batch (after the warp), or 0
-  with ``replace_with_zero``; an empty width range is the identity.
+  with ``replace_with_zero``; an empty width range is the identity. A
+  rank of a data-parallel step draws for the global batch and applies
+  its rows' draws (``take_rows``), the mean that of the global batch.
 - ``speed_perturb``: one speed for the whole batch; 100 is the identity,
   any other speed resamples 100 -> speed with ``resample_device``; a
   speed below 100 gives fewer samples, zero-padded to the input length
@@ -87,6 +89,15 @@ def draw_spec_augment(generator, shape, time_warp=True, time_warp_window=5,
     }
 
 
+def take_rows(draws, rows):
+    """The draws of ``draw_spec_augment`` for the rows ``rows`` (indices
+    into the batch they were drawn for); the warp is the batch's."""
+    rows = torch.as_tensor(rows, dtype=torch.int64)
+    return {key: (value if key == "warp" or value is None
+                  else tuple(m[rows] for m in value))
+            for key, value in draws.items()}
+
+
 def _cubic_weight(t, a=CUBIC_A):
     """torch's cubic convolution kernel (upsample bicubic, a = -0.75)."""
     t = t.abs()
@@ -147,13 +158,15 @@ def apply_masks(x, masks, dim, fill):
     return torch.where(mask, fill, x)
 
 
-def apply_spec_augment(x, draws, replace_with_zero=False):
+def apply_spec_augment(x, draws, replace_with_zero=False, mean=torch.mean):
     """SpecAugment of x (B, T, F) with the draws of
-    ``draw_spec_augment``: time warp, frequency masks, time masks."""
+    ``draw_spec_augment``: time warp, frequency masks, time masks. The
+    masks' fill is ``mean`` of the warped batch (a data-parallel rank
+    passes the global batch's), or 0 with ``replace_with_zero``."""
     if draws["warp"] is not None:
         x = apply_time_warp(x, *draws["warp"])
     fill = torch.zeros((), dtype=x.dtype, device=x.device) \
-        if replace_with_zero else x.mean()
+        if replace_with_zero else mean(x)
     if draws["freq"] is not None:
         x = apply_masks(x, draws["freq"], 2, fill)
     if draws["time"] is not None:
@@ -192,7 +205,7 @@ def resample_device(wav, orig_freq, new_freq):
     B, L = wav.shape
     target_len = int(math.ceil(nf * L / of))
     padded = F.pad(wav, (width, width + of))
-    weight = torch.from_numpy(kernels).to(wav.device)[:, None, :]
+    weight = torch.from_numpy(kernels).to(wav.device, wav.dtype)[:, None, :]
     out = _conv1d_f32(padded[:, None, :], weight, of)      # (B, nf, frames)
     return out.transpose(1, 2).reshape(B, -1)[:, :target_len]
 

@@ -1,2 +1,3 @@
-"""Process-group helpers. The port runs one process on one card; DDP is
-not ported yet."""
+"""Data parallelism over ``torch.distributed``: process-group helpers
+(``distributed``), the launcher (``launch``) and the data axis's batch
+layout (``mesh``)."""

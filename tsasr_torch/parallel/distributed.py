@@ -1,18 +1,186 @@
-"""Process-group helpers of a single-process run.
+"""Process-group helpers over ``torch.distributed``.
 
-The JAX package's ``parallel/distributed.py`` runs a function on process
-0, then waits at a barrier; the port runs one process, so every helper
-here is that case's identity. DDP over ``torch.distributed`` is not
-ported yet.
+The port of the JAX package's ``parallel/distributed.py``. JAX runs one
+process per host, joined by ``jax.distributed.initialize``; the port
+runs one process per device (PyTorch's idiom), joined by
+``init_process_group`` from the ``env://`` variables that
+``python -m tsasr_torch.parallel.launch`` (or ``torchrun``) sets:
+``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``, ``MASTER_ADDR`` and
+``MASTER_PORT``. Without them every helper is the one-process identity.
+
+The device names the backend, and nothing falls back:
+
+- ``cpu``: gloo;
+- ``cuda``: ``cuda:{LOCAL_RANK}`` with NCCL; a rank whose local rank has
+  no card raises (ranks are never wrapped onto a shared card);
+- ``cuda:N``, given to every rank: the ranks share card N over gloo
+  (NCCL refuses two ranks on one device; gloo all-reduces CUDA tensors
+  through the host).
+
+Process 0 is the main process: it writes the experiment's files
+(``run_on_main``, then a barrier); ``all_gather_object`` merges the
+ranks' evaluation results and ``broadcast_object`` hands process 0's
+decisions (a checkpoint's name, the intra-epoch save by minutes) to all.
 """
+
+import logging
+import os
+
+import torch
+import torch.distributed as dist
+
+logger = logging.getLogger(__name__)
+
+ENV_KEYS = ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+
+
+def is_distributed():
+    """Whether this process has joined a process group."""
+    return dist.is_available() and dist.is_initialized()
+
+
+def rank():
+    return dist.get_rank() if is_distributed() else 0
+
+
+def world_size():
+    return dist.get_world_size() if is_distributed() else 1
+
+
+def local_rank():
+    return int(os.environ.get("LOCAL_RANK", os.environ.get("RANK", "0")))
+
+
+def rank_device(device):
+    """The torch device this rank runs on for ``device``: a bare ``cuda``
+    in a launched run is ``cuda:{LOCAL_RANK}``, which must exist; any
+    other device is itself."""
+    device = torch.device(device)
+    if device.type != "cuda" or device.index is not None or \
+            "WORLD_SIZE" not in os.environ:
+        return device
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    index = local_rank()
+    if index >= n:
+        raise RuntimeError(
+            f"rank with LOCAL_RANK {index} asks for cuda:{index}, but this "
+            f"host has {n} CUDA device(s); launch at most {n} ranks per "
+            "node, or give every rank --device cuda:N to share card N "
+            "over gloo")
+    return torch.device("cuda", index)
+
+
+def backend_for(device):
+    """(backend, this rank's device) for ``device``: gloo on the CPU and
+    for ranks that share a named card, NCCL for ``cuda``."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return "gloo", device
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {str(device)!r}")
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"device={str(device)!r} was asked for but CUDA "
+                           "is not available; pass --device cpu to run the "
+                           "ranks on the CPU")
+    if device.index is not None:
+        return "gloo", device
+    return "nccl", rank_device(device)
+
+
+def maybe_init_distributed(device="cuda"):
+    """Join the process group the launcher announced, before anything
+    touches a device; the backend follows ``device`` (``backend_for``).
+    Does nothing without ``WORLD_SIZE`` in the environment or once
+    joined. Returns whether this process is in a group. A rank that
+    cannot join raises."""
+    if is_distributed():
+        return True
+    if "WORLD_SIZE" not in os.environ:
+        return False
+    missing = [k for k in ENV_KEYS if k not in os.environ]
+    if missing:
+        raise RuntimeError(f"a launched run needs {missing} in its "
+                           "environment (python -m "
+                           "tsasr_torch.parallel.launch sets them)")
+    backend, here = backend_for(device)
+    if here.type == "cuda":
+        torch.cuda.set_device(here)
+    dist.init_process_group(backend, init_method="env://",
+                            world_size=int(os.environ["WORLD_SIZE"]),
+                            rank=int(os.environ["RANK"]))
+    logger.info("distributed: rank %d of %d on %s over %s", rank(),
+                world_size(), here, backend)
+    return True
+
+
+def describe():
+    """This process's place: its rank, the world size and the backend."""
+    if not is_distributed():
+        return "one process"
+    return f"rank {rank()} of {world_size()} over {dist.get_backend()}"
 
 
 def if_main_process():
-    return True
+    return rank() == 0
 
 
 def run_on_main(func, args=None, kwargs=None, post_func=None,
                 post_args=None, post_kwargs=None):
-    """Run ``func``; ``post_func`` is for the other processes, of which
-    there are none."""
-    func(*(args or ()), **(kwargs or {}))
+    """Run ``func`` on process 0, wait at a barrier, then run
+    ``post_func`` on the other processes."""
+    if if_main_process():
+        func(*(args or ()), **(kwargs or {}))
+    ddp_barrier()
+    if not if_main_process() and post_func is not None:
+        post_func(*(post_args or ()), **(post_kwargs or {}))
+
+
+def ddp_barrier():
+    """Wait for every process (nothing to wait for in one)."""
+    if world_size() > 1:
+        dist.barrier()
+
+
+def all_gather_object(obj):
+    """Every process's picklable ``obj``, in rank order."""
+    if world_size() <= 1:
+        return [obj]
+    out = [None] * world_size()
+    dist.all_gather_object(out, obj)
+    return out
+
+
+def broadcast_object(obj, src=0):
+    """Process ``src``'s picklable ``obj`` on every process."""
+    if world_size() <= 1:
+        return obj
+    box = [obj]
+    dist.broadcast_object_list(box, src=src)
+    return box[0]
+
+
+def all_reduce_sum(tensor):
+    """Sum ``tensor`` over the processes, in place; in a group of one the
+    collective still runs (the identity)."""
+    if is_distributed():
+        dist.all_reduce(tensor, op=dist.ReduceOp.SUM)
+    return tensor
+
+
+def broadcast_module(module, src=0):
+    """Give every process ``module``'s parameters and buffers as process
+    ``src`` holds them: one broadcast of a flat buffer per dtype."""
+    if world_size() <= 1:
+        return
+    groups = {}
+    for t in module.state_dict(keep_vars=True).values():
+        if torch.is_tensor(t) and t.numel():
+            groups.setdefault(t.dtype, []).append(t)
+    for dtype in sorted(groups, key=str):
+        flat = torch.cat([t.detach().reshape(-1) for t in groups[dtype]])
+        dist.broadcast(flat, src=src)
+        offset = 0
+        with torch.no_grad():
+            for t in groups[dtype]:
+                t.copy_(flat[offset:offset + t.numel()].view_as(t))
+                offset += t.numel()

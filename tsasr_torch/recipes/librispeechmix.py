@@ -57,13 +57,27 @@ checkpointed).
   ``pretrained`` variant embeds the enrollment waveforms on the device,
   so no ``speaker_emb`` item (the JAX ``torch_cache`` backend's) is made;
   ``model_path`` warm-starts the model and ``--profile`` traces the run
-  (see ``run_experiment``).
+  (see ``run_experiment``);
+- data parallelism, in a run launched by ``python -m
+  tsasr_torch.parallel.launch`` (the JAX recipe's ``:645-666``): TRAIN
+  is the Brain's (each rank its rows of the global batch, one gradient
+  all-reduce); ``compute_objectives`` divides by the global batch's
+  summed weight, and the augmentation is drawn for the global batch,
+  each rank applying its rows' draws with the global batch's mean as
+  the masks' fill, so two ranks' step equals one process's;
+  ``build_dataloader_kwargs`` gives each rank its shard of the VALID and
+  TEST batches (``DistributedSamplerWrapper``, dynamic and static
+  batching), ``_merge_distributed_metrics`` gathers the WER / CER scores
+  and keeps each utterance once, and process 0 alone writes the WER
+  file, the train log, the plots and prepares the data and the
+  tokenizer.
 
 Not ported yet, raising ``NotImplementedError`` before anything runs:
 the ``torch_cache`` speaker backend (HF ``transformers``).
 """
 
 import dataclasses
+import itertools
 import json
 import logging
 import os
@@ -72,6 +86,7 @@ import numpy as np
 import torch
 
 from tsasr_torch.data import (
+    DistributedSamplerWrapper,
     DynamicBatchSampler,
     DynamicItemDataset,
     prepare_librispeechmix,
@@ -85,13 +100,15 @@ from tsasr_torch.decoding import (BatchedBeamSearcher,
 from tsasr_torch.device import resolve_device
 from tsasr_torch.lm.fusion import load_fusion_lm
 from tsasr_torch.models.transducer import TSTransducer
-from tsasr_torch.ops.augment import spec_augment, speed_perturb
+from tsasr_torch.ops.augment import (apply_spec_augment, draw_spec_augment,
+                                     spec_augment, speed_perturb, take_rows)
 from tsasr_torch.ops.features import (Fbank, input_normalization,
                                       pad_audio_to_frame_multiple)
 from tsasr_torch.ops.rnnt_loss import rnnt_loss
 from tsasr_torch.ops.rnnt_loss_banded import band_centers, rnnt_loss_banded
 from tsasr_torch.ops.rnnt_loss_fused import rnnt_loss_fused
-from tsasr_torch.parallel.distributed import run_on_main
+from tsasr_torch.parallel import distributed
+from tsasr_torch.parallel.distributed import if_main_process, run_on_main
 from tsasr_torch.recipes.speaker_embeddings import (FrozenSpeakerEncoder,
                                                     is_checkpoint_dir,
                                                     require_checkpoint_dir)
@@ -229,9 +246,23 @@ class TSASRBrain(Brain):
             rel = torch.clamp(rel * factor, max=1.0)
         feats, rel = self._features(wav, rel)
         if augment:
-            feats = spec_augment(feats, generator,
-                                 **specaugment_kwargs(self.hparams))
+            feats = self._spec_augment(feats, generator)
         return feats, rel
+
+    def _spec_augment(self, feats, generator):
+        """SpecAugment of a TRAIN batch; a rank of a data-parallel step
+        draws for the global batch (the same draws on every rank), takes
+        its rows' and fills the masks with the global batch's mean."""
+        kwargs = specaugment_kwargs(self.hparams)
+        shard = self.batch_shard
+        if shard is None:
+            return spec_augment(feats, generator, **kwargs)
+        draws = draw_spec_augment(generator,
+                                  (shard.size, *feats.shape[1:]), **kwargs)
+        return apply_spec_augment(
+            feats, take_rows(draws, shard.rows),
+            kwargs["replace_with_zero"],
+            mean=lambda x: _global_mean(x, shard))
 
     def _forward_kwargs(self, batch):
         if self.variant == "none":
@@ -301,7 +332,12 @@ class TSASRBrain(Brain):
                 losses = rnnt_loss(logits, tokens, input_lens, target_lens,
                                    blank=blank, reduction="none")
         w = batch["weight"]
-        return (losses * w).sum() / torch.clamp(w.sum(), min=1.0)
+        # a data-parallel rank holds some rows of the batch: its share of
+        # the loss is over the global batch's weight, and the ranks' sum
+        # is the global loss
+        shard = self.batch_shard if stage == Stage.TRAIN else None
+        total = w.sum() if shard is None else w.new_tensor(shard.weight_total)
+        return (losses * w).sum() / torch.clamp(total, min=1.0)
 
     # ----------------------------------------------------------- decoding
     def _maybe_build_searchers(self, stage):
@@ -364,6 +400,7 @@ class TSASRBrain(Brain):
                 not getattr(hp, "transcribe_enroll", False):
             words = self._strip_enroll_transcripts(batch.id, words)
         self.last_hyps = words
+        logger.debug("%s decoded %s", stage.name, list(batch.id))
         if "target_words" in batch:
             self.cer_metric.append(batch.id, words, batch.target_words)
             self.wer_metric.append(batch.id, words, batch.target_words)
@@ -447,6 +484,7 @@ class TSASRBrain(Brain):
         if stage == Stage.TRAIN:
             self.train_stats = stage_stats
             return
+        self._merge_distributed_metrics(stage)
         if self.wer_metric.scores:
             stage_stats["CER"] = self.cer_metric.summarize("error_rate")
             stage_stats["WER"] = self.wer_metric.summarize("error_rate")
@@ -465,9 +503,36 @@ class TSASRBrain(Brain):
             self.hparams.train_logger.log_stats(
                 stats_meta={"Epoch loaded": self._current_epoch},
                 test_stats=stage_stats)
-            if hasattr(self.hparams, "wer_file"):
+            if hasattr(self.hparams, "wer_file") and if_main_process():
                 with open(self.hparams.wer_file, "w") as f:
                     self.wer_metric.write_stats(f)
+
+    def _merge_distributed_metrics(self, stage):
+        """After a stage that decoded: the ranks' WER and CER scores
+        gathered, each utterance kept once (a padded shard decodes some
+        twice), in rank order on every rank; in one process nothing to
+        merge."""
+        if distributed.world_size() <= 1 or (
+                stage != Stage.TEST
+                and self._current_epoch % self.hparams.valid_search_freq):
+            return
+        n_local = len(self.wer_metric.scores)
+        for metric in (self.cer_metric, self.wer_metric):
+            gathered = distributed.all_gather_object(metric.scores)
+            metric.scores = list({x["key"]: x for x in
+                                  itertools.chain(*gathered)}.values())
+        logger.info("metric merge: %d local -> %d merged utterances (%s)",
+                    n_local, len(self.wer_metric.scores),
+                    distributed.describe())
+
+
+def _global_mean(x, shard):
+    """The mean of a data-parallel step's global batch, from each rank's
+    ``x`` (its rows, ``shard``): the sum of its rows that are no padding
+    duplicate, summed over the ranks."""
+    real = torch.as_tensor(shard.real, device=x.device)
+    total = distributed.all_reduce_sum(x[real].sum().reshape(1))
+    return (total / (shard.size * x[0].numel()))[0]
 
 
 # ======================================================== dataio plumbing
@@ -507,8 +572,14 @@ def dataio_prepare(hparams, tokenizer):
 
 
 def build_dataloader_kwargs(hparams, dataset, stage):
-    """Dynamic-batching loader kwargs (reference main :576-610), for one
-    process."""
+    """Dynamic-batching loader kwargs (reference main :576-610). In a
+    launched run every rank iterates the same TRAIN sampler (the Brain
+    takes its rows of each batch), and each rank its own shard of the
+    VALID and TEST batches (``DistributedSamplerWrapper``: rank r takes
+    batches r, r + W, ..., the tail padded by duplication), with dynamic
+    batching and with static batches alike."""
+    world = distributed.world_size()
+    shard = world > 1 and stage != "train"
     worker_mode = hparams.get("dataloader_worker_mode", "thread")
     workers = hparams.get("dataloader_workers", 0)
     if worker_mode == "thread":
@@ -519,7 +590,7 @@ def build_dataloader_kwargs(hparams, dataset, stage):
               "mp_context": hparams.get("dataloader_mp_context", "fork"),
               "pad_to_multiple": hparams.get("pad_to_multiple")}
     if hparams.get("dynamic_batching", True):
-        kwargs["batch_sampler"] = DynamicBatchSampler(
+        sampler = DynamicBatchSampler(
             dataset, hparams[f"{stage}_max_batch_length"],
             num_buckets=hparams["num_buckets"],
             length_func=lambda x: x["duration"],
@@ -527,6 +598,15 @@ def build_dataloader_kwargs(hparams, dataset, stage):
             batch_ordering=(hparams.get("sorting", "ascending")
                             if stage == "train" else "descending"),
             max_batch_ex=hparams["max_batch_size"])
+        kwargs["batch_sampler"] = DistributedSamplerWrapper(
+            sampler, rank=distributed.rank(), world_size=world) \
+            if shard else sampler
+    elif shard:
+        bs = hparams[f"{stage}_batch_size"]
+        batches = [list(range(i, min(i + bs, len(dataset))))
+                   for i in range(0, len(dataset), bs)]
+        kwargs["batch_sampler"] = DistributedSamplerWrapper(
+            batches, rank=distributed.rank(), world_size=world)
     else:
         kwargs["batch_size"] = hparams[f"{stage}_batch_size"]
     return kwargs
@@ -655,11 +735,17 @@ def run_experiment(variant="scratch", argv=None):
     for split in ("train", "valid", "test"):
         with open(hparams[f"{split}_json"], encoding="utf-8") as f:
             texts.extend(e["wrd"] for e in json.load(f).values())
-    tokenizer = train_tokenizer(
-        hparams["save_folder"], texts, vocab_size=hparams["vocab_size"],
+    tokenizer_kwargs = dict(
+        vocab_size=hparams["vocab_size"],
         model_type=hparams.get("token_type", "char"),
         character_coverage=hparams.get("character_coverage", 1.0),
         unk_id=hparams["blank_index"])
+    # process 0 fits and saves it; after the barrier every process loads
+    # the saved one
+    run_on_main(train_tokenizer, args=(hparams["save_folder"], texts),
+                kwargs=tokenizer_kwargs)
+    tokenizer = train_tokenizer(hparams["save_folder"], texts,
+                                **tokenizer_kwargs)
 
     train_data, valid_data, _ = dataio_prepare(hparams, tokenizer)
     # warm start (the reference's Pretrainer, yaml model_path)
@@ -680,16 +766,19 @@ def run_experiment(variant="scratch", argv=None):
         hparams=hparams, run_opts=run_opts,
         checkpointer=hparams.get("checkpointer"), variant=variant,
         tokenizer=tokenizer)
-    logger.info("%.1fM trainable parameters on %s",
-                sum(p.numel() for p in brain._params()) / 1e6, brain.device)
+    logger.info("%.1fM trainable parameters on %s (%s)",
+                sum(p.numel() for p in brain._params()) / 1e6, brain.device,
+                distributed.describe())
     if pretrainer is not None:
         pretrainer.load_collected({"model": brain.model})
     profiler = None
     if run_opts.get("profile"):
-        profiler = Profiler(
-            run_opts.get("profile_dir")
-            or os.path.join(hparams["output_folder"], "profiler"),
-            device=brain.device)
+        profile_dir = run_opts.get("profile_dir") \
+            or os.path.join(hparams["output_folder"], "profiler")
+        if not if_main_process():       # each rank traces its own process
+            profile_dir = os.path.join(profile_dir,
+                                       f"rank{distributed.rank()}")
+        profiler = Profiler(profile_dir, device=brain.device)
         profile(brain, profiler)
 
     brain.fit(hparams["epoch_counter"], train_data, valid_data,
@@ -699,7 +788,8 @@ def run_experiment(variant="scratch", argv=None):
                   hparams, valid_data, "valid"))
     if profiler is not None:
         profiler.stop()
-    if hparams.get("plot_grad_norm") and getattr(brain, "grad_norm", None):
+    if hparams.get("plot_grad_norm") and getattr(brain, "grad_norm", None) \
+            and if_main_process():
         from tsasr_torch.utils.visualization import plot_grad_norm
         for fmt in hparams["image_formats"]:
             plot_grad_norm(brain.grad_norm, os.path.join(
@@ -735,7 +825,7 @@ def run_experiment(variant="scratch", argv=None):
         profiler.stop()
 
     if hparams.get("plot_embeddings") and \
-            getattr(brain, "all_speaker_embs", None):
+            getattr(brain, "all_speaker_embs", None) and if_main_process():
         from tsasr_torch.utils.visualization import plot_embeddings
         for fmt in hparams["image_formats"]:
             plot_embeddings(

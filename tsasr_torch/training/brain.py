@@ -34,6 +34,33 @@ Subclasses provide ``batch_to_arrays``, ``compute_forward`` and
 model's compute dtype, which the recipe builds the model with: the
 parameters, their gradients, the running gradient mean and the AdamW
 state are f32 either way, so the step (clip, AdamW, Noam) is the same.
+
+Data parallelism (a launched run, ``parallel/distributed.py``), with the
+JAX package's semantics (its ``recipes/librispeechmix.py:645-666``):
+
+- TRAIN: every rank draws the same global batch from the same sampler;
+  ``fit_batch`` takes the rank's contiguous block of its rows, padded to
+  a multiple of the world size by zero-weight duplicates
+  (``parallel/mesh.py``), and keeps the batch as ``batch_shard`` for the
+  recipe (the global loss denominator, draws over the global batch).
+  Each rank's loss is its rows' ``sum(w l)`` over the global
+  ``max(sum(w), 1)``, so the sum of the ranks' gradients, one
+  ``all_reduce`` of a flat buffer per micro-batch (JAX's ``psum``), is
+  the global batch's gradient; the loss and the nonfinite flag ride a
+  second, small ``all_reduce``, so every rank skips the same
+  micro-batches. Accumulation, clipping, AdamW and Noam are unchanged.
+  In a group of one the two collectives still run (the identity);
+- the weights are broadcast from rank 0 once they are set: at the start
+  of ``fit`` (after the init, a warm start or a recovery) and after
+  TEST's recovery;
+- dropout folds the rank into the step generator when the world has
+  more than one rank; at one rank every draw is the one-process draw;
+- VALID / TEST: each rank evaluates its own shard of the batches (the
+  recipe's loaders) with no collective inside a batch; the stage's loss
+  is merged as a mean weighted by batch counts (``_merge_eval_loss``);
+- checkpoints: rank 0 names, writes and deletes them
+  (``Checkpointer``), and decides the intra-epoch save by minutes; the
+  progress bars are rank 0's.
 """
 
 import contextlib
@@ -47,6 +74,8 @@ import torch
 
 from tsasr_torch.data.loader import LoopedLoader, SaveableDataLoader
 from tsasr_torch.device import resolve_device
+from tsasr_torch.parallel import distributed
+from tsasr_torch.parallel.mesh import rank_rows
 from tsasr_torch.training.checkpoints import load_state, save_state
 from tsasr_torch.utils.stage import Stage
 
@@ -137,6 +166,7 @@ class Brain:
         self._resume_step = 0           # self.step a recovered epoch resumes
         self._restored_opt_state = None  # recovered before the optimizer
         self._recovered_ckpt = None     # the checkpoint TEST evaluates
+        self.batch_shard = None         # the rank's rows of a TRAIN batch
         self._last_ckpt_time = time.time()
         if self.checkpointer is not None:
             self.checkpointer.add_recoverable("brain", _BrainState(self))
@@ -183,6 +213,8 @@ class Brain:
             # evaluated (keep-best may pick an earlier one than the last)
             self._recovered_ckpt = self.checkpointer.recover_if_possible(
                 min_key=min_key, max_key=max_key)
+            if self._recovered_ckpt is not None:
+                distributed.broadcast_module(self.model)
 
     # ========================================================= optimizer
     def _params(self):
@@ -216,10 +248,16 @@ class Brain:
         model's device, draws dropout; another stream is apart from it and
         on the CPU (the recipe's augmentation draws from stream 1). Each is
         seeded from (seed, optimizer step, micro-batch count), so a
-        recovered run draws what an uninterrupted one does."""
+        recovered run draws what an uninterrupted one does. Under more
+        than one rank, stream 0 also folds in the rank, so the ranks' rows
+        draw apart; the other streams draw for the global batch, the same
+        on every rank."""
         entropy = [self.seed, self.optimizer_step * 131071 + self.step]
-        key = np.random.SeedSequence(entropy + [stream] if stream
-                                     else entropy)
+        if stream:
+            entropy.append(stream)
+        elif distributed.world_size() > 1:
+            entropy += [0, distributed.rank()]
+        key = np.random.SeedSequence(entropy)
         gen = torch.Generator(device=self.device if stream == 0 else "cpu")
         gen.manual_seed(int(key.generate_state(1, np.uint64)[0] >> 1))
         return gen
@@ -228,14 +266,25 @@ class Brain:
         return {k: torch.as_tensor(np.asarray(v)).to(self.device)
                 for k, v in arrays.items()}
 
+    def _rank_arrays(self, batch):
+        """The host arrays of this rank's rows of ``batch`` (all of them
+        in one process); sets ``batch_shard``."""
+        arrays = self.batch_to_arrays(batch)
+        self.batch_shard = None
+        if distributed.world_size() > 1:
+            arrays, self.batch_shard = rank_rows(
+                arrays, distributed.rank(), distributed.world_size())
+        return arrays
+
     def fit_batch(self, batch):
         """Forward, backward and accumulation of one micro-batch; every
         ``grad_accumulation_factor``-th counted micro-batch also updates
         the parameters. Returns the micro-batch's loss (nonfinite when the
-        micro-batch was skipped)."""
+        micro-batch was skipped); in a launched run the global batch's,
+        on every rank."""
         if self.optimizer is None:
             self.init_optimizers()
-        arrays = self._put_batch(self.batch_to_arrays(batch))
+        arrays = self._put_batch(self._rank_arrays(batch))
         self.step += 1
         self.model.train()
         params = self._params()
@@ -247,10 +296,14 @@ class Brain:
             grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(params, grads)]
-        grad_norm = global_norm(grads)
-        self.last_grad_norm = float(grad_norm)
-        loss_value = loss.item()
-        if not (np.isfinite(loss_value) and np.isfinite(self.last_grad_norm)):
+        if distributed.is_distributed():
+            grads, loss_value, finite = self._all_reduce(grads, loss)
+        else:
+            self.last_grad_norm = float(global_norm(grads))
+            loss_value = loss.item()
+            finite = np.isfinite(loss_value) and \
+                np.isfinite(self.last_grad_norm)
+        if not finite:
             self.nonfinite_count += 1
             logger.warning("Nonfinite batch %d skipped (loss=%s grad_norm=%s,"
                            " patience %d/%d)", self.step, loss_value,
@@ -265,6 +318,25 @@ class Brain:
         if self._mini_step == int(self.grad_accumulation_factor):
             self._update(params)
         return loss_value
+
+    @torch.no_grad()
+    def _all_reduce(self, grads, loss):
+        """Sum the ranks' gradients, one ``all_reduce`` of a flat buffer,
+        then their losses and nonfinite flags, a second one; returns
+        (the summed gradients, the global loss, whether every rank's
+        micro-batch is finite), the same on every rank."""
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        distributed.all_reduce_sum(flat)
+        grads = [part.view_as(g) for part, g in
+                 zip(torch.split(flat, [g.numel() for g in grads]), grads)]
+        grad_norm = global_norm(grads)
+        dtype = torch.promote_types(loss.dtype, torch.float32)
+        stats = torch.stack([loss.detach().to(dtype),
+                             (~torch.isfinite(grad_norm)).to(dtype)])
+        distributed.all_reduce_sum(stats)
+        loss_value, nonfinite = stats.tolist()
+        self.last_grad_norm = float(grad_norm)
+        return grads, loss_value, np.isfinite(loss_value) and nonfinite == 0
 
     @torch.no_grad()
     def _accumulate(self, grads):
@@ -303,6 +375,7 @@ class Brain:
     def evaluate_batch(self, batch, stage):
         """Loss of one evaluation batch (dropout off), then the
         ``evaluate_batch_extra`` hook."""
+        self.batch_shard = None
         arrays = self._put_batch(self.batch_to_arrays(batch))
         self.model.eval()
         with torch.no_grad():
@@ -321,7 +394,7 @@ class Brain:
         return avg_loss
 
     def _progress(self, iterable, desc):
-        if self.noprogressbar:
+        if self.noprogressbar or not distributed.if_main_process():
             return iterable
         try:
             from tqdm import tqdm
@@ -346,13 +419,16 @@ class Brain:
         if self.debug and self.checkpointer is not None and \
                 not getattr(self, "_debug_ckpt_diverted", False):
             # debug runs checkpoint into a throwaway dir (reference
-            # core.py:670-685)
-            self.checkpointer.checkpoints_dir = tempfile.mkdtemp(
-                prefix="tsasr_debug_ckpt_")
+            # core.py:670-685), rank 0's
+            self.checkpointer.checkpoints_dir = distributed.broadcast_object(
+                tempfile.mkdtemp(prefix="tsasr_debug_ckpt_")
+                if distributed.if_main_process() else None)
             self._debug_ckpt_diverted = True
         if self.checkpointer is not None:
             self.checkpointer.add_recoverable("dataloader", train_set)
             self.checkpointer.recover_if_possible()
+        # the weights as rank 0 set them: the init, a warm start, a recovery
+        distributed.broadcast_module(self.model)
         if self.test_only:
             logger.info("test_only: skipping training")
             return
@@ -383,6 +459,7 @@ class Brain:
             should_step = ((self.global_micro_step + 1)
                            % int(self.grad_accumulation_factor)) == 0
             loss = self.fit_batch(batch)
+            logger.debug("TRAIN micro-batch %d loss %r", self.step, loss)
             self.on_fit_batch_end(batch, None, loss, should_step)
             n += 1
             self.avg_train_loss = self._update_average(
@@ -410,6 +487,10 @@ class Brain:
             self.optimizer_step > 0 and \
             self.optimizer_step % self.ckpt_interval_steps == 0 and \
             (self.step % self.grad_accumulation_factor) == 0
+        if self.ckpt_interval_minutes and distributed.world_size() > 1:
+            # wall clocks drift across processes, and a save is entered
+            # by all: rank 0 decides
+            by_minutes = distributed.broadcast_object(bool(by_minutes))
         if by_minutes or by_steps:
             # only intra-epoch checkpoints compete for deletion: the
             # end-of-epoch keep-N-best set is untouchable (reference
@@ -431,8 +512,21 @@ class Brain:
             avg_loss = self._update_average(loss, avg_loss, self.step)
             if self.debug and self.step >= self.debug_batches:
                 break
+        avg_loss = self._merge_eval_loss(avg_loss, self.step)
         self.step = 0
         return avg_loss
+
+    @staticmethod
+    def _merge_eval_loss(avg_loss, n_batches):
+        """The ranks' average losses over their own shards, merged as a
+        mean weighted by their batch counts."""
+        if distributed.world_size() <= 1:
+            return avg_loss
+        rows = distributed.all_gather_object([float(avg_loss),
+                                              int(n_batches)])
+        total = sum(n for _, n in rows)
+        return (sum(loss * n for loss, n in rows) / total
+                if total else avg_loss)
 
     def _fit_valid(self, valid_set, epoch):
         if valid_set is None:

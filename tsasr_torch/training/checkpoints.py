@@ -21,8 +21,13 @@ Recoverable protocol (duck-typed, checked in this order):
   ``PytreeRecoverable`` (``torch.save``, and ``torch.load`` with
   ``weights_only=True``).
 
-One process writes and reads; the JAX package's multi-host gather and
-timestamp broadcast wait for the port's DDP.
+In a launched run (``parallel/distributed.py``) every process enters
+``save_checkpoint``, ``delete_checkpoints`` and the recovery, as in the
+JAX package: the checkpoint's name is process 0's timestamp, broadcast
+to all; only process 0 writes and deletes files, and a barrier after
+each ends it, so no process lists or recovers a half-written directory.
+Every process holds the same state (the weights and the optimizer's, by
+the all-reduced gradients), so process 0's is the checkpoint.
 """
 
 import json
@@ -33,6 +38,12 @@ import time
 import numpy as np
 import torch
 import yaml
+
+from tsasr_torch.parallel.distributed import (
+    broadcast_object,
+    ddp_barrier,
+    if_main_process,
+)
 
 CKPT_PREFIX = "CKPT"
 META_FILE = "CKPT.yaml"
@@ -113,11 +124,18 @@ class Checkpointer:
 
     # --------------------------------------------------------------- save
     def save_checkpoint(self, meta=None, name=None, end_of_epoch=True):
-        """Save all recoverables into a new checkpoint dir; returns it."""
+        """Save all recoverables into a new checkpoint dir; returns it.
+        Every process enters; process 0 names and writes it."""
         if name is None:
-            stamp = f"{time.time():.4f}".replace(".", "+")
+            stamp = f"{broadcast_object(time.time()):.4f}".replace(".", "+")
             name = f"{CKPT_PREFIX}+{stamp}"
         path = os.path.join(self.checkpoints_dir, name)
+        if if_main_process():
+            self._write(path, meta, end_of_epoch)
+        ddp_barrier()
+        return Checkpoint(path)
+
+    def _write(self, path, meta, end_of_epoch):
         os.makedirs(path, exist_ok=True)
         for rec_name, obj in self.recoverables.items():
             target = os.path.join(path, f"{rec_name}.ckpt")
@@ -132,7 +150,6 @@ class Checkpointer:
         with open(os.path.join(path, META_FILE), "w",
                   encoding="utf-8") as f:
             yaml.safe_dump(_plain(full_meta), f)
-        return Checkpoint(path)
 
     def save_and_keep_only(self, meta=None, name=None, num_to_keep=1,
                            min_keys=None, max_keys=None,
@@ -218,7 +235,15 @@ class Checkpointer:
 
         Only checkpoints accepted by ``ckpt_predicate`` (default: all) are
         candidates for deletion or ranking; the rest are untouchable.
+        Every process enters; process 0 deletes.
         """
+        if if_main_process():
+            self._delete(num_to_keep, min_keys, max_keys, keep_recent,
+                         importance_key, ckpt_predicate)
+        ddp_barrier()
+
+    def _delete(self, num_to_keep, min_keys, max_keys, keep_recent,
+                importance_key, ckpt_predicate):
         ckpts = self.list_checkpoints()
         if ckpt_predicate is not None:
             ckpts = [c for c in ckpts if ckpt_predicate(c)]

@@ -16,8 +16,19 @@ The flags are the JAX package's. ``--device`` is the torch device
 the host). ``--precision bf16`` builds the model in bf16 (the recipe).
 ``--profile`` traces training and evaluation with ``torch.profiler``
 into ``--profile_dir`` (the recipe's ``<output_folder>/profiler`` unless
-given; ``utils/profiling.py``). The parallel flags raise
-``NotImplementedError``: DDP is not ported yet.
+given; ``utils/profiling.py``).
+
+Data parallelism: ``parse_arguments`` first joins the process group a
+launcher announced (``python -m tsasr_torch.parallel.launch``, or
+``torchrun``; ``parallel/distributed.py``), one process per device, its
+backend named by ``--device``. ``--data_parallel_count`` must equal the
+world size (1 when the run was not launched); one process driving
+several devices, as JAX's does, raises ``NotImplementedError``. The
+tensor, sequence and pipeline counts are accepted at 1, as JAX accepts
+them, and raise ``NotImplementedError`` above 1 (``ROADMAP.md`` queue 1
+item 7). The experiment directory is made by process 0 behind a
+barrier; process 0 logs to ``log.txt``, the others to
+``log_proc{rank}.txt``.
 """
 
 import argparse
@@ -28,7 +39,13 @@ import sys
 
 import yaml
 
-from tsasr_torch.parallel.distributed import run_on_main
+from tsasr_torch.parallel.distributed import (
+    if_main_process,
+    maybe_init_distributed,
+    rank,
+    run_on_main,
+    world_size,
+)
 from tsasr_torch.utils.hparams import dump_resolved_yaml
 from tsasr_torch.utils.logger import (
     get_environment_description,
@@ -71,15 +88,17 @@ RUN_OPT_FLAGS = [
 ]
 
 
-NOT_PORTED_FLAGS = ("data_parallel_count", "tensor_parallel_count",
-                    "sequence_parallel_count", "pipeline_parallel_count")
+MODEL_AXES_FLAGS = ("tensor_parallel_count", "sequence_parallel_count",
+                    "pipeline_parallel_count")
 
 
 def parse_arguments(arg_list=None):
     """Returns (hparams_file, run_opts dict, overrides yaml string).
 
-    Raises ``NotImplementedError`` for the flags of what is not ported
-    (``NOT_PORTED_FLAGS``)."""
+    Joins the launched process group first (``maybe_init_distributed``,
+    on the backend ``--device`` names). Raises ``NotImplementedError``
+    for a ``--data_parallel_count`` other than the world size and for a
+    tensor, sequence or pipeline count above 1."""
     if arg_list is None:
         arg_list = sys.argv[1:]
     parser = argparse.ArgumentParser(description="tsasr_torch experiment")
@@ -90,14 +109,29 @@ def parse_arguments(arg_list=None):
     known, unknown = parser.parse_known_args(arg_list)
     run_opts = {k: v for k, v in vars(known).items()
                 if k != "hparams_file" and v is not None}
-    for key in NOT_PORTED_FLAGS:
-        if key in run_opts:
-            raise NotImplementedError(
-                f"--{key} is not ported yet (DDP waits on a later slice "
-                "of the port)")
+    maybe_init_distributed(run_opts.get("device", "cuda"))
+    check_parallel_counts(run_opts)
     check_precision(run_opts.get("precision"))
     overrides = _unknown_to_overrides(unknown)
     return known.hparams_file, run_opts, overrides
+
+
+def check_parallel_counts(run_opts):
+    """Raise unless the parallel counts of ``run_opts`` are what this run
+    is: ``data_parallel_count`` the world size, the others 1."""
+    dp = run_opts.get("data_parallel_count")
+    if dp is not None and dp != world_size():
+        raise NotImplementedError(
+            f"--data_parallel_count {dp} is not this run's world size "
+            f"{world_size()}: the port runs one process per device; launch "
+            f"{dp} ranks with python -m tsasr_torch.parallel.launch "
+            f"--nproc_per_node {dp}")
+    for key in MODEL_AXES_FLAGS:
+        count = run_opts.get(key)
+        if count is not None and count > 1:
+            raise NotImplementedError(
+                f"--{key} {count}: the tensor, sequence and pipeline axes "
+                "are not ported yet (ROADMAP.md queue 1 item 7)")
 
 
 def check_precision(precision):
@@ -147,11 +181,19 @@ def create_experiment_directory(experiment_directory,
                 f.write(get_environment_description())
 
     run_on_main(_create)
-    log_file = os.path.join(experiment_directory, "log.txt")
-    setup_logging(log_file)
+    # the other processes log to their own file and keep the console for
+    # warnings
+    main = if_main_process()
+    log_file = os.path.join(experiment_directory,
+                            "log.txt" if main else f"log_proc{rank()}.txt")
+    setup_logging(log_file,
+                  console_level=logging.INFO if main else logging.WARNING)
     sys.excepthook = _make_excepthook(log_file)
-    logger.info("Beginning experiment!")
-    logger.info("Experiment folder: %s", experiment_directory)
+    if main:
+        logger.info("Beginning experiment!")
+        logger.info("Experiment folder: %s", experiment_directory)
+    else:
+        logger.info("Worker process %d of %d ready", rank(), world_size())
 
 
 def _make_excepthook(log_file):

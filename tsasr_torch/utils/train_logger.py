@@ -4,12 +4,15 @@ The port's own copy of ``FileTrainLogger`` from the JAX package's
 ``utils/train_logger.py`` (the reference's ``utils/train_logger.py``
 :47-105): ``"epoch: N, lr: 1.00e-03 - train loss: y - valid loss: z,
 valid WER: w"``, floats in (1, 100) at fixed precision and scientific
-notation otherwise. Its TensorBoard, W&B and sample loggers are not
-ported.
+notation otherwise. In a launched run only process 0 appends (the
+stats it is given are already merged across processes). Its
+TensorBoard, W&B and sample loggers are not ported.
 """
 
 import logging
 import os
+
+from tsasr_torch.parallel.distributed import if_main_process
 
 logger = logging.getLogger(__name__)
 
@@ -37,6 +40,8 @@ class FileTrainLogger:
 
     def log_stats(self, stats_meta, train_stats=None, valid_stats=None,
                   test_stats=None, verbose=True):
+        if not if_main_process():
+            return
         summary = self._stats_to_string(stats_meta)
         for dataset, stats in [("train", train_stats),
                                ("valid", valid_stats),
