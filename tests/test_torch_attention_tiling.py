@@ -23,6 +23,15 @@ held against autograd through
 wrong rel-shift, window start, diagonal or padding row shows up as an
 error of the order of the gradient itself.
 
+``tiled_forward_bf16`` mirrors the bf16 forward's resident kernel: a
+block's rows of scores in one buffer, the positional term written skewed
+over each row's whole window (window row w meets row r at key w + r -
+(qtile - 1)), q_u k^T added in place, the exact row max and sum, P
+normalised, dropped and then rounded to bf16, and P v summed in f32 in
+the kernel's key order, k-steps of 16. Its scores run in f64 (the inputs
+bf16 values), so its statistics meet the plain f64 ones at 1e-10 and its
+output the plain bf16 version's within one bf16 ulp of max |o|.
+
 The mirrors compute the kernels' blocks, warps and row groups side by
 side, as tensors; only the k-steps that a block takes in order (the key
 tiles of a query tile, the query tiles of a key tile or a diagonal) are
@@ -380,3 +389,129 @@ def test_tiled_backward_matches_autograd(T, tile, Dh, rate):
     for name, g, w in zip(("dq_u", "dq_v", "dk", "dv", "dp"), got,
                           autograd_grads(args, do, rate)):
         assert_close(name, g, w)
+
+
+# ----------------------------------------------- the bf16 resident forward
+def tiled_forward_bf16(args, scale, keep, rate, dtype,
+                       qtile=relpos_attention.BF16_FWD_ROWS,
+                       chunk=relpos_attention.BF16_FWD_CHUNK):
+    """out (B, H, T, Dh) in bf16 and the row statistics m, 1 / l (B, H,
+    T) through the resident bf16 forward's algebra, its blocks of
+    ``qtile`` rows side by side: the window, then k, then the softmax,
+    then v. The kernel streams each in chunks of ``chunk`` rows; each
+    score is written once, so only the window's length (whole chunks)
+    and P v's order (k-steps of 16) depend on them. ``args`` hold bf16
+    values; ``keep`` is the dropout's (B, H, T, T) keep mask (None at
+    rate 0); the scores and the softmax run in ``dtype``: f32 as the
+    kernel (a fully masked row's scores, about -1e9, keep an ulp of 64
+    there), f64 to meet the plain f64 statistics."""
+    qu, qv, k, v, p, kp, am = (x.to(dtype) for x in args)
+    B, H, T, Dh = qu.shape
+    tp = -(-T // 16) * 16                       # keys in whole k-steps
+    i0 = torch.arange(0, T, qtile)
+    q_u, q_v = (rows_at(t, i0, qtile) for t in (qu, qv))  # (B, H, NB, TQ, Dh)
+    # 1. the window: row w is p row T - qtile - i0 + w and meets row r at
+    # key w + r - (qtile - 1); each product stored there, once
+    nw = -(-(T + qtile - 1) // chunk) * chunk
+    bd = q_v @ rows_at(p, T - qtile - i0, nw).transpose(-1, -2)
+    r = torch.arange(qtile)[:, None]
+    c = torch.arange(nw)[None] + r - (qtile - 1)
+    rr, ww = torch.nonzero((c >= 0) & (c < T), as_tuple=True)
+    s = qu.new_zeros(*q_u.shape[:-1], T)        # the block's scores
+    s[..., rr, c[rr, ww]] = bd[..., rr, ww]
+    # 2. q_u k^T added in place
+    s = (q_u @ k[:, :, None].transpose(-1, -2) + s) * scale
+    i = i0[:, None] + torch.arange(qtile)       # 3. the softmax
+    ic = i.clamp(max=T - 1)
+    s = s + am[ic] + kp[:, None, None, None, :]
+    m = s.max(-1).values
+    e = torch.exp(s - m[..., None])
+    linv = 1.0 / e.sum(-1)
+    prob = e * linv[..., None]
+    if rate > 0.0:
+        prob = torch.where((i < T)[..., None],
+                           torch.where(keep[:, :, ic], prob / (1.0 - rate),
+                                       0.0), prob)
+    pb = prob.new_zeros(*prob.shape[:-1], tp).to(torch.bfloat16)
+    pb[..., :T] = prob.to(torch.bfloat16)
+    vb = rows_at(v, [0], tp).float()            # zeros past T
+    o = torch.zeros(*q_u.shape, dtype=torch.float32)
+    for k0 in range(0, tp, 16):                 # 4. O += P v, in key order
+        o += pb[..., k0:k0 + 16].float() @ vb[..., k0:k0 + 16, :]
+    return (o.to(torch.bfloat16).reshape(B, H, -1, Dh)[:, :, :T],
+            m.reshape(B, H, -1)[:, :, :T], linv.reshape(B, H, -1)[:, :, :T])
+
+
+def bf16_case(T, Dh, rng_seed, B=2, H=2):
+    """``attention_case``'s inputs rounded to bf16 values, held in f64;
+    at B 1 the utterance padded to a third of T."""
+    args, _ = attention_case(T, Dh, rng_seed, max(B, 2), H)
+    args[:5] = [x[:B].to(torch.bfloat16).double() for x in args[:4]] + [
+        args[4].to(torch.bfloat16).double()]
+    args[5] = args[5][-B:]
+    return args
+
+
+def assert_bf16_forward(args, rate):
+    """The mirror's output, its scores in f32, within one bf16 ulp of the
+    plain bf16 version's max |o|; its statistics, in f64, at 1e-10 of the
+    plain f64 ones."""
+    B, H, T, _ = args[0].shape
+    keep = relpos_attention.philox_keep_mask(SEED, B, H, T, rate) \
+        if rate > 0.0 else None
+    out, _, _ = tiled_forward_bf16(args, SCALE, keep, rate, torch.float32)
+    plain = relpos_attention.relpos_attention_fwd_bf16(
+        *[x.to(torch.bfloat16) for x in args[:5]], *[x.float() for x in
+                                                    args[5:]],
+        SCALE, SEED, rate).double()
+    top = plain.abs().max().item()
+    ulp = 2.0 ** (np.floor(np.log2(top)) - 7)
+    err = (out.double() - plain).abs().max().item()
+    assert err <= ulp, f"out: max abs err {err:.3g} > one bf16 ulp {ulp:.3g}"
+    _, m, linv = tiled_forward_bf16(args, SCALE, keep, rate, torch.float64)
+    m_want, linv_want = row_stats(args, SCALE)
+    assert ((m - m_want).abs() <= 1e-10 * m_want.abs().clamp(min=1.0)).all()
+    assert ((linv - linv_want).abs() <= 1e-10 * linv_want).all()
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("Dh", [5, 64])
+@pytest.mark.parametrize("T", [10, 16, 17, 47, 64, 65, 130, 208])
+def test_tiled_forward_bf16_matches_plain(T, Dh, rate):
+    """The resident bf16 forward's algebra at the tile edges: 16-row
+    blocks (T 16 and 17: one row past a block; T 10, 47, 130, 208: the
+    last block has rows past T), 64-row chunks (T 64 and 65: a key
+    chunk of one, a window of 79 or 80 rows), keys padded to k-steps of
+    16; key padding and a band leave rows with every key masked."""
+    assert_bf16_forward(bf16_case(T, Dh, T * 1000 + Dh), rate)
+
+
+def test_tiled_forward_bf16_at_the_cutover():
+    """At the largest T of the resident route (Dh 5, padded to 32): the
+    index algebra of the widest rows of scores a block holds, one padded
+    utterance, dropout 0 (the keep mask's int64 Philox over 11.7 M
+    elements would take seconds; the drop is the same code at every T,
+    held at the tile edges above)."""
+    T = relpos_attention.bf16_fwd_max_t(5)
+    assert_bf16_forward(bf16_case(T, 5, 11, B=1, H=1), 0.0)
+
+
+@pytest.mark.parametrize("dh,max_t", [(1, 3424), (32, 3424), (33, 3264),
+                                      (64, 3264), (65, 2944), (128, 2944)])
+def test_bf16_forward_takes_the_long_route_past_the_cutover(dh, max_t):
+    """The wrapper's route for the bf16 forward: resident up to the T
+    whose block of scores (16 rows of roundup(T, 16) + 4 floats) and
+    bf16 tiles fill the 227 KB a block may use, the two-pass kernel from
+    the next T on (the kernel source states these T)."""
+    ra = relpos_attention
+    assert ra.bf16_fwd_max_t(dh) == max_t
+    assert ra.bf16_fwd_route(max_t, dh) == "resident"
+    assert ra.bf16_fwd_route(max_t + 1, dh) == "long"
+    dp = 32 if dh <= 32 else 64 if dh <= 64 else 128
+    tiles = 2 * (2 * ra.BF16_FWD_ROWS
+                 + ra.BF16_FWD_STAGES * ra.BF16_FWD_CHUNK) * (dp + 8)
+
+    def block_bytes(T):
+        return 4 * ra.BF16_FWD_ROWS * (-(-T // 16) * 16 + 4) + tiles
+
+    assert block_bytes(max_t) <= ra.SMEM_LIMIT < block_bytes(max_t + 1)

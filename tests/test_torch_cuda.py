@@ -768,3 +768,43 @@ def test_relpos_attention_bf16_kernels_match_plain(cuda, B, H, T, Dh, rate):
         assert k.dtype == torch.bfloat16
         assert err(k, p) <= (2.0 ** -7 if i == 0 else 2.0 ** -6)
         assert err(k, f) <= 1.5 * err(p, f) + 1e-7
+
+
+@pytest.mark.parametrize("dh", [1, 32, 33, 64, 65, 128])
+def test_bf16_forward_max_t_matches_the_wrapper(cuda, dh):
+    """The resident bf16 forward's largest T, as the built kernel
+    computes it, is the wrapper's cutover."""
+    assert (relpos_attention.fwd_bf16_max_t_cuda(dh)
+            == relpos_attention.bf16_fwd_max_t(dh))
+
+
+@pytest.mark.parametrize("past", [0, 1])
+def test_bf16_forward_routes_at_the_cutover(cuda, past):
+    """At the resident route's largest T (227 KB of shared memory a
+    block) and one key past it (the two-pass kernel): the forward within
+    2^-7 of the plain bf16 version's max |o| at dropout 0.1, one launch
+    counted on the route taken; the resident entry refuses the longer T
+    itself."""
+    Dh = 64
+    T = relpos_attention.bf16_fwd_max_t(Dh) + past
+    args = attention_case(1, 2, T, Dh, cuda, seed=T)
+    args = [x.bfloat16() for x in args[:5]] + args[5:]
+    seed = torch.tensor([7], device=cuda)
+    before = (relpos_attention.bf16_launches,
+              relpos_attention.bf16_long_launches)
+    with torch.no_grad():
+        got = relpos_attention.fused_relpos_attention(
+            *args, seed=seed, scale=0.125, rate=0.1)
+    torch.cuda.synchronize()
+    after = (relpos_attention.bf16_launches,
+             relpos_attention.bf16_long_launches)
+    assert after == (before[0] + 1 - past, before[1] + past)
+    want = relpos_attention.relpos_attention_fwd_bf16(*args, 0.125, seed, 0.1)
+    err = ((got.double() - want.double()).abs().max()
+           / want.double().abs().max()).item()
+    assert err <= 2.0 ** -7
+    if past:
+        out = torch.empty_like(args[0])
+        assert relpos_attention._fwd_kernel("relpos_attention_fwd_bf16")(
+            *(x.data_ptr() for x in args), out.data_ptr(), 0, 0, 1.0, 0,
+            1, 2, T, Dh, 0.125, torch.cuda.current_stream().cuda_stream) != 0

@@ -473,44 +473,108 @@ extern "C" int relpos_tf32x3_chain_test(const float* a, const float* b,
 }
 
 // ===================================================================== bf16
-// The bf16 variant (relpos_attention_fwd_bf16): q_u, q_v, k, v, p and the
-// output in bf16, the masks and the statistics f32. It rounds where the
-// JAX kernel rounds with bf16 operands (_fwd_kernel with v.dtype bf16):
-// every product takes bf16 operands and sums in f32 (mma_bf16.cuh, one
-// m16n8k16 mma a k-step of 16), the positional scores stay f32 through
-// the skew read (the TPU kernel's roll runs in f32), the scores, the
-// softmax and the dropout scaling are f32, the probabilities are rounded
-// to bf16 before the product with v, and the output to bf16 once.
-//
-// The probabilities are rounded as the JAX kernel rounds them, after
-// normalising: exp(s - m) / l * keep / (1 - rate), with m and l the
-// row's max and sum over all keys. An online softmax (the f32 kernel's)
-// would round exp(s - m_running) and divide by l after the product: an
-// f32 output does not see where a rounding falls, a bf16 one does (one
-// bf16 ulp of the output against the JAX rounding). So the block runs
-// over the keys twice: pass 1 takes the scores' products and the row's
-// max and sum (online, no v), the two warps of a row group merge them
-// (and write the statistics); pass 2 takes the products again (the same
-// scores, bit for bit), the normalised, dropped probabilities, and
-// O += bf16(P) v. The score products are done twice; at these sizes the
-// kernel is bound by its latency, not by them.
-//
-// Tiling, dropout and statistics are the f32 kernel's: 32 query rows a
-// block, key tiles of 32, two warps a row group, each over half of every
-// key tile, one Philox draw per (b, h, i, j); the halves' O are added at
-// the end. What changes is the element type of the tiles in shared
-// memory (bf16 rows DP + 8 elements apart, half the f32 tiles' bytes: 52
-// KB a block at DP 64) and the products: q_v and q_u fragments by
-// ldmatrix, the window, key and value tiles by ldmatrix (.trans for v),
-// and P straight from the accumulators (two n-tiles of 8 keys are one
-// 16-key A operand, pack_acc).
+// The bf16 forward (relpos_attention_fwd_bf16): q_u, q_v, k, v, p and the
+// output in bf16, the masks and the statistics f32. It computes the JAX
+// _fwd_kernel with bf16 operands (v.dtype bf16) and rounds where it
+// rounds: every product takes bf16 operands and sums in f32 (mma_bf16.cuh,
+// one m16n8k16 mma a k-step of 16); the positional scores stay f32 through
+// the rel-shift (the TPU kernel's roll runs in f32); the scores, masks,
+// softmax and dropout scaling are f32; the probabilities are normalised by
+// the row's max m and sum l over all keys and only then rounded to bf16,
+// P = bf16(exp(s - m) / l * keep / (1 - rate)), before the product with v;
+// the output is rounded to bf16 once. The keep decision of (b, h, i, j) is
+// the f32 kernel's Philox draw, and the statistics (m, 1 / l) mean what
+// they mean there: the bf16 backward reads them.
 //
 // What bounds it on an H100: at B8 H4 T101 Dh64 it moves about 2.2 MB
 // (bf16 operands and output, f32 masks and statistics) and does 6 B H
-// T^2 Dh = 125 MFLOP of products: 0.0007 ms of bytes at 3.35 TB/s
-// against 0.00013 ms at the bf16 tensor-core peak (989 TFLOP/s). At
-// these sizes it runs one wave of small blocks: latency-bound, as the f32
-// kernel.
+// T^2 Dh = 125 MFLOP of products: 0.00066 ms of bytes at 3.35 TB/s against
+// 0.00013 ms at the bf16 tensor-core peak (989 TFLOP/s): bytes. At these
+// sizes a block's serial chain of copies, barriers and products sets the
+// time, not the bytes.
+//
+// The resident kernel (relpos_attention_fwd_bf16_resident_kernel) keeps
+// each block's rows of scores whole in shared memory, as the TPU kernel
+// keeps its (BB, Tp, Tp) tile in VMEM, so every product is done once and
+// the rounding stays where JAX puts it. A block takes TQ query rows of one
+// (b, h) and streams three sequences of row chunks through one ring of
+// cp.async stages, each row copied once: the window of p rows, then k,
+// then v.
+//
+//   1. The positional term: window row w (p row T - TQ - i0 + w) meets
+//      query row r at key c = w + r - (TQ - 1). Each row group of 16
+//      computes q_v(16 rows) @ window^T over its own T + 15 window rows,
+//      its warps side by side over each chunk's n-tiles, and stores every
+//      product straight to its skewed place in the f32 score buffer S
+//      (TQ rows, roundup(T, 16) + 4 floats apart). No column beyond the
+//      group's T + 15 is computed (the two-pass kernel computed TK + 16
+//      for every TK keys) and no separate buffer is read back.
+//   2. S = (q_u k^T + S) * scale, each k chunk's products added in place
+//      by the lanes that hold them.
+//   3. The softmax, one warp a row: the masks am (its row, coalesced) and
+//      kp added once, the exact row max, exp(s - m) stored back and
+//      summed, the statistics written, then P = bf16(e / l, dropped)
+//      written over the row's own first half (bf16 P row r starts where
+//      the f32 row r does: rows 2 (roundup(T, 16) + 4) elements apart,
+//      16-byte aligned, and an ldmatrix phase's 8 rows hit 8 bank groups).
+//      The first v chunks are already in flight.
+//   4. O = P v over the v chunks in key order, k-steps of 16, P by
+//      ldmatrix, each warp over its row group and its share of Dh's
+//      n-tiles: no cross-warp merge. The output is rounded once.
+//
+// Against the two-pass kernel below, per key: the q_u k^T and positional
+// products once instead of twice and no padded window columns (about 24
+// mma.sync a warp per 32 keys instead of 48), k and the window copied once
+// (v once, as before), the masks read once and coalesced, one barrier per
+// chunk of CHUNK rows (about 3 T / CHUNK + 2 in all) instead of 2
+// per 32 keys in each of two passes, no pair barrier and no merge.
+//
+// Sweep (chip_attention_ab.py with -D FWD16_*, H100 80GB HBM3 700.00 W;
+// device ms, profiler, dropout 0; B8 T101 / B8 T208 / B8 T408 / B6 T208 /
+// B3 T408, all H4 Dh64; the two-pass kernel .0153 / .0304 / .0987 / .0291
+// / .0530):
+//   TQ 16, 4 warps, chunks of 64, 2 stages (chosen): .0084 / .0179 /
+//     .0521 / .0149 / .0232;
+//   3 stages: .0082 / .0183 / .0582 / .0145 / .0225 (3 blocks an SM at
+//     T408, from 4);
+//   chunks of 32: .0096 / .0180 / .0548 / .0158 / .0263; of 128: .0082 /
+//     .0172 / .0605 / .0142 / .0231;
+//   8 warps (at most 80 registers): .0082 / .0238 / .0591 / .0164 /
+//     .0255;
+//   TQ 32, 8 warps: .0083 / .0157 / .0477 / .0156 / .0245: ahead at B8,
+//     behind at the training buckets' own batches, where the bf16 path
+//     runs.
+// Stamps (chip_attention_ab.py --stamps, thread 0's clock64) put a block's
+// time in its dependent latency chains, not in waiting for copies: at B3
+// T408 a block takes 37 k cycles, 10.7 k in the window chunks, 8.4 k in
+// the k chunks, 11.2 k in the softmax and 7.5 k in P v; issuing the
+// chunks' cp.async 7.2 k of them (21 chunks), waiting for them 1.4 k. So
+// the softmax's loops and the k chunks load everything before they store
+// (the compiler cannot tell the rows apart and would run each element's
+// load, arithmetic and store in turn), the chunk copies unroll, and bulk
+// copies (cp.async.bulk, one a row, tried) lose: one warp's lanes issue
+// them one after another.
+//
+// The long route. A block needs 4 TQ (roundup(T, 16) + 4) bytes of scores
+// beside its q tiles and stages, at most 227 KB: TQ = 16 rows hold T up
+// to 3264 keys at Dh 33-64 (3424 at Dh <= 32, 2944 at Dh 65-128;
+// relpos_attention_fwd_bf16_max_t). Past that the wrapper launches the
+// two-pass kernel (relpos_attention_fwd_bf16_long), which holds no row of
+// scores: it decides by T before the launch. The port's model (Dh 64, 25
+// frames a second) reaches the long route at 3265 frames, a 130.6 s
+// utterance; every shorter T fits, because the buffer grows by 64 bytes a
+// key and nothing else in the block grows with T.
+//
+// The two-pass kernel (relpos_attention_fwd_bf16_two_pass_kernel) keeps
+// the f32 kernel's tiling: 32 query rows a block, key tiles of 32, two
+// warps a row group, each over half of every key tile. Pass 1 takes the
+// scores' products and each row's max and sum (online, no v), the two
+// warps of a row group merge them (and write the statistics); pass 2
+// takes the products again (the same scores, bit for bit), the normalised,
+// dropped probabilities, and O += bf16(P) v; the halves' O are added at
+// the end. Tiles are bf16 in shared memory (rows DP + 8 elements apart),
+// q_v, q_u, the window, k and v by ldmatrix (.trans for v), P straight
+// from the accumulators (pack_acc).
 
 #include "mma_bf16.cuh"
 
@@ -565,7 +629,7 @@ struct Cfg16 {
 
 template <int DP>
 __global__ void __launch_bounds__(Cfg16<DP>::kThreads)
-    relpos_attention_fwd_bf16_kernel(Args16 a) {
+    relpos_attention_fwd_bf16_two_pass_kernel(Args16 a) {
   using C = Cfg16<DP>;
   extern __shared__ __align__(16) unsigned char smem16[];
   const int T = a.T, Dh = a.Dh, nk = (T + kTileK - 1) / kTileK;
@@ -764,14 +828,403 @@ cudaError_t launch16(const Args16& a, int B, cudaStream_t stream) {
   static bool attribute_set = false;
   if (!attribute_set) {
     cudaError_t err = cudaFuncSetAttribute(
-        relpos_attention_fwd_bf16_kernel<DP>,
+        relpos_attention_fwd_bf16_two_pass_kernel<DP>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, C::kBytes);
     if (err != cudaSuccess) return err;
     attribute_set = true;
   }
   const dim3 grid((a.T + C::kTileQ - 1) / C::kTileQ, a.H, B);
-  relpos_attention_fwd_bf16_kernel<DP>
+  relpos_attention_fwd_bf16_two_pass_kernel<DP>
       <<<grid, C::kThreads, C::kBytes, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------- the resident kernel's shape
+// Defaults from the sweep in the header comment; chip_attention_ab.py
+// builds other shapes with -D.
+#ifndef FWD16_ROWS
+#define FWD16_ROWS 16                      // TQ: query rows of a block
+#endif
+#ifndef FWD16_WARPS
+#define FWD16_WARPS 4
+#endif
+#ifndef FWD16_CHUNK
+#define FWD16_CHUNK 64                     // rows of a stage
+#endif
+#ifndef FWD16_STAGES
+#define FWD16_STAGES 2
+#endif
+#ifndef FWD16_MIN_BLOCKS
+#define FWD16_MIN_BLOCKS 1                 // blocks an SM the registers allow
+#endif
+
+// dst[r * (DP + 8) + c] = src[(first + r) * Dh + c] for r < N, c < DP,
+// zeros outside rows [0, limit) and columns [0, Dh), by 16-byte cp.async
+// (Dh % 8 == 0, 16-byte aligned rows): load_rows16 with its trip count
+// known (NT threads a block), so the copies of a chunk unroll
+template <int DP, int NT, int N>
+__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src,
+                                           int first, int limit, int Dh) {
+  constexpr int kChunks = DP / 8, kPer = N * kChunks / NT;
+  static_assert(kPer * NT == N * kChunks, "copies a thread");
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int e = threadIdx.x + i * NT;
+    const int r = e / kChunks, c = (e % kChunks) * 8, g = first + r;
+    const bool ok = g >= 0 && g < limit && c < Dh;
+    tsasr::cp_async16_raw(dst + r * (DP + 8) + c,
+                          ok ? src + (ptrdiff_t)g * Dh + c : src, ok);
+  }
+}
+
+#ifdef FWD16_STAMPS
+constexpr int kStampBlocks = 8192;
+__device__ long long fwd16_stamps[kStampBlocks * 6];
+#endif
+
+// The resident kernel's clock64 stamps, in builds with -DFWD16_STAMPS
+// (chip_attention_ab.py --stamps) and nothing otherwise: per block, the
+// cycles to the end of the window chunks, of the k chunks, of the softmax
+// and of the kernel, and those spent issuing chunk copies and waiting for
+// them (thread 0's clock).
+struct Stamps {
+#ifdef FWD16_STAMPS
+  long long t0, v[6];
+  __device__ void start() {
+    t0 = clock64();
+    for (long long& x : v) x = 0;
+  }
+  __device__ long long now() const { return clock64(); }
+  __device__ void mark(int i) { v[i] = clock64() - t0; }
+  __device__ void add(int i, long long since) { v[i] += clock64() - since; }
+  __device__ void write() const {
+    const int blk =
+        blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);
+    if (threadIdx.x == 0 && blk < kStampBlocks)
+      for (int i = 0; i < 6; ++i) fwd16_stamps[blk * 6 + i] = v[i];
+  }
+#else
+  __device__ void start() {}
+  __device__ long long now() const { return 0; }
+  __device__ void mark(int) {}
+  __device__ void add(int, long long) {}
+  __device__ void write() const {}
+#endif
+};
+
+// DP: padded head dim; sizes in bf16 elements unless named in bytes
+template <int DP>
+struct Res16 {
+  static constexpr int kTileQ = FWD16_ROWS;
+  static constexpr int kNR = kTileQ / kWarpRows;     // row groups
+  static constexpr int kWarps = FWD16_WARPS;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kU = kWarps / kNR;            // warps of a row group
+  static constexpr int kChunk = FWD16_CHUNK;
+  static constexpr int kStages = FWD16_STAGES;
+  static constexpr int kLd = DP + 8;
+  static constexpr int kNC = kChunk / 8 / kU;   // a warp's n-tiles of a chunk
+  static constexpr int kND = DP / 8;            // n-tiles over the head dim
+  static constexpr int kNDW = kND >= kU ? kND / kU : 1;   // a warp's of them
+  static constexpr int kRows = kTileQ / kWarps;      // a warp's softmax rows
+  static constexpr int kTileBytes =
+      2 * (2 * kTileQ + kStages * kChunk) * kLd;     // q_u, q_v, the stages
+  static_assert(kTileQ % kWarpRows == 0 && kWarps % kNR == 0, "row groups");
+  static_assert(kNC >= 1 && kNC * 8 * kU == kChunk, "a chunk's n-tiles");
+  static_assert(kND % kU == 0 || kND < kU, "Dh's n-tiles");
+  static_assert(kRows >= 1 && kRows * kWarps == kTileQ, "softmax rows");
+  static_assert(kStages >= 2 && kChunk % 16 == 0, "stages");
+};
+
+// keys padded to whole k-steps, and the f32 score rows' stride: a multiple
+// of 4 floats whose quarter is odd (16-byte rows, conflict-free ldmatrix
+// of the bf16 P rows laid over them)
+__host__ __device__ constexpr int res16_tpad(int T) {
+  return (T + 15) / 16 * 16;
+}
+__host__ __device__ constexpr int res16_ld(int T) { return res16_tpad(T) + 4; }
+
+template <int DP>
+size_t res16_bytes(int T) {
+  return 4 * (size_t)Res16<DP>::kTileQ * res16_ld(T) + Res16<DP>::kTileBytes;
+}
+
+// the largest T whose block fits kSmemLimit
+template <int DP>
+int res16_max_t() {
+  const int ld = (kSmemLimit - Res16<DP>::kTileBytes) / (4 * Res16<DP>::kTileQ);
+  return (ld - 4) / 16 * 16;
+}
+
+template <int DP>
+__global__ void __launch_bounds__(Res16<DP>::kThreads, FWD16_MIN_BLOCKS)
+    relpos_attention_fwd_bf16_resident_kernel(Args16 a) {
+  using C = Res16<DP>;
+  extern __shared__ __align__(16) unsigned char smem16[];
+  Stamps stamps;
+  stamps.start();
+  const int T = a.T, Dh = a.Dh, Tp = res16_tpad(T), ldS = res16_ld(T);
+  const int ldP = 2 * ldS;                       // bf16 P rows over S rows
+  const int i0 = blockIdx.x * C::kTileQ, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int grp = warp % C::kNR, u = warp / C::kNR, r0 = grp * kWarpRows;
+  const size_t bh = ((size_t)b * a.H + h) * T;
+  const bf16* p_h = a.p + (size_t)h * (2 * T - 1) * Dh;
+  float* S = reinterpret_cast<float*>(smem16);
+  bf16* P = reinterpret_cast<bf16*>(smem16);
+  bf16* sQu = reinterpret_cast<bf16*>(smem16 + 4 * (size_t)C::kTileQ * ldS);
+  bf16* sQv = sQu + C::kTileQ * C::kLd;
+  bf16* stages = sQv + C::kTileQ * C::kLd;
+  // window row w is p row T - TQ - i0 + w; the block's rows use w in
+  // [0, T + TQ - 1), row group g's in [lo, lo + T + 15)
+  const int lo = C::kTileQ - kWarpRows - r0;
+  const int nW = (T + C::kTileQ - 1 + C::kChunk - 1) / C::kChunk;
+  const int nK = (T + C::kChunk - 1) / C::kChunk;
+  const int nQ = nW + nK + (Tp + C::kChunk - 1) / C::kChunk;
+
+  // chunk q of the window, then k, then v, into its stage
+  auto load_chunk = [&](int q) {
+    bf16* st = stages + (q % C::kStages) * C::kChunk * C::kLd;
+    const bf16* src = q < nW        ? p_h
+                      : q < nW + nK ? a.k + bh * Dh
+                                    : a.v + bh * Dh;
+    const int first = q < nW        ? T - C::kTileQ - i0 + q * C::kChunk
+                      : q < nW + nK ? (q - nW) * C::kChunk
+                                    : (q - nW - nK) * C::kChunk;
+    const int limit = q < nW ? 2 * T - 1 : T;
+    if (a.vec)
+      stage_rows<DP, C::kThreads, C::kChunk>(st, src, first, limit, Dh);
+    else
+      load_rows16<DP, C::kThreads>(st, src, first, C::kChunk, limit, Dh,
+                                   false);
+  };
+  load_rows16<DP, C::kThreads>(sQu, a.qu + bh * Dh, i0, C::kTileQ, T, Dh,
+                               a.vec);
+  load_rows16<DP, C::kThreads>(sQv, a.qv + bh * Dh, i0, C::kTileQ, T, Dh,
+                               a.vec);
+  load_chunk(0);
+  cp_async_commit();
+#pragma unroll
+  for (int q = 1; q < C::kStages - 1; ++q) {
+    if (q < nQ) load_chunk(q);
+    cp_async_commit();
+  }
+
+  FragA16 qf[DP / 16];             // the group's rows of q_v, then of q_u
+  float o[C::kNDW][4] = {};
+  for (int q = 0; q < nQ; ++q) {
+    const long long waited = stamps.now();
+    cp_async_wait<C::kStages - 2>();
+    __syncthreads();                 // chunk q landed; chunk q - 1's stage free
+    stamps.add(5, waited);
+    if (q == nW || q == nW + nK) stamps.mark(q == nW ? 0 : 1);
+    const long long issued = stamps.now();
+    if (q + C::kStages - 1 < nQ) load_chunk(q + C::kStages - 1);
+    cp_async_commit();
+    stamps.add(4, issued);
+    const bf16* st = stages + (q % C::kStages) * C::kChunk * C::kLd;
+    if (q < nW + nK) {                           // the scores
+      const bool win = q < nW;
+      if (q == 0 || q == nW)
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk)
+          qf[kk] = ldsm_a((win ? sQv : sQu) + r0 * C::kLd + kk * 16, C::kLd);
+      // this warp's first window row or key of the chunk
+      const int x0 = (win ? q : q - nW) * C::kChunk + u * C::kNC * 8;
+      if (win ? x0 + C::kNC * 8 > lo && x0 < lo + T + kWarpRows - 1
+              : x0 < T) {
+        float acc[C::kNC][4] = {};
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk)
+          mma_row_nmajor<C::kNC>(acc, qf[kk],
+                                 st + u * C::kNC * 8 * C::kLd + kk * 16,
+                                 C::kLd);
+        if (win) {                               // to its skewed place
+#pragma unroll
+          for (int nb = 0; nb < C::kNC; ++nb)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int r = r0 + c_row(e);
+              const int c = x0 + nb * 8 + c_col(e) + r - (C::kTileQ - 1);
+              if (c >= 0 && c < T) S[r * ldS + c] = acc[nb][e];
+            }
+        } else {               // added in place: every load before a store
+          float bd[C::kNC][4];
+#pragma unroll
+          for (int nb = 0; nb < C::kNC; ++nb)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int x = x0 + nb * 8 + c_col(e);
+              bd[nb][e] = x < T ? S[(r0 + c_row(e)) * ldS + x] : 0.f;
+            }
+#pragma unroll
+          for (int nb = 0; nb < C::kNC; ++nb)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int x = x0 + nb * 8 + c_col(e);
+              if (x < T)
+                S[(r0 + c_row(e)) * ldS + x] =
+                    (acc[nb][e] + bd[nb][e]) * a.scale;
+            }
+        }
+      }
+      continue;
+    }
+    if (q == nW + nK) {                          // the softmax, a warp a row
+      // This warp's rows side by side, kCols columns a lane at a time, and
+      // in each step every load before any store: the compiler cannot
+      // tell the rows apart, and would otherwise run each element's
+      // load, arithmetic and store in turn.
+      constexpr int kCols = 2;
+      const bool drop = a.seed != nullptr;
+      const uint64_t seed = drop ? (uint64_t)a.seed[0] : 0;
+      const float* kp = a.kp + (size_t)b * T;
+      const float* am[C::kRows];
+      float* row[C::kRows];
+      float mx[C::kRows], l[C::kRows], inv[C::kRows];
+#pragma unroll
+      for (int k = 0; k < C::kRows; ++k) {
+        const int r = warp + k * C::kWarps;
+        row[k] = S + r * ldS;
+        am[k] = a.am + (size_t)min(i0 + r, T - 1) * T;
+        mx[k] = -INFINITY;
+        l[k] = 0.f;
+      }
+      for (int c0 = lane; c0 < T; c0 += 32 * kCols) {   // the masks, the max
+        float x[kCols][C::kRows], amc[kCols][C::kRows], kpc[kCols];
+#pragma unroll
+        for (int j = 0; j < kCols; ++j) {
+          const int c = min(c0 + 32 * j, T - 1);
+          kpc[j] = __ldg(kp + c);
+#pragma unroll
+          for (int k = 0; k < C::kRows; ++k) {
+            amc[j][k] = __ldg(am[k] + c);
+            x[j][k] = row[k][c];
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < kCols; ++j)
+          if (c0 + 32 * j < T)
+#pragma unroll
+            for (int k = 0; k < C::kRows; ++k) {
+              // (s + am) + kp, the plain version's order: on a row whose
+              // keys are all masked the scores keep an ulp of 64 or 128
+              x[j][k] = x[j][k] + amc[j][k] + kpc[j];
+              row[k][c0 + 32 * j] = x[j][k];
+              mx[k] = fmaxf(mx[k], x[j][k]);
+            }
+      }
+#pragma unroll
+      for (int k = 0; k < C::kRows; ++k) {
+#pragma unroll
+        for (int d = 16; d > 0; d >>= 1)
+          mx[k] = fmaxf(mx[k], __shfl_xor_sync(0xffffffffu, mx[k], d));
+        if (mx[k] == -INFINITY) mx[k] = 0.f;     // no exp(-inf + inf)
+      }
+      for (int c0 = lane; c0 < T; c0 += 32 * kCols) {   // exp(s - m), the sum
+        float x[kCols][C::kRows];
+#pragma unroll
+        for (int j = 0; j < kCols; ++j)
+#pragma unroll
+          for (int k = 0; k < C::kRows; ++k)
+            x[j][k] = row[k][min(c0 + 32 * j, T - 1)];
+#pragma unroll
+        for (int j = 0; j < kCols; ++j)
+          if (c0 + 32 * j < T)
+#pragma unroll
+            for (int k = 0; k < C::kRows; ++k) {
+              x[j][k] = expf(x[j][k] - mx[k]);
+              row[k][c0 + 32 * j] = x[j][k];
+              l[k] += x[j][k];
+            }
+      }
+#pragma unroll
+      for (int k = 0; k < C::kRows; ++k) {
+#pragma unroll
+        for (int d = 16; d > 0; d >>= 1)
+          l[k] += __shfl_xor_sync(0xffffffffu, l[k], d);
+        inv[k] = 1.f / l[k];
+        const int i = i0 + warp + k * C::kWarps;
+        if (a.stats != nullptr && lane == 0 && i < T) {
+          a.stats[2 * (bh + i)] = mx[k];
+          a.stats[2 * (bh + i) + 1] = inv[k];
+        }
+      }
+      // P over each row's first half: the step from c0 writes the floats
+      // (c0 - lane) / 2 .. (c0 - lane) / 2 + 32 kCols / 2 - 1, which this
+      // step or an earlier one has read
+      for (int c0 = lane; c0 - lane < Tp; c0 += 32 * kCols) {
+        float pr[kCols][C::kRows];
+#pragma unroll
+        for (int j = 0; j < kCols; ++j)
+#pragma unroll
+          for (int k = 0; k < C::kRows; ++k)
+            pr[j][k] = row[k][min(c0 + 32 * j, T - 1)];
+#pragma unroll
+        for (int j = 0; j < kCols; ++j) {
+          const int c = c0 + 32 * j;
+#pragma unroll
+          for (int k = 0; k < C::kRows; ++k) {
+            const int i = i0 + warp + k * C::kWarps;
+            pr[j][k] = c < T ? pr[j][k] * inv[k] : 0.f;
+            if (drop && c < T && i < T)
+              pr[j][k] = tsasr::dropout_keep(seed, a.thresh, b, h, i, c)
+                             ? pr[j][k] * a.keep_scale
+                             : 0.f;
+          }
+        }
+        __syncwarp();
+#pragma unroll
+        for (int j = 0; j < kCols; ++j)
+#pragma unroll
+          for (int k = 0; k < C::kRows; ++k)
+            if (c0 + 32 * j < Tp)
+              reinterpret_cast<bf16*>(row[k])[c0 + 32 * j] =
+                  __float2bfloat16_rn(pr[j][k]);
+      }
+      __syncthreads();                           // P whole
+      stamps.mark(2);
+    }
+    if (u * C::kNDW < C::kND) {                  // O += P v, in key order
+      const int v0 = (q - nW - nK) * C::kChunk;
+#pragma unroll
+      for (int ks = 0; ks < C::kChunk / 16; ++ks)
+        if (v0 + 16 * ks < Tp)
+          mma_row_kmajor<C::kNDW>(
+              o, ldsm_a(P + r0 * ldP + v0 + 16 * ks, ldP),
+              st + 16 * ks * C::kLd + u * C::kNDW * 8, C::kLd);
+    }
+  }
+  stamps.mark(3);
+  stamps.write();
+  if (u * C::kNDW >= C::kND) return;
+#pragma unroll
+  for (int nd = 0; nd < C::kNDW; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = i0 + r0 + c_row(e), d = (u * C::kNDW + nd) * 8 + c_col(e);
+      if (i < T && d < Dh)
+        a.out[(bh + i) * Dh + d] = __float2bfloat16_rn(o[nd][e]);
+    }
+}
+
+template <int DP>
+cudaError_t launch_res16(const Args16& a, int B, cudaStream_t stream) {
+  using C = Res16<DP>;
+  const size_t bytes = res16_bytes<DP>(a.T);
+  if (a.T > res16_max_t<DP>() || bytes > (size_t)kSmemLimit)
+    return cudaErrorInvalidValue;                // the long route's T
+  static bool attribute_set = false;
+  if (!attribute_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        relpos_attention_fwd_bf16_resident_kernel<DP>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+    if (err != cudaSuccess) return err;
+    attribute_set = true;
+  }
+  const dim3 grid((a.T + C::kTileQ - 1) / C::kTileQ, a.H, B);
+  relpos_attention_fwd_bf16_resident_kernel<DP>
+      <<<grid, C::kThreads, bytes, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -843,32 +1296,79 @@ __global__ void bf16_matmul_test_kernel(const bf16* a, const bf16* b,
 
 }  // namespace
 
+namespace {
+
+Args16 bf16_args(const __nv_bfloat16* qu, const __nv_bfloat16* qv,
+                 const __nv_bfloat16* k, const __nv_bfloat16* v,
+                 const __nv_bfloat16* p, const float* kp, const float* am,
+                 __nv_bfloat16* out, float* stats, unsigned thresh,
+                 float keep_scale, const long long* seed, int H, int T,
+                 int Dh, float scale) {
+  const bool vec = Dh % 8 == 0 && aligned16(qu) && aligned16(qv) &&
+                   aligned16(k) && aligned16(v) && aligned16(p);
+  return Args16{qu, qv, k, v, p, kp, am, out, stats, seed, thresh,
+                keep_scale, scale, H, T, Dh, vec};
+}
+
+bool bf16_shape_ok(int B, int H, int T, int Dh) {
+  return B >= 1 && H >= 1 && T >= 1 && Dh >= 1 && Dh <= 128 && B <= 65535 &&
+         H <= 65535;
+}
+
+}  // namespace
+
 // The bf16 forward: q_u, q_v, k, v, out (B, H, T, Dh) and p (H, 2T-1,
 // Dh) in bf16; kp (B, T), am (T, T) and stats (B, H, T, 2, may be null)
-// f32; the rest as relpos_attention_fwd. Returns the CUDA error code of
-// the launch (0 on success). 1 <= Dh <= 128.
+// f32; the rest as relpos_attention_fwd. The resident kernel: T at most
+// relpos_attention_fwd_bf16_max_t(Dh), else cudaErrorInvalidValue. Returns
+// the CUDA error code of the launch (0 on success). 1 <= Dh <= 128.
 extern "C" int relpos_attention_fwd_bf16(
     const __nv_bfloat16* qu, const __nv_bfloat16* qv, const __nv_bfloat16* k,
     const __nv_bfloat16* v, const __nv_bfloat16* p, const float* kp,
     const float* am, __nv_bfloat16* out, float* stats, unsigned thresh,
     float keep_scale, const long long* seed, int B, int H, int T, int Dh,
     float scale, void* stream) {
-  if (B < 1 || H < 1 || T < 1 || Dh < 1 || Dh > 128 || B > 65535 ||
-      H > 65535)
-    return (int)cudaErrorInvalidValue;
-  const bool vec = Dh % 8 == 0 && aligned16(qu) && aligned16(qv) &&
-                   aligned16(k) && aligned16(v) && aligned16(p);
-  Args16 a{qu, qv, k, v, p, kp, am, out, stats, seed, thresh, keep_scale,
-           scale, H, T, Dh, vec};
+  if (!bf16_shape_ok(B, H, T, Dh)) return (int)cudaErrorInvalidValue;
+  const Args16 a = bf16_args(qu, qv, k, v, p, kp, am, out, stats, thresh,
+                             keep_scale, seed, H, T, Dh, scale);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (Dh <= 32)
-    err = launch16<32>(a, B, s);
-  else if (Dh <= 64)
-    err = launch16<64>(a, B, s);
-  else
-    err = launch16<128>(a, B, s);
-  return (int)err;
+  if (Dh <= 32) return (int)launch_res16<32>(a, B, s);
+  if (Dh <= 64) return (int)launch_res16<64>(a, B, s);
+  return (int)launch_res16<128>(a, B, s);
+}
+
+// The largest T the resident kernel takes at head dim Dh (1..128; 0
+// otherwise): past it, relpos_attention_fwd_bf16_long.
+extern "C" int relpos_attention_fwd_bf16_max_t(int Dh) {
+  if (Dh < 1 || Dh > 128) return 0;
+  if (Dh <= 32) return res16_max_t<32>();
+  if (Dh <= 64) return res16_max_t<64>();
+  return res16_max_t<128>();
+}
+
+#ifdef FWD16_STAMPS
+// The resident kernel's stamps of its last launch: n of the 6 per block
+// (blocks in launch order, x fastest) into host memory. CUDA error code.
+extern "C" int relpos_attention_fwd_bf16_stamps(long long* host, int n) {
+  return (int)cudaMemcpyFromSymbol(host, fwd16_stamps,
+                                   n * sizeof(long long));
+}
+#endif
+
+// The two-pass kernel, any T: the arguments of relpos_attention_fwd_bf16.
+extern "C" int relpos_attention_fwd_bf16_long(
+    const __nv_bfloat16* qu, const __nv_bfloat16* qv, const __nv_bfloat16* k,
+    const __nv_bfloat16* v, const __nv_bfloat16* p, const float* kp,
+    const float* am, __nv_bfloat16* out, float* stats, unsigned thresh,
+    float keep_scale, const long long* seed, int B, int H, int T, int Dh,
+    float scale, void* stream) {
+  if (!bf16_shape_ok(B, H, T, Dh)) return (int)cudaErrorInvalidValue;
+  const Args16 a = bf16_args(qu, qv, k, v, p, kp, am, out, stats, thresh,
+                             keep_scale, seed, H, T, Dh, scale);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (Dh <= 32) return (int)launch16<32>(a, B, s);
+  if (Dh <= 64) return (int)launch16<64>(a, B, s);
+  return (int)launch16<128>(a, B, s);
 }
 
 // c = a @ b through the bf16 mma helper by route `mode` (0-3, see

@@ -39,6 +39,12 @@ dp products, dp summed over the batch in f32 and rounded once, the masks
 and the statistics f32. The wrapper dispatches on q_u's dtype: f32 to the
 f32 kernels, bf16 to the bf16 kernels, anything else raises.
 
+The bf16 forward has two routes, chosen by T before the launch
+(``bf16_fwd_route``): the resident kernel keeps each block's rows of
+scores whole in shared memory and takes every T up to
+``bf16_fwd_max_t(Dh)`` (3264 keys at Dh 33-64); past that the two-pass
+kernel, which holds no row of scores, takes it.
+
 ``relpos_attention_reference`` is the plain PyTorch version of the whole
 function: in f32 (or f64) autograd gives its backward; in bf16 it rounds
 where the kernels do and its backward is ``relpos_attention_bwd_bf16``,
@@ -48,7 +54,8 @@ tensors on the CPU; on CUDA it launches the kernels (through a
 ``torch.autograd.Function`` when a gradient is needed) or raises.
 ``launches`` and ``bwd_launches`` count the launches of the f32 forward
 and backward, ``bf16_launches`` and ``bf16_bwd_launches`` those of the
-bf16 variants.
+bf16 variants (the forward's resident route), ``bf16_long_launches``
+those of the bf16 forward's long route.
 """
 
 import ctypes
@@ -73,8 +80,40 @@ launches = 0
 bwd_launches = 0
 bf16_launches = 0
 bf16_bwd_launches = 0
+bf16_long_launches = 0
 # the kernels' element types
 DTYPES = (torch.float32, torch.bfloat16)
+
+
+# The bf16 forward's resident kernel (csrc/relpos_attention_fwd.cu, Res16):
+# query rows of a block, rows of a stage, stages; a block's shared memory
+# is its f32 rows of scores, its bf16 q_u and q_v tiles and its stages, at
+# most SMEM_LIMIT bytes
+BF16_FWD_ROWS = 16
+BF16_FWD_CHUNK = 64
+BF16_FWD_STAGES = 2
+SMEM_LIMIT = 232448
+
+
+def bf16_fwd_max_t(dh):
+    """The largest T the bf16 forward's resident kernel takes at head dim
+    ``dh``: its scores, ``BF16_FWD_ROWS`` rows of ``roundup(T, 16) + 4``
+    floats, beside bf16 tiles of rows ``DP + 8`` apart (DP: dh padded to
+    32, 64 or 128), within ``SMEM_LIMIT``. The C entry
+    ``relpos_attention_fwd_bf16_max_t`` computes the same."""
+    if not 1 <= dh <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {dh} outside 1..{MAX_HEAD_DIM}")
+    dp = 32 if dh <= 32 else 64 if dh <= 64 else 128
+    tile_bytes = 2 * (2 * BF16_FWD_ROWS
+                      + BF16_FWD_STAGES * BF16_FWD_CHUNK) * (dp + 8)
+    ld = (SMEM_LIMIT - tile_bytes) // (4 * BF16_FWD_ROWS)
+    return (ld - 4) // 16 * 16
+
+
+def bf16_fwd_route(T, dh):
+    """"resident" where the bf16 forward's rows of scores fit a block's
+    shared memory, else "long" (the two-pass kernel)."""
+    return "resident" if T <= bf16_fwd_max_t(dh) else "long"
 
 
 def rel_shift(x, klen, causal=False):
@@ -259,8 +298,11 @@ class _PlainBf16Attention(torch.autograd.Function):
 
 # ------------------------------------------------------------------ kernels
 @functools.cache
-def _fwd_kernel():
-    fn = _build.load(SOURCE).relpos_attention_fwd
+def _fwd_kernel(entry="relpos_attention_fwd"):
+    """A forward C entry of ``SOURCE``: the f32 kernel, or the bf16
+    forward's resident (``relpos_attention_fwd_bf16``) or long route
+    (``relpos_attention_fwd_bf16_long``); one signature."""
+    fn = getattr(_build.load(SOURCE), entry)
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_uint, ctypes.c_float,
                                            ctypes.c_void_p] + \
         [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
@@ -287,14 +329,12 @@ def _bwd_kernel():
     return fn
 
 
-@functools.cache
-def _fwd_kernel_bf16():
-    fn = _build.load(SOURCE).relpos_attention_fwd_bf16
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_uint, ctypes.c_float,
-                                           ctypes.c_void_p] + \
-        [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+def fwd_bf16_max_t_cuda(dh):
+    """``bf16_fwd_max_t`` as the built kernel computes it (a test hook)."""
+    fn = _build.load(SOURCE).relpos_attention_fwd_bf16_max_t
+    fn.argtypes = [ctypes.c_int]
     fn.restype = ctypes.c_int
-    return fn
+    return fn(dh)
 
 
 @functools.cache
@@ -365,21 +405,24 @@ def _launch_fwd(q_u, q_v, k, v, p, kp_add, am_add, seed, scale, rate,
     stats = torch.empty(B, H, T, 2, device=q_u.device) if want_stats \
         else None
     bf16 = q_u.dtype == torch.bfloat16
-    kernel = _fwd_kernel_bf16() if bf16 else _fwd_kernel()
+    long_route = bf16 and bf16_fwd_route(T, Dh) == "long"
+    name = "relpos_attention_fwd" + ("_bf16_long" if long_route else
+                                     "_bf16" if bf16 else "")
     with torch.cuda.device(q_u.device):
-        err = kernel(
+        err = _fwd_kernel(name)(
             q_u.data_ptr(), q_v.data_ptr(), k.data_ptr(), v.data_ptr(),
             p.data_ptr(), kp_add.data_ptr(), am_add.data_ptr(),
             out.data_ptr(), 0 if stats is None else stats.data_ptr(),
             thresh, keep_scale, 0 if seed_t is None else seed_t.data_ptr(),
             B, H, T, Dh, float(scale), _stream(q_u.device))
-    global launches, bf16_launches
-    if bf16:
-        _build.check_launch(err, "relpos_attention_fwd_bf16")
-        bf16_launches += 1
-    else:
-        _build.check_launch(err, "relpos_attention_fwd")
+    _build.check_launch(err, name)
+    global launches, bf16_launches, bf16_long_launches
+    if not bf16:
         launches += 1
+    elif long_route:
+        bf16_long_launches += 1
+    else:
+        bf16_launches += 1
     return out, stats, seed_t
 
 
