@@ -11,10 +11,9 @@ Run from the root of a checkout:
         --order parent,change,change,parent
 
 Each NAME=PATH is a version of ``tsasr_torch/csrc/relpos_attention_fwd.cu``
-(its headers are taken from ``tsasr_torch/csrc``); NAME=PATH,MACRO=VALUE,...
-builds it with those ``-D`` definitions (the resident kernel's shape:
-FWD16_ROWS, FWD16_WARPS, FWD16_CHUNK, FWD16_STAGES, FWD16_MIN_BLOCKS).
-Every version is built with the port's ``nvcc`` flags into
+(its headers are taken from ``tsasr_torch/csrc``): the parent's, the
+change, or an edited copy under ``build/`` (another shape of the resident
+kernel, for a sweep). Every version is built with the port's ``nvcc`` flags into
 ``build/attention_ab/``, all at once, and its C entry
 ``relpos_attention_fwd_bf16`` is called directly. On the same inputs
 (``chip_smoke.py``'s ``bf16_case``, key padding, from its seed) at B8 H4
@@ -27,11 +26,6 @@ of the card shows), and held against the plain bf16 version at
 pre-shifted bias, is timed once a shape as the yardstick. It prints the
 card, one line per version and case, then the device times side by side
 with each version's ratio to the first, and exits 1 if a version errs.
-With ``--stamps`` each version is also built with ``-DFWD16_STAMPS`` and,
-at each shape (dropout 0, after a warm-up), the median over the resident
-kernel's blocks of the cycles (thread 0's clock64) in its window chunks,
-k chunks, softmax and P v, in all, issuing chunk copies and waiting for
-them is printed; a version without the stamps entry is skipped.
 """
 
 import argparse
@@ -47,31 +41,26 @@ SHAPES = ((8, 101), (8, 208), (8, 408), (6, 208), (3, 408))
 RATES = (0.0, 0.1)
 
 
-def build(versions, stamps=False):
-    """name -> the ctypes library of each version (and name + "+stamps"
-    -> its -DFWD16_STAMPS build), built in parallel."""
+def build(versions):
+    """name -> the ctypes library of each version, built in parallel."""
     from tsasr_torch.kernels import _build
     out = ROOT / "build" / "attention_ab"
     out.mkdir(parents=True, exist_ok=True)
     nvcc = _build._nvcc()
     procs = {}
-    for name, (src, defines) in versions.items():
-        builds = [("", [])] + [("+stamps", ["FWD16_STAMPS"])] * stamps
-        for tag, extra in builds:
-            lib = out / f"lib{name}{tag}.so"
-            cmd = [nvcc, *_build.NVCC_FLAGS,
-                   *(f"-D{d}" for d in defines + extra), "-I",
-                   str(_build.CSRC), "-o", str(lib), str(src)]
-            procs[name + tag] = (subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True), lib)
+    for name, src in versions.items():
+        lib = out / f"lib{name}.so"
+        cmd = [nvcc, *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o",
+               str(lib), str(src)]
+        procs[name] = (subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True), lib)
     libs = {}
     for name, (proc, lib) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"{name}: nvcc exited {proc.returncode}\n{log}")
-        print(f"{name}: built {' '.join(versions[name.split('+')[0]][1])}",
-              flush=True)
+        print(f"{name}: built", flush=True)
         for ln in log.splitlines():
             if "fwd_bf16" in ln or "registers" in ln or "spill" in ln:
                 print(f"  {ln.strip()}", flush=True)
@@ -84,59 +73,16 @@ def build(versions, stamps=False):
     return libs
 
 
-PHASES = ("window", "k", "softmax", "P v", "in all", "issuing copies",
-          "waiting for them")
-
-
-def print_stamps(name, lib, rows, cases, scale, stream):
-    """The median cycles of each phase over the resident kernel's blocks,
-    at each case of dropout 0."""
-    import numpy as np
-    import torch
-    fn = lib.relpos_attention_fwd_bf16
-    get = lib.relpos_attention_fwd_bf16_stamps
-    get.argtypes, get.restype = [ctypes.c_void_p, ctypes.c_int], ctypes.c_int
-    for label, a16, rate, *_ in cases:
-        if rate > 0.0:
-            continue
-        b, h, t, dh = a16[0].shape
-        out = a16[0].clone()
-        ptrs = [x.data_ptr() for x in a16] + [out.data_ptr(), 0]
-        for _ in range(5):
-            if fn(*ptrs, 0, 1.0, 0, b, h, t, dh, scale, stream) != 0:
-                raise RuntimeError(f"{name}: the launch at {label} failed")
-        torch.cuda.synchronize()
-        n = -(-t // rows) * h * b
-        buf = np.zeros(n * 6, dtype=np.int64)
-        if get(buf.ctypes.data, n * 6) != 0:
-            raise RuntimeError(f"{name}: reading the stamps failed")
-        v = buf.reshape(n, 6)
-        each = (v[:, 0], v[:, 1] - v[:, 0], v[:, 2] - v[:, 1],
-                v[:, 3] - v[:, 2], v[:, 3], v[:, 4], v[:, 5])
-        print(f"{name} stamps {label}, {n} blocks, median cycles: "
-              + ", ".join(f"{ph} {np.median(x):.0f}"
-                          for ph, x in zip(PHASES, each)), flush=True)
-
-
-def parse_version(text):
-    """NAME=PATH[,MACRO=VALUE...] -> (name, (path, [MACRO=VALUE, ...]))."""
-    name, rest = text.split("=", 1)
-    path, *defines = rest.split(",")
-    return name, (Path(path), defines)
-
-
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("versions", nargs="+",
-                        metavar="NAME=PATH[,MACRO=VALUE...]")
+    parser.add_argument("versions", nargs="+", metavar="NAME=PATH")
     parser.add_argument("--order", help="comma-separated names, e.g. "
                         "a,b,b,a (default: each version once)")
-    parser.add_argument("--stamps", action="store_true",
-                        help="also print each version's per-phase cycles")
     args = parser.parse_args()
     if not all("=" in v for v in args.versions):
         parser.error("each version is NAME=PATH")
-    versions = dict(parse_version(v) for v in args.versions)
+    versions = {name: Path(path) for name, path in
+                (v.split("=", 1) for v in args.versions)}
     order = args.order.split(",") if args.order else list(versions)
     if set(order) - set(versions):
         parser.error(f"--order names {set(order) - set(versions)}, which "
@@ -151,7 +97,7 @@ def main():
     import chip_smoke as cs
     from tsasr_torch.kernels import relpos_attention as ra
 
-    libs = build(versions, args.stamps)
+    libs = build(versions)
     card = cs.card_line()
     print(card, flush=True)
     device = torch.device("cuda")
@@ -215,13 +161,6 @@ def main():
             f"{n} " + " / ".join(f"{d:.4f}" for d in v)
             + f" ({base / statistics.mean(v):.2f}x)"
             for n, v in by_name.items()) + f"; SDPA bf16 {sdpa:.4f}")
-    for name, (_, defines) in versions.items():
-        lib = libs.get(name + "+stamps")
-        if lib is not None and hasattr(lib,
-                                       "relpos_attention_fwd_bf16_stamps"):
-            rows = int(dict(d.split("=") for d in defines).get(
-                "FWD16_ROWS", 16))
-            print_stamps(name, lib, rows, cases, scale, stream)
     if failed:
         print("a version erred past the tolerance", file=sys.stderr)
     return 1 if failed else 0

@@ -52,10 +52,11 @@ checkout, or when any phase fails. Phases:
    and TEST batch must launch the kernels its shapes imply; a second run
    with 2 epochs must recover the checkpoint bit for bit and go on from
    its optimizer step, its TEST one utterance a batch with an n-gram LM
-   of the train transcripts (``tsasr_torch.tools.train_ngram_lm``); the
-   run's folder through ``TSASRTranscriber.from_experiment`` and
-   ``transcribe_file`` must give TEST's transcripts (16 of its 48 TEST
-   files, EXPERIMENT_FILES); then each kernel is
+   of the train transcripts (``tsasr_torch.tools.train_ngram_lm``), on
+   the split's first RESUMED_TEST_MIXTURES mixtures; the run's folder
+   through ``TSASRTranscriber.from_experiment`` and ``transcribe_file``
+   must give TEST's transcripts (EXPERIMENT_FILES of its files); then
+   each kernel is
    held against its plain version on the inputs the two runs gave it,
    one call per shape (the attention forward and, at TRAIN, backward
    with the path's dropout; the lattice on the route the path took; T
@@ -103,8 +104,9 @@ checkout, or when any phase fails. Phases:
    version (forward within 2^-7 of max |o|, backward within 2^-6 of max
    |g|) and no further from f64 than 1.5 times the plain version, at T
    101, 208 and 408 on key-padding, causal and causal + band-64 masks,
-   dropout 0.1; their times beside the f32 kernels' (in turns), the
-   plain versions', SDPA's in bf16 and the bound at the bf16 peak;
+   dropout 0.1, and the forward's long route at its first T; their
+   times beside the f32 kernels' (in turns), the plain versions', SDPA's
+   in bf16 and the bound at the bf16 peak (in a fresh process);
    ``fit_batch`` at full width in f32 and bf16 in turns on the same
    weights and batches (host ms, device time and launches under the
    profiler, ``max_memory_allocated``); the full-width model in bf16
@@ -1693,9 +1695,37 @@ def check_gradients(device, batch, config=None, hparams=None, fault=True,
 
 
 def device_us(e):
-    """A profiler event's own device time (us), across torch versions."""
-    return getattr(e, "self_device_time_total",
-                   getattr(e, "self_cuda_time_total", 0))
+    """A kernel total's device time (us)."""
+    return e.self_device_time_total
+
+
+KernelTotal = collections.namedtuple(
+    "KernelTotal", "key count self_device_time_total")
+
+
+def profiled(fn):
+    """(wall ms, the device's kernels) of one call of ``fn`` under
+    ``torch.profiler`` tracing the device only (CUPTI), the profiler on:
+    the kernels by name (``KernelTotal``: launches and device us), read
+    from the profiler's raw events. The event tree that ``key_averages``
+    builds took 2-4.5 s at 12,000 launches on the card's host, the window
+    itself 0.3-0.5 s, and a CPU trace beside the device's 0.2 s more."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    totals = collections.defaultdict(lambda: [0, 0])
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0:
+            totals[e.name()][0] += 1
+            totals[e.name()][1] += e.duration_ns()
+    return wall_ms, [KernelTotal(k, n, ns / 1e3)
+                     for k, (n, ns) in totals.items()]
 
 
 def device_ms_by_kernel(fn, reps=10):
@@ -1707,39 +1737,17 @@ def device_ms_by_kernel(fn, reps=10):
     per call (those seen over ``reps`` calls, rounded): a window that
     drops a launch's event does not read low."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+
+    def calls():
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
+
     return {e.key: device_us(e) / 1e3 / e.count * max(1, round(e.count
                                                                / reps))
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and device_us(e) > 0}
-
-
-def profiled(fn):
-    """(wall ms, the device's kernel events) of one call of ``fn`` under
-    ``torch.profiler`` (CUPTI), the profiler on."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    # kernels only: a CPU op's own device time repeats its kernels'
-    return wall_ms, [e for e in prof.key_averages()
-                     if e.device_type == DeviceType.CUDA
-                     and device_us(e) > 0]
+            for e in profiled(calls)[1]}
 
 
 def profile_micro_batch(brain, batch, card):
@@ -1882,6 +1890,10 @@ EXPERIMENT_CORPUS = dict(n_speakers=6, utts_per_speaker=8, n_mix=24,
 EXPERIMENT_SPLITS = ("train-2mix", "dev-clean-2mix", "test-clean-2mix")
 # the TEST files the scratch experiment transcribes from its folder
 EXPERIMENT_FILES = 8
+# the resumed run's TEST (beam 15 + the n-gram, one utterance a batch):
+# the split's first 8 mixtures, 16 utterances (the first run's TEST takes
+# all 24)
+RESUMED_TEST_MIXTURES = 8
 
 
 def corpus_vocab(folder):
@@ -2186,9 +2198,9 @@ def phase_experiment(device, card, corpus):
     with tempfile.TemporaryDirectory(prefix="tsasr_experiment_") as tmp:
         out = Path(tmp) / "out"
 
-        def argv(epochs, step_limit, *extra):
+        def argv(epochs, step_limit, *extra, data=corpus):
             args = [str(root / EXPERIMENT_YAML), "--data_folder",
-                    str(corpus), "--output_folder", str(out),
+                    str(data), "--output_folder", str(out),
                     "--fused_attention", "True",
                     "--valid_search_freq", "1", "--noprogressbar",
                     "--vocab_size", str(corpus_vocab(corpus)),
@@ -2280,7 +2292,9 @@ def phase_experiment(device, card, corpus):
                         second_counts, second_timings):
                 second = run_experiment(argv=argv(
                     2, 4, "--lm_path", str(arpa), "--lm_weight",
-                    str(LM_WEIGHT), "--test_max_batch_length", "0.5"))
+                    str(LM_WEIGHT), "--test_max_batch_length", "0.5",
+                    data=cut_corpus(corpus, Path(tmp) / "resumed_corpus", {
+                        EXPERIMENT_SPLITS[2]: RESUMED_TEST_MIXTURES})))
             second_s = time.perf_counter() - t0
         finally:
             TSASRBrain._fit_train = fit_train
@@ -2312,8 +2326,8 @@ def phase_experiment(device, card, corpus):
             f"n-gram, weight {second._beam.lm_weight}) [{card}]")
         if second._beam.lm_weight != LM_WEIGHT:
             raise RuntimeError("the resumed run's TEST fused no LM")
-        # a sixth of the 48 TEST files: the depth of this path is cut so
-        # the whole script keeps to its time budget
+        # half of the resumed TEST's files: the depth of this path is cut
+        # so the whole script keeps to its time budget
         transcribe_test_split(second, out, Path(tmp) / "test_wavs", device,
                               card, limit=EXPERIMENT_FILES)
         path_counts = read_counts()
@@ -3384,7 +3398,8 @@ def bf16_long_route_check(device, gen, seed, scale):
     smallest T that takes it, B1 H4 Dh64, key padding, dropout 0.1, and
     the backward through it, held as ``bf16_kernel_checks`` holds the
     resident route; one launch counted on the long route and none on the
-    resident one. Returns that T and the forward's error."""
+    resident one. Returns that T, the forward's error and the long
+    route's launches there."""
     import torch
     from tsasr_torch.kernels import relpos_attention as ra
     t = ra.bf16_fwd_max_t(DH) + 1
@@ -3407,19 +3422,17 @@ def bf16_long_route_check(device, gen, seed, scale):
                            "expected (0, 1)")
     del args, do
     torch.cuda.empty_cache()
-    return {"T": t, "err": fwd}
+    return {"T": t, "err": fwd, "launches": launched[1]}
 
 
 def device_ms_seen(fn, tries=12):
     """``device_ms_by_kernel`` again when a profiler window saw no device
-    event (it happens now and then after many windows in one process, in
-    runs of two or three windows), after a short pause; {} after
-    ``tries`` empty windows."""
+    event (a process that has opened many windows loses events: see
+    ``bf16_kernel_times_apart``); {} after ``tries`` empty windows."""
     for _ in range(tries):
         seen = device_ms_by_kernel(fn)
         if seen:
             return seen
-        time.sleep(0.05)
     return {}
 
 
@@ -3434,8 +3447,6 @@ def device_ms_median(fn, windows=3, tries=12):
             seen.append(ms)
             if len(seen) == windows:
                 return statistics.median(seen)
-        else:
-            time.sleep(0.05)
     raise RuntimeError(f"{len(seen)} of {tries} profiler windows saw a "
                        "device event")
 
@@ -3571,10 +3582,12 @@ def bf16_times_worker(out):
 
 def bf16_kernel_times_apart():
     """``bf16_kernel_times`` in a fresh process (the kernels built
-    already): deep into a whole run of this script, profiler windows
-    stop seeing device events (one run read none for one shape, another
-    saw one in 12 windows at this phase's first reading), while a fresh
-    process sees every one. Its log lines are passed on."""
+    already): a process loses profiler events the more windows it has
+    opened (a count, not a clock: 10-call windows saw 10, 9, 7, 5, ...
+    of their launches, then 0 or 10 in turn, with or without idle time
+    around them), so deep into a whole run of this script small windows
+    see none, while a fresh process sees every one. Its log lines are
+    passed on."""
     with tempfile.TemporaryDirectory(prefix="tsasr_bf16_times_") as tmp:
         out = Path(tmp) / "rows.json"
         res = subprocess.run(
@@ -3897,16 +3910,8 @@ def own_peak(device, fn):
 
 def device_reading(fn):
     """(device ms, kernel launches) of one call of ``fn`` under the
-    profiler, tracing the device only (the banded loss's ~10^5 launches
-    take a CPU trace tens of seconds to process)."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and device_us(e) > 0]
+    profiler."""
+    _, events = profiled(fn)
     return (sum(device_us(e) for e in events) / 1e3,
             sum(e.count for e in events))
 
@@ -4867,13 +4872,10 @@ DDP_LAUNCH_TIMEOUT = 300
 DDP_OVERRIDES = []
 
 
-def ddp_corpus(corpus, folder):
-    """``corpus`` with its VALID and TEST splits cut to their first
-    DDP_VALID_MIXTURES and DDP_TEST_MIXTURES mixtures (the speakers'
-    folders linked, not copied)."""
+def cut_corpus(corpus, folder, cut):
+    """``corpus`` with each split named in ``cut`` cut to its first that
+    many mixtures (the speakers' folders linked, not copied)."""
     folder.mkdir()
-    cut = {EXPERIMENT_SPLITS[1]: DDP_VALID_MIXTURES,
-           EXPERIMENT_SPLITS[2]: DDP_TEST_MIXTURES}
     for entry in Path(corpus).iterdir():
         if entry.suffix == ".jsonl":
             lines = entry.read_text().splitlines(keepends=True)
@@ -5198,7 +5200,10 @@ def phase_ddp(device, card, corpus):
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="tsasr_ddp_") as tmp:
         tmp = Path(tmp)
-        data = ddp_corpus(corpus, tmp / "corpus")
+        # VALID's and TEST's first DDP_VALID_MIXTURES, DDP_TEST_MIXTURES
+        data = cut_corpus(corpus, tmp / "corpus", {
+            EXPERIMENT_SPLITS[1]: DDP_VALID_MIXTURES,
+            EXPERIMENT_SPLITS[2]: DDP_TEST_MIXTURES})
         (tmp / "a").mkdir()
         reset_counts()
         keep = {}
@@ -5672,7 +5677,8 @@ def main():
             # two-pass kernel) from T > 3264 at Dh 64, launched by the
             # kernel checks alone
             kernels[-1]["long_route"] = {
-                "from_T": bf16_long["T"], "launches_in_checks": 1,
+                "from_T": bf16_long["T"],
+                "launches_in_checks": bf16_long["launches"],
                 "max_abs_err": bf16_long["err"]}
     for entry in kernels:
         if entry["launches"] < 1:

@@ -45,6 +45,11 @@ import torch
 from tsasr_torch.kernels import relpos_attention
 
 WARP_ROWS = 16      # query rows of a row group (the m16n8k8 row tile)
+# the bf16 forward's resident kernel (Res16 in csrc/relpos_attention_fwd.cu):
+# query rows of a block, rows of a stage, stages, and the shared memory a
+# block may use
+BF16_ROWS, BF16_CHUNK, BF16_STAGES = 16, 64, 2
+SMEM_LIMIT = 232448
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -393,8 +398,7 @@ def test_tiled_backward_matches_autograd(T, tile, Dh, rate):
 
 # ----------------------------------------------- the bf16 resident forward
 def tiled_forward_bf16(args, scale, keep, rate, dtype,
-                       qtile=relpos_attention.BF16_FWD_ROWS,
-                       chunk=relpos_attention.BF16_FWD_CHUNK):
+                       qtile=BF16_ROWS, chunk=BF16_CHUNK):
     """out (B, H, T, Dh) in bf16 and the row statistics m, 1 / l (B, H,
     T) through the resident bf16 forward's algebra, its blocks of
     ``qtile`` rows side by side: the window, then k, then the softmax,
@@ -486,32 +490,61 @@ def test_tiled_forward_bf16_matches_plain(T, Dh, rate):
     assert_bf16_forward(bf16_case(T, Dh, T * 1000 + Dh), rate)
 
 
+def resident_tile_bytes(dh):
+    """A resident block's bf16 q_u and q_v tiles and stages, rows ``DP +
+    8`` apart (DP: dh padded to 32, 64 or 128)."""
+    dp = 32 if dh <= 32 else 64 if dh <= 64 else 128
+    return 2 * (2 * BF16_ROWS + BF16_STAGES * BF16_CHUNK) * (dp + 8)
+
+
+def resident_block_bytes(T, dh):
+    """A resident block's shared memory at T keys: its f32 scores,
+    ``BF16_ROWS`` rows of ``roundup(T, 16) + 4`` floats, beside its
+    tiles."""
+    return 4 * BF16_ROWS * (-(-T // 16) * 16 + 4) + resident_tile_bytes(dh)
+
+
+def resident_max_t(dh):
+    """The largest T whose resident block fits ``SMEM_LIMIT``."""
+    ld = (SMEM_LIMIT - resident_tile_bytes(dh)) // (4 * BF16_ROWS)
+    return (ld - 4) // 16 * 16
+
+
 def test_tiled_forward_bf16_at_the_cutover():
     """At the largest T of the resident route (Dh 5, padded to 32): the
     index algebra of the widest rows of scores a block holds, one padded
     utterance, dropout 0 (the keep mask's int64 Philox over 11.7 M
     elements would take seconds; the drop is the same code at every T,
     held at the tile edges above)."""
-    T = relpos_attention.bf16_fwd_max_t(5)
+    T = resident_max_t(5)
     assert_bf16_forward(bf16_case(T, 5, 11, B=1, H=1), 0.0)
 
 
 @pytest.mark.parametrize("dh,max_t", [(1, 3424), (32, 3424), (33, 3264),
                                       (64, 3264), (65, 2944), (128, 2944)])
-def test_bf16_forward_takes_the_long_route_past_the_cutover(dh, max_t):
+def test_bf16_forward_takes_the_long_route_past_the_cutover(dh, max_t,
+                                                            monkeypatch):
     """The wrapper's route for the bf16 forward: resident up to the T
-    whose block of scores (16 rows of roundup(T, 16) + 4 floats) and
-    bf16 tiles fill the 227 KB a block may use, the two-pass kernel from
-    the next T on (the kernel source states these T)."""
+    whose block of scores and bf16 tiles fill the 227 KB a block may use
+    (the kernel source states these T, and its C entry
+    ``relpos_attention_fwd_bf16_max_t`` returns them on the card), the
+    two-pass kernel from the next T on. Here the wrapper asks a stand-in
+    for the built kernel that answers with this layout's T."""
+    assert resident_block_bytes(max_t, dh) <= SMEM_LIMIT \
+        < resident_block_bytes(max_t + 1, dh)
+    assert resident_max_t(dh) == max_t
     ra = relpos_attention
-    assert ra.bf16_fwd_max_t(dh) == max_t
-    assert ra.bf16_fwd_route(max_t, dh) == "resident"
-    assert ra.bf16_fwd_route(max_t + 1, dh) == "long"
-    dp = 32 if dh <= 32 else 64 if dh <= 64 else 128
-    tiles = 2 * (2 * ra.BF16_FWD_ROWS
-                 + ra.BF16_FWD_STAGES * ra.BF16_FWD_CHUNK) * (dp + 8)
 
-    def block_bytes(T):
-        return 4 * ra.BF16_FWD_ROWS * (-(-T // 16) * 16 + 4) + tiles
+    class Kernel:
+        @staticmethod
+        def relpos_attention_fwd_bf16_max_t(d):
+            return resident_max_t(d)
 
-    assert block_bytes(max_t) <= ra.SMEM_LIMIT < block_bytes(max_t + 1)
+    monkeypatch.setattr(ra._build, "load", lambda source: Kernel)
+    ra.bf16_fwd_max_t.cache_clear()
+    try:
+        assert ra.bf16_fwd_max_t(dh) == max_t
+        assert ra.bf16_fwd_route(max_t, dh) == "resident"
+        assert ra.bf16_fwd_route(max_t + 1, dh) == "long"
+    finally:
+        ra.bf16_fwd_max_t.cache_clear()

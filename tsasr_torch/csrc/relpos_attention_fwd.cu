@@ -497,9 +497,9 @@ extern "C" int relpos_tf32x3_chain_test(const float* a, const float* b,
 // each block's rows of scores whole in shared memory, as the TPU kernel
 // keeps its (BB, Tp, Tp) tile in VMEM, so every product is done once and
 // the rounding stays where JAX puts it. A block takes TQ query rows of one
-// (b, h) and streams three sequences of row chunks through one ring of
-// cp.async stages, each row copied once: the window of p rows, then k,
-// then v.
+// (b, h) and streams three sequences of CHUNK-row chunks through one ring
+// of cp.async stages (Res16 below: TQ 16, CHUNK 64, 2 stages), each row
+// copied once: the window of p rows, then k, then v.
 //
 //   1. The positional term: window row w (p row T - TQ - i0 + w) meets
 //      query row r at key c = w + r - (TQ - 1). Each row group of 16
@@ -529,10 +529,10 @@ extern "C" int relpos_tf32x3_chain_test(const float* a, const float* b,
 // chunk of CHUNK rows (about 3 T / CHUNK + 2 in all) instead of 2
 // per 32 keys in each of two passes, no pair barrier and no merge.
 //
-// Sweep (chip_attention_ab.py with -D FWD16_*, H100 80GB HBM3 700.00 W;
-// device ms, profiler, dropout 0; B8 T101 / B8 T208 / B8 T408 / B6 T208 /
-// B3 T408, all H4 Dh64; the two-pass kernel .0153 / .0304 / .0987 / .0291
-// / .0530):
+// Sweep (chip_attention_ab.py over edited copies of this source, H100
+// 80GB HBM3 700.00 W; device ms, profiler, dropout 0; B8 T101 / B8 T208 /
+// B8 T408 / B6 T208 / B3 T408, all H4 Dh64; the two-pass kernel .0153 /
+// .0304 / .0987 / .0291 / .0530):
 //   TQ 16, 4 warps, chunks of 64, 2 stages (chosen): .0084 / .0179 /
 //     .0521 / .0149 / .0232;
 //   3 stages: .0082 / .0183 / .0582 / .0145 / .0225 (3 blocks an SM at
@@ -544,8 +544,8 @@ extern "C" int relpos_tf32x3_chain_test(const float* a, const float* b,
 //   TQ 32, 8 warps: .0083 / .0157 / .0477 / .0156 / .0245: ahead at B8,
 //     behind at the training buckets' own batches, where the bf16 path
 //     runs.
-// Stamps (chip_attention_ab.py --stamps, thread 0's clock64) put a block's
-// time in its dependent latency chains, not in waiting for copies: at B3
+// Stamps (thread 0's clock64, in an edited copy) put a block's time in
+// its dependent latency chains, not in waiting for copies: at B3
 // T408 a block takes 37 k cycles, 10.7 k in the window chunks, 8.4 k in
 // the k chunks, 11.2 k in the softmax and 7.5 k in P v; issuing the
 // chunks' cp.async 7.2 k of them (21 chunks), waiting for them 1.4 k. So
@@ -839,25 +839,6 @@ cudaError_t launch16(const Args16& a, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// ------------------------------------------- the resident kernel's shape
-// Defaults from the sweep in the header comment; chip_attention_ab.py
-// builds other shapes with -D.
-#ifndef FWD16_ROWS
-#define FWD16_ROWS 16                      // TQ: query rows of a block
-#endif
-#ifndef FWD16_WARPS
-#define FWD16_WARPS 4
-#endif
-#ifndef FWD16_CHUNK
-#define FWD16_CHUNK 64                     // rows of a stage
-#endif
-#ifndef FWD16_STAGES
-#define FWD16_STAGES 2
-#endif
-#ifndef FWD16_MIN_BLOCKS
-#define FWD16_MIN_BLOCKS 1                 // blocks an SM the registers allow
-#endif
-
 // dst[r * (DP + 8) + c] = src[(first + r) * Dh + c] for r < N, c < DP,
 // zeros outside rows [0, limit) and columns [0, Dh), by 16-byte cp.async
 // (Dh % 8 == 0, 16-byte aligned rows): load_rows16 with its trip count
@@ -877,51 +858,17 @@ __device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src,
   }
 }
 
-#ifdef FWD16_STAMPS
-constexpr int kStampBlocks = 8192;
-__device__ long long fwd16_stamps[kStampBlocks * 6];
-#endif
-
-// The resident kernel's clock64 stamps, in builds with -DFWD16_STAMPS
-// (chip_attention_ab.py --stamps) and nothing otherwise: per block, the
-// cycles to the end of the window chunks, of the k chunks, of the softmax
-// and of the kernel, and those spent issuing chunk copies and waiting for
-// them (thread 0's clock).
-struct Stamps {
-#ifdef FWD16_STAMPS
-  long long t0, v[6];
-  __device__ void start() {
-    t0 = clock64();
-    for (long long& x : v) x = 0;
-  }
-  __device__ long long now() const { return clock64(); }
-  __device__ void mark(int i) { v[i] = clock64() - t0; }
-  __device__ void add(int i, long long since) { v[i] += clock64() - since; }
-  __device__ void write() const {
-    const int blk =
-        blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);
-    if (threadIdx.x == 0 && blk < kStampBlocks)
-      for (int i = 0; i < 6; ++i) fwd16_stamps[blk * 6 + i] = v[i];
-  }
-#else
-  __device__ void start() {}
-  __device__ long long now() const { return 0; }
-  __device__ void mark(int) {}
-  __device__ void add(int, long long) {}
-  __device__ void write() const {}
-#endif
-};
-
-// DP: padded head dim; sizes in bf16 elements unless named in bytes
+// The resident kernel's shape, from the sweep in the header comment. DP:
+// padded head dim; sizes in bf16 elements unless named in bytes
 template <int DP>
 struct Res16 {
-  static constexpr int kTileQ = FWD16_ROWS;
+  static constexpr int kTileQ = 16;                  // query rows of a block
   static constexpr int kNR = kTileQ / kWarpRows;     // row groups
-  static constexpr int kWarps = FWD16_WARPS;
+  static constexpr int kWarps = 4;
   static constexpr int kThreads = 32 * kWarps;
   static constexpr int kU = kWarps / kNR;            // warps of a row group
-  static constexpr int kChunk = FWD16_CHUNK;
-  static constexpr int kStages = FWD16_STAGES;
+  static constexpr int kChunk = 64;                  // rows of a stage
+  static constexpr int kStages = 2;
   static constexpr int kLd = DP + 8;
   static constexpr int kNC = kChunk / 8 / kU;   // a warp's n-tiles of a chunk
   static constexpr int kND = DP / 8;            // n-tiles over the head dim
@@ -957,12 +904,10 @@ int res16_max_t() {
 }
 
 template <int DP>
-__global__ void __launch_bounds__(Res16<DP>::kThreads, FWD16_MIN_BLOCKS)
+__global__ void __launch_bounds__(Res16<DP>::kThreads, 1)
     relpos_attention_fwd_bf16_resident_kernel(Args16 a) {
   using C = Res16<DP>;
   extern __shared__ __align__(16) unsigned char smem16[];
-  Stamps stamps;
-  stamps.start();
   const int T = a.T, Dh = a.Dh, Tp = res16_tpad(T), ldS = res16_ld(T);
   const int ldP = 2 * ldS;                       // bf16 P rows over S rows
   const int i0 = blockIdx.x * C::kTileQ, h = blockIdx.y, b = blockIdx.z;
@@ -1013,15 +958,10 @@ __global__ void __launch_bounds__(Res16<DP>::kThreads, FWD16_MIN_BLOCKS)
   FragA16 qf[DP / 16];             // the group's rows of q_v, then of q_u
   float o[C::kNDW][4] = {};
   for (int q = 0; q < nQ; ++q) {
-    const long long waited = stamps.now();
     cp_async_wait<C::kStages - 2>();
     __syncthreads();                 // chunk q landed; chunk q - 1's stage free
-    stamps.add(5, waited);
-    if (q == nW || q == nW + nK) stamps.mark(q == nW ? 0 : 1);
-    const long long issued = stamps.now();
     if (q + C::kStages - 1 < nQ) load_chunk(q + C::kStages - 1);
     cp_async_commit();
-    stamps.add(4, issued);
     const bf16* st = stages + (q % C::kStages) * C::kChunk * C::kLd;
     if (q < nW + nK) {                           // the scores
       const bool win = q < nW;
@@ -1183,7 +1123,6 @@ __global__ void __launch_bounds__(Res16<DP>::kThreads, FWD16_MIN_BLOCKS)
                   __float2bfloat16_rn(pr[j][k]);
       }
       __syncthreads();                           // P whole
-      stamps.mark(2);
     }
     if (u * C::kNDW < C::kND) {                  // O += P v, in key order
       const int v0 = (q - nW - nK) * C::kChunk;
@@ -1195,8 +1134,6 @@ __global__ void __launch_bounds__(Res16<DP>::kThreads, FWD16_MIN_BLOCKS)
               st + 16 * ks * C::kLd + u * C::kNDW * 8, C::kLd);
     }
   }
-  stamps.mark(3);
-  stamps.write();
   if (u * C::kNDW >= C::kND) return;
 #pragma unroll
   for (int nd = 0; nd < C::kNDW; ++nd)
@@ -1345,15 +1282,6 @@ extern "C" int relpos_attention_fwd_bf16_max_t(int Dh) {
   if (Dh <= 64) return res16_max_t<64>();
   return res16_max_t<128>();
 }
-
-#ifdef FWD16_STAMPS
-// The resident kernel's stamps of its last launch: n of the 6 per block
-// (blocks in launch order, x fastest) into host memory. CUDA error code.
-extern "C" int relpos_attention_fwd_bf16_stamps(long long* host, int n) {
-  return (int)cudaMemcpyFromSymbol(host, fwd16_stamps,
-                                   n * sizeof(long long));
-}
-#endif
 
 // The two-pass kernel, any T: the arguments of relpos_attention_fwd_bf16.
 extern "C" int relpos_attention_fwd_bf16_long(

@@ -42,8 +42,9 @@ f32 kernels, bf16 to the bf16 kernels, anything else raises.
 The bf16 forward has two routes, chosen by T before the launch
 (``bf16_fwd_route``): the resident kernel keeps each block's rows of
 scores whole in shared memory and takes every T up to
-``bf16_fwd_max_t(Dh)`` (3264 keys at Dh 33-64); past that the two-pass
-kernel, which holds no row of scores, takes it.
+``bf16_fwd_max_t(Dh)`` (3264 keys at Dh 33-64, as the built kernel's C
+entry says); past that the two-pass kernel, which holds no row of scores,
+takes it.
 
 ``relpos_attention_reference`` is the plain PyTorch version of the whole
 function: in f32 (or f64) autograd gives its backward; in bf16 it rounds
@@ -85,29 +86,17 @@ bf16_long_launches = 0
 DTYPES = (torch.float32, torch.bfloat16)
 
 
-# The bf16 forward's resident kernel (csrc/relpos_attention_fwd.cu, Res16):
-# query rows of a block, rows of a stage, stages; a block's shared memory
-# is its f32 rows of scores, its bf16 q_u and q_v tiles and its stages, at
-# most SMEM_LIMIT bytes
-BF16_FWD_ROWS = 16
-BF16_FWD_CHUNK = 64
-BF16_FWD_STAGES = 2
-SMEM_LIMIT = 232448
-
-
+@functools.cache
 def bf16_fwd_max_t(dh):
     """The largest T the bf16 forward's resident kernel takes at head dim
-    ``dh``: its scores, ``BF16_FWD_ROWS`` rows of ``roundup(T, 16) + 4``
-    floats, beside bf16 tiles of rows ``DP + 8`` apart (DP: dh padded to
-    32, 64 or 128), within ``SMEM_LIMIT``. The C entry
-    ``relpos_attention_fwd_bf16_max_t`` computes the same."""
+    ``dh`` (its f32 rows of scores fill a block's shared memory past it),
+    from the built kernel's C entry ``relpos_attention_fwd_bf16_max_t``."""
     if not 1 <= dh <= MAX_HEAD_DIM:
         raise ValueError(f"head dim {dh} outside 1..{MAX_HEAD_DIM}")
-    dp = 32 if dh <= 32 else 64 if dh <= 64 else 128
-    tile_bytes = 2 * (2 * BF16_FWD_ROWS
-                      + BF16_FWD_STAGES * BF16_FWD_CHUNK) * (dp + 8)
-    ld = (SMEM_LIMIT - tile_bytes) // (4 * BF16_FWD_ROWS)
-    return (ld - 4) // 16 * 16
+    fn = _build.load(SOURCE).relpos_attention_fwd_bf16_max_t
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return fn(dh)
 
 
 def bf16_fwd_route(T, dh):
@@ -327,14 +316,6 @@ def _bwd_kernel():
                                                        ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
-
-
-def fwd_bf16_max_t_cuda(dh):
-    """``bf16_fwd_max_t`` as the built kernel computes it (a test hook)."""
-    fn = _build.load(SOURCE).relpos_attention_fwd_bf16_max_t
-    fn.argtypes = [ctypes.c_int]
-    fn.restype = ctypes.c_int
-    return fn(dh)
 
 
 @functools.cache
