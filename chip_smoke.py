@@ -104,9 +104,11 @@ checkout, or when any phase fails. Phases:
    version (forward within 2^-7 of max |o|, backward within 2^-6 of max
    |g|) and no further from f64 than 1.5 times the plain version, at T
    101, 208 and 408 on key-padding, causal and causal + band-64 masks,
-   dropout 0.1, and the forward's long route at its first T; their
-   times beside the f32 kernels' (in turns), the plain versions', SDPA's
-   in bf16 and the bound at the bf16 peak (in a fresh process);
+   dropout 0.1, and each kernel's long route at its first T, forward
+   and backward through it; their times beside the f32 kernels' (in
+   turns), the plain versions', SDPA's in bf16 (the backward's on the
+   profiler's device time, its forward outside the window) and the
+   bound at the bf16 peak (in a fresh process);
    ``fit_batch`` at full width in f32 and bf16 in turns on the same
    weights and batches (host ms, device time and launches under the
    profiler, ``max_memory_allocated``); the full-width model in bf16
@@ -518,6 +520,16 @@ def attention_grad_errors(args, do, seed, scale, rate):
     return abs_err, rel_err, wide
 
 
+def sdpa_backward(q, k, v, bias, scale, do):
+    """A call of SDPA's backward alone (given the pre-shifted bias): the
+    forward runs once here, outside any window that times the call."""
+    import torch
+    import torch.nn.functional as F
+    q, k, v = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    o = F.scaled_dot_product_attention(q, k, v, attn_mask=bias, scale=scale)
+    return lambda: torch.autograd.grad(o, (q, k, v), do, retain_graph=True)
+
+
 def phase_attention_bwd(device):
     import torch
     import torch.nn.functional as F
@@ -558,42 +570,39 @@ def phase_attention_bwd(device):
                 sq, sk, sv, attn_mask=bias, scale=scale))
         lib_ms = cuda_ms(sdpa_fwd_bwd, reps=10) - fwd_ms
 
-        # the same three on the card's clock: the host's launch overhead
-        # can outlast the device work of autograd and SDPA at these sizes
-        def sdpa_fwd():
-            with torch.no_grad():
-                F.scaled_dot_product_attention(sq, sk, sv, attn_mask=bias,
-                                               scale=scale)
-
+        # the same on the card's clock: the host's launch overhead can
+        # outlast the device work of autograd and SDPA at these sizes;
+        # SDPA's backward kernels alone, its forward outside the window
         passes = device_ms_by_kernel(lambda: ra._launch_bwd(
             *args, out, stats, do, None, scale, 0.0))
         dev = {"plain": device_ms_by_kernel(lambda: torch.autograd.grad(
                    plain_out, leaves[:5], do, retain_graph=True)),
-               "sdpa": device_ms_by_kernel(sdpa_fwd_bwd),
-               "sdpa_fwd": device_ms_by_kernel(sdpa_fwd)}
-        if passes and all(dev.values()):
-            total = {k: sum(v.values()) for k, v in dev.items()}
+               "sdpa": device_ms_by_kernel(sdpa_backward(sq, sk, sv, bias,
+                                                         scale, do))}
+        dev = {k: sum(v.values()) or None for k, v in dev.items()}
+        kernel_dev = sum(passes.values()) or None
+        if kernel_dev and all(dev.values()):
             by_pass = ", ".join(
                 f"{name} {sum(ms for k, ms in passes.items() if name in k):.4f}"
                 for name in ("rows_kernel", "dq_kernel", "dkv_kernel",
                              "dp_kernel", "dp_sum"))
             dev_line = (
-                f"; device time (profiler): kernel "
-                f"{sum(passes.values()):.4f} ms ({by_pass}), plain "
-                f"(autograd) {total['plain']:.4f} ms, SDPA backward "
-                f"{total['sdpa'] - total['sdpa_fwd']:.4f} ms")
+                f"; device time (profiler): kernel {kernel_dev:.4f} ms "
+                f"({by_pass}), plain (autograd) {dev['plain']:.4f} ms, SDPA "
+                f"backward {dev['sdpa']:.4f} ms (its backward kernels)")
         else:
             dev_line = "; device time: the profiler saw none (not measured)"
         bound_ms, bound_by = attention_bwd_bound(B, H, t, DH)
         rows.append(dict(T=t, err=err, ms=ms, plain_ms=plain_ms,
-                         library_ms=lib_ms, bound_ms=bound_ms,
+                         library_ms=dev["sdpa"], library_events_ms=lib_ms,
+                         device_ms=kernel_dev, bound_ms=bound_ms,
                          bound_by=bound_by))
         log(f"kernel relpos_attention_bwd B{B} H{H} T{t} Dh{DH}: max_abs_err "
             f"{err:.3g}, err {rel_err:.3g} of each gradient's max |g| (tol "
             f"{ATTN_ATOL}: f32, sums in other orders, dp summed over the "
             f"batch in a second pass); kernel {ms:.4f} ms, plain (autograd) "
-            f"{plain_ms:.4f} ms, SDPA backward {lib_ms:.4f} ms (fwd+bwd "
-            f"minus fwd, given the bias), bound {bound_ms:.4f} ms by "
+            f"{plain_ms:.4f} ms, SDPA backward {lib_ms:.4f} ms (events: "
+            f"fwd+bwd minus fwd, given the bias), bound {bound_ms:.4f} ms by "
             f"{bound_by}; {wide}{dev_line}")
 
     # the training path's dropout: the mask regenerated in the backward
@@ -794,6 +803,7 @@ def reset_counts():
     from tsasr_torch.kernels import rnnt_lattice as rl
     ra.launches = ra.bwd_launches = 0
     ra.bf16_launches = ra.bf16_bwd_launches = ra.bf16_long_launches = 0
+    ra.bf16_bwd_long_launches = 0
     rl.resident_launches = rl.alpha_slab_launches = 0
     rl.beta_slab_launches = 0
 
@@ -809,12 +819,13 @@ def read_counts():
 
 
 def read_bf16_counts():
-    """``read_counts`` and the bf16 attention kernels' counts (the
-    forward's resident route and its long route apart)."""
+    """``read_counts`` and the bf16 attention kernels' counts (each
+    kernel's resident route and its long route apart)."""
     from tsasr_torch.kernels import relpos_attention as ra
     return dict(read_counts(), relpos_attention_fwd_bf16=ra.bf16_launches,
                 relpos_attention_fwd_bf16_long=ra.bf16_long_launches,
-                relpos_attention_bwd_bf16=ra.bf16_bwd_launches)
+                relpos_attention_bwd_bf16=ra.bf16_bwd_launches,
+                relpos_attention_bwd_bf16_long=ra.bf16_bwd_long_launches)
 
 
 def phase_serving(device, card):
@@ -1972,6 +1983,7 @@ def counted_batches(brain_class, on_card, layers=LAYERS_PER_REQUEST,
             want["relpos_attention_fwd_bf16"] = want["relpos_attention_fwd"]
             want["relpos_attention_fwd_bf16_long"] = 0    # T <= 3264
             want["relpos_attention_bwd_bf16"] = want["relpos_attention_bwd"]
+            want["relpos_attention_bwd_bf16_long"] = 0    # T <= 1600
             want["relpos_attention_fwd"] = want["relpos_attention_bwd"] = 0
         return want
 
@@ -3270,9 +3282,10 @@ BF16_T = (101, 208, 408)
 BF16_MASKS = ("key padding", "causal", "causal band 64")
 # the bf16 kernels' times: the forward at B8 at BF16_T and at the
 # training buckets' own batches (6 x 8 s, 3 x 16 s), the backward at B8
-# at the buckets' lengths (the script's time budget)
+# and the buckets' own batches at the buckets' lengths (the script's time
+# budget)
 BF16_TIME_SHAPES = tuple((B, t) for t in BF16_T) + ((6, 208), (3, 408))
-BF16_BWD_TIME_T = (208, 408)
+BF16_BWD_TIME_SHAPES = ((B, 208), (B, 408), (6, 208), (3, 408))
 BF16_RATE = 0.1
 # a bf16 kernel against its plain bf16 version on the same inputs: both
 # round at the JAX kernels' points, but sum in other orders, so a value
@@ -3371,8 +3384,9 @@ def bf16_attention_errors(args, do, seed, scale, rate, what,
 def bf16_kernel_checks(device):
     """(a) each bf16 kernel against its plain bf16 version and f64, the
     forward and the backward, dropout 0.1, on each of BF16_MASKS at each
-    of BF16_T (B8 H4 Dh64), then the forward's long route
-    (``bf16_long_route_check``, whose result it returns)."""
+    of BF16_T (B8 H4 Dh64), then each kernel's long route
+    (``bf16_long_route_check``, whose results it returns: the forward's,
+    the backward's)."""
     import torch
     scale = 1.0 / math.sqrt(H * DH)
     gen = torch.Generator().manual_seed(SEED + 21)
@@ -3390,39 +3404,48 @@ def bf16_kernel_checks(device):
                 f"of max |g| (tol {BF16_BWD_TOL:.3g}), against f64 at most "
                 f"{ratio:.3f} x the plain bf16 version's error (limit "
                 f"{BF16_F64_RATIO})")
-    return bf16_long_route_check(device, gen, seed, scale)
+    return (bf16_long_route_check(device, gen, seed, scale, "forward"),
+            bf16_long_route_check(device, gen, seed, scale, "backward"))
 
 
-def bf16_long_route_check(device, gen, seed, scale):
-    """The bf16 forward's long route (the two-pass kernel) at the
-    smallest T that takes it, B1 H4 Dh64, key padding, dropout 0.1, and
-    the backward through it, held as ``bf16_kernel_checks`` holds the
-    resident route; one launch counted on the long route and none on the
-    resident one. Returns that T, the forward's error and the long
-    route's launches there."""
+def bf16_long_route_check(device, gen, seed, scale, kernel):
+    """The long route of the bf16 ``kernel`` ("forward": the two-pass
+    kernel; "backward": the five passes) at the smallest T that takes it,
+    B1 H4 Dh64, key padding, dropout 0.1, forward and backward through
+    it, held as ``bf16_kernel_checks`` holds the resident routes; one
+    launch counted on that kernel's long route and none on its resident
+    one. Returns that T, that kernel's error (the forward's of max |o|,
+    the backward's worst of max |g|) and the long route's launches
+    there."""
     import torch
     from tsasr_torch.kernels import relpos_attention as ra
-    t = ra.bf16_fwd_max_t(DH) + 1
+    fwd_kernel = kernel == "forward"
+    t = (ra.bf16_fwd_max_t if fwd_kernel else ra.bf16_bwd_max_t)(DH) + 1
+
+    def counts():
+        return ((ra.bf16_launches, ra.bf16_long_launches) if fwd_kernel
+                else (ra.bf16_bwd_launches, ra.bf16_bwd_long_launches))
+
     args = bf16_case(t, "key padding", gen, device, b=1)
     do = torch.randn(1, H, t, DH, generator=gen).to(device).to(
         torch.bfloat16)
-    what = f"bf16 kernels, the forward's long route, B1 H{H} T{t} Dh{DH}"
-    before = (ra.bf16_launches, ra.bf16_long_launches)
+    what = f"bf16 kernels, the {kernel}'s long route, B1 H{H} T{t} Dh{DH}"
+    before = counts()
     fwd, bwd, ratio = bf16_attention_errors(args, do, seed, scale,
                                             BF16_RATE, what)
-    launched = (ra.bf16_launches - before[0],
-                ra.bf16_long_launches - before[1])
+    launched = tuple(a - b for a, b in zip(counts(), before))
     log(f"{what} key padding dropout {BF16_RATE}: forward err {fwd:.3g} of "
         f"max |o| (tol {BF16_FWD_TOL:.3g}), backward worst {bwd:.3g} of max "
         f"|g| (tol {BF16_BWD_TOL:.3g}), against f64 at most {ratio:.3f} x "
-        f"the plain bf16 version's error (limit {BF16_F64_RATIO}); "
-        f"launches resident / long {launched}")
+        f"the plain bf16 version's error (limit {BF16_F64_RATIO}); the "
+        f"{kernel}'s launches resident / long {launched}")
     if device.type == "cuda" and launched != (0, 1):
         raise RuntimeError(f"T{t} launched resident / long {launched}, "
                            "expected (0, 1)")
     del args, do
     torch.cuda.empty_cache()
-    return {"T": t, "err": fwd, "launches": launched[1]}
+    return {"T": t, "err": fwd if fwd_kernel else bwd,
+            "launches": launched[1]}
 
 
 def device_ms_seen(fn, tries=12):
@@ -3457,8 +3480,9 @@ def bf16_kernel_times(device, card):
     windows that saw the kernel), the f32 kernels on the same values in
     turns (bf16, f32, f32, bf16), the plain bf16 versions, SDPA in bf16
     given the pre-shifted bias, and the bound at the bf16 peak; the
-    backward at B8 and BF16_BWD_TIME_T only. Returns (forward rows,
-    backward rows)."""
+    backward at BF16_BWD_TIME_SHAPES only, SDPA's backward on device time
+    (its forward outside the window) beside the old events reading
+    (fwd+bwd minus fwd). Returns (forward rows, backward rows)."""
     import torch
     import torch.nn.functional as F
     from tsasr_torch.kernels import relpos_attention as ra
@@ -3503,10 +3527,10 @@ def bf16_kernel_times(device, card):
             f"bias); device time (profiler) bf16 {dev[0]:.4f} ms, f32 "
             f"{dev[1]:.4f} ms, SDPA {dev[2]:.4f} ms; bound {bound_ms:.5f} ms "
             f"by {bound_by} (bf16 peak); max_abs_err {err:.3g} [{card}]")
-        if n != B or t not in BF16_BWD_TIME_T:
+        if (n, t) not in BF16_BWD_TIME_SHAPES:
             continue
 
-        do16 = torch.randn(B, H, t, DH, generator=gen).to(device).to(
+        do16 = torch.randn(n, H, t, DH, generator=gen).to(device).to(
             torch.bfloat16)
         do32 = do16.float()
         outs = {}
@@ -3544,27 +3568,30 @@ def bf16_kernel_times(device, card):
             sdpa_fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
                 sq, sk, sv, attn_mask=bias, scale=scale))
         lib_bwd_ms = cuda_ms(sdpa_fwd_bwd, reps=10) - sdpa_fwd_ms
+        lib_bwd_dev = device_ms_median(sdpa_backward(qu, k, v, bias, scale,
+                                                     do16))
         passes = device_ms_seen(bwd(a16, "bf16", do16))
         passes32 = device_ms_seen(bwd(a32, "f32", do32))
         by_pass = ", ".join(
             f"{name} {sum(v for k, v in passes.items() if name in k):.4f}"
-            for name in ("dq16_kernel<64, 4, true>",
-                         "dq16_kernel<64, 4, false>", "dkv16_kernel",
-                         "dp16_kernel", "dp16_sum_kernel"))
-        bbound, bby = attention_bf16_bwd_bound(B, H, t, DH)
-        bwd_rows.append(dict(T=t, err=berr, ms=bms, plain_ms=plain_bwd_ms,
-                             library_ms=lib_bwd_ms,
-                             device_ms=sum(passes.values()) or None,
+            for name in ("rows16_kernel", "cols16_kernel", "dp16_sum_kernel"))
+        dev_ms = device_ms_median(bwd(a16, "bf16", do16))
+        bbound, bby = attention_bf16_bwd_bound(n, H, t, DH)
+        bwd_rows.append(dict(B=n, T=t, err=berr, ms=bms,
+                             plain_ms=plain_bwd_ms, library_ms=lib_bwd_dev,
+                             library_events_ms=lib_bwd_ms, device_ms=dev_ms,
                              bound_ms=bbound, bound_by=bby))
-        log(f"kernel relpos_attention_bwd_bf16 B{B} H{H} T{t} Dh{DH}: CUDA "
+        log(f"kernel relpos_attention_bwd_bf16 B{n} H{H} T{t} Dh{DH}: CUDA "
             f"events bf16 {turns[0]:.4f} / {turns[3]:.4f} ms, f32 "
             f"{turns[1]:.4f} / {turns[2]:.4f} ms (in turns), plain bf16 "
             f"backward {plain_bwd_ms:.4f} ms, SDPA bf16 backward "
-            f"{lib_bwd_ms:.4f} ms (fwd+bwd minus fwd, given the bias); "
-            f"device time (profiler) bf16 {sum(passes.values()):.4f} ms "
-            f"(delta, dq, dkv, dp, dp sum: {by_pass}), f32 "
-            f"{sum(passes32.values()):.4f} ms; bound {bbound:.5f} ms by "
-            f"{bby} (bf16 peak); max_abs_err {berr:.3g} [{card}]")
+            f"{lib_bwd_ms:.4f} ms (events: fwd+bwd minus fwd, given the "
+            f"bias); device time (profiler, median of 3 windows) bf16 "
+            f"{dev_ms:.4f} ms (one window by pass: rows, columns, dp sum: "
+            f"{by_pass}), f32 {sum(passes32.values()):.4f} ms, SDPA bf16 "
+            f"backward {lib_bwd_dev:.4f} ms (its backward kernels); bound "
+            f"{bbound:.5f} ms by {bby} (bf16 peak); max_abs_err {berr:.3g} "
+            f"[{card}]")
     return fwd_rows, bwd_rows
 
 
@@ -3831,7 +3858,9 @@ def phase_bf16(device, card, corpus):
     mark("recipe run")
     counts = {k: {"fit_batch": fit_counts[k], "experiment": run_counts[k]}
               for k in ("relpos_attention_fwd_bf16",
-                        "relpos_attention_bwd_bf16")}
+                        "relpos_attention_fwd_bf16_long",
+                        "relpos_attention_bwd_bf16",
+                        "relpos_attention_bwd_bf16_long")}
     log(f"bf16 kernels' launches on the bf16 paths: {counts}; phase "
         f"{time.perf_counter() - t0:.1f} s (done at: {', '.join(marks)})")
     torch.cuda.empty_cache()
@@ -5534,14 +5563,16 @@ def loosely_held(g64, gate, eps, spread):
 
 def kernel_entry(name, source, replaces, launches, by_path, row, shape):
     """One kernel's entry; every number is from this run's row at
-    ``shape``."""
+    ``shape``. The backward rows' ``library_ms`` is SDPA's backward on the
+    profiler's device time (``library_events_ms``: on CUDA events,
+    forward + backward minus forward)."""
     entry = {"name": name, "route": "cuda", "source": source,
              "replaces": replaces, "launches": launches,
              "launches_by_path": by_path, "max_abs_err": row["err"],
              "ms": row["ms"], "plain_ms": row["plain_ms"],
              "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
              "library_ms": row.get("library_ms"), "shape": shape}
-    for key in ("device_ms", "library_device_ms"):
+    for key in ("device_ms", "library_device_ms", "library_events_ms"):
         if key in row:
             entry[key] = row[key]
     return entry
@@ -5590,7 +5621,8 @@ def main():
     tensor_core_check(ra.SOURCE, ("relpos_attention_fwd_bf16_resident_kernel",
                                   "relpos_attention_fwd_bf16_two_pass_kernel"),
                       "BF16")
-    tensor_core_check(ra.BWD_SOURCE, ("dq16_kernel", "dkv16_kernel",
+    tensor_core_check(ra.BWD_SOURCE, ("rows16_kernel", "cols16_kernel",
+                                      "dq16_kernel", "dkv16_kernel",
                                       "dp16_kernel"), "BF16")
 
     fwd_rows = phase_attention_fwd(device)
@@ -5661,9 +5693,10 @@ def main():
             f"tsasr_tpu/ops/rnnt_loss_pallas.py:{line}",
             sum(paths(name).values()), paths(name), row,
             row["shape"] + " f32"))
-    for name, rows, t in (("relpos_attention_fwd_bf16", bf16_fwd, 101),
-                          ("relpos_attention_bwd_bf16", bf16_bwd, 208)):
-        row = next(r for r in rows if r["T"] == t)
+    for name, rows, t, long_route in (
+            ("relpos_attention_fwd_bf16", bf16_fwd, 101, bf16_long[0]),
+            ("relpos_attention_bwd_bf16", bf16_bwd, 208, bf16_long[1])):
+        row = next(r for r in rows if r["T"] == t and r["B"] == B)
         line = 128 if "fwd" in name else 143
         by_path = dict(bf16_counts[name], run_flags=run_flags[name],
                        ddp=ddp.get(name, 0))
@@ -5672,14 +5705,17 @@ def main():
             f"tsasr_tpu/ops/attention_pallas.py:{line}",
             sum(by_path.values()), by_path, row,
             f"B{B} H{H} T{t} Dh{DH} bf16"))
-        if "fwd" in name:
-            # the resident route's launches above; the long route (the
-            # two-pass kernel) from T > 3264 at Dh 64, launched by the
-            # kernel checks alone
-            kernels[-1]["long_route"] = {
-                "from_T": bf16_long["T"],
-                "launches_in_checks": bf16_long["launches"],
-                "max_abs_err": bf16_long["err"]}
+        # the resident route's launches above; the long route (the
+        # forward's two-pass kernel from T > 3264 at Dh 64, the
+        # backward's five passes from T > 1600), launched by the kernel
+        # checks alone: 0 on every path
+        long_name = f"{name}_long"
+        kernels[-1]["long_route"] = {
+            "name": long_name, "from_T": long_route["T"],
+            "launches": sum(bf16_counts[long_name].values())
+            + run_flags.get(long_name, 0) + ddp.get(long_name, 0),
+            "launches_in_checks": long_route["launches"],
+            "max_abs_err": long_route["err"]}
     for entry in kernels:
         if entry["launches"] < 1:
             raise RuntimeError(f"{entry['name']} was not launched on the "

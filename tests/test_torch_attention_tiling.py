@@ -548,3 +548,191 @@ def test_bf16_forward_takes_the_long_route_past_the_cutover(dh, max_t,
         assert ra.bf16_fwd_route(max_t + 1, dh) == "long"
     finally:
         ra.bf16_fwd_max_t.cache_clear()
+
+
+# ---------------------------------------------- the bf16 resident backward
+def tiled_backward_bf16(args, do, scale, keep, rate, dtype, stats,
+                        rounded=True, qtile=BF16_ROWS):
+    """dq_u, dq_v, dk, dv, dp through the resident bf16 backward's three
+    passes. (1) rows: blocks of ``qtile`` query rows side by side, each
+    score built once as the resident forward builds it (the window's
+    products gathered from their skewed places, q_u k^T added, the masks
+    in the plain version's order), P = exp(s - m) / l from ``stats`` (m,
+    1 / l), the dropped Pd and dP, D exactly over the row, dS = P (dP - D)
+    scale: the scratch. (2) columns: dS and Pd as (tile, tile) tiles of
+    the scratch (tile 64 at Dh <= 64, else 32), dq_u and dq_v by
+    ``dq_pass``, dk and dv by ``dkv_pass``, dp's diagonal partials by
+    ``dp_pass``; (3) their ordered sum, in ``dp_pass``. ``args`` and
+    ``do`` hold bf16 values; ``keep`` is the (B, H, T, T) keep mask (None
+    at rate 0). With ``rounded`` dS, Pd and the gradients are rounded to
+    bf16 where the kernel rounds them; the rest runs in ``dtype``."""
+    qu, qv, k, v, p, kp, am = (x.to(dtype) for x in args)
+    do = do.to(dtype)
+    B, H, T, Dh = qu.shape
+
+    def rnd(x):
+        return x.to(torch.bfloat16).to(dtype) if rounded else x
+
+    i0 = torch.arange(0, T, qtile)
+    q_u, q_v, d_o = (rows_at(t, i0, qtile) for t in (qu, qv, do))
+    i = i0[:, None] + torch.arange(qtile)        # (NB, TQ)
+    ic = i.clamp(max=T - 1)
+    r = torch.arange(qtile)[:, None]
+    c = torch.arange(T)[None]
+    # 1. rows: the positional term from its skewed place, then the scores
+    bd = q_v @ rows_at(p, T - qtile - i0, T + qtile - 1).transpose(-1, -2)
+    s = torch.gather(bd, -1, (c - r + qtile - 1).expand(*bd.shape[:-1], T))
+    s = (q_u @ k[:, :, None].transpose(-1, -2) + s) * scale
+    s = s + am[ic] + kp[:, None, None, None, :]
+    m, linv = (x[:, :, ic, None] for x in stats)
+    prob = torch.exp(s - m) * linv
+    dprob = d_o @ v[:, :, None].transpose(-1, -2)
+    pd = prob
+    if keep is not None:
+        kept = keep[:, :, ic]
+        pd = torch.where(kept, prob / (1.0 - rate), 0.0)
+        dprob = torch.where(kept, dprob / (1.0 - rate), 0.0)
+    delta = (prob * dprob).sum(-1, keepdim=True)
+    ds, pd = rnd(prob * (dprob - delta) * scale), rnd(pd)
+    # 2. columns: the scratch's dS and Pd in tiles, query tile first
+    tile = 64 if Dh <= 64 else 32
+    nt = -(-T // tile)
+
+    def tiles(x):
+        x = x.reshape(B, H, -1, T)[:, :, :T]
+        x = torch.nn.functional.pad(x, (0, nt * tile - T, 0, nt * tile - T))
+        return x.reshape(B, H, nt, tile, nt, tile).transpose(3, 4)
+
+    x = dict(T=T, qu=qu, qv=qv, k=k, do=do, p=p)
+    dqu, dqv = dq_pass(x, tiles(ds), tile)
+    dk, dv = dkv_pass(x, tiles(ds), tiles(pd), tile)
+    dp = dp_pass(x, tiles(ds), tile)
+    return tuple(rnd(g) for g in (dqu, dqv, dk, dv, dp))
+
+
+BWD_MASKS = ("key padding", "causal", "causal band 64")
+
+
+def bwd_case(T, Dh, mask, rng_seed, B=2, H=2):
+    """bf16-valued inputs (f64), key padding (one utterance at a third of
+    T) and ``mask``'s am: none, the causal lookahead, or the lookahead
+    and a band of 64 (with the padding, rows from T / 3 + 63 on see no
+    key); and a bf16-valued output gradient."""
+    args = bf16_case(T, Dh, rng_seed, B, H)
+    pos = torch.arange(T)
+    hidden = torch.zeros(T, T, dtype=torch.bool)
+    if mask != "key padding":
+        hidden = pos[None, :] > pos[:, None]
+    if "band" in mask:
+        hidden = hidden | ((pos[:, None] - pos[None, :]) >= 64)
+    args[6] = torch.where(hidden, -1e9, 0.0).double()
+    rng = np.random.default_rng(rng_seed + 1)
+    do = torch.from_numpy(rng.normal(size=(B, H, T, Dh))).to(
+        torch.bfloat16).double()
+    return args, do
+
+
+BWD_T = (1, 15, 16, 17, 63, 64, 65, 101)
+BWD_DH = (32, 64, 80)
+BWD_GRADS = ("dq_u", "dq_v", "dk", "dv", "dp")
+BF16_BWD_TOL = 2.0 ** -6            # chip_smoke.BF16_BWD_TOL
+
+
+@pytest.mark.parametrize("mask", BWD_MASKS)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("Dh", BWD_DH)
+@pytest.mark.parametrize("T", BWD_T)
+def test_tiled_backward_bf16_matches_plain(T, Dh, rate, mask):
+    """The resident bf16 backward's algebra in f32, rounding where the
+    kernel rounds, from the forward mirror's f32 statistics, against the
+    plain bf16 backward: within 2^-6 of each gradient's max |g| (both
+    round at the JAX kernel's points and sum in other orders). T at the
+    tile edges: 16-row blocks, 16-key k-steps, 64-key (Dh 80: 32-key)
+    column tiles."""
+    args, do = bwd_case(T, Dh, mask, T * 100 + Dh)
+    B, H = args[0].shape[:2]
+    keep = relpos_attention.philox_keep_mask(SEED, B, H, T, rate) \
+        if rate > 0.0 else None
+    _, m, linv = tiled_forward_bf16(args, SCALE, keep, rate, torch.float32)
+    got = tiled_backward_bf16(args, do, SCALE, keep, rate, torch.float32,
+                              (m, linv))
+    plain = relpos_attention.relpos_attention_bwd_bf16(
+        *[x.to(torch.bfloat16) for x in args[:5]],
+        *[x.float() for x in args[5:]], do.to(torch.bfloat16), SCALE, SEED,
+        rate)
+    for name, g, want in zip(BWD_GRADS, got, plain):
+        want = want.double()
+        err = (g.double() - want).abs().max().item()
+        tol = BF16_BWD_TOL * max(want.abs().max().item(), 1e-30)
+        assert err <= tol, f"{name}: max abs err {err:.3g} > {tol:.3g}"
+
+
+@pytest.mark.parametrize("mask", BWD_MASKS)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("Dh", BWD_DH)
+@pytest.mark.parametrize("T", BWD_T)
+def test_tiled_backward_bf16_indexing_matches_f64_autograd(T, Dh, rate,
+                                                           mask):
+    """The same passes with the roundings off, in f64 from the plain f64
+    statistics, against autograd of the plain f64 function: within 1e-9
+    of each gradient's max |g|, so only an index error can move it."""
+    args, do = bwd_case(T, Dh, mask, T * 100 + Dh)
+    B, H = args[0].shape[:2]
+    keep = relpos_attention.philox_keep_mask(SEED, B, H, T, rate) \
+        if rate > 0.0 else None
+    got = tiled_backward_bf16(args, do, SCALE, keep, rate, torch.float64,
+                              row_stats(args, SCALE), rounded=False)
+    for name, g, want in zip(BWD_GRADS, got, autograd_grads(args, do, rate)):
+        err = (g - want).abs().max().item()
+        tol = 1e-9 * max(want.abs().max().item(), 1e-30)
+        assert err <= tol, f"{name}: max abs err {err:.3g} > {tol:.3g}"
+
+
+def resident_bwd_tile_bytes(dh):
+    """A backward rows block's bf16 q_u, q_v and do tiles and its two
+    64-row stages, rows ``DP + 8`` apart."""
+    dp = 32 if dh <= 32 else 64 if dh <= 64 else 128
+    return 2 * (3 * BF16_ROWS + BF16_STAGES * BF16_CHUNK) * (dp + 8)
+
+
+def resident_bwd_block_bytes(T, dh):
+    """A backward rows block's shared memory at T keys: its f32 P and dP,
+    2 x ``BF16_ROWS`` rows of ``roundup(T, 16) + 4`` floats, beside its
+    tiles."""
+    return 8 * BF16_ROWS * (-(-T // 16) * 16 + 4) + resident_bwd_tile_bytes(dh)
+
+
+def resident_bwd_max_t(dh):
+    """The largest T whose backward rows block fits ``SMEM_LIMIT``."""
+    ld = (SMEM_LIMIT - resident_bwd_tile_bytes(dh)) // (8 * BF16_ROWS)
+    return (ld - 4) // 16 * 16
+
+
+@pytest.mark.parametrize("dh,max_t", [(1, 1696), (32, 1696), (33, 1600),
+                                      (64, 1600), (65, 1424), (128, 1424)])
+def test_bf16_backward_takes_the_long_route_past_the_cutover(dh, max_t,
+                                                             monkeypatch):
+    """The wrapper's route for the bf16 backward: resident up to the T
+    whose block of P and dP rows and bf16 tiles fill the 227 KB a block
+    may use (the kernel source states these T, and its C entry
+    ``relpos_attention_bwd_bf16_max_t`` returns them on the card), the
+    five passes from the next T on. Here the wrapper asks a stand-in for
+    the built kernel that answers with this layout's T."""
+    assert resident_bwd_block_bytes(max_t, dh) <= SMEM_LIMIT \
+        < resident_bwd_block_bytes(max_t + 1, dh)
+    assert resident_bwd_max_t(dh) == max_t
+    ra = relpos_attention
+
+    class Kernel:
+        @staticmethod
+        def relpos_attention_bwd_bf16_max_t(d):
+            return resident_bwd_max_t(d)
+
+    monkeypatch.setattr(ra._build, "load", lambda source: Kernel)
+    ra.bf16_bwd_max_t.cache_clear()
+    try:
+        assert ra.bf16_bwd_max_t(dh) == max_t
+        assert ra.bf16_bwd_route(max_t, dh) == "resident"
+        assert ra.bf16_bwd_route(max_t + 1, dh) == "long"
+    finally:
+        ra.bf16_bwd_max_t.cache_clear()

@@ -809,3 +809,124 @@ def test_bf16_forward_routes_at_the_cutover(cuda, past):
         assert relpos_attention._fwd_kernel("relpos_attention_fwd_bf16")(
             *(x.data_ptr() for x in args), out.data_ptr(), 0, 0, 1.0, 0,
             1, 2, T, Dh, 0.125, torch.cuda.current_stream().cuda_stream) != 0
+
+
+def bf16_backward_case(B, H, T, Dh, mask, device, seed=0):
+    """bf16 operands, key padding (utterance lengths from the seed) and
+    ``mask``'s am: none, the causal lookahead, or the lookahead and a
+    band of 64; a bf16 output gradient."""
+    args = attention_case(B, H, T, Dh, device, seed)
+    pos = torch.arange(T)
+    hidden = torch.zeros(T, T, dtype=torch.bool)
+    if mask != "key padding":
+        hidden = pos[None, :] > pos[:, None]
+    if "band" in mask:
+        hidden = hidden | ((pos[:, None] - pos[None, :]) >= 64)
+    args[6] = torch.where(hidden, -1e9, 0.0).to(device)
+    g = torch.Generator().manual_seed(seed + 1)
+    do = torch.randn(B, H, T, Dh, generator=g).to(device).bfloat16()
+    return [x.bfloat16() for x in args[:5]] + args[5:], do
+
+
+def bf16_gradients(fn, args, do, seed, rate, dtype=None):
+    leaves = [(x if dtype is None else x.to(dtype)).clone()
+              .requires_grad_(i < 5) for i, x in enumerate(args)]
+    out = fn(*leaves, seed=seed, scale=0.125, rate=rate)
+    return torch.autograd.grad(out, leaves[:5],
+                               do if dtype is None else do.to(dtype))
+
+
+def bf16_bwd_counts():
+    return (relpos_attention.bf16_bwd_launches,
+            relpos_attention.bf16_bwd_long_launches,
+            relpos_attention.bwd_launches)
+
+
+@pytest.mark.parametrize("mask", ["key padding", "causal", "causal band 64"])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("Dh", [32, 64, 80])
+@pytest.mark.parametrize("T", [1, 15, 16, 17, 63, 64, 65, 101])
+def test_bf16_backward_resident_route_matches_plain(cuda, T, Dh, rate, mask):
+    """The resident bf16 backward at the CPU mirror's shapes and masks
+    (tests/test_torch_attention_tiling.py): each gradient within 2^-6 of
+    the plain bf16 backward's max |g| and no further from f64 than 1.5
+    times the plain version; one launch on the resident route's count."""
+    args, do = bf16_backward_case(2, 2, T, Dh, mask, cuda, seed=T + Dh)
+    seed = torch.tensor([4242], device=cuda)
+    before = bf16_bwd_counts()
+    got = bf16_gradients(relpos_attention.fused_relpos_attention, args, do,
+                         seed, rate)
+    torch.cuda.synchronize()
+    assert bf16_bwd_counts() == (before[0] + 1, before[1], before[2])
+    plain = bf16_gradients(relpos_attention.relpos_attention_reference, args,
+                           do, seed, rate)
+    f64 = bf16_gradients(relpos_attention.relpos_attention_reference, args,
+                         do, seed, rate, torch.float64)
+
+    def err(a, b):
+        return ((a.double() - b.double()).abs().max()
+                / b.double().abs().max().clamp(min=1e-30)).item()
+
+    for name, k, p, f in zip(("dq_u", "dq_v", "dk", "dv", "dp"), got, plain,
+                             f64):
+        assert k.dtype == torch.bfloat16 and torch.isfinite(k).all(), name
+        assert err(k, p) <= 2.0 ** -6, (name, err(k, p))
+        assert err(k, f) <= 1.5 * err(p, f) + 1e-7, (name, err(k, f),
+                                                     err(p, f))
+
+
+def test_bf16_backward_is_deterministic(cuda):
+    """Two calls on the same inputs give identical bits: every sum across
+    blocks runs in a fixed order (B8 H4 T208 Dh64, dropout 0.1)."""
+    args, do = bf16_backward_case(8, 4, 208, 64, "key padding", cuda, seed=5)
+    seed = torch.tensor([99], device=cuda)
+    a = bf16_gradients(relpos_attention.fused_relpos_attention, args, do,
+                       seed, 0.1)
+    b = bf16_gradients(relpos_attention.fused_relpos_attention, args, do,
+                       seed, 0.1)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("dh,max_t", [(1, 1696), (32, 1696), (33, 1600),
+                                      (64, 1600), (65, 1424), (128, 1424)])
+def test_bf16_backward_max_t_matches_the_wrapper(cuda, dh, max_t):
+    """The wrapper's cutover, the resident bf16 backward's largest T as
+    the built kernel computes it (``relpos_attention_bwd_bf16_max_t``), is
+    the T the kernel source states (and the CPU layout mirror gives)."""
+    assert relpos_attention.bf16_bwd_max_t(dh) == max_t
+
+
+@pytest.mark.parametrize("past", [0, 1])
+def test_bf16_backward_routes_at_the_cutover(cuda, past):
+    """At the resident route's largest T and one key past it (the five
+    passes): the gradients within 2^-6 of the plain bf16 backward's max
+    |g| at dropout 0.1, one launch counted on the route taken; the
+    resident entry refuses the longer T itself."""
+    Dh = 64
+    T = relpos_attention.bf16_bwd_max_t(Dh) + past
+    args, do = bf16_backward_case(1, 2, T, Dh, "key padding", cuda, seed=T)
+    seed = torch.tensor([7], device=cuda)
+    before = bf16_bwd_counts()
+    got = bf16_gradients(relpos_attention.fused_relpos_attention, args, do,
+                         seed, 0.1)
+    torch.cuda.synchronize()
+    assert bf16_bwd_counts() == (before[0] + 1 - past, before[1] + past,
+                                 before[2])
+    plain = relpos_attention.relpos_attention_bwd_bf16(*args, do, 0.125,
+                                                       seed, 0.1)
+    for k, p in zip(got, plain):
+        err = ((k.double() - p.double()).abs().max()
+               / p.double().abs().max()).item()
+        assert err <= 2.0 ** -6
+    if past:
+        outs = [torch.empty_like(args[0]) for _ in range(4)]
+        stats = torch.zeros(1, 2, T, 2, device=cuda)
+        scratch = torch.empty(relpos_attention._bwd_scratch_floats(
+            "relpos_attention_bwd_bf16_scratch_floats")(1, 2, T, Dh),
+            device=cuda)
+        assert relpos_attention._bwd_kernel_bf16()(
+            *(x.data_ptr() for x in args), stats.data_ptr(), do.data_ptr(),
+            0, 0, 1.0, stats.data_ptr(), *(x.data_ptr() for x in outs),
+            scratch.data_ptr(), torch.empty_like(args[4]).data_ptr(), 1, 2,
+            T, Dh, 0.125, torch.cuda.current_stream().cuda_stream) != 0

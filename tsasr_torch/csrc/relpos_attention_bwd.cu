@@ -718,36 +718,93 @@ extern "C" int relpos_tf32x3_matmul_test(const float* a, const float* b,
 }
 
 // ===================================================================== bf16
-// The bf16 variant (relpos_attention_bwd_bf16): q_u, q_v, k, v, p, out and
-// do in bf16, the gradients in bf16, the masks and the statistics f32. It
-// rounds where the JAX kernel rounds with bf16 operands (_bwd_kernel with
-// cdt = bf16): every product takes bf16 operands and sums in f32
-// (mma_bf16.cuh); dv = bf16(Pd)^T do; dP = do v^T and the softmax
-// jacobian in f32; dS rounded to bf16 once, which is both the JAX
-// kernel's ds (for dq_u and dk) and its un-shifted dbdf (for dq_v and
-// dp: the un-shift only moves elements); dp summed over the batch in f32
-// (the partials and pass 5 as in the f32 kernel) and rounded to bf16
-// once.
-//
-// One pass more than the f32 kernel: D_i = sum_j P_ij dP_ij, the JAX
-// kernel's "row", in f32 from the scores (pass 1, delta: a sweep over the
-// keys of each query tile with the scores and dP products, no gradient
-// products), where the f32 kernel takes do_i . out_i. With a bf16 out
-// that dot carries out's rounding into every dS of the row, coherently:
-// on peaked rows it doubled the gradients' error against f64 in the plain
-// version. Passes 2-4 are the f32 kernel's, tiles in bf16 (rows DP + 8
-// elements apart), fragments by ldmatrix where the rows are contiguous
-// (q_u, q_v, do, k, v, the window, Pd and dS transposed from the dkv
-// tile) and by functors on the skewed reads (dS for dq_u, dSk for dp).
-// The dq pass writes bf16 dS into the row group's skew buffer, in the
-// memory of its f32 BD buffer.
+// The bf16 variant: q_u, q_v, k, v, p, out and do in bf16, the gradients
+// in bf16, the masks and the statistics f32. It rounds where the JAX
+// kernel rounds with bf16 operands (_bwd_kernel with cdt = bf16): every
+// product takes bf16 operands and sums in f32 (mma_bf16.cuh); dv =
+// bf16(Pd)^T do; dP = do v^T and the softmax jacobian in f32; D_i =
+// sum_j P_ij dP_ij, the JAX kernel's "row", in f32 from the scores (with
+// a bf16 out, do_i . out_i would carry out's rounding into every dS of
+// the row, coherently: on peaked rows it doubled the gradients' error
+// against f64 in the plain version); dS rounded to bf16 once, which is
+// both the JAX kernel's ds (for dq_u and dk) and its un-shifted dbdf (for
+// dq_v and dp: the un-shift only moves elements); dp summed over the
+// batch in f32 and rounded to bf16 once.
 //
 // What bounds it on an H100: ~16 B H T^2 Dh operations of products at the
 // bf16 tensor-core peak (989 TFLOP/s) against the bytes of the bf16
 // operands, outputs and f32 masks at 3.35 TB/s; at B8 H4 T208 Dh64, 0.0014
-// ms of operations against 0.0031 ms of bytes. The kernel recomputes
-// every score in each of passes 1-4 and runs one wave of blocks: latency-
-// bound, as the f32 kernel.
+// ms of operations against 0.0025 ms of bytes.
+//
+// The resident route (relpos_attention_bwd_bf16) computes each score
+// once, as the TPU kernel computes its probs once per (h, batch block) in
+// VMEM and derives all five gradients from them: each score element's
+// three products, its expf and its Philox draw happen once per backward.
+// Three launches:
+//
+//   1. rows (rows16_kernel): a block takes TQ = 16 query rows of one
+//      (b, h) and streams three sequences of 64-row chunks through one
+//      ring of cp.async stages (Rows16: 4 warps, 2 stages): the window of
+//      p rows, k, then v. As the resident forward, the window's products
+//      q_v win^T are stored skewed into the f32 score rows S (window row w
+//      meets row r at key w + r - 15) and q_u k^T is added in place; dP =
+//      do v^T goes to a second set of f32 rows G. Then a warp a row: s + am
+//      + kp, P = exp(s - m) / l from the forward's statistics, the keep
+//      bit, Pd and the dropped dP, P and dP back in place, Pd (bf16) to a
+//      (B, H, T, roundup(T, 64)) scratch; D exactly over the row; dS =
+//      bf16(P (dP - D) scale) to a second such scratch. 16 T 8 bytes of
+//      rows a block (52 KB at T 408): 832 blocks at B8 H4 T408, where the
+//      long route's passes run one wave of 128.
+//   2. columns (cols16_kernel), one launch of 3 nt blocks a (h, b) (nt =
+//      ceil(T / TILE), TILE 64 at Dh <= 64, 32 above; the long route's
+//      tiles and warps, two a row group of 16, each half of Dh), each over
+//      its tile pairs in order, the score tiles read from the scratch:
+//      block x < nt takes key tile x, dv += Pd^T do and dk += dS^T q_u (dS
+//      and Pd read transposed by ldmatrix); block nt + x query tile x,
+//      dq_u += dS k and dq_v += dSk win (dSk[r][w] = dS[r][w + r - 15]
+//      read skewed from the dS tile, the window of 2 TILE p rows from T -
+//      TILE - i0 + j0);
+//      block 2 nt + x walks tile diagonals x and x - nt as the long
+//      route's dp pass does, dp_win += dSk^T q_v, one f32 partial of 2
+//      TILE window rows per (b, h, diagonal). No score product, no expf,
+//      no Philox draw here.
+//   3. dp sum (dp16_sum_kernel): p row r adds the partials of the two
+//      diagonals whose windows hold it, each over b in order.
+// Every sum across blocks runs in a fixed order (no atomics): two calls
+// give identical bits. tests/test_torch_attention_tiling.py mirrors the
+// three passes index for index on the CPU (tiled_backward_bf16).
+//
+// What bounds the resident route: the rows pass holds 16 rows of f32 P
+// and dP beside its tiles, so T is at most relpos_attention_bwd_bf16_max_t
+// (1600 at Dh 33-64, 1696 at Dh <= 32, 1424 above; 227 KB a block); the
+// scratch is 4 B H T roundup(T, 64) bytes, written once and read 2.5
+// times (23.4 MB at B8 H4 T408, 8.8 MB at B3 T408: inside the 50 MB L2).
+// At these sizes both passes are latency-bound: at T 408 the rows
+// block's 79 KB leave an SM two blocks (8 warps), each serial over its 21
+// chunks; the columns blocks run two an SM (128 registers).
+//
+// Sweep (chip_attention_ab.py --backward over edited copies of this
+// source, H100 80GB HBM3 700.00 W; device ms, profiler, dropout 0; B8 T101
+// / B8 T208 / B8 T408 / B6 T208 / B3 T408, all H4 Dh64): the layout
+// chosen .0254 / .0535 / .1648 / .0481 / .0745 (rows pass .0888 at B8
+// T408, columns .0607, dp sum .0099); dq_u and dq_v in the rows pass over
+// a second k and window stream (dS and dSk laid in bf16 over S and G):
+// .0270 / .0541 / .1906 / .0477 / .0968; that with 8 warps: 0.86-1.14x of
+// it (behind at T 208: two blocks an SM by registers); 3 stages 0.84-1.04x;
+// chunks of 32 0.92-1.19x; the chosen layout with 8 warps .0246 / .0578 /
+// .1516 / .0523 / .0672 (ahead at T 408, behind at T 208); the first
+// elementwise sweep folded into the v chunks' epilogues (k and v chunks in
+// turn, P and dP from the mma registers): .0264 / .0584 / .1680 / .0514 /
+// .0810, behind everywhere: the time is in the chunk loop's latency, not
+// in the sweeps.
+//
+// The long route (relpos_attention_bwd_bf16_long), past max_t: five
+// passes, which hold no row of scores: (1) delta, a sweep over the
+// keys of each query tile with the score and dP products; (2)-(4) the
+// f32 kernel's dq, dkv and dp passes, tiles in bf16 (rows DP + 8
+// elements apart), fragments by ldmatrix where the rows are contiguous
+// and by functors on the skewed reads, each recomputing every score of
+// its tile pairs; (5) the dp sum. One wave of blocks, latency-bound.
 
 #include "mma_bf16.cuh"
 
@@ -775,6 +832,7 @@ struct Args16 {
   bf16* dp;
   int B, H, T, Dh;
   bool vec;                                // 16-byte copies are aligned
+  bf16 *ds, *pd;                           // the resident route's scratch
 };
 
 // DP: padded head dim; NR: row groups of 16 in a tile (2 NR warps). Tile
@@ -1281,14 +1339,552 @@ cudaError_t launch16(const Args16& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// ------------------------------------------------- the resident route
+// The rows pass's shape (the resident forward's: 16 query rows, 4 warps,
+// chunks of 64 rows, 2 stages). DP: padded head dim; sizes in bf16
+// elements unless named in bytes.
+template <int DP>
+struct Rows16 {
+  static constexpr int kTileQ = kWarpRows;           // query rows of a block
+  static constexpr int kWarps = 4;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kChunk = 64;                  // rows of a stage
+  static constexpr int kStages = 2;
+  static constexpr int kMinBlocks = 4;               // an SM's, for registers
+  static constexpr int kLd = DP + 8;
+  static constexpr int kNC = kChunk / 8 / kWarps;   // a warp's n-tiles of a chunk
+  static constexpr int kRows = kTileQ / kWarps;      // a warp's rows, elementwise
+  static constexpr int kTileBytes =
+      2 * (3 * kTileQ + kStages * kChunk) * kLd;     // q_u, q_v, do, stages
+  static_assert(kNC >= 1 && kNC * 8 * kWarps == kChunk, "a chunk's n-tiles");
+  static_assert(kRows >= 1 && kRows * kWarps == kTileQ, "elementwise rows");
+  static_assert(kStages >= 2 && kChunk % 16 == 0, "stages");
+};
+
+// keys padded to whole k-steps; the f32 rows' stride (16-byte rows); the
+// scratch's rows: whole 64-key tiles
+__host__ __device__ constexpr int rows16_tpad(int T) {
+  return (T + 15) / 16 * 16;
+}
+__host__ __device__ constexpr int rows16_ld(int T) {
+  return rows16_tpad(T) + 4;
+}
+__host__ __device__ constexpr int scratch_ld(int T) {
+  return (T + 63) / 64 * 64;
+}
+
+// a rows block's shared memory: f32 P and dP rows beside its tiles
+template <int DP>
+size_t rows16_bytes(int T) {
+  return 8 * (size_t)Rows16<DP>::kTileQ * rows16_ld(T) +
+         Rows16<DP>::kTileBytes;
+}
+
+// the largest T whose rows block fits kSmemLimit
+template <int DP>
+int rows16_max_t() {
+  const int ld =
+      (kSmemLimit - Rows16<DP>::kTileBytes) / (8 * Rows16<DP>::kTileQ);
+  return (ld - 4) / 16 * 16;
+}
+
+// dst[r * (DP + 8) + c] = src[(first + r) * Dh + c] for r < N, c < DP,
+// zeros outside rows [0, limit) and columns [0, Dh), by 16-byte cp.async
+// (Dh % 8 == 0, 16-byte aligned rows), the trip count known (NT threads a
+// block), so the copies of a chunk unroll (the resident forward's copy)
+template <int DP, int NT, int N>
+__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src,
+                                           int first, int limit, int Dh) {
+  constexpr int kChunks = DP / 8, kPer = N * kChunks / NT;
+  static_assert(kPer * NT == N * kChunks, "copies a thread");
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int e = threadIdx.x + i * NT;
+    const int r = e / kChunks, c = (e % kChunks) * 8, g = first + r;
+    const bool ok = g >= 0 && g < limit && c < Dh;
+    tsasr::cp_async16_raw(dst + r * (DP + 8) + c,
+                          ok ? src + (ptrdiff_t)g * Dh + c : src, ok);
+  }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(Rows16<DP>::kThreads,
+                                 Rows16<DP>::kMinBlocks)
+    rows16_kernel(Args16 a) {
+  using C = Rows16<DP>;
+  extern __shared__ __align__(16) unsigned char smem16[];
+  const int T = a.T, Dh = a.Dh, ldS = rows16_ld(T), Tg = scratch_ld(T);
+  const int i0 = blockIdx.x * C::kTileQ, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const size_t bh = ((size_t)b * a.H + h) * T;
+  const bf16* p_h = a.p + (size_t)h * (2 * T - 1) * Dh;
+  float* S = reinterpret_cast<float*>(smem16);   // scores, then P
+  float* G = S + C::kTileQ * ldS;                // dP, then dropped dP
+  bf16* sQu = reinterpret_cast<bf16*>(G + C::kTileQ * ldS);
+  bf16* sQv = sQu + C::kTileQ * C::kLd;
+  bf16* sDo = sQv + C::kTileQ * C::kLd;
+  bf16* stages = sDo + C::kTileQ * C::kLd;
+  // window row w is p row T - TQ - i0 + w and meets row r at key w + r -
+  // (TQ - 1); the block's rows use w in [0, T + TQ - 1)
+  const int nW = (T + C::kTileQ - 1 + C::kChunk - 1) / C::kChunk;
+  const int nK = (T + C::kChunk - 1) / C::kChunk;
+  // chunk q: the window [0, nW), k [k1, v1), v [v1, nQ)
+  const int k1 = nW, v1 = nW + nK, nQ = nW + 2 * nK;
+
+  auto load_chunk = [&](int q) {
+    bf16* st = stages + (q % C::kStages) * C::kChunk * C::kLd;
+    const bool win = q < k1;
+    const int x0 = (q - (q < k1 ? 0 : q < v1 ? k1 : v1)) * C::kChunk;
+    const bf16* src = win ? p_h : (q < v1 ? a.k : a.v) + bh * Dh;
+    const int first = win ? T - C::kTileQ - i0 + x0 : x0;
+    const int limit = win ? 2 * T - 1 : T;
+    if (a.vec)
+      stage_rows<DP, C::kThreads, C::kChunk>(st, src, first, limit, Dh);
+    else
+      load_rows16<DP, C::kThreads>(st, src, first, C::kChunk, limit, Dh,
+                                   false);
+  };
+  load_rows16<DP, C::kThreads>(sQu, a.qu + bh * Dh, i0, C::kTileQ, T, Dh,
+                               a.vec);
+  load_rows16<DP, C::kThreads>(sQv, a.qv + bh * Dh, i0, C::kTileQ, T, Dh,
+                               a.vec);
+  load_rows16<DP, C::kThreads>(sDo, a.dout + bh * Dh, i0, C::kTileQ, T, Dh,
+                               a.vec);
+  load_chunk(0);
+  cp_async_commit();
+#pragma unroll
+  for (int q = 1; q < C::kStages - 1; ++q) {
+    if (q < nQ) load_chunk(q);
+    cp_async_commit();
+  }
+
+  FragA16 qf[DP / 16];                 // q_v, then q_u, then do
+  for (int q = 0; q < nQ; ++q) {       // the scores and dP, each product once
+    cp_async_wait<C::kStages - 2>();
+    __syncthreads();                   // chunk q landed; chunk q - 1's stage free
+    if (q + C::kStages - 1 < nQ) load_chunk(q + C::kStages - 1);
+    cp_async_commit();
+    const bf16* st = stages + (q % C::kStages) * C::kChunk * C::kLd;
+    const bf16* rows = q < k1 ? sQv : q < v1 ? sQu : sDo;
+    if (q == 0 || q == k1 || q == v1)
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        qf[kk] = ldsm_a(rows + kk * 16, C::kLd);
+    // this warp's first window row or key of the chunk
+    const int x0 = (q - (q < k1 ? 0 : q < v1 ? k1 : v1)) * C::kChunk +
+                   warp * C::kNC * 8;
+    if (x0 >= (q < k1 ? T + C::kTileQ - 1 : T)) continue;
+    float acc[C::kNC][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)
+      mma_row_nmajor<C::kNC>(acc, qf[kk],
+                             st + warp * C::kNC * 8 * C::kLd + kk * 16,
+                             C::kLd);
+    if (q < k1) {                      // q_v win^T to its skewed place
+#pragma unroll
+      for (int nb = 0; nb < C::kNC; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = c_row(e);
+          const int c = x0 + nb * 8 + c_col(e) + r - (C::kTileQ - 1);
+          if (c >= 0 && c < T) S[r * ldS + c] = acc[nb][e];
+        }
+    } else if (q < v1) {               // + q_u k^T: every load before a store
+      float bd[C::kNC][4];
+#pragma unroll
+      for (int nb = 0; nb < C::kNC; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int x = x0 + nb * 8 + c_col(e);
+          bd[nb][e] = x < T ? S[c_row(e) * ldS + x] : 0.f;
+        }
+#pragma unroll
+      for (int nb = 0; nb < C::kNC; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int x = x0 + nb * 8 + c_col(e);
+          if (x < T)
+            S[c_row(e) * ldS + x] = (acc[nb][e] + bd[nb][e]) * a.scale;
+        }
+    } else {                           // dP = do v^T
+#pragma unroll
+      for (int nb = 0; nb < C::kNC; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int x = x0 + nb * 8 + c_col(e);
+          if (x < T) G[c_row(e) * ldS + x] = acc[nb][e];
+        }
+    }
+  }
+  __syncthreads();                     // S and G whole
+
+  // Elementwise, a warp a row: this warp's rows side by side, kCols
+  // columns a lane at a time, and in each step every load before any
+  // store (as the resident forward's softmax). Rows past T store nothing.
+  constexpr int kCols = 2;
+  const bool drop = a.seed != nullptr;
+  const uint64_t seed = drop ? (uint64_t)a.seed[0] : 0;
+  const float* kp = a.kp + (size_t)b * T;
+  const float* am[C::kRows];
+  float *srow[C::kRows], *grow[C::kRows];
+  float m[C::kRows], linv[C::kRows], dsum[C::kRows];
+#pragma unroll
+  for (int k = 0; k < C::kRows; ++k) {
+    const int r = warp + k * C::kWarps;
+    const size_t ic = bh + min(i0 + r, T - 1);
+    srow[k] = S + r * ldS;
+    grow[k] = G + r * ldS;
+    am[k] = a.am + (size_t)min(i0 + r, T - 1) * T;
+    m[k] = a.stats[2 * ic];
+    linv[k] = a.stats[2 * ic + 1];
+    dsum[k] = 0.f;
+  }
+  // 1. P = exp(s - m) / l, the keep bit, Pd to the scratch, the dropped
+  //    dP; P and dP back in place, D's terms
+  for (int c0 = lane; c0 < T; c0 += 32 * kCols) {
+    float x[kCols][C::kRows], g[kCols][C::kRows], amc[kCols][C::kRows];
+    float kpc[kCols], pd[kCols][C::kRows];
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) {
+      const int c = min(c0 + 32 * j, T - 1);
+      kpc[j] = __ldg(kp + c);
+#pragma unroll
+      for (int k = 0; k < C::kRows; ++k) {
+        amc[j][k] = __ldg(am[k] + c);
+        x[j][k] = srow[k][c];
+        g[j][k] = grow[k][c];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) {
+      const int c = c0 + 32 * j;
+#pragma unroll
+      for (int k = 0; k < C::kRows; ++k) {
+        const int i = i0 + warp + k * C::kWarps;
+        // (s + am) + kp, the plain version's order
+        const float pr =
+            expf(x[j][k] + amc[j][k] + kpc[j] - m[k]) * linv[k];
+        float pdr = pr, dpr = g[j][k];
+        if (drop) {
+          const bool keep = tsasr::dropout_keep(seed, a.thresh, b, h, i, c);
+          pdr = keep ? pr * a.keep_scale : 0.f;
+          dpr = keep ? dpr * a.keep_scale : 0.f;
+        }
+        x[j][k] = pr;
+        g[j][k] = dpr;
+        pd[j][k] = pdr;
+        if (c < T) dsum[k] += pr * dpr;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) {
+      const int c = c0 + 32 * j;
+      if (c < T)
+#pragma unroll
+        for (int k = 0; k < C::kRows; ++k) {
+          const int i = i0 + warp + k * C::kWarps;
+          srow[k][c] = x[j][k];
+          grow[k][c] = g[j][k];
+          if (i < T) a.pd[(bh + i) * Tg + c] = __float2bfloat16_rn(pd[j][k]);
+        }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < C::kRows; ++k)
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1)
+      dsum[k] += __shfl_xor_sync(0xffffffffu, dsum[k], d);
+  // 2. dS = bf16(P (dP - D) scale) to the scratch, zeros (and Pd's) from
+  //    T to Tg; each lane reads only what it stored in 1
+  for (int c0 = lane; c0 < Tg; c0 += 32 * kCols) {
+    float x[kCols][C::kRows], g[kCols][C::kRows];
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) {
+      const int c = min(c0 + 32 * j, T - 1);
+#pragma unroll
+      for (int k = 0; k < C::kRows; ++k) {
+        x[j][k] = srow[k][c];
+        g[j][k] = grow[k][c];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) {
+      const int c = c0 + 32 * j;
+#pragma unroll
+      for (int k = 0; k < C::kRows; ++k) {
+        const int i = i0 + warp + k * C::kWarps;
+        if (i >= T || c >= Tg) continue;
+        a.ds[(bh + i) * Tg + c] = __float2bfloat16_rn(
+            c < T ? x[j][k] * (g[j][k] - dsum[k]) * a.scale : 0.f);
+        if (c >= T) a.pd[(bh + i) * Tg + c] = __float2bfloat16(0.f);
+      }
+    }
+  }
+}
+
+// The columns pass's tiles: the long route's dkv and dp tiles (Cfg16),
+// the score tiles read from the scratch; sizes in bf16 elements unless
+// named in bytes
+template <int DP, int NR>
+struct Cols16 {
+  using C = Cfg16<DP, NR>;
+  static constexpr int kXE = C::kTile * C::kLdX;     // a dS or Pd tile
+  static constexpr int kDkvStage = 2 * kXE + 2 * C::kTileE;  // dS, Pd, q_u, do
+  static constexpr int kDqStage = kXE + C::kTileE + C::kWinE;  // dS, k, window
+  static constexpr int kDpStage = kXE + C::kTileE;           // dS, q_v
+  static constexpr int kDkvBytes = 2 * 2 * kDkvStage;
+  static constexpr int kDqBytes = 2 * 2 * kDqStage;
+  static constexpr int kDpBytes = 2 * (C::kWinE + 2 * kDpStage);
+  static constexpr int kBytes =
+      kDkvBytes > kDqBytes ? (kDkvBytes > kDpBytes ? kDkvBytes : kDpBytes)
+                           : (kDqBytes > kDpBytes ? kDqBytes : kDpBytes);
+  static_assert(kBytes <= kSmemLimit, "shared memory of a block");
+};
+
+// dst[r * (TILE + 8) + c] = src[(i0 + r) * Tg + j0 + c] for r, c < TILE,
+// zeros for rows from T on: a tile of the scratch by 16-byte cp.async
+template <int TILE, int NT>
+__device__ __forceinline__ void load_scratch(bf16* dst, const bf16* src,
+                                             int i0, int j0, int T, int Tg) {
+  constexpr int kChunks = TILE / 8;
+  for (int e = threadIdx.x; e < TILE * kChunks; e += NT) {
+    const int r = e / kChunks, c = (e % kChunks) * 8, g = i0 + r;
+    const bool ok = g < T;
+    tsasr::cp_async16_raw(dst + r * (TILE + 8) + c,
+                          ok ? src + (size_t)g * Tg + j0 + c : src, ok);
+  }
+}
+
+template <int DP, int NR>
+__global__ void __launch_bounds__(Cfg16<DP, NR>::kThreads, 2)
+    cols16_kernel(Args16 a) {
+  using C = Cfg16<DP, NR>;
+  using X = Cols16<DP, NR>;
+  extern __shared__ __align__(16) unsigned char smem16[];
+  const int T = a.T, Dh = a.Dh, nt = (T + C::kTile - 1) / C::kTile;
+  const int Tg = scratch_ld(T);
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int r0 = row_group<NR>() * kWarpRows;
+  const size_t bh = ((size_t)b * a.H + h) * T;
+  const bf16* ds = a.ds + bh * Tg;
+  const bf16* pd = a.pd + bh * Tg;
+  bf16* tiles = reinterpret_cast<bf16*>(smem16);
+
+  if ((int)blockIdx.x < nt) {          // dk, dv of one key tile
+    const int j0 = blockIdx.x * C::kTile;
+    const int d0 = warp_half<NR>() * C::kNDH * 8;  // this warp's columns
+    auto load_queries = [&](int s, int i0) {
+      bf16* st = tiles + s * X::kDkvStage;
+      load_scratch<C::kTile, C::kThreads>(st, ds, i0, j0, T, Tg);
+      load_scratch<C::kTile, C::kThreads>(st + X::kXE, pd, i0, j0, T, Tg);
+      load_rows16<DP, C::kThreads>(st + 2 * X::kXE, a.qu + bh * Dh, i0,
+                                   C::kTile, T, Dh, a.vec);
+      load_rows16<DP, C::kThreads>(st + 2 * X::kXE + C::kTileE,
+                                   a.dout + bh * Dh, i0, C::kTile, T, Dh,
+                                   a.vec);
+    };
+    load_queries(0, 0);
+    cp_async_commit();
+    float gk[C::kNDH][4] = {}, gv[C::kNDH][4] = {};
+    for (int it = 0; it < nt; ++it) {
+      if (it + 1 < nt) {
+        load_queries((it + 1) & 1, (it + 1) * C::kTile);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      const bf16* sS = tiles + (it & 1) * X::kDkvStage;
+      const bf16* sPd = sS + X::kXE;
+      const bf16* sQu = sS + 2 * X::kXE;
+      const bf16* sDo = sQu + C::kTileE;
+#pragma unroll
+      for (int kk = 0; kk < C::kTile / 16; ++kk) {
+        // dv += Pd^T do, dk += dS^T q_u
+        mma_row_kmajor<C::kNDH>(gv, ldsm_a_trans(sPd + kk * 16 * C::kLdX + r0,
+                                                 C::kLdX),
+                                sDo + kk * 16 * C::kLd + d0, C::kLd);
+        mma_row_kmajor<C::kNDH>(gk, ldsm_a_trans(sS + kk * 16 * C::kLdX + r0,
+                                                 C::kLdX),
+                                sQu + kk * 16 * C::kLd + d0, C::kLd);
+      }
+      __syncthreads();
+    }
+    store_rows16(a.dk + bh * Dh, gk, j0 + r0, T, d0, Dh);
+    store_rows16(a.dv + bh * Dh, gv, j0 + r0, T, d0, Dh);
+    return;
+  }
+
+  if ((int)blockIdx.x < 2 * nt) {      // dq_u, dq_v of one query tile
+    const int i0 = (blockIdx.x - nt) * C::kTile;
+    const int d0 = warp_half<NR>() * C::kNDH * 8;  // this warp's columns
+    const int first = C::kTile - kWarpRows - r0;   // the group's window row 0
+    const bf16* p_h = a.p + (size_t)h * (2 * T - 1) * Dh;
+    auto load_keys = [&](int s, int j0) {
+      bf16* st = tiles + s * X::kDqStage;
+      load_scratch<C::kTile, C::kThreads>(st, ds, i0, j0, T, Tg);
+      load_rows16<DP, C::kThreads>(st + X::kXE, a.k + bh * Dh, j0, C::kTile,
+                                   T, Dh, a.vec);
+      load_rows16<DP, C::kThreads>(st + X::kXE + C::kTileE, p_h,
+                                   T - C::kTile - i0 + j0, C::kWin, 2 * T - 1,
+                                   Dh, a.vec);
+    };
+    load_keys(0, 0);
+    cp_async_commit();
+    float gu[C::kNDH][4] = {}, gv[C::kNDH][4] = {};
+    for (int jt = 0; jt < nt; ++jt) {
+      if (jt + 1 < nt) {
+        load_keys((jt + 1) & 1, (jt + 1) * C::kTile);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      const bf16* sS = tiles + (jt & 1) * X::kDqStage;
+      const bf16* sK = sS + X::kXE;
+      const bf16* sP = sK + C::kTileE;
+#pragma unroll
+      for (int kk = 0; kk < C::kTile / 16; ++kk)   // dq_u += dS k
+        mma_row_kmajor<C::kNDH>(gu, ldsm_a(sS + r0 * C::kLdX + kk * 16,
+                                           C::kLdX),
+                                sK + kk * 16 * C::kLd + d0, C::kLd);
+      // dq_v += dSk win, dSk[rl][w] = dS[rl][w - 15 + rl] read skewed
+#pragma unroll
+      for (int kk = 0; kk < C::kBW / 16; ++kk) {
+        const FragA16 x = load_a16([&](int m, int k) {
+          const int c = kk * 16 + k - (kWarpRows - 1 - m);
+          return (c >= 0 && c < C::kTile) ? sS[(r0 + m) * C::kLdX + c]
+                                          : __float2bfloat16(0.f);
+        });
+        mma_row_kmajor<C::kNDH>(gv, x, sP + (first + kk * 16) * C::kLd + d0,
+                                C::kLd);
+      }
+      __syncthreads();
+    }
+    store_rows16(a.dqu + bh * Dh, gu, i0 + r0, T, d0, Dh);
+    store_rows16(a.dqv + bh * Dh, gv, i0 + r0, T, d0, Dh);
+    return;
+  }
+
+  // dp's partials along tile diagonals blockIdx.x - 2 nt and - 3 nt
+  const int wr0 = warp_id() * 16;                // this warp's window rows
+  bf16* sP = tiles;                              // the diagonal's window
+  bf16* stages = sP + C::kWinE;                  // dS, q_v
+  auto load_pair = [&](int s, int i0, int j0) {
+    bf16* st = stages + s * X::kDpStage;
+    load_scratch<C::kTile, C::kThreads>(st, ds, i0, j0, T, Tg);
+    load_rows16<DP, C::kThreads>(st + X::kXE, a.qv + bh * Dh, i0, C::kTile,
+                                 T, Dh, a.vec);
+  };
+  for (int d = (int)blockIdx.x - 2 * nt; d > -nt; d -= nt) {
+    load_rows16<DP, C::kThreads>(sP, a.p + (size_t)h * (2 * T - 1) * Dh,
+                                 T - C::kTile + d * C::kTile, C::kWin,
+                                 2 * T - 1, Dh, a.vec);
+    const int it_lo = max(0, -d), it_hi = min(nt, nt - d);
+    load_pair(0, it_lo * C::kTile, (it_lo + d) * C::kTile);
+    cp_async_commit();
+    float acc[C::kND][4] = {};
+    for (int it = it_lo; it < it_hi; ++it) {
+      const int s = (it - it_lo) & 1;
+      if (it + 1 < it_hi) {
+        load_pair(s ^ 1, (it + 1) * C::kTile, (it + 1 + d) * C::kTile);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      const bf16* sS = stages + s * X::kDpStage;
+      const bf16* sQv = sS + X::kXE;
+      // dp_win += dSk^T q_v, dSk[r][col] = dS[r][col - (TILE - 1) + r]
+#pragma unroll
+      for (int kk = 0; kk < C::kTile / 16; ++kk) {
+        // rows 16 kk.. meet columns wr0..wr0+15 only inside the band
+        if (16 * kk + 15 < C::kTile - 16 - wr0 ||
+            16 * kk > 2 * C::kTile - 2 - wr0)
+          continue;
+        const FragA16 x = load_a16([&](int m, int k) {
+          const int r = kk * 16 + k, c = wr0 + m - (C::kTile - 1) + r;
+          return (c >= 0 && c < C::kTile) ? sS[r * C::kLdX + c]
+                                          : __float2bfloat16(0.f);
+        });
+        mma_row_kmajor<C::kND>(acc, x, sQv + kk * 16 * C::kLd, C::kLd);
+      }
+      __syncthreads();
+    }
+    float* part = a.dp_part +
+                  (((size_t)b * a.H + h) * (2 * nt - 1) + d + nt - 1) *
+                      C::kWin * Dh;
+    store_rows(part, acc, wr0, C::kWin, 0, Dh);
+  }
+}
+
+template <int DP, int NR>
+cudaError_t launch_res16(const Args16& a, cudaStream_t stream) {
+  using R = Rows16<DP>;
+  using C = Cfg16<DP, NR>;
+  const size_t bytes = rows16_bytes<DP>(a.T);
+  if (a.T > rows16_max_t<DP>() || bytes > (size_t)kSmemLimit)
+    return cudaErrorInvalidValue;                // the long route's T
+  static bool attribute_set = false;
+  cudaError_t err;
+  if (!attribute_set) {
+    err = cudaFuncSetAttribute(rows16_kernel<DP>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kSmemLimit);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(cols16_kernel<DP, NR>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 Cols16<DP, NR>::kBytes);
+    if (err != cudaSuccess) return err;
+    attribute_set = true;
+  }
+  const int nt = (a.T + C::kTile - 1) / C::kTile;
+  rows16_kernel<DP><<<dim3((a.T + R::kTileQ - 1) / R::kTileQ, a.H, a.B),
+                      R::kThreads, bytes, stream>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  cols16_kernel<DP, NR><<<dim3(3 * nt, a.H, a.B), C::kThreads,
+                          Cols16<DP, NR>::kBytes, stream>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  dp16_sum_kernel<<<264, 256, 0, stream>>>(a, C::kTile);
+  return cudaGetLastError();
+}
+
+Args16 bf16_args(const __nv_bfloat16* qu, const __nv_bfloat16* qv,
+                 const __nv_bfloat16* k, const __nv_bfloat16* v,
+                 const __nv_bfloat16* p, const float* kp, const float* am,
+                 const float* stats, const __nv_bfloat16* dout,
+                 const long long* seed, unsigned thresh, float keep_scale,
+                 float* delta, __nv_bfloat16* dqu, __nv_bfloat16* dqv,
+                 __nv_bfloat16* dk, __nv_bfloat16* dv, float* dp_part,
+                 __nv_bfloat16* dp, int B, int H, int T, int Dh,
+                 float scale) {
+  const bool vec = Dh % 8 == 0 && aligned16(qu) && aligned16(qv) &&
+                   aligned16(k) && aligned16(v) && aligned16(p) &&
+                   aligned16(dout);
+  return Args16{qu,  qv,  k,  v,  p,       dout, kp, am, stats,
+                seed, thresh, keep_scale, scale, delta, dqu, dqv, dk, dv,
+                dp_part, dp, B, H, T, Dh, vec};
+}
+
+bool bf16_shape_ok(int B, int H, int T, int Dh) {
+  return B >= 1 && H >= 1 && T >= 1 && Dh >= 1 && Dh <= 128 && B <= 65535 &&
+         H <= 65535;
+}
+
 }  // namespace
 
-// The bf16 backward: q_u, q_v, k, v, out, dout (B, H, T, Dh) and p (H,
-// 2T-1, Dh) in bf16; kp, am and stats f32 as relpos_attention_bwd's.
-// Scratch: delta (B, H, T) f32, dp_part of relpos_attention_bwd_dp_part_floats
-// floats (the same tiles). Outputs dqu, dqv, dk, dv (B, H, T, Dh) and dp
-// (H, 2T-1, Dh) in bf16. out is not read: D comes from the scores (pass
-// 1). Returns the CUDA error code of the launches (0 on success).
+// The bf16 backward, resident route: q_u, q_v, k, v, out, dout (B, H, T,
+// Dh) and p (H, 2T-1, Dh) in bf16; kp, am and stats f32 as
+// relpos_attention_bwd's. Scratch: delta (B, H, T) f32, not read;
+// dp_part of relpos_attention_bwd_bf16_scratch_floats floats (dp's
+// partials, then bf16 dS and Pd). Outputs dqu, dqv, dk, dv (B, H, T, Dh)
+// and dp (H, 2T-1, Dh) in bf16. out is not read: D comes from the scores.
+// T at most relpos_attention_bwd_bf16_max_t(Dh), else
+// cudaErrorInvalidValue. Returns the CUDA error code of the launches (0
+// on success).
 extern "C" int relpos_attention_bwd_bf16(
     const __nv_bfloat16* qu, const __nv_bfloat16* qv, const __nv_bfloat16* k,
     const __nv_bfloat16* v, const __nv_bfloat16* p, const float* kp,
@@ -1297,21 +1893,55 @@ extern "C" int relpos_attention_bwd_bf16(
     __nv_bfloat16* dqu, __nv_bfloat16* dqv, __nv_bfloat16* dk,
     __nv_bfloat16* dv, float* dp_part, __nv_bfloat16* dp, int B, int H,
     int T, int Dh, float scale, void* stream) {
-  if (B < 1 || H < 1 || T < 1 || Dh < 1 || Dh > 128 || B > 65535 ||
-      H > 65535)
-    return (int)cudaErrorInvalidValue;
-  const bool vec = Dh % 8 == 0 && aligned16(qu) && aligned16(qv) &&
-                   aligned16(k) && aligned16(v) && aligned16(p) &&
-                   aligned16(dout);
-  Args16 a{qu, qv, k, v, p, dout, kp, am, stats, seed, thresh, keep_scale,
-           scale, delta, dqu, dqv, dk, dv, dp_part, dp, B, H, T, Dh, vec};
+  if (!bf16_shape_ok(B, H, T, Dh)) return (int)cudaErrorInvalidValue;
+  Args16 a = bf16_args(qu, qv, k, v, p, kp, am, stats, dout, seed, thresh,
+                       keep_scale, delta, dqu, dqv, dk, dv, dp_part, dp, B,
+                       H, T, Dh, scale);
+  a.ds = reinterpret_cast<bf16*>(
+      dp_part + relpos_attention_bwd_dp_part_floats(B, H, T, Dh));
+  a.pd = a.ds + (size_t)B * H * T * scratch_ld(T);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (Dh <= 32)
-    err = launch16<32, 4>(a, s);
-  else if (Dh <= 64)
-    err = launch16<64, 4>(a, s);
-  else
-    err = launch16<128, 2>(a, s);
-  return (int)err;
+  if (Dh <= 32) return (int)launch_res16<32, 4>(a, s);
+  if (Dh <= 64) return (int)launch_res16<64, 4>(a, s);
+  return (int)launch_res16<128, 2>(a, s);
+}
+
+// The largest T the resident route takes at head dim Dh (1..128; 0
+// otherwise): past it, relpos_attention_bwd_bf16_long.
+extern "C" int relpos_attention_bwd_bf16_max_t(int Dh) {
+  if (Dh < 1 || Dh > 128) return 0;
+  if (Dh <= 32) return rows16_max_t<32>();
+  if (Dh <= 64) return rows16_max_t<64>();
+  return rows16_max_t<128>();
+}
+
+// Floats of the resident route's scratch (its dp_part argument): dp's
+// partials (relpos_attention_bwd_dp_part_floats, a multiple of 4), then
+// bf16 dS and Pd, (B, H, T, roundup(T, 64)) each.
+extern "C" long long relpos_attention_bwd_bf16_scratch_floats(int B, int H,
+                                                              int T,
+                                                              int Dh) {
+  return relpos_attention_bwd_dp_part_floats(B, H, T, Dh) +
+         (long long)B * H * T * scratch_ld(T);
+}
+
+// The bf16 backward, long route (five passes), any T: the
+// arguments of relpos_attention_bwd_bf16, with delta (B, H, T) f32 and
+// dp_part of relpos_attention_bwd_dp_part_floats floats.
+extern "C" int relpos_attention_bwd_bf16_long(
+    const __nv_bfloat16* qu, const __nv_bfloat16* qv, const __nv_bfloat16* k,
+    const __nv_bfloat16* v, const __nv_bfloat16* p, const float* kp,
+    const float* am, const float* stats, const __nv_bfloat16* dout,
+    const long long* seed, unsigned thresh, float keep_scale, float* delta,
+    __nv_bfloat16* dqu, __nv_bfloat16* dqv, __nv_bfloat16* dk,
+    __nv_bfloat16* dv, float* dp_part, __nv_bfloat16* dp, int B, int H,
+    int T, int Dh, float scale, void* stream) {
+  if (!bf16_shape_ok(B, H, T, Dh)) return (int)cudaErrorInvalidValue;
+  const Args16 a = bf16_args(qu, qv, k, v, p, kp, am, stats, dout, seed,
+                             thresh, keep_scale, delta, dqu, dqv, dk, dv,
+                             dp_part, dp, B, H, T, Dh, scale);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (Dh <= 32) return (int)launch16<32, 4>(a, s);
+  if (Dh <= 64) return (int)launch16<64, 4>(a, s);
+  return (int)launch16<128, 2>(a, s);
 }

@@ -44,7 +44,11 @@ The bf16 forward has two routes, chosen by T before the launch
 scores whole in shared memory and takes every T up to
 ``bf16_fwd_max_t(Dh)`` (3264 keys at Dh 33-64, as the built kernel's C
 entry says); past that the two-pass kernel, which holds no row of scores,
-takes it.
+takes it. So has the bf16 backward (``bf16_bwd_route``): the resident
+route computes each score once, its rows of P and dP in shared memory,
+dS and Pd through a (B, H, T, roundup(T, 64)) bf16 scratch for the
+key-major products, up to ``bf16_bwd_max_t(Dh)`` (1600 at Dh 33-64);
+past that the five passes that recompute the scores in each.
 
 ``relpos_attention_reference`` is the plain PyTorch version of the whole
 function: in f32 (or f64) autograd gives its backward; in bf16 it rounds
@@ -55,8 +59,8 @@ tensors on the CPU; on CUDA it launches the kernels (through a
 ``torch.autograd.Function`` when a gradient is needed) or raises.
 ``launches`` and ``bwd_launches`` count the launches of the f32 forward
 and backward, ``bf16_launches`` and ``bf16_bwd_launches`` those of the
-bf16 variants (the forward's resident route), ``bf16_long_launches``
-those of the bf16 forward's long route.
+bf16 variants' resident routes, ``bf16_long_launches`` and
+``bf16_bwd_long_launches`` those of their long routes.
 """
 
 import ctypes
@@ -82,6 +86,7 @@ bwd_launches = 0
 bf16_launches = 0
 bf16_bwd_launches = 0
 bf16_long_launches = 0
+bf16_bwd_long_launches = 0
 # the kernels' element types
 DTYPES = (torch.float32, torch.bfloat16)
 
@@ -103,6 +108,26 @@ def bf16_fwd_route(T, dh):
     """"resident" where the bf16 forward's rows of scores fit a block's
     shared memory, else "long" (the two-pass kernel)."""
     return "resident" if T <= bf16_fwd_max_t(dh) else "long"
+
+
+@functools.cache
+def bf16_bwd_max_t(dh):
+    """The largest T the bf16 backward's resident route takes at head dim
+    ``dh`` (its f32 rows of P and dP fill a block's shared memory past
+    it), from the built kernel's C entry
+    ``relpos_attention_bwd_bf16_max_t``."""
+    if not 1 <= dh <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {dh} outside 1..{MAX_HEAD_DIM}")
+    fn = _build.load(BWD_SOURCE).relpos_attention_bwd_bf16_max_t
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return fn(dh)
+
+
+def bf16_bwd_route(T, dh):
+    """"resident" where the bf16 backward's rows of P and dP fit a
+    block's shared memory, else "long" (the five passes)."""
+    return "resident" if T <= bf16_bwd_max_t(dh) else "long"
 
 
 def rel_shift(x, klen, causal=False):
@@ -319,8 +344,10 @@ def _bwd_kernel():
 
 
 @functools.cache
-def _bwd_kernel_bf16():
-    fn = _build.load(BWD_SOURCE).relpos_attention_bwd_bf16
+def _bwd_kernel_bf16(entry="relpos_attention_bwd_bf16"):
+    """The bf16 backward's resident (``relpos_attention_bwd_bf16``) or
+    long route (``relpos_attention_bwd_bf16_long``); one signature."""
+    fn = getattr(_build.load(BWD_SOURCE), entry)
     fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_uint, ctypes.c_float] + \
         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_float,
                                                        ctypes.c_void_p]
@@ -329,8 +356,11 @@ def _bwd_kernel_bf16():
 
 
 @functools.cache
-def _bwd_dp_part_floats():
-    fn = _build.load(BWD_SOURCE).relpos_attention_bwd_dp_part_floats
+def _bwd_scratch_floats(entry="relpos_attention_bwd_dp_part_floats"):
+    """A scratch size query of ``BWD_SOURCE`` (B, H, T, Dh -> floats): dp's
+    partials, or the bf16 resident route's whole scratch
+    (``relpos_attention_bwd_bf16_scratch_floats``)."""
+    fn = getattr(_build.load(BWD_SOURCE), entry)
     fn.argtypes = [ctypes.c_int] * 4
     fn.restype = ctypes.c_longlong
     return fn
@@ -414,12 +444,19 @@ def _launch_bwd(q_u, q_v, k, v, p, kp_add, am_add, out, stats, do, seed_t,
     thresh, keep_scale = _dropout_args(rate)
     dqu, dqv, dk, dv = (torch.empty_like(q_u) for _ in range(4))
     dp = torch.empty_like(p)
-    # dp's partials, one per (b, h, tile diagonal); the kernel sizes them
-    dp_part = torch.empty(_bwd_dp_part_floats()(B, H, T, Dh), device=p.device)
     delta = torch.empty(B, H, T, device=q_u.device)
-    if q_u.dtype == torch.bfloat16:
+    bf16 = q_u.dtype == torch.bfloat16
+    resident = bf16 and bf16_bwd_route(T, Dh) == "resident"
+    # dp's partials, one per (b, h, tile diagonal), and on the bf16
+    # resident route dS and Pd after them; the kernel sizes them
+    query = "relpos_attention_bwd_" + ("bf16_scratch_floats" if resident
+                                       else "dp_part_floats")
+    dp_part = torch.empty(_bwd_scratch_floats(query)(B, H, T, Dh),
+                          device=p.device)
+    if bf16:
+        name = "relpos_attention_bwd_bf16" + ("" if resident else "_long")
         with torch.cuda.device(q_u.device):
-            err = _bwd_kernel_bf16()(
+            err = _bwd_kernel_bf16(name)(
                 q_u.data_ptr(), q_v.data_ptr(), k.data_ptr(), v.data_ptr(),
                 p.data_ptr(), kp_add.data_ptr(), am_add.data_ptr(),
                 stats.data_ptr(), do.data_ptr(),
@@ -427,9 +464,12 @@ def _launch_bwd(q_u, q_v, k, v, p, kp_add, am_add, out, stats, do, seed_t,
                 keep_scale, delta.data_ptr(), dqu.data_ptr(), dqv.data_ptr(),
                 dk.data_ptr(), dv.data_ptr(), dp_part.data_ptr(),
                 dp.data_ptr(), B, H, T, Dh, float(scale), _stream(q_u.device))
-        _build.check_launch(err, "relpos_attention_bwd_bf16")
-        global bf16_bwd_launches
-        bf16_bwd_launches += 1
+        _build.check_launch(err, name)
+        global bf16_bwd_launches, bf16_bwd_long_launches
+        if resident:
+            bf16_bwd_launches += 1
+        else:
+            bf16_bwd_long_launches += 1
         return dqu, dqv, dk, dv, dp
     with torch.cuda.device(q_u.device):
         err = _bwd_kernel()(
