@@ -48,7 +48,8 @@ checkout, or when any phase fails. Phases:
    code (mixtures up to ~6 s): prepare, the tokenizer, dynamic batching
    through the loader, 2 optimizer steps (8 micro-batches at
    accumulation 4), VALID with greedy search and a checkpoint, TEST at
-   the yaml's batched beam 15; every TRAIN micro-batch and every VALID
+   the yaml's batched beam 15 (the split's first FIRST_TEST_MIXTURES
+   mixtures); every TRAIN micro-batch and every VALID
    and TEST batch must launch the kernels its shapes imply; a second run
    with 2 epochs must recover the checkpoint bit for bit and go on from
    its optimizer step, its TEST one utterance a batch with an n-gram LM
@@ -163,7 +164,7 @@ checkout, or when any phase fails. Phases:
    kernel against its plain version on the phase's own tensors, (d)'s
    bf16 attention calls at the bf16 tolerance;
 11. data parallelism (``phase_ddp``): the scratch yaml at full width
-   on the same corpus (VALID and TEST cut to 12 and 6 mixtures), 2
+   on the same corpus (VALID and TEST cut to 6 and 4 mixtures), 2
    optimizer steps of 2 micro-batches at dropout 0 under deterministic
    algorithms, VALID and TEST greedy: (a) in place; (b) through
    ``python -m tsasr_torch.parallel.launch --nproc_per_node 1`` on
@@ -177,10 +178,27 @@ checkout, or when any phase fails. Phases:
    once from disjoint shards; (c') two ranks ``--test_only``
    reproducing it; every batch launches what its shapes imply and each
    rank holds its kernels against their plain versions (the ranks are
-   ``chip_smoke.py --ddp_worker DIR ARGS``); ms per micro-batch, the
-   all-reduce's ms (CUDA events) and bytes, the device-busy share of a
-   profiled micro-batch and audio-s/s of two ranks against one;
-12. a small model on the card against the same model on the CPU:
+   ``chip_smoke.py --ddp_worker DIR ARGS [--then DIR ARGS]``, (c) and
+   (c') in one launch); ms per micro-batch, the all-reduce's ms (CUDA
+   events) and bytes, the device-busy share of a profiled micro-batch
+   and audio-s/s of two ranks against one;
+12. sequence and pipeline parallelism (``phase_model_parallel``) at
+   full width on a corpus of 8-12 s mixtures, 2 optimizer steps of 2
+   micro-batches at dropout 0 under deterministic algorithms, VALID and
+   TEST greedy, each run on two ranks sharing ``cuda:0`` over gloo
+   (in the ddp phase's two-rank launch, after (c')) against the same
+   run in one process: (a) the scratch yaml with
+   ``--causal_encoder True --frontend_padding causal --att_context_size
+   64 --sequence_parallel_count 2``, (b) the none yaml with
+   ``--pipeline_parallel_count 2`` (6 layers a stage): each loss within
+   1e-5 relative, the first step's gradient by the training phase's
+   rule (the kink set of plain f64 runs, the f32 floor below the
+   tolerance, rank 0's unreduced gradient above it), a TEST WER file
+   naming each utterance once; every batch launches what its shapes
+   imply, each rank holds its kernel calls against their plain
+   versions, (a)'s first rank's with its halo's fully masked queries;
+   ms per micro-batch each way and the hops' bytes and ms;
+13. a small model on the card against the same model on the CPU:
    serving encoder output (the CPU side twice, each hash logged with the
    host CPU's model and torch's thread count), and 2 optimizer steps of
    training at dropout 0.
@@ -1899,12 +1917,14 @@ EXPERIMENT_YAML = "tsasr_torch/hparams/LibriSpeechMix/conformer-t_scratch.yaml"
 EXPERIMENT_CORPUS = dict(n_speakers=6, utts_per_speaker=8, n_mix=24,
                          encode_text=True, seed=SEED, max_dur=4.5)
 EXPERIMENT_SPLITS = ("train-2mix", "dev-clean-2mix", "test-clean-2mix")
-# the TEST files the scratch experiment transcribes from its folder
-EXPERIMENT_FILES = 8
-# the resumed run's TEST (beam 15 + the n-gram, one utterance a batch):
-# the split's first 8 mixtures, 16 utterances (the first run's TEST takes
-# all 24)
-RESUMED_TEST_MIXTURES = 8
+# the depth cut so the whole script keeps to its time budget: the TEST
+# files the scratch experiment transcribes from its folder; the resumed
+# run's TEST (beam 15 + the n-gram, one utterance a batch): the split's
+# first 4 mixtures, 8 utterances; the first run's TEST and the bf16
+# run's (beam 15, dynamic batches): its first 6, 12 utterances
+EXPERIMENT_FILES = 4
+RESUMED_TEST_MIXTURES = 4
+FIRST_TEST_MIXTURES = 6
 
 
 def corpus_vocab(folder):
@@ -2234,7 +2254,9 @@ def phase_experiment(device, card, corpus):
         with captured_kernel_calls() as seen, \
                 counted_batches(TSASRBrain, on_card) as (first_counts,
                                                          timings):
-            first = run_experiment(argv=argv(1, 2))
+            first = run_experiment(argv=argv(1, 2, data=cut_corpus(
+                corpus, Path(tmp) / "first_corpus",
+                {EXPERIMENT_SPLITS[2]: FIRST_TEST_MIXTURES})))
         first_s = time.perf_counter() - t0
         saved = train_state(first)
         model = first.model
@@ -3736,7 +3758,8 @@ def bf16_model_check(batch, brains):
 def bf16_experiment(device, card, corpus):
     """(d) the scratch yaml through ``run_experiment`` with ``--precision
     bf16 --fused_attention True``: 2 optimizer steps, VALID greedy, TEST
-    at the yaml's batched beam 15; every batch launches the bf16 kernels
+    at the yaml's batched beam 15 (the split's first FIRST_TEST_MIXTURES
+    mixtures); every batch launches the bf16 kernels
     as its shapes imply and no f32 attention kernel; then the bf16
     kernels against their plain versions (and f64) on the run's own
     tensors, one call per shape. Returns the launch counts."""
@@ -3746,7 +3769,9 @@ def bf16_experiment(device, card, corpus):
     root = Path(__file__).resolve().parent
     on_card = device.type == "cuda"
     with tempfile.TemporaryDirectory(prefix="tsasr_bf16_") as tmp:
-        args = [str(root / EXPERIMENT_YAML), "--data_folder", str(corpus),
+        data = cut_corpus(corpus, Path(tmp) / "corpus",
+                          {EXPERIMENT_SPLITS[2]: FIRST_TEST_MIXTURES})
+        args = [str(root / EXPERIMENT_YAML), "--data_folder", str(data),
                 "--output_folder", str(Path(tmp) / "out"),
                 "--fused_attention", "True", "--precision", "bf16",
                 "--valid_search_freq", "1", "--noprogressbar",
@@ -3889,6 +3914,10 @@ SWITCH_BAND = 64
 # the two switched experiments: TEST at this beam, one utterance a batch
 SWITCH_BEAM = 2
 SWITCH_CORPUS = dict(EXPERIMENT_CORPUS, n_mix=4)
+# the switched experiments' TEST (one utterance a batch, then each file
+# through from_experiment): the split's first 2 mixtures, 4 utterances,
+# the depth cut so the whole script keeps to its time budget
+SWITCH_TEST_MIXTURES = 2
 SWITCH_RUNS = (
     # (name, CLI switches, attention layers, lattice kernels, TRAIN
     # forwards per layer: remat recomputes each layer once)
@@ -4141,7 +4170,7 @@ def pretrained_cross_attention(device, card, batch, tmp, counts):
 def switched_experiments(device, card, tmp, counts):
     """Item 5: the scratch yaml through ``run_experiment`` with the
     switches of SWITCH_RUNS, 2 optimizer steps, VALID greedy, TEST at
-    SWITCH_BEAM one utterance a batch; every batch launches what its
+    SWITCH_BEAM one utterance a batch (SWITCH_TEST_MIXTURES); every batch launches what its
     shapes imply; then the TEST files through ``from_experiment``."""
     from tsasr_torch.recipes.librispeechmix import TSASRBrain, run_experiment
     from tsasr_torch.tools.make_synthetic_dataset import make_dataset
@@ -4149,6 +4178,8 @@ def switched_experiments(device, card, tmp, counts):
     on_card = device.type == "cuda"
     corpus = tmp / "switch_corpus"
     make_dataset(str(corpus), **SWITCH_CORPUS)
+    corpus = cut_corpus(corpus, tmp / "switch_cut",
+                        {EXPERIMENT_SPLITS[2]: SWITCH_TEST_MIXTURES})
     for i, (name, switches, layers, lattice, forwards) in \
             enumerate(SWITCH_RUNS):
         out = tmp / f"switch_run{i}"
@@ -4882,11 +4913,11 @@ def phase_run_flags(device, card, corpus):
 # ranks sharing the card
 DDP_STEPS = 2                 # optimizer steps, at accumulation 2
 DDP_ACCUMULATION = 2
-# the debug cut of TEST: the split's first 6 mixtures, 12 utterances of
-# one a batch, so two ranks decode 6 batches each, greedy (the beam has
-# its own phases); VALID's: its first 12 mixtures, in dynamic batches
-DDP_TEST_MIXTURES = 6
-DDP_VALID_MIXTURES = 12
+# the debug cut of TEST: the split's first 4 mixtures, 8 utterances of
+# one a batch, so two ranks decode 4 batches each, greedy (the beam has
+# its own phases); VALID's: its first 6 mixtures, in dynamic batches
+DDP_TEST_MIXTURES = 4
+DDP_VALID_MIXTURES = 6
 DDP_LOSS_RTOL = 1e-5
 DDP_GRAD_NCCL = 1e-6          # of each leaf's max |g|: (b) against (a)
 # (c) against (a), of each leaf's max |g|: the training phase's rule
@@ -4915,10 +4946,11 @@ def cut_corpus(corpus, folder, cut):
     return folder
 
 
-def ddp_args(corpus, out, device, *extra):
-    """The scratch yaml's arguments of one phase_ddp run."""
+def ddp_args(corpus, out, device, *extra, yaml=EXPERIMENT_YAML):
+    """The arguments of one phase_ddp (or phase_model_parallel) run of
+    ``yaml`` (the scratch yaml unless given)."""
     root = Path(__file__).resolve().parent
-    return [str(root / EXPERIMENT_YAML), "--data_folder", str(corpus),
+    return [str(root / yaml), "--data_folder", str(corpus),
             "--output_folder", str(out), "--fused_attention", "True",
             "--valid_search_freq", "1", "--noprogressbar",
             "--vocab_size", str(corpus_vocab(corpus)), "--num_epochs", "1",
@@ -4943,12 +4975,17 @@ def ddp_run(result_dir, argv, keep=None, hold=True):
     and the first step's micro-batches; ``hold=False`` leaves the kernels
     unchecked (a run that another repeats bit for bit). Returns the
     record, also written as ``rank{r}.json``."""
+    import importlib
     import torch
-    from tsasr_torch import train_librispeechmix_scratch as entry
-    from tsasr_torch.parallel import distributed
+    from tsasr_torch.parallel import distributed, hop
     from tsasr_torch.recipes.librispeechmix import TSASRBrain
 
+    variant = "none" if argv[0].endswith(VARIANT_YAMLS["none"]) \
+        else "scratch"
+    entry = importlib.import_module(
+        f"tsasr_torch.train_librispeechmix_{variant}")
     result_dir = Path(result_dir)
+    reset_counts()
     record = collections.defaultdict(list)
     brains, reduce_events, local = [], [], []
     patched = {name: getattr(TSASRBrain, name) for name in
@@ -4977,33 +5014,35 @@ def ddp_run(result_dir, argv, keep=None, hold=True):
         return patched["evaluate_batch_extra"](self, batch, arrays,
                                                predictions, stage)
 
-    def timed_all_reduce(tensor):
+    def timed_all_reduce(tensor, *args):
         if tensor.numel() >= 1024 and len(local) < DDP_ACCUMULATION and \
                 distributed.world_size() > 1 and distributed.rank() == 0:
             local.append(tensor.detach().cpu().clone())
         if tensor.numel() < 1024 or not tensor.is_cuda:
             if tensor.numel() >= 1024:
                 t0 = time.perf_counter()
-                all_reduce(tensor)
+                all_reduce(tensor, *args)
                 record["allreduce_host_ms"].append(
                     (time.perf_counter() - t0) * 1e3)
                 record["allreduce_bytes"] = tensor.numel() * \
                     tensor.element_size()
                 return tensor
-            return all_reduce(tensor)
+            return all_reduce(tensor, *args)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        all_reduce(tensor)
+        all_reduce(tensor, *args)
         end.record()
         reduce_events.append((start, end))
         record["allreduce_bytes"] = tensor.numel() * tensor.element_size()
         return tensor
 
     on_card = argv[argv.index("--device") + 1].startswith("cuda")
+    layers = VARIANT_LAYERS if variant == "none" else LAYERS_PER_REQUEST
     t0 = time.perf_counter()
     with captured_kernel_calls() as seen:
-        with counted_batches(TSASRBrain, on_card) as (counts, timings):
+        with counted_batches(TSASRBrain, on_card, layers) as (counts,
+                                                             timings):
             fit = TSASRBrain.fit_batch      # counted_batches' wrapper
 
             def fit_batch(self, batch):
@@ -5017,6 +5056,7 @@ def ddp_run(result_dir, argv, keep=None, hold=True):
                                  * batch.mixed_sig.data.shape[1]).sum()
                                 / SAMPLE_RATE)
                 record["audio_s"].append(seconds)
+                hops = dict(hop.stats)
                 if n == DDP_PROFILED and self.device.type == "cuda":
                     out = []
                     wall, events = profiled(lambda: out.append(
@@ -5029,6 +5069,10 @@ def ddp_run(result_dir, argv, keep=None, hold=True):
                 else:
                     loss = fit(self, batch)
                 record["losses"].append(loss)
+                record["hop_bytes"].append(
+                    hop.stats["bytes"] - hops.get("bytes", 0))
+                record["hop_ms"].append(
+                    (hop.stats["seconds"] - hops.get("seconds", 0.0)) * 1e3)
                 return loss
 
             TSASRBrain.fit_batch = fit_batch
@@ -5059,33 +5103,59 @@ def ddp_run(result_dir, argv, keep=None, hold=True):
         batches={k: v["batches"] for k, v in counts.items()},
         fit_ms=[t * 1e3 for t in timings["fit_batch_s"]],
         wait_ms=[t * 1e3 for t in timings["loader_wait_s"]],
+        eval_s={k: timings[f"{k}_s"] for k in ("valid", "test")},
         allreduce_ms=[s.elapsed_time(e) for s, e in reduce_events],
         shapes={"attention": len(seen["attention"]),
                 "lattice": sorted(seen["lattice"])},
+        fully_masked_rows=sum(fully_masked_queries(args)
+                              for args, _, _ in seen["attention"].values()),
         optimizer_step=brain.optimizer_step)
     record = dict(record)
     (result_dir / f"rank{record['rank']}.json").write_text(
         json.dumps(record))
+    wer = Path(argv[argv.index("--output_folder") + 1]) / \
+        "wer_test-clean-2mix.txt"
+    if distributed.if_main_process() and wer.exists():
+        # the next run in this process may write the folder's WER file
+        (result_dir / "wer.txt").write_text(wer.read_text())
     return record
 
 
-def ddp_worker(result_dir, argv):
-    """``chip_smoke.py --ddp_worker DIR ARGS``: a launched rank's
-    ``ddp_run`` (the launcher starts one per rank)."""
+def fully_masked_queries(args):
+    """The (row, query) pairs of an attention call that see no key: every
+    key padded or masked (the first sequence rank's halo rows)."""
+    kp, am = args[5], args[6]
+    hidden = (kp[:, None, :] + am[None, :, :]) < -1e8
+    return int(hidden.all(dim=-1).sum())
+
+
+def ddp_worker(args):
+    """``chip_smoke.py --ddp_worker DIR ARGS [--then DIR ARGS ...]``: a
+    launched rank's ``ddp_run`` of each run in turn, in one process (the
+    launcher starts one per rank)."""
     sys.path.insert(0, str(Path(__file__).resolve().parent))
-    record = ddp_run(result_dir, argv)
-    log(f"ddp worker rank {record['rank']} of {record['world']} done: "
-        f"{record['place']} on {record['device']}, {record['seconds']:.1f} s")
+    while args:
+        cut = args.index("--then") if "--then" in args else len(args)
+        result_dir, argv, args = args[0], args[1:cut], args[cut + 1:]
+        record = ddp_run(result_dir, argv)
+        log(f"ddp worker rank {record['rank']} of {record['world']} done: "
+            f"{record['place']} on {record['device']}, "
+            f"{record['seconds']:.1f} s")
     return 0
 
 
-def ddp_launch(result_dir, nproc, argv):
-    """The scratch yaml on ``nproc`` ranks through ``python -m
-    tsasr_torch.parallel.launch``, each rank a ``ddp_worker``; returns
-    the ranks' records and the launch's wall seconds."""
+def ddp_launch(nproc, *runs):
+    """``nproc`` ranks through ``python -m tsasr_torch.parallel.launch``,
+    each a ``ddp_worker`` running ``runs`` ((result folder, the scratch
+    or none yaml's arguments) pairs) in turn: a run after the first pays
+    no process start, import or kernel load. Returns each run's records
+    by rank and the launch's wall seconds."""
     import os
     root = Path(__file__).resolve().parent
-    result_dir.mkdir(parents=True)
+    args = []
+    for result_dir, argv in runs:
+        result_dir.mkdir(parents=True)
+        args += ["--then", str(result_dir), *argv]
     env = {k: v for k, v in os.environ.items()
            if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR",
                         "MASTER_PORT")}
@@ -5093,17 +5163,17 @@ def ddp_launch(result_dir, nproc, argv):
     proc = subprocess.run(
         [sys.executable, "-m", "tsasr_torch.parallel.launch",
          "--nproc_per_node", str(nproc), "--log_dir",
-         str(result_dir / "logs"), str(root / "chip_smoke.py"),
-         "--ddp_worker", str(result_dir), *argv],
+         str(runs[0][0] / "logs"), str(root / "chip_smoke.py"),
+         "--ddp_worker", *args[1:]],
         cwd=root, env=env, capture_output=True, text=True,
-        timeout=DDP_LAUNCH_TIMEOUT)
+        timeout=DDP_LAUNCH_TIMEOUT * len(runs))
     seconds = time.perf_counter() - t0
     if proc.returncode != 0:
         print(proc.stdout[-6000:], file=sys.stderr)
         raise RuntimeError(f"the {nproc}-rank launch exited "
                            f"{proc.returncode}")
-    return [json.loads((result_dir / f"rank{r}.json").read_text())
-            for r in range(nproc)], seconds
+    return [[json.loads((result_dir / f"rank{r}.json").read_text())
+             for r in range(nproc)] for result_dir, _ in runs], seconds
 
 
 def ddp_f64_step(keep):
@@ -5208,7 +5278,7 @@ def ddp_readings(name, rec, card):
     return audio
 
 
-def phase_ddp(device, card, corpus):
+def phase_ddp(device, card, corpus, also=()):
     """Data-parallel training and evaluation of the scratch yaml at full
     width, 2 optimizer steps of 2 micro-batches at dropout 0, VALID
     greedy, TEST greedy on a debug cut of its split: (a) one
@@ -5220,9 +5290,12 @@ def phase_ddp(device, card, corpus):
     (GRAD_TIGHT_REL, the kink set of ``ddp_f64_step`` at GRAD_ATOL_REL;
     the f32 noise floor, (a) against plain f64, below it and a planted
     fault, rank 0's rows unreduced, above it), a TEST WER file naming
-    every utterance once from disjoint shards, which (c') reproduces. Every run's batches launch what their shapes imply and
-    each rank holds its kernels against their plain versions. Returns
-    the launch counts of all runs."""
+    every utterance once from disjoint shards, which (c') reproduces.
+    Every run's batches launch what their shapes imply and each rank
+    holds its kernels against their plain versions. ``also``: more
+    two-rank runs for the same launch after (c') (another phase's; no
+    process start of their own). Returns the launch counts of all runs
+    but those, and those runs' records."""
     import torch
     on_card = device.type == "cuda"
     counts = collections.Counter()
@@ -5248,19 +5321,18 @@ def phase_ddp(device, card, corpus):
         del keep
         if on_card:
             torch.cuda.empty_cache()
-        [nccl], nccl_s = ddp_launch(tmp / "b", 1, ddp_args(
-            data, tmp / "b" / "out", "cuda" if on_card else "cpu"))
-        [c0, c1], gloo_s = ddp_launch(tmp / "c", 2, ddp_args(
-            data, tmp / "c" / "out", "cuda:0" if on_card else "cpu",
-            "--data_parallel_count", "2"))
-        wer_c = (tmp / "c" / "out" / "wer_test-clean-2mix.txt").read_text()
-        (tmp / "c" / "out" / "wer_test-clean-2mix.txt").rename(
-            tmp / "c" / "first_wer.txt")
-        test_only, test_only_s = ddp_launch(tmp / "c2", 2, ddp_args(
-            data, tmp / "c" / "out", "cuda:0" if on_card else "cpu",
-            "--test_only"))
-        wer_again = (tmp / "c" / "out" /
-                     "wer_test-clean-2mix.txt").read_text()
+        [[nccl]], nccl_s = ddp_launch(1, (tmp / "b", ddp_args(
+            data, tmp / "b" / "out", "cuda" if on_card else "cpu")))
+        # (c) then (c') in the same two processes, then ``also``
+        ([c0, c1], test_only, *more), gloo_s = ddp_launch(
+            2, (tmp / "c", ddp_args(
+                data, tmp / "c" / "out", "cuda:0" if on_card else "cpu",
+                "--data_parallel_count", "2")),
+            (tmp / "c2", ddp_args(
+                data, tmp / "c" / "out", "cuda:0" if on_card else "cpu",
+                "--test_only")), *also)
+        wer_c = (tmp / "c" / "wer.txt").read_text()
+        wer_again = (tmp / "c2" / "wer.txt").read_text()
         for rec in (nccl, c0, c1, *test_only):
             counts.update(rec["launches"])
         errs = {name: ddp_grad_errors(torch.load(
@@ -5284,10 +5356,12 @@ def phase_ddp(device, card, corpus):
         f"of {DDP_ACCUMULATION} micro-batches (dropout 0, the yaml's "
         f"augmentation, deterministic algorithms), VALID greedy, TEST "
         f"greedy on {n_test} utterances; runs (a) in place "
-        f"{one['seconds']:.1f} s, (b) 1 rank {nccl_s:.1f} s, (c) 2 ranks "
-        f"{gloo_s:.1f} s, (c') 2 ranks --test_only {test_only_s:.1f} s "
-        f"(launches: process start, imports, the run and its kernel "
-        f"checks)")
+        f"{one['seconds']:.1f} s, (b) 1 rank {nccl_s:.1f} s, (c) then (c') "
+        f"--test_only in one launch of 2 ranks {gloo_s:.1f} s (launches: "
+        f"process start, imports, the runs and their kernel checks; "
+        f"{len(more)} more runs of another phase in it, "
+        + " + ".join(f"{recs[0]['seconds']:.1f}" for recs in more)
+        + " s)")
     log(f"ddp losses: (a) {one['losses']}; (b) {nccl['losses']}; (c) "
         f"{c0['losses']} / {c1['losses']} (worst (c) vs (a) {loss_err:.3g} "
         f"relative, tol {DDP_LOSS_RTOL})")
@@ -5366,7 +5440,199 @@ def phase_ddp(device, card, corpus):
     if failures:
         raise RuntimeError("phase_ddp: " + "; ".join(failures))
     log(f"ddp phase: {time.perf_counter() - t0:.1f} s; launches {dict(counts)}")
+    return dict(counts), more
+
+
+# model parallelism (phase_model_parallel): the sequence axis on the
+# scratch yaml made causal with a 64-frame context (halo 93 frames: a
+# block needs 93 encoder frames, T >= 186 at S = 2, ~7.5 s), the
+# pipeline axis on the none yaml (6 layers a stage), each on 8-12 s
+# mixtures, two ranks sharing the card over gloo against one process
+MP_CORPUS = dict(n_speakers=4, utts_per_speaker=4, seed=SEED + 41,
+                 min_dur=8, max_dur=12,
+                 split_n_mix={"train-2mix": 10, "dev-clean-2mix": 3,
+                              "test-clean-2mix": 3})
+MP_CAUSAL = ("--causal_encoder", "True", "--frontend_padding", "causal",
+             "--att_context_size", "64")
+MP_RUNS = (("sp", EXPERIMENT_YAML, MP_CAUSAL,
+            ("--sequence_parallel_count", "2")),
+           ("pp", VARIANT_YAMLS["none"], (),
+            ("--pipeline_parallel_count", "2")))
+MP_TEST_UTTERANCES = 6
+
+
+def mp_readings(name, one, ranks, card):
+    """(d): ms per micro-batch through the loader and in fit_batch, each
+    rank's against one process's, and the hops' bytes and host ms per
+    micro-batch."""
+    def row(rec):
+        through = [a + b for a, b in zip(rec["fit_ms"], rec["wait_ms"])]
+        return (", ".join(f"{x:.1f}" for x in through) + " (fit_batch "
+                + ", ".join(f"{x:.1f}" for x in rec["fit_ms"]) + ")")
+    log(f"model parallel {name}: ms per micro-batch through the loader, "
+        f"one process {row(one)}; VALID "
+        f"{sum(one['eval_s']['valid']):.2f} s, TEST "
+        f"{sum(one['eval_s']['test']):.2f} s; the run {one['seconds']:.1f} s")
+    for rec in ranks:
+        log(f"model parallel {name}: {rec['place']} on {rec['device']}: "
+            f"{row(rec)}; hops per micro-batch "
+            + ", ".join(f"{b / 1e6:.2f} MB in {ms:.1f} ms"
+                        for b, ms in zip(rec["hop_bytes"], rec["hop_ms"]))
+            + f" (host clock: staging through pinned host buffers and "
+            f"waits); all-reduce {rec.get('allreduce_bytes', 0) / 1e6:.1f} "
+            f"MB; VALID {sum(rec['eval_s']['valid']):.2f} s, TEST "
+            f"{sum(rec['eval_s']['test']):.2f} s; the run "
+            f"{rec['seconds']:.1f} s [{card}]")
+
+
+def model_parallel_runs(device, tmp):
+    """The model parallel phase's corpus in ``tmp``, its one-process runs
+    in place (each with the plain f64 step of its first optimizer step),
+    and the two ranks' runs to launch: (the one-process records, the
+    launch's (result folder, arguments) pairs)."""
+    from tsasr_torch.tools.make_synthetic_dataset import make_dataset
+    ranks_device = "cuda:0" if device.type == "cuda" else "cpu"
+    data = tmp / "corpus"
+    make_dataset(str(data), **MP_CORPUS)
+    ones, launched = {}, []
+    for name, yaml, model, axis in MP_RUNS:
+        (tmp / name).mkdir()
+        keep = {}
+        ones[name] = ddp_run(tmp / name, ddp_args(
+            data, tmp / name / "out", str(device), *model, yaml=yaml),
+            keep, hold=False)
+        ones[name]["f64"] = ddp_f64_step(keep)
+        ones[name]["names"] = [n for n, _ in
+                               keep["model0"].named_parameters()]
+        del keep
+        launched.append((tmp / f"{name}2", ddp_args(
+            data, tmp / f"{name}2" / "out", ranks_device, *model, *axis,
+            yaml=yaml)))
+    return ones, launched
+
+
+def model_parallel_hold(device, card, tmp, ones, by_run):
+    """The model parallel phase's checks and readings of the launched
+    runs ``by_run`` (each run's records by rank) against ``ones``;
+    returns the launch counts of all its runs."""
+    import torch
+    on_card = device.type == "cuda"
+    counts = collections.Counter()
+    failures = []
+    for (name, yaml, model, axis), ranks in zip(MP_RUNS, by_run):
+        one = ones[name]
+        step64, loose, n_near, n_pre = one.pop("f64")
+        names = one.pop("names")
+        want = torch.load(tmp / name / "grad.pt", weights_only=True)
+        for rec in (one, *ranks):
+            counts.update(rec["launches"])
+        errs = {what: ddp_grad_errors(torch.load(
+                    tmp / path, weights_only=True), want, loose, names)
+                for what, path in (
+                    ("ranks", f"{name}2/grad.pt"),
+                    ("fault", f"{name}2/grad_local.pt"))}
+        errs["floor"] = ddp_grad_errors(want, step64, loose, names)
+        del step64, want
+        wer_one = (tmp / name / "wer.txt").read_text()
+        wer = (tmp / f"{name}2" / "wer.txt").read_text()
+        keys = [block.split(",")[0] for block in
+                wer.split("=" * 80)[2:] if block.strip()]
+        loss_err = max(abs(x - y) / abs(y) for rec in ranks
+                       for x, y in zip(rec["losses"], one["losses"]))
+        n_loose = sum(int(m.sum()) for m in loose)
+        log(f"model parallel {name} ({' '.join(axis)}, {yaml}"
+            f"{' ' + ' '.join(model) if model else ''}): one process "
+            f"{one['seconds']:.1f} s, each rank's run "
+            f"{ranks[0]['seconds']:.1f} s")
+        log(f"model parallel {name} losses: one process "
+            f"{one['losses']}; ranks {ranks[0]['losses']} / "
+            f"{ranks[1]['losses']} (worst {loss_err:.3g} relative, tol "
+            f"{DDP_LOSS_RTOL})")
+        for what, tol in (("ranks", f"{GRAD_TIGHT_REL} tight, "
+                           f"{GRAD_ATOL_REL} loosely"),
+                          ("floor", f"the f32 noise floor, below "
+                           f"{GRAD_TIGHT_REL}"),
+                          ("fault", f"rank 0's unreduced gradient, "
+                           f"above {GRAD_TIGHT_REL}")):
+            tight, slack, same, over = errs[what]
+            log(f"model parallel {name} first-step gradient, {what} vs "
+                f"one process, of each leaf's max |g|: held tight worst "
+                f"{tight:.3g}, loosely {slack:.3g} ({tol}; {n_loose} "
+                f"elements loose, from {n_near} of {n_pre} "
+                f"pre-activations near the kink); bit for bit {same}; "
+                f"past {DDP_GRAD_SPLIT}: {over}")
+        for rec in ranks:
+            log(f"model parallel {name} kernels of {rec['place']}: "
+                f"batches {rec['batches']}, launches {rec['launches']}; "
+                f"against their plain versions on its own tensors: "
+                f"attention at {rec['shapes']['attention']} shapes "
+                f"({rec['fully_masked_rows']} fully masked queries), "
+                f"worst fwd {rec['worst']['fwd']:.3g} / bwd "
+                f"{rec['worst']['bwd']:.3g} of max (atol {ATTN_ATOL}); "
+                f"lattice at {len(rec['shapes']['lattice'])} shapes, "
+                f"worst err/tol {rec['worst']['lattice']:.3g}")
+        mp_readings(name, one, ranks, card)
+        if loss_err > DDP_LOSS_RTOL:
+            failures.append(f"{name}: losses")
+        if errs["ranks"][0] > GRAD_TIGHT_REL or \
+                errs["ranks"][1] > GRAD_ATOL_REL:
+            failures.append(f"{name}: the first step's gradient")
+        if not errs["floor"][0] < GRAD_TIGHT_REL < errs["fault"][0]:
+            failures.append(f"{name}: the tolerance is not between the "
+                            "f32 noise floor and the planted fault")
+        if n_loose > KINK_LOOSE_SHARE * sum(m.numel() for m in loose):
+            failures.append(f"{name}: {n_loose} elements held loosely")
+        if sorted(keys) != sorted(set(keys)) or \
+                len(keys) != MP_TEST_UTTERANCES:
+            failures.append(f"{name}: TEST is not every utterance once")
+        if wer.splitlines()[0] != wer_one.splitlines()[0]:
+            log(f"model parallel {name}: WER line "
+                f"{wer.splitlines()[0]!r} against one process's "
+                f"{wer_one.splitlines()[0]!r}")
+        steps = {rec["optimizer_step"] for rec in (one, *ranks)}
+        if steps != {DDP_STEPS}:
+            failures.append(f"{name}: optimizer steps {steps}")
+        if not all(rec["place"].startswith(f"rank {r} of 2 over gloo")
+                   for r, rec in enumerate(ranks)):
+            failures.append(f"{name}: places "
+                            f"{[rec['place'] for rec in ranks]}")
+        if on_card and (name == "sp") != (
+                ranks[0]["fully_masked_rows"] > 0):
+            failures.append(f"{name}: rank 0's fully masked queries "
+                            f"{ranks[0]['fully_masked_rows']}")
+    if failures:
+        raise RuntimeError("phase_model_parallel: " + "; ".join(failures))
     return dict(counts)
+
+
+def phase_model_parallel(device, card):
+    """Sequence and pipeline parallelism at full width, 2 optimizer steps
+    of 2 micro-batches at dropout 0 under deterministic algorithms, VALID
+    greedy and TEST greedy (3 mixtures each, 8-12 s): (a) the scratch
+    yaml made causal at att_context_size 64 on two ranks
+    ``--sequence_parallel_count 2``, (b) the none yaml on two ranks
+    ``--pipeline_parallel_count 2``, each pair of ranks sharing
+    ``cuda:0`` over gloo, each against the same run in one process: each
+    loss within DDP_LOSS_RTOL, the first step's gradient by the training
+    phase's rule (the kink set of ``ddp_f64_step``; the f32 noise floor
+    below GRAD_TIGHT_REL and rank 0's unreduced gradient above it), a
+    TEST WER file naming each utterance once; (c) every batch launches
+    what its shapes imply and each rank holds its captured kernel calls
+    against their plain versions, (a)'s first rank's with its halo's
+    fully masked queries; (d) ms per micro-batch each way and the hops'
+    bytes and ms. The ranks run (a) then (b) in one launch of their own
+    (``main`` puts them in the ddp phase's instead: one process start
+    fewer). Returns the launch counts of all runs."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="tsasr_mp_") as tmp:
+        tmp = Path(tmp)
+        ones, runs = model_parallel_runs(device, tmp)
+        by_run, launch_s = ddp_launch(2, *runs)
+        counts = model_parallel_hold(device, card, tmp, ones, by_run)
+    log(f"model parallel phase: {time.perf_counter() - t0:.1f} s, "
+        f"{launch_s:.1f} s of it the ranks' launch; launches {counts} "
+        f"[{card}]")
+    return counts
 
 
 def phase_small(device):
@@ -5580,7 +5846,7 @@ def kernel_entry(name, source, replaces, launches, by_path, row, shape):
 
 def main():
     if sys.argv[1:2] == ["--ddp_worker"]:
-        return ddp_worker(sys.argv[2], sys.argv[3:])
+        return ddp_worker(sys.argv[2:])
     if sys.argv[1:2] == ["--bf16_times"]:
         return bf16_times_worker(sys.argv[2])
     import torch
@@ -5650,8 +5916,23 @@ def main():
         run_flags = phase_run_flags(device, card, corpus)
         log(f"run flags phase done at {time.perf_counter() - t_start:.1f} "
             "s")
-        ddp = phase_ddp(device, card, corpus)
-        log(f"ddp phase done at {time.perf_counter() - t_start:.1f} s")
+        # the model parallel phase: its one-process runs, its ranks in the
+        # ddp phase's two-rank launch after (c'), then its checks
+        with tempfile.TemporaryDirectory(prefix="tsasr_mp_") as mp_tmp:
+            mp_tmp = Path(mp_tmp)
+            t0 = time.perf_counter()
+            mp_ones, mp_runs = model_parallel_runs(device, mp_tmp)
+            mp_s = time.perf_counter() - t0
+            ddp, mp_by_run = phase_ddp(device, card, corpus, also=mp_runs)
+            log(f"ddp phase done at {time.perf_counter() - t_start:.1f} s")
+            t0 = time.perf_counter()
+            model_parallel = model_parallel_hold(device, card, mp_tmp,
+                                                 mp_ones, mp_by_run)
+            mp_s += time.perf_counter() - t0
+        log(f"model parallel phase: {mp_s:.1f} s besides its runs in the "
+            f"ddp phase's launch; launches {model_parallel} [{card}]")
+        log(f"model parallel phase done at "
+            f"{time.perf_counter() - t_start:.1f} s")
     switches = phase_switches(device, card)
     log(f"switches phase done at {time.perf_counter() - t_start:.1f} s")
     phase_small(device)
@@ -5666,7 +5947,8 @@ def main():
                 "streaming": streaming[name],
                 "switches": switches[name],
                 "run_flags": run_flags[name],
-                "ddp": ddp[name]}
+                "ddp": ddp[name],
+                "model_parallel": model_parallel[name]}
 
     fwd, bwd = fwd_rows[0], next(r for r in bwd_rows if r["T"] == 208)
     kernels = [
@@ -5699,7 +5981,8 @@ def main():
         row = next(r for r in rows if r["T"] == t and r["B"] == B)
         line = 128 if "fwd" in name else 143
         by_path = dict(bf16_counts[name], run_flags=run_flags[name],
-                       ddp=ddp.get(name, 0))
+                       ddp=ddp.get(name, 0),
+                       model_parallel=model_parallel.get(name, 0))
         kernels.append(kernel_entry(
             name, f"tsasr_torch/csrc/relpos_attention_{name[17:20]}.cu",
             f"tsasr_tpu/ops/attention_pallas.py:{line}",
@@ -5713,7 +5996,8 @@ def main():
         kernels[-1]["long_route"] = {
             "name": long_name, "from_T": long_route["T"],
             "launches": sum(bf16_counts[long_name].values())
-            + run_flags.get(long_name, 0) + ddp.get(long_name, 0),
+            + run_flags.get(long_name, 0) + ddp.get(long_name, 0)
+            + model_parallel.get(long_name, 0),
             "launches_in_checks": long_route["launches"],
             "max_abs_err": long_route["err"]}
     for entry in kernels:

@@ -22,8 +22,9 @@ JAX package's, on the CPU over gloo.
   hypotheses, the TEST WER file with each utterance once and each rank's
   log its own shard, one checkpoint, and a two-rank ``--test_only`` run
   reproducing the WER file;
-- ``parse_arguments``' parallel counts, and what raises instead of
-  falling back.
+- ``parse_arguments``' parallel counts (the data, pipeline and
+  sequence counts multiply to the world size; the tensor count raises
+  above 1), and what raises instead of falling back.
 """
 
 import json
@@ -485,19 +486,32 @@ def test_two_rank_experiment_as_one_process(corpus, tmp_path):
     ("pipeline_parallel_count", 2, False),
 ])
 def test_parallel_counts(monkeypatch, world, flag, value, ok):
+    """The counts must multiply to the world size: a sequence or pipeline
+    count of 2 takes both ranks of a world of 2 (the data count then
+    defaults to 1) and has no room in a world of 1; the tensor count
+    raises above 1."""
     from tsasr_torch.training import experiment
     monkeypatch.setattr(experiment, "world_size", lambda: world)
     if value == "same":
         value = world
     elif value == "other":
         value = 3 - world
+    if flag in ("sequence_parallel_count", "pipeline_parallel_count") \
+            and value == 2:
+        ok = world == 2
     argv = [str(TORCH_YAML), f"--{flag}", str(value)]
     if ok:
         _, run_opts, _ = experiment.parse_arguments(argv)
         assert run_opts[flag] == value
+        counts = dict(zip(("data_parallel_count",
+                           "pipeline_parallel_count",
+                           "sequence_parallel_count"),
+                          experiment.check_parallel_counts(run_opts)))
+        assert np.prod(list(counts.values())) == world
+        assert counts.get(flag, value) == value
     else:
-        match = "world size" if flag == "data_parallel_count" \
-            else "queue 1 item 7"
+        match = "next slice" if flag == "tensor_parallel_count" \
+            else "world size"
         with pytest.raises(NotImplementedError, match=match):
             experiment.parse_arguments(argv)
 

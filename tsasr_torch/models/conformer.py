@@ -94,14 +94,23 @@ class ConvolutionModule(nn.Module):
         self.dropout = Dropout(dropout, dropout_bits)
 
     def forward(self, x, pad_mask=None, deterministic=True, generator=None,
-                conv_cache=None):
+                conv_cache=None, mask_conv_input=False):
         """x: (B, T, D); pad_mask: (B, T) bool, True = padding.
 
         Streaming (causal): ``conv_cache`` (B, kernel_size - 1, D) holds
         the depthwise conv's input frames before x, zeros at the start;
-        returns (out, new cache)."""
+        returns (out, new cache).
+
+        ``mask_conv_input`` also zeroes the padded rows after the GLU,
+        before the depthwise conv (the JAX module's switch). A causal
+        conv's valid rows never see a later row, so it changes none of
+        them, and masked rows to the left become the offline zero left
+        padding: the sequence-parallel halo needs that
+        (``parallel.seq_parallel``)."""
         a, b = self.pointwise_in(self.norm_in(x)).chunk(2, dim=-1)
         glu = a * torch.sigmoid(b)
+        if mask_conv_input and pad_mask is not None:
+            glu = glu.masked_fill(pad_mask[..., None], 0.0)
         if conv_cache is not None:
             glu = torch.cat([conv_cache, glu], dim=1)
         elif self.causal:
@@ -138,12 +147,12 @@ class ConformerEncoderLayer(nn.Module):
 
     def forward(self, x, pos_emb, key_padding_mask=None, attn_mask=None,
                 deterministic=True, generator=None, layer_state=None,
-                return_attn=False):
+                return_attn=False, mask_conv_input=False):
         """Returns (x, the attention probabilities, or None from the fused
         path; ``return_attn`` takes the plain path for them). Streaming:
         ``layer_state`` = {"attn": KV cache, "conv": conv cache} takes x
         as new frames after the cached ones and the return is (x, attn,
-        new state)."""
+        new state). ``mask_conv_input``: the conv module's switch."""
         drop = (deterministic, generator)
         ff1 = self.ffn1(self.norm_ffn1(x), *drop)
         x = x + 0.5 * self.dropout(ff1, *drop)
@@ -152,7 +161,8 @@ class ConformerEncoderLayer(nn.Module):
                                       key_padding_mask, attn_mask, *drop,
                                       return_attn=return_attn)
             x = x + attn_out
-            x = x + self.conv(x, key_padding_mask, *drop)
+            x = x + self.conv(x, key_padding_mask, *drop,
+                              mask_conv_input=mask_conv_input)
         else:
             (attn_out, attn), kv = self.mha(self.norm_mha(x), None,
                                             kv_cache=layer_state["attn"])
@@ -246,6 +256,8 @@ class TSConformerEncoder(nn.Module):
             raise ValueError(f"unknown remat_policy {remat_policy!r}")
         self.d_model = d_model
         self.causal = causal
+        self.kernel_size = kernel_size
+        self.att_context_size = att_context_size
         self.dtype = dtype
         self.injection_mode = injection_mode
         self.injection_after = tuple(injection_after) \
@@ -282,6 +294,31 @@ class TSConformerEncoder(nn.Module):
                                      deterministic, generator)
         return x
 
+    @staticmethod
+    def speaker_mask(speaker_embs, speaker_embs_length):
+        """``cross_attention``'s key mask over the speaker frames, True =
+        padding, from their relative lengths; None without them."""
+        if speaker_embs is None or speaker_embs_length is None:
+            return None
+        S = speaker_embs.shape[1]
+        return ~length_to_mask(
+            relative_to_absolute_lengths(speaker_embs_length, S), S)
+
+    def apply_layer(self, i, x, pos_emb, key_padding_mask, attn_mask,
+                    deterministic=True, generator=None,
+                    mask_conv_input=False):
+        """Layer ``i`` on ``x``, rematerialized under ``remat`` when a
+        gradient is being taken."""
+        layer = self.layers[i]
+
+        def run(h):
+            return layer(h, pos_emb, key_padding_mask, attn_mask,
+                         deterministic, generator,
+                         mask_conv_input=mask_conv_input)[0]
+        if self.remat and torch.is_grad_enabled():
+            return rematerialized(run, generator, self.remat_policy)(x)
+        return run(x)
+
     def forward(self, src, rel_lengths=None, speaker_embs=None,
                 deterministic=True, generator=None, stream_states=None,
                 speaker_embs_length=None, return_attn=False):
@@ -300,14 +337,11 @@ class TSConformerEncoder(nn.Module):
             src = src.reshape(src.shape[0], src.shape[1], -1)
         T = src.shape[1]
         streaming = stream_states is not None
-        key_padding_mask = attn_mask = pos_emb = speaker_mask = None
+        key_padding_mask = attn_mask = pos_emb = None
         if rel_lengths is not None:
             abs_len = relative_to_absolute_lengths(rel_lengths, T)
             key_padding_mask = ~length_to_mask(abs_len, T)
-        if speaker_embs_length is not None and speaker_embs is not None:
-            S = speaker_embs.shape[1]
-            speaker_mask = ~length_to_mask(
-                relative_to_absolute_lengths(speaker_embs_length, S), S)
+        speaker_mask = self.speaker_mask(speaker_embs, speaker_embs_length)
 
         x = self.dropout(self.input_proj(src), deterministic, generator)
         inject = speaker_embs is not None
@@ -327,10 +361,8 @@ class TSConformerEncoder(nn.Module):
                 x, _, state = layer(x, None, layer_state=stream_states[i])
                 new_states.append(state)
             elif remat:
-                def run(h, layer=layer):
-                    return layer(h, pos_emb, key_padding_mask, attn_mask,
-                                 *drop)[0]
-                x = rematerialized(run, generator, self.remat_policy)(x)
+                x = self.apply_layer(i, x, pos_emb, key_padding_mask,
+                                     attn_mask, *drop)
             else:
                 x, attn = layer(x, pos_emb, key_padding_mask, attn_mask,
                                 *drop, return_attn=return_attn)

@@ -64,9 +64,13 @@ from tsasr_torch.models.frontend import ConvolutionFrontEnd
 from tsasr_torch.models.layers import Linear
 from tsasr_torch.models.registry import resolve
 from tsasr_torch.models.rnn import LSTM
+from tsasr_torch.ops.dropout import fold_generator
 from tsasr_torch.ops.masks import (length_to_mask,
                                    relative_to_absolute_lengths)
 from tsasr_torch.ops.rnnt_loss_banded import band_centers
+from tsasr_torch.parallel.hop import BroadcastFrom, GatherBlocks
+from tsasr_torch.parallel.pp_parallel import pp_encoder_apply
+from tsasr_torch.parallel.seq_parallel import sp_encoder_apply
 from tsasr_torch.utils.precision import cast
 
 SPEAKER_ENCODERS = ("conformer", "ecapa")
@@ -217,6 +221,14 @@ class TSTransducer(nn.Module):
     """Target-speaker transducer: the JAX model's inference methods and
     its training forward (``encode_predict``, ``forward``)."""
 
+    # the modules whose gradients the ranks of a sequence or pipeline
+    # axis compute in parts (each its block's, or its stage's) under
+    # ``encode_predict``'s ``axes``, to be summed over the axis; the
+    # others' every rank computes whole
+    MODEL_PARALLEL_PARTIAL = ("frontend", "encoder", "encoder_proj",
+                              "speaker_frontend", "speaker_encoder",
+                              "speaker_proj")
+
     def __init__(self, config=None):
         super().__init__()
         c = config or TSTransducerConfig()
@@ -327,6 +339,47 @@ class TSTransducer(nn.Module):
                          speaker_embs_length=speaker_rel_lens)
         return self.encoder_proj(x)
 
+    def encode_seq_parallel(self, feats, rel_lens, axis, speaker_embs=None,
+                            speaker_rel_lens=None, deterministic=True,
+                            generator=None, halo=None):
+        """``encode`` with the Conformer's time axis split over ``axis``
+        (a ``parallel.distributed.Axis``; ``parallel.seq_parallel``:
+        causal banded encoders only). The frontend runs whole on each
+        rank of the axis, which takes its block of the frames; the rank's
+        block goes through the encoder and ``encoder_proj``, and the
+        blocks are gathered: every rank returns (B, T', joint_dim). The
+        frame count must divide the axis's size (the recipe's
+        ``pad_feats_to`` sees to it). Dropout: the frontend draws from
+        ``generator`` folded by 2, the encoder from its fold by 3, folded
+        again by the rank's block."""
+        x = self.frontend(feats, deterministic, fold_generator(generator, 2))
+        x = sp_encoder_apply(self.encoder, x, rel_lens, axis, speaker_embs,
+                             speaker_rel_lens, deterministic,
+                             fold_generator(generator, 3), halo)
+        return GatherBlocks.apply(self.encoder_proj(x), axis, 1)
+
+    def encode_pipeline(self, feats, rel_lens, axis, speaker_embs=None,
+                        speaker_rel_lens=None, deterministic=True,
+                        generator=None, n_micro=None):
+        """``encode`` with the Conformer's layers split over ``axis``
+        (``parallel.pp_parallel``: the GPipe schedule of ``n_micro``
+        micro-batches, default the axis's size, which must divide the
+        rows). The frontend runs on each rank of the axis (the first
+        stage's output is used); the last stage applies ``encoder_proj``
+        and broadcasts: every rank returns (B, T', joint_dim). Dropout:
+        the frontend draws from ``generator`` folded by 2, the encoder
+        from its fold by 3, folded again per layer and micro-batch."""
+        x = self.frontend(feats, deterministic, fold_generator(generator, 2))
+        y = pp_encoder_apply(self.encoder, x, rel_lens, axis, speaker_embs,
+                             speaker_rel_lens, deterministic,
+                             fold_generator(generator, 3), n_micro)
+        if axis.index == axis.size - 1:
+            y = self.encoder_proj(y)
+        return BroadcastFrom.apply(
+            y, axis, axis.ranks[-1],
+            (x.shape[0], x.shape[1], self.config.joint_dim),
+            self.config.dtype)
+
     def encode_with_attn(self, feats, rel_lens, speaker_embs=None,
                          speaker_rel_lens=None):
         """Like ``encode`` (deterministic), and also every encoder
@@ -426,32 +479,53 @@ class TSTransducer(nn.Module):
 
     def encode_predict(self, feats, rel_lens, tokens_bos, enroll_feats=None,
                        enroll_rel_lens=None, external_speaker_embs=None,
-                       deterministic=True, generator=None):
+                       deterministic=True, generator=None, axes=None):
         """Forward up to (excluding) the joint: (enc_out (B, T', J),
         dec_out (B, U+1, J)). The fused loss takes these plus the head's
         parameters, so the (B, T', U+1, J) joint is never stored.
         ``external_speaker_embs`` (B, 1, E) or (B, S, E) take precedence
         over ``enroll_feats``; without injection both are ignored.
-        ``enroll_rel_lens`` are the speaker frames' relative lengths."""
-        speaker_embs, speaker_rel = self.speaker_condition(
-            enroll_feats, enroll_rel_lens, external_speaker_embs,
-            deterministic, generator)
-        enc_out = self.encode(feats, rel_lens, speaker_embs, speaker_rel,
-                              deterministic, generator)
+        ``enroll_rel_lens`` are the speaker frames' relative lengths.
+
+        ``axes`` (a ``parallel.distributed.Layout``) routes the encoder
+        as the JAX ``encode_predict`` routes it: a ``seq`` axis above 1
+        to ``encode_seq_parallel``, else a ``pipe`` axis above 1 to
+        ``encode_pipeline``. Then the speaker branch and the frontend
+        draw dropout from the step's generator folded by 1 and 2, the
+        same on every rank of the axis, and the encoder from its fold by
+        3 (folded again per block or per layer and micro-batch); the
+        predictor keeps the generator. Which parameters' gradients come
+        split over the axis: ``MODEL_PARALLEL_PARTIAL``."""
+        axis = None if axes is None else axes.encoder_axis
+        if axis is None:
+            speaker_embs, speaker_rel = self.speaker_condition(
+                enroll_feats, enroll_rel_lens, external_speaker_embs,
+                deterministic, generator)
+            enc_out = self.encode(feats, rel_lens, speaker_embs,
+                                  speaker_rel, deterministic, generator)
+        else:
+            speaker_embs, speaker_rel = self.speaker_condition(
+                enroll_feats, enroll_rel_lens, external_speaker_embs,
+                deterministic, fold_generator(generator, 1))
+            encode = self.encode_seq_parallel if axis.name == "seq" \
+                else self.encode_pipeline
+            enc_out = encode(feats, rel_lens, axis, speaker_embs,
+                             speaker_rel, deterministic, generator)
         dec_out, _ = self.predict(tokens_bos)
         return enc_out, dec_out
 
     def forward(self, feats, rel_lens, tokens_bos, enroll_feats=None,
                 enroll_rel_lens=None, external_speaker_embs=None,
                 deterministic=True, generator=None, band_width=None,
-                token_rel_lens=None):
+                token_rel_lens=None, axes=None):
         """Training/eval forward -> (logits (B, T', U+1, V), enc_out).
         With ``band_width`` (and ``token_rel_lens``) the joint runs on the
         band only and the logits are (B, T', band_width, V); the loss
-        recomputes the same ``band_centers`` from the lengths."""
+        recomputes the same ``band_centers`` from the lengths. ``axes``:
+        see ``encode_predict``."""
         enc_out, dec_out = self.encode_predict(
             feats, rel_lens, tokens_bos, enroll_feats, enroll_rel_lens,
-            external_speaker_embs, deterministic, generator)
+            external_speaker_embs, deterministic, generator, axes)
         if band_width is None:
             return self.joint_logits(enc_out[:, :, None, :],
                                      dec_out[:, None, :, :]), enc_out

@@ -15,6 +15,7 @@ frameworks give different bits from one seed, so tests compare rates
 and feed both sides the same masks where they need equal numbers.
 """
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -52,6 +53,19 @@ def _keep_divisor(x, rate):
     if torch.finfo(x.dtype).bits >= 32:
         return 1.0 - rate
     return torch.full((), 1.0 - rate, dtype=x.dtype, device=x.device)
+
+
+def fold_generator(generator, *data):
+    """A generator on ``generator``'s device seeded from its seed and the
+    ints ``data`` (the JAX package's ``fold_in``): folds of one seed by
+    different data draw apart, and every process that folds the same
+    seed by the same data draws the same. None folds to None."""
+    if generator is None:
+        return None
+    key = np.random.SeedSequence([generator.initial_seed(), *data])
+    folded = torch.Generator(device=generator.device)
+    folded.manual_seed(int(key.generate_state(1, np.uint64)[0] >> 1))
+    return folded
 
 
 class Dropout(nn.Module):

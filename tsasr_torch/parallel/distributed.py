@@ -21,13 +21,23 @@ Process 0 is the main process: it writes the experiment's files
 (``run_on_main``, then a barrier); ``all_gather_object`` merges the
 ranks' evaluation results and ``broadcast_object`` hands process 0's
 decisions (a checkpoint's name, the intra-epoch save by minutes) to all.
+
+The ranks' layout over the mesh's axes (``Layout``, made by
+``init_layout`` from the data, pipeline and sequence counts): each rank
+knows its coordinate on each axis (``parallel.mesh.rank_coords``) and
+holds a process group for each axis of size above 1, the data axis's
+when a model axis is above 1 too (the world otherwise). Every rank
+creates every group, in one order, as ``new_group`` requires.
 """
 
 import logging
 import os
+from dataclasses import dataclass, field
 
 import torch
 import torch.distributed as dist
+
+from tsasr_torch.parallel.mesh import axis_ranks, rank_coords
 
 logger = logging.getLogger(__name__)
 
@@ -114,10 +124,17 @@ def maybe_init_distributed(device="cuda"):
 
 
 def describe():
-    """This process's place: its rank, the world size and the backend."""
+    """This process's place: its rank, the world size and the backend,
+    and its coordinates when a model axis is above 1."""
     if not is_distributed():
         return "one process"
-    return f"rank {rank()} of {world_size()} over {dist.get_backend()}"
+    place = f"rank {rank()} of {world_size()} over {dist.get_backend()}"
+    here = layout()
+    if here.model_ranks > 1:
+        place += (f", data {here.data.index} of {here.dp}, pipe "
+                  f"{here.pipe.index} of {here.pp}, seq {here.seq.index} "
+                  f"of {here.sp}")
+    return place
 
 
 def if_main_process():
@@ -159,12 +176,119 @@ def broadcast_object(obj, src=0):
     return box[0]
 
 
-def all_reduce_sum(tensor):
-    """Sum ``tensor`` over the processes, in place; in a group of one the
-    collective still runs (the identity)."""
+def all_reduce_sum(tensor, group=None):
+    """Sum ``tensor`` over the processes of ``group`` (the world when
+    None), in place; in a group of one the collective still runs (the
+    identity)."""
     if is_distributed():
-        dist.all_reduce(tensor, op=dist.ReduceOp.SUM)
+        dist.all_reduce(tensor, op=dist.ReduceOp.SUM, group=group)
     return tensor
+
+
+@dataclass(frozen=True)
+class Axis:
+    """One mesh axis as this rank sees it: ``size``, this rank's
+    ``index`` on it, the world ``ranks`` of its group in index order and
+    the group (None: the world, or no collective at size 1)."""
+    name: str
+    size: int
+    index: int
+    ranks: tuple
+    group: object = field(default=None, compare=False)
+
+    def all_reduce_sum(self, tensor):
+        """Sum ``tensor`` over the axis's group, in place (nothing to sum
+        at size 1)."""
+        if self.size > 1:
+            all_reduce_sum(tensor, self.group)
+        return tensor
+
+    def neighbour(self, step):
+        """The world rank ``step`` places along the axis, or None past
+        either end."""
+        i = self.index + step
+        return self.ranks[i] if 0 <= i < self.size else None
+
+
+@dataclass(frozen=True)
+class Layout:
+    """This rank's place on a (data, pipe, seq) mesh of ``dp·pp·sp``
+    ranks: ``data``, ``pipe`` and ``seq`` are its ``Axis`` on each."""
+    dp: int
+    pp: int
+    sp: int
+    data: Axis
+    pipe: Axis
+    seq: Axis
+
+    @property
+    def model_ranks(self):
+        """Ranks of one data shard: they hold the same rows."""
+        return self.pp * self.sp
+
+    @property
+    def encoder_axis(self):
+        """The axis the encoder is split over in TRAIN, as the JAX
+        ``encode_predict`` routes it (``'seq'`` first, then ``'pipe'``),
+        or None."""
+        if self.sp > 1:
+            return self.seq
+        if self.pp > 1:
+            return self.pipe
+        return None
+
+
+_LAYOUT = None
+
+
+def _axis_groups(name, dp, pp, sp, here):
+    """Every group of axis ``name``, each created on every rank in the
+    same order; returns this rank's."""
+    mine, made = None, set()
+    for r in range(dp * pp * sp):
+        ranks = tuple(axis_ranks(r, name, dp, pp, sp))
+        if ranks in made:
+            continue
+        made.add(ranks)
+        group = dist.new_group(list(ranks))
+        if here in ranks:
+            mine = group
+    return mine
+
+
+def init_layout(dp, pp=1, sp=1):
+    """Make (and keep, for ``layout()``) this rank's ``Layout`` of a
+    ``dp·pp·sp``-rank run; a launched run creates its axes' groups here,
+    on every rank alike. Raises unless the counts multiply to the world
+    size."""
+    global _LAYOUT
+    n = world_size()
+    if dp * pp * sp != n:
+        raise ValueError(f"data {dp} x pipe {pp} x seq {sp} ranks are not "
+                         f"the world's {n}")
+    here = rank()
+    coords = rank_coords(here, dp, pp, sp)
+    axes = {}
+    for name, size in (("data", dp), ("pipe", pp), ("seq", sp)):
+        group = None
+        if size > 1 and is_distributed() and (name != "data"
+                                              or pp * sp > 1):
+            group = _axis_groups(name, dp, pp, sp, here)
+        axes[name] = Axis(name, size, coords[name],
+                          tuple(axis_ranks(here, name, dp, pp, sp)), group)
+    _LAYOUT = Layout(dp, pp, sp, **axes)
+    return _LAYOUT
+
+
+def layout():
+    """The run's ``Layout``: the one ``init_layout`` made, else every
+    rank on the data axis."""
+    if _LAYOUT is not None and _LAYOUT.dp * _LAYOUT.pp * _LAYOUT.sp == \
+            world_size():
+        return _LAYOUT
+    n, here = world_size(), rank()
+    return Layout(n, 1, 1, Axis("data", n, here, tuple(range(n))),
+                  Axis("pipe", 1, 0, (here,)), Axis("seq", 1, 0, (here,)))
 
 
 def broadcast_module(module, src=0):

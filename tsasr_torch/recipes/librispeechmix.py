@@ -70,7 +70,15 @@ checkpointed).
   batching), ``_merge_distributed_metrics`` gathers the WER / CER scores
   and keeps each utterance once, and process 0 alone writes the WER
   file, the train log, the plots and prepares the data and the
-  tokenizer.
+  tokenizer;
+- sequence and pipeline parallelism (``--sequence_parallel_count``,
+  ``--pipeline_parallel_count``; the JAX recipe's ``_encoder_mesh``):
+  ``compute_forward`` hands the Brain's ``layout`` to the model in TRAIN
+  only, which splits the encoder over the axis; VALID and TEST stay
+  rank-local; under a sequence axis ``pad_feats_to`` becomes its lcm
+  with the frontend's subsampling times S (``seq_parallel_pad``), so the
+  encoder's frames divide the axis; the global mean of SpecAugment's
+  fill sums over the data axis alone.
 
 Not ported yet, raising ``NotImplementedError`` before anything runs:
 the ``torch_cache`` speaker backend (HF ``transformers``).
@@ -80,6 +88,7 @@ import dataclasses
 import itertools
 import json
 import logging
+import math
 import os
 
 import numpy as np
@@ -288,6 +297,10 @@ class TSASRBrain(Brain):
         feats, rel = self._mixture_features(batch, stage)
         kwargs = self._forward_kwargs(batch)
         deterministic = stage != Stage.TRAIN
+        if stage == Stage.TRAIN:
+            # the sequence or pipeline axis splits the encoder in TRAIN;
+            # VALID and TEST are rank-local (the JAX _encoder_mesh)
+            kwargs["axes"] = self.layout
         if self._fused_loss_active():
             enc_out, dec_out = self.model.encode_predict(
                 feats, rel, batch["tokens_bos"], **kwargs,
@@ -529,9 +542,11 @@ class TSASRBrain(Brain):
 def _global_mean(x, shard):
     """The mean of a data-parallel step's global batch, from each rank's
     ``x`` (its rows, ``shard``): the sum of its rows that are no padding
-    duplicate, summed over the ranks."""
+    duplicate, summed over the data axis (the ranks of one data shard
+    hold the same rows)."""
     real = torch.as_tensor(shard.real, device=x.device)
-    total = distributed.all_reduce_sum(x[real].sum().reshape(1))
+    total = distributed.layout().data.all_reduce_sum(
+        x[real].sum().reshape(1))
     return (total / (shard.size * x[0].numel()))[0]
 
 
@@ -662,6 +677,14 @@ def check_ported(hparams, variant):
             "a directory holding model.ckpt")
 
 
+def seq_parallel_pad(pad_feats_to, frontend_strides, sp):
+    """``pad_feats_to`` under ``sp`` sequence ranks: its lcm with the
+    frontend's subsampling times ``sp``, so the encoder's frame count
+    divides the axis (the JAX recipe's ``:788-797``)."""
+    need = int(np.prod(frontend_strides)) * int(sp)
+    return math.lcm(int(pad_feats_to or 1), need)
+
+
 def _prepare(hparams, splits):
     run_on_main(prepare_librispeechmix, kwargs={
         "data_folder": hparams["data_folder"],
@@ -760,6 +783,11 @@ def run_experiment(variant="scratch", argv=None):
     if precision == "bf16" and "model_config" in hparams:
         hparams["model"] = TSTransducer(dataclasses.replace(
             hparams["model_config"], dtype=compute_dtype(precision)))
+    if distributed.layout().sp > 1:
+        hparams["pad_feats_to"] = seq_parallel_pad(
+            hparams.get("pad_feats_to"),
+            hparams["model"].config.frontend_strides,
+            distributed.layout().sp)
     model = hparams["model"].init_weights(seed=int(hparams["seed"]))
     brain = TSASRBrain(
         modules={"model": model}, opt_class=hparams["opt_class"],

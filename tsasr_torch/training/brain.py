@@ -61,6 +61,25 @@ JAX package's semantics (its ``recipes/librispeechmix.py:645-666``):
 - checkpoints: rank 0 names, writes and deletes them
   (``Checkpointer``), and decides the intra-epoch save by minutes; the
   progress bars are rank 0's.
+
+Sequence and pipeline parallelism (``layout``, the run's
+``parallel.distributed.Layout``; the JAX package's ``'seq'`` and
+``'pipe'`` mesh axes), with the weights replicated on every rank:
+
+- the rows follow the data coordinate (``rank_rows`` with the data
+  axis's index and size, padded to a multiple of data·pipe): the ranks
+  of one data shard hold the same rows, and dropout folds the data index
+  alone into the step generator, so their whole computations draw alike;
+- in TRAIN the subclass hands ``layout`` to the model, which splits the
+  encoder over the sequence or pipeline axis;
+- the gradient counts each parameter once: a gradient the ranks of the
+  encoder's axis compute in parts (``MODEL_PARALLEL_PARTIAL`` of the
+  model) is summed over them, one that every rank of a data shard
+  computes whole is averaged over them, and either is then summed over
+  the data axis: one ``all_reduce`` of the flat buffer over the world
+  after each gradient is divided by the ranks of its data shard that
+  hold a copy of it (``gradient_shares``); the loss likewise;
+- VALID and TEST stay rank-local, sharded over all ranks as above.
 """
 
 import contextlib
@@ -167,6 +186,8 @@ class Brain:
         self._restored_opt_state = None  # recovered before the optimizer
         self._recovered_ckpt = None     # the checkpoint TEST evaluates
         self.batch_shard = None         # the rank's rows of a TRAIN batch
+        self.layout = distributed.layout()
+        self._shares = None             # gradient_shares, once
         self._last_ckpt_time = time.time()
         if self.checkpointer is not None:
             self.checkpointer.add_recoverable("brain", _BrainState(self))
@@ -248,15 +269,16 @@ class Brain:
         model's device, draws dropout; another stream is apart from it and
         on the CPU (the recipe's augmentation draws from stream 1). Each is
         seeded from (seed, optimizer step, micro-batch count), so a
-        recovered run draws what an uninterrupted one does. Under more
-        than one rank, stream 0 also folds in the rank, so the ranks' rows
-        draw apart; the other streams draw for the global batch, the same
-        on every rank."""
+        recovered run draws what an uninterrupted one does. Over more
+        than one data shard, stream 0 also folds in the data index, so
+        the shards' rows draw apart and the ranks of one shard alike; the
+        other streams draw for the global batch, the same on every
+        rank."""
         entropy = [self.seed, self.optimizer_step * 131071 + self.step]
         if stream:
             entropy.append(stream)
-        elif distributed.world_size() > 1:
-            entropy += [0, distributed.rank()]
+        elif self.layout.dp > 1:
+            entropy += [0, self.layout.data.index]
         key = np.random.SeedSequence(entropy)
         gen = torch.Generator(device=self.device if stream == 0 else "cpu")
         gen.manual_seed(int(key.generate_state(1, np.uint64)[0] >> 1))
@@ -272,8 +294,9 @@ class Brain:
         arrays = self.batch_to_arrays(batch)
         self.batch_shard = None
         if distributed.world_size() > 1:
+            data = self.layout.data
             arrays, self.batch_shard = rank_rows(
-                arrays, distributed.rank(), distributed.world_size())
+                arrays, data.index, data.size, data.size * self.layout.pp)
         return arrays
 
     def fit_batch(self, batch):
@@ -319,12 +342,38 @@ class Brain:
             self._update(params)
         return loss_value
 
+    def gradient_shares(self):
+        """Per trainable parameter, 1 / the ranks of a data shard that
+        hold a copy of its gradient: 1 / the ranks outside the encoder's
+        axis for a gradient that axis computes in parts, 1 / all of them
+        for one computed whole (None with no model axis)."""
+        layout = self.layout
+        if layout.model_ranks == 1:
+            return None
+        if self._shares is None:
+            split = layout.encoder_axis.size
+            partial = getattr(self.model, "MODEL_PARALLEL_PARTIAL", ())
+            self._shares = [
+                1.0 / (layout.model_ranks // split
+                       if name.split(".")[0] in partial
+                       else layout.model_ranks)
+                for name, p in self.model.named_parameters()
+                if p.requires_grad]
+        return self._shares
+
     @torch.no_grad()
     def _all_reduce(self, grads, loss):
         """Sum the ranks' gradients, one ``all_reduce`` of a flat buffer,
         then their losses and nonfinite flags, a second one; returns
         (the summed gradients, the global loss, whether every rank's
-        micro-batch is finite), the same on every rank."""
+        micro-batch is finite), the same on every rank. Under a model
+        axis each gradient is first divided by the copies of it a data
+        shard holds (``gradient_shares``), and the loss by the shard's
+        ranks."""
+        shares = self.gradient_shares()
+        if shares is not None:
+            grads = [g * share for g, share in zip(grads, shares)]
+            loss = loss / self.layout.model_ranks
         flat = torch.cat([g.reshape(-1) for g in grads])
         distributed.all_reduce_sum(flat)
         grads = [part.view_as(g) for part, g in

@@ -18,15 +18,17 @@ the host). ``--precision bf16`` builds the model in bf16 (the recipe).
 into ``--profile_dir`` (the recipe's ``<output_folder>/profiler`` unless
 given; ``utils/profiling.py``).
 
-Data parallelism: ``parse_arguments`` first joins the process group a
+Parallelism: ``parse_arguments`` first joins the process group a
 launcher announced (``python -m tsasr_torch.parallel.launch``, or
 ``torchrun``; ``parallel/distributed.py``), one process per device, its
-backend named by ``--device``. ``--data_parallel_count`` must equal the
-world size (1 when the run was not launched); one process driving
-several devices, as JAX's does, raises ``NotImplementedError``. The
-tensor, sequence and pipeline counts are accepted at 1, as JAX accepts
-them, and raise ``NotImplementedError`` above 1 (``ROADMAP.md`` queue 1
-item 7). The experiment directory is made by process 0 behind a
+backend named by ``--device``. ``--data_parallel_count`` (D),
+``--pipeline_parallel_count`` (P) and ``--sequence_parallel_count`` (S)
+must multiply to the world size (D defaults to what the other two leave
+of it); the rank layout and the axes' process groups are then made
+(``distributed.init_layout``). One process driving several devices, as
+JAX's does, raises ``NotImplementedError``, and so does a
+``--tensor_parallel_count`` above 1 (tensor parallelism is the port's
+next slice). The experiment directory is made by process 0 behind a
 barrier; process 0 logs to ``log.txt``, the others to
 ``log_proc{rank}.txt``.
 """
@@ -41,6 +43,8 @@ import yaml
 
 from tsasr_torch.parallel.distributed import (
     if_main_process,
+    init_layout,
+    is_distributed,
     maybe_init_distributed,
     rank,
     run_on_main,
@@ -88,17 +92,14 @@ RUN_OPT_FLAGS = [
 ]
 
 
-MODEL_AXES_FLAGS = ("tensor_parallel_count", "sequence_parallel_count",
-                    "pipeline_parallel_count")
-
-
 def parse_arguments(arg_list=None):
     """Returns (hparams_file, run_opts dict, overrides yaml string).
 
     Joins the launched process group first (``maybe_init_distributed``,
-    on the backend ``--device`` names). Raises ``NotImplementedError``
-    for a ``--data_parallel_count`` other than the world size and for a
-    tensor, sequence or pipeline count above 1."""
+    on the backend ``--device`` names), then lays its ranks out over the
+    data, pipeline and sequence axes (``init_layout``). Raises
+    ``NotImplementedError`` for counts that do not multiply to the world
+    size and for a tensor count above 1."""
     if arg_list is None:
         arg_list = sys.argv[1:]
     parser = argparse.ArgumentParser(description="tsasr_torch experiment")
@@ -110,28 +111,39 @@ def parse_arguments(arg_list=None):
     run_opts = {k: v for k, v in vars(known).items()
                 if k != "hparams_file" and v is not None}
     maybe_init_distributed(run_opts.get("device", "cuda"))
-    check_parallel_counts(run_opts)
+    counts = check_parallel_counts(run_opts)
+    if is_distributed():
+        init_layout(*counts)
     check_precision(run_opts.get("precision"))
     overrides = _unknown_to_overrides(unknown)
     return known.hparams_file, run_opts, overrides
 
 
 def check_parallel_counts(run_opts):
-    """Raise unless the parallel counts of ``run_opts`` are what this run
-    is: ``data_parallel_count`` the world size, the others 1."""
-    dp = run_opts.get("data_parallel_count")
-    if dp is not None and dp != world_size():
+    """(D, P, S) of ``run_opts``, the data, pipeline and sequence counts;
+    raises unless D·P·S is this run's world size (D, when not given, is
+    what P·S leave of it) or for a tensor count above 1."""
+    tp = run_opts.get("tensor_parallel_count") or 1
+    if tp > 1:
         raise NotImplementedError(
-            f"--data_parallel_count {dp} is not this run's world size "
-            f"{world_size()}: the port runs one process per device; launch "
-            f"{dp} ranks with python -m tsasr_torch.parallel.launch "
-            f"--nproc_per_node {dp}")
-    for key in MODEL_AXES_FLAGS:
-        count = run_opts.get(key)
-        if count is not None and count > 1:
-            raise NotImplementedError(
-                f"--{key} {count}: the tensor, sequence and pipeline axes "
-                "are not ported yet (ROADMAP.md queue 1 item 7)")
+            f"--tensor_parallel_count {tp}: tensor parallelism (the JAX "
+            "package's Megatron pairs, parallel/mesh.py::_tp_spec) is the "
+            "port's next slice (ROADMAP.md queue 1 item 7); the data, "
+            "sequence and pipeline axes run")
+    pp = run_opts.get("pipeline_parallel_count") or 1
+    sp = run_opts.get("sequence_parallel_count") or 1
+    world = world_size()
+    dp = run_opts.get("data_parallel_count")
+    if dp is None:
+        dp = max(world // (pp * sp), 1)
+    if dp * pp * sp != world:
+        raise NotImplementedError(
+            f"--data_parallel_count {dp} x --pipeline_parallel_count {pp} x "
+            f"--sequence_parallel_count {sp} is not this run's world size "
+            f"{world}: the port runs one process per device; launch "
+            f"{dp * pp * sp} ranks with python -m tsasr_torch.parallel.launch "
+            f"--nproc_per_node {dp * pp * sp}")
+    return dp, pp, sp
 
 
 def check_precision(precision):
