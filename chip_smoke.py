@@ -72,14 +72,30 @@ checkout, or when any phase fails. Phases:
    HF checkpoint directory and loaded by ``FrozenSpeakerEncoder`` bit for
    bit; then each variant through ``run_experiment`` with its yaml copy,
    ``--fused_attention True --augment True``, on the same corpus, 2
-   optimizer steps, VALID greedy, TEST at beam 1; with deterministic
-   algorithms on, a ``pretrained`` run's folder copied at its
-   intra-epoch checkpoint resumes to the uninterrupted run's state bit
-   for bit; every batch launches what its
+   optimizer steps, VALID greedy, TEST at beam 1 (the pretrained run's
+   one utterance a batch, on the split's first 3 mixtures); with
+   deterministic algorithms on, a ``pretrained`` run's folder copied at
+   its intra-epoch checkpoint resumes to the uninterrupted run's state
+   bit for bit; every batch launches what its
    shapes imply (12 attention layers), and each kernel is held against
    its plain version on the runs' tensors; ms per micro-batch through
    the loader, the WavLM's share, VALID and TEST wall times and the
-   augmentation's device time are printed;
+   augmentation's device time are printed; then the pretrained run's
+   folder served (``pretrained_serving``): ``from_experiment`` and
+   ``transcribe_file`` give TEST's transcripts on its first 4 TEST
+   files, one request of 8 x 8 s with 8 enrollments launches the
+   attention forward once per layer (12) and matches the plain path
+   (host ms, device ms and the frozen WavLM's share), a ``reencode``
+   stream conditioned by ``speaker_embedding``, ``python -m
+   tsasr_torch.tools.transcribe --enroll`` once, and the folder at
+   ``precision="bf16"`` launching the bf16 forward alone; then the
+   speaker-recognition interfaces (``speaker_recognition``):
+   ``SpeakerRecognition.from_wavlm`` on the WavLM directory, card
+   against CPU (embeddings and ``verify_batch`` scores),
+   ``from_tsasr`` on the scratch experiment's model (6 attention
+   launches a call, against the plain version) and
+   ``tools.eval_speaker_verification`` over trials of the corpus's
+   utterances;
 7. streaming transcription (``phase_streaming``) of the scratch model
    made causal (``causal_encoder``, ``frontend_causal``), seeded: first
    the attention kernels on the lookahead mask and on lookahead + an
@@ -132,7 +148,10 @@ checkout, or when any phase fails. Phases:
    against the step without remat (dropout 0.1, deterministic
    algorithms), and remat full's own peak memory on 3 x 16 s below the
    step's without it; the pretrained recipe with cross_attention (the
-   frozen WavLM's frames, card against CPU, and one fit_batch); the
+   frozen WavLM's frames, card against CPU, one fit_batch, then one
+   request through a ``TSASRTranscriber`` over the model and the
+   brain's frame-level frozen encoder, the kernel against the plain
+   version); the
    scratch yaml through ``run_experiment`` with ``--speaker_encoder_type
    ecapa --remat True`` and with ``--injection_mode cross_attention
    --joint_band_width 64`` (2 optimizer steps, VALID greedy, TEST at beam
@@ -182,7 +201,8 @@ checkout, or when any phase fails. Phases:
    (c') in one launch); ms per micro-batch, the all-reduce's ms (CUDA
    events) and bytes, the device-busy share of a profiled micro-batch
    and audio-s/s of two ranks against one;
-12. sequence and pipeline parallelism (``phase_model_parallel``) at
+12. sequence and pipeline parallelism (``model_parallel_runs``, then
+   ``model_parallel_hold``) at
    full width on a corpus of 8-12 s mixtures, 2 optimizer steps of 2
    micro-batches at dropout 0 under deterministic algorithms, VALID and
    TEST greedy, each run on two ranks sharing ``cuda:0`` over gloo
@@ -1913,18 +1933,23 @@ EXPERIMENT_YAML = "tsasr_torch/hparams/LibriSpeechMix/conformer-t_scratch.yaml"
 # six speakers of eight utterances, 24 mixtures a split: each split has
 # 48 target utterances of 2-6 s (max_dur 4.5: mixtures of 5 s and more
 # in every split, so T 128 and 152 are on the path) in 18-19 dynamic
-# batches for VALID and TEST
+# batches for VALID and TEST (both cut below)
 EXPERIMENT_CORPUS = dict(n_speakers=6, utts_per_speaker=8, n_mix=24,
                          encode_text=True, seed=SEED, max_dur=4.5)
 EXPERIMENT_SPLITS = ("train-2mix", "dev-clean-2mix", "test-clean-2mix")
+# the depth cut so the whole script keeps to its time budget: every
+# phase on the corpus validates and tests on the dev and test splits'
+# first 6 mixtures (12 utterances each; phases cut TEST further below)
+EVAL_MIXTURES = 6
 # the depth cut so the whole script keeps to its time budget: the TEST
-# files the scratch experiment transcribes from its folder; the resumed
-# run's TEST (beam 15 + the n-gram, one utterance a batch): the split's
-# first 4 mixtures, 8 utterances; the first run's TEST and the bf16
-# run's (beam 15, dynamic batches): its first 6, 12 utterances
+# files the scratch experiment (and the pretrained one) transcribes from
+# its folder; the resumed run's TEST (beam 15 + the n-gram, one
+# utterance a batch): the split's first 3 mixtures, 6 utterances; the
+# first run's TEST and the bf16 run's (beam 15, dynamic batches): its
+# first 4, 8 utterances
 EXPERIMENT_FILES = 4
-RESUMED_TEST_MIXTURES = 4
-FIRST_TEST_MIXTURES = 6
+RESUMED_TEST_MIXTURES = 3
+FIRST_TEST_MIXTURES = 4
 
 
 def corpus_vocab(folder):
@@ -2167,7 +2192,9 @@ def transcribe_test_split(brain, out, folder, device, card, beam=BEAM_SIZE,
     transcript must be the one the run's TEST recorded (one utterance a
     batch there, so each saw what a file alone sees), each file
     launching the attention kernel once per Conformer layer
-    (``layers``). ``limit``: only the first that many TEST files."""
+    (``layers``). ``limit``: only the first that many TEST files.
+    Returns ({utterance id: (mixture file, enrollment file)}, {utterance
+    id: TEST's transcript})."""
     import numpy as np
     import torch
     from tsasr_torch.data.audio import read_audio
@@ -2208,6 +2235,7 @@ def transcribe_test_split(brain, out, folder, device, card, beam=BEAM_SIZE,
     if got != want or n != layers * len(files) * (device.type == "cuda"):
         raise RuntimeError("from_experiment + transcribe_file did not "
                            "reproduce the run's TEST transcripts")
+    return files, want
 
 
 def phase_experiment(device, card, corpus):
@@ -2218,7 +2246,8 @@ def phase_experiment(device, card, corpus):
     (``tsasr_torch.tools.train_ngram_lm``) and one utterance a TEST
     batch; then ``transcribe_test_split``; then every kernel at each
     shape the two runs gave it, on the tensors they gave it, against its
-    plain version."""
+    plain version. Returns the path's launch counts and the trained
+    model (on the device), which ``speaker_recognition`` serves."""
     import shutil
     import tempfile
     import torch
@@ -2365,6 +2394,7 @@ def phase_experiment(device, card, corpus):
         transcribe_test_split(second, out, Path(tmp) / "test_wavs", device,
                               card, limit=EXPERIMENT_FILES)
         path_counts = read_counts()
+        model = second.model
         del second
     by_batch = {k: sum(c[k] for c in (*first_counts.values(),
                                       *second_counts.values()))
@@ -2394,7 +2424,7 @@ def phase_experiment(device, card, corpus):
         f"T, U+1: {sorted(seen['lattice'])}; at T 128 and more: {long}), "
         f"worst err/tol {worst['lattice']:.3g} (lattice_rtol, f32 and "
         f"f64)")
-    return path_counts
+    return path_counts, model
 
 
 VARIANT_YAMLS = {
@@ -2416,6 +2446,9 @@ AUG_FEAT_ATOL = 1e-5
 # card against CPU: max |e| error over max |e| within 1e-4 (f32 through
 # a 7-layer CNN and 12 layers of 768, TF32 off on the card)
 WAVLM_ENROLL_FRACS = (1.0, 0.9, 0.8, 0.7, 0.6, 0.5)
+# the pretrained run's TEST: the split's first 3 mixtures, 6 utterances
+# of one a batch, whose first EXPERIMENT_FILES its folder then serves
+PRETRAINED_TEST_MIXTURES = 3
 WAVLM_RTOL = 1e-4
 # None: WavLMConfig()'s published widths (a CPU rehearsal narrows it)
 WAVLM_CONFIG = None
@@ -2676,7 +2709,7 @@ def timed_embeds(on_card):
         FrozenSpeakerEncoder.embed = embed
 
 
-def phase_variants(device, card, corpus):
+def phase_variants(device, card, corpus, scratch_model):
     """The ``none`` and ``pretrained`` recipes through their entry points
     at full width: augmentation and the frozen WavLM each on the card
     against the CPU, a seeded WavLM checkpoint directory, then
@@ -2689,8 +2722,12 @@ def phase_variants(device, card, corpus):
     taken there resumes, and its end-of-TRAIN state must equal the
     uninterrupted run's bit for bit with augmentation on. Every batch
     launches what its shapes imply; each kernel is then held against its
-    plain version on the runs' own tensors. Returns the launch counts of
-    the path."""
+    plain version on the runs' own tensors. Then the pretrained run's
+    folder is served (``pretrained_serving``) and the speaker-recognition
+    interfaces run on its WavLM checkpoint directory and on
+    ``scratch_model`` (``speaker_recognition``). Returns the launch counts
+    of the path (the runs and the serving, the bf16 request's included)
+    and of the speaker-recognition path."""
     import shutil
     import torch
     from tsasr_torch.recipes import librispeechmix as recipe
@@ -2711,12 +2748,12 @@ def phase_variants(device, card, corpus):
         (tmp / "wavlm").mkdir()
         wavlm = wavlm_checks(device, card, tmp / "wavlm")
 
-        def argv(variant, out, *extra):
+        def argv(variant, out, *extra, data=corpus):
             args = [str(root / VARIANT_YAMLS[variant]), "--data_folder",
-                    str(corpus), "--output_folder", str(out),
+                    str(data), "--output_folder", str(out),
                     "--fused_attention", "True", "--augment", "True",
                     "--valid_search_freq", "1", "--noprogressbar",
-                    "--vocab_size", str(corpus_vocab(corpus)),
+                    "--vocab_size", str(corpus_vocab(data)),
                     "--num_epochs", "1", "--optimizer_step_limit", "2",
                     "--beam_size", "1", *extra]
             if variant == "pretrained":
@@ -2739,6 +2776,10 @@ def phase_variants(device, card, corpus):
                 shutil.copytree(out, tmp / "resumed")
                 copied.append(self.step)
 
+        # the pretrained run's TEST one utterance a batch, as a file served
+        # alone sees it, on the split's first PRETRAINED_TEST_MIXTURES
+        cut = {"pretrained": cut_corpus(corpus, tmp / "pretrained_corpus", {
+            EXPERIMENT_SPLITS[2]: PRETRAINED_TEST_MIXTURES})}
         runs, nondeterministic = {}, set()
         reset_counts()
         TSASRBrain._fit_train = recording
@@ -2747,7 +2788,8 @@ def phase_variants(device, card, corpus):
             with captured_kernel_calls() as seen:
                 for name, variant, extra in (
                         ("none", "none", ()),
-                        ("pretrained", "pretrained", ()),
+                        ("pretrained", "pretrained",
+                         ("--test_max_batch_length", "0.5")),
                         ("uninterrupted", "pretrained",
                          ("--ckpt_interval_steps", "1", "--test_splits",
                           "[]")),
@@ -2761,7 +2803,8 @@ def phase_variants(device, card, corpus):
                                 name in ("uninterrupted", "resumed")) as (
                                 warned):
                         brain = recipe.run_experiment(
-                            variant, argv(variant, tmp / name, *extra))
+                            variant, argv(variant, tmp / name, *extra,
+                                          data=cut.get(name, corpus)))
                     nondeterministic.update(warned)
                     runs[name] = {
                         "brain": brain, "counts": counts,
@@ -2857,6 +2900,10 @@ def phase_variants(device, card, corpus):
         by_batch = {k: sum(c[k] for run in runs.values()
                            for c in run["counts"].values())
                     for k in path_counts}
+        serving = pretrained_serving(device, card, runs["pretrained"]["brain"],
+                                     tmp / "pretrained", tmp)
+        speaker = speaker_recognition(device, card, corpus, tmp / "wavlm",
+                                      scratch_model)
         del runs, resumed, brain
     if by_batch != path_counts:
         raise RuntimeError(f"launches {path_counts} outside the batches' "
@@ -2872,7 +2919,267 @@ def phase_variants(device, card, corpus):
         f"at {len(seen['lattice'])} shapes, worst err/tol "
         f"{worst['lattice']:.3g}; launches on the variants' path "
         f"{path_counts}")
-    return path_counts
+    return {k: path_counts.get(k, 0) + n for k, n in serving.items()}, \
+        speaker
+
+
+# serving the speaker side: one request of B mixtures of this many
+# seconds (B enrollments of ENROLL_SECONDS), each served path's cosine
+# scores card against CPU within this (cosines of embeddings within
+# WAVLM_RTOL of their max)
+SPEAKER_REQUEST = 1                 # make_requests' 8 s request
+SPEAKER_SCORE_ATOL = 1e-4
+
+
+def pretrained_serving(device, card, brain, out, tmp):
+    """The pretrained run's folder ``out`` served as a user serves it:
+    (1) ``transcribe_test_split`` at beam 1 on EXPERIMENT_FILES TEST files
+    (TEST ran one utterance a batch): TEST's transcripts, each file
+    launching the attention forward once per encoder layer; (2)
+    ``TSASRTranscriber.from_experiment(out)`` with the default device
+    (the card) answers one request of B mixtures with B enrollments: one
+    launch per layer, its encoder output against the same model with
+    attention forced to the plain version (ENC_ATOL), its host ms and
+    device ms and the frozen WavLM's share of those (the profiler's
+    device time of the encoder's ``embed`` of the request's
+    enrollments); (3) a ``reencode`` stream of one TEST file in 1 s
+    chunks, conditioned by ``speaker_embedding``: one launch per layer
+    for each chunk's re-encode and the final one, the final transcript
+    beginning with the last partial; (4) ``python -m
+    tsasr_torch.tools.transcribe --experiment out FILE --enroll ENROLL``
+    once (its ``main``, in this process): TEST's transcript of the
+    file; (5) the folder at
+    ``precision="bf16"``: the request launches the bf16 forward once per
+    layer and no f32 one. Returns the launch counts of (1)-(5)
+    (``read_bf16_counts``)."""
+    import io
+    import numpy as np
+    import torch
+    from tsasr_torch.inference import TSASRTranscriber
+    from tsasr_torch.data.audio import read_resampled
+    from tsasr_torch.inference.transcriber import _pad_batch
+    from tsasr_torch.tools import transcribe
+
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    # the card is the default device: only a rehearsal names one
+    where = {} if on_card else {"device": str(device)}
+    t_start = time.perf_counter()
+    reset_counts()
+    files, want = transcribe_test_split(
+        brain, out, tmp / "pretrained_wavs", device, card, beam=1,
+        layers=VARIANT_LAYERS, limit=EXPERIMENT_FILES)
+    test_s = time.perf_counter() - t_start
+
+    t0 = time.perf_counter()
+    tr = TSASRTranscriber.from_experiment(str(out), **where)
+    wavs, enrolls = make_requests(np.random.default_rng(SEED + 51))[
+        SPEAKER_REQUEST]
+    seconds = REQUEST_SECONDS[SPEAKER_REQUEST]
+    tr.transcribe_batch(wavs, enrolls)                 # warm-up
+    sync()
+    before = read_counts()["relpos_attention_fwd"]
+    t1 = time.perf_counter()
+    texts = tr.transcribe_batch(wavs, enrolls)
+    sync()
+    request_ms = (time.perf_counter() - t1) * 1e3
+    n = read_counts()["relpos_attention_fwd"] - before
+    enc, _ = tr.encode_batch(wavs, enrolls)
+    set_fused(tr.model, False)
+    plain, _ = tr.encode_batch(wavs, enrolls)
+    set_fused(tr.model, True)
+    err = (enc - plain).abs().max().item()
+    ebatch, erel = (torch.from_numpy(x).to(device) for x in _pad_batch(
+        enrolls, tr.pad_to_multiple.get("enroll_sig")))
+    if on_card:
+        device_ms = sum(device_ms_by_kernel(
+            lambda: tr.transcribe_batch(wavs, enrolls), reps=3).values())
+        wavlm_ms = sum(device_ms_by_kernel(
+            lambda: tr.speaker_encoder.embed(ebatch, erel), reps=3).values())
+        reading = (f"device {device_ms:.2f} ms, the frozen WavLM's embed "
+                   f"{wavlm_ms:.2f} ms of it ({wavlm_ms / device_ms:.1%})")
+    else:
+        reading = "device time not measured (CPU)"
+    log(f"variants pretrained served: from_experiment (speaker encoder "
+        f"{type(tr.speaker_encoder).__name__}, frame level "
+        f"{tr.speaker_encoder.frame_level}) request {B} x {seconds} s with "
+        f"{B} enrollments of {ENROLL_SECONDS} s: host {request_ms:.1f} ms, "
+        f"{reading}; {n} attention launches; kernel vs plain attention "
+        f"encoder max_abs_err {err:.3g} (atol {ENC_ATOL}), max |enc| "
+        f"{enc.abs().max().item():.3g} [{card}]")
+    if n != VARIANT_LAYERS * on_card or err > ENC_ATOL \
+            or not torch.isfinite(enc).all() or len(texts) != B:
+        raise RuntimeError("the pretrained request did not launch the "
+                           "kernel once a layer or left the plain path")
+    request_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    key, (mix, enroll_path) = next(iter(files.items()))
+    wav = read_resampled(mix, SAMPLE_RATE)
+    spk = tr.speaker_embedding(read_resampled(enroll_path, SAMPLE_RATE))
+    before = read_counts()["relpos_attention_fwd"]
+    times, partials, final, _ = stream_chunks(
+        tr.streaming("reencode", speaker_embs=spk), wav, 1.0, sync)
+    n = read_counts()["relpos_attention_fwd"] - before
+    log(f"variants pretrained reencode stream of {key} ({len(wav) / 16e3:.2f}"
+        f" s) in 1 s chunks, speaker embedding {tuple(spk.shape)}: host ms "
+        f"per chunk {', '.join(f'{t:.1f}' for t in times)}; {n} attention "
+        f"launches over {len(times)} chunks and the final re-encode; final "
+        f"{final[:40]!r} [{card}]")
+    if n != VARIANT_LAYERS * (len(times) + 1) * on_card \
+            or not final.startswith(partials[-1]):
+        raise RuntimeError("the pretrained reencode stream failed")
+    stream_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        transcribe.main(["--experiment", str(out), mix, "--enroll",
+                         enroll_path] + ([] if on_card else
+                                         ["--device", str(device)]))
+    line = json.loads(printed.getvalue().strip().splitlines()[-1])
+    log(f"variants pretrained transcribe tool: {line} "
+        f"({time.perf_counter() - t0:.1f} s); TEST's {want[key]!r}")
+    if line != {"file": mix, "text": want[key]}:
+        raise RuntimeError("transcribe --enroll on the pretrained folder "
+                           "did not give TEST's transcript")
+    tool_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    tr16 = TSASRTranscriber.from_experiment(str(out), precision="bf16",
+                                            **where)
+    before = read_bf16_counts()
+    enc16, _ = tr16.encode_batch(wavs, enrolls)
+    sync()
+    n16 = {k: v - before[k] for k, v in read_bf16_counts().items()}
+    err16 = ((enc16.float() - enc).abs().max() / enc.abs().max()).item()
+    log(f"variants pretrained served in bf16: the request launched "
+        f"{n16['relpos_attention_fwd_bf16']} bf16 and "
+        f"{n16['relpos_attention_fwd']} f32 attention forwards; encoder "
+        f"output {enc16.dtype}, max err against f32 {err16:.3g} of max "
+        f"|enc| [{card}]")
+    if n16["relpos_attention_fwd_bf16"] != VARIANT_LAYERS * on_card \
+            or n16["relpos_attention_fwd"] or enc16.dtype != torch.bfloat16 \
+            or not torch.isfinite(enc16).all():
+        raise RuntimeError("the bf16 pretrained request did not run the "
+                           "bf16 kernel alone")
+    counts = read_bf16_counts()
+    log(f"variants pretrained serving: {time.perf_counter() - t_start:.1f} "
+        f"s (TEST files {test_s:.1f}, request {request_s:.1f}, stream "
+        f"{stream_s:.1f}, tool {tool_s:.1f}, bf16 "
+        f"{time.perf_counter() - t0:.1f}); launches {counts} [{card}]")
+    return counts
+
+
+def speaker_recognition(device, card, corpus, wavlm_dir, scratch_model):
+    """The speaker-recognition interfaces: (1)
+    ``SpeakerRecognition.from_wavlm`` on the seeded WavLM checkpoint
+    directory (the published widths) with the default device: the
+    embeddings of 6 enrollments of ENROLL_SECONDS at WAVLM_ENROLL_FRACS
+    of it and the ``verify_batch`` scores of 6 pairs against the same on
+    the CPU (WAVLM_RTOL of max |e|, SPEAKER_SCORE_ATOL); (2)
+    ``from_tsasr`` on the scratch experiment's trained model: one call
+    on B enrollments launches the attention forward once per speaker
+    layer, its embeddings against the same model with attention forced
+    to the plain version (ENC_ATOL), ms per call; (3)
+    ``tsasr_torch.tools.eval_speaker_verification`` (the wavlm backend)
+    over the corpus's utterance files, a same-speaker and an
+    other-speaker trial per speaker: its JSON line. Returns the launch
+    counts of the path."""
+    import io
+    import numpy as np
+    import torch
+    from tsasr_torch.inference import SpeakerRecognition
+    from tsasr_torch.inference.transcriber import _pad_batch
+    from tsasr_torch.ops.features import Fbank
+    from tsasr_torch.tools import eval_speaker_verification
+
+    on_card = device.type == "cuda"
+    where = {} if on_card else {"device": str(device)}
+    t_start = time.perf_counter()
+    L = ENROLL_SECONDS * SAMPLE_RATE
+    rng = np.random.default_rng(SEED + 52)
+    rel = np.array(WAVLM_ENROLL_FRACS, np.float32)
+    wav = (rng.normal(size=(len(rel), L)) * 0.1).astype(np.float32)
+    for i, f in enumerate(rel):
+        wav[i, int(L * f):] = 0.0
+    pairs = (np.roll(wav, 1, axis=0), np.roll(rel, 1))
+    card_sr = SpeakerRecognition.from_wavlm(str(wavlm_dir), **where)
+    cpu_sr = SpeakerRecognition.from_wavlm(str(wavlm_dir), device="cpu")
+    got = card_sr.encode_batch(wav, rel).cpu()
+    want = cpu_sr.encode_batch(wav, rel)
+    err = ((got - want).abs().max() / want.abs().max()).item()
+    scores, same = card_sr.verify_batch(wav, pairs[0], rel, pairs[1])
+    # the pairs are the batch rolled by one, rows apart: the CPU's
+    # embeddings of them are its embeddings rolled
+    cpu_scores = cpu_sr.cosine(want, torch.roll(want, 1, dims=0))
+    cpu_same = cpu_scores > cpu_sr.threshold
+    score_err = float(np.abs(scores - cpu_scores).max())
+    log(f"speaker from_wavlm on {card_sr.device}: {len(rel)} x "
+        f"{ENROLL_SECONDS} s embeddings {tuple(got.shape)} card vs CPU max "
+        f"err {err:.3g} of max |e| (rtol {WAVLM_RTOL}); verify_batch scores "
+        f"{np.round(scores, 4).tolist()} card vs CPU max_abs_err "
+        f"{score_err:.3g} (atol {SPEAKER_SCORE_ATOL}), decisions identical "
+        f"{bool((same == cpu_same).all())} [{card}]")
+    if err > WAVLM_RTOL or score_err > SPEAKER_SCORE_ATOL \
+            or not (same == cpu_same).all():
+        raise RuntimeError("from_wavlm on the card differs from the CPU")
+    del card_sr, cpu_sr
+    wavlm_s = time.perf_counter() - t_start
+
+    t0 = time.perf_counter()
+    fbank = Fbank(sample_rate=SAMPLE_RATE, n_fft=512, n_mels=80,
+                  win_length=32.0)
+    sr = SpeakerRecognition.from_tsasr(scratch_model, fbank, **where)
+    layers = scratch_model.config.speaker_encoder_layers
+    _, enrolls = make_requests(np.random.default_rng(SEED + 53))[0]
+    ebatch, erel = _pad_batch(enrolls)
+    reset_counts()
+    embs = sr.encode_batch(ebatch, erel)
+    counts = read_counts()
+    set_fused(scratch_model, False)
+    plain = sr.encode_batch(ebatch, erel)
+    set_fused(scratch_model, True)
+    err = (embs - plain).abs().max().item()
+    ms = cuda_ms(lambda: sr.encode_batch(ebatch, erel), reps=5, rounds=3) \
+        if on_card else float("nan")
+    log(f"speaker from_tsasr on the scratch experiment's model: {B} "
+        f"enrollments of {ENROLL_SECONDS} s -> {tuple(embs.shape)}, "
+        f"{counts['relpos_attention_fwd']} attention launches ({layers} "
+        f"speaker layers), kernel vs plain attention max_abs_err {err:.3g} "
+        f"(atol {ENC_ATOL}); {ms:.2f} ms per call (events) [{card}]")
+    if counts["relpos_attention_fwd"] != layers * on_card \
+            or err > ENC_ATOL or not torch.isfinite(embs).all():
+        raise RuntimeError("from_tsasr did not launch the kernel once a "
+                           "speaker layer or left the plain path")
+    tsasr_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    speakers = sorted(p.name for p in Path(corpus).glob("spk*"))
+    lines = []
+    for i, spk in enumerate(speakers):
+        other = speakers[(i + 1) % len(speakers)]
+        lines.append(f"1 {corpus}/{spk}/utt0.wav {corpus}/{spk}/utt1.wav")
+        lines.append(f"0 {corpus}/{spk}/utt0.wav {corpus}/{other}/utt1.wav")
+    trials = Path(wavlm_dir).parent / "trials.txt"
+    trials.write_text("\n".join(lines) + "\n")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        eval_speaker_verification.main(
+            ["--trials", str(trials), "--backend", "wavlm", "--model_path",
+             str(wavlm_dir)] + ([] if on_card else ["--device",
+                                                    str(device)]))
+    line = json.loads(out.getvalue().strip().splitlines()[-1])
+    log(f"speaker eval_speaker_verification (wavlm backend, seeded "
+        f"weights) over {len(lines)} trials of the corpus's utterances: "
+        f"{json.dumps(line)} ({time.perf_counter() - t0:.1f} s) [{card}]")
+    if line["trials"] != len(lines) or not all(
+            0.0 <= line[k] <= 1.0 for k in ("EER", "minDCF")):
+        raise RuntimeError(f"eval_speaker_verification printed {line}")
+    log(f"speaker recognition: {time.perf_counter() - t_start:.1f} s "
+        f"(from_wavlm {wavlm_s:.1f}, from_tsasr {tsasr_s:.1f}, tool "
+        f"{time.perf_counter() - t0:.1f}); launches {counts} [{card}]")
+    return counts
 
 
 # ------------------------------------------------------------- streaming
@@ -3915,9 +4222,9 @@ SWITCH_BAND = 64
 SWITCH_BEAM = 2
 SWITCH_CORPUS = dict(EXPERIMENT_CORPUS, n_mix=4)
 # the switched experiments' TEST (one utterance a batch, then each file
-# through from_experiment): the split's first 2 mixtures, 4 utterances,
+# through from_experiment): the split's first mixture, 2 utterances,
 # the depth cut so the whole script keeps to its time budget
-SWITCH_TEST_MIXTURES = 2
+SWITCH_TEST_MIXTURES = 1
 SWITCH_RUNS = (
     # (name, CLI switches, attention layers, lattice kernels, TRAIN
     # forwards per layer: remat recomputes each layer once)
@@ -4114,9 +4421,13 @@ def remat_checks(device, card, short, long, counts):
 def pretrained_cross_attention(device, card, batch, tmp, counts):
     """Item 4: the pretrained recipe with cross_attention: the frozen
     WavLM at WAVLM_CONFIG (the published widths) gives frame-level
-    features, card against CPU; one fit_batch."""
+    features, card against CPU; one fit_batch; then the model served by a
+    ``TSASRTranscriber`` with the brain's frame-level frozen encoder: one
+    request, the kernel against the plain version."""
+    import numpy as np
     import torch
     from tsasr_torch.data.tokenizer import CharTokenizer
+    from tsasr_torch.inference import TSASRTranscriber
     from tsasr_torch.models.transducer import TSTransducer, scratch_config
     from tsasr_torch.models.wavlm import (WavLMConfig, WavLMForXVector,
                                           save_pretrained_xvector)
@@ -4164,7 +4475,36 @@ def pretrained_cross_attention(device, card, batch, tmp, counts):
             or n["relpos_attention_fwd"] != VARIANT_LAYERS * (
                 device.type == "cuda") or not math.isfinite(loss):
         raise RuntimeError("the pretrained cross_attention step failed")
-    del brain, cpu
+    del cpu
+    # served: a transcriber over the model with the brain's frame-level
+    # frozen encoder, one request with the kernel against the plain path
+    tr = TSASRTranscriber(model, None, CharTokenizer(PIECES),
+                          variant="pretrained",
+                          speaker_encoder=brain.speaker_encoder,
+                          device=str(device))
+    wavs, enrolls = make_requests(np.random.default_rng(SEED + 54))[0]
+    before = read_counts()["relpos_attention_fwd"]
+    t0 = time.perf_counter()
+    enc, _ = tr.encode_batch(wavs, enrolls)
+    texts = tr.transcribe_batch(wavs, enrolls)
+    served = read_counts()["relpos_attention_fwd"] - before
+    counts.update({"relpos_attention_fwd": served})
+    set_fused(model, False)
+    plain, _ = tr.encode_batch(wavs, enrolls)
+    plain_texts = tr.transcribe_batch(wavs, enrolls)
+    set_fused(model, True)
+    enc_err = (enc - plain).abs().max().item()
+    log(f"switches pretrained + cross_attention served: TSASRTranscriber "
+        f"with the frame-level frozen encoder, request {B} x "
+        f"{REQUEST_SECONDS[0]} s: {served} attention launches (encode and "
+        f"transcribe), kernel vs plain attention encoder max_abs_err "
+        f"{enc_err:.3g} (atol {ENC_ATOL}), transcripts identical "
+        f"{sum(a == b for a, b in zip(texts, plain_texts))}/{B}; "
+        f"{(time.perf_counter() - t0) * 1e3:.0f} ms [{card}]")
+    if served != 2 * VARIANT_LAYERS * (device.type == "cuda") \
+            or enc_err > ENC_ATOL or not torch.isfinite(enc).all():
+        raise RuntimeError("the pretrained cross_attention request failed")
+    del brain, tr
 
 
 def switched_experiments(device, card, tmp, counts):
@@ -4913,11 +5253,11 @@ def phase_run_flags(device, card, corpus):
 # ranks sharing the card
 DDP_STEPS = 2                 # optimizer steps, at accumulation 2
 DDP_ACCUMULATION = 2
-# the debug cut of TEST: the split's first 4 mixtures, 8 utterances of
-# one a batch, so two ranks decode 4 batches each, greedy (the beam has
-# its own phases); VALID's: its first 6 mixtures, in dynamic batches
-DDP_TEST_MIXTURES = 4
-DDP_VALID_MIXTURES = 6
+# the debug cut of TEST: the split's first 2 mixtures, 4 utterances of
+# one a batch, so two ranks decode 2 batches each, greedy (the beam has
+# its own phases); VALID's: its first 3 mixtures, in dynamic batches
+DDP_TEST_MIXTURES = 2
+DDP_VALID_MIXTURES = 3
 DDP_LOSS_RTOL = 1e-5
 DDP_GRAD_NCCL = 1e-6          # of each leaf's max |g|: (b) against (a)
 # (c) against (a), of each leaf's max |g|: the training phase's rule
@@ -4947,7 +5287,7 @@ def cut_corpus(corpus, folder, cut):
 
 
 def ddp_args(corpus, out, device, *extra, yaml=EXPERIMENT_YAML):
-    """The arguments of one phase_ddp (or phase_model_parallel) run of
+    """The arguments of one phase_ddp (or model parallel) run of
     ``yaml`` (the scratch yaml unless given)."""
     root = Path(__file__).resolve().parent
     return [str(root / yaml), "--data_folder", str(corpus),
@@ -5443,22 +5783,23 @@ def phase_ddp(device, card, corpus, also=()):
     return dict(counts), more
 
 
-# model parallelism (phase_model_parallel): the sequence axis on the
-# scratch yaml made causal with a 64-frame context (halo 93 frames: a
-# block needs 93 encoder frames, T >= 186 at S = 2, ~7.5 s), the
-# pipeline axis on the none yaml (6 layers a stage), each on 8-12 s
-# mixtures, two ranks sharing the card over gloo against one process
+# model parallelism (model_parallel_runs, model_parallel_hold): the
+# sequence axis on the scratch yaml made causal with a 64-frame context
+# (halo 93 frames: a block needs 93 encoder frames, T >= 186 at S = 2,
+# ~7.5 s), the pipeline axis on the none yaml (6 layers a stage), each
+# on 8-12 s mixtures, two ranks sharing the card over gloo against one
+# process
 MP_CORPUS = dict(n_speakers=4, utts_per_speaker=4, seed=SEED + 41,
                  min_dur=8, max_dur=12,
                  split_n_mix={"train-2mix": 10, "dev-clean-2mix": 3,
-                              "test-clean-2mix": 3})
+                              "test-clean-2mix": 2})
 MP_CAUSAL = ("--causal_encoder", "True", "--frontend_padding", "causal",
              "--att_context_size", "64")
 MP_RUNS = (("sp", EXPERIMENT_YAML, MP_CAUSAL,
             ("--sequence_parallel_count", "2")),
            ("pp", VARIANT_YAMLS["none"], (),
             ("--pipeline_parallel_count", "2")))
-MP_TEST_UTTERANCES = 6
+MP_TEST_UTTERANCES = 4
 
 
 def mp_readings(name, one, ranks, card):
@@ -5601,38 +5942,8 @@ def model_parallel_hold(device, card, tmp, ones, by_run):
             failures.append(f"{name}: rank 0's fully masked queries "
                             f"{ranks[0]['fully_masked_rows']}")
     if failures:
-        raise RuntimeError("phase_model_parallel: " + "; ".join(failures))
+        raise RuntimeError("model parallel: " + "; ".join(failures))
     return dict(counts)
-
-
-def phase_model_parallel(device, card):
-    """Sequence and pipeline parallelism at full width, 2 optimizer steps
-    of 2 micro-batches at dropout 0 under deterministic algorithms, VALID
-    greedy and TEST greedy (3 mixtures each, 8-12 s): (a) the scratch
-    yaml made causal at att_context_size 64 on two ranks
-    ``--sequence_parallel_count 2``, (b) the none yaml on two ranks
-    ``--pipeline_parallel_count 2``, each pair of ranks sharing
-    ``cuda:0`` over gloo, each against the same run in one process: each
-    loss within DDP_LOSS_RTOL, the first step's gradient by the training
-    phase's rule (the kink set of ``ddp_f64_step``; the f32 noise floor
-    below GRAD_TIGHT_REL and rank 0's unreduced gradient above it), a
-    TEST WER file naming each utterance once; (c) every batch launches
-    what its shapes imply and each rank holds its captured kernel calls
-    against their plain versions, (a)'s first rank's with its halo's
-    fully masked queries; (d) ms per micro-batch each way and the hops'
-    bytes and ms. The ranks run (a) then (b) in one launch of their own
-    (``main`` puts them in the ddp phase's instead: one process start
-    fewer). Returns the launch counts of all runs."""
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="tsasr_mp_") as tmp:
-        tmp = Path(tmp)
-        ones, runs = model_parallel_runs(device, tmp)
-        by_run, launch_s = ddp_launch(2, *runs)
-        counts = model_parallel_hold(device, card, tmp, ones, by_run)
-    log(f"model parallel phase: {time.perf_counter() - t0:.1f} s, "
-        f"{launch_s:.1f} s of it the ranks' launch; launches {counts} "
-        f"[{card}]")
-    return counts
 
 
 def phase_small(device):
@@ -5902,10 +6213,15 @@ def main():
         # one synthetic corpus for the scratch experiment and the variants
         corpus = Path(tmp) / "corpus"
         make_dataset(str(corpus), **EXPERIMENT_CORPUS)
-        experiment = phase_experiment(device, card, corpus)
+        corpus = cut_corpus(corpus, Path(tmp) / "eval_cut",
+                            {EXPERIMENT_SPLITS[1]: EVAL_MIXTURES,
+                             EXPERIMENT_SPLITS[2]: EVAL_MIXTURES})
+        experiment, scratch_model = phase_experiment(device, card, corpus)
         log(f"experiment phase done at {time.perf_counter() - t_start:.1f} "
             "s")
-        variants = phase_variants(device, card, corpus)
+        variants, speaker = phase_variants(device, card, corpus,
+                                           scratch_model)
+        del scratch_model
         log(f"variants phase done at {time.perf_counter() - t_start:.1f} s")
         streaming = phase_streaming(device, card, corpus)
         log(f"streaming phase done at {time.perf_counter() - t_start:.1f} "
@@ -5944,6 +6260,7 @@ def main():
                 "training": training[name],
                 "experiment": experiment[name],
                 "variants": variants[name],
+                "speaker": speaker[name],
                 "streaming": streaming[name],
                 "switches": switches[name],
                 "run_flags": run_flags[name],
@@ -5981,7 +6298,7 @@ def main():
         row = next(r for r in rows if r["T"] == t and r["B"] == B)
         line = 128 if "fwd" in name else 143
         by_path = dict(bf16_counts[name], run_flags=run_flags[name],
-                       ddp=ddp.get(name, 0),
+                       variants=variants[name], ddp=ddp.get(name, 0),
                        model_parallel=model_parallel.get(name, 0))
         kernels.append(kernel_entry(
             name, f"tsasr_torch/csrc/relpos_attention_{name[17:20]}.cu",
@@ -5996,8 +6313,8 @@ def main():
         kernels[-1]["long_route"] = {
             "name": long_name, "from_T": long_route["T"],
             "launches": sum(bf16_counts[long_name].values())
-            + run_flags.get(long_name, 0) + ddp.get(long_name, 0)
-            + model_parallel.get(long_name, 0),
+            + run_flags.get(long_name, 0) + variants[long_name]
+            + ddp.get(long_name, 0) + model_parallel.get(long_name, 0),
             "launches_in_checks": long_route["launches"],
             "max_abs_err": long_route["err"]}
     for entry in kernels:

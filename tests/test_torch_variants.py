@@ -20,7 +20,9 @@ package where both run, and end to end on the CPU.
   ``from_experiment`` transcribes with the ``none`` model;
 - ``run_experiment("pretrained")`` with a seeded checkpoint directory and
   ``--augment True``: the WavLM stays frozen, outside the optimizer and
-  the checkpoint; ``from_experiment`` refuses the variant;
+  the checkpoint; ``from_experiment`` loads the same frozen encoder and,
+  through ``transcribe_file``, gives each TEST file the transcript TEST
+  recorded (one utterance a TEST batch);
 - the speaker backend resolves as the JAX recipe's; ``torch_cache`` (a
   hub id under ``auto``) and a missing directory raise before anything
   is written; ``cross_attention`` gets to training with frame-level
@@ -333,10 +335,13 @@ def augmented_runs(corpus, tmp_path_factory, wavlm_dir):
         resumed = run_experiment("none", argv("none", corpus,
                                               root / "resumed"))
         del calls[:]
+        # TEST one utterance a batch: a file transcribed alone then sees
+        # what TEST saw (its enrollment padded as in a batch of its own)
         pretrained = run_experiment("pretrained", argv(
             "pretrained", corpus, root / "pretrained",
             "--speaker_encoder_path", wavlm_dir,
-            "--speaker_embedding_dim", "12"))
+            "--speaker_embedding_dim", "12",
+            "--test_max_batch_length", "0.5"))
     finally:
         patches.undo()
     return {"root": root, "none": none, "none_calls": none_calls,
@@ -408,8 +413,36 @@ def test_pretrained_experiment_keeps_the_encoder_frozen(augmented_runs,
     assert augmented_runs["pretrained_calls"] == [
         ("speed_perturb", "TRAIN"), ("spec_augment", "TRAIN")] * 6
     assert (out / "wer_test-clean-2mix.txt").exists()
-    with pytest.raises(NotImplementedError, match="d-vectors"):
-        TSASRTranscriber.from_experiment(str(out), device="cpu")
+    # served, the folder loads the same frozen encoder, outside the model
+    tr = TSASRTranscriber.from_experiment(str(out), device="cpu")
+    for key, value in loaded.state_dict().items():
+        assert torch.equal(tr.speaker_encoder.model.state_dict()[key],
+                           value), key
+    assert tr.model.state_dict().keys() == keys
+
+
+def test_pretrained_experiment_transcribes_its_test_files_as_test_did(
+        augmented_runs, tmp_path):
+    """``from_experiment`` on the pretrained run's folder (its best
+    checkpoint, tokenizer, yaml and frozen WavLM), through
+    ``transcribe_file`` with each TEST mixture's enrollment file, gives
+    the transcripts TEST recorded."""
+    from torch_port_helpers import split_as_files
+    from tsasr_torch.inference import TSASRTranscriber
+    brain = augmented_runs["pretrained"]
+    _, _, test_data = librispeechmix.dataio_prepare(vars(brain.hparams),
+                                                    brain.tokenizer)
+    files = split_as_files(test_data, str(tmp_path))
+    want = {d["key"]: " ".join(d["hyp_tokens"])
+            for d in brain.wer_metric.scores}
+    assert set(want) == set(files) and len(want) >= 6
+    tr = TSASRTranscriber.from_experiment(
+        str(augmented_runs["root"] / "pretrained"), device="cpu")
+    assert tr.variant == "pretrained" and not tr.speaker_encoder.frame_level
+    got = {key: tr.transcribe_file(mix, enroll_path=enroll)
+           for key, (mix, enroll) in files.items()}
+    assert got == want
+    assert any(want.values())
 
 
 @pytest.mark.parametrize("extra,error,match", [

@@ -26,6 +26,12 @@ of numpy arrays). Layout changes:
 ``params_to_flax`` leaves the statistics out and ``batch_stats_to_flax``
 gives them.
 
+The speaker-recognition models go both ways too:
+``ecapa_params_{from,to}_flax`` for a standalone ``ECAPA_TDNN`` (and
+``save_ecapa_from_flax``, the port's ECAPA file from a JAX payload), and
+``head_params_{from,to}_flax`` for ``Xvector`` and
+``CosineClassifier``, params and ``batch_stats`` together.
+
 ``lm_params_from_flax`` does the same for the flax ``RNNLM``
 (``embedding``, ``rnn``, ``dnn``, ``out``) into ``models.lm.RNNLM``, and
 ``wavlm_params_from_flax`` for the flax ``WavLMForXVector`` into
@@ -118,18 +124,23 @@ def _predictor(out, prefix, tree):
     _lstm(out, f"{prefix}.decoder", tree["decoder"])
 
 
+def _join(prefix, name):
+    return f"{prefix}.{name}" if prefix else name
+
+
 def _ecapa(out, prefix, tree):
     """ECAPA params or batch_stats, walked by name."""
     for name, node in tree.items():
         key = f"blocks.{name[6:]}" if name.startswith("block_") else name
         if isinstance(node, dict):
-            _ecapa(out, f"{prefix}.{key}", node)
+            _ecapa(out, _join(prefix, key), node)
         elif name == "kernel":
-            out[f"{prefix}.weight"] = _t(np.asarray(node).transpose(2, 1, 0))
+            out[_join(prefix, "weight")] = _t(
+                np.asarray(node).transpose(2, 1, 0))
         elif name == "scale":
-            out[f"{prefix}.weight"] = _t(node)
+            out[_join(prefix, "weight")] = _t(node)
         else:                                       # bias, mean, var
-            out[f"{prefix}.{name}"] = _t(node)
+            out[_join(prefix, name)] = _t(node)
 
 
 def params_from_flax(tree):
@@ -313,3 +324,100 @@ def _to_flax(state_dict):
             kind = "depthwise"
         node[path[-1]] = np.ascontiguousarray(_TO_FLAX[kind](array))
     return tree
+
+
+# ------------------------------------------- the speaker-recognition models
+def ecapa_params_from_flax(variables):
+    """A standalone flax ``ECAPA_TDNN``'s variables (``{"params": ...,
+    "batch_stats": ...}``, nested numpy dicts) -> state_dict of the port's
+    ``models.ecapa.ECAPA_TDNN``."""
+    out = {}
+    _ecapa(out, "", variables["params"])
+    _ecapa(out, "", variables.get("batch_stats", {}))
+    return out
+
+
+def ecapa_params_to_flax(state_dict):
+    """The port's ``ECAPA_TDNN`` state_dict -> flax's ``{"params": ...,
+    "batch_stats": ...}``."""
+    return {"params": params_to_flax(state_dict),
+            "batch_stats": batch_stats_to_flax(state_dict)}
+
+
+def save_ecapa_from_flax(payload, path):
+    """A JAX ECAPA payload's tree (``{"config": {...}, "params": ...,
+    "batch_stats": ...}``, the msgpack file the JAX package's speaker
+    verification tool reads, restored to nested numpy dicts) -> the
+    port's ECAPA file at ``path``: ``torch.save`` of ``{"config": the
+    ECAPAConfig keywords, "state_dict": ...}``, which
+    ``tsasr_torch.tools.eval_speaker_verification --backend ecapa``
+    reads."""
+    config = {k: [int(x) for x in v] if isinstance(v, (list, tuple))
+              else v.item() if isinstance(v, np.generic) else v
+              for k, v in dict(payload.get("config", {})).items()}
+    variables = {k: v for k, v in payload.items() if k != "config"}
+    torch.save({"config": config,
+                "state_dict": ecapa_params_from_flax(variables)}, path)
+
+
+# flax's numbered modules of Xvector and CosineClassifier -> the port's
+# ModuleLists
+_LISTS = {"conv": "convs", "norm": "norms", "linear": "linears"}
+_LISTS_BACK = {v: k for k, v in _LISTS.items()}
+
+
+def _head(out, prefix, tree):
+    for name, node in tree.items():
+        base, _, index = name.rpartition("_")
+        key = f"{_LISTS[base]}.{index}" if base in _LISTS else name
+        if isinstance(node, dict):
+            _head(out, _join(prefix, key), node)
+        elif name == "kernel":                      # Conv (k, in, out)
+            kernel = np.asarray(node)               # or Dense (in, out)
+            out[_join(prefix, "weight")] = _t(
+                kernel.transpose(2, 1, 0) if kernel.ndim == 3 else kernel.T)
+        elif name == "scale":
+            out[_join(prefix, "weight")] = _t(node)
+        else:                       # bias, mean, var, the class weights
+            out[_join(prefix, name)] = _t(node)
+
+
+def head_params_from_flax(variables):
+    """A flax ``Xvector`` or ``CosineClassifier``'s variables
+    (``{"params": ..., "batch_stats": ...}``) -> state_dict of the port's
+    module: ``conv_{i}`` / ``norm_{i}`` / ``linear_{i}`` become
+    ``convs.{i}`` / ``norms.{i}`` / ``linears.{i}``, a Conv kernel
+    (k, in, out) the weight (out, in, k), a Dense kernel its transpose, a
+    BatchNorm's ``scale`` its ``weight`` and its ``batch_stats`` its
+    buffers; the classifier's class ``weight`` (out, in) is kept."""
+    out = {}
+    _head(out, "", variables["params"])
+    _head(out, "", variables.get("batch_stats", {}))
+    return out
+
+
+def head_params_to_flax(state_dict):
+    """The inverse of ``head_params_from_flax``: a port ``Xvector`` or
+    ``CosineClassifier`` state_dict -> ``{"params": ..., "batch_stats":
+    ...}`` of f32 numpy arrays."""
+    trees = {"params": {}, "batch_stats": {}}
+    for key, value in state_dict.items():
+        *parts, leaf = key.split(".")
+        path = []
+        while parts:
+            name = parts.pop(0)
+            path.append(f"{_LISTS_BACK[name]}_{parts.pop(0)}"
+                        if name in _LISTS_BACK else name)
+        array = np.asarray(value.detach().cpu().numpy(), np.float32)
+        if leaf == "weight" and path:
+            if path[-1].startswith("norm"):
+                leaf = "scale"
+            else:
+                leaf = "kernel"
+                array = array.transpose(2, 1, 0) if array.ndim == 3 \
+                    else array.T
+        node = trees["batch_stats" if leaf in BATCH_STATS else "params"]
+        for name in path:
+            node = node.setdefault(name, {})
+        node[leaf] = np.ascontiguousarray(array)
+    return trees

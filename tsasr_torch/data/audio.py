@@ -149,3 +149,10 @@ def resample(waveform, orig_freq, new_freq):
     out = frames @ kernels.astype(np.float64).T    # (n_frames, new_freq)
     out = out.reshape(-1)[:target_len]
     return out.astype(np.float32)
+
+
+def read_resampled(path, sample_rate):
+    """An audio file (wav or flac) as a float32 waveform at
+    ``sample_rate``."""
+    wav, sr = read_audio(path)
+    return resample(wav, sr, sample_rate)

@@ -111,9 +111,14 @@ class SaveableDataLoader:
             iterator = _prefetch_iter(gen(), self.prefetch)
         else:
             iterator = gen()
-        for batch in iterator:
-            self._num_batches_yielded += 1
-            yield batch
+        try:
+            for batch in iterator:
+                self._num_batches_yielded += 1
+                yield batch
+        finally:
+            # an abandoned epoch closes its prefetch or worker iterator
+            # now, not when the collector reaches its frame
+            iterator.close()
         self._num_batches_yielded = 0
 
     def _process_iter(self, skip):
@@ -248,6 +253,8 @@ def _prefetch_iter(source, depth):
         try:
             for item in source:
                 if not guarded_put(item):
+                    # the consumer is gone: run the source's cleanup
+                    source.close()
                     return
             guarded_put(_END)
         except BaseException as e:  # propagate into consumer

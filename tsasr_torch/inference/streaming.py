@@ -27,10 +27,11 @@ frame's token back to the host.
 
 Differences from the JAX streamer:
 
-- a model with a speaker branch (``injection_mode`` set) needs
-  ``speaker_embs`` and raises without them, where the JAX streamer runs
-  without conditioning (``TSASRTranscriber.speaker_embedding`` gives
-  them from an enrollment);
+- a model with a speaker input (``injection_mode`` set: a ``scratch``
+  or a ``pretrained`` model) needs ``speaker_embs`` and raises without
+  them, where the JAX streamer runs without conditioning
+  (``TSASRTranscriber.speaker_embedding`` gives them from an
+  enrollment);
 - ``kv_cache`` needs a causal model (``causal_encoder`` and
   ``frontend_causal``) and raises otherwise, and a stream longer than
   ``kv_capacity_seconds`` raises (``models.attention``) where JAX
@@ -60,8 +61,12 @@ class StreamingTranscriber:
     into it, or None. The model moves to ``device`` (default CUDA, which
     raises when absent). ``speaker_embs`` (1, 1, d_model), or the
     speaker frames (1, S, d_model) of a ``cross_attention`` model,
-    condition a model with a speaker branch; no lengths go with them, as
-    in JAX (one whole enrollment).
+    condition a model with a speaker input; no lengths go with them, as
+    in JAX, so every frame given is attended.
+    ``TSASRTranscriber.speaker_embedding`` gives them for a ``scratch`` or
+    a ``pretrained`` model (the frozen WavLM's d-vector or frames,
+    projected), the frames cut to those the offline encode leaves
+    unmasked.
     """
 
     def __init__(self, model, params, tokenizer, sample_rate=16000,

@@ -36,8 +36,13 @@ test_statistics_get_gradients_in_jax_and_stay_fixed_in_the_port``).
 BatchNorm in f32 with one rounding (flax's ``_normalize`` with f32
 statistics), the pooling's statistics in it.
 
-``Xvector`` and ``CosineClassifier`` of the JAX module are off the
-recipe's path and not ported.
+Also here, off the recipe's path and served by
+``inference.speaker`` / ``inference.classifier``: the cosine
+``CosineClassifier`` head and the classic ``Xvector`` TDNN, each
+inference-only (BatchNorm on running statistics, ``FrozenBatchNorm``).
+``CosineClassifier`` takes its input width at construction, where flax
+infers it; ``Xvector``'s Gaussian noise on the pooled mean (the JAX
+``noise_rng``) draws from an explicit ``torch.Generator``.
 """
 
 from dataclasses import dataclass
@@ -47,7 +52,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tsasr_torch.models.layers import Conv1d
+from tsasr_torch.models.layers import Conv1d, Linear
+from tsasr_torch.ops.masks import relative_to_absolute_lengths
 from tsasr_torch.utils.precision import cast
 
 NEG = -1e30
@@ -256,3 +262,90 @@ class ECAPA_TDNN(nn.Module):
         x = self.mfa(torch.cat(outs, dim=1))
         x = self.asp_bn(self.asp(x, rel_lengths))
         return self.fc(x).transpose(1, 2)
+
+
+class CosineClassifier(nn.Module):
+    """The reference ECAPA ``Classifier``: ``lin_blocks`` of BatchNorm ->
+    Linear, then the cosine of the features against each class weight
+    (both L2-normalised, the norms clamped at 1e-12). Features (..., E)
+    -> scores (..., out_neurons); flax's ``norm_{i}``, ``linear_{i}`` are
+    ``norms.{i}``, ``linears.{i}``."""
+
+    def __init__(self, input_size, out_neurons, lin_blocks=0,
+                 lin_neurons=192, dtype=torch.float32):
+        super().__init__()
+        widths = [input_size] + [lin_neurons] * lin_blocks
+        self.norms = nn.ModuleList(FrozenBatchNorm(w, dtype=dtype)
+                                   for w in widths[:-1])
+        self.linears = nn.ModuleList(
+            Linear(a, b, compute_dtype=dtype)
+            for a, b in zip(widths[:-1], widths[1:]))
+        self.weight = nn.Parameter(torch.empty(out_neurons, widths[-1]))
+        nn.init.xavier_uniform_(self.weight)
+
+    def forward(self, x):
+        for norm, linear in zip(self.norms, self.linears):
+            x = linear(norm(x.movedim(-1, 1)).movedim(1, -1))
+        weight = cast(self.weight, x.dtype)
+        return F.normalize(x, dim=-1, eps=1e-12) \
+            @ F.normalize(weight, dim=-1, eps=1e-12).t()
+
+
+@dataclass(frozen=True)
+class XvectorConfig:
+    in_channels: int = 40
+    tdnn_blocks: int = 5
+    tdnn_channels: Sequence[int] = (512, 512, 512, 512, 1500)
+    tdnn_kernel_sizes: Sequence[int] = (5, 3, 3, 1, 1)
+    tdnn_dilations: Sequence[int] = (1, 2, 3, 1, 1)
+    lin_neurons: int = 512
+    dtype: torch.dtype = torch.float32
+
+
+class Xvector(nn.Module):
+    """The classic x-vector TDNN (reference ``lobes/models/Xvector.py``):
+    ``tdnn_blocks`` of reflect-padded ("same") dilated Conv1d ->
+    LeakyReLU -> BatchNorm, statistics pooling over the valid frames
+    (``round(rel * T)``, at least one: the mean and the unbiased std,
+    plus 1e-5), then a Linear. Features (B, T, F) -> (B, 1, lin_neurons).
+    ``generator`` adds Gaussian noise of scale 1e-5 to the mean, as the
+    reference does in training; without it the output is deterministic.
+    Flax's ``conv_{i}``, ``norm_{i}`` are ``convs.{i}``, ``norms.{i}``."""
+
+    def __init__(self, config=None):
+        super().__init__()
+        c = config or XvectorConfig()
+        self.config = c
+        widths = [c.in_channels, *c.tdnn_channels[:c.tdnn_blocks]]
+        self.convs = nn.ModuleList(
+            Conv1d(a, b, k, dilation=d, padding=d * (k - 1) // 2,
+                   padding_mode="reflect", compute_dtype=c.dtype)
+            for a, b, k, d in zip(widths[:-1], widths[1:],
+                                  c.tdnn_kernel_sizes, c.tdnn_dilations))
+        self.norms = nn.ModuleList(FrozenBatchNorm(w, dtype=c.dtype)
+                                   for w in widths[1:])
+        self.out = Linear(2 * widths[-1], c.lin_neurons,
+                          compute_dtype=c.dtype)
+
+    def forward(self, x, rel_lengths=None, generator=None):
+        x = x.transpose(1, 2)
+        for conv, norm in zip(self.convs, self.norms):
+            x = norm(F.leaky_relu(conv(x), 0.01))
+        T = x.shape[-1]
+        if rel_lengths is None:
+            mean, std = x.mean(dim=-1), x.std(dim=-1, correction=1)
+        else:
+            abs_len = relative_to_absolute_lengths(rel_lengths, T)
+            mask = (torch.arange(T, device=x.device)[None, :]
+                    < abs_len[:, None])[:, None, :]
+            count = torch.clamp(mask.sum(dim=-1), min=1).to(x.dtype)
+            mean = (x * mask).sum(dim=-1) / count
+            var = ((x - mean[..., None]) ** 2 * mask).sum(dim=-1) \
+                / torch.clamp(count - 1.0, min=1.0)
+            std = torch.sqrt(var)
+        if generator is not None:
+            noise = torch.randn(mean.shape, generator=generator,
+                                device=generator.device)
+            mean = mean + noise.to(mean) * 1e-5
+        stats = torch.cat([mean, std + 1e-5], dim=-1)[:, None, :]
+        return self.out(stats)

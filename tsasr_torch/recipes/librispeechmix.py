@@ -118,10 +118,10 @@ from tsasr_torch.ops.rnnt_loss_banded import band_centers, rnnt_loss_banded
 from tsasr_torch.ops.rnnt_loss_fused import rnnt_loss_fused
 from tsasr_torch.parallel import distributed
 from tsasr_torch.parallel.distributed import if_main_process, run_on_main
-from tsasr_torch.recipes.speaker_embeddings import (FrozenSpeakerEncoder,
-                                                    is_checkpoint_dir,
-                                                    require_checkpoint_dir)
+from tsasr_torch.recipes.speaker_embeddings import (  # noqa: F401
+    FrozenSpeakerEncoder, check_speaker_backend, resolve_speaker_backend)
 from tsasr_torch.training.brain import Brain
+from tsasr_torch.utils.hparams import hparams_getter
 from tsasr_torch.utils.metric_stats import ErrorRateStats
 from tsasr_torch.utils.parameter_transfer import Pretrainer
 from tsasr_torch.utils.precision import compute_dtype
@@ -133,17 +133,10 @@ logger = logging.getLogger(__name__)
 VARIANTS = ("none", "scratch", "pretrained")
 
 
-def _hparams_get(hparams):
-    """A getter over dict or namespace hparams."""
-    if hasattr(hparams, "get"):
-        return hparams.get
-    return lambda k, d=None: getattr(hparams, k, d)
-
-
 def specaugment_kwargs(hparams):
     """SpecAugment's keywords from the yaml's keys, with the reference
     recipe's defaults."""
-    get = _hparams_get(hparams)
+    get = hparams_getter(hparams)
     return dict(
         time_warp=bool(get("time_warp", True)),
         time_warp_window=int(get("time_warp_window", 5)),
@@ -160,25 +153,20 @@ def specaugment_kwargs(hparams):
 def speed_perturb_kwargs(hparams, sample_rate=16000):
     """Speed perturbation's keywords (the yaml's ``speeds``, by default
     [95, 100, 105])."""
-    get = _hparams_get(hparams)
+    get = hparams_getter(hparams)
     return dict(speeds=tuple(get("speeds", (95, 100, 105)) or
                              (95, 100, 105)),
                 sample_rate=int(get("sample_rate", sample_rate)))
 
 
-def resolve_speaker_backend(hparams):
-    """The frozen speaker encoder's backend for the ``pretrained``
-    variant, as the JAX recipe picks it: ``speaker_encoder_backend``, or
-    for ``auto`` the on-device encoder (``jax``) when
-    ``speaker_encoder_path`` is a local checkpoint directory, else
-    ``torch_cache``. The port runs ``jax`` as ``FrozenSpeakerEncoder``;
-    ``torch_cache`` is not ported."""
-    get = _hparams_get(hparams)
-    backend = get("speaker_encoder_backend", "auto")
-    if backend != "auto":
-        return backend
-    return "jax" if is_checkpoint_dir(get("speaker_encoder_path", "")) \
-        else "torch_cache"
+def model_at_precision(hparams, precision):
+    """The yaml's model, rebuilt with a bf16 dtype under ``precision``
+    ``bf16`` (bf16 compute; the parameters and the optimizer stay f32 and
+    the same seed gives the same weights); else the yaml's own."""
+    if precision == "bf16" and "model_config" in hparams:
+        return TSTransducer(dataclasses.replace(
+            hparams["model_config"], dtype=compute_dtype(precision)))
+    return hparams["model"]
 
 
 class TSASRBrain(Brain):
@@ -203,13 +191,8 @@ class TSASRBrain(Brain):
         self.last_hyps = None
         self.speaker_encoder = None
         if variant == "pretrained":
-            _check_speaker_backend(self.hparams)
-            self.speaker_encoder = FrozenSpeakerEncoder(
-                self.hparams.speaker_encoder_path,
-                frame_level=(getattr(self.hparams, "injection_mode", None)
-                             == "cross_attention"),
-                embedding_dim=self.hparams.speaker_embedding_dim,
-                device=self.device)
+            self.speaker_encoder = FrozenSpeakerEncoder.from_hparams(
+                self.hparams, self.device)
 
     # ------------------------------------------------------------ batches
     def batch_to_arrays(self, batch):
@@ -627,21 +610,6 @@ def build_dataloader_kwargs(hparams, dataset, stage):
     return kwargs
 
 
-def _check_speaker_backend(hparams):
-    """Raise for a ``pretrained`` speaker backend the port does not run,
-    and for a checkpoint directory that is not there."""
-    backend = resolve_speaker_backend(hparams)
-    if backend == "torch_cache":
-        raise NotImplementedError(
-            "speaker_encoder_backend torch_cache (what auto picks when "
-            "speaker_encoder_path is no local checkpoint directory, e.g. a "
-            "hub id) is not ported: it needs HF transformers; point "
-            "speaker_encoder_path at a local WavLM-sv checkpoint directory")
-    if backend != "jax":
-        raise ValueError(f"unknown speaker_encoder_backend {backend!r}")
-    require_checkpoint_dir(_hparams_get(hparams)("speaker_encoder_path"))
-
-
 PLOT_SWITCHES = ("plot_data", "plot_attentions", "plot_embeddings",
                  "plot_grad_norm")
 
@@ -657,7 +625,7 @@ def check_ported(hparams, variant):
         raise ValueError(f"unknown variant {variant!r}; the recipe has "
                          f"{VARIANTS}")
     if variant == "pretrained":
-        _check_speaker_backend(hparams)
+        check_speaker_backend(hparams)
     if any(hparams.get(key) for key in PLOT_SWITCHES):
         from tsasr_torch.utils.visualization import require_plot_packages
         require_plot_packages(embeddings=bool(hparams.get(
@@ -777,12 +745,8 @@ def run_experiment(variant="scratch", argv=None):
         pretrainer = Pretrainer(collect_in=hparams["save_folder"],
                                 paths={"model": hparams["model_path"]})
         run_on_main(pretrainer.collect_files)
-    # bf16 compute: the model is rebuilt with a bf16 dtype (the parameters
-    # and the optimizer stay f32; the same seed gives the same weights)
-    precision = run_opts.get("precision", hparams.get("precision"))
-    if precision == "bf16" and "model_config" in hparams:
-        hparams["model"] = TSTransducer(dataclasses.replace(
-            hparams["model_config"], dtype=compute_dtype(precision)))
+    hparams["model"] = model_at_precision(
+        hparams, run_opts.get("precision", hparams.get("precision")))
     if distributed.layout().sp > 1:
         hparams["pad_feats_to"] = seq_parallel_pad(
             hparams.get("pad_feats_to"),

@@ -8,9 +8,13 @@ runs HF's model under ``no_grad`` per batch. Its parameters are outside
 the trained model, so they are neither in the optimizer nor in the
 checkpoint.
 
-The JAX package's second backend, a host d-vector cache over HF
-``transformers`` (``torch_cache``), is not ported: it needs HF
-``transformers``, which the port does not use.
+The recipe's backend rule lives here, so that the recipe and the
+transcriber build the same encoder from the same hparams
+(``FrozenSpeakerEncoder.from_hparams``): ``resolve_speaker_backend``
+picks it as the JAX recipe does, and ``check_speaker_backend`` raises for
+what the port does not run. The JAX package's second backend, a host
+d-vector cache over HF ``transformers`` (``torch_cache``), is not
+ported: it needs HF ``transformers``, which the port does not use.
 """
 
 import logging
@@ -20,6 +24,7 @@ import torch
 
 from tsasr_torch.device import resolve_device
 from tsasr_torch.models.wavlm import load_pretrained_xvector
+from tsasr_torch.utils.hparams import hparams_getter
 
 logger = logging.getLogger(__name__)
 
@@ -40,6 +45,36 @@ def require_checkpoint_dir(path):
             "pytorch_model.bin); put the WavLM-sv checkpoint there first")
 
 
+def resolve_speaker_backend(hparams):
+    """The frozen speaker encoder's backend for the ``pretrained``
+    variant, as the JAX recipe picks it: ``speaker_encoder_backend``, or
+    for ``auto`` the on-device encoder (``jax``) when
+    ``speaker_encoder_path`` is a local checkpoint directory, else
+    ``torch_cache``. The port runs ``jax`` as ``FrozenSpeakerEncoder``;
+    ``torch_cache`` is not ported."""
+    get = hparams_getter(hparams)
+    backend = get("speaker_encoder_backend", "auto")
+    if backend != "auto":
+        return backend
+    return "jax" if is_checkpoint_dir(get("speaker_encoder_path", "")) \
+        else "torch_cache"
+
+
+def check_speaker_backend(hparams):
+    """Raise for a ``pretrained`` speaker backend the port does not run,
+    and for a checkpoint directory that is not there."""
+    backend = resolve_speaker_backend(hparams)
+    if backend == "torch_cache":
+        raise NotImplementedError(
+            "speaker_encoder_backend torch_cache (what auto picks when "
+            "speaker_encoder_path is no local checkpoint directory, e.g. a "
+            "hub id) is not ported: it needs HF transformers; point "
+            "speaker_encoder_path at a local WavLM-sv checkpoint directory")
+    if backend != "jax":
+        raise ValueError(f"unknown speaker_encoder_backend {backend!r}")
+    require_checkpoint_dir(hparams_getter(hparams)("speaker_encoder_path"))
+
+
 class FrozenSpeakerEncoder:
     """Frozen WavLM x-vector d-vectors on ``device`` (CUDA unless the
     caller asks for the CPU).
@@ -47,7 +82,8 @@ class FrozenSpeakerEncoder:
     ``embed(wav (B, L), rel_lens (B,))`` -> (B, 1, E) pooled embeddings,
     the valid lengths ``min(ceil(rel * L), L)`` as the reference masks;
     no gradient flows into the encoder. ``embedding_dim`` must be the
-    checkpoint's x-vector width (the yaml's ``speaker_embedding_dim``).
+    checkpoint's x-vector width (the yaml's ``speaker_embedding_dim``);
+    None takes it from the checkpoint.
 
     ``frame_level`` (the ``cross_attention`` injection) gives the frames
     (B, S, embedding_dim) instead: the first ``embedding_dim`` channels
@@ -55,13 +91,15 @@ class FrozenSpeakerEncoder:
     reference take them (512 of WavLM-base's 768).
     """
 
-    def __init__(self, model_path, frame_level=False, embedding_dim=512,
+    def __init__(self, model_path, frame_level=False, embedding_dim=None,
                  device="cuda"):
         require_checkpoint_dir(model_path)
         self.device = resolve_device(device)
         self.config, model = load_pretrained_xvector(model_path)
         width, what = (self.config.hidden_size, "hidden states") \
             if frame_level else (self.config.xvector_output_dim, "x-vectors")
+        if embedding_dim is None:
+            embedding_dim = width
         if embedding_dim > width or (not frame_level
                                      and embedding_dim != width):
             raise ValueError(
@@ -72,6 +110,19 @@ class FrozenSpeakerEncoder:
         self.embedding_dim = embedding_dim
         logger.info("%.1fM parameters in the frozen speaker encoder",
                     sum(p.numel() for p in self.model.parameters()) / 1e6)
+
+    @classmethod
+    def from_hparams(cls, hparams, device="cuda"):
+        """The ``pretrained`` recipe's encoder from its hparams (a dict or
+        a namespace): the backend checked by ``check_speaker_backend``,
+        ``speaker_encoder_path``, frames under ``injection_mode:
+        cross_attention``, ``speaker_embedding_dim`` wide."""
+        check_speaker_backend(hparams)
+        get = hparams_getter(hparams)
+        return cls(get("speaker_encoder_path"),
+                   frame_level=get("injection_mode") == "cross_attention",
+                   embedding_dim=int(get("speaker_embedding_dim")),
+                   device=device)
 
     @torch.no_grad()
     def embed(self, wav, rel_lens):

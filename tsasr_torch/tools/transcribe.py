@@ -3,18 +3,23 @@
 The port's copy of the JAX package's ``tools/transcribe.py``, with
 ``--device`` (default ``cuda``; ``cpu`` on a host without a card). One
 JSON line per file. ``--streaming`` feeds each file in 1 s chunks to
-the ``kv_cache`` streamer (causal models); a model with a speaker branch
-then needs ``--enroll``, whose embedding conditions the stream (the JAX
-tool streams without it).
+the ``kv_cache`` streamer (causal models); a model with a speaker input
+(a ``scratch`` or a ``pretrained`` experiment) then needs ``--enroll``,
+whose embedding (the speaker branch's, or the frozen WavLM's, projected)
+conditions the stream (the JAX tool streams without it). ``--precision
+bf16`` serves a run trained with ``--precision bf16`` in bf16.
 
 Usage:
     python -m tsasr_torch.tools.transcribe --experiment results/.../0 \\
         mix1.wav [mix2.flac ...] [--enroll enroll.wav] [--beam_size 15] \\
-        [--lm_path lm.arpa --lm_weight 0.3] [--streaming] [--device cpu]
+        [--lm_path lm.arpa --lm_weight 0.3] [--streaming] \\
+        [--precision bf16] [--device cpu]
 """
 
 import argparse
 import json
+
+from tsasr_torch.data.audio import read_resampled
 
 
 def main(argv=None):
@@ -29,6 +34,8 @@ def main(argv=None):
     ap.add_argument("--streaming", action="store_true",
                     help="chunked streaming decode (causal models)")
     ap.add_argument("--min_key", default="WER")
+    ap.add_argument("--precision", default=None, choices=["fp32", "bf16"],
+                    help="default: the experiment yaml's precision")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
@@ -37,9 +44,9 @@ def main(argv=None):
     t = TSASRTranscriber.from_experiment(
         args.experiment, beam_size=args.beam_size, min_key=args.min_key,
         lm_path=args.lm_path, lm_weight=args.lm_weight,
-        device=args.device)
+        precision=args.precision, device=args.device)
     speaker = None
-    if args.streaming and args.enroll and t.variant == "scratch":
+    if args.streaming and args.enroll and t.variant != "none":
         speaker = t.speaker_embedding(read_resampled(args.enroll,
                                                      t.sample_rate))
     for path in args.audio:
@@ -53,12 +60,6 @@ def main(argv=None):
         else:
             text = t.transcribe_file(path, enroll_path=args.enroll)
         print(json.dumps({"file": path, "text": text}))
-
-
-def read_resampled(path, sample_rate):
-    from tsasr_torch.data.audio import read_audio, resample
-    wav, sr = read_audio(path)
-    return resample(wav, sr, sample_rate)
 
 
 if __name__ == "__main__":

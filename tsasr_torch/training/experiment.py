@@ -128,7 +128,7 @@ def check_parallel_counts(run_opts):
         raise NotImplementedError(
             f"--tensor_parallel_count {tp}: tensor parallelism (the JAX "
             "package's Megatron pairs, parallel/mesh.py::_tp_spec) is the "
-            "port's next slice (ROADMAP.md queue 1 item 7); the data, "
+            "port's next slice (ROADMAP.md queue 1 item 4); the data, "
             "sequence and pipeline axes run")
     pp = run_opts.get("pipeline_parallel_count") or 1
     sp = run_opts.get("sequence_parallel_count") or 1

@@ -244,6 +244,13 @@ class _Resolver:
         return func
 
 
+def hparams_getter(hparams):
+    """A ``get(key, default=None)`` over dict or namespace hparams."""
+    if hasattr(hparams, "get"):
+        return hparams.get
+    return lambda k, d=None: getattr(hparams, k, d)
+
+
 def parse_overrides(overrides):
     """Overrides: dict, YAML string, or None -> dict."""
     if overrides is None:

@@ -11,6 +11,9 @@ port's ``utils/edit_distance.py``:
   corpus WER, ``write_stats`` emits the Kaldi-style report with
   per-utterance alignments; ``split_tokens=True`` turns it into a CER
   metric (the recipe's cer_computer).
+- ``AccuracyStats``: top-1 accuracy over masked targets;
+  ``BinaryMetricStats``: scores and 0/1 labels of verification trials,
+  summarized as EER, minDCF and the EER threshold (numpy, as in JAX).
 """
 
 import numpy as np
@@ -149,3 +152,71 @@ def _print_alignment(detail, filestream, empty="<eps>", sep=" ; "):
     print(sep.join(refs), file=filestream)
     print(sep.join(ops), file=filestream)
     print(sep.join(hyps), file=filestream)
+
+
+class AccuracyStats(MetricStats):
+    """Top-1 accuracy over masked targets (reference ``Accuracy``-style)."""
+
+    def __init__(self):
+        self.correct = 0
+        self.total = 0
+        self.summary = {}
+
+    def clear(self):
+        self.__init__()
+
+    def append(self, log_probs, targets, lengths=None):
+        preds = np.argmax(np.asarray(log_probs), axis=-1)
+        targets = np.asarray(targets)
+        if lengths is not None:
+            mask = (np.arange(targets.shape[1])[None, :]
+                    < np.round(np.asarray(lengths)
+                               * targets.shape[1])[:, None])
+        else:
+            mask = np.ones_like(targets, bool)
+        self.correct += int(((preds == targets) & mask).sum())
+        self.total += int(mask.sum())
+
+    def summarize(self, field=None):
+        acc = self.correct / max(self.total, 1)
+        self.summary = {"accuracy": acc}
+        return acc if field else self.summary
+
+
+class BinaryMetricStats(MetricStats):
+    """Scores+labels accumulation with EER / minDCF summaries
+    (reference ``EER``/``minDCF`` helpers, ``metric_stats.py:500-609``)."""
+
+    def __init__(self):
+        self.clear()
+
+    def clear(self):
+        self.ids = []
+        self.scores = []
+        self.labels = []
+        self.summary = {}
+
+    def append(self, ids, scores, labels):
+        self.ids.extend(ids)
+        self.scores.extend(np.asarray(scores).reshape(-1).tolist())
+        self.labels.extend(np.asarray(labels).reshape(-1).tolist())
+
+    def summarize(self, field=None, p_target=0.01, c_miss=1.0, c_fa=1.0):
+        scores = np.asarray(self.scores)
+        labels = np.asarray(self.labels)
+        pos = np.sort(scores[labels == 1])
+        neg = np.sort(scores[labels == 0])
+        if pos.size == 0 or neg.size == 0:
+            self.summary = {"EER": 0.0, "minDCF": 0.0}
+        else:
+            thresholds = np.unique(np.concatenate([pos, neg]))
+            fnr = np.searchsorted(pos, thresholds, "left") / pos.size
+            far = 1.0 - np.searchsorted(neg, thresholds, "left") / neg.size
+            i = int(np.argmin(np.abs(fnr - far)))
+            eer = float((fnr[i] + far[i]) / 2)
+            dcf = c_miss * fnr * p_target + c_fa * far * (1 - p_target)
+            self.summary = {"EER": eer, "minDCF": float(dcf.min()),
+                            "threshold": float(thresholds[i])}
+        if field is not None:
+            return self.summary[field]
+        return self.summary
