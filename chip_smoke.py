@@ -73,10 +73,11 @@ checkout, or when any phase fails. Phases:
    bit; then each variant through ``run_experiment`` with its yaml copy,
    ``--fused_attention True --augment True``, on the same corpus, 2
    optimizer steps, VALID greedy, TEST at beam 1 (the pretrained run's
-   one utterance a batch, on the split's first 3 mixtures); with
-   deterministic algorithms on, a ``pretrained`` run's folder copied at
-   its intra-epoch checkpoint resumes to the uninterrupted run's state
-   bit for bit; every batch launches what its
+   one utterance a batch, on the split's first 3 mixtures); the
+   pretrained run, with deterministic algorithms on, checkpoints after
+   each update, and its folder copied at its first intra-epoch
+   checkpoint resumes to its state bit for bit; every batch launches
+   what its
    shapes imply (12 attention layers), and each kernel is held against
    its plain version on the runs' tensors; ms per micro-batch through
    the loader, the WavLM's share, VALID and TEST wall times and the
@@ -87,8 +88,10 @@ checkout, or when any phase fails. Phases:
    attention forward once per layer (12) and matches the plain path
    (host ms, device ms and the frozen WavLM's share), a ``reencode``
    stream conditioned by ``speaker_embedding``, ``python -m
-   tsasr_torch.tools.transcribe --enroll`` once, and the folder at
-   ``precision="bf16"`` launching the bf16 forward alone; then the
+   tsasr_torch.tools.transcribe --enroll`` once, and the folder with
+   its yaml recording precision bf16 launching the bf16 forward alone
+   (the launches of the warm-up, the checks and the timing reps are not
+   the path's); then the
    speaker-recognition interfaces (``speaker_recognition``):
    ``SpeakerRecognition.from_wavlm`` on the WavLM directory, card
    against CPU (embeddings and ``verify_batch`` scores),
@@ -2716,10 +2719,10 @@ def phase_variants(device, card, corpus, scratch_model):
     ``run_experiment`` of each variant with the port's yaml copy,
     ``--fused_attention True --augment True``, on ``corpus``, 2 optimizer
     steps, VALID greedy and TEST at ``--beam_size 1`` (the scratch run
-    covers beam 15); these two runs give the readings. Then, with
-    deterministic algorithms on, another ``pretrained`` run takes an
-    intra-epoch checkpoint after its first update; a copy of its folder
-    taken there resumes, and its end-of-TRAIN state must equal the
+    covers beam 15); these two runs give the readings. The
+    ``pretrained`` run, with deterministic algorithms on, takes an
+    intra-epoch checkpoint after each update; a copy of its folder taken
+    after its first resumes, and its end-of-TRAIN state must equal the
     uninterrupted run's bit for bit with augmentation on. Every batch
     launches what its shapes imply; each kernel is then held against its
     plain version on the runs' own tensors. Then the pretrained run's
@@ -2772,14 +2775,15 @@ def phase_variants(device, card, corpus, scratch_model):
             maybe_ckpt(self)
             out = Path(self.hparams.output_folder)
             if not copied and self.optimizer_step == 1 \
-                    and out.name == "uninterrupted":
+                    and out.name == "pretrained":
                 shutil.copytree(out, tmp / "resumed")
                 copied.append(self.step)
 
         # the pretrained run's TEST one utterance a batch, as a file served
-        # alone sees it, on the split's first PRETRAINED_TEST_MIXTURES
-        cut = {"pretrained": cut_corpus(corpus, tmp / "pretrained_corpus", {
-            EXPERIMENT_SPLITS[2]: PRETRAINED_TEST_MIXTURES})}
+        # alone sees it, on the split's first PRETRAINED_TEST_MIXTURES;
+        # its copy resumes on the same corpus
+        cut = cut_corpus(corpus, tmp / "pretrained_corpus", {
+            EXPERIMENT_SPLITS[2]: PRETRAINED_TEST_MIXTURES})
         runs, nondeterministic = {}, set()
         reset_counts()
         TSASRBrain._fit_train = recording
@@ -2789,10 +2793,8 @@ def phase_variants(device, card, corpus, scratch_model):
                 for name, variant, extra in (
                         ("none", "none", ()),
                         ("pretrained", "pretrained",
-                         ("--test_max_batch_length", "0.5")),
-                        ("uninterrupted", "pretrained",
-                         ("--ckpt_interval_steps", "1", "--test_splits",
-                          "[]")),
+                         ("--test_max_batch_length", "0.5",
+                          "--ckpt_interval_steps", "1")),
                         ("resumed", "pretrained", ("--test_splits", "[]"))):
                     t0 = time.perf_counter()
                     with counted_batches(TSASRBrain, on_card,
@@ -2800,11 +2802,11 @@ def phase_variants(device, card, corpus, scratch_model):
                                 counts, timings), \
                             timed_embeds(on_card) as embed_ms, \
                             deterministic_algorithms(
-                                name in ("uninterrupted", "resumed")) as (
-                                warned):
+                                variant == "pretrained") as warned:
                         brain = recipe.run_experiment(
                             variant, argv(variant, tmp / name, *extra,
-                                          data=cut.get(name, corpus)))
+                                          data=cut if variant == "pretrained"
+                                          else corpus))
                     nondeterministic.update(warned)
                     runs[name] = {
                         "brain": brain, "counts": counts,
@@ -2839,7 +2841,10 @@ def phase_variants(device, card, corpus, scratch_model):
                 f"scratch run covers beam 15)")
             for line in run["log"].splitlines():
                 log(f"  train_log: {line}")
-            log(f"variants {name} TRAIN through the loader: ms per "
+            log(f"variants {name} TRAIN through the loader"
+                + (" (deterministic algorithms on; micro-batch 5's wait "
+                   "holds step 1's intra-epoch checkpoint save)"
+                   if name == "pretrained" else "") + ": ms per "
                 f"micro-batch " + ", ".join(f"{x:.1f}" for x in through)
                 + f"; warm median {statistics.median(through[2:]):.1f} ms"
                 + (f"; the frozen WavLM's share of fit_batch (CUDA events "
@@ -2873,7 +2878,7 @@ def phase_variants(device, card, corpus, scratch_model):
                                    f"launched at TRAIN: {dict(train)}")
 
         resumed = runs["resumed"]["brain"]
-        same = len(ends) == 4 and same_state(ends[3], ends[2])
+        same = len(ends) == 3 and same_state(ends[2], ends[1])
         log(f"variants pretrained, deterministic algorithms on (cuDNN "
             f"deterministic): a run of 2 optimizer steps and a copy of its "
             f"folder taken at its intra-epoch checkpoint after micro-batch "
@@ -2881,7 +2886,7 @@ def phase_variants(device, card, corpus, scratch_model):
             f"{runs['resumed']['counts']['TRAIN']['batches']} micro-batches "
             f"trained, to optimizer step {resumed.optimizer_step}; "
             f"end-of-TRAIN state bit-identical to the uninterrupted run's "
-            f"{same} ({runs['uninterrupted']['s']:.1f} + "
+            f"{same} ({runs['pretrained']['s']:.1f} + "
             f"{runs['resumed']['s']:.1f} s); operations without a "
             f"deterministic version: {sorted(nondeterministic) or 'none'}")
         if copied != [4] or resumed.optimizer_step != 2 \
@@ -2890,12 +2895,12 @@ def phase_variants(device, card, corpus, scratch_model):
                                "checkpoint")
         if not same:
             diffs = [(i, (a - b).abs().max().item()) for i, (a, b) in
-                     enumerate(zip(ends[3]["params"], ends[2]["params"]))
+                     enumerate(zip(ends[2]["params"], ends[1]["params"]))
                      if not torch.equal(a, b)]
             raise RuntimeError(f"the resumed run's state differs from the "
                                f"uninterrupted run's: counters "
-                               f"{ends[3]['counters']} vs "
-                               f"{ends[2]['counters']}, params (index, max "
+                               f"{ends[2]['counters']} vs "
+                               f"{ends[1]['counters']}, params (index, max "
                                f"|diff|) {diffs[:5]} of {len(diffs)}")
         by_batch = {k: sum(c[k] for run in runs.values()
                            for c in run["counts"].values())
@@ -2948,10 +2953,13 @@ def pretrained_serving(device, card, brain, out, tmp):
     beginning with the last partial; (4) ``python -m
     tsasr_torch.tools.transcribe --experiment out FILE --enroll ENROLL``
     once (its ``main``, in this process): TEST's transcript of the
-    file; (5) the folder at
-    ``precision="bf16"``: the request launches the bf16 forward once per
-    layer and no f32 one. Returns the launch counts of (1)-(5)
-    (``read_bf16_counts``)."""
+    file; (5) the folder as a ``--precision bf16`` run writes it (its
+    ``hyperparams.yaml`` recording precision bf16; the same checkpoint,
+    whose parameters are f32 at either precision) answers the request:
+    the bf16 forward once per layer and no f32 one. Returns the launch
+    counts (``read_bf16_counts``) of the calls (1)-(5) make on the path:
+    the warm-up, the checks against the plain version and the timing
+    reps launch outside it."""
     import io
     import numpy as np
     import torch
@@ -2964,11 +2972,22 @@ def pretrained_serving(device, card, brain, out, tmp):
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     # the card is the default device: only a rehearsal names one
     where = {} if on_card else {"device": str(device)}
+    path = collections.Counter()
+
+    def on_path(fn):
+        """``fn()``, a call on the served path, and its launches, which
+        the path's counts gain."""
+        before = read_bf16_counts()
+        result = fn()
+        sync()
+        n = {k: v - before[k] for k, v in read_bf16_counts().items()}
+        path.update(n)
+        return result, n
+
     t_start = time.perf_counter()
-    reset_counts()
-    files, want = transcribe_test_split(
+    (files, want), _ = on_path(lambda: transcribe_test_split(
         brain, out, tmp / "pretrained_wavs", device, card, beam=1,
-        layers=VARIANT_LAYERS, limit=EXPERIMENT_FILES)
+        layers=VARIANT_LAYERS, limit=EXPERIMENT_FILES))
     test_s = time.perf_counter() - t_start
 
     t0 = time.perf_counter()
@@ -2978,12 +2997,10 @@ def pretrained_serving(device, card, brain, out, tmp):
     seconds = REQUEST_SECONDS[SPEAKER_REQUEST]
     tr.transcribe_batch(wavs, enrolls)                 # warm-up
     sync()
-    before = read_counts()["relpos_attention_fwd"]
     t1 = time.perf_counter()
-    texts = tr.transcribe_batch(wavs, enrolls)
-    sync()
+    texts, n = on_path(lambda: tr.transcribe_batch(wavs, enrolls))
     request_ms = (time.perf_counter() - t1) * 1e3
-    n = read_counts()["relpos_attention_fwd"] - before
+    n = n["relpos_attention_fwd"]
     enc, _ = tr.encode_batch(wavs, enrolls)
     set_fused(tr.model, False)
     plain, _ = tr.encode_batch(wavs, enrolls)
@@ -3017,10 +3034,9 @@ def pretrained_serving(device, card, brain, out, tmp):
     key, (mix, enroll_path) = next(iter(files.items()))
     wav = read_resampled(mix, SAMPLE_RATE)
     spk = tr.speaker_embedding(read_resampled(enroll_path, SAMPLE_RATE))
-    before = read_counts()["relpos_attention_fwd"]
-    times, partials, final, _ = stream_chunks(
-        tr.streaming("reencode", speaker_embs=spk), wav, 1.0, sync)
-    n = read_counts()["relpos_attention_fwd"] - before
+    (times, partials, final, _), n = on_path(lambda: stream_chunks(
+        tr.streaming("reencode", speaker_embs=spk), wav, 1.0, sync))
+    n = n["relpos_attention_fwd"]
     log(f"variants pretrained reencode stream of {key} ({len(wav) / 16e3:.2f}"
         f" s) in 1 s chunks, speaker embedding {tuple(spk.shape)}: host ms "
         f"per chunk {', '.join(f'{t:.1f}' for t in times)}; {n} attention "
@@ -3034,9 +3050,9 @@ def pretrained_serving(device, card, brain, out, tmp):
     t0 = time.perf_counter()
     printed = io.StringIO()
     with contextlib.redirect_stdout(printed):
-        transcribe.main(["--experiment", str(out), mix, "--enroll",
-                         enroll_path] + ([] if on_card else
-                                         ["--device", str(device)]))
+        on_path(lambda: transcribe.main(
+            ["--experiment", str(out), mix, "--enroll", enroll_path]
+            + ([] if on_card else ["--device", str(device)])))
     line = json.loads(printed.getvalue().strip().splitlines()[-1])
     log(f"variants pretrained transcribe tool: {line} "
         f"({time.perf_counter() - t0:.1f} s); TEST's {want[key]!r}")
@@ -3046,14 +3062,17 @@ def pretrained_serving(device, card, brain, out, tmp):
     tool_s = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    tr16 = TSASRTranscriber.from_experiment(str(out), precision="bf16",
-                                            **where)
-    before = read_bf16_counts()
-    enc16, _ = tr16.encode_batch(wavs, enrolls)
-    sync()
-    n16 = {k: v - before[k] for k, v in read_bf16_counts().items()}
+    # the yaml names the run's save folder: the same tokenizer and
+    # checkpoint
+    bf16 = tmp / "pretrained_bf16"
+    bf16.mkdir()
+    (bf16 / "hyperparams.yaml").write_text(
+        (out / "hyperparams.yaml").read_text() + "precision: bf16\n")
+    tr16 = TSASRTranscriber.from_experiment(str(bf16), **where)
+    (enc16, _), n16 = on_path(lambda: tr16.encode_batch(wavs, enrolls))
     err16 = ((enc16.float() - enc).abs().max() / enc.abs().max()).item()
-    log(f"variants pretrained served in bf16: the request launched "
+    log(f"variants pretrained served in bf16 (the folder's yaml recording "
+        f"precision bf16): the request launched "
         f"{n16['relpos_attention_fwd_bf16']} bf16 and "
         f"{n16['relpos_attention_fwd']} f32 attention forwards; encoder "
         f"output {enc16.dtype}, max err against f32 {err16:.3g} of max "
@@ -3063,11 +3082,13 @@ def pretrained_serving(device, card, brain, out, tmp):
             or not torch.isfinite(enc16).all():
         raise RuntimeError("the bf16 pretrained request did not run the "
                            "bf16 kernel alone")
-    counts = read_bf16_counts()
+    counts = {k: path[k] for k in read_bf16_counts()}
     log(f"variants pretrained serving: {time.perf_counter() - t_start:.1f} "
         f"s (TEST files {test_s:.1f}, request {request_s:.1f}, stream "
         f"{stream_s:.1f}, tool {tool_s:.1f}, bf16 "
-        f"{time.perf_counter() - t0:.1f}); launches {counts} [{card}]")
+        f"{time.perf_counter() - t0:.1f}); launches on the path (the TEST "
+        f"files, the request, the stream, the tool's file, the bf16 "
+        f"request) {counts} [{card}]")
     return counts
 
 
@@ -3129,7 +3150,7 @@ def speaker_recognition(device, card, corpus, wavlm_dir, scratch_model):
 
     t0 = time.perf_counter()
     fbank = Fbank(sample_rate=SAMPLE_RATE, n_fft=512, n_mels=80,
-                  win_length=32.0)
+                  win_length=32.0).to(device)
     sr = SpeakerRecognition.from_tsasr(scratch_model, fbank, **where)
     layers = scratch_model.config.speaker_encoder_layers
     _, enrolls = make_requests(np.random.default_rng(SEED + 53))[0]
@@ -4483,12 +4504,14 @@ def pretrained_cross_attention(device, card, batch, tmp, counts):
                           speaker_encoder=brain.speaker_encoder,
                           device=str(device))
     wavs, enrolls = make_requests(np.random.default_rng(SEED + 54))[0]
-    before = read_counts()["relpos_attention_fwd"]
     t0 = time.perf_counter()
-    enc, _ = tr.encode_batch(wavs, enrolls)
+    before = read_counts()["relpos_attention_fwd"]
     texts = tr.transcribe_batch(wavs, enrolls)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
     served = read_counts()["relpos_attention_fwd"] - before
     counts.update({"relpos_attention_fwd": served})
+    enc, _ = tr.encode_batch(wavs, enrolls)
     set_fused(model, False)
     plain, _ = tr.encode_batch(wavs, enrolls)
     plain_texts = tr.transcribe_batch(wavs, enrolls)
@@ -4496,12 +4519,12 @@ def pretrained_cross_attention(device, card, batch, tmp, counts):
     enc_err = (enc - plain).abs().max().item()
     log(f"switches pretrained + cross_attention served: TSASRTranscriber "
         f"with the frame-level frozen encoder, request {B} x "
-        f"{REQUEST_SECONDS[0]} s: {served} attention launches (encode and "
-        f"transcribe), kernel vs plain attention encoder max_abs_err "
+        f"{REQUEST_SECONDS[0]} s: {served} attention launches, kernel vs "
+        f"plain attention encoder max_abs_err "
         f"{enc_err:.3g} (atol {ENC_ATOL}), transcripts identical "
         f"{sum(a == b for a, b in zip(texts, plain_texts))}/{B}; "
         f"{(time.perf_counter() - t0) * 1e3:.0f} ms [{card}]")
-    if served != 2 * VARIANT_LAYERS * (device.type == "cuda") \
+    if served != VARIANT_LAYERS * (device.type == "cuda") \
             or enc_err > ENC_ATOL or not torch.isfinite(enc).all():
         raise RuntimeError("the pretrained cross_attention request failed")
     del brain, tr

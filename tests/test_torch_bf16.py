@@ -591,6 +591,13 @@ def test_bf16_ties_decide_alike_in_greedy():
 
 
 # ---------------------------------------------------------- the recipe
+def served_dtype(folder):
+    """The compute dtype ``from_experiment`` serves ``folder``'s run in."""
+    from tsasr_torch.inference import TSASRTranscriber
+    return TSASRTranscriber.from_experiment(
+        str(folder), device="cpu").model.config.dtype
+
+
 def test_bf16_experiment_checkpoint_resumes_in_f32(tmp_path, monkeypatch):
     """``--precision bf16`` through ``run_experiment`` on the CPU for one
     optimizer step (one micro-batch, no TEST): a bf16 model, f32
@@ -617,6 +624,8 @@ def test_bf16_experiment_checkpoint_resumes_in_f32(tmp_path, monkeypatch):
     brain = run_experiment(argv=argv("--precision", "bf16",
                                      "--optimizer_step_limit", "1"))
     assert brain.model.config.dtype == BF16 and brain.precision == "bf16"
+    # the folder records the flag: it is served as it was trained
+    assert served_dtype(out) == BF16
     assert brain.optimizer_step == 1
     assert all(p.dtype == torch.float32 for p in brain.model.parameters())
     assert all(v.dtype == torch.float32
@@ -636,6 +645,7 @@ def test_bf16_experiment_checkpoint_resumes_in_f32(tmp_path, monkeypatch):
     resumed = run_experiment(argv=argv("--num_epochs", "2",
                                        "--optimizer_step_limit", "2"))
     assert resumed.model.config.dtype == torch.float32
+    assert served_dtype(out) == torch.float32
     assert len(starts) == 1                         # epoch 2 only
     assert all(torch.equal(starts[0][k], trained[k]) for k in trained)
     assert resumed.optimizer_step == 2

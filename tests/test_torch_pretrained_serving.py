@@ -18,8 +18,9 @@ the frozen WavLM conditioning, against the JAX recipe's TEST path.
   ``kv_cache`` tokens of a causal model identical to offline greedy).
 - ``from_experiment`` on a ``pretrained`` experiment folder, pooled and
   ``cross_attention``, builds the recipe's frozen encoder; the tool's
-  ``--streaming --enroll`` conditions the stream; ``--precision bf16``
-  puts every attention call in bf16; a ``torch_cache`` yaml, a missing
+  ``--streaming --enroll`` conditions the stream; a folder whose yaml
+  records precision bf16 (as a ``--precision bf16`` run writes it) is
+  served with every attention call in bf16; a ``torch_cache`` yaml, a missing
   checkpoint directory and the default device without CUDA raise.
 
 The JAX fused attention runs in Pallas interpret mode; the JAX applies
@@ -378,14 +379,18 @@ def test_transcribe_streaming_conditions_a_pretrained_stream(
 
 def test_bf16_experiment_serves_in_bf16(tmp_path, wavlm_dir, audio,
                                         monkeypatch):
-    """``precision="bf16"`` rebuilds the model in bf16 as the recipe does
-    (the yaml's ``precision`` is the default): every attention call of a
-    request is bf16; the frozen WavLM stays f32 and the projection takes
-    its output, as at TEST."""
-    pretrained_experiment(tmp_path, wavlm_dir, fused_attention=True)
+    """A folder whose yaml records precision bf16 is served by the model
+    rebuilt in bf16 as the recipe does: every attention call of a request
+    is bf16; the frozen WavLM stays f32 and the projection takes its
+    output, as at TEST. The yaml's fp32 serves in f32."""
+    for precision in ("fp32", "bf16"):
+        (tmp_path / precision).mkdir()
+        pretrained_experiment(tmp_path / precision, wavlm_dir,
+                              fused_attention=True, precision=precision)
     assert TSASRTranscriber.from_experiment(
-        str(tmp_path), device="cpu").model.config.dtype == torch.float32
-    tr = TSASRTranscriber.from_experiment(str(tmp_path), precision="bf16",
+        str(tmp_path / "fp32"), device="cpu").model.config.dtype \
+        == torch.float32
+    tr = TSASRTranscriber.from_experiment(str(tmp_path / "bf16"),
                                           device="cpu")
     assert tr.model.config.dtype == torch.bfloat16
     dtypes = []

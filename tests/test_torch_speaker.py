@@ -274,6 +274,25 @@ def test_speaker_recognition_matches_jax(recognizers, rng, tmp_path,
     assert decision == want_decision
 
 
+def test_factories_leave_the_callers_modules_as_they_were(ecapa_pair, rng):
+    """``from_ecapa`` and ``from_tsasr`` move nothing and switch no mode:
+    a model left in training mode keeps it, and embeds exactly as in eval
+    mode (``extract_speaker`` is deterministic, the ECAPA's BatchNorms
+    frozen)."""
+    fbank = Fbank(sample_rate=SR, n_fft=512, n_mels=80, win_length=32.0)
+    tsasr = TSTransducer(TSTransducerConfig(**dict(
+        TINY, dropout=0.1, speaker_encoder_layers=1))).init_weights(seed=5)
+    wavs, rel = batch_of(waves(rng, 3))
+    for make, model in ((SpeakerRecognition.from_ecapa, ecapa_pair[0]),
+                        (SpeakerRecognition.from_tsasr, tsasr)):
+        model.train()
+        sr = make(model, fbank, device="cpu")
+        got = sr.encode_batch(wavs, rel)
+        assert model.training
+        model.eval()
+        assert torch.equal(got, sr.encode_batch(wavs, rel))
+
+
 def test_encoder_classifier_matches_jax(ecapa_pair, recognizers, rng,
                                         tmp_path):
     from tsasr_tpu.data.encoder import CategoricalEncoder as JaxEncoder

@@ -101,7 +101,8 @@ def test_from_tsasr_launches_once_a_speaker_layer(cuda):
     for device in ("cpu", "cuda"):
         model = TSTransducer(TSTransducerConfig(**config))
         model.load_state_dict(state)
-        sr = SpeakerRecognition.from_tsasr(model, Fbank(**FBANK),
+        sr = SpeakerRecognition.from_tsasr(model.to(device),
+                                           Fbank(**FBANK).to(device),
                                            device=device)
         rel = [len(e) / 40000 for e in enrolls]
         batch = np.zeros((2, 40000), np.float32)

@@ -47,7 +47,8 @@ from tsasr_torch.data.tokenizer import CharTokenizer
 from tsasr_torch.models import wavlm
 from tsasr_torch.models.transducer import TSTransducer, TSTransducerConfig
 from tsasr_torch.recipes import librispeechmix
-from tsasr_torch.recipes.speaker_embeddings import FrozenSpeakerEncoder
+from tsasr_torch.recipes.speaker_embeddings import (FrozenSpeakerEncoder,
+                                                    resolve_speaker_backend)
 from tsasr_torch.training.brain import onednn_off_on_cpu
 from tsasr_torch.utils.stage import Stage
 
@@ -240,7 +241,7 @@ def test_speaker_backend_resolves_as_jax(wavlm_dir, tmp_path, backend, path,
             "missing": str(tmp_path / "missing")}.get(path, path)
     hparams = {"speaker_encoder_backend": backend,
                "speaker_encoder_path": path}
-    assert librispeechmix.resolve_speaker_backend(hparams) == want
+    assert resolve_speaker_backend(hparams) == want
     assert jax_recipe.resolve_speaker_backend(hparams) == want
 
 

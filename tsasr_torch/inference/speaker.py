@@ -11,7 +11,8 @@ a factory with ``device`` (default CUDA, which raises when absent):
   the ``pretrained`` recipe's ``FrozenSpeakerEncoder`` (the port's
   loader; the valid lengths ``min(ceil(rel * L), L)`` as JAX's);
 - ``from_ecapa``: an ``models.ecapa.ECAPA_TDNN`` over Fbank features
-  with sentence normalization;
+  with sentence normalization (the model and the Fbank on ``device``,
+  as for ``from_tsasr``; neither factory moves them);
 - ``from_tsasr``: the speaker branch of a ``TSTransducer``
   (``extract_speaker``, pooled and projected; a ``cross_attention``
   model's first frame, as JAX takes it). With ``fused_attention`` on, a
@@ -75,29 +76,30 @@ class SpeakerRecognition:
                    device="cuda"):
         """An ``ECAPA_TDNN`` (its weights loaded) over ``fbank`` (an
         ``ops.features.Fbank``) features, sentence-normalized."""
-        device = resolve_device(device)
-        model = model.to(device).eval()
-        fbank = fbank.to(device)
-
-        def embed_fn(wavs, rel_lens):
-            feats = input_normalization(fbank(wavs), rel_lens)
-            return model(feats, rel_lens)[:, 0, :]
-
-        return cls(embed_fn, sample_rate, threshold, device)
+        return cls._over_features(lambda feats, rel_lens: model(
+            feats, rel_lens)[:, 0, :], fbank, sample_rate, threshold, device)
 
     @classmethod
     def from_tsasr(cls, model, fbank, sample_rate=16000, threshold=0.5,
                    device="cuda"):
         """The speaker branch of a ``TSTransducer`` (its weights loaded)
         over ``fbank`` features, sentence-normalized."""
-        device = resolve_device(device)
-        model = model.to(device).eval()
-        fbank = fbank.to(device)
-
-        def embed_fn(wavs, rel_lens):
-            feats = input_normalization(fbank(wavs), rel_lens)
+        def embed(feats, rel_lens):
             embs = model.extract_speaker(feats, rel_lens)
             return embs[:, 0, :] if embs.dim() == 3 else embs
+
+        return cls._over_features(embed, fbank, sample_rate, threshold,
+                                  device)
+
+    @classmethod
+    def _over_features(cls, embed, fbank, sample_rate, threshold, device):
+        """``embed(features, rel_lens) -> (B, E)`` over ``fbank``
+        features, sentence-normalized. The model and ``fbank`` lie on
+        ``device`` already: the factory neither moves them nor switches
+        their mode."""
+        def embed_fn(wavs, rel_lens):
+            return embed(input_normalization(fbank(wavs), rel_lens),
+                         rel_lens)
 
         return cls(embed_fn, sample_rate, threshold, device)
 

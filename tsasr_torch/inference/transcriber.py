@@ -127,7 +127,7 @@ class TSASRTranscriber:
     @classmethod
     def from_experiment(cls, experiment_dir, beam_size=1, min_key="WER",
                         lm_path=None, lm_weight=None, ckpt_path=None,
-                        precision=None, device="cuda"):
+                        device="cuda"):
         """Load an experiment folder written by
         ``python -m tsasr_torch.train_librispeechmix_{scratch,none,
         pretrained}``: the model of its ``hyperparams.yaml``, the
@@ -140,10 +140,10 @@ class TSASRTranscriber:
         (``FrozenSpeakerEncoder.from_hparams``: a path that is no
         checkpoint directory raises ``FileNotFoundError``, the
         ``torch_cache`` backend ``NotImplementedError``). LM fusion
-        defaults to the experiment's ``lm_path`` / ``lm_weight``.
-        ``precision`` (default: the yaml's ``precision``; a run's
-        ``--precision`` flag is not in its ``hyperparams.yaml``) ``bf16``
-        rebuilds the model in bf16, as the recipe does."""
+        defaults to the experiment's ``lm_path`` / ``lm_weight``. A run
+        at precision ``bf16`` (its yaml's, or its ``--precision`` flag,
+        which the run records in ``hyperparams.yaml``) is served by the
+        model rebuilt in bf16, as the recipe trained it."""
         from tsasr_torch.data.tokenizer import load_tokenizer
         from tsasr_torch.recipes.librispeechmix import model_at_precision
         from tsasr_torch.recipes.speaker_embeddings import \
@@ -172,8 +172,7 @@ class TSASRTranscriber:
             if ckpt is None:
                 raise FileNotFoundError(f"no checkpoint in {save_folder}")
             ckpt_path = ckpt.paramfile("brain")
-        model = model_at_precision(hparams, precision
-                                   or hparams.get("precision"))
+        model = model_at_precision(hparams, hparams.get("precision"))
         model.load_state_dict(load_state(ckpt_path)["model"])
         if lm_path is None:
             lm_path = hparams.get("lm_path")

@@ -118,8 +118,8 @@ from tsasr_torch.ops.rnnt_loss_banded import band_centers, rnnt_loss_banded
 from tsasr_torch.ops.rnnt_loss_fused import rnnt_loss_fused
 from tsasr_torch.parallel import distributed
 from tsasr_torch.parallel.distributed import if_main_process, run_on_main
-from tsasr_torch.recipes.speaker_embeddings import (  # noqa: F401
-    FrozenSpeakerEncoder, check_speaker_backend, resolve_speaker_backend)
+from tsasr_torch.recipes.speaker_embeddings import (FrozenSpeakerEncoder,
+                                                    check_speaker_backend)
 from tsasr_torch.training.brain import Brain
 from tsasr_torch.utils.hparams import hparams_getter
 from tsasr_torch.utils.metric_stats import ErrorRateStats
@@ -704,17 +704,23 @@ def run_experiment(variant="scratch", argv=None):
         create_experiment_directory,
         parse_arguments,
     )
-    from tsasr_torch.utils.hparams import load_hyperpyyaml
+    from tsasr_torch.utils.hparams import load_hyperpyyaml, parse_overrides
 
     hparams_file, run_opts, overrides = parse_arguments(argv)
     with open(hparams_file) as f:
         hparams = load_hyperpyyaml(f, overrides)
     check_ported(hparams, variant)
-    check_precision(run_opts.get("precision", hparams.get("precision")))
+    precision = run_opts.get("precision", hparams.get("precision"))
+    check_precision(precision)
     # the device is resolved before anything is written: asking for the
     # card on a host without one raises here
     resolve_device(run_opts.get("device", hparams.get("device", "cuda")))
 
+    if "precision" in run_opts:
+        # the folder's yaml records the run's precision, so that serving
+        # rebuilds the model the run trained
+        overrides = dict(parse_overrides(overrides),
+                         precision=run_opts["precision"])
     create_experiment_directory(
         experiment_directory=hparams["output_folder"],
         hyperparams_to_save=hparams_file, overrides=overrides)
@@ -745,8 +751,7 @@ def run_experiment(variant="scratch", argv=None):
         pretrainer = Pretrainer(collect_in=hparams["save_folder"],
                                 paths={"model": hparams["model_path"]})
         run_on_main(pretrainer.collect_files)
-    hparams["model"] = model_at_precision(
-        hparams, run_opts.get("precision", hparams.get("precision")))
+    hparams["model"] = model_at_precision(hparams, precision)
     if distributed.layout().sp > 1:
         hparams["pad_feats_to"] = seq_parallel_pad(
             hparams.get("pad_feats_to"),

@@ -65,12 +65,14 @@ def main(argv=None):
                                            sample_rate=args.sample_rate,
                                            device=args.device)
     else:
+        from tsasr_torch.device import resolve_device
         from tsasr_torch.ops.features import Fbank
+        device = resolve_device(args.device)
         fbank = Fbank(sample_rate=args.sample_rate, n_fft=512,
-                      n_mels=args.n_mels, win_length=32.0)
+                      n_mels=args.n_mels, win_length=32.0).to(device)
         sr = SpeakerRecognition.from_ecapa(
-            load_ecapa(args.model_path, args.n_mels), fbank,
-            sample_rate=args.sample_rate, device=args.device)
+            load_ecapa(args.model_path, args.n_mels).to(device), fbank,
+            sample_rate=args.sample_rate, device=device)
 
     stats = BinaryMetricStats()
     cache = {}

@@ -6,14 +6,13 @@ JSON line per file. ``--streaming`` feeds each file in 1 s chunks to
 the ``kv_cache`` streamer (causal models); a model with a speaker input
 (a ``scratch`` or a ``pretrained`` experiment) then needs ``--enroll``,
 whose embedding (the speaker branch's, or the frozen WavLM's, projected)
-conditions the stream (the JAX tool streams without it). ``--precision
-bf16`` serves a run trained with ``--precision bf16`` in bf16.
+conditions the stream (the JAX tool streams without it). A run trained
+with ``--precision bf16`` is served in bf16.
 
 Usage:
     python -m tsasr_torch.tools.transcribe --experiment results/.../0 \\
         mix1.wav [mix2.flac ...] [--enroll enroll.wav] [--beam_size 15] \\
-        [--lm_path lm.arpa --lm_weight 0.3] [--streaming] \\
-        [--precision bf16] [--device cpu]
+        [--lm_path lm.arpa --lm_weight 0.3] [--streaming] [--device cpu]
 """
 
 import argparse
@@ -34,8 +33,6 @@ def main(argv=None):
     ap.add_argument("--streaming", action="store_true",
                     help="chunked streaming decode (causal models)")
     ap.add_argument("--min_key", default="WER")
-    ap.add_argument("--precision", default=None, choices=["fp32", "bf16"],
-                    help="default: the experiment yaml's precision")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
@@ -43,8 +40,7 @@ def main(argv=None):
 
     t = TSASRTranscriber.from_experiment(
         args.experiment, beam_size=args.beam_size, min_key=args.min_key,
-        lm_path=args.lm_path, lm_weight=args.lm_weight,
-        precision=args.precision, device=args.device)
+        lm_path=args.lm_path, lm_weight=args.lm_weight, device=args.device)
     speaker = None
     if args.streaming and args.enroll and t.variant != "none":
         speaker = t.speaker_embedding(read_resampled(args.enroll,
