@@ -55,12 +55,15 @@ SHAPES = ((8, 101), (8, 208), (8, 408), (6, 208), (3, 408))
 RATES = (0.0, 0.1)
 
 
+# the entries end with h0, the launch's first head (0 here); a version
+# whose entries end at the stream leaves that trailing int unread (the
+# x86-64 C calling convention), so older sources time alike
 FWD_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_uint, ctypes.c_float,
                                         ctypes.c_void_p] + \
-    [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+    [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int]
 BWD_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_uint, ctypes.c_float] + \
-    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_float,
-                                                   ctypes.c_void_p]
+    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
+        ctypes.c_float, ctypes.c_void_p, ctypes.c_int]
 
 
 def build(versions):
@@ -117,7 +120,7 @@ def forward_call(lib, case, scale, stream):
     ptrs = [x.data_ptr() for x in a16] + [out.data_ptr(), stats.data_ptr()]
     seed = seed_t.data_ptr() if rate > 0.0 else 0
     return (lambda: fn(*ptrs, thresh, keep_scale, seed, b, h, t, dh, scale,
-                       stream)), [out]
+                       stream, 0)), [out]
 
 
 def backward_call(lib, case, scale, stream):
@@ -143,7 +146,7 @@ def backward_call(lib, case, scale, stream):
     outs = [delta.data_ptr()] + [g.data_ptr() for g in grads[:4]] + [
         scratch.data_ptr(), grads[4].data_ptr()]
     return (lambda: fn(*ptrs, seed, thresh, keep_scale, *outs, b, h, t, dh,
-                       scale, stream)), grads
+                       scale, stream, 0)), grads
 
 
 def main():

@@ -64,9 +64,9 @@ def main(device="cuda"):
     # 1. the attention calls' inputs, recorded on the plain f32 run
     calls = []
 
-    def record(*args, seed, scale, rate):
+    def record(*args, seed, scale, rate, h0=0):
         calls.append(([x.detach().clone() for x in args], scale))
-        return ra.relpos_attention_reference(*args, scale, seed, rate)
+        return ra.relpos_attention_reference(*args, scale, seed, rate, h0)
 
     grads = {}
     for name, (brain, ctx, dtype) in runs.items():

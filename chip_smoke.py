@@ -20,7 +20,10 @@ checkout, or when any phase fails. Phases:
    in f64, the beta slab kernel also alone, each variant's repeats and
    the two variants at one shape bit for bit); device times
    (``torch.profiler``) beside the CUDA-event times, for the lattice
-   kernels also in us per row;
+   kernels also in us per row; the attention kernels at a
+   tensor-parallel rank's heads (``tp_head_checks``: heads 2-3 of B8 H4
+   T208 launched alone with h0 2 equal the 4-head launch bit for bit,
+   f32 and bf16, forward and backward, dropout 0.1);
 3. the serving path at the scratch recipe's full width (random weights
    from a seed): ``TSASRTranscriber(device="cuda")`` answers 3 requests
    (8 mixtures of 4 s, 8 s and 12 s, 5 s enrollments); every request
@@ -186,7 +189,7 @@ checkout, or when any phase fails. Phases:
    kernel against its plain version on the phase's own tensors, (d)'s
    bf16 attention calls at the bf16 tolerance;
 11. data parallelism (``phase_ddp``): the scratch yaml at full width
-   on the same corpus (VALID and TEST cut to 6 and 4 mixtures), 2
+   on the same corpus (VALID and TEST cut to 2 mixtures each), 2
    optimizer steps of 2 micro-batches at dropout 0 under deterministic
    algorithms, VALID and TEST greedy: (a) in place; (b) through
    ``python -m tsasr_torch.parallel.launch --nproc_per_node 1`` on
@@ -204,8 +207,8 @@ checkout, or when any phase fails. Phases:
    (c') in one launch); ms per micro-batch, the all-reduce's ms (CUDA
    events) and bytes, the device-busy share of a profiled micro-batch
    and audio-s/s of two ranks against one;
-12. sequence and pipeline parallelism (``model_parallel_runs``, then
-   ``model_parallel_hold``) at
+12. sequence, pipeline and tensor parallelism (``model_parallel_runs``,
+   then ``model_parallel_hold``) at
    full width on a corpus of 8-12 s mixtures, 2 optimizer steps of 2
    micro-batches at dropout 0 under deterministic algorithms, VALID and
    TEST greedy, each run on two ranks sharing ``cuda:0`` over gloo
@@ -213,14 +216,20 @@ checkout, or when any phase fails. Phases:
    run in one process: (a) the scratch yaml with
    ``--causal_encoder True --frontend_padding causal --att_context_size
    64 --sequence_parallel_count 2``, (b) the none yaml with
-   ``--pipeline_parallel_count 2`` (6 layers a stage): each loss within
-   1e-5 relative, the first step's gradient by the training phase's
+   ``--pipeline_parallel_count 2`` (6 layers a stage), (c) (a)'s model
+   with ``--tensor_parallel_count 2`` (held against (a)'s one process):
+   each loss within
+   1e-5 relative, the first step's gradient (gathered from (c)'s shards)
+   by the training phase's
    rule (the kink set of plain f64 runs, the f32 floor below the
    tolerance, rank 0's unreduced gradient above it), a TEST WER file
    naming each utterance once; every batch launches what its shapes
    imply, each rank holds its kernel calls against their plain
    versions, (a)'s first rank's with its halo's fully masked queries;
-   ms per micro-batch each way and the hops' bytes and ms;
+   (c)'s TRAIN attention at H 2 from h0 2·rank and its VALID / TEST on
+   the whole copy at H 4, each rank's parameter + AdamW bytes below one
+   process's; ms per micro-batch each way, the hops' bytes and ms and
+   (c)'s model all-reduces per micro-batch (count, bytes, ms);
 13. a small model on the card against the same model on the CPU:
    serving encoder output (the CPU side twice, each hash logged with the
    host CPU's model and torch's thread count), and 2 optimizer steps of
@@ -529,12 +538,12 @@ def phase_attention_fwd(device):
     return rows
 
 
-def attention_grad_errors(args, do, seed, scale, rate):
+def attention_grad_errors(args, do, seed, scale, rate, h0=0):
     """The backward kernels' five gradients against autograd through the
-    plain version: (max abs err, max err of each gradient's max |g|
-    clamped at 1, and a line with the kernels' and the plain f32
-    version's errors against the plain version in f64). Raises above
-    ATTN_ATOL."""
+    plain version (the heads counted from ``h0``): (max abs err, max err
+    of each gradient's max |g| clamped at 1, and a line with the kernels'
+    and the plain f32 version's errors against the plain version in
+    f64). Raises above ATTN_ATOL."""
     import torch
     from tsasr_torch.kernels import relpos_attention as ra
     grads = {}
@@ -544,7 +553,7 @@ def attention_grad_errors(args, do, seed, scale, rate):
             ("f64", ra.relpos_attention_reference, torch.float64)):
         leaves = [x.to(dtype).requires_grad_(i < 5)
                   for i, x in enumerate(args)]
-        out = fn(*leaves, seed=seed, scale=scale, rate=rate)
+        out = fn(*leaves, seed=seed, scale=scale, rate=rate, h0=h0)
         grads[name] = torch.autograd.grad(out, leaves[:5], do.to(dtype))
     pairs = list(zip(grads["kernel"], grads["plain"]))
     abs_err = max((a - b).abs().max().item() for a, b in pairs)
@@ -1195,8 +1204,8 @@ def plain_kernels():
     saved = (attention_mod.fused_relpos_attention, fused_mod.rnnt_lattice,
              loss_mod.rnnt_lattice)
     attention_mod.fused_relpos_attention = \
-        lambda *a, seed, scale, rate: ra.relpos_attention_reference(
-            *a, scale, seed, rate)
+        lambda *a, seed, scale, rate, h0=0: ra.relpos_attention_reference(
+            *a, scale, seed, rate, h0)
     fused_mod.rnnt_lattice = loss_mod.rnnt_lattice = \
         rl.rnnt_lattice_reference
     try:
@@ -1216,11 +1225,12 @@ def planted_fault():
     real = ra._launch_bwd
 
     def faulty(q_u, q_v, k, v, p, kp_add, am_add, out, stats, do, seed_t,
-               scale, rate):
+               scale, rate, h0=0):
         *grads, _ = real(q_u, q_v, k, v, p, kp_add, am_add, out, stats, do,
-                         seed_t, scale, rate)
+                         seed_t, scale, rate, h0)
         *_, dp = real(q_u[:1], q_v[:1], k[:1], v[:1], p, kp_add[:1],
-                      am_add, out[:1], stats[:1], do[:1], seed_t, scale, rate)
+                      am_add, out[:1], stats[:1], do[:1], seed_t, scale, rate,
+                      h0)
         return (*grads, dp)
 
     ra._launch_bwd = faulty
@@ -1942,17 +1952,17 @@ EXPERIMENT_CORPUS = dict(n_speakers=6, utts_per_speaker=8, n_mix=24,
 EXPERIMENT_SPLITS = ("train-2mix", "dev-clean-2mix", "test-clean-2mix")
 # the depth cut so the whole script keeps to its time budget: every
 # phase on the corpus validates and tests on the dev and test splits'
-# first 6 mixtures (12 utterances each; phases cut TEST further below)
-EVAL_MIXTURES = 6
+# first 4 mixtures (8 utterances each; phases cut TEST further below)
+EVAL_MIXTURES = 4
 # the depth cut so the whole script keeps to its time budget: the TEST
 # files the scratch experiment (and the pretrained one) transcribes from
 # its folder; the resumed run's TEST (beam 15 + the n-gram, one
-# utterance a batch): the split's first 3 mixtures, 6 utterances; the
+# utterance a batch): the split's first 2 mixtures, 4 utterances; the
 # first run's TEST and the bf16 run's (beam 15, dynamic batches): its
-# first 4, 8 utterances
+# first 3, 6 utterances
 EXPERIMENT_FILES = 4
-RESUMED_TEST_MIXTURES = 3
-FIRST_TEST_MIXTURES = 4
+RESUMED_TEST_MIXTURES = 2
+FIRST_TEST_MIXTURES = 3
 
 
 def corpus_vocab(folder):
@@ -2087,9 +2097,11 @@ def captured_kernel_calls():
     """Keeps a detached copy of the inputs of the first call of each
     shape that the model gives the attention and lattice wrappers while
     inside; the calls go on to the wrappers, so their launches count as
-    the path's. Yields {"attention": {(shape, rate, train): (args, seed,
-    scale)}, "lattice": {(B, T, U+1): args}}; ``causal`` in the attention
-    key says the call's mask hides the future (a causal encoder's)."""
+    the path's. Yields {"attention": {(shape, rate, train, causal):
+    (args, seed, scale, h0)}, "lattice": {(B, T, U+1): args}}; ``causal``
+    in the attention key says the call's mask hides the future (a causal
+    encoder's); ``h0`` is the call's first head (a tensor-parallel
+    rank's)."""
     import torch
     from tsasr_torch.models import attention
     from tsasr_torch.ops import rnnt_loss, rnnt_loss_fused
@@ -2100,7 +2112,7 @@ def captured_kernel_calls():
     def copy(x):
         return x.detach().clone() if torch.is_tensor(x) else x
 
-    def attention_call(*args, seed, scale, rate):
+    def attention_call(*args, seed, scale, rate, h0=0):
         train = torch.is_grad_enabled() and any(
             x.requires_grad for x in args[:5])
         am = args[6]
@@ -2108,8 +2120,8 @@ def captured_kernel_calls():
         key = (tuple(args[0].shape), rate, train, causal)
         if key not in seen["attention"]:
             seen["attention"][key] = ([copy(x) for x in args], copy(seed),
-                                      scale)
-        return fused(*args, seed=seed, scale=scale, rate=rate)
+                                      scale, h0)
+        return fused(*args, seed=seed, scale=scale, rate=rate, h0=h0)
 
     def lattice_call(*args):
         seen["lattice"].setdefault(tuple(args[0].shape),
@@ -2140,12 +2152,13 @@ def check_path_kernels(seen):
 
     gen = torch.Generator().manual_seed(SEED + 13)
     worst = {"fwd": 0.0, "bwd": 0.0, "lattice": 0.0}
-    for (shape, rate, train, _), (args, seed, scale) in \
+    for (shape, rate, train, _), (args, seed, scale, h0) in \
             seen["attention"].items():
         with torch.no_grad():
             got = ra.fused_relpos_attention(*args, seed=seed, scale=scale,
-                                            rate=rate)
-            want = ra.relpos_attention_reference(*args, scale, seed, rate)
+                                            rate=rate, h0=h0)
+            want = ra.relpos_attention_reference(*args, scale, seed, rate,
+                                                 h0)
         err = ((got - want).abs().max()
                / want.abs().max().clamp(min=1.0)).item()
         if not (err <= ATTN_ATOL and torch.isfinite(got).all()):
@@ -2156,7 +2169,7 @@ def check_path_kernels(seen):
         if train:
             do = torch.randn(got.shape, generator=gen).to(got.device)
             _, rel_err, _ = attention_grad_errors(args, do, seed, scale,
-                                                  rate)
+                                                  rate, h0)
             worst["bwd"] = max(worst["bwd"], rel_err)
     for (b, t, u1), args in seen["lattice"].items():
         got = rl.rnnt_lattice(*args)
@@ -4149,7 +4162,7 @@ def bf16_experiment(device, card, corpus):
         del brain, model
     gen = torch.Generator().manual_seed(SEED + 23)
     worst = {"fwd": 0.0, "bwd": 0.0, "ratio": 0.0}
-    for (shape, rate, train, _), (args, seed, scale) in \
+    for (shape, rate, train, _), (args, seed, scale, _) in \
             seen["attention"].items():
         if args[0].dtype != torch.bfloat16:
             raise RuntimeError(f"the bf16 run gave the attention "
@@ -5158,7 +5171,8 @@ def hold_stream_kernels(seen, card):
     if not any(causal for _, _, _, causal in bf16):
         raise RuntimeError("(d) captured no causal bf16 attention call")
     worst = {"bf16_fwd": 0.0, "bf16_f64_ratio": 0.0}
-    for (shape, rate, train, causal), (args, seed, scale) in bf16.items():
+    for (shape, rate, train, causal), (args, seed, scale, _) in \
+            bf16.items():
         if train:
             raise RuntimeError(f"a stream asked the bf16 attention at "
                                f"{shape} for a gradient")
@@ -5278,9 +5292,9 @@ DDP_STEPS = 2                 # optimizer steps, at accumulation 2
 DDP_ACCUMULATION = 2
 # the debug cut of TEST: the split's first 2 mixtures, 4 utterances of
 # one a batch, so two ranks decode 2 batches each, greedy (the beam has
-# its own phases); VALID's: its first 3 mixtures, in dynamic batches
+# its own phases); VALID's: its first 2 mixtures, in dynamic batches
 DDP_TEST_MIXTURES = 2
-DDP_VALID_MIXTURES = 3
+DDP_VALID_MIXTURES = 2
 DDP_LOSS_RTOL = 1e-5
 DDP_GRAD_NCCL = 1e-6          # of each leaf's max |g|: (b) against (a)
 # (c) against (a), of each leaf's max |g|: the training phase's rule
@@ -5340,7 +5354,7 @@ def ddp_run(result_dir, argv, keep=None, hold=True):
     record, also written as ``rank{r}.json``."""
     import importlib
     import torch
-    from tsasr_torch.parallel import distributed, hop
+    from tsasr_torch.parallel import distributed, hop, tensor_parallel
     from tsasr_torch.recipes.librispeechmix import TSASRBrain
 
     variant = "none" if argv[0].endswith(VARIANT_YAMLS["none"]) \
@@ -5360,15 +5374,25 @@ def ddp_run(result_dir, argv, keep=None, hold=True):
         return patched["on_fit_start"](self)
 
     def update(self, params):
+        acc, split = self._acc, self._split_flags()
+        if self.optimizer_step == 0 and any(split):
+            # a tensor-parallel rank holds shards: gathered on every rank
+            acc = list(tensor_parallel.gather_whole(
+                dict(zip(self._param_names(), acc)), self.model.tp_splits,
+                self.layout.model).values())
         if self.optimizer_step == 0 and distributed.if_main_process():
-            torch.save([a.detach().cpu() for a in self._acc],
+            torch.save([a.detach().cpu() for a in acc],
                        result_dir / "grad.pt")
             if local:
-                # the planted fault: rank 0's rows alone, unreduced
+                # the planted fault: rank 0's rows alone, unreduced (a
+                # tensor-parallel rank's whole leaves unreduced, its
+                # shards gathered)
                 mean = sum(local) / len(local)
-                torch.save([part.view_as(a) for part, a in zip(
-                    torch.split(mean, [a.numel() for a in self._acc]),
-                    self._acc)], result_dir / "grad_local.pt")
+                parts = iter(torch.split(mean, [
+                    a.numel() for a, s in zip(acc, split) if not s]))
+                torch.save([a.detach().cpu() if s else next(parts).view_as(a)
+                            for a, s in zip(acc, split)],
+                           result_dir / "grad_local.pt")
         return patched["_update"](self, params)
 
     def decoded(self, batch, arrays, predictions, stage):
@@ -5419,7 +5443,7 @@ def ddp_run(result_dir, argv, keep=None, hold=True):
                                  * batch.mixed_sig.data.shape[1]).sum()
                                 / SAMPLE_RATE)
                 record["audio_s"].append(seconds)
-                hops = dict(hop.stats)
+                hops, tps = dict(hop.stats), dict(tensor_parallel.stats)
                 if n == DDP_PROFILED and self.device.type == "cuda":
                     out = []
                     wall, events = profiled(lambda: out.append(
@@ -5436,6 +5460,11 @@ def ddp_run(result_dir, argv, keep=None, hold=True):
                     hop.stats["bytes"] - hops.get("bytes", 0))
                 record["hop_ms"].append(
                     (hop.stats["seconds"] - hops.get("seconds", 0.0)) * 1e3)
+                for key, stat, unit in (("tp_reduces", "all_reduces", 1),
+                                        ("tp_bytes", "bytes", 1),
+                                        ("tp_ms", "seconds", 1e3)):
+                    record[key].append((tensor_parallel.stats[stat]
+                                        - tps.get(stat, 0)) * unit)
                 return loss
 
             TSASRBrain.fit_batch = fit_batch
@@ -5471,7 +5500,17 @@ def ddp_run(result_dir, argv, keep=None, hold=True):
         shapes={"attention": len(seen["attention"]),
                 "lattice": sorted(seen["lattice"])},
         fully_masked_rows=sum(fully_masked_queries(args)
-                              for args, _, _ in seen["attention"].values()),
+                              for args, *_ in seen["attention"].values()),
+        heads=sorted({(args[0].shape[1], h0, train)
+                      for (_, _, train, _), (args, _, _, h0)
+                      in seen["attention"].items()}),
+        param_bytes=sum(p.numel() * p.element_size()
+                        for p in brain._params()),
+        moment_bytes=sum(t.numel() * t.element_size()
+                         for state in brain.optimizer.state_dict()[
+                             "state"].values()
+                         for t in state.values()
+                         if torch.is_tensor(t) and t.dim()),
         optimizer_step=brain.optimizer_step)
     record = dict(record)
     (result_dir / f"rank{record['rank']}.json").write_text(
@@ -5806,6 +5845,70 @@ def phase_ddp(device, card, corpus, also=()):
     return dict(counts), more
 
 
+# tensor parallelism at the kernels: a rank of T 2 launches heads [2, 4)
+# of the scratch model's 4 with h0 = 2 (tp_head_checks)
+TP_HEADS_T = 208
+TP_HEADS_RATE = 0.1
+
+
+def tp_head_checks(device, card):
+    """The attention kernels at a tensor-parallel rank's heads: at B8 H4
+    T208 Dh64 with dropout 0.1, in f32 and bf16, the forward and the
+    backward launched on heads [2, 4) with ``h0`` 2 must equal heads 2-3
+    of the 4-head launch bit for bit (the Philox draw counts h0 + h),
+    and hold against their plain versions with that h0 (f32 within
+    ATTN_ATOL, bf16 within BF16_FWD_TOL / BF16_BWD_TOL). Returns the
+    worst error against the plain versions by dtype."""
+    import torch
+    from tsasr_torch.kernels import relpos_attention as ra
+    gen = torch.Generator().manual_seed(SEED + 53)
+    scale = 1.0 / math.sqrt(H * DH)
+    seed = torch.tensor([2468], device=device)
+    h0, sl = 2, slice(2, 4)
+    worst, failures = {}, []
+    for dtype, fwd_tol, bwd_tol in (
+            (torch.float32, ATTN_ATOL, ATTN_ATOL),
+            (torch.bfloat16, BF16_FWD_TOL, BF16_BWD_TOL)):
+        case = attention_case(TP_HEADS_T, False, gen, device)
+        args = [x.to(dtype) for x in case[:5]] + case[5:]
+        do = torch.randn(args[0].shape, generator=gen).to(device, dtype)
+
+        def run(fn, tensors, grad_out, first):
+            leaves = [x.clone().requires_grad_(i < 5)
+                      for i, x in enumerate(tensors)]
+            out = fn(*leaves, seed=seed, scale=scale, rate=TP_HEADS_RATE,
+                     h0=first)
+            return [out.detach(), *torch.autograd.grad(out, leaves[:5],
+                                                       grad_out)]
+
+        part_in = [x[:, sl].contiguous() for x in args[:4]] + \
+            [args[4][sl].contiguous()] + args[5:]
+        whole = run(ra.fused_relpos_attention, args, do, 0)
+        part = run(ra.fused_relpos_attention, part_in,
+                   do[:, sl].contiguous(), h0)
+        plain = run(ra.relpos_attention_reference, part_in,
+                    do[:, sl].contiguous(), h0)
+        torch.cuda.synchronize(device)
+        same = all(torch.equal(p, w[sl] if i == 5 else w[:, sl])
+                   for i, (p, w) in enumerate(zip(part, whole)))
+        errs = [((p.double() - q.double()).abs().max()
+                 / q.double().abs().max().clamp(min=1.0)).item()
+                for p, q in zip(part, plain)]
+        worst[str(dtype)] = max(errs)
+        log(f"tensor-parallel heads: B{B} H{H} T{TP_HEADS_T} Dh{DH} "
+            f"{str(dtype)[6:]} dropout {TP_HEADS_RATE}: heads 2-3 launched "
+            f"alone with h0 2 equal the 4-head launch's bit for bit {same}; "
+            f"against the plain version with h0 2: forward {errs[0]:.3g}, "
+            f"gradients {max(errs[1:]):.3g} of max (tol {fwd_tol:.3g} / "
+            f"{bwd_tol:.3g}) [{card}]")
+        if not same or errs[0] > fwd_tol or max(errs[1:]) > bwd_tol:
+            failures.append(str(dtype))
+    if failures:
+        raise RuntimeError(f"the attention kernels at a rank's heads: "
+                           f"{failures}")
+    return worst
+
+
 # model parallelism (model_parallel_runs, model_parallel_hold): the
 # sequence axis on the scratch yaml made causal with a 64-frame context
 # (halo 93 frames: a block needs 93 encoder frames, T >= 186 at S = 2,
@@ -5814,14 +5917,19 @@ def phase_ddp(device, card, corpus, also=()):
 # process
 MP_CORPUS = dict(n_speakers=4, utts_per_speaker=4, seed=SEED + 41,
                  min_dur=8, max_dur=12,
-                 split_n_mix={"train-2mix": 10, "dev-clean-2mix": 3,
+                 split_n_mix={"train-2mix": 10, "dev-clean-2mix": 2,
                               "test-clean-2mix": 2})
 MP_CAUSAL = ("--causal_encoder", "True", "--frontend_padding", "causal",
              "--att_context_size", "64")
+# (name, yaml, model flags, axis flags, the one-process run it is held
+# against): the tensor-parallel run takes the sequence run's model, so
+# that one process's run (and its f64 step) serves both
 MP_RUNS = (("sp", EXPERIMENT_YAML, MP_CAUSAL,
-            ("--sequence_parallel_count", "2")),
+            ("--sequence_parallel_count", "2"), "sp"),
            ("pp", VARIANT_YAMLS["none"], (),
-            ("--pipeline_parallel_count", "2")))
+            ("--pipeline_parallel_count", "2"), "pp"),
+           ("tp", EXPERIMENT_YAML, MP_CAUSAL,
+            ("--tensor_parallel_count", "2"), "sp"))
 MP_TEST_UTTERANCES = 4
 
 
@@ -5859,16 +5967,17 @@ def model_parallel_runs(device, tmp):
     data = tmp / "corpus"
     make_dataset(str(data), **MP_CORPUS)
     ones, launched = {}, []
-    for name, yaml, model, axis in MP_RUNS:
-        (tmp / name).mkdir()
-        keep = {}
-        ones[name] = ddp_run(tmp / name, ddp_args(
-            data, tmp / name / "out", str(device), *model, yaml=yaml),
-            keep, hold=False)
-        ones[name]["f64"] = ddp_f64_step(keep)
-        ones[name]["names"] = [n for n, _ in
-                               keep["model0"].named_parameters()]
-        del keep
+    for name, yaml, model, axis, reference in MP_RUNS:
+        if reference == name:
+            (tmp / name).mkdir()
+            keep = {}
+            ones[name] = ddp_run(tmp / name, ddp_args(
+                data, tmp / name / "out", str(device), *model, yaml=yaml),
+                keep, hold=False)
+            ones[name]["f64"] = ddp_f64_step(keep)
+            ones[name]["names"] = [n for n, _ in
+                                   keep["model0"].named_parameters()]
+            del keep
         launched.append((tmp / f"{name}2", ddp_args(
             data, tmp / f"{name}2" / "out", ranks_device, *model, *axis,
             yaml=yaml)))
@@ -5883,12 +5992,12 @@ def model_parallel_hold(device, card, tmp, ones, by_run):
     on_card = device.type == "cuda"
     counts = collections.Counter()
     failures = []
-    for (name, yaml, model, axis), ranks in zip(MP_RUNS, by_run):
-        one = ones[name]
-        step64, loose, n_near, n_pre = one.pop("f64")
-        names = one.pop("names")
-        want = torch.load(tmp / name / "grad.pt", weights_only=True)
-        for rec in (one, *ranks):
+    for (name, yaml, model, axis, reference), ranks in zip(MP_RUNS, by_run):
+        one = ones[reference]
+        step64, loose, n_near, n_pre = one["f64"]
+        names = one["names"]
+        want = torch.load(tmp / reference / "grad.pt", weights_only=True)
+        for rec in (one, *ranks) if reference == name else ranks:
             counts.update(rec["launches"])
         errs = {what: ddp_grad_errors(torch.load(
                     tmp / path, weights_only=True), want, loose, names)
@@ -5897,7 +6006,7 @@ def model_parallel_hold(device, card, tmp, ones, by_run):
                     ("fault", f"{name}2/grad_local.pt"))}
         errs["floor"] = ddp_grad_errors(want, step64, loose, names)
         del step64, want
-        wer_one = (tmp / name / "wer.txt").read_text()
+        wer_one = (tmp / reference / "wer.txt").read_text()
         wer = (tmp / f"{name}2" / "wer.txt").read_text()
         keys = [block.split(",")[0] for block in
                 wer.split("=" * 80)[2:] if block.strip()]
@@ -5960,13 +6069,54 @@ def model_parallel_hold(device, card, tmp, ones, by_run):
                    for r, rec in enumerate(ranks)):
             failures.append(f"{name}: places "
                             f"{[rec['place'] for rec in ranks]}")
-        if on_card and (name == "sp") != (
+        if on_card and name != "tp" and (name == "sp") != (
                 ranks[0]["fully_masked_rows"] > 0):
             failures.append(f"{name}: rank 0's fully masked queries "
                             f"{ranks[0]['fully_masked_rows']}")
+        if name == "tp":
+            failures += tp_hold(one, ranks, on_card, card)
+    for one in ones.values():
+        del one["f64"], one["names"]
     if failures:
         raise RuntimeError("model parallel: " + "; ".join(failures))
     return dict(counts)
+
+
+def tp_hold(one, ranks, on_card, card):
+    """The tensor-parallel run's own checks and readings: each rank's
+    TRAIN attention launched at H 2 from h0 2·rank, VALID and TEST on the
+    whole copy at H 4; each rank's parameter and AdamW bytes below one
+    process's; the model axis's all-reduces per micro-batch. Returns the
+    failures."""
+    failures = []
+    whole = one["param_bytes"] + one["moment_bytes"]
+    for r, rec in enumerate(ranks):
+        heads = {tuple(x) for x in rec["heads"]}
+        want = {(2, 2 * r, True), (4, 0, False)}
+        mine = rec["param_bytes"] + rec["moment_bytes"]
+        log(f"model parallel tp: {rec['place']}: attention calls at "
+            f"(heads, h0, TRAIN) {sorted(heads)}; parameters "
+            f"{rec['param_bytes'] / 1e6:.1f} MB + AdamW moments "
+            f"{rec['moment_bytes'] / 1e6:.1f} MB = {mine / 1e6:.1f} MB, one "
+            f"process {one['param_bytes'] / 1e6:.1f} + "
+            f"{one['moment_bytes'] / 1e6:.1f} = {whole / 1e6:.1f} MB "
+            f"({100 * mine / whole:.1f} %); the model axis's all-reduces "
+            "per micro-batch "
+            + ", ".join(f"{n} of {b / 1e6:.2f} MB in {ms:.1f} ms"
+                        for n, b, ms in zip(rec["tp_reduces"],
+                                            rec["tp_bytes"], rec["tp_ms"]))
+            + f" (host clock; gloo stages a CUDA tensor through the host) "
+            f"[{card}]")
+        if heads != want:
+            failures.append(f"tp: rank {r}'s attention heads {sorted(heads)}"
+                            f", expected {sorted(want)}")
+        if not mine < whole:
+            failures.append(f"tp: rank {r} holds {mine} bytes of parameters "
+                            f"and moments, one process {whole}")
+        if not all(n > 0 for n in rec["tp_reduces"]):
+            failures.append(f"tp: rank {r}'s micro-batches all-reduced "
+                            f"{rec['tp_reduces']} times on the model axis")
+    return failures
 
 
 def phase_small(device):
@@ -6227,6 +6377,7 @@ def main():
 
     fwd_rows = phase_attention_fwd(device)
     bwd_rows = phase_attention_bwd(device)
+    tp_head_checks(device, card)
     lattice_rows = phase_lattice(device, card)
     log(f"kernel phases done at {time.perf_counter() - t_start:.1f} s")
     serving = phase_serving(device, card)

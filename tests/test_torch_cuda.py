@@ -808,7 +808,8 @@ def test_bf16_forward_routes_at_the_cutover(cuda, past):
         out = torch.empty_like(args[0])
         assert relpos_attention._fwd_kernel("relpos_attention_fwd_bf16")(
             *(x.data_ptr() for x in args), out.data_ptr(), 0, 0, 1.0, 0,
-            1, 2, T, Dh, 0.125, torch.cuda.current_stream().cuda_stream) != 0
+            1, 2, T, Dh, 0.125, torch.cuda.current_stream().cuda_stream,
+            0) != 0
 
 
 def bf16_backward_case(B, H, T, Dh, mask, device, seed=0):
@@ -929,4 +930,4 @@ def test_bf16_backward_routes_at_the_cutover(cuda, past):
             *(x.data_ptr() for x in args), stats.data_ptr(), do.data_ptr(),
             0, 0, 1.0, stats.data_ptr(), *(x.data_ptr() for x in outs),
             scratch.data_ptr(), torch.empty_like(args[4]).data_ptr(), 1, 2,
-            T, Dh, 0.125, torch.cuda.current_stream().cuda_stream) != 0
+            T, Dh, 0.125, torch.cuda.current_stream().cuda_stream, 0) != 0

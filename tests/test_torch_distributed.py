@@ -486,18 +486,17 @@ def test_two_rank_experiment_as_one_process(corpus, tmp_path):
     ("pipeline_parallel_count", 2, False),
 ])
 def test_parallel_counts(monkeypatch, world, flag, value, ok):
-    """The counts must multiply to the world size: a sequence or pipeline
-    count of 2 takes both ranks of a world of 2 (the data count then
-    defaults to 1) and has no room in a world of 1; the tensor count
-    raises above 1."""
+    """The counts must multiply to the world size: a sequence, pipeline
+    or tensor count of 2 takes both ranks of a world of 2 (the data count
+    then defaults to 1) and has no room in a world of 1."""
     from tsasr_torch.training import experiment
     monkeypatch.setattr(experiment, "world_size", lambda: world)
     if value == "same":
         value = world
     elif value == "other":
         value = 3 - world
-    if flag in ("sequence_parallel_count", "pipeline_parallel_count") \
-            and value == 2:
+    if flag in ("sequence_parallel_count", "pipeline_parallel_count",
+                "tensor_parallel_count") and value == 2:
         ok = world == 2
     argv = [str(TORCH_YAML), f"--{flag}", str(value)]
     if ok:
@@ -505,14 +504,13 @@ def test_parallel_counts(monkeypatch, world, flag, value, ok):
         assert run_opts[flag] == value
         counts = dict(zip(("data_parallel_count",
                            "pipeline_parallel_count",
-                           "sequence_parallel_count"),
+                           "sequence_parallel_count",
+                           "tensor_parallel_count"),
                           experiment.check_parallel_counts(run_opts)))
         assert np.prod(list(counts.values())) == world
         assert counts.get(flag, value) == value
     else:
-        match = "next slice" if flag == "tensor_parallel_count" \
-            else "world size"
-        with pytest.raises(NotImplementedError, match=match):
+        with pytest.raises(NotImplementedError, match="world size"):
             experiment.parse_arguments(argv)
 
 

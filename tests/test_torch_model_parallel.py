@@ -6,8 +6,9 @@ the CPU over gloo, at a tiny size (d_model 32, 4 heads, kernel 5,
 ``att_context_size`` 4, 2-4 layers, torch on one thread):
 
 - ``required_halo``; the rank layout against ``make_mesh``'s devices
-  for (D, P, S) in (2, 2, 1), (2, 1, 2), (1, 2, 2); the ``pad_feats_to``
-  lcm;
+  for (D, P, S, T) in (2, 2, 1, 1), (2, 1, 2, 1), (1, 2, 2, 1),
+  (2, 1, 1, 2), (1, 2, 1, 2), (1, 1, 2, 4), (2, 2, 1, 2); the
+  ``pad_feats_to`` lcm;
 - four gloo ranks, one launch, five layouts: S4 and D2 x S2 of a causal
   banded scratch model (``cat`` at 0), P4 with ``prod`` mid-stack and
   D2 x P2 with ``cat`` at -1 (also at ``n_micro`` 4 > P): each rank's
@@ -21,8 +22,7 @@ the CPU over gloo, at a tiny size (d_model 32, 4 heads, kernel 5,
   the encoder block's apart, the outputs finite;
 - the raises JAX has: a non-causal or unbanded encoder on the sequence
   axis (the message names ``causal``), a halo past the block, mid-stack
-  ``cat`` and layers the pipeline does not divide; a tensor-parallel
-  count above 1;
+  ``cat`` and layers the pipeline does not divide;
 - the scratch entry module at D2 x S2 (four ranks) and the ``none`` one
   at P2 (two ranks) against one process at dropout 0: two epochs of
   fit, VALID greedy, TEST at beam 2; each micro-batch's and each
@@ -137,14 +137,17 @@ def test_required_halo(att, kernel):
     assert required_halo(64, 31) == 93
 
 
-@pytest.mark.parametrize("dp,pp,sp", [(2, 2, 1), (2, 1, 2), (1, 2, 2)])
-def test_rank_layout_is_make_mesh(dp, pp, sp):
+@pytest.mark.parametrize("dp,pp,sp,tp", [
+    (2, 2, 1, 1), (2, 1, 2, 1), (1, 2, 2, 1), (2, 1, 1, 2), (1, 2, 1, 2),
+    (1, 1, 2, 4), (2, 2, 1, 2)])
+def test_rank_layout_is_make_mesh(dp, pp, sp, tp):
     """Device r of JAX's mesh sits where the port puts world rank r, and
-    each axis's group lists the devices along that mesh axis."""
+    each axis's group lists the devices along that mesh axis (the model
+    axis innermost)."""
     import jax
     from tsasr_tpu.parallel.mesh import make_mesh
-    n = dp * pp * sp
-    mesh = make_mesh(dp=dp, sp=sp, pp=pp, devices=jax.devices()[:n])
+    n = dp * pp * sp * tp
+    mesh = make_mesh(dp=dp, tp=tp, sp=sp, pp=pp, devices=jax.devices()[:n])
     ids = np.vectorize(lambda d: d.id)(mesh.devices)
     names = list(mesh.axis_names)
     np.testing.assert_array_equal(
@@ -152,16 +155,16 @@ def test_rank_layout_is_make_mesh(dp, pp, sp):
             [mesh.shape[a] for a in names]).reshape(-1))
     for r in range(n):
         where = dict(zip(names, (int(i[0]) for i in np.nonzero(ids == r))))
-        coords = rank_coords(r, dp, pp, sp)
+        coords = rank_coords(r, dp, pp, sp, tp)
         for axis in ("data", "pipe", "seq", "model"):
             assert coords[axis] == where.get(axis, 0), (r, axis)
             if axis in where:
                 along = np.moveaxis(ids, names.index(axis), 0)
                 index = tuple(where[a] for a in names if a != axis)
-                assert axis_ranks(r, axis, dp, pp, sp) == \
+                assert axis_ranks(r, axis, dp, pp, sp, tp) == \
                     [int(x) for x in along[(slice(None),) + index]]
     with pytest.raises(ValueError, match="not in a mesh"):
-        rank_coords(n, dp, pp, sp)
+        rank_coords(n, dp, pp, sp, tp)
 
 
 @pytest.mark.parametrize("pad,strides,sp,want", [
@@ -299,13 +302,6 @@ def test_remat_under_an_axis_is_the_step_without(name):
     assert torch.equal(out, out_r)
     assert all((a is None and b is None) or torch.equal(a, b)
                for a, b in zip(grads, grads_r))
-
-
-def test_tensor_parallel_still_raises():
-    from tsasr_torch.training import experiment
-    with pytest.raises(NotImplementedError, match="next slice"):
-        experiment.parse_arguments([str(TORCH_YAML),
-                                    "--tensor_parallel_count", "2"])
 
 
 # ----------------------------------------------- four ranks, five layouts

@@ -21,6 +21,17 @@ of numpy arrays). Layout changes:
   collection) its buffers of the same names; flax's ``block_{i}`` is
   ``blocks.{i}``.
 
+Tensor parallelism (``parallel.tensor_parallel``): ``shard_state_dict``
+takes a whole ``state_dict`` to rank r's of a model axis of T ranks
+(each leaf the split rule names, ``parallel.mesh.param_split_dims``,
+becomes its r-th block; the rest stays whole), and
+``gather_state_dicts`` joins the T ranks' back. ``pointwise_in``'s
+output rows are the GLU's two halves (a, b): a rank's block is its block
+of each half, so the GLU stays on the rank, where a contiguous split
+(JAX's layout at T 2) would put a on rank 0 and b on rank 1. Together
+with ``params_from_flax``, a rank's weights come from the JAX package's
+numpy parameters.
+
 ``params_from_flax`` takes the whole variables dict (``{"params": ...,
 "batch_stats": ...}``) where the model has an ECAPA branch;
 ``params_to_flax`` leaves the statistics out and ``batch_stats_to_flax``
@@ -42,6 +53,8 @@ HF's Linear weight (out, k * in).
 
 import numpy as np
 import torch
+
+from tsasr_torch.parallel.mesh import param_split_dims
 
 
 def _t(x):
@@ -235,6 +248,50 @@ def wavlm_params_from_flax(tree):
                     c_out, k * c_in))
             out[f"tdnn.{name[5:]}.kernel.bias"] = _t(node["bias"])
     return out
+
+
+# --------------------------------------------- tensor-parallel shards
+def _halves(name):
+    """The blocks a split leaf's dim is made of: the GLU's two halves of
+    ``pointwise_in``, else one."""
+    return 2 if name.endswith("pointwise_in.weight") else 1
+
+
+def shard_tensor(name, full, dim, index, tp):
+    """Rank ``index``'s block of leaf ``name`` split along ``dim`` over
+    ``tp`` ranks (its block of each GLU half for ``pointwise_in``)."""
+    n = _halves(name)
+    parts = full.unflatten(dim, (n, -1)).chunk(tp, dim + 1)
+    return parts[index].flatten(dim, dim + 1)
+
+
+def gather_tensors(name, shards, dim):
+    """The inverse of ``shard_tensor``: the ranks' blocks of ``name`` in
+    rank order -> the whole leaf."""
+    n = _halves(name)
+    return torch.cat([s.unflatten(dim, (n, -1)) for s in shards],
+                     dim + 1).flatten(dim, dim + 1)
+
+
+def shard_state_dict(state_dict, index, tp, splits=None):
+    """Rank ``index``'s state of a whole ``state_dict`` on a model axis of
+    ``tp`` ranks; ``splits`` ({name: dim or None}) defaults to the split
+    rule on ``state_dict``'s own shapes. Leaves ``splits`` does not name
+    stay whole."""
+    if splits is None:
+        splits = param_split_dims(state_dict, tp)
+    return {k: v if splits.get(k) is None
+            else shard_tensor(k, v, splits[k], index, tp).clone()
+            for k, v in state_dict.items()}
+
+
+def gather_state_dicts(states, splits):
+    """The whole state of the ranks' ``states`` (in rank order), the
+    split leaves joined by ``splits`` (the whole model's
+    ``param_split_dims``), the others rank 0's."""
+    return {k: v if splits.get(k) is None
+            else gather_tensors(k, [s[k] for s in states], splits[k])
+            for k, v in states[0].items()}
 
 
 # torch module names -> flax module names, per path segment

@@ -124,6 +124,7 @@ struct Args {
   float *delta, *dqu, *dqv, *dk, *dv, *dp_part, *dp;
   int B, H, T, Dh;
   bool vec;                                // 16-byte copies are aligned
+  int h0;                                  // the first head's model index
 };
 
 // DP: padded head dim; NR: row groups of 16 in a tile (2 NR warps)
@@ -267,7 +268,8 @@ __device__ __forceinline__ void score_tile(
         float dprob = pd[nt][e];
         g_pd = prob;
         if (a.seed != nullptr) {
-          const bool keep = tsasr::dropout_keep(seed, a.thresh, b, h, i, j);
+          const bool keep =
+              tsasr::dropout_keep(seed, a.thresh, b, a.h0 + h, i, j);
           g_pd = keep ? prob * a.keep_scale : 0.f;
           dprob = keep ? dprob * a.keep_scale : 0.f;
         }
@@ -668,15 +670,16 @@ __global__ void tf32x3_matmul_kernel(const float* a, const float* b,
 // the forward; seed: one int64 on the device or null for no dropout).
 // Scratch: delta (B, H, T), dp_part of relpos_attention_bwd_dp_part_floats
 // floats. Outputs: dqu, dqv, dk, dv (B, H, T, Dh), dp (H, 2T-1, Dh). All
-// f32, contiguous, on the current device. Returns the CUDA error code of
-// the launches (0 on success).
+// f32, contiguous, on the current device. h0: the first head's index
+// among the model's, as the forward's. Returns the CUDA error code of the
+// launches (0 on success).
 extern "C" int relpos_attention_bwd(
     const float* qu, const float* qv, const float* k, const float* v,
     const float* p, const float* kp, const float* am, const float* out,
     const float* stats, const float* dout, const long long* seed,
     unsigned thresh, float keep_scale, float* delta, float* dqu, float* dqv,
     float* dk, float* dv, float* dp_part, float* dp, int B, int H, int T,
-    int Dh, float scale, void* stream) {
+    int Dh, float scale, void* stream, int h0) {
   if (B < 1 || H < 1 || T < 1 || Dh < 1 || Dh > 128 || B > 65535 ||
       H > 65535)
     return (int)cudaErrorInvalidValue;
@@ -684,7 +687,7 @@ extern "C" int relpos_attention_bwd(
                    aligned16(k) && aligned16(v) && aligned16(p) &&
                    aligned16(dout);
   Args a{qu, qv, k, v, p, kp, am, out, stats, dout, seed, thresh, keep_scale,
-         scale, delta, dqu, dqv, dk, dv, dp_part, dp, B, H, T, Dh, vec};
+         scale, delta, dqu, dqv, dk, dv, dp_part, dp, B, H, T, Dh, vec, h0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (Dh <= 32)
@@ -833,6 +836,7 @@ struct Args16 {
   int B, H, T, Dh;
   bool vec;                                // 16-byte copies are aligned
   bf16 *ds, *pd;                           // the resident route's scratch
+  int h0;                                  // the first head's model index
 };
 
 // DP: padded head dim; NR: row groups of 16 in a tile (2 NR warps). Tile
@@ -958,7 +962,8 @@ __device__ __forceinline__ void score_tile16(
         float dprob = pd[nt][e];
         g_pd = prob;
         if (a.seed != nullptr) {
-          const bool keep = tsasr::dropout_keep(seed, a.thresh, b, h, i, j);
+          const bool keep =
+              tsasr::dropout_keep(seed, a.thresh, b, a.h0 + h, i, j);
           g_pd = keep ? prob * a.keep_scale : 0.f;
           dprob = keep ? dprob * a.keep_scale : 0.f;
         }
@@ -1566,7 +1571,8 @@ __global__ void __launch_bounds__(Rows16<DP>::kThreads,
             expf(x[j][k] + amc[j][k] + kpc[j] - m[k]) * linv[k];
         float pdr = pr, dpr = g[j][k];
         if (drop) {
-          const bool keep = tsasr::dropout_keep(seed, a.thresh, b, h, i, c);
+          const bool keep =
+              tsasr::dropout_keep(seed, a.thresh, b, a.h0 + h, i, c);
           pdr = keep ? pr * a.keep_scale : 0.f;
           dpr = keep ? dpr * a.keep_scale : 0.f;
         }
@@ -1860,13 +1866,13 @@ Args16 bf16_args(const __nv_bfloat16* qu, const __nv_bfloat16* qv,
                  float* delta, __nv_bfloat16* dqu, __nv_bfloat16* dqv,
                  __nv_bfloat16* dk, __nv_bfloat16* dv, float* dp_part,
                  __nv_bfloat16* dp, int B, int H, int T, int Dh,
-                 float scale) {
+                 float scale, int h0) {
   const bool vec = Dh % 8 == 0 && aligned16(qu) && aligned16(qv) &&
                    aligned16(k) && aligned16(v) && aligned16(p) &&
                    aligned16(dout);
   return Args16{qu,  qv,  k,  v,  p,       dout, kp, am, stats,
                 seed, thresh, keep_scale, scale, delta, dqu, dqv, dk, dv,
-                dp_part, dp, B, H, T, Dh, vec};
+                dp_part, dp, B, H, T, Dh, vec, nullptr, nullptr, h0};
 }
 
 bool bf16_shape_ok(int B, int H, int T, int Dh) {
@@ -1892,11 +1898,11 @@ extern "C" int relpos_attention_bwd_bf16(
     const long long* seed, unsigned thresh, float keep_scale, float* delta,
     __nv_bfloat16* dqu, __nv_bfloat16* dqv, __nv_bfloat16* dk,
     __nv_bfloat16* dv, float* dp_part, __nv_bfloat16* dp, int B, int H,
-    int T, int Dh, float scale, void* stream) {
+    int T, int Dh, float scale, void* stream, int h0) {
   if (!bf16_shape_ok(B, H, T, Dh)) return (int)cudaErrorInvalidValue;
   Args16 a = bf16_args(qu, qv, k, v, p, kp, am, stats, dout, seed, thresh,
                        keep_scale, delta, dqu, dqv, dk, dv, dp_part, dp, B,
-                       H, T, Dh, scale);
+                       H, T, Dh, scale, h0);
   a.ds = reinterpret_cast<bf16*>(
       dp_part + relpos_attention_bwd_dp_part_floats(B, H, T, Dh));
   a.pd = a.ds + (size_t)B * H * T * scratch_ld(T);
@@ -1935,11 +1941,11 @@ extern "C" int relpos_attention_bwd_bf16_long(
     const long long* seed, unsigned thresh, float keep_scale, float* delta,
     __nv_bfloat16* dqu, __nv_bfloat16* dqv, __nv_bfloat16* dk,
     __nv_bfloat16* dv, float* dp_part, __nv_bfloat16* dp, int B, int H,
-    int T, int Dh, float scale, void* stream) {
+    int T, int Dh, float scale, void* stream, int h0) {
   if (!bf16_shape_ok(B, H, T, Dh)) return (int)cudaErrorInvalidValue;
   const Args16 a = bf16_args(qu, qv, k, v, p, kp, am, stats, dout, seed,
                              thresh, keep_scale, delta, dqu, dqv, dk, dv,
-                             dp_part, dp, B, H, T, Dh, scale);
+                             dp_part, dp, B, H, T, Dh, scale, h0);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Dh <= 32) return (int)launch16<32, 4>(a, s);
   if (Dh <= 64) return (int)launch16<64, 4>(a, s);

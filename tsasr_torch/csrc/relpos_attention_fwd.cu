@@ -119,6 +119,7 @@ struct Args {
   float keep_scale, scale;
   int H, T, Dh;
   bool vec;                                // 16-byte copies are aligned
+  int h0;                                  // the first head's model index
 };
 
 constexpr int kNR = 2;                     // row groups of a query tile
@@ -281,7 +282,7 @@ __global__ void __launch_bounds__(Cfg<DP>::kThreads)
         s[nt][e] = pr;
         const int i = i0 + r0 + c_row(e), j = j0 + c0 + nt * 8 + c_col(e);
         if (drop && i < T && j < T)
-          s[nt][e] = tsasr::dropout_keep(seed, a.thresh, b, h, i, j)
+          s[nt][e] = tsasr::dropout_keep(seed, a.thresh, b, a.h0 + h, i, j)
                          ? pr * a.keep_scale
                          : 0.f;
       }
@@ -366,7 +367,7 @@ bool aligned16(const void* x) { return ((uintptr_t)x & 15) == 0; }
 __global__ void dropout_mask_kernel(const long long* __restrict__ seed_ptr,
                                     uint32_t thresh,
                                     unsigned char* __restrict__ keep, int B,
-                                    int H, int T) {
+                                    int H, int T, int h0) {
   const uint64_t seed = (uint64_t)seed_ptr[0];
   const size_t n = (size_t)B * H * T * T;
   for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < n;
@@ -374,7 +375,7 @@ __global__ void dropout_mask_kernel(const long long* __restrict__ seed_ptr,
     const int j = (int)(e % T), i = (int)((e / T) % T);
     const int h = (int)((e / ((size_t)T * T)) % H);
     const int b = (int)(e / ((size_t)T * T * H));
-    keep[e] = tsasr::dropout_keep(seed, thresh, b, h, i, j) ? 1 : 0;
+    keep[e] = tsasr::dropout_keep(seed, thresh, b, h0 + h, i, j) ? 1 : 0;
   }
 }
 
@@ -419,7 +420,9 @@ __global__ void tf32x3_chain_kernel(const float* a, const float* b,
 // q_u, q_v, k, v, out: (B, H, T, Dh); p: (H, 2T-1, Dh); kp: (B, T);
 // am: (T, T); all f32, contiguous, on the current device. stats
 // (B, H, T, 2) may be null. seed: one int64 on the device, or null for no dropout;
-// thresh = floor(rate * 2^32), keep_scale = 1 / (1 - rate). Returns the
+// thresh = floor(rate * 2^32), keep_scale = 1 / (1 - rate); h0: the
+// first head's index among the model's (a tensor-parallel rank launches
+// heads h0..h0+H-1), which the dropout counts heads from. Returns the
 // CUDA error code of the launch (0 on success). 1 <= Dh <= 128.
 extern "C" int relpos_attention_fwd(const float* qu, const float* qv,
                                     const float* k, const float* v,
@@ -428,14 +431,14 @@ extern "C" int relpos_attention_fwd(const float* qu, const float* qv,
                                     unsigned thresh, float keep_scale,
                                     const long long* seed, int B, int H,
                                     int T, int Dh, float scale,
-                                    void* stream) {
+                                    void* stream, int h0) {
   if (B < 1 || H < 1 || T < 1 || Dh < 1 || Dh > 128 || B > 65535 ||
       H > 65535)
     return (int)cudaErrorInvalidValue;
   const bool vec = Dh % 4 == 0 && aligned16(qu) && aligned16(qv) &&
                    aligned16(k) && aligned16(v) && aligned16(p);
   Args a{qu, qv, k, v, p, kp, am, out, stats, seed, thresh, keep_scale,
-         scale, H, T, Dh, vec};
+         scale, H, T, Dh, vec, h0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (Dh <= 32)
@@ -447,13 +450,14 @@ extern "C" int relpos_attention_fwd(const float* qu, const float* qv,
   return (int)err;
 }
 
-// keep: (B, H, T, T) uint8, written 1 where the dropout keeps an element.
+// keep: (B, H, T, T) uint8, written 1 where the dropout keeps an element,
+// the heads counted from h0.
 extern "C" int relpos_dropout_mask(const long long* seed, unsigned thresh,
                                    unsigned char* keep, int B, int H, int T,
-                                   void* stream) {
+                                   void* stream, int h0) {
   if (B < 1 || H < 1 || T < 1) return (int)cudaErrorInvalidValue;
   dropout_mask_kernel<<<1024, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      seed, thresh, keep, B, H, T);
+      seed, thresh, keep, B, H, T, h0);
   return (int)cudaGetLastError();
 }
 
@@ -599,6 +603,7 @@ struct Args16 {
   float keep_scale, scale;
   int H, T, Dh;
   bool vec;                                // 16-byte copies are aligned
+  int h0;                                  // the first head's model index
 };
 
 // DP: padded head dim; sizes in bf16 elements unless named in floats
@@ -763,7 +768,8 @@ __global__ void __launch_bounds__(Cfg16<DP>::kThreads)
             const float pr = expf(s[nt][e] - m[q]) * inv[q];
             const int i = i0 + r0 + c_row(e), j = j0 + c0 + nt * 8 + c_col(e);
             s[nt][e] = drop && i < T && j < T
-                           ? (tsasr::dropout_keep(seed, a.thresh, b, h, i, j)
+                           ? (tsasr::dropout_keep(seed, a.thresh, b,
+                                                  a.h0 + h, i, j)
                                   ? pr * a.keep_scale
                                   : 0.f)
                            : pr;
@@ -1108,7 +1114,7 @@ __global__ void __launch_bounds__(Res16<DP>::kThreads, 1)
             const int i = i0 + warp + k * C::kWarps;
             pr[j][k] = c < T ? pr[j][k] * inv[k] : 0.f;
             if (drop && c < T && i < T)
-              pr[j][k] = tsasr::dropout_keep(seed, a.thresh, b, h, i, c)
+              pr[j][k] = tsasr::dropout_keep(seed, a.thresh, b, a.h0 + h, i, c)
                              ? pr[j][k] * a.keep_scale
                              : 0.f;
           }
@@ -1240,11 +1246,11 @@ Args16 bf16_args(const __nv_bfloat16* qu, const __nv_bfloat16* qv,
                  const __nv_bfloat16* p, const float* kp, const float* am,
                  __nv_bfloat16* out, float* stats, unsigned thresh,
                  float keep_scale, const long long* seed, int H, int T,
-                 int Dh, float scale) {
+                 int Dh, float scale, int h0) {
   const bool vec = Dh % 8 == 0 && aligned16(qu) && aligned16(qv) &&
                    aligned16(k) && aligned16(v) && aligned16(p);
   return Args16{qu, qv, k, v, p, kp, am, out, stats, seed, thresh,
-                keep_scale, scale, H, T, Dh, vec};
+                keep_scale, scale, H, T, Dh, vec, h0};
 }
 
 bool bf16_shape_ok(int B, int H, int T, int Dh) {
@@ -1264,10 +1270,10 @@ extern "C" int relpos_attention_fwd_bf16(
     const __nv_bfloat16* v, const __nv_bfloat16* p, const float* kp,
     const float* am, __nv_bfloat16* out, float* stats, unsigned thresh,
     float keep_scale, const long long* seed, int B, int H, int T, int Dh,
-    float scale, void* stream) {
+    float scale, void* stream, int h0) {
   if (!bf16_shape_ok(B, H, T, Dh)) return (int)cudaErrorInvalidValue;
   const Args16 a = bf16_args(qu, qv, k, v, p, kp, am, out, stats, thresh,
-                             keep_scale, seed, H, T, Dh, scale);
+                             keep_scale, seed, H, T, Dh, scale, h0);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Dh <= 32) return (int)launch_res16<32>(a, B, s);
   if (Dh <= 64) return (int)launch_res16<64>(a, B, s);
@@ -1289,10 +1295,10 @@ extern "C" int relpos_attention_fwd_bf16_long(
     const __nv_bfloat16* v, const __nv_bfloat16* p, const float* kp,
     const float* am, __nv_bfloat16* out, float* stats, unsigned thresh,
     float keep_scale, const long long* seed, int B, int H, int T, int Dh,
-    float scale, void* stream) {
+    float scale, void* stream, int h0) {
   if (!bf16_shape_ok(B, H, T, Dh)) return (int)cudaErrorInvalidValue;
   const Args16 a = bf16_args(qu, qv, k, v, p, kp, am, out, stats, thresh,
-                             keep_scale, seed, H, T, Dh, scale);
+                             keep_scale, seed, H, T, Dh, scale, h0);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Dh <= 32) return (int)launch16<32>(a, B, s);
   if (Dh <= 64) return (int)launch16<64>(a, B, s);

@@ -26,7 +26,11 @@ low, seed high))``; an element is kept iff that u32 is at least
 ``1 / (1 - rate)``, as the JAX kernel does with the TPU's own bits. The
 forward and the backward regenerate one mask bit for bit, and
 ``philox_keep_mask`` computes the same bits in int64 tensor arithmetic,
-so the plain version and the kernels drop the same elements.
+so the plain version and the kernels drop the same elements. ``h0``
+(every C entry's last argument, the plain version's keyword) is the
+first head of the launch among the whole model's: a tensor-parallel
+rank launches heads [h0, h0 + H) of them, and h counts from h0, so it
+draws the masks the whole launch draws for those heads.
 
 bf16 (the JAX package's production precision): both sources also hold a
 bf16 variant (``relpos_attention_fwd_bf16``, ``relpos_attention_bwd_bf16``)
@@ -171,14 +175,15 @@ def dropout_threshold(rate):
     return int(rate * float(2 ** 32)) & MASK32
 
 
-def philox_keep_mask(seed, B, H, T, rate, device=None):
-    """(B, H, T, T) bool keep mask of the fused attention's dropout."""
+def philox_keep_mask(seed, B, H, T, rate, device=None, h0=0):
+    """(B, H, T, T) bool keep mask of the fused attention's dropout, the
+    heads counted from ``h0``."""
     seed = _seed_tensor(seed, device or "cpu")
     ar = functools.partial(torch.arange, dtype=torch.int64, device=seed.device)
     shape = (B, H, T, T)
     j = ar(T).view(1, 1, 1, T).expand(shape)
     i = ar(T).view(1, 1, T, 1).expand(shape)
-    h = ar(H).view(1, H, 1, 1).expand(shape)
+    h = (h0 + ar(H)).view(1, H, 1, 1).expand(shape)
     b = ar(B).view(B, 1, 1, 1).expand(shape)
     word, *_ = philox4x32(j, i, h, b, seed & MASK32, (seed >> 32) & MASK32)
     return word >= dropout_threshold(rate)
@@ -192,18 +197,19 @@ def _seed_tensor(seed, device):
 
 # ------------------------------------------------------------ plain version
 def relpos_attention_reference(q_u, q_v, k, v, p, kp_add, am_add, scale,
-                               seed=0, rate=0.0):
+                               seed=0, rate=0.0, h0=0):
     """Plain PyTorch version of the kernels, dropout included.
 
     q_u, q_v, k, v: (B, H, T, Dh); p: (H, 2T-1, Dh); kp_add: (B, T) and
     am_add: (T, T) additive f32 masks (0 or -1e9); seed: int or integer
-    tensor; rate: dropout rate on the probabilities. bf16 operands round
-    as the bf16 kernels do, with ``relpos_attention_bwd_bf16`` as the
-    backward.
+    tensor; rate: dropout rate on the probabilities; h0: the first
+    head's index among the model's, which the dropout counts from. bf16
+    operands round as the bf16 kernels do, with
+    ``relpos_attention_bwd_bf16`` as the backward.
     """
     if q_u.dtype == torch.bfloat16:
         return _PlainBf16Attention.apply(q_u, q_v, k, v, p, kp_add, am_add,
-                                         seed, scale, rate)
+                                         seed, scale, rate, h0)
     B, H, T, _ = q_u.shape
     ac = torch.einsum("bhtd,bhsd->bhts", q_u, k)
     bd = rel_shift(torch.einsum("bhtd,hsd->bhts", q_v, p), klen=T)
@@ -211,7 +217,7 @@ def relpos_attention_reference(q_u, q_v, k, v, p, kp_add, am_add, scale,
               + kp_add[:, None, None, :])
     probs = torch.softmax(scores, dim=-1, dtype=f32_or_wider(scores))
     if rate > 0.0:
-        keep = philox_keep_mask(seed, B, H, T, rate, q_u.device)
+        keep = philox_keep_mask(seed, B, H, T, rate, q_u.device, h0)
         probs = torch.where(keep, probs * (1.0 / (1.0 - rate)), 0.0)
     return torch.einsum("bhts,bhsd->bhtd", probs.to(v.dtype), v)
 
@@ -230,12 +236,12 @@ def _bf16_probs(q_u, q_v, k, p, kp_add, am_add, scale):
     return torch.softmax(scores, dim=-1)
 
 
-def _bf16_dropped(probs, seed, rate):
+def _bf16_dropped(probs, seed, rate, h0=0):
     """(keep mask or None, probabilities after dropout, f32)."""
     if rate <= 0.0:
         return None, probs
     B, H, T, _ = probs.shape
-    keep = philox_keep_mask(seed, B, H, T, rate, probs.device)
+    keep = philox_keep_mask(seed, B, H, T, rate, probs.device, h0)
     return keep, torch.where(keep, probs * (1.0 / (1.0 - rate)), 0.0)
 
 
@@ -246,12 +252,12 @@ def _bf16_product(equation, a, b):
 
 
 def relpos_attention_fwd_bf16(q_u, q_v, k, v, p, kp_add, am_add, scale,
-                              seed=0, rate=0.0):
+                              seed=0, rate=0.0, h0=0):
     """Plain bf16 forward (JAX ``_fwd_kernel`` with bf16 operands): the
     dropped probabilities rounded to bf16, ``@ v`` summed in f32, the
     output rounded to bf16."""
     probs = _bf16_probs(q_u, q_v, k, p, kp_add, am_add, scale)
-    _, pd = _bf16_dropped(probs, seed, rate)
+    _, pd = _bf16_dropped(probs, seed, rate, h0)
     return _bf16_product("bhts,bhsd->bhtd", pd, v).to(torch.bfloat16)
 
 
@@ -266,7 +272,7 @@ def unshift(ds, P):
 
 
 def relpos_attention_bwd_bf16(q_u, q_v, k, v, p, kp_add, am_add, do, scale,
-                              seed=0, rate=0.0):
+                              seed=0, rate=0.0, h0=0):
     """Plain bf16 backward (JAX ``_bwd_kernel`` with bf16 operands):
     dv = bf16(Pd)^T do and dP = do v^T summed in f32; the softmax
     jacobian in f32; dS rounded to bf16 for dq_u and dk; dS un-shifted
@@ -276,7 +282,7 @@ def relpos_attention_bwd_bf16(q_u, q_v, k, v, p, kp_add, am_add, do, scale,
     bf16 = torch.bfloat16
     do = do.to(bf16)
     probs = _bf16_probs(q_u, q_v, k, p, kp_add, am_add, scale)
-    keep, pd = _bf16_dropped(probs, seed, rate)
+    keep, pd = _bf16_dropped(probs, seed, rate, h0)
     dv = _bf16_product("bhts,bhtd->bhsd", pd, do)
     dprobs = _bf16_product("bhtd,bhsd->bhts", do, v)
     if keep is not None:
@@ -297,17 +303,18 @@ class _PlainBf16Attention(torch.autograd.Function):
     give."""
 
     @staticmethod
-    def forward(ctx, q_u, q_v, k, v, p, kp_add, am_add, seed, scale, rate):
+    def forward(ctx, q_u, q_v, k, v, p, kp_add, am_add, seed, scale, rate,
+                h0):
         ctx.save_for_backward(q_u, q_v, k, v, p, kp_add, am_add)
-        ctx.seed, ctx.scale, ctx.rate = seed, scale, rate
+        ctx.seed, ctx.scale, ctx.rate, ctx.h0 = seed, scale, rate, h0
         return relpos_attention_fwd_bf16(q_u, q_v, k, v, p, kp_add, am_add,
-                                         scale, seed, rate)
+                                         scale, seed, rate, h0)
 
     @staticmethod
     def backward(ctx, do):
         grads = relpos_attention_bwd_bf16(*ctx.saved_tensors, do, ctx.scale,
-                                          ctx.seed, ctx.rate)
-        return (*grads, None, None, None, None, None)
+                                          ctx.seed, ctx.rate, ctx.h0)
+        return (*grads, None, None, None, None, None, None)
 
 
 # ------------------------------------------------------------------ kernels
@@ -319,7 +326,7 @@ def _fwd_kernel(entry="relpos_attention_fwd"):
     fn = getattr(_build.load(SOURCE), entry)
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_uint, ctypes.c_float,
                                            ctypes.c_void_p] + \
-        [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+        [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int]
     fn.restype = ctypes.c_int
     return fn
 
@@ -328,7 +335,7 @@ def _fwd_kernel(entry="relpos_attention_fwd"):
 def _mask_kernel():
     fn = _build.load(SOURCE).relpos_dropout_mask
     fn.argtypes = [ctypes.c_void_p, ctypes.c_uint, ctypes.c_void_p] + \
-        [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        [ctypes.c_int] * 3 + [ctypes.c_void_p, ctypes.c_int]
     fn.restype = ctypes.c_int
     return fn
 
@@ -337,8 +344,8 @@ def _mask_kernel():
 def _bwd_kernel():
     fn = _build.load(BWD_SOURCE).relpos_attention_bwd
     fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_uint, ctypes.c_float] + \
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_float,
-                                                       ctypes.c_void_p]
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
+            ctypes.c_float, ctypes.c_void_p, ctypes.c_int]
     fn.restype = ctypes.c_int
     return fn
 
@@ -349,8 +356,8 @@ def _bwd_kernel_bf16(entry="relpos_attention_bwd_bf16"):
     long route (``relpos_attention_bwd_bf16_long``); one signature."""
     fn = getattr(_build.load(BWD_SOURCE), entry)
     fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_uint, ctypes.c_float] + \
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_float,
-                                                       ctypes.c_void_p]
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
+            ctypes.c_float, ctypes.c_void_p, ctypes.c_int]
     fn.restype = ctypes.c_int
     return fn
 
@@ -407,7 +414,7 @@ def _dropout_args(rate):
 
 
 def _launch_fwd(q_u, q_v, k, v, p, kp_add, am_add, seed, scale, rate,
-                want_stats):
+                want_stats, h0=0):
     _check(q_u, q_v, k, v, p, kp_add, am_add)
     B, H, T, Dh = q_u.shape
     thresh, keep_scale = _dropout_args(rate)
@@ -425,7 +432,7 @@ def _launch_fwd(q_u, q_v, k, v, p, kp_add, am_add, seed, scale, rate,
             p.data_ptr(), kp_add.data_ptr(), am_add.data_ptr(),
             out.data_ptr(), 0 if stats is None else stats.data_ptr(),
             thresh, keep_scale, 0 if seed_t is None else seed_t.data_ptr(),
-            B, H, T, Dh, float(scale), _stream(q_u.device))
+            B, H, T, Dh, float(scale), _stream(q_u.device), int(h0))
     _build.check_launch(err, name)
     global launches, bf16_launches, bf16_long_launches
     if not bf16:
@@ -438,7 +445,7 @@ def _launch_fwd(q_u, q_v, k, v, p, kp_add, am_add, seed, scale, rate,
 
 
 def _launch_bwd(q_u, q_v, k, v, p, kp_add, am_add, out, stats, do, seed_t,
-                scale, rate):
+                scale, rate, h0=0):
     _check(q_u, q_v, k, v, p, kp_add, am_add, do)
     B, H, T, Dh = q_u.shape
     thresh, keep_scale = _dropout_args(rate)
@@ -463,7 +470,8 @@ def _launch_bwd(q_u, q_v, k, v, p, kp_add, am_add, out, stats, do, seed_t,
                 0 if seed_t is None else seed_t.data_ptr(), thresh,
                 keep_scale, delta.data_ptr(), dqu.data_ptr(), dqv.data_ptr(),
                 dk.data_ptr(), dv.data_ptr(), dp_part.data_ptr(),
-                dp.data_ptr(), B, H, T, Dh, float(scale), _stream(q_u.device))
+                dp.data_ptr(), B, H, T, Dh, float(scale), _stream(q_u.device),
+                int(h0))
         _build.check_launch(err, name)
         global bf16_bwd_launches, bf16_bwd_long_launches
         if resident:
@@ -479,21 +487,23 @@ def _launch_bwd(q_u, q_v, k, v, p, kp_add, am_add, out, stats, do, seed_t,
             0 if seed_t is None else seed_t.data_ptr(), thresh, keep_scale,
             delta.data_ptr(), dqu.data_ptr(), dqv.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), dp_part.data_ptr(), dp.data_ptr(),
-            B, H, T, Dh, float(scale), _stream(q_u.device))
+            B, H, T, Dh, float(scale), _stream(q_u.device), int(h0))
     _build.check_launch(err, "relpos_attention_bwd")
     global bwd_launches
     bwd_launches += 1
     return dqu, dqv, dk, dv, dp
 
 
-def dropout_mask_cuda(seed, B, H, T, rate, device):
-    """(B, H, T, T) bool keep mask as the CUDA kernels draw it (a test
-    hook: it compares the kernels' Philox with ``philox_keep_mask``)."""
+def dropout_mask_cuda(seed, B, H, T, rate, device, h0=0):
+    """(B, H, T, T) bool keep mask as the CUDA kernels draw it, the heads
+    counted from ``h0`` (a test hook: it compares the kernels' Philox
+    with ``philox_keep_mask``)."""
     seed_t = _seed_tensor(seed, device)
     mask = torch.empty(B, H, T, T, dtype=torch.uint8, device=device)
     with torch.cuda.device(device):
         err = _mask_kernel()(seed_t.data_ptr(), dropout_threshold(rate),
-                             mask.data_ptr(), B, H, T, _stream(device))
+                             mask.data_ptr(), B, H, T, _stream(device),
+                             int(h0))
     _build.check_launch(err, "relpos_dropout_mask")
     return mask.bool()
 
@@ -503,11 +513,13 @@ class _FusedRelPosAttention(torch.autograd.Function):
     masks, the seed, ``scale`` and ``rate`` get no gradient."""
 
     @staticmethod
-    def forward(ctx, q_u, q_v, k, v, p, kp_add, am_add, seed, scale, rate):
+    def forward(ctx, q_u, q_v, k, v, p, kp_add, am_add, seed, scale, rate,
+                h0):
         out, stats, seed_t = _launch_fwd(q_u, q_v, k, v, p, kp_add, am_add,
-                                         seed, scale, rate, want_stats=True)
+                                         seed, scale, rate, want_stats=True,
+                                         h0=h0)
         ctx.save_for_backward(q_u, q_v, k, v, p, kp_add, am_add, out, stats)
-        ctx.seed_t, ctx.scale, ctx.rate = seed_t, scale, rate
+        ctx.seed_t, ctx.scale, ctx.rate, ctx.h0 = seed_t, scale, rate, h0
         return out
 
     @staticmethod
@@ -517,29 +529,32 @@ class _FusedRelPosAttention(torch.autograd.Function):
         saved = ctx.saved_tensors
         # the JAX custom VJP casts the output gradient to q's dtype
         do = do.to(saved[0].dtype).contiguous()
-        grads = _launch_bwd(*saved, do, ctx.seed_t, ctx.scale, ctx.rate)
-        return (*grads, None, None, None, None, None)
+        grads = _launch_bwd(*saved, do, ctx.seed_t, ctx.scale, ctx.rate,
+                            ctx.h0)
+        return (*grads, None, None, None, None, None, None)
 
 
 def fused_relpos_attention(q_u, q_v, k, v, p, kp_add, am_add, seed, scale,
-                           rate):
+                           rate, h0=0):
     """Fused rel-pos attention, mirroring the JAX signature.
 
     ``seed`` (int or integer tensor) keys the dropout mask, which the
     backward regenerates; ``rate`` is the dropout rate on the
-    probabilities (0 in eval). Returns (B, H, T, Dh) in q_u's dtype: f32
-    or bf16 operands (the masks f32), each to its own kernels.
+    probabilities (0 in eval); ``h0`` is the first head's index among
+    the model's (a tensor-parallel rank's heads), which the mask counts
+    from. Returns (B, H, T, Dh) in q_u's dtype: f32 or bf16 operands
+    (the masks f32), each to its own kernels.
     """
     if q_u.device.type == "cpu":
         return relpos_attention_reference(q_u, q_v, k, v, p, kp_add, am_add,
-                                          scale, seed, rate)
+                                          scale, seed, rate, h0)
     if q_u.device.type != "cuda":
         raise ValueError(f"unsupported device {q_u.device}")
     needs_grad = torch.is_grad_enabled() and any(
         t.requires_grad for t in (q_u, q_v, k, v, p))
     if needs_grad:
         return _FusedRelPosAttention.apply(q_u, q_v, k, v, p, kp_add, am_add,
-                                           seed, scale, rate)
+                                           seed, scale, rate, h0)
     out, _, _ = _launch_fwd(q_u, q_v, k, v, p, kp_add, am_add, seed, scale,
-                            rate, want_stats=False)
+                            rate, want_stats=False, h0=h0)
     return out

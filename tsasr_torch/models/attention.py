@@ -54,8 +54,10 @@ from torch import nn
 
 from tsasr_torch.kernels.relpos_attention import fused_relpos_attention
 from tsasr_torch.kernels.relpos_attention import rel_shift as _rel_shift
-from tsasr_torch.models.layers import Linear
+from tsasr_torch.models.layers import Linear, linear
 from tsasr_torch.ops.dropout import Dropout
+from tsasr_torch.parallel.tensor_parallel import (copy_to_model,
+                                                  rank_slice, row_linear)
 from tsasr_torch.utils.precision import cast, f32_or_wider
 
 ATTN_FILL = -1e9
@@ -83,7 +85,17 @@ def _past_pos_encoding(n, emb_dim, device=None):
 
 
 class RelPosMHAXL(nn.Module):
-    """Relative-position multi-head self-attention."""
+    """Relative-position multi-head self-attention.
+
+    Split over a model axis (``tp``, ``parallel.tensor_parallel``): the
+    rank computes heads [h0, h0 + H/T) (its rows of ``qkv_proj``, of
+    ``pos_proj`` and of the position biases), with the whole model's
+    score scale and dropout counted from ``h0``, and ``out_proj``'s
+    partial products are summed before its bias."""
+
+    TP_SPLIT = ("qkv_proj.weight", "out_proj.weight")
+    TP_PARTS = ("pos_proj.weight", "pos_bias_u", "pos_bias_v")
+    tp = None
 
     def __init__(self, embed_dim, num_heads, dropout=0.0, dropout_bits=32,
                  fused=False, mask_pos_future=False, att_context_size=0,
@@ -108,6 +120,20 @@ class RelPosMHAXL(nn.Module):
         self.pos_bias_v = nn.Parameter(torch.zeros(num_heads, head_dim))
         self.out_proj = Linear(embed_dim, embed_dim, compute_dtype=dtype)
 
+    def check_tensor_parallel(self, tp):
+        """A rank holds whole heads: ``tp`` must divide them."""
+        if self.num_heads % tp:
+            raise ValueError(f"a model axis of {tp} does not divide "
+                             f"{self.num_heads} heads")
+
+    def heads(self):
+        """(h0, n): the first of the heads this module computes and their
+        count; all of them, or a split module's rank's."""
+        if self.tp is None:
+            return 0, self.num_heads
+        n = self.num_heads // self.tp.size
+        return self.tp.index * n, n
+
     def forward(self, x, pos_emb, key_padding_mask=None, attn_mask=None,
                 deterministic=True, generator=None, kv_cache=None,
                 return_attn=False):
@@ -123,15 +149,28 @@ class RelPosMHAXL(nn.Module):
         probs), new cache).
         """
         B, T, D = x.shape
-        H = self.num_heads
-        Dh = D // H
+        h0, H = self.heads()
+        Dh = self.embed_dim // self.num_heads
+        if self.tp is not None:
+            if kv_cache is not None:
+                raise NotImplementedError("a split attention does not "
+                                          "stream; serve the whole model")
+            x = copy_to_model(x, self.tp)
         q, k, v = self.qkv_proj(x).reshape(B, T, H, 3 * Dh).split(Dh, dim=-1)
-        q_u = q + cast(self.pos_bias_u, self.dtype)
-        q_v = q + cast(self.pos_bias_v, self.dtype)
+        bias_u, bias_v = self.pos_bias_u, self.pos_bias_v
+        if self.tp is not None:     # a whole slice still costs a backward
+            bias_u, bias_v = bias_u[h0:h0 + H], bias_v[h0:h0 + H]
+        q_u = q + cast(bias_u, self.dtype)
+        q_v = q + cast(bias_v, self.dtype)
         scale = 1.0 / math.sqrt(self.embed_dim)
         if kv_cache is not None:
             return self._streaming_attention(q_u, q_v, k, v, kv_cache, scale)
-        p_k = self.pos_proj(pos_emb).reshape(-1, H, Dh)     # (2T-1, H, Dh)
+        if self.tp is None:
+            p_k = self.pos_proj(pos_emb)
+        else:
+            p_k = linear(pos_emb, self.pos_proj.weight[h0 * Dh:(h0 + H) * Dh],
+                         None, self.dtype)
+        p_k = p_k.reshape(-1, H, Dh)                        # (2T-1, H, Dh)
         if self.att_context_size > 0:
             pos = torch.arange(T, device=x.device)
             far = (pos[:, None] - pos[None, :]) >= self.att_context_size
@@ -148,8 +187,8 @@ class RelPosMHAXL(nn.Module):
                                      device=generator.device)
             out = self._fused_attention(q_u, q_v, k, v, p_k,
                                         key_padding_mask, attn_mask, scale,
-                                        seed, rate)
-            return self.out_proj(out), None
+                                        seed, rate, h0)
+            return self._out_proj(out), None
 
         ac = torch.einsum("bthd,bshd->bhts", q_u, k)
         bd = _rel_shift(torch.einsum("bthd,shd->bhts", q_v, p_k), klen=T,
@@ -161,13 +200,20 @@ class RelPosMHAXL(nn.Module):
             scores = scores.masked_fill(key_padding_mask[:, None, None, :],
                                         ATTN_FILL)
         attn = torch.softmax(scores, dim=-1, dtype=f32_or_wider(scores))
-        attn = self.dropout(cast(attn, self.dtype), deterministic, generator)
-        out = torch.einsum("bhts,bshd->bthd", attn, v).reshape(B, T, D)
-        return self.out_proj(out), attn
+        attn = self.dropout(cast(attn, self.dtype), deterministic, generator,
+                            None if self.tp is None
+                            else (1, h0, self.num_heads))
+        out = torch.einsum("bhts,bshd->bthd", attn, v).reshape(B, T, H * Dh)
+        return self._out_proj(out), attn
+
+    def _out_proj(self, out):
+        if self.tp is None:
+            return self.out_proj(out)
+        return row_linear(self.out_proj, out, self.tp)
 
     @staticmethod
     def _fused_attention(q_u, q_v, k, v, p_k, key_padding_mask, attn_mask,
-                         scale, seed, rate):
+                         scale, seed, rate, h0=0):
         B, T, H, Dh = q_u.shape
         zero = torch.zeros((), device=q_u.device)
         fill = torch.full((), ATTN_FILL, device=q_u.device)
@@ -179,7 +225,7 @@ class RelPosMHAXL(nn.Module):
         out = fused_relpos_attention(
             *(t.transpose(1, 2).contiguous() for t in (q_u, q_v, k, v)),
             p_k.transpose(0, 1).contiguous(), kp_add, am_add, seed=seed,
-            scale=scale, rate=rate)
+            scale=scale, rate=rate, h0=h0)
         return out.transpose(1, 2).reshape(B, T, H * Dh)
 
     def _streaming_attention(self, q_u, q_v, k_new, v_new, kv_cache, scale):
@@ -226,7 +272,15 @@ class CrossAttention(nn.Module):
     biases; scores scaled by 1/sqrt(head_dim); padded keys filled with
     ``ATTN_FILL``; the softmax in f32, the probabilities rounded to the
     compute dtype and then dropped out. The JAX module computes it with
-    einsums outside any Pallas kernel, and so does this one."""
+    einsums outside any Pallas kernel, and so does this one.
+
+    Split over a model axis (``tp``), as the JAX split rule has it: only
+    ``out_proj``, by its input columns; every rank computes the whole
+    attention and its block of it enters ``out_proj``."""
+
+    TP_SPLIT = ("out_proj.weight",)
+    TP_PARTS = ()
+    tp = None
 
     def __init__(self, embed_dim, num_heads, dropout=0.0, dropout_bits=32,
                  dtype=torch.float32):
@@ -258,4 +312,7 @@ class CrossAttention(nn.Module):
         attn = torch.softmax(scores, dim=-1, dtype=f32_or_wider(scores))
         attn = self.dropout(cast(attn, self.dtype), deterministic, generator)
         out = torch.einsum("bhts,bshd->bthd", attn, v).reshape(B, Tq, D)
-        return self.out_proj(out)
+        if self.tp is None:
+            return self.out_proj(out)
+        out = copy_to_model(out, self.tp)[..., rank_slice(D, self.tp)]
+        return row_linear(self.out_proj, out, self.tp)

@@ -47,10 +47,14 @@ from torch import nn
 
 from tsasr_torch.models.attention import (CrossAttention, RelPosMHAXL,
                                          rel_pos_encoding)
-from tsasr_torch.models.layers import Conv1d, LayerNorm, Linear
+from tsasr_torch.models.layers import Conv1d, LayerNorm, Linear, linear
 from tsasr_torch.ops.dropout import Dropout
 from tsasr_torch.ops.masks import (length_to_mask, lookahead_mask,
                                    relative_to_absolute_lengths)
+from tsasr_torch.parallel.tensor_parallel import (copy_to_model,
+                                                  rank_slice, row_linear,
+                                                  tp_layer_norm)
+from tsasr_torch.utils.precision import cast
 
 LN_EPS = 1e-6
 
@@ -60,27 +64,58 @@ def _act(x):
 
 
 class FeedForward(nn.Module):
-    """Linear(d_ffn) -> leaky_relu -> dropout -> Linear(d_model)."""
+    """Linear(d_ffn) -> leaky_relu -> dropout -> Linear(d_model).
+
+    Split over a model axis (``tp``, ``parallel.tensor_parallel``): the
+    rank's rows of ``w1`` and columns of ``w2``; ``w2``'s bias is added
+    once, after the all-reduce."""
+
+    TP_SPLIT = ("w1.weight", "w2.weight")
+    TP_PARTS = ("w1.bias",)
+    tp = None
 
     def __init__(self, d_model, d_ffn, dropout=0.0, dropout_bits=32,
                  dtype=torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.w1 = Linear(d_model, d_ffn, compute_dtype=dtype)
         self.w2 = Linear(d_ffn, d_model, compute_dtype=dtype)
         self.dropout = Dropout(dropout, dropout_bits)
 
     def forward(self, x, deterministic=True, generator=None):
-        return self.w2(self.dropout(_act(self.w1(x)), deterministic,
-                                    generator))
+        if self.tp is None:
+            return self.w2(self.dropout(_act(self.w1(x)), deterministic,
+                                        generator))
+        tp, dt = self.tp, self.dtype
+        width = self.w1.weight.shape[0] * tp.size
+        cols = rank_slice(width, tp)
+        h = _act(linear(copy_to_model(x, tp), self.w1.weight,
+                        self.w1.bias[cols], dt))
+        h = self.dropout(h, deterministic, generator,
+                         part=(h.dim() - 1, cols.start, width))
+        return row_linear(self.w2, h, tp)
 
 
 class ConvolutionModule(nn.Module):
     """LN -> pointwise(2D) -> GLU -> depthwise -> LN -> act -> pointwise
-    -> dropout."""
+    -> dropout.
+
+    Split over a model axis (``tp``): the rank's channels of each GLU
+    half, so the GLU, the depthwise conv and the activation stay on the
+    rank; ``norm_mid`` all-reduces its two moments over the axis
+    (``tensor_parallel.tp_layer_norm``), and ``pointwise_out``'s partial
+    products are summed before its bias."""
+
+    TP_SPLIT = ("pointwise_in.weight", "pointwise_out.weight")
+    TP_PARTS = ("pointwise_in.bias", "depthwise.weight", "depthwise.bias",
+                "norm_mid.weight", "norm_mid.bias")
+    tp = None
 
     def __init__(self, d_model, kernel_size=31, dropout=0.0, dropout_bits=32,
                  causal=False, dtype=torch.float32):
         super().__init__()
+        self.d_model = d_model
+        self.dtype = dtype
         self.kernel_size = kernel_size
         self.causal = causal
         self.norm_in = LayerNorm(d_model, eps=LN_EPS, compute_dtype=dtype)
@@ -107,7 +142,10 @@ class ConvolutionModule(nn.Module):
         them, and masked rows to the left become the offline zero left
         padding: the sequence-parallel halo needs that
         (``parallel.seq_parallel``)."""
-        a, b = self.pointwise_in(self.norm_in(x)).chunk(2, dim=-1)
+        if self.tp is not None and conv_cache is not None:
+            raise NotImplementedError("a split conv module does not "
+                                      "stream; serve the whole model")
+        a, b = self._pointwise_in(self.norm_in(x)).chunk(2, dim=-1)
         glu = a * torch.sigmoid(b)
         if mask_conv_input and pad_mask is not None:
             glu = glu.masked_fill(pad_mask[..., None], 0.0)
@@ -115,14 +153,51 @@ class ConvolutionModule(nn.Module):
             glu = torch.cat([conv_cache, glu], dim=1)
         elif self.causal:
             glu = F.pad(glu, (0, 0, self.kernel_size - 1, 0))
-        out = self.depthwise(glu.transpose(1, 2)).transpose(1, 2)
-        out = self.pointwise_out(_act(self.norm_mid(out)))
+        out = self._depthwise(glu.transpose(1, 2)).transpose(1, 2)
+        if self.tp is None:
+            out = self.pointwise_out(_act(self.norm_mid(out)))
+        else:
+            out = row_linear(self.pointwise_out, _act(tp_layer_norm(
+                out, *self._channels(self.norm_mid), self.norm_mid.eps,
+                self.d_model, self.tp, self.dtype)), self.tp)
         out = self.dropout(out, deterministic, generator)
         if pad_mask is not None:
             out = out.masked_fill(pad_mask[..., None], 0.0)
         if conv_cache is not None:
             return out, glu[:, glu.shape[1] - (self.kernel_size - 1):]
         return out
+
+
+    def check_tensor_parallel(self, tp):
+        """The GLU's halves split alike: ``tp`` must divide d_model."""
+        if self.d_model % tp:
+            raise ValueError(f"a model axis of {tp} does not divide the "
+                             f"conv module's {self.d_model} channels")
+
+    def _channels(self, module):
+        """(weight, bias) of ``module`` in the rank's channels."""
+        cols = rank_slice(self.d_model, self.tp)
+        return module.weight[cols], module.bias[cols]
+
+    def _pointwise_in(self, x):
+        if self.tp is None:
+            return self.pointwise_in(x)
+        cols = rank_slice(self.d_model, self.tp)
+        bias = self.pointwise_in.bias
+        return linear(copy_to_model(x, self.tp), self.pointwise_in.weight,
+                      torch.cat([bias[:self.d_model][cols],
+                                 bias[self.d_model:][cols]]), self.dtype)
+
+    def _depthwise(self, x):
+        """The depthwise conv on (B, channels, T): all of them, or the
+        rank's."""
+        conv = self.depthwise
+        if self.tp is None:
+            return conv(x)
+        weight, bias = self._channels(conv)
+        return F.conv1d(cast(x, self.dtype), cast(weight, self.dtype),
+                        cast(bias, self.dtype), padding=conv.padding,
+                        groups=weight.shape[0])
 
 
 class ConformerEncoderLayer(nn.Module):

@@ -18,6 +18,13 @@ from torch import nn
 from tsasr_torch.utils.precision import cast
 
 
+def linear(x, weight, bias=None, compute_dtype=torch.float32):
+    """``F.linear`` in the compute dtype: a ``Linear``'s forward on other
+    weights (a tensor-parallel rank's shard or slice)."""
+    dt = compute_dtype
+    return F.linear(cast(x, dt), cast(weight, dt), cast(bias, dt))
+
+
 class Linear(nn.Linear):
     def __init__(self, in_features, out_features, bias=True,
                  compute_dtype=torch.float32):

@@ -34,12 +34,23 @@ def keep_mask(gen, keep_prob, shape, bits=32, device=None):
     return draw < thr
 
 
-def dropout(x, gen, rate, bits=32):
+def dropout(x, gen, rate, bits=32, part=None):
     """Zero elements of ``x`` with probability ``rate`` and scale the rest
     by ``1 / (1 - rate)``. The mask depends on the generator and the
     shape only, so an f32 and a bf16 run of one step drop the same
-    elements."""
-    keep = keep_mask(gen, 1.0 - rate, x.shape, bits, x.device)
+    elements.
+
+    ``part`` = (dim, start, size): ``x`` is the block [start, start +
+    x.shape[dim]) along ``dim`` of a tensor ``size`` long there (a
+    tensor-parallel rank's slice); the whole tensor's mask is drawn, so
+    the generator moves on as one process's does, and ``x`` takes its
+    block of it."""
+    shape = list(x.shape)
+    if part is not None:
+        dim, start, shape[dim] = part
+    keep = keep_mask(gen, 1.0 - rate, tuple(shape), bits, x.device)
+    if part is not None:
+        keep = keep.narrow(dim, start, x.shape[dim])
     return torch.where(keep, x / _keep_divisor(x, rate), 0.0).to(x.dtype)
 
 
@@ -70,16 +81,17 @@ def fold_generator(generator, *data):
 
 class Dropout(nn.Module):
     """``Dropout(rate, bits)``; called as ``(x, deterministic, generator)``
-    like the JAX module's ``(x, deterministic)`` with its rng stream."""
+    like the JAX module's ``(x, deterministic)`` with its rng stream
+    (``part``: see ``dropout``)."""
 
     def __init__(self, rate, bits=32):
         super().__init__()
         self.rate = float(rate)
         self.bits = bits
 
-    def forward(self, x, deterministic=True, generator=None):
+    def forward(self, x, deterministic=True, generator=None, part=None):
         if deterministic or self.rate == 0.0:
             return x
         if generator is None:
             raise ValueError("train-mode dropout needs a torch.Generator")
-        return dropout(x, generator, self.rate, self.bits)
+        return dropout(x, generator, self.rate, self.bits, part)

@@ -23,17 +23,19 @@ ranks' evaluation results and ``broadcast_object`` hands process 0's
 decisions (a checkpoint's name, the intra-epoch save by minutes) to all.
 
 The ranks' layout over the mesh's axes (``Layout``, made by
-``init_layout`` from the data, pipeline and sequence counts): each rank
-knows its coordinate on each axis (``parallel.mesh.rank_coords``) and
-holds a process group for each axis of size above 1, the data axis's
-when a model axis is above 1 too (the world otherwise). Every rank
-creates every group, in one order, as ``new_group`` requires.
+``init_layout`` from the data, pipeline, sequence and tensor (model)
+counts): each rank knows its coordinate on each axis
+(``parallel.mesh.rank_coords``) and holds a process group for each axis
+of size above 1, the data axis's when another axis is above 1 too (the
+world otherwise). Every rank creates every group, in one order, as
+``new_group`` requires.
 """
 
 import logging
 import os
 from dataclasses import dataclass, field
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -134,6 +136,8 @@ def describe():
         place += (f", data {here.data.index} of {here.dp}, pipe "
                   f"{here.pipe.index} of {here.pp}, seq {here.seq.index} "
                   f"of {here.sp}")
+        if here.tp > 1:
+            place += f", model {here.model.index} of {here.tp}"
     return place
 
 
@@ -212,25 +216,29 @@ class Axis:
 
 @dataclass(frozen=True)
 class Layout:
-    """This rank's place on a (data, pipe, seq) mesh of ``dp·pp·sp``
-    ranks: ``data``, ``pipe`` and ``seq`` are its ``Axis`` on each."""
+    """This rank's place on a (data, pipe, seq, model) mesh of
+    ``dp·pp·sp·tp`` ranks: ``data``, ``pipe``, ``seq`` and ``model`` are
+    its ``Axis`` on each."""
     dp: int
     pp: int
     sp: int
     data: Axis
     pipe: Axis
     seq: Axis
+    tp: int = 1
+    model: Axis = None
 
     @property
     def model_ranks(self):
         """Ranks of one data shard: they hold the same rows."""
-        return self.pp * self.sp
+        return self.pp * self.sp * self.tp
 
     @property
     def encoder_axis(self):
         """The axis the encoder is split over in TRAIN, as the JAX
         ``encode_predict`` routes it (``'seq'`` first, then ``'pipe'``),
-        or None."""
+        or None (the model axis splits every layer's matrices instead,
+        ``parallel.tensor_parallel``)."""
         if self.sp > 1:
             return self.seq
         if self.pp > 1:
@@ -239,14 +247,16 @@ class Layout:
 
 
 _LAYOUT = None
+AXIS_NAMES = ("data", "pipe", "seq", "model")
 
 
-def _axis_groups(name, dp, pp, sp, here):
-    """Every group of axis ``name``, each created on every rank in the
-    same order; returns this rank's."""
+def _axis_groups(name, counts, here):
+    """Every group of axis ``name`` of a mesh of ``counts`` (dp, pp, sp,
+    tp), each created on every rank in the same order; returns this
+    rank's."""
     mine, made = None, set()
-    for r in range(dp * pp * sp):
-        ranks = tuple(axis_ranks(r, name, dp, pp, sp))
+    for r in range(int(np.prod(counts))):
+        ranks = tuple(axis_ranks(r, name, *counts))
         if ranks in made:
             continue
         made.add(ranks)
@@ -256,45 +266,50 @@ def _axis_groups(name, dp, pp, sp, here):
     return mine
 
 
-def init_layout(dp, pp=1, sp=1):
+def init_layout(dp, pp=1, sp=1, tp=1):
     """Make (and keep, for ``layout()``) this rank's ``Layout`` of a
-    ``dp·pp·sp``-rank run; a launched run creates its axes' groups here,
-    on every rank alike. Raises unless the counts multiply to the world
-    size."""
+    ``dp·pp·sp·tp``-rank run; a launched run creates its axes' groups
+    here, on every rank alike. Raises unless the counts multiply to the
+    world size."""
     global _LAYOUT
     n = world_size()
-    if dp * pp * sp != n:
-        raise ValueError(f"data {dp} x pipe {pp} x seq {sp} ranks are not "
-                         f"the world's {n}")
+    counts = (dp, pp, sp, tp)
+    if dp * pp * sp * tp != n:
+        raise ValueError(f"data {dp} x pipe {pp} x seq {sp} x model {tp} "
+                         f"ranks are not the world's {n}")
     here = rank()
-    coords = rank_coords(here, dp, pp, sp)
+    coords = rank_coords(here, *counts)
     axes = {}
-    for name, size in (("data", dp), ("pipe", pp), ("seq", sp)):
+    for name, size in zip(AXIS_NAMES, counts):
         group = None
         if size > 1 and is_distributed() and (name != "data"
-                                              or pp * sp > 1):
-            group = _axis_groups(name, dp, pp, sp, here)
+                                              or pp * sp * tp > 1):
+            group = _axis_groups(name, counts, here)
         axes[name] = Axis(name, size, coords[name],
-                          tuple(axis_ranks(here, name, dp, pp, sp)), group)
-    _LAYOUT = Layout(dp, pp, sp, **axes)
+                          tuple(axis_ranks(here, name, *counts)), group)
+    _LAYOUT = Layout(dp, pp, sp, axes["data"], axes["pipe"], axes["seq"],
+                     tp, axes["model"])
     return _LAYOUT
 
 
 def layout():
     """The run's ``Layout``: the one ``init_layout`` made, else every
     rank on the data axis."""
-    if _LAYOUT is not None and _LAYOUT.dp * _LAYOUT.pp * _LAYOUT.sp == \
+    if _LAYOUT is not None and _LAYOUT.dp * _LAYOUT.model_ranks == \
             world_size():
         return _LAYOUT
     n, here = world_size(), rank()
     return Layout(n, 1, 1, Axis("data", n, here, tuple(range(n))),
-                  Axis("pipe", 1, 0, (here,)), Axis("seq", 1, 0, (here,)))
+                  Axis("pipe", 1, 0, (here,)), Axis("seq", 1, 0, (here,)),
+                  1, Axis("model", 1, 0, (here,)))
 
 
-def broadcast_module(module, src=0):
-    """Give every process ``module``'s parameters and buffers as process
-    ``src`` holds them: one broadcast of a flat buffer per dtype."""
-    if world_size() <= 1:
+def broadcast_module(module, src=0, group=None):
+    """Give every process of ``group`` (the world when None)
+    ``module``'s parameters and buffers as world rank ``src`` holds
+    them: one broadcast of a flat buffer per dtype."""
+    if world_size() <= 1 or (group is not None
+                             and dist.get_world_size(group) <= 1):
         return
     groups = {}
     for t in module.state_dict(keep_vars=True).values():
@@ -302,7 +317,7 @@ def broadcast_module(module, src=0):
             groups.setdefault(t.dtype, []).append(t)
     for dtype in sorted(groups, key=str):
         flat = torch.cat([t.detach().reshape(-1) for t in groups[dtype]])
-        dist.broadcast(flat, src=src)
+        dist.broadcast(flat, src=src, group=group)
         offset = 0
         with torch.no_grad():
             for t in groups[dtype]:

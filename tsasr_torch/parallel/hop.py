@@ -9,6 +9,7 @@ The port's counterpart of what the JAX package's ``ppermute`` and
   rank i's block to rank i + 1 of the axis (rank 0 receives zeros);
   its backward sends the cotangent the reverse way, as ``ppermute``
   transposes;
+- ``all_gather``: every rank's tensor of the axis, on every rank;
 - ``GatherBlocks``: the axis's blocks joined along a dimension on every
   rank; the backward hands each rank its own block's cotangent once;
 - ``BroadcastFrom``: one rank's tensor on every rank of the axis; the
@@ -134,7 +135,10 @@ class NeighbourHop(torch.autograd.Function):
         return exchange(grad.contiguous(), ctx.src, ctx.dst), None, None
 
 
-def _all_gather(x, axis):
+def all_gather(x, axis):
+    """The ``axis``' tensors ``x`` (one shape on every rank), in index
+    order, on every rank; staged through the host for a CUDA tensor over
+    gloo."""
     if _staged(x, axis.group):
         parts = [torch.empty(x.shape, dtype=x.dtype) for _ in axis.ranks]
         dist.all_gather(parts, _to_host(x), group=axis.group)
@@ -155,7 +159,7 @@ class GatherBlocks(torch.autograd.Function):
         ctx.index, ctx.dim, ctx.length = axis.index, dim, x.shape[dim]
         x = x.contiguous()
         stats["bytes"] += x.numel() * x.element_size() * (axis.size - 1)
-        return torch.cat(_all_gather(x, axis), dim=dim)
+        return torch.cat(all_gather(x, axis), dim=dim)
 
     @staticmethod
     def backward(ctx, grad):

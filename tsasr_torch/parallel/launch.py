@@ -10,8 +10,8 @@ The port of the JAX package's ``parallel/launch.py``::
 
 Each worker gets ``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``,
 ``LOCAL_WORLD_SIZE``, ``MASTER_ADDR`` (localhost) and ``MASTER_PORT`` (a
-free port unless ``--master_port``), the variables ``torchrun`` sets, so
-``parse_arguments`` joins the group
+free port below the ephemeral range unless ``--master_port``), the
+variables ``torchrun`` sets, so ``parse_arguments`` joins the group
 (``distributed.maybe_init_distributed``) before any device is touched.
 Each worker's output is streamed line by line with a ``[p{i}]`` prefix
 and, with ``--log_dir``, written to ``<log_dir>/proc{i}.log``. When a
@@ -23,6 +23,7 @@ counterpart.
 
 import argparse
 import os
+import random
 import signal
 import socket
 import subprocess
@@ -31,10 +32,24 @@ import threading
 import time
 
 
+# MASTER_PORT is drawn below the kernel's usual ephemeral range
+# (32768-60999): a port the kernel handed out as free can be taken again
+# by a socket bound to port 0 (gloo's, another run's) before the workers'
+# store binds it
+PORT_RANGE = (20000, 32767)
+
+
 def _free_port():
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
+    """A port in PORT_RANGE that binds now."""
+    rng = random.Random()
+    while True:
+        port = rng.randint(*PORT_RANGE)
+        with socket.socket() as s:
+            try:
+                s.bind(("localhost", port))
+            except OSError:
+                continue
+            return port
 
 
 def _pump(proc, idx, log_path):

@@ -9,6 +9,17 @@ for tensor parallelism 1, world rank = (d·P + p)·S + s. ``axis_ranks``
 lists the world ranks of a rank's group along one axis, in the order of
 that axis's coordinate.
 
+The tensor-parallel split rule is the port of ``_tp_spec``,
+``tp_sharding_report`` and ``validate_tp_shardings`` (``:70-162``) over
+the port's parameter names (``split_dim``, ``param_split_dims``,
+``tp_sharding_report``, ``validate_tp_shardings``): Megatron pairs, the
+first matrix of a pair split by its output dim (``ffn{1,2}.w1``,
+``qkv_proj``, ``pointwise_in``), the second by its input dim
+(``ffn{1,2}.w2``, every ``out_proj``, ``pointwise_out``), only where the
+model axis divides that dim; every other leaf, and every leaf below two
+dims, is replicated. A torch ``Linear`` weight is (out, in), the
+transpose of a flax kernel, so the output dim is dim 0 here.
+
 The batch layout is the port of ``pad_batch_to`` and ``shard_batch``
 (``:165-200``). Every rank builds the
 same global host batch from the same sampler; ``pad_batch_to`` pads its
@@ -27,6 +38,7 @@ to a multiple of data·pipe, as the JAX ``shard_batch`` pads it, so each
 data shard divides the default micro-batch count.
 """
 
+import re
 from dataclasses import dataclass
 
 import numpy as np
@@ -34,6 +46,17 @@ import numpy as np
 # make_mesh's axis order; the model (tensor-parallel) axis is the
 # fastest-varying
 AXES = ("data", "pipe", "seq", "model")
+
+
+# every Conformer layer holds exactly this many split matrices:
+# ffn{1,2}.w{1,2}, mha.{qkv_proj,out_proj}, conv.{pointwise_in,
+# pointwise_out} (the JAX package's ``TP_KERNELS_PER_CONFORMER_LAYER``)
+TP_KERNELS_PER_CONFORMER_LAYER = 8
+# name fragments of the pairs' first (split by output) and second (split
+# by input) matrices, the port's names of ``_tp_spec``'s
+TP_OUTPUT_SPLIT = (".ffn1.w1.", ".ffn2.w1.", ".qkv_proj.", ".pointwise_in.")
+TP_INPUT_SPLIT = (".ffn1.w2.", ".ffn2.w2.", ".out_proj.", ".pointwise_out.")
+_LAYER_SCOPE = re.compile(r"(^|\.)((?:\w+\.)*layers\.\d+)(\.|$)")
 
 
 def _sizes(dp, pp=1, sp=1, tp=1):
@@ -67,6 +90,74 @@ def axis_ranks(rank, axis, dp, pp=1, sp=1, tp=1):
             r = r * sizes[a] + c[a]
         out.append(r)
     return out
+
+
+def split_dim(name, shape, tp):
+    """The dim of the port's parameter ``name`` (of ``shape``) that the
+    model axis of ``tp`` ranks splits, or None where it is replicated:
+    0 (the output dim) for a pair's first matrix, 1 (the input dim) for
+    its second, where ``tp`` divides that dim."""
+    if tp <= 1 or len(shape) < 2:
+        return None
+    key = "." + name.lower()
+    if any(k in key for k in TP_OUTPUT_SPLIT) and shape[0] % tp == 0:
+        return 0
+    if any(k in key for k in TP_INPUT_SPLIT) and shape[1] % tp == 0:
+        return 1
+    return None
+
+
+def param_split_dims(shapes, tp):
+    """{name: ``split_dim``} of a ``{name: tensor or shape}`` dict (a
+    whole model's ``state_dict``)."""
+    return {name: split_dim(name, tuple(getattr(x, "shape", x)), tp)
+            for name, x in shapes.items()}
+
+
+def tp_sharding_report(splits):
+    """(split names, replicated names) of ``param_split_dims``'s
+    mapping."""
+    sharded = [n for n, d in splits.items() if d is not None]
+    replicated = [n for n, d in splits.items() if d is None]
+    return sharded, replicated
+
+
+def layer_scope(name):
+    """The ``...layers.<i>`` scope ``name`` lies in, or None."""
+    found = _LAYER_SCOPE.search(name)
+    return found.group(2) if found else None
+
+
+def validate_tp_shardings(splits, expected_layers=None):
+    """Guard against name drift replicating split leaves without a word
+    (the JAX ``validate_tp_shardings``): every ``layers.<i>`` scope of
+    ``splits`` (``param_split_dims``) must hold exactly
+    ``TP_KERNELS_PER_CONFORMER_LAYER`` split leaves, and there must be
+    ``expected_layers`` scopes where that is given. Raises ValueError
+    otherwise, or where no scope is found at all. Returns (split,
+    replicated) names."""
+    sharded, replicated = tp_sharding_report(splits)
+    scopes = {layer_scope(n) for n in splits} - {None}
+    if not scopes:
+        raise ValueError(
+            "a model axis was asked for but no Conformer 'layers.<i>' "
+            "scope is in the parameter names: the split rule cannot apply")
+    if expected_layers is not None and len(scopes) != expected_layers:
+        raise ValueError(f"expected {expected_layers} Conformer layer "
+                         f"scopes, found {len(scopes)}: {sorted(scopes)}")
+    per_scope = dict.fromkeys(scopes, 0)
+    for name in sharded:
+        scope = layer_scope(name)
+        if scope is not None:
+            per_scope[scope] += 1
+    bad = {s: n for s, n in per_scope.items()
+           if n != TP_KERNELS_PER_CONFORMER_LAYER}
+    if bad:
+        raise ValueError(
+            "tensor-parallel split drift: these Conformer layers do not "
+            f"hold exactly {TP_KERNELS_PER_CONFORMER_LAYER} split "
+            f"matrices (a renamed submodule?): {bad}")
+    return sharded, replicated
 
 
 def pad_batch_to(batch_arrays, multiple):

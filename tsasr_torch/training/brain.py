@@ -80,6 +80,30 @@ Sequence and pipeline parallelism (``layout``, the run's
   after each gradient is divided by the ranks of its data shard that
   hold a copy of it (``gradient_shares``); the loss likewise;
 - VALID and TEST stay rank-local, sharded over all ranks as above.
+
+Tensor parallelism (``layout.tp`` above 1, the JAX package's ``'model'``
+axis; ``parallel.tensor_parallel``), with JAX's semantics:
+
+- the model is split once, before the optimizer is made
+  (``_ensure_sharded``, JAX's ``_ensure_initialized``): each rank holds
+  its shards of the split matrices (``parallel.mesh.param_split_dims``,
+  checked by ``validate_tp_shardings``) and the whole other leaves, and
+  the optimizer its shards' AdamW moments; the ranks of one data shard
+  draw dropout alike, each split activation taking its slice of the
+  whole mask;
+- the gradient: a split leaf's shard is summed over the data axis
+  alone, a whole leaf that each rank reads a slice of is summed over
+  the model axis, one every rank computes whole averaged over it
+  (``gradient_shares``); the clip norm counts each shard once and each
+  whole leaf once (``_global_norm``);
+- the weights are broadcast over the data axis only;
+- checkpoints hold the whole model, moments and running mean included:
+  every rank gathers before process 0 writes (``_BrainState``), and a
+  recovery splits them again, so a checkpoint of any tensor count
+  resumes at any other;
+- VALID and TEST run a whole copy of the model on each rank's own shard
+  of the batches, its weights gathered once per version of them
+  (``_eval_model``, JAX's ``_get_eval_params``).
 """
 
 import contextlib
@@ -91,10 +115,11 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
+from tsasr_torch.convert import shard_tensor
 from tsasr_torch.data.loader import LoopedLoader, SaveableDataLoader
 from tsasr_torch.device import resolve_device
-from tsasr_torch.parallel import distributed
-from tsasr_torch.parallel.mesh import rank_rows
+from tsasr_torch.parallel import distributed, tensor_parallel
+from tsasr_torch.parallel.mesh import rank_rows, tp_sharding_report
 from tsasr_torch.training.checkpoints import load_state, save_state
 from tsasr_torch.utils.stage import Stage
 
@@ -188,6 +213,10 @@ class Brain:
         self.batch_shard = None         # the rank's rows of a TRAIN batch
         self.layout = distributed.layout()
         self._shares = None             # gradient_shares, once
+        self._tp_kinds = None           # shard_model's, once split
+        self._weights_version = 0       # moves on each time they change
+        self._eval_copy = None          # the whole model VALID/TEST run
+        self._eval_version = None
         self._last_ckpt_time = time.time()
         if self.checkpointer is not None:
             self.checkpointer.add_recoverable("brain", _BrainState(self))
@@ -235,13 +264,47 @@ class Brain:
             self._recovered_ckpt = self.checkpointer.recover_if_possible(
                 min_key=min_key, max_key=max_key)
             if self._recovered_ckpt is not None:
-                distributed.broadcast_module(self.model)
+                self._broadcast_weights()
+
+    def _broadcast_weights(self):
+        """Every rank's weights as the data axis's first rank holds them
+        (rank 0's; under a model axis each rank's shard from its data
+        axis's first)."""
+        if self.layout.tp == 1:
+            distributed.broadcast_module(self.model)
+        elif self.layout.dp > 1:
+            distributed.broadcast_module(self.model, self.layout.data.ranks[0],
+                                         self.layout.data.group)
 
     # ========================================================= optimizer
     def _params(self):
         return [p for p in self.model.parameters() if p.requires_grad]
 
+    def _param_names(self):
+        return [n for n, p in self.model.named_parameters()
+                if p.requires_grad]
+
+    def _ensure_sharded(self):
+        """Under a model axis, split the model over it once, the weights
+        as they stand (the init or a warm start): each rank keeps its
+        shards (``parallel.tensor_parallel.shard_model``)."""
+        if self.layout.tp == 1 or self._tp_kinds is not None:
+            return
+        self._tp_kinds = tensor_parallel.shard_model(self.model,
+                                                     self.layout.model)
+        sharded, replicated = tp_sharding_report(self.model.tp_splits)
+        logger.info("tensor parallelism: %d leaves split over the model "
+                    "axis of %d, %d whole", len(sharded), self.layout.tp,
+                    len(replicated))
+        logger.debug("split leaves: %s", sharded)
+
+    def _split_flags(self):
+        """Per trainable parameter, whether the rank holds a shard of it."""
+        kinds = self._tp_kinds or {}
+        return [kinds.get(n) == "split" for n in self._param_names()]
+
     def init_optimizers(self):
+        self._ensure_sharded()
         if self.opt_class is not None and self.optimizer is None:
             self.optimizer = self.opt_class(self._params())
             if self._restored_opt_state is not None:
@@ -322,7 +385,7 @@ class Brain:
         if distributed.is_distributed():
             grads, loss_value, finite = self._all_reduce(grads, loss)
         else:
-            self.last_grad_norm = float(global_norm(grads))
+            self.last_grad_norm = float(self._global_norm(grads))
             loss_value = loss.item()
             finite = np.isfinite(loss_value) and \
                 np.isfinite(self.last_grad_norm)
@@ -346,10 +409,17 @@ class Brain:
         """Per trainable parameter, 1 / the ranks of a data shard that
         hold a copy of its gradient: 1 / the ranks outside the encoder's
         axis for a gradient that axis computes in parts, 1 / all of them
-        for one computed whole (None with no model axis)."""
+        for one computed whole (None with no model axis). Under a model
+        axis: 1 for a split leaf's shard (summed over the data axis
+        alone) and for a whole leaf each rank reads a slice of (summed
+        over the model axis), 1 / T for one every rank computes whole."""
         layout = self.layout
         if layout.model_ranks == 1:
             return None
+        if self._shares is None and layout.tp > 1:
+            kinds = self._tp_kinds
+            self._shares = [1.0 if n in kinds else 1.0 / layout.tp
+                            for n in self._param_names()]
         if self._shares is None:
             split = layout.encoder_axis.size
             partial = getattr(self.model, "MODEL_PARALLEL_PARTIAL", ())
@@ -374,11 +444,15 @@ class Brain:
         if shares is not None:
             grads = [g * share for g, share in zip(grads, shares)]
             loss = loss / self.layout.model_ranks
-        flat = torch.cat([g.reshape(-1) for g in grads])
-        distributed.all_reduce_sum(flat)
-        grads = [part.view_as(g) for part, g in
-                 zip(torch.split(flat, [g.numel() for g in grads]), grads)]
-        grad_norm = global_norm(grads)
+        split = self._split_flags()
+        whole = [g for g, s in zip(grads, split) if not s]
+        shards = [g for g, s in zip(grads, split) if s]
+        whole = _flat_all_reduce(whole, distributed.all_reduce_sum)
+        if shards:      # a rank's shards: over the data axis only
+            shards = _flat_all_reduce(shards, self.layout.data.all_reduce_sum)
+        parts = iter(whole), iter(shards)
+        grads = [next(parts[s]) for s in split]
+        grad_norm = self._global_norm(grads)
         dtype = torch.promote_types(loss.dtype, torch.float32)
         stats = torch.stack([loss.detach().to(dtype),
                              (~torch.isfinite(grad_norm)).to(dtype)])
@@ -386,6 +460,20 @@ class Brain:
         loss_value, nonfinite = stats.tolist()
         self.last_grad_norm = float(grad_norm)
         return grads, loss_value, np.isfinite(loss_value) and nonfinite == 0
+
+    def _global_norm(self, tensors):
+        """``global_norm`` of the whole model's gradients from a rank's
+        (``tensors``, in parameter order): under a model axis each
+        shard's squared norm is summed over the axis, each whole leaf's
+        counted once."""
+        split = self._split_flags()
+        if not any(split):
+            return global_norm(tensors)
+        norms = torch.stack([torch.linalg.vector_norm(t) for t in tensors])
+        flags = torch.tensor(split, device=norms.device)
+        sq_split = self.layout.model.all_reduce_sum(
+            (norms[flags] ** 2).sum().reshape(1))
+        return torch.sqrt(sq_split[0] + (norms[~flags] ** 2).sum())
 
     @torch.no_grad()
     def _accumulate(self, grads):
@@ -398,7 +486,7 @@ class Brain:
 
     @torch.no_grad()
     def _update(self, params):
-        norm = global_norm(self._acc)
+        norm = self._global_norm(self._acc)
         max_norm = float(self.max_grad_norm)
         clip = torch.where(norm < max_norm, torch.ones_like(norm),
                            max_norm / norm)
@@ -416,16 +504,51 @@ class Brain:
             acc.zero_()
         self._mini_step = 0
         self.optimizer_step += 1
+        self._weights_version += 1
         sched_mirror = getattr(self.hparams, "noam_scheduler", None)
         if sched_mirror is not None:
             sched_mirror.n_steps = self.optimizer_step
             sched_mirror.current_lr = self.current_lr()
+
+    def _eval_model(self):
+        """The model VALID and TEST run: the model, or under a model axis
+        its whole copy (``tensor_parallel.whole_copy``), its weights
+        gathered over the axis once per version of them (every rank
+        enters together)."""
+        if self.layout.tp == 1:
+            return self.model
+        self._ensure_sharded()
+        if self._eval_copy is None or \
+                self._eval_version != self._weights_version:
+            state = tensor_parallel.gather_whole(
+                self.model.state_dict(), self.model.tp_splits,
+                self.layout.model)
+            if self._eval_copy is None:
+                self._eval_copy = tensor_parallel.whole_copy(self.model,
+                                                             state)
+            else:
+                self._eval_copy.load_state_dict(state)
+            self._eval_version = self._weights_version
+        return self._eval_copy
+
+    @contextlib.contextmanager
+    def _evaluating(self):
+        """``self.model`` is ``_eval_model()`` inside."""
+        trained, self.model = self.model, self._eval_model()
+        try:
+            yield
+        finally:
+            self.model = trained
 
     def evaluate_batch(self, batch, stage):
         """Loss of one evaluation batch (dropout off), then the
         ``evaluate_batch_extra`` hook."""
         self.batch_shard = None
         arrays = self._put_batch(self.batch_to_arrays(batch))
+        with self._evaluating():
+            return self._evaluate_batch(batch, arrays, stage)
+
+    def _evaluate_batch(self, batch, arrays, stage):
         self.model.eval()
         with torch.no_grad():
             predictions = self.compute_forward(arrays, stage, None)
@@ -477,7 +600,7 @@ class Brain:
             self.checkpointer.add_recoverable("dataloader", train_set)
             self.checkpointer.recover_if_possible()
         # the weights as rank 0 set them: the init, a warm start, a recovery
-        distributed.broadcast_module(self.model)
+        self._broadcast_weights()
         if self.test_only:
             logger.info("test_only: skipping training")
             return
@@ -591,11 +714,22 @@ class Brain:
         if not isinstance(test_set, (SaveableDataLoader, LoopedLoader)):
             test_set = SaveableDataLoader(test_set,
                                           **(test_loader_kwargs or {}))
+        self._ensure_sharded()
         self.on_evaluate_start(max_key=max_key, min_key=min_key)
         self.on_stage_start(Stage.TEST, epoch=None)
         avg_loss = self._eval_loop(test_set, Stage.TEST, "Test")
         self.on_stage_end(Stage.TEST, avg_loss, epoch=None)
         return avg_loss
+
+
+def _flat_all_reduce(tensors, reduce):
+    """``tensors`` summed by ``reduce`` (an in-place all-reduce of one
+    tensor) as one flat buffer; the sums in order."""
+    if not tensors:
+        return []
+    flat = reduce(torch.cat([t.reshape(-1) for t in tensors]))
+    return [part.view_as(t) for part, t in
+            zip(torch.split(flat, [t.numel() for t in tensors]), tensors)]
 
 
 class _BrainState:
@@ -605,40 +739,92 @@ class _BrainState:
     the middle of an accumulation), and the counters, with the epoch's
     batch count of an intra-epoch checkpoint. The dropout generator is
     derived from the seed and the counters, so restoring them restores
-    the random draws too."""
+    the random draws too.
+
+    Under a model axis the state is the whole model's: every rank enters
+    ``prepare_save`` (the Checkpointer calls it before process 0 writes),
+    which gathers the shards of the weights, of their AdamW moments and
+    of the running mean; ``load`` splits a whole state again, so the
+    file is a one-process checkpoint either way."""
 
     def __init__(self, brain):
         self.brain = brain
+        self._prepared = None
 
-    def save(self, path):
+    def prepare_save(self):
+        state = self._state()
+        self._prepared = state if distributed.if_main_process() else None
+
+    def _split_leaves(self, model, acc, optimizer, leaf):
+        """(model, acc, optimizer) states with each split leaf's weight,
+        running mean and AdamW moments replaced by ``leaf(name, tensor,
+        dim)``; as they are without a model axis."""
+        brain = self.brain
+        if brain._tp_kinds is None:
+            return model, acc, optimizer
+        splits, names = brain.model.tp_splits, brain._param_names()
+
+        def fn(name, t):
+            dim = splits.get(name)
+            return t if dim is None else leaf(name, t, dim)
+
+        model = {n: fn(n, t) for n, t in model.items()}
+        if acc is not None:
+            acc = [fn(n, a) for n, a in zip(names, acc)]
+        if optimizer is not None:
+            optimizer = dict(optimizer, state={
+                i: {k: fn(names[int(i)], v) if torch.is_tensor(v) and v.dim()
+                    else v for k, v in entry.items()}     # moments, not steps
+                for i, entry in optimizer["state"].items()})
+        return model, acc, optimizer
+
+    def _state(self):
         brain = self.brain
         optimizer = brain.optimizer.state_dict() \
             if brain.optimizer is not None else brain._restored_opt_state
-        save_state({
-            "model": brain.model.state_dict(),
+        axis = brain.layout.model
+        model, acc, optimizer = self._split_leaves(
+            brain.model.state_dict(), brain._acc, optimizer,
+            lambda name, t, dim: tensor_parallel.gather_leaf(name, t, dim,
+                                                             axis))
+        return {
+            "model": model,
             "optimizer": optimizer,
-            "acc": brain._acc,
+            "acc": acc,
             "mini_step": brain._mini_step,
             "step": brain.step,
             "optimizer_step": brain.optimizer_step,
             "global_micro_step": brain.global_micro_step,
             "nonfinite_count": brain.nonfinite_count,
-        }, path)
+        }
+
+    def save(self, path):
+        state = self._prepared if self._prepared is not None \
+            else self._state()
+        self._prepared = None
+        save_state(state, path)
 
     def load(self, path, end_of_epoch=True):
         brain = self.brain
+        brain._ensure_sharded()
         state = load_state(path)
-        brain.model.load_state_dict(state["model"])
-        if state["optimizer"] is not None:
+        axis = brain.layout.model
+        model, acc, optimizer = self._split_leaves(
+            state["model"], state["acc"], state["optimizer"],
+            lambda name, t, dim: shard_tensor(name, t, dim, axis.index,
+                                              axis.size).clone())
+        brain.model.load_state_dict(model)
+        if optimizer is not None:
             if brain.optimizer is not None:
-                brain.optimizer.load_state_dict(state["optimizer"])
+                brain.optimizer.load_state_dict(optimizer)
             else:
-                brain._restored_opt_state = state["optimizer"]
-        brain._acc = None if state["acc"] is None else \
-            [a.to(brain.device) for a in state["acc"]]
+                brain._restored_opt_state = optimizer
+        brain._acc = None if acc is None else \
+            [a.to(brain.device) for a in acc]
         brain._mini_step = int(state["mini_step"])
         brain.optimizer_step = int(state["optimizer_step"])
         brain.global_micro_step = int(state["global_micro_step"])
         brain.nonfinite_count = int(state["nonfinite_count"])
         brain.step = brain._resume_step = \
             0 if end_of_epoch else int(state["step"])
+        brain._weights_version += 1

@@ -27,7 +27,10 @@ JAX package: the checkpoint's name is process 0's timestamp, broadcast
 to all; only process 0 writes and deletes files, and a barrier after
 each ends it, so no process lists or recovers a half-written directory.
 Every process holds the same state (the weights and the optimizer's, by
-the all-reduced gradients), so process 0's is the checkpoint.
+the all-reduced gradients), so process 0's is the checkpoint; a
+recoverable whose state is split over the ranks (a tensor-parallel
+Brain's) has ``prepare_save()``, which every process enters before
+process 0 writes, to gather it.
 """
 
 import json
@@ -130,6 +133,9 @@ class Checkpointer:
             stamp = f"{broadcast_object(time.time()):.4f}".replace(".", "+")
             name = f"{CKPT_PREFIX}+{stamp}"
         path = os.path.join(self.checkpoints_dir, name)
+        for obj in self.recoverables.values():
+            if hasattr(obj, "prepare_save"):     # a collective: all enter
+                obj.prepare_save()
         if if_main_process():
             self._write(path, meta, end_of_epoch)
         ddp_barrier()

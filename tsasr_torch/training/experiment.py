@@ -22,14 +22,14 @@ Parallelism: ``parse_arguments`` first joins the process group a
 launcher announced (``python -m tsasr_torch.parallel.launch``, or
 ``torchrun``; ``parallel/distributed.py``), one process per device, its
 backend named by ``--device``. ``--data_parallel_count`` (D),
-``--pipeline_parallel_count`` (P) and ``--sequence_parallel_count`` (S)
-must multiply to the world size (D defaults to what the other two leave
-of it); the rank layout and the axes' process groups are then made
-(``distributed.init_layout``). One process driving several devices, as
-JAX's does, raises ``NotImplementedError``, and so does a
-``--tensor_parallel_count`` above 1 (tensor parallelism is the port's
-next slice). The experiment directory is made by process 0 behind a
-barrier; process 0 logs to ``log.txt``, the others to
+``--pipeline_parallel_count`` (P), ``--sequence_parallel_count`` (S)
+and ``--tensor_parallel_count`` (T) must multiply to the world size (D
+defaults to what the other three leave of it); the rank layout and the
+axes' process groups are then made (``distributed.init_layout``). One
+process driving several devices, as JAX's does, raises
+``NotImplementedError``, and so does T above 1 together with P or S
+above 1 (``ROADMAP.md``). The experiment directory is made by process 0
+behind a barrier; process 0 logs to ``log.txt``, the others to
 ``log_proc{rank}.txt``.
 """
 
@@ -97,9 +97,10 @@ def parse_arguments(arg_list=None):
 
     Joins the launched process group first (``maybe_init_distributed``,
     on the backend ``--device`` names), then lays its ranks out over the
-    data, pipeline and sequence axes (``init_layout``). Raises
+    data, pipeline, sequence and model axes (``init_layout``). Raises
     ``NotImplementedError`` for counts that do not multiply to the world
-    size and for a tensor count above 1."""
+    size and for a tensor count above 1 beside a sequence or pipeline
+    count above 1."""
     if arg_list is None:
         arg_list = sys.argv[1:]
     parser = argparse.ArgumentParser(description="tsasr_torch experiment")
@@ -120,30 +121,34 @@ def parse_arguments(arg_list=None):
 
 
 def check_parallel_counts(run_opts):
-    """(D, P, S) of ``run_opts``, the data, pipeline and sequence counts;
-    raises unless D·P·S is this run's world size (D, when not given, is
-    what P·S leave of it) or for a tensor count above 1."""
+    """(D, P, S, T) of ``run_opts``, the data, pipeline, sequence and
+    tensor counts; raises unless D·P·S·T is this run's world size (D,
+    when not given, is what P·S·T leave of it), or for T above 1 beside
+    P or S above 1."""
     tp = run_opts.get("tensor_parallel_count") or 1
-    if tp > 1:
-        raise NotImplementedError(
-            f"--tensor_parallel_count {tp}: tensor parallelism (the JAX "
-            "package's Megatron pairs, parallel/mesh.py::_tp_spec) is the "
-            "port's next slice (ROADMAP.md queue 1 item 4); the data, "
-            "sequence and pipeline axes run")
     pp = run_opts.get("pipeline_parallel_count") or 1
     sp = run_opts.get("sequence_parallel_count") or 1
+    if tp > 1 and pp * sp > 1:
+        raise NotImplementedError(
+            f"--tensor_parallel_count {tp} beside --pipeline_parallel_count "
+            f"{pp} / --sequence_parallel_count {sp}: the split matrices "
+            "would be gathered at the encoder's entry, where JAX's "
+            "shard_map takes the parameters whole; not ported yet "
+            "(ROADMAP.md queue 1). Each axis runs alone or beside the data "
+            "axis")
     world = world_size()
     dp = run_opts.get("data_parallel_count")
     if dp is None:
-        dp = max(world // (pp * sp), 1)
-    if dp * pp * sp != world:
+        dp = max(world // (pp * sp * tp), 1)
+    if dp * pp * sp * tp != world:
         raise NotImplementedError(
             f"--data_parallel_count {dp} x --pipeline_parallel_count {pp} x "
-            f"--sequence_parallel_count {sp} is not this run's world size "
-            f"{world}: the port runs one process per device; launch "
-            f"{dp * pp * sp} ranks with python -m tsasr_torch.parallel.launch "
-            f"--nproc_per_node {dp * pp * sp}")
-    return dp, pp, sp
+            f"--sequence_parallel_count {sp} x --tensor_parallel_count {tp} "
+            f"is not this run's world size {world}: the port runs one "
+            f"process per device; launch {dp * pp * sp * tp} ranks with "
+            "python -m tsasr_torch.parallel.launch --nproc_per_node "
+            f"{dp * pp * sp * tp}")
+    return dp, pp, sp, tp
 
 
 def check_precision(precision):
