@@ -203,33 +203,44 @@ checkout, or when any phase fails. Phases:
    once from disjoint shards; (c') two ranks ``--test_only``
    reproducing it; every batch launches what its shapes imply and each
    rank holds its kernels against their plain versions (the ranks are
-   ``chip_smoke.py --ddp_worker DIR ARGS [--then DIR ARGS]``, (c) and
+   ``chip_smoke.py --ddp_worker DIR N ARGS [--then ...]``, (c) and
    (c') in one launch); ms per micro-batch, the all-reduce's ms (CUDA
    events) and bytes, the device-busy share of a profiled micro-batch
    and audio-s/s of two ranks against one;
 12. sequence, pipeline and tensor parallelism (``model_parallel_runs``,
    then ``model_parallel_hold``) at
-   full width on a corpus of 8-12 s mixtures, 2 optimizer steps of 2
+   full width on a corpus of 8-12 s mixtures, 1 optimizer step of 2
    micro-batches at dropout 0 under deterministic algorithms, VALID and
-   TEST greedy, each run on two ranks sharing ``cuda:0`` over gloo
-   (in the ddp phase's two-rank launch, after (c')) against the same
-   run in one process: (a) the scratch yaml with
+   TEST greedy, each run on ranks sharing ``cuda:0`` over gloo (in the
+   ddp phase's launch, after (c')) against the same run in one process:
+   (a) the scratch yaml with
    ``--causal_encoder True --frontend_padding causal --att_context_size
    64 --sequence_parallel_count 2``, (b) the none yaml with
    ``--pipeline_parallel_count 2`` (6 layers a stage), (c) (a)'s model
-   with ``--tensor_parallel_count 2`` (held against (a)'s one process):
-   each loss within
-   1e-5 relative, the first step's gradient (gathered from (c)'s shards)
+   with ``--tensor_parallel_count 2`` (held against (a)'s one process),
+   on two ranks; then on four (the launch's two others warm up while
+   they sit out the two-rank runs): (d) (a)'s model with
+   ``--sequence_parallel_count
+   2 --tensor_parallel_count 2`` (held against (a)'s one process), (e)
+   (b)'s with ``--pipeline_parallel_count 2 --tensor_parallel_count 2``
+   (held against (b)'s): each loss within
+   1e-5 relative, the first step's gradient (gathered from the shards)
    by the training phase's
    rule (the kink set of plain f64 runs, the f32 floor below the
-   tolerance, rank 0's unreduced gradient above it), a TEST WER file
+   tolerance, rank 0's unreduced gradient above it), after the update
+   the whole weights (within 1e-2 lr where the two gradients share a
+   sign well above AdamW's eps, 2 lr elsewhere), a TEST WER file
    naming each utterance once; every batch launches what its shapes
    imply, each rank holds its kernel calls against their plain
-   versions, (a)'s first rank's with its halo's fully masked queries;
-   (c)'s TRAIN attention at H 2 from h0 2·rank and its VALID / TEST on
-   the whole copy at H 4, each rank's parameter + AdamW bytes below one
-   process's; ms per micro-batch each way, the hops' bytes and ms and
-   (c)'s model all-reduces per micro-batch (count, bytes, ms);
+   versions, the first sequence rank's with its halo's fully masked
+   queries; (c)'s TRAIN attention at H 2 from h0 2·rank and its VALID /
+   TEST on the whole copy at H 4, each rank's parameter + AdamW bytes
+   below one process's; (d)'s and (e)'s encoder attention at H 4 from h0
+   0 on leaves gathered once a micro-batch, (d)'s speaker encoder's at H
+   2 from h0 2·model, each rank's bytes below the (a) / (b) rank's; ms
+   per micro-batch each way, the hops' bytes and ms, the model
+   all-reduces per micro-batch (count, bytes, ms) and (d)'s and (e)'s
+   gathers (count, bytes, ms);
 13. a small model on the card against the same model on the CPU:
    serving encoder output (the CPU side twice, each hash logged with the
    host CPU's model and torch's thread count), and 2 optimizer steps of
@@ -5339,7 +5350,7 @@ def ddp_args(corpus, out, device, *extra, yaml=EXPERIMENT_YAML):
             *DDP_OVERRIDES]
 
 
-def ddp_run(result_dir, argv, keep=None, hold=True):
+def ddp_run(result_dir, argv, keep=None, hold=True, after=None):
     """One run of the scratch entry module with ``argv`` in this process,
     alone or as a launched rank: every batch launches what its shapes
     imply, the kernels it launched are then held against their plain
@@ -5350,7 +5361,9 @@ def ddp_run(result_dir, argv, keep=None, hold=True):
     optimizer step's accumulated gradient as ``grad.pt``. ``keep`` (a
     dict) receives the Brain, a copy of its model before the first step
     and the first step's micro-batches; ``hold=False`` leaves the kernels
-    unchecked (a run that another repeats bit for bit). Returns the
+    unchecked (a run that another repeats bit for bit). ``after`` (by
+    default, where ``argv`` names a model axis): rank 0 also saves the
+    whole weights after the first update as ``after.pt``. Returns the
     record, also written as ``rank{r}.json``."""
     import importlib
     import torch
@@ -5362,6 +5375,9 @@ def ddp_run(result_dir, argv, keep=None, hold=True):
     entry = importlib.import_module(
         f"tsasr_torch.train_librispeechmix_{variant}")
     result_dir = Path(result_dir)
+    if after is None:
+        after = any(f"--{axis}_parallel_count" in argv
+                    for axis in ("sequence", "pipeline", "tensor"))
     reset_counts()
     record = collections.defaultdict(list)
     brains, reduce_events, local = [], [], []
@@ -5375,11 +5391,11 @@ def ddp_run(result_dir, argv, keep=None, hold=True):
 
     def update(self, params):
         acc, split = self._acc, self._split_flags()
+        names = self._param_names()
         if self.optimizer_step == 0 and any(split):
             # a tensor-parallel rank holds shards: gathered on every rank
-            acc = list(tensor_parallel.gather_whole(
-                dict(zip(self._param_names(), acc)), self.model.tp_splits,
-                self.layout.model).values())
+            acc = whole_leaves(names, acc, self.model.tp_splits,
+                               self.layout.model)
         if self.optimizer_step == 0 and distributed.if_main_process():
             torch.save([a.detach().cpu() for a in acc],
                        result_dir / "grad.pt")
@@ -5393,7 +5409,22 @@ def ddp_run(result_dir, argv, keep=None, hold=True):
                 torch.save([a.detach().cpu() if s else next(parts).view_as(a)
                             for a, s in zip(acc, split)],
                            result_dir / "grad_local.pt")
-        return patched["_update"](self, params)
+        if self.optimizer_step == 0 and after:
+            norm = float(self._global_norm(self._acc))
+            record["clip"] = min(1.0, float(self.max_grad_norm) / norm)
+            record["adam_eps"] = self.optimizer.param_groups[0]["eps"]
+        patched["_update"](self, params)
+        if self.optimizer_step == 1 and after:
+            # the weights after the first update, whole (a tensor-parallel
+            # rank's shards gathered on every rank), and its learning rate
+            weights = [p.detach() for p in self._params()]
+            if any(split):
+                weights = whole_leaves(names, weights, self.model.tp_splits,
+                                       self.layout.model)
+            if distributed.if_main_process():
+                torch.save([w.cpu() for w in weights],
+                           result_dir / "after.pt")
+            record["step_lr"] = float(self.optimizer.param_groups[0]["lr"])
 
     def decoded(self, batch, arrays, predictions, stage):
         if stage.name == "TEST":
@@ -5402,8 +5433,10 @@ def ddp_run(result_dir, argv, keep=None, hold=True):
                                                predictions, stage)
 
     def timed_all_reduce(tensor, *args):
+        world = not args or args[0] is None     # not an axis's shards
         if tensor.numel() >= 1024 and len(local) < DDP_ACCUMULATION and \
-                distributed.world_size() > 1 and distributed.rank() == 0:
+                world and distributed.world_size() > 1 and \
+                distributed.rank() == 0:
             local.append(tensor.detach().cpu().clone())
         if tensor.numel() < 1024 or not tensor.is_cuda:
             if tensor.numel() >= 1024:
@@ -5411,8 +5444,9 @@ def ddp_run(result_dir, argv, keep=None, hold=True):
                 all_reduce(tensor, *args)
                 record["allreduce_host_ms"].append(
                     (time.perf_counter() - t0) * 1e3)
-                record["allreduce_bytes"] = tensor.numel() * \
-                    tensor.element_size()
+                if world:
+                    record["allreduce_bytes"] = tensor.numel() * \
+                        tensor.element_size()
                 return tensor
             return all_reduce(tensor, *args)
         start = torch.cuda.Event(enable_timing=True)
@@ -5421,7 +5455,9 @@ def ddp_run(result_dir, argv, keep=None, hold=True):
         all_reduce(tensor, *args)
         end.record()
         reduce_events.append((start, end))
-        record["allreduce_bytes"] = tensor.numel() * tensor.element_size()
+        if world:
+            record["allreduce_bytes"] = tensor.numel() * \
+                tensor.element_size()
         return tensor
 
     on_card = argv[argv.index("--device") + 1].startswith("cuda")
@@ -5434,6 +5470,8 @@ def ddp_run(result_dir, argv, keep=None, hold=True):
 
             def fit_batch(self, batch):
                 n = len(record["losses"]) + 1
+                if n == 1:
+                    record["setup_s"] = time.perf_counter() - t0
                 if keep is not None and n <= DDP_ACCUMULATION:
                     if n == 1:
                         import copy
@@ -5462,7 +5500,12 @@ def ddp_run(result_dir, argv, keep=None, hold=True):
                     (hop.stats["seconds"] - hops.get("seconds", 0.0)) * 1e3)
                 for key, stat, unit in (("tp_reduces", "all_reduces", 1),
                                         ("tp_bytes", "bytes", 1),
-                                        ("tp_ms", "seconds", 1e3)):
+                                        ("tp_ms", "seconds", 1e3),
+                                        ("tp_gathers", "gathers", 1),
+                                        ("tp_gather_bytes", "gather_bytes",
+                                         1),
+                                        ("tp_gather_ms", "gather_seconds",
+                                         1e3)):
                     record[key].append((tensor_parallel.stats[stat]
                                         - tps.get(stat, 0)) * unit)
                 return loss
@@ -5488,6 +5531,7 @@ def ddp_run(result_dir, argv, keep=None, hold=True):
             torch.cuda.synchronize()
         record["seconds"] = time.perf_counter() - t0
         worst = check_path_kernels(seen) if hold else None
+        record["hold_s"] = time.perf_counter() - t0 - record["seconds"]
     record.update(
         rank=distributed.rank(), world=distributed.world_size(),
         place=distributed.describe(), device=str(brain.device),
@@ -5504,6 +5548,8 @@ def ddp_run(result_dir, argv, keep=None, hold=True):
         heads=sorted({(args[0].shape[1], h0, train)
                       for (_, _, train, _), (args, _, _, h0)
                       in seen["attention"].items()}),
+        speaker_layers=len(getattr(brain.model.speaker_encoder, "layers",
+                                   ())),
         param_bytes=sum(p.numel() * p.element_size()
                         for p in brain._params()),
         moment_bytes=sum(t.numel() * t.element_size()
@@ -5523,6 +5569,25 @@ def ddp_run(result_dir, argv, keep=None, hold=True):
     return record
 
 
+def whole_leaves(names, tensors, splits, axis):
+    """``tensors`` (a rank's, in parameter order) whole on every rank of
+    the model ``axis``: the shards all-gathered in one flat buffer (a
+    gather a leaf costs a trip through the host each over gloo)."""
+    import torch
+    from tsasr_torch.convert import gather_tensors
+    from tsasr_torch.parallel.hop import all_gather
+    split = [i for i, n in enumerate(names) if splits.get(n) is not None]
+    flat = torch.cat([tensors[i].detach().reshape(-1) for i in split])
+    parts = [torch.split(p, [tensors[i].numel() for i in split])
+             for p in all_gather(flat, axis)]
+    whole = list(tensors)
+    for k, i in enumerate(split):
+        whole[i] = gather_tensors(
+            names[i], [p[k].view_as(tensors[i]) for p in parts],
+            splits[names[i]])
+    return whole
+
+
 def fully_masked_queries(args):
     """The (row, query) pairs of an attention call that see no key: every
     key padded or masked (the first sequence rank's halo rows)."""
@@ -5532,32 +5597,74 @@ def fully_masked_queries(args):
 
 
 def ddp_worker(args):
-    """``chip_smoke.py --ddp_worker DIR ARGS [--then DIR ARGS ...]``: a
-    launched rank's ``ddp_run`` of each run in turn, in one process (the
-    launcher starts one per rank)."""
+    """``chip_smoke.py --ddp_worker DIR N ARGS [--then DIR N ARGS ...]``:
+    a launched rank's ``ddp_run`` of each run in turn, in one process
+    (the launcher starts one per rank). A run of N ranks is a world of
+    the launch's first N ranks, left after the run; a rank past a run's
+    N sits it out, and warms its process up the first time
+    (``warm_up``), so that its first run pays no cold start. The run's
+    rank 0 draws the world's port as it begins the run and writes it to
+    a file in DIR, and the other ranks join once it is there: a port
+    drawn for every run at the launch's start was taken by another
+    socket before a later run bound it (seen once on the card's
+    machine), and a rank
+    that dials the group's store before it listens retries at growing
+    intervals (a probe on the CPU joined 12 s after the store opened,
+    having dialled for 40 s)."""
+    import os
+    import torch.distributed as dist
+    from tsasr_torch.parallel.launch import _free_port
     sys.path.insert(0, str(Path(__file__).resolve().parent))
+    here, warm = int(os.environ["RANK"]), False
     while args:
         cut = args.index("--then") if "--then" in args else len(args)
-        result_dir, argv, args = args[0], args[1:cut], args[cut + 1:]
+        (result_dir, world), argv, args = (args[:2], args[2:cut],
+                                           args[cut + 1:])
+        if here >= int(world):
+            if not warm:
+                warm_up(argv[argv.index("--device") + 1])
+                warm = True
+            continue
+        begun = Path(result_dir) / "port"
+        if here == 0:
+            draft = begun.with_suffix(".draft")
+            draft.write_text(str(_free_port()))
+            os.replace(draft, begun)
+        while not begun.exists():
+            time.sleep(0.01)
+        os.environ.update(WORLD_SIZE=world, MASTER_PORT=begun.read_text())
         record = ddp_run(result_dir, argv)
+        dist.destroy_process_group()
         log(f"ddp worker rank {record['rank']} of {record['world']} done: "
             f"{record['place']} on {record['device']}, "
             f"{record['seconds']:.1f} s")
     return 0
 
 
+def warm_up(device):
+    """A fresh rank process's cold start, paid while it sits a run out:
+    the card's context, torch's lazy ``torch._dynamo`` import (at an
+    optimizer's first parameter group) and ``scipy.stats`` (the recipe's
+    sampler)."""
+    import scipy.stats  # noqa: F401
+    import torch
+    torch.optim.AdamW([torch.zeros(1, device=device, requires_grad=True)])
+
+
 def ddp_launch(nproc, *runs):
     """``nproc`` ranks through ``python -m tsasr_torch.parallel.launch``,
     each a ``ddp_worker`` running ``runs`` ((result folder, the scratch
-    or none yaml's arguments) pairs) in turn: a run after the first pays
-    no process start, import or kernel load. Returns each run's records
-    by rank and the launch's wall seconds."""
+    or none yaml's arguments[, its ranks, default ``nproc``]) tuples) in
+    turn, each run on the launch's first ranks: a run after the first
+    pays no process start, import or kernel load. Returns each run's
+    records by rank and the launch's wall seconds."""
     import os
     root = Path(__file__).resolve().parent
-    args = []
-    for result_dir, argv in runs:
+    args, worlds = [], []
+    for result_dir, argv, *ranks in runs:
         result_dir.mkdir(parents=True)
-        args += ["--then", str(result_dir), *argv]
+        worlds.append(ranks[0] if ranks else nproc)
+        args += ["--then", str(result_dir), str(worlds[-1]), *argv]
     env = {k: v for k, v in os.environ.items()
            if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR",
                         "MASTER_PORT")}
@@ -5574,8 +5681,9 @@ def ddp_launch(nproc, *runs):
         print(proc.stdout[-6000:], file=sys.stderr)
         raise RuntimeError(f"the {nproc}-rank launch exited "
                            f"{proc.returncode}")
-    return [[json.loads((result_dir / f"rank{r}.json").read_text())
-             for r in range(nproc)] for result_dir, _ in runs], seconds
+    return [[json.loads((run[0] / f"rank{r}.json").read_text())
+             for r in range(world)] for run, world in zip(runs, worlds)], \
+        seconds
 
 
 def ddp_f64_step(keep):
@@ -5694,10 +5802,12 @@ def phase_ddp(device, card, corpus, also=()):
     fault, rank 0's rows unreduced, above it), a TEST WER file naming
     every utterance once from disjoint shards, which (c') reproduces.
     Every run's batches launch what their shapes imply and each rank
-    holds its kernels against their plain versions. ``also``: more
-    two-rank runs for the same launch after (c') (another phase's; no
-    process start of their own). Returns the launch counts of all runs
-    but those, and those runs' records."""
+    holds its kernels against their plain versions. ``also``: more runs
+    for the same launch after (c') (another phase's (result folder,
+    arguments, ranks) tuples, two or four ranks; no process start of
+    their own: the launch has as many processes as its widest run, and
+    (c) and (c') run on its first two). Returns the launch counts of all
+    runs but those, and those runs' records."""
     import torch
     on_card = device.type == "cuda"
     counts = collections.Counter()
@@ -5725,14 +5835,16 @@ def phase_ddp(device, card, corpus, also=()):
             torch.cuda.empty_cache()
         [[nccl]], nccl_s = ddp_launch(1, (tmp / "b", ddp_args(
             data, tmp / "b" / "out", "cuda" if on_card else "cpu")))
-        # (c) then (c') in the same two processes, then ``also``
+        # (c) then (c') on the launch's first two processes, then
+        # ``also`` (two or four ranks: the launch has as many as its
+        # widest run)
         ([c0, c1], test_only, *more), gloo_s = ddp_launch(
-            2, (tmp / "c", ddp_args(
+            max([2] + [run[2] for run in also]), (tmp / "c", ddp_args(
                 data, tmp / "c" / "out", "cuda:0" if on_card else "cpu",
-                "--data_parallel_count", "2")),
+                "--data_parallel_count", "2"), 2),
             (tmp / "c2", ddp_args(
                 data, tmp / "c" / "out", "cuda:0" if on_card else "cpu",
-                "--test_only")), *also)
+                "--test_only"), 2), *also)
         wer_c = (tmp / "c" / "wer.txt").read_text()
         wer_again = (tmp / "c2" / "wer.txt").read_text()
         for rec in (nccl, c0, c1, *test_only):
@@ -5759,7 +5871,7 @@ def phase_ddp(device, card, corpus, also=()):
         f"augmentation, deterministic algorithms), VALID greedy, TEST "
         f"greedy on {n_test} utterances; runs (a) in place "
         f"{one['seconds']:.1f} s, (b) 1 rank {nccl_s:.1f} s, (c) then (c') "
-        f"--test_only in one launch of 2 ranks {gloo_s:.1f} s (launches: "
+        f"--test_only on 2 ranks of one launch {gloo_s:.1f} s (launches: "
         f"process start, imports, the runs and their kernel checks; "
         f"{len(more)} more runs of another phase in it, "
         + " + ".join(f"{recs[0]['seconds']:.1f}" for recs in more)
@@ -5921,15 +6033,26 @@ MP_CORPUS = dict(n_speakers=4, utts_per_speaker=4, seed=SEED + 41,
                               "test-clean-2mix": 2})
 MP_CAUSAL = ("--causal_encoder", "True", "--frontend_padding", "causal",
              "--att_context_size", "64")
+# every model parallel run's depth: 1 optimizer step of
+# DDP_ACCUMULATION micro-batches (the four-rank launch's cost paid for)
+MP_STEPS = 1
 # (name, yaml, model flags, axis flags, the one-process run it is held
-# against): the tensor-parallel run takes the sequence run's model, so
-# that one process's run (and its f64 step) serves both
+# against, ranks): the tensor-parallel runs take the sequence or
+# pipeline run's model, so that one process's run (and its f64 step)
+# serves them too; the two-rank runs go in the ddp phase's launch, the
+# four-rank ones (T beside S or P) in a launch of their own
 MP_RUNS = (("sp", EXPERIMENT_YAML, MP_CAUSAL,
-            ("--sequence_parallel_count", "2"), "sp"),
+            ("--sequence_parallel_count", "2"), "sp", 2),
            ("pp", VARIANT_YAMLS["none"], (),
-            ("--pipeline_parallel_count", "2"), "pp"),
+            ("--pipeline_parallel_count", "2"), "pp", 2),
            ("tp", EXPERIMENT_YAML, MP_CAUSAL,
-            ("--tensor_parallel_count", "2"), "sp"))
+            ("--tensor_parallel_count", "2"), "sp", 2),
+           ("sp_tp", EXPERIMENT_YAML, MP_CAUSAL,
+            ("--sequence_parallel_count", "2", "--tensor_parallel_count",
+             "2"), "sp", 4),
+           ("pp_tp", VARIANT_YAMLS["none"], (),
+            ("--pipeline_parallel_count", "2", "--tensor_parallel_count",
+             "2"), "pp", 4))
 MP_TEST_UTTERANCES = 4
 
 
@@ -5954,33 +6077,37 @@ def mp_readings(name, one, ranks, card):
             f"waits); all-reduce {rec.get('allreduce_bytes', 0) / 1e6:.1f} "
             f"MB; VALID {sum(rec['eval_s']['valid']):.2f} s, TEST "
             f"{sum(rec['eval_s']['test']):.2f} s; the run "
-            f"{rec['seconds']:.1f} s [{card}]")
+            f"{rec['seconds']:.1f} s ({rec['setup_s']:.1f} s before its "
+            f"first micro-batch), its kernel holds {rec['hold_s']:.1f} s "
+            f"[{card}]")
 
 
 def model_parallel_runs(device, tmp):
     """The model parallel phase's corpus in ``tmp``, its one-process runs
     in place (each with the plain f64 step of its first optimizer step),
-    and the two ranks' runs to launch: (the one-process records, the
-    launch's (result folder, arguments) pairs)."""
+    and the ranks' runs to launch: (the one-process records, the
+    launch's (result folder, arguments, ranks) tuples in ``MP_RUNS``'
+    order)."""
     from tsasr_torch.tools.make_synthetic_dataset import make_dataset
     ranks_device = "cuda:0" if device.type == "cuda" else "cpu"
     data = tmp / "corpus"
     make_dataset(str(data), **MP_CORPUS)
     ones, launched = {}, []
-    for name, yaml, model, axis, reference in MP_RUNS:
+    depth = ("--optimizer_step_limit", str(MP_STEPS))
+    for name, yaml, model, axis, reference, nproc in MP_RUNS:
         if reference == name:
             (tmp / name).mkdir()
             keep = {}
             ones[name] = ddp_run(tmp / name, ddp_args(
-                data, tmp / name / "out", str(device), *model, yaml=yaml),
-                keep, hold=False)
+                data, tmp / name / "out", str(device), *model, *depth,
+                yaml=yaml), keep, hold=False, after=True)
             ones[name]["f64"] = ddp_f64_step(keep)
             ones[name]["names"] = [n for n, _ in
                                    keep["model0"].named_parameters()]
             del keep
         launched.append((tmp / f"{name}2", ddp_args(
             data, tmp / f"{name}2" / "out", ranks_device, *model, *axis,
-            yaml=yaml)))
+            *depth, yaml=yaml), nproc))
     return ones, launched
 
 
@@ -5992,20 +6119,26 @@ def model_parallel_hold(device, card, tmp, ones, by_run):
     on_card = device.type == "cuda"
     counts = collections.Counter()
     failures = []
-    for (name, yaml, model, axis, reference), ranks in zip(MP_RUNS, by_run):
+    runs = {run[0]: ranks for run, ranks in zip(MP_RUNS, by_run)}
+    for (name, yaml, model, axis, reference, nproc), ranks in zip(
+            MP_RUNS, by_run):
         one = ones[reference]
         step64, loose, n_near, n_pre = one["f64"]
         names = one["names"]
         want = torch.load(tmp / reference / "grad.pt", weights_only=True)
         for rec in (one, *ranks) if reference == name else ranks:
             counts.update(rec["launches"])
-        errs = {what: ddp_grad_errors(torch.load(
-                    tmp / path, weights_only=True), want, loose, names)
-                for what, path in (
-                    ("ranks", f"{name}2/grad.pt"),
-                    ("fault", f"{name}2/grad_local.pt"))}
-        errs["floor"] = ddp_grad_errors(want, step64, loose, names)
-        del step64, want
+        got = torch.load(tmp / f"{name}2" / "grad.pt", weights_only=True)
+        errs = {"ranks": ddp_grad_errors(got, want, loose, names),
+                "fault": ddp_grad_errors(torch.load(
+                    tmp / f"{name}2" / "grad_local.pt", weights_only=True),
+                    want, loose, names),
+                "floor": ddp_grad_errors(want, step64, loose, names)}
+        steady, flips, n_flips = after_update_errors(
+            torch.load(tmp / f"{name}2" / "after.pt", weights_only=True),
+            torch.load(tmp / reference / "after.pt", weights_only=True),
+            got, want, one, device)
+        del step64, want, got
         wer_one = (tmp / reference / "wer.txt").read_text()
         wer = (tmp / f"{name}2" / "wer.txt").read_text()
         keys = [block.split(",")[0] for block in
@@ -6018,9 +6151,9 @@ def model_parallel_hold(device, card, tmp, ones, by_run):
             f"{one['seconds']:.1f} s, each rank's run "
             f"{ranks[0]['seconds']:.1f} s")
         log(f"model parallel {name} losses: one process "
-            f"{one['losses']}; ranks {ranks[0]['losses']} / "
-            f"{ranks[1]['losses']} (worst {loss_err:.3g} relative, tol "
-            f"{DDP_LOSS_RTOL})")
+            f"{one['losses']}; ranks "
+            + " / ".join(str(rec["losses"]) for rec in ranks)
+            + f" (worst {loss_err:.3g} relative, tol {DDP_LOSS_RTOL})")
         for what, tol in (("ranks", f"{GRAD_TIGHT_REL} tight, "
                            f"{GRAD_ATOL_REL} loosely"),
                           ("floor", f"the f32 noise floor, below "
@@ -6044,9 +6177,16 @@ def model_parallel_hold(device, card, tmp, ones, by_run):
                 f"{rec['worst']['bwd']:.3g} of max (atol {ATTN_ATOL}); "
                 f"lattice at {len(rec['shapes']['lattice'])} shapes, "
                 f"worst err/tol {rec['worst']['lattice']:.3g}")
+        log(f"model parallel {name} weights after the update, vs one "
+            f"process (lr {one['step_lr']:.3g}): where the two gradients "
+            f"share a sign above 1000 eps, worst {steady:.3g} of 1e-2 lr "
+            f"and two f32 roundings; elsewhere ({n_flips} elements) worst "
+            f"{flips:.3g} of 2 lr and two roundings")
         mp_readings(name, one, ranks, card)
         if loss_err > DDP_LOSS_RTOL:
             failures.append(f"{name}: losses")
+        if not max(steady, flips) <= 1.0:
+            failures.append(f"{name}: the weights after the update")
         if errs["ranks"][0] > GRAD_TIGHT_REL or \
                 errs["ranks"][1] > GRAD_ATOL_REL:
             failures.append(f"{name}: the first step's gradient")
@@ -6063,18 +6203,24 @@ def model_parallel_hold(device, card, tmp, ones, by_run):
                 f"{wer.splitlines()[0]!r} against one process's "
                 f"{wer_one.splitlines()[0]!r}")
         steps = {rec["optimizer_step"] for rec in (one, *ranks)}
-        if steps != {DDP_STEPS}:
+        if steps != {MP_STEPS} or \
+                len(ranks[0]["losses"]) != MP_STEPS * DDP_ACCUMULATION:
             failures.append(f"{name}: optimizer steps {steps}")
-        if not all(rec["place"].startswith(f"rank {r} of 2 over gloo")
+        if not all(rec["place"].startswith(f"rank {r} of {nproc} over "
+                                           "gloo")
                    for r, rec in enumerate(ranks)):
             failures.append(f"{name}: places "
                             f"{[rec['place'] for rec in ranks]}")
-        if on_card and name != "tp" and (name == "sp") != (
+        halo = "--sequence_parallel_count" in axis
+        if on_card and name != "tp" and halo != (
                 ranks[0]["fully_masked_rows"] > 0):
             failures.append(f"{name}: rank 0's fully masked queries "
                             f"{ranks[0]['fully_masked_rows']}")
-        if name == "tp":
-            failures += tp_hold(one, ranks, on_card, card)
+        if "--tensor_parallel_count" in axis:
+            beside = halo or "--pipeline_parallel_count" in axis
+            failures += tp_hold(name, ranks,
+                                runs[reference] if beside else [one],
+                                beside, ranks[0]["speaker_layers"] > 0, card)
     for one in ones.values():
         del one["f64"], one["names"]
     if failures:
@@ -6082,39 +6228,90 @@ def model_parallel_hold(device, card, tmp, ones, by_run):
     return dict(counts)
 
 
-def tp_hold(one, ranks, on_card, card):
-    """The tensor-parallel run's own checks and readings: each rank's
-    TRAIN attention launched at H 2 from h0 2·rank, VALID and TEST on the
-    whole copy at H 4; each rank's parameter and AdamW bytes below one
-    process's; the model axis's all-reduces per micro-batch. Returns the
-    failures."""
+def after_update_errors(got, want, grad_got, grad_want, one, device):
+    """The whole weights after the first update of a run, ``got``,
+    against one process's, ``want``, whose first gradients were
+    ``grad_got`` / ``grad_want``. AdamW's first step moves an element by
+    lr x / (|x| + eps), x the clipped gradient, beside a decay both
+    compute alike: where the two x share a sign and are at least 1000
+    eps, the steps differ by at most eps / |x|, so the weights agree
+    within 1e-2 lr and two f32 roundings of the weight; elsewhere (a
+    sign that f32 noise or a kink flipped) within 2 lr and the
+    roundings. A step on the wrong shard's moments, or a scaled one,
+    moves the first set by about lr. Returns (the first set's worst
+    error over its tolerance, the rest's, how many the rest are)."""
+    import torch
+
+    def worst(x):
+        return float(x.max()) if x.numel() else 0.0
+
+    lr, floor = one["step_lr"], 1e3 * one["adam_eps"] / one["clip"]
+    steady_worst, rest_worst, n_rest = 0.0, 0.0, 0
+    for w, w0, a, b in zip(got, want, grad_got, grad_want):
+        w, w0, a, b = (t.to(device, torch.float64)
+                       for t in (w, w0, a, b))
+        steady = (a * b > 0) & (a.abs().minimum(b.abs()) >= floor)
+        rounding = 2.0 ** -22 * w0.abs()
+        err = (w - w0).abs()
+        steady_worst = max(steady_worst,
+                           worst((err / (1e-2 * lr + rounding))[steady]))
+        rest_worst = max(rest_worst,
+                         worst((err / (2 * lr + rounding))[~steady]))
+        n_rest += int((~steady).sum())
+    return steady_worst, rest_worst, n_rest
+
+
+def tp_hold(name, ranks, reference, beside, speaker, card):
+    """A tensor-parallel run's own checks and readings (T 2 on the model
+    axis, the fastest-varying): each rank's TRAIN attention in the split
+    speaker encoder (``speaker``) at H 2 from h0 2·model and, T alone,
+    in the split encoder too; ``beside`` S 2 or P 2, the encoder's at H
+    4 from h0 0 on its leaves gathered once a micro-batch; VALID and TEST
+    on the whole copy at H 4; the model axis's all-reduces wherever a
+    module runs split; each rank's parameter and AdamW bytes below its
+    ``reference``'s (one process's record, or the S 2 / P 2 run's ranks:
+    rank r against the r // 2-th). Returns the failures."""
     failures = []
-    whole = one["param_bytes"] + one["moment_bytes"]
     for r, rec in enumerate(ranks):
+        model = r % 2
         heads = {tuple(x) for x in rec["heads"]}
-        want = {(2, 2 * r, True), (4, 0, False)}
+        want = {(4, 0, False)} | ({(4, 0, True)} if beside else set()) | (
+            {(2, 2 * model, True)} if speaker or not beside else set())
+        ref = reference[r // 2]
         mine = rec["param_bytes"] + rec["moment_bytes"]
-        log(f"model parallel tp: {rec['place']}: attention calls at "
+        theirs = ref["param_bytes"] + ref["moment_bytes"]
+        log(f"model parallel {name}: {rec['place']}: attention calls at "
             f"(heads, h0, TRAIN) {sorted(heads)}; parameters "
             f"{rec['param_bytes'] / 1e6:.1f} MB + AdamW moments "
-            f"{rec['moment_bytes'] / 1e6:.1f} MB = {mine / 1e6:.1f} MB, one "
-            f"process {one['param_bytes'] / 1e6:.1f} + "
-            f"{one['moment_bytes'] / 1e6:.1f} = {whole / 1e6:.1f} MB "
-            f"({100 * mine / whole:.1f} %); the model axis's all-reduces "
-            "per micro-batch "
+            f"{rec['moment_bytes'] / 1e6:.1f} MB = {mine / 1e6:.1f} MB, "
+            f"against {ref['place'].split(',')[0]}'s "
+            f"{ref['param_bytes'] / 1e6:.1f} + "
+            f"{ref['moment_bytes'] / 1e6:.1f} = {theirs / 1e6:.1f} MB "
+            f"({100 * mine / theirs:.1f} %); ms per micro-batch in "
+            "fit_batch " + ", ".join(f"{x:.1f}" for x in rec["fit_ms"])
+            + "; the gathers per micro-batch "
+            + ", ".join(f"{n} of {b / 1e6:.2f} MB in {ms:.1f} ms"
+                        for n, b, ms in zip(rec["tp_gathers"],
+                                            rec["tp_gather_bytes"],
+                                            rec["tp_gather_ms"]))
+            + "; the model axis's all-reduces per micro-batch "
             + ", ".join(f"{n} of {b / 1e6:.2f} MB in {ms:.1f} ms"
                         for n, b, ms in zip(rec["tp_reduces"],
                                             rec["tp_bytes"], rec["tp_ms"]))
             + f" (host clock; gloo stages a CUDA tensor through the host) "
             f"[{card}]")
         if heads != want:
-            failures.append(f"tp: rank {r}'s attention heads {sorted(heads)}"
-                            f", expected {sorted(want)}")
-        if not mine < whole:
-            failures.append(f"tp: rank {r} holds {mine} bytes of parameters "
-                            f"and moments, one process {whole}")
-        if not all(n > 0 for n in rec["tp_reduces"]):
-            failures.append(f"tp: rank {r}'s micro-batches all-reduced "
+            failures.append(f"{name}: rank {r}'s attention heads "
+                            f"{sorted(heads)}, expected {sorted(want)}")
+        if not mine < theirs:
+            failures.append(f"{name}: rank {r} holds {mine} bytes of "
+                            f"parameters and moments, its reference "
+                            f"{theirs}")
+        if rec["tp_gathers"] != [int(beside)] * len(rec["fit_ms"]):
+            failures.append(f"{name}: rank {r} gathered "
+                            f"{rec['tp_gathers']} times a micro-batch")
+        if (speaker or not beside) != all(n > 0 for n in rec["tp_reduces"]):
+            failures.append(f"{name}: rank {r}'s micro-batches all-reduced "
                             f"{rec['tp_reduces']} times on the model axis")
     return failures
 

@@ -7,7 +7,8 @@ the CPU over gloo, at a tiny size (d_model 32, 4 heads, kernel 5,
 
 - ``required_halo``; the rank layout against ``make_mesh``'s devices
   for (D, P, S, T) in (2, 2, 1, 1), (2, 1, 2, 1), (1, 2, 2, 1),
-  (2, 1, 1, 2), (1, 2, 1, 2), (1, 1, 2, 4), (2, 2, 1, 2); the
+  (2, 1, 1, 2), (1, 2, 1, 2), (1, 1, 2, 4), (2, 2, 1, 2), (2, 1, 2, 2);
+  the
   ``pad_feats_to`` lcm;
 - four gloo ranks, one launch, five layouts: S4 and D2 x S2 of a causal
   banded scratch model (``cat`` at 0), P4 with ``prod`` mid-stack and
@@ -139,7 +140,7 @@ def test_required_halo(att, kernel):
 
 @pytest.mark.parametrize("dp,pp,sp,tp", [
     (2, 2, 1, 1), (2, 1, 2, 1), (1, 2, 2, 1), (2, 1, 1, 2), (1, 2, 1, 2),
-    (1, 1, 2, 4), (2, 2, 1, 2)])
+    (1, 1, 2, 4), (2, 2, 1, 2), (2, 1, 2, 2)])
 def test_rank_layout_is_make_mesh(dp, pp, sp, tp):
     """Device r of JAX's mesh sits where the port puts world rank r, and
     each axis's group lists the devices along that mesh axis (the model

@@ -24,7 +24,8 @@ torch on one thread):
 - the scratch entry module through the launcher at D2 x T2 (dropout 0)
   and at T2 (dropout on) against one process: two epochs, VALID
   greedy, TEST at beam 2;
-- T with S or P above 1 raises, naming ``ROADMAP.md``.
+- T with S or P above 1 is accepted (``tests/test_torch_tensor_beside.py``
+  runs it).
 """
 
 import os
@@ -569,12 +570,20 @@ def test_tensor_parallel_experiment_as_one_process(corpus, tmp_path, layout,
         in (many / "log.txt").read_text()
 
 
-@pytest.mark.parametrize("flag", ["--sequence_parallel_count",
-                                  "--pipeline_parallel_count"])
-def test_tensor_beside_sequence_or_pipeline_raises(monkeypatch, flag):
+@pytest.mark.parametrize("counts", [(1, 1, 2, 2), (1, 2, 1, 2),
+                                    (2, 1, 2, 2)])
+def test_tensor_beside_sequence_or_pipeline_is_accepted(monkeypatch,
+                                                        counts):
+    """``check_parallel_counts`` returns (D, P, S, T) for T beside S or P
+    (JAX's four-axis mesh), D given or left to the world size."""
     from tsasr_torch.training import experiment
-    monkeypatch.setattr(experiment, "world_size", lambda: 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        experiment.parse_arguments([str(TORCH_YAML),
-                                    "--tensor_parallel_count", "2", flag,
-                                    "2"])
+    dp, pp, sp, tp = counts
+    monkeypatch.setattr(experiment, "world_size", lambda: dp * pp * sp * tp)
+    opts = {"tensor_parallel_count": tp, "pipeline_parallel_count": pp,
+            "sequence_parallel_count": sp}
+    assert experiment.check_parallel_counts(opts) == counts
+    assert experiment.check_parallel_counts(
+        dict(opts, data_parallel_count=dp)) == counts
+    with pytest.raises(NotImplementedError, match="world size"):
+        experiment.check_parallel_counts(
+            dict(opts, data_parallel_count=dp + 1))

@@ -381,15 +381,22 @@ class TSConformerEncoder(nn.Module):
 
     def apply_layer(self, i, x, pos_emb, key_padding_mask, attn_mask,
                     deterministic=True, generator=None,
-                    mask_conv_input=False):
+                    mask_conv_input=False, params=None):
         """Layer ``i`` on ``x``, rematerialized under ``remat`` when a
-        gradient is being taken."""
+        gradient is being taken. ``params`` ({leaf name in the layer:
+        tensor}) stand in for the layer's own leaves, in the recompute
+        too (the whole leaves a tensor-parallel rank gathers,
+        ``parallel.tensor_parallel.gather_layers``)."""
         layer = self.layers[i]
 
         def run(h):
-            return layer(h, pos_emb, key_padding_mask, attn_mask,
-                         deterministic, generator,
-                         mask_conv_input=mask_conv_input)[0]
+            args = (h, pos_emb, key_padding_mask, attn_mask, deterministic,
+                    generator)
+            kwargs = {"mask_conv_input": mask_conv_input}
+            if params:
+                return torch.func.functional_call(layer, params, args,
+                                                  kwargs)[0]
+            return layer(*args, **kwargs)[0]
         if self.remat and torch.is_grad_enabled():
             return rematerialized(run, generator, self.remat_policy)(x)
         return run(x)

@@ -71,6 +71,7 @@ from tsasr_torch.ops.rnnt_loss_banded import band_centers
 from tsasr_torch.parallel.hop import BroadcastFrom, GatherBlocks
 from tsasr_torch.parallel.pp_parallel import pp_encoder_apply
 from tsasr_torch.parallel.seq_parallel import sp_encoder_apply
+from tsasr_torch.parallel.tensor_parallel import gather_layers
 from tsasr_torch.utils.precision import cast
 
 SPEAKER_ENCODERS = ("conformer", "ecapa")
@@ -228,6 +229,11 @@ class TSTransducer(nn.Module):
     MODEL_PARALLEL_PARTIAL = ("frontend", "encoder", "encoder_proj",
                               "speaker_frontend", "speaker_encoder",
                               "speaker_proj")
+    # the modules that run whole on their leaves gathered over a model
+    # axis beside a sequence or pipeline axis (the encoder's layers, which
+    # JAX's shard_maps take whole), keeping their shards as storage
+    # (``parallel.tensor_parallel.shard_model``'s ``gathered``)
+    MODEL_PARALLEL_GATHERED = ("encoder.layers",)
 
     def __init__(self, config=None):
         super().__init__()
@@ -341,7 +347,7 @@ class TSTransducer(nn.Module):
 
     def encode_seq_parallel(self, feats, rel_lens, axis, speaker_embs=None,
                             speaker_rel_lens=None, deterministic=True,
-                            generator=None, halo=None):
+                            generator=None, halo=None, model_axis=None):
         """``encode`` with the Conformer's time axis split over ``axis``
         (a ``parallel.distributed.Axis``; ``parallel.seq_parallel``:
         causal banded encoders only). The frontend runs whole on each
@@ -351,16 +357,20 @@ class TSTransducer(nn.Module):
         frame count must divide the axis's size (the recipe's
         ``pad_feats_to`` sees to it). Dropout: the frontend draws from
         ``generator`` folded by 2, the encoder from its fold by 3, folded
-        again by the rank's block."""
+        again by the rank's block. ``model_axis``: the encoder's layers
+        that hold shards over it run whole on their leaves gathered once
+        (``parallel.tensor_parallel.gather_layers``)."""
         x = self.frontend(feats, deterministic, fold_generator(generator, 2))
+        layers = range(len(self.encoder.layers))
         x = sp_encoder_apply(self.encoder, x, rel_lens, axis, speaker_embs,
                              speaker_rel_lens, deterministic,
-                             fold_generator(generator, 3), halo)
+                             fold_generator(generator, 3), halo,
+                             self._gathered(layers, model_axis))
         return GatherBlocks.apply(self.encoder_proj(x), axis, 1)
 
     def encode_pipeline(self, feats, rel_lens, axis, speaker_embs=None,
                         speaker_rel_lens=None, deterministic=True,
-                        generator=None, n_micro=None):
+                        generator=None, n_micro=None, model_axis=None):
         """``encode`` with the Conformer's layers split over ``axis``
         (``parallel.pp_parallel``: the GPipe schedule of ``n_micro``
         micro-batches, default the axis's size, which must divide the
@@ -368,17 +378,30 @@ class TSTransducer(nn.Module):
         stage's output is used); the last stage applies ``encoder_proj``
         and broadcasts: every rank returns (B, T', joint_dim). Dropout:
         the frontend draws from ``generator`` folded by 2, the encoder
-        from its fold by 3, folded again per layer and micro-batch."""
+        from its fold by 3, folded again per layer and micro-batch.
+        ``model_axis``: as ``encode_seq_parallel``'s, each stage gathering
+        its own layers."""
         x = self.frontend(feats, deterministic, fold_generator(generator, 2))
+        per = len(self.encoder.layers) // axis.size
         y = pp_encoder_apply(self.encoder, x, rel_lens, axis, speaker_embs,
                              speaker_rel_lens, deterministic,
-                             fold_generator(generator, 3), n_micro)
+                             fold_generator(generator, 3), n_micro,
+                             self._gathered(range(axis.index * per,
+                                                  (axis.index + 1) * per),
+                                            model_axis))
         if axis.index == axis.size - 1:
             y = self.encoder_proj(y)
         return BroadcastFrom.apply(
             y, axis, axis.ranks[-1],
             (x.shape[0], x.shape[1], self.config.joint_dim),
             self.config.dtype)
+
+    def _gathered(self, layers, model_axis):
+        """The whole leaves of the encoder's ``layers`` that hold shards
+        over ``model_axis`` (None: no model axis)."""
+        if model_axis is None or model_axis.size == 1:
+            return None
+        return gather_layers(self.encoder, layers, model_axis)
 
     def encode_with_attn(self, feats, rel_lens, speaker_embs=None,
                          speaker_rel_lens=None):
@@ -495,7 +518,9 @@ class TSTransducer(nn.Module):
         same on every rank of the axis, and the encoder from its fold by
         3 (folded again per block or per layer and micro-batch); the
         predictor keeps the generator. Which parameters' gradients come
-        split over the axis: ``MODEL_PARALLEL_PARTIAL``."""
+        split over the axis: ``MODEL_PARALLEL_PARTIAL``. Beside a model
+        axis the encoder's layers run whole on gathered leaves
+        (``MODEL_PARALLEL_GATHERED``), the speaker branch split."""
         axis = None if axes is None else axes.encoder_axis
         if axis is None:
             speaker_embs, speaker_rel = self.speaker_condition(
@@ -510,7 +535,8 @@ class TSTransducer(nn.Module):
             encode = self.encode_seq_parallel if axis.name == "seq" \
                 else self.encode_pipeline
             enc_out = encode(feats, rel_lens, axis, speaker_embs,
-                             speaker_rel, deterministic, generator)
+                             speaker_rel, deterministic, generator,
+                             model_axis=axes.model)
         dec_out, _ = self.predict(tokens_bos)
         return enc_out, dec_out
 

@@ -237,8 +237,9 @@ class Layout:
     def encoder_axis(self):
         """The axis the encoder is split over in TRAIN, as the JAX
         ``encode_predict`` routes it (``'seq'`` first, then ``'pipe'``),
-        or None (the model axis splits every layer's matrices instead,
-        ``parallel.tensor_parallel``)."""
+        or None. A model axis beside it is live too: the encoder's layers
+        run whole on leaves gathered over it, every other split module
+        split (``parallel.tensor_parallel``)."""
         if self.sp > 1:
             return self.seq
         if self.pp > 1:

@@ -64,7 +64,8 @@ class _Stage:
     whole sequence, and where its blocks come from and go."""
 
     def __init__(self, encoder, axis, n_micro, rows, pos_emb, key_padding,
-                 attn_mask, deterministic, generator, inject_mode, grad):
+                 attn_mask, deterministic, generator, inject_mode, grad,
+                 layer_params):
         per = len(encoder.layers) // axis.size
         self.encoder, self.axis = encoder, axis
         self.layers = range(axis.index * per, (axis.index + 1) * per)
@@ -73,6 +74,7 @@ class _Stage:
             pos_emb, key_padding, attn_mask)
         self.deterministic, self.generator = deterministic, generator
         self.inject_mode, self.grad = inject_mode, grad
+        self.layer_params = layer_params
         self.first = axis.index == 0
         self.last = axis.index == axis.size - 1
         self.graphs = []
@@ -89,7 +91,8 @@ class _Stage:
             x = encoder.apply_layer(i, x, self.pos_emb,
                                     self.key_padding[self.rows(m)],
                                     self.attn_mask, self.deterministic,
-                                    generator)
+                                    generator,
+                                    params=self.layer_params.get(i))
             if self.inject_mode and i in encoder.injection_after:
                 x = x * spk if self.inject_mode == "prod" else x + spk
         return x
@@ -99,7 +102,8 @@ class _Pipeline(torch.autograd.Function):
     """The GPipe schedule of one stage: ``x`` is the first stage's input
     (an empty tensor elsewhere), ``spk`` the mid-stack injection's
     embedding (empty without one), ``params`` the stage's trainable
-    parameters. Returns the last stage's output, an empty tensor on the
+    leaves as its layers use them (a gathered whole leaf in its shard's
+    place). Returns the last stage's output, an empty tensor on the
     others."""
 
     @staticmethod
@@ -166,13 +170,16 @@ class _Pipeline(torch.autograd.Function):
 
 def pp_encoder_apply(encoder, src, rel_lengths, axis, speaker_embs=None,
                      speaker_embs_length=None, deterministic=True,
-                     generator=None, n_micro=None):
+                     generator=None, n_micro=None, layer_params=None):
     """A ``TSConformerEncoder`` with its layers split over ``axis`` (a
     ``distributed.Axis``) on the GPipe schedule.
 
     src : (B, T, F) or (B, T, F1, F2), this data shard's rows (every
         rank of the axis holds them; only the first stage reads them).
         B must divide ``n_micro`` (default: the axis's size).
+    layer_params : {i: {leaf name: tensor}} standing in for layer i's own
+        leaves on the stage that holds it (``TSConformerEncoder.
+        apply_layer``'s ``params``).
 
     Returns, on the axis's last rank, (B, T, d_model) after the
     encoder's final LayerNorm; on the others an empty tensor that holds
@@ -211,12 +218,16 @@ def pp_encoder_apply(encoder, src, rel_lengths, axis, speaker_embs=None,
     else:
         x = encoder.input_proj.weight.new_empty(0, dtype=encoder.dtype)
     spk = speaker_embs if inject_mode else x.new_empty(0)
-    params = [p for i in range(axis.index * L // axis.size,
-                               (axis.index + 1) * L // axis.size)
-              for p in encoder.layers[i].parameters() if p.requires_grad]
+    layer_params = layer_params or {}
+    params = [layer_params.get(i, {}).get(name, p)
+              for i in range(axis.index * L // axis.size,
+                             (axis.index + 1) * L // axis.size)
+              for name, p in encoder.layers[i].named_parameters()
+              if p.requires_grad]
     grad = torch.is_grad_enabled() and (
         x.requires_grad or spk.requires_grad or bool(params))
     stage = _Stage(encoder, axis, n_micro, B, pos_emb, key_padding,
-                   attn_mask, deterministic, generator, inject_mode, grad)
+                   attn_mask, deterministic, generator, inject_mode, grad,
+                   layer_params)
     out = _Pipeline.apply(stage, x, spk, *params)
     return encoder.norm(out) if stage.last else out

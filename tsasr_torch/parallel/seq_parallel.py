@@ -68,13 +68,15 @@ def check_config(encoder, halo, block):
 
 def sp_encoder_apply(encoder, src, rel_lengths, axis, speaker_embs=None,
                      speaker_embs_length=None, deterministic=True,
-                     generator=None, halo=None):
+                     generator=None, halo=None, layer_params=None):
     """This rank's block of a causal banded ``TSConformerEncoder``'s
     output, its time axis split over ``axis`` (a ``distributed.Axis``).
 
     src : (B, T, F) or (B, T, F1, F2), the whole sequence (every rank of
         the axis holds it); T must divide the axis's size.
     rel_lengths : (B,) relative lengths of the whole sequence.
+    layer_params : {i: {leaf name: tensor}} standing in for layer i's own
+        leaves (``TSConformerEncoder.apply_layer``'s ``params``).
 
     Returns (B, T / size, d_model): frames ``index * T / size`` on, after
     the encoder's final LayerNorm."""
@@ -108,7 +110,8 @@ def sp_encoder_apply(encoder, src, rel_lengths, axis, speaker_embs=None,
     for i in range(len(encoder.layers)):
         x_ext = torch.cat([fetch_left_halo(x, halo, axis), x], dim=1)
         x_ext = encoder.apply_layer(i, x_ext, pos_emb, key_padding_mask,
-                                    attn_mask, *drop, mask_conv_input=True)
+                                    attn_mask, *drop, mask_conv_input=True,
+                                    params=(layer_params or {}).get(i))
         x = x_ext[:, halo:]
         if inject and i in encoder.injection_after:
             x = encoder._inject(x, speaker_embs, speaker_mask, *drop)

@@ -38,11 +38,21 @@ axis's size (``check_tensor_parallel``, where it has one):
 - ``CrossAttention`` (``cross_attention`` injection): ``out_proj`` by its
   input columns; q, k and v stay whole on every rank.
 
+Beside a sequence or pipeline axis (the JAX package's four-axis mesh,
+whose ``shard_map``s take the encoder's parameters whole), the main
+encoder's layers keep their shards as storage but run whole, at all H
+heads, on leaves gathered over the model axis once a micro-batch
+(``shard_model``'s ``gathered`` scope, ``gather_layers``: one
+``all_gather`` of a flat buffer, ``_GatherLeaves``); every other split
+module runs split as above.
+
 A split leaf's gradient is its shard's (all-reduced over the data axis
-only); a ``TP_PARTS`` leaf's gradient on a rank holds its slice's part,
-summed over the model axis; every other leaf's every rank computes
+and, beside a sequence or pipeline axis, over that axis: never over the
+model axis); a ``TP_PARTS`` leaf's gradient on a rank holds its slice's
+part, summed over the model axis; every other leaf's every rank computes
 whole (``Brain.gradient_shares``). ``stats`` counts the model axis's
-all-reduces, their bytes and the host seconds they took.
+all-reduces, their bytes and the host seconds they took, and the
+gathers likewise (``gathers``, ``gather_bytes``, ``gather_seconds``).
 """
 
 import collections
@@ -105,6 +115,41 @@ class _ReduceBoth(torch.autograd.Function):
         return _all_reduce(grad, ctx.axis), None
 
 
+class _GatherLeaves(torch.autograd.Function):
+    """The whole leaves of a rank's ``shards`` (``names`` and split
+    ``dims`` alike), all-gathered over the model ``axis`` in one flat
+    buffer and joined in rank order (``convert.gather_tensors``).
+
+    The backward hands each shard the rank's slice of its whole leaf's
+    cotangent (``convert.shard_tensor``) and sums nothing over the axis:
+    every rank of the axis ran the same whole computation on the same
+    rows with the same dropout masks, so each computed the same whole
+    cotangent, and the slices of the axis's ranks together are it once."""
+
+    @staticmethod
+    def forward(ctx, names, dims, axis, *shards):
+        t0 = time.perf_counter()
+        ctx.meta = (names, dims, axis)
+        flat = torch.cat([s.detach().reshape(-1) for s in shards])
+        parts = [torch.split(p, [s.numel() for s in shards])
+                 for p in all_gather(flat, axis)]
+        stats["gathers"] += 1
+        stats["gather_bytes"] += flat.numel() * flat.element_size() * (
+            axis.size - 1)
+        stats["gather_seconds"] += time.perf_counter() - t0
+        return tuple(gather_tensors(name, [p[i].view_as(s) for p in parts],
+                                    dim)
+                     for i, (name, dim, s) in enumerate(zip(names, dims,
+                                                            shards)))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        names, dims, axis = ctx.meta
+        return (None, None, None,
+                *(shard_tensor(name, g, dim, axis.index, axis.size)
+                  for name, dim, g in zip(names, dims, grads)))
+
+
 def copy_to_model(x, axis):
     """``x`` as is; its cotangent summed over ``axis`` (a size-1 axis
     is the identity both ways)."""
@@ -161,15 +206,24 @@ def _join(prefix, leaf):
     return f"{prefix}.{leaf}" if prefix else leaf
 
 
-def shard_model(model, axis):
+def _in_scope(prefix, scopes):
+    return any(prefix == s or prefix.startswith(s + ".") for s in scopes)
+
+
+def shard_model(model, axis, gathered=()):
     """Split ``model``'s matrices over the model ``axis`` in place: each
     leaf the split rule names (``parallel.mesh.param_split_dims`` of the
     whole model) becomes this rank's shard, each module whose pair is
-    split runs split (its ``tp`` set to ``axis``). Raises where the rule
-    splits a leaf no module can run split, or one leaf of a pair only
+    split runs split (its ``tp`` set to ``axis``), except the modules
+    under a ``gathered`` scope (module name prefixes: the main encoder's
+    layers beside a sequence or pipeline axis), which keep their shards
+    as storage and run whole on leaves ``gather_layers`` gathers (their
+    ``tp_stored``: {leaf: split dim}). Raises where the rule splits a
+    leaf no module can run split, or one leaf of a pair only
     (``validate_tp_shardings`` raises first on name drift). Returns
     {name: "split" | "part"} of the leaves a rank holds a shard of or
-    reads a slice of (``gradient_shares``)."""
+    reads a slice of (``gradient_shares``): a gathered module's shards
+    are "split", and it reads no slice."""
     splits = param_split_dims(dict(model.named_parameters()), axis.size)
     validate_tp_shardings(splits)
     kinds = {}
@@ -182,11 +236,15 @@ def shard_model(model, axis):
             raise ValueError(f"{prefix}: the split rule splits "
                              f"{[n for n, s in zip(names, split) if s]} but "
                              f"not the rest of {names}")
+        kinds.update({n: "split" for n in names})
+        if _in_scope(prefix, gathered):
+            module.tp_stored = {leaf: splits[n]
+                                for leaf, n in zip(module.TP_SPLIT, names)}
+            continue
         check = getattr(module, "check_tensor_parallel", None)
         if check is not None:
             check(axis.size)
         module.tp = axis
-        kinds.update({n: "split" for n in names})
         kinds.update({_join(prefix, leaf): "part"
                       for leaf in module.TP_PARTS})
     stray = [n for n, d in splits.items()
@@ -213,6 +271,40 @@ def _owner(model, name):
     return (model.get_submodule(prefix) if prefix else model), leaf
 
 
+def module_modes(model):
+    """{name: "split" | "gathered" | "whole"} of ``model``'s modules that
+    can run split: split over the model axis, whole on gathered leaves,
+    or whole on whole leaves."""
+    return {prefix: "split" if module.tp is not None
+            else "gathered" if getattr(module, "tp_stored", None)
+            else "whole"
+            for prefix, module in _tp_modules(model)}
+
+
+def gather_layers(encoder, layers, axis):
+    """{i: {leaf name in ``encoder.layers[i]``: its whole tensor}} of the
+    layers ``layers`` whose modules hold shards to run whole
+    (``shard_model``'s ``gathered`` scope), all gathered over the model
+    ``axis`` in one ``_GatherLeaves`` (differentiable: each shard gets
+    its slice of the whole gradient); {} where none is stored split."""
+    where, names, dims, shards = [], [], [], []
+    for i in layers:
+        for prefix, module in encoder.layers[i].named_modules():
+            for leaf, dim in getattr(module, "tp_stored", {}).items():
+                name = _join(prefix, leaf)
+                where.append((i, name))
+                names.append(name)
+                dims.append(dim)
+                shards.append(module.get_parameter(leaf))
+    if not shards:
+        return {}
+    out = {}
+    for (i, name), whole in zip(where, _GatherLeaves.apply(
+            tuple(names), tuple(dims), axis, *shards)):
+        out.setdefault(i, {})[name] = whole
+    return out
+
+
 def whole_copy(model, state_dict):
     """A copy of the sharded ``model`` with every module whole again,
     holding the whole ``state_dict`` (``convert.gather_state_dicts``):
@@ -222,6 +314,7 @@ def whole_copy(model, state_dict):
     clone = copy.deepcopy(model, memo=dict(axes))
     for _, module in _tp_modules(clone):
         module.tp = None
+        module.__dict__.pop("tp_stored", None)
     with torch.no_grad():
         for name, dim in getattr(model, "tp_splits", {}).items():
             if dim is not None:

@@ -75,7 +75,9 @@ Sequence and pipeline parallelism (``layout``, the run's
 - the gradient counts each parameter once: a gradient the ranks of the
   encoder's axis compute in parts (``MODEL_PARALLEL_PARTIAL`` of the
   model) is summed over them, one that every rank of a data shard
-  computes whole is averaged over them, and either is then summed over
+  computes whole is averaged over them (a pipeline axis beside the
+  sequence axis computes copies: the encoder takes the sequence axis,
+  as JAX routes it), and either is then summed over
   the data axis: one ``all_reduce`` of the flat buffer over the world
   after each gradient is divided by the ranks of its data shard that
   hold a copy of it (``gradient_shares``); the loss likewise;
@@ -96,7 +98,14 @@ axis; ``parallel.tensor_parallel``), with JAX's semantics:
   the model axis, one every rank computes whole averaged over it
   (``gradient_shares``); the clip norm counts each shard once and each
   whole leaf once (``_global_norm``);
-- the weights are broadcast over the data axis only;
+- beside a sequence or pipeline axis (JAX's four-axis mesh), the
+  encoder's layers keep their shards but run whole on leaves gathered
+  over the model axis once a micro-batch (``MODEL_PARALLEL_GATHERED``
+  of the model), the speaker branch runs split; one rule gives each
+  gradient its share over both axes, and the shards are summed over
+  every axis but the model's;
+- under a model axis each shard is broadcast over every axis but the
+  model's;
 - checkpoints hold the whole model, moments and running mean included:
   every rank gathers before process 0 writes (``_BrainState``), and a
   recovery splits them again, so a checkpoint of any tensor count
@@ -267,14 +276,22 @@ class Brain:
                 self._broadcast_weights()
 
     def _broadcast_weights(self):
-        """Every rank's weights as the data axis's first rank holds them
-        (rank 0's; under a model axis each rank's shard from its data
-        axis's first)."""
+        """Every rank's weights as rank 0 holds them; under a model axis
+        each rank's shard as the first rank that holds the same slice
+        (over the data, pipeline and sequence axes in turn) holds it."""
         if self.layout.tp == 1:
             distributed.broadcast_module(self.model)
-        elif self.layout.dp > 1:
-            distributed.broadcast_module(self.model, self.layout.data.ranks[0],
-                                         self.layout.data.group)
+            return
+        for axis in self._shard_axes():
+            distributed.broadcast_module(self.model, axis.ranks[0],
+                                         axis.group)
+
+    def _shard_axes(self):
+        """The axes whose ranks hold the same slices of the split leaves:
+        every axis but the model's, where above one rank."""
+        layout = self.layout
+        return [axis for axis in (layout.data, layout.pipe, layout.seq)
+                if axis.size > 1]
 
     # ========================================================= optimizer
     def _params(self):
@@ -290,12 +307,23 @@ class Brain:
         shards (``parallel.tensor_parallel.shard_model``)."""
         if self.layout.tp == 1 or self._tp_kinds is not None:
             return
-        self._tp_kinds = tensor_parallel.shard_model(self.model,
-                                                     self.layout.model)
+        gathered = () if self.layout.encoder_axis is None else \
+            getattr(self.model, "MODEL_PARALLEL_GATHERED", ())
+        self._tp_kinds = tensor_parallel.shard_model(
+            self.model, self.layout.model, gathered)
         sharded, replicated = tp_sharding_report(self.model.tp_splits)
         logger.info("tensor parallelism: %d leaves split over the model "
                     "axis of %d, %d whole", len(sharded), self.layout.tp,
                     len(replicated))
+        if gathered:
+            modes = tensor_parallel.module_modes(self.model)
+            logger.info(
+                "beside the %s axis: %d modules run whole on leaves "
+                "gathered over the model axis (%s), %d split",
+                self.layout.encoder_axis.name,
+                sum(m == "gathered" for m in modes.values()),
+                ", ".join(gathered),
+                sum(m == "split" for m in modes.values()))
         logger.debug("split leaves: %s", sharded)
 
     def _split_flags(self):
@@ -407,28 +435,38 @@ class Brain:
 
     def gradient_shares(self):
         """Per trainable parameter, 1 / the ranks of a data shard that
-        hold a copy of its gradient: 1 / the ranks outside the encoder's
-        axis for a gradient that axis computes in parts, 1 / all of them
-        for one computed whole (None with no model axis). Under a model
-        axis: 1 for a split leaf's shard (summed over the data axis
-        alone) and for a whole leaf each rank reads a slice of (summed
-        over the model axis), 1 / T for one every rank computes whole."""
+        hold a copy of its gradient (None with no model axis). A gradient
+        is summed over the ranks that computed parts of it, averaged over
+        the ranks that computed it whole, and never summed across the
+        model axis where each rank holds a different slice:
+
+        - over the encoder's axis: a leaf of ``MODEL_PARALLEL_PARTIAL``'s
+          modules comes in parts (each rank's block or stage), any other
+          whole on every rank: 1 or 1 / its size;
+        - over the model axis: a split leaf's shard is the rank's slice
+          (run split, or whole on gathered leaves) and a leaf a split
+          module reads a slice of comes in parts: 1; any other leaf
+          every rank computes whole: 1 / T;
+        - over the ranks of a data shard on neither axis (the pipeline
+          axis beside the sequence axis, which the encoder does not
+          use): every leaf a copy, 1 / their count.
+
+        The product of the three. The shards are then summed over every
+        axis but the model's, every other leaf over the world
+        (``_all_reduce``)."""
         layout = self.layout
         if layout.model_ranks == 1:
             return None
-        if self._shares is None and layout.tp > 1:
-            kinds = self._tp_kinds
-            self._shares = [1.0 if n in kinds else 1.0 / layout.tp
-                            for n in self._param_names()]
         if self._shares is None:
-            split = layout.encoder_axis.size
+            axis = layout.encoder_axis
+            enc = 1 if axis is None else axis.size
             partial = getattr(self.model, "MODEL_PARALLEL_PARTIAL", ())
+            kinds = self._tp_kinds or {}
+            copies = layout.model_ranks // (enc * layout.tp)
             self._shares = [
-                1.0 / (layout.model_ranks // split
-                       if name.split(".")[0] in partial
-                       else layout.model_ranks)
-                for name, p in self.model.named_parameters()
-                if p.requires_grad]
+                (1.0 if name.split(".")[0] in partial else 1.0 / enc)
+                * (1.0 if name in kinds else 1.0 / layout.tp) / copies
+                for name in self._param_names()]
         return self._shares
 
     @torch.no_grad()
@@ -439,7 +477,9 @@ class Brain:
         micro-batch is finite), the same on every rank. Under a model
         axis each gradient is first divided by the copies of it a data
         shard holds (``gradient_shares``), and the loss by the shard's
-        ranks."""
+        ranks; a rank's shards are summed over the ranks that hold the
+        same slices (every axis but the model's), the rest over the
+        world."""
         shares = self.gradient_shares()
         if shares is not None:
             grads = [g * share for g, share in zip(grads, shares)]
@@ -448,8 +488,8 @@ class Brain:
         whole = [g for g, s in zip(grads, split) if not s]
         shards = [g for g, s in zip(grads, split) if s]
         whole = _flat_all_reduce(whole, distributed.all_reduce_sum)
-        if shards:      # a rank's shards: over the data axis only
-            shards = _flat_all_reduce(shards, self.layout.data.all_reduce_sum)
+        if shards:      # a rank's shards: never over the model axis
+            shards = _flat_all_reduce(shards, self._shard_all_reduce)
         parts = iter(whole), iter(shards)
         grads = [next(parts[s]) for s in split]
         grad_norm = self._global_norm(grads)
@@ -460,6 +500,12 @@ class Brain:
         loss_value, nonfinite = stats.tolist()
         self.last_grad_norm = float(grad_norm)
         return grads, loss_value, np.isfinite(loss_value) and nonfinite == 0
+
+    def _shard_all_reduce(self, flat):
+        """``flat`` summed over every axis but the model's, in place."""
+        for axis in self._shard_axes():
+            axis.all_reduce_sum(flat)
+        return flat
 
     def _global_norm(self, tensors):
         """``global_norm`` of the whole model's gradients from a rank's

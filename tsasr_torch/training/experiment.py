@@ -25,10 +25,10 @@ backend named by ``--device``. ``--data_parallel_count`` (D),
 ``--pipeline_parallel_count`` (P), ``--sequence_parallel_count`` (S)
 and ``--tensor_parallel_count`` (T) must multiply to the world size (D
 defaults to what the other three leave of it); the rank layout and the
-axes' process groups are then made (``distributed.init_layout``). One
+axes' process groups are then made (``distributed.init_layout``); T
+above 1 runs beside P or S above 1 as JAX's four-axis mesh runs it. One
 process driving several devices, as JAX's does, raises
-``NotImplementedError``, and so does T above 1 together with P or S
-above 1 (``ROADMAP.md``). The experiment directory is made by process 0
+``NotImplementedError``. The experiment directory is made by process 0
 behind a barrier; process 0 logs to ``log.txt``, the others to
 ``log_proc{rank}.txt``.
 """
@@ -99,8 +99,7 @@ def parse_arguments(arg_list=None):
     on the backend ``--device`` names), then lays its ranks out over the
     data, pipeline, sequence and model axes (``init_layout``). Raises
     ``NotImplementedError`` for counts that do not multiply to the world
-    size and for a tensor count above 1 beside a sequence or pipeline
-    count above 1."""
+    size."""
     if arg_list is None:
         arg_list = sys.argv[1:]
     parser = argparse.ArgumentParser(description="tsasr_torch experiment")
@@ -123,19 +122,10 @@ def parse_arguments(arg_list=None):
 def check_parallel_counts(run_opts):
     """(D, P, S, T) of ``run_opts``, the data, pipeline, sequence and
     tensor counts; raises unless D·P·S·T is this run's world size (D,
-    when not given, is what P·S·T leave of it), or for T above 1 beside
-    P or S above 1."""
+    when not given, is what P·S·T leave of it)."""
     tp = run_opts.get("tensor_parallel_count") or 1
     pp = run_opts.get("pipeline_parallel_count") or 1
     sp = run_opts.get("sequence_parallel_count") or 1
-    if tp > 1 and pp * sp > 1:
-        raise NotImplementedError(
-            f"--tensor_parallel_count {tp} beside --pipeline_parallel_count "
-            f"{pp} / --sequence_parallel_count {sp}: the split matrices "
-            "would be gathered at the encoder's entry, where JAX's "
-            "shard_map takes the parameters whole; not ported yet "
-            "(ROADMAP.md queue 1). Each axis runs alone or beside the data "
-            "axis")
     world = world_size()
     dp = run_opts.get("data_parallel_count")
     if dp is None:
